@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port, ``dynamo_tpu_torch``.
+
+    python3 chip_smoke.py        # from the root of a checkout, on one H100
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. build the CUDA kernels from ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together) and print the card's name and power limit;
+2. hold the paged-attention kernel against its plain PyTorch version on the
+   card, in bf16 at Llama-3.2-1B attention shapes with block 0 poisoned with
+   NaN, on both faces, and time the kernel, the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` over pre-gathered
+   K/V (the ``library_ms`` yardstick; only this script calls it);
+3. serve 16 concurrent greedy requests (ISL 512, OSL 64) through the port's
+   engine at full Llama-3.2-1B width with random bf16 weights from a fixed
+   seed, through the same API ``python -m dynamo_tpu_torch.run in=batch``
+   uses, and show that decode and prefill both went through the kernel;
+   check a probe step's logits against the einsum attention path;
+4. profile one decode window and one prefill chunk at the main path's
+   shapes (wall time, device busy time, kernel launches, attention share).
+
+The line before the last is the card's ``nvidia-smi`` name and power limit,
+the line before that the ``kernels`` JSON object; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, published
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+# kernel vs plain, (atol, rtol) per dtype. bf16: both accumulate in f32 and
+# round once to bf16, but in a different order, so an output may land on the
+# neighbouring bf16 value: 2^-7 relative (~0.008 at |o| ~ 1, ~0.016 at
+# 2 <= |o| < 4). f32: only the summation order differs.
+TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 0.0)}
+SEED = 0
+DEV = "cuda"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ------------------------------ phase 1 ----------------------------------
+
+
+def phase_build() -> None:
+    from dynamo_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    took = _build.build_all()
+    print(f"[build] {len(took)} source(s) in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{n} {s:.2f} s" for n, s in took.items()), flush=True)
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+# ------------------------------ phase 2 ----------------------------------
+
+
+def make_case(name, rows, *, W, face, bs=16, KV=8, G=4, hd=64, seed=SEED,
+              dtype="bfloat16"):
+    """A case on the card (bf16 unless ``dtype`` says otherwise).
+    ``rows`` = [(q_len, ctx_len, allotment)].
+    Each row's blocks are distinct and drawn at random from the pool; block
+    0 (trash) and every table entry past a row's context are NaN-filled
+    pages, so a key read past ctx_len would poison the output."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    H = KV * G
+    q_start = [0]
+    for _, _, alloc in rows:
+        q_start.append(q_start[-1] + alloc)
+    Tq = q_start[-1]
+    need = [-(-cl // bs) for _, cl, _ in rows]
+    nb = 2 + sum(need)
+    perm = torch.randperm(nb - 2, generator=gen, device=DEV) + 1
+    nan_block = nb - 1
+    tables = torch.full((len(rows), W), nan_block, dtype=torch.int32,
+                        device=DEV)
+    off = 0
+    for r, n in enumerate(need):
+        tables[r, :n] = perm[off:off + n].to(torch.int32)
+        off += n
+        if n < W:
+            tables[r, -1] = 0  # a stale tail on the trash block itself
+    kw = dict(generator=gen, device=DEV, dtype=torch.float32)
+    dt = getattr(torch, dtype)
+    q = torch.randn(Tq, H, hd, **kw).to(dt)
+    k = torch.randn(nb, KV, bs, hd, **kw).to(dt)
+    v = torch.randn(nb, KV, bs, hd, **kw).to(dt)
+    for cache in (k, v):
+        cache[0] = float("nan")
+        cache[nan_block] = float("nan")
+        for r, (_, cl, _) in enumerate(rows):
+            if cl % bs:  # partial last block: its dead tail is NaN
+                cache[tables[r, cl // bs].item(), :, cl % bs:] = float("nan")
+    i32 = dict(dtype=torch.int32, device=DEV)
+    return dict(
+        name=name, face=face, bs=bs, W=W, H=H, KV=KV, hd=hd, dtype=dtype,
+        q=q, k=k, v=v, tables=tables,
+        q_start=torch.tensor(q_start, **i32),
+        q_len=torch.tensor([r[0] for r in rows], **i32),
+        ctx_len=torch.tensor([r[1] for r in rows], **i32),
+        rows=rows, max_q_len=max(r[2] for r in rows),
+    )
+
+
+def case_bound(c):
+    """Least time on an H100 for this call's work, counting what its data
+    needs: live queries read once, each row's visible K/V pages once per KV
+    head, the output written once; 4 flops per (query head, visible key,
+    dim) (QK^T and PV) at the card's peak for the case's type."""
+    H, KV, hd = c["H"], c["KV"], c["hd"]
+    es = c["q"].element_size()
+    nbytes = c["q"].shape[0] * H * hd * es  # the output
+    flops = 0
+    for ql, cl, _ in c["rows"]:
+        if ql == 0:
+            continue
+        nbytes += ql * H * hd * es + cl * KV * hd * es * 2
+        # query i sees cl - ql + i + 1 keys
+        seen = ql * (cl - ql) + ql * (ql + 1) // 2
+        flops += 4 * seen * H * hd
+    nbytes += c["tables"].numel() * 4 + 3 * len(c["rows"]) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if c["dtype"] == "bfloat16" else F32_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def run_face(c, plain: bool):
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    if c["face"] == "decode":
+        if plain:
+            return pa.paged_attention_ragged_plain(
+                c["q"], c["k"], c["v"], c["tables"], c["q_start"],
+                c["q_len"], c["ctx_len"], block_size=c["bs"], max_q_len=1)
+        return pa.paged_attention_decode(
+            c["q"], c["k"], c["v"], c["tables"], c["ctx_len"],
+            block_size=c["bs"])
+    fn = pa.paged_attention_ragged_plain if plain else \
+        pa.paged_attention_ragged
+    return fn(c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["q_len"],
+              c["ctx_len"], block_size=c["bs"], max_q_len=c["max_q_len"])
+
+
+def library_call(c):
+    """``scaled_dot_product_attention`` over K/V gathered beforehand, for a
+    batch whose rows share one query count (None otherwise)."""
+    import torch
+    import torch.nn.functional as F
+
+    qls = {ql for ql, _, _ in c["rows"]}
+    if len(qls) != 1 and c["face"] != "decode":
+        return None
+    ql = 1 if c["face"] == "decode" else qls.pop()
+    R = len(c["rows"])
+    bs, KV, hd, H = c["bs"], c["KV"], c["hd"], c["H"]
+    S = max(cl for _, cl, _ in c["rows"])
+    nblk = -(-S // bs)
+    tab = c["tables"][:, :nblk].long()
+    k = c["k"][tab].permute(0, 2, 1, 3, 4).reshape(R, KV, nblk * bs, hd)
+    v = c["v"][tab].permute(0, 2, 1, 3, 4).reshape(R, KV, nblk * bs, hd)
+    k = torch.nan_to_num(k[:, :, :S]).contiguous()
+    v = torch.nan_to_num(v[:, :, :S]).contiguous()
+    q = torch.stack([
+        c["q"][int(c["q_start"][r]):int(c["q_start"][r]) + ql]
+        for r in range(R)
+    ]).transpose(1, 2).contiguous()                      # [R, H, ql, hd]
+    ctx = c["ctx_len"].long()
+    kpos = torch.arange(S, device=DEV)
+    qpos = (ctx[:, None] - ql) + torch.arange(ql, device=DEV)[None, :]
+    mask = (kpos[None, None, :] <= qpos[:, :, None]) & \
+        (kpos[None, None, :] < ctx[:, None, None])
+    mask = mask[:, None]                                 # [R, 1, ql, S]
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    return call
+
+
+def phase_kernels():
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    lens = torch.randint(1, 1025, (64,), generator=gen).tolist()
+    for dead in (3, 17, 40, 63):
+        lens[dead] = 0
+    cases = [
+        make_case("decode B=64 ctx 1..1024, 4 dead rows",
+                  [(1 if n else 0, n, 1) for n in lens], W=66,
+                  face="decode"),
+        make_case("ragged R=1 T=512 q_len=300 prior ctx 0",
+                  [(300, 300, 512)], W=64, face="ragged"),
+        make_case("ragged R=1 T=512 q_len=300 prior ctx 512",
+                  [(300, 812, 512)], W=64, face="ragged"),
+        make_case("ragged mixed R=6",
+                  [(1, 577, 1), (5, 40, 8), (64, 64, 64), (0, 0, 8),
+                   (130, 1000, 136), (17, 17, 24)], W=66, face="ragged"),
+        # the shapes the engine phase gives the kernel: decode bucket 16
+        # over the full autopilot table (max_model_len 8192 / bs 16), and
+        # one 512-token prefill chunk of a fresh prompt
+        make_case("main path decode B=16 ctx 513..576 W=512",
+                  [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
+                  W=512, face="decode"),
+        make_case("main path prefill R=1 T=512 q_len=512 ctx 512 W=32",
+                  [(512, 512, 512)], W=32, face="ragged"),
+        # the kernel's other builds: head dim 128 (Llama-3-8B heads) and f32
+        make_case("ragged mixed hd=128 R=3",
+                  [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
+                  face="ragged", hd=128),
+        make_case("ragged mixed f32 R=3",
+                  [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
+                  face="ragged", dtype="float32"),
+    ]
+    results = {}
+    for c in cases:
+        got = run_face(c, plain=False)
+        torch.cuda.synchronize()
+        want = run_face(c, plain=True)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"{c['name']}: kernel output not finite (trash leak)")
+        atol, rtol = TOL[c["dtype"]]
+        err = (got.float() - want.float()).abs()
+        excess = (err - rtol * want.float().abs()).max().item()
+        max_err = err.max().item()
+        if excess > atol:
+            fail(f"{c['name']}: max |kernel - plain| {max_err} "
+                 f"(atol {atol} + rtol {rtol})")
+        # rows and slots with no valid query must be exact zeros
+        q_start = c["q_start"].tolist()
+        for r, (ql, _, alloc) in enumerate(c["rows"]):
+            tail = got[q_start[r] + ql:q_start[r] + alloc]
+            if tail.numel() and not torch.all(tail == 0):
+                fail(f"{c['name']}: row {r} slots past q_len not zero")
+        ms = cuda_ms(lambda: run_face(c, plain=False), iters=50)
+        plain_ms = cuda_ms(lambda: run_face(c, plain=True), iters=5,
+                           warmup=1)
+        lib = library_call(c)
+        lib_ms = cuda_ms(lib, iters=50) if lib is not None else None
+        bound_ms, bound_by = case_bound(c)
+        results[c["name"]] = dict(
+            face=c["face"], dtype=c["dtype"], max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+        )
+        print(f"[kernel] {c['name']}: max_abs_err {max_err:.3e} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"sdpa {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return results
+
+
+# ------------------------------ phase 3 ----------------------------------
+
+N_REQUESTS, ISL, OSL = 16, 512, 64
+# kernel path vs einsum path logits on one probe prompt, both bf16: the
+# einsum path rounds softmax probabilities to bf16 before P@V (as the JAX
+# reference does) while the kernel keeps them in f32, so the two drift by
+# bf16 rounding through 16 layers; random-weight logits are ~N(0, 1) and the
+# top two of 128256 sit ~0.2 apart
+PROBE_MAX_DIFF, PROBE_MIN_ARGMAX_AGREE = 0.5, 0.75
+
+
+def phase_engine(card: str):
+    """Serve N_REQUESTS concurrent greedy requests through the engine API
+    ``run.py in=batch`` uses, at full Llama-3.2-1B width. Returns the
+    kernel launch counts of that run."""
+    import asyncio
+
+    import torch
+    from dynamo_tpu_torch.engine import (
+        EngineConfig, InferenceEngine, ModelConfig,
+    )
+    from dynamo_tpu_torch.engine import model as model_lib
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.runtime.context import Context
+
+    cfg = ModelConfig.llama3_1b()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, EngineConfig(), seed=SEED)  # cuda default
+    torch.cuda.synchronize()
+    print(f"[engine] Llama-3.2-1B random bf16 weights (seed {SEED}) on "
+          f"{engine.device} in {time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    prompts = [torch.randint(1, cfg.vocab_size, (ISL,), generator=gen)
+               .tolist() for _ in range(N_REQUESTS)]
+
+    async def one(token_ids, max_tokens, stamps):
+        req = {"token_ids": token_ids, "max_tokens": max_tokens,
+               "temperature": 0.0}
+        t_sub = time.perf_counter()
+        out, times = [], []
+        async for o in engine.generate(req, Context()):
+            out.extend(o["token_ids"])
+            times.append(time.perf_counter())
+        stamps.append((t_sub, times))
+        return out
+
+    async def serve():
+        await engine.start()
+        warm = []  # first launches, cuBLAS handles: not measured
+        await one(prompts[0][:32], 4, warm)
+        torch.cuda.synchronize()
+        pa.reset_launches()
+        stamps = []
+        t_start = time.perf_counter()
+        outs = await asyncio.gather(*(one(p, OSL, stamps) for p in prompts))
+        wall = time.perf_counter() - t_start
+        launches = dict(pa.LAUNCHES)
+        await engine.stop()
+        return outs, stamps, wall, launches
+
+    windows0 = engine.num_windows
+    outs, stamps, wall, launches = asyncio.run(serve())
+    for i, out in enumerate(outs):
+        if len(out) != OSL:
+            fail(f"request {i} returned {len(out)} tokens, expected {OSL}")
+        if not all(0 <= t < cfg.vocab_size for t in out):
+            fail(f"request {i} returned an out-of-range token id")
+    for name, n in launches.items():
+        print(f"[engine] {name} launches in the served run: {n}")
+        if n == 0:
+            fail(f"{name} was never launched on the main path")
+    ttft = sorted(times[0] - t_sub for t_sub, times in stamps)
+    itl = [(times[-1] - times[0]) / (len(times) - 1)
+           for _, times in stamps]
+    last_first = max(times[0] for _, times in stamps)
+    steady = sorted(b - a for _, times in stamps
+                    for a, b in zip(times, times[1:]) if a >= last_first)
+    n_out = sum(len(o) for o in outs)
+    print(f"[engine] {card}: {N_REQUESTS} requests ISL {ISL} OSL {OSL} "
+          f"in {wall:.3f} s: output {n_out / wall:.1f} tok/s, TTFT mean "
+          f"{sum(ttft) / len(ttft) * 1e3:.1f} ms p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, "
+          f"ITL mean {sum(itl) / len(itl) * 1e3:.2f} ms, decode step once "
+          f"every prompt is in (p50) {steady[len(steady) // 2] * 1e3:.2f} "
+          f"ms, "
+          f"{engine.num_windows - windows0} decode windows, "
+          f"{engine.num_prefill_dispatches} prefill dispatches", flush=True)
+
+    # probe: logits of one prompt chunk through both attention impls
+    probe_eng = EngineConfig(num_blocks=8)
+    dev = engine.device
+    toks = torch.tensor([prompts[1][:64]], dtype=torch.int32, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)[None]
+    tables = torch.arange(1, 5, dtype=torch.int32, device=dev)[None]
+    logits = {}
+    for impl in ("kernel", "einsum"):
+        e = dataclasses.replace(probe_eng, attention_impl=impl)
+        cache = model_lib.init_cache(cfg, e, engine.device)
+        _, h = model_lib.forward(cfg, e, engine.params, cache, toks, pos,
+                                 tables)
+        logits[impl] = model_lib.logits_fn(cfg, engine.params, h)[0]
+    torch.cuda.synchronize()
+    for impl, lg in logits.items():
+        if lg.shape != (64, cfg.vocab_size) or not torch.isfinite(lg).all():
+            fail(f"probe logits ({impl}) not finite or misshapen")
+    diff = (logits["kernel"] - logits["einsum"]).abs().max().item()
+    agree = (logits["kernel"].argmax(-1) == logits["einsum"].argmax(-1)) \
+        .float().mean().item()
+    print(f"[engine] probe logits finite; kernel vs einsum path max |diff| "
+          f"{diff:.4f}, argmax agreement {agree:.3f}", flush=True)
+    if diff > PROBE_MAX_DIFF or agree < PROBE_MIN_ARGMAX_AGREE:
+        fail(f"probe: kernel path disagrees with the einsum path "
+             f"({diff} > {PROBE_MAX_DIFF} or {agree} < "
+             f"{PROBE_MIN_ARGMAX_AGREE})")
+    return launches, engine
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def phase_profile(engine, card: str) -> None:
+    """Where a step's time goes, at the main path's shapes: wall time of
+    the engine's step functions (host clock around synchronised calls) and,
+    from ``torch.profiler`` over a few calls, the device busy time, the
+    kernel launches and the attention kernel's share."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import model as model_lib
+
+    cfg, eng = engine.model_config, engine.config
+    dev = engine.device
+    B, ctx0 = 16, 560
+    ctl = model_lib.init_ctl(eng, eng.max_num_seqs, eng.max_blocks_per_seq,
+                             dev)
+    for s in range(B):
+        ctl["pos"][s] = ctx0 + s
+        ctl["vu"][s] = eng.max_model_len
+        ctl["tables"][s, :40] = torch.arange(1 + 40 * s, 1 + 40 * (s + 1))
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    window = model_lib.raw_autopilot_window_fn(cfg, eng, 1)
+    T, W = 512, 32
+    prefill = model_lib.raw_packed_prefill_fn(cfg, eng, T, W)
+    pint = np.zeros((1, T + W + model_lib.PP_SCALARS), np.int32)
+    pint[0, :T] = np.arange(T) % (cfg.vocab_size - 1) + 1
+    pint[0, T:T + W] = np.arange(1 + 40 * B, 1 + 40 * B + W)
+    pint[0, T + W:] = (T, 0, B, 1, 0, -1, 0, int(model_lib.PP_QUANT))
+    pint = torch.from_numpy(pint).to(dev)
+    key = torch.tensor(1, device=dev)
+    steps = {
+        f"decode window B={B} ctx ~{ctx0}": lambda: window(
+            engine.params, engine.cache, ctl, rows, False)[2].cpu(),
+        f"prefill chunk T={T} W={W}": lambda: prefill(
+            engine.params, engine.cache, ctl["last_tok"], pint, key,
+            False)[2].cpu(),
+    }
+    for name, fn in steps.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        n = 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy = sum(_device_us(e) for e in kernels) / reps / 1e3
+        attn = sum(_device_us(e) for e in kernels
+                   if "ragged_paged_attention" in e.key) / reps / 1e3
+        launches = sum(e.count for e in events
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                    "cuLaunchKernelEx")) / reps
+        top = sorted(kernels, key=_device_us, reverse=True)[:4]
+        print(f"[profile] {card}: {name}: wall {wall_ms:.2f} ms, device "
+              f"busy {busy:.2f} ms ({busy / wall_ms:.0%} of wall), "
+              f"attention kernel {attn:.2f} ms, {launches:.0f} kernel "
+              f"launches; top: " + "; ".join(
+                  f"{e.key[:40]} {_device_us(e) / reps / 1e3:.2f} ms"
+                  for e in top), flush=True)
+
+
+KERNELS = {
+    # name: (face, main-path case, replaced TPU function)
+    "paged_attention_decode": (
+        "decode", "main path decode B=16 ctx 513..576 W=512",
+        "dynamo_tpu/ops/paged_attention.py:311"),
+    "paged_attention_ragged": (
+        "ragged", "main path prefill R=1 T=512 q_len=512 ctx 512 W=32",
+        "dynamo_tpu/ops/paged_attention.py:175"),
+}
+
+
+def kernels_line(results, launches) -> str:
+    rows = []
+    for name, (face, case, replaces) in KERNELS.items():
+        r = results[case]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(v["max_abs_err"] for v in results.values()
+                               if v["face"] == face
+                               and v["dtype"] == "bfloat16"),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    return json.dumps({"kernels": rows})
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"torch: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a card")
+    try:
+        import dynamo_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"dynamo_tpu_torch not importable (run from a checkout): {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    card = card_line()
+    print(f"[card] {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    phase_build()
+    results = phase_kernels()
+    launches, engine = phase_engine(card)
+    phase_profile(engine, card)
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(kernels_line(results, launches))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

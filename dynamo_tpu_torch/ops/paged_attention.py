@@ -1,0 +1,241 @@
+"""Ragged paged attention: the CUDA kernel's wrappers and its plain version.
+
+ONE kernel serves every attention shape the engine runs against the paged KV
+cache (the *Ragged Paged Attention* design, PAPERS.md): decode rows
+(``q_len == 1``) and prefill chunks (``q_len`` up to the chunk budget), mixed
+in one launch. Queries are packed along a single flat axis; row ``r`` owns the
+slots ``[q_start[r], q_start[r+1])`` and fills the first ``q_len[r]`` of them.
+Query ``i`` of row ``r`` sits at absolute position ``ctx_len - q_len + i`` and
+sees exactly the keys at positions ``<= that``.
+
+Port of ``dynamo_tpu/ops/paged_attention.py`` (the Pallas kernel
+``paged_attention_ragged`` and its decode face ``paged_attention_decode``).
+On a CUDA tensor each wrapper launches the hand-written kernel in
+``csrc/paged_attention.cu`` (built at first use by :mod:`._build`) or raises;
+on a CPU tensor it runs :func:`paged_attention_ragged_plain`, a PyTorch
+version of the same contract.
+
+Trash-block contract (physical block 0): the scheduler never allocates block
+0 and scatters every padding write into it, so its contents are arbitrary.
+Rows with ``q_len == 0`` and key slots at positions ``>= ctx_len`` (partial
+last blocks, stale table tails) contribute *exactly zero* and can never
+NaN-poison the softmax; a zero softmax denominator divides as 1; every slot of
+a row's allotment that holds no valid query comes back as exact zeros.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+# launches of the CUDA kernel, per wrapper (the plain CPU path never counts)
+LAUNCHES = {"paged_attention_decode": 0, "paged_attention_ragged": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_fn = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from . import _build
+
+        fn = _build.load("paged_attention").dtt_ragged_paged_attention
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
+           block_size: int, max_q_len: int) -> None:
+    tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
+               "block_tables": block_tables, "q_start": q_start,
+               "q_len": q_len, "ctx_len": ctx_len}
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q dtype {q.dtype} (kernel takes float32|bfloat16)")
+    for name in ("k_cache", "v_cache"):
+        if tensors[name].dtype != q.dtype:
+            raise TypeError(f"{name} dtype {tensors[name].dtype} != {q.dtype}")
+    for name in ("block_tables", "q_start", "q_len", "ctx_len"):
+        if tensors[name].dtype != torch.int32:
+            raise TypeError(f"{name} must be int32")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError("q [Tq, H, hd] and caches [NB, KV, bs, hd] expected")
+    Tq, H, hd = q.shape
+    NB, KV, bs, hd_c = k_cache.shape
+    if hd_c != hd or bs != block_size or H % KV:
+        raise ValueError(
+            f"shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)} "
+            f"block_size {block_size}"
+        )
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} (kernel built for {_HEAD_DIMS})")
+    if block_tables.dim() != 2:
+        raise ValueError("block_tables must be [R, W]")
+    R = block_tables.shape[0]
+    if (q_start.shape != (R + 1,) or q_len.shape != (R,)
+            or ctx_len.shape != (R,)):
+        raise ValueError("q_start [R+1], q_len [R], ctx_len [R] expected")
+    if max_q_len < 1:
+        raise ValueError("max_q_len must be >= 1")
+    for name in ("q", "k_cache", "v_cache"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(counter: str, q, k_cache, v_cache, block_tables, q_start, q_len,
+            ctx_len, block_size: int, max_q_len: int) -> torch.Tensor:
+    _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
+           block_size, max_q_len)
+    out = torch.empty_like(q)
+    R, W = block_tables.shape
+    if R == 0 or q.shape[0] == 0:
+        return out
+    _, H, hd = q.shape
+    KV = k_cache.shape[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel()(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
+            ctx_len.data_ptr(), out.data_ptr(),
+            R, H, KV, hd, block_size, W, max_q_len, _DTYPE_CODES[q.dtype],
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES[counter] += 1
+    return out
+
+
+def paged_attention_ragged(
+    q: torch.Tensor,             # [Tq, H, hd] flat packed queries
+    k_cache: torch.Tensor,       # [num_blocks, KV, bs, hd] paged cache
+    v_cache: torch.Tensor,       # [num_blocks, KV, bs, hd]
+    block_tables: torch.Tensor,  # [R, W] int32 (0 = trash block)
+    q_start: torch.Tensor,       # [R+1] int32, q_start[R] == Tq
+    q_len: torch.Tensor,         # [R] int32 (0 = dead/padding row)
+    ctx_len: torch.Tensor,       # [R] int32 context incl. the row's own tokens
+    *,
+    block_size: int,
+    max_q_len: int,
+) -> torch.Tensor:
+    """Ragged paged attention over heterogeneous-length query rows.
+
+    The K/V of every query must already be scattered into the cache (how
+    ``engine.model.forward`` orders things). ``max_q_len`` bounds
+    ``q_start[r+1] - q_start[r]``. Returns ``[Tq, H, hd]`` in q's dtype.
+    The Pallas kernel's ``q_tile``/``kv_tile`` knobs have no counterpart:
+    the CUDA kernel picks its own tiling.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_ragged_plain(
+            q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
+            block_size=block_size, max_q_len=max_q_len,
+        )
+    return _launch("paged_attention_ragged", q, k_cache, v_cache,
+                   block_tables, q_start, q_len, ctx_len, block_size,
+                   max_q_len)
+
+
+def paged_attention_decode(
+    q: torch.Tensor,             # [B, H, hd]
+    k_cache: torch.Tensor,       # [num_blocks, KV, bs, hd]
+    v_cache: torch.Tensor,       # [num_blocks, KV, bs, hd]
+    block_tables: torch.Tensor,  # [B, W] int32 (0 = trash block)
+    seq_lens: torch.Tensor,      # [B] int32 (0 = padding row)
+    *,
+    block_size: int,
+) -> torch.Tensor:
+    """Single-token-per-sequence paged attention. Returns ``[B, H, hd]``.
+
+    The decode face of the ragged kernel: every row is one query slot.
+    ``seq_lens[b]`` counts the valid context slots for row ``b`` *including*
+    the token being decoded; ``seq_lens[b] == 0`` rows emit exact zeros.
+    """
+    B = q.shape[0]
+    q_start = torch.arange(B + 1, dtype=torch.int32, device=q.device)
+    q_len = (seq_lens > 0).to(torch.int32)
+    if q.device.type == "cpu":
+        return paged_attention_ragged_plain(
+            q, k_cache, v_cache, block_tables, q_start, q_len, seq_lens,
+            block_size=block_size, max_q_len=1,
+        )
+    return _launch("paged_attention_decode", q, k_cache, v_cache,
+                   block_tables, q_start, q_len, seq_lens, block_size, 1)
+
+
+def paged_attention_ragged_plain(
+    q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len, *,
+    block_size: int, max_q_len: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's contract: gather each row's
+    context through its table, zero every key at a position >= ctx_len
+    before the dot, mask causally, softmax in f32 with a zero denominator
+    dividing as 1. Slots outside every allotment come back as zeros.
+
+    Holds a host sync (the longest context bounds the gather), so it serves
+    the CPU and the kernel's comparisons, never the main path on a card."""
+    Tq, H, hd = q.shape
+    KV, bs = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    R, W = block_tables.shape
+    S = max_q_len
+    dev = q.device
+    out = torch.zeros_like(q)
+    if R == 0 or Tq == 0:
+        return out
+    ctx = ctx_len.long()
+    ql = q_len.long()
+    # only the blocks the longest context reaches (same result, less memory)
+    W = max(1, min(W, -(-int(ctx.max()) // bs)))
+    tables = block_tables[:, :W].long()
+    K = W * bs
+
+    def gather(cache):  # [R, K, KV, hd] in f32; position = w*bs + offset
+        g = cache[tables].permute(0, 1, 3, 2, 4).reshape(R, K, KV, hd)
+        return g.float()
+
+    kpos = torch.arange(K, device=dev)
+    kvalid = kpos[None, :] < ctx[:, None]                   # [R, K]
+    # zero every key past ctx_len BEFORE the dot: masking scores alone would
+    # still let NaN·0 from the trash block leak through p @ v
+    k = torch.where(kvalid[:, :, None, None], gather(k_cache), 0.0)
+    v = torch.where(kvalid[:, :, None, None], gather(v_cache), 0.0)
+
+    i = torch.arange(S, device=dev)
+    slot = q_start[:R, None].long() + i[None, :]            # [R, S]
+    owned = slot < q_start[1:, None].long()
+    qr = q[slot.clamp(0, Tq - 1)].float().reshape(R, S, KV, G, hd)
+    s = torch.einsum("rskgd,rtkd->rskgt", qr, k) * (1.0 / math.sqrt(hd))
+    last = (ctx - ql)[:, None] + i[None, :]                 # [R, S]
+    valid = ((i[None, :] < ql[:, None])[:, :, None]
+             & (kpos[None, None, :] <= last[:, :, None])
+             & kvalid[:, None, :])                          # [R, S, K]
+    s = s.masked_fill(~valid[:, :, None, None, :], -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("rskgt,rtkd->rskgd", p, v)
+    o = o / torch.where(denom == 0.0, 1.0, denom)
+    o = o.reshape(R, S, H, hd).to(q.dtype)
+    out[slot[owned]] = o[owned]
+    return out

@@ -1,0 +1,104 @@
+"""Request contexts: identity, distributed trace, hierarchical cancellation.
+
+Equivalent to the reference's ``AsyncEngineContext`` (ref: lib/runtime/src/
+engine.rs:112): every in-flight request carries an id, a trace context, and
+two cancellation levels — ``stop_generating`` (graceful: finish the current
+token, emit what we have) and ``kill`` (abandon the stream). Contexts form a
+tree via ``link_child`` so cancelling upstream propagates downstream
+(ref: docs/architecture/request_cancellation.md).
+
+A context may also carry a **deadline** (absolute ``time.monotonic()``
+seconds): the total wall-clock budget the request may spend across every
+retry, migration, and queue it rides. The deadline propagates to children
+and across the transport (as a remaining-budget header), so a worker stops
+generating for a request whose client has already given up.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+import uuid
+from typing import List, Optional
+
+from ..utils.logging import TraceContext
+
+
+class Context:
+    def __init__(
+        self,
+        request_id: Optional[str] = None,
+        trace: Optional[TraceContext] = None,
+        deadline: Optional[float] = None,
+    ):
+        self.id: str = request_id or uuid.uuid4().hex
+        self.trace: TraceContext = trace or TraceContext.new()
+        self.deadline: Optional[float] = deadline
+        self._stopped = asyncio.Event()
+        self._killed = asyncio.Event()
+        self._children: List["Context"] = []
+
+    @classmethod
+    def with_timeout(
+        cls,
+        timeout_s: Optional[float],
+        request_id: Optional[str] = None,
+        trace: Optional[TraceContext] = None,
+    ) -> "Context":
+        """Context whose deadline is ``timeout_s`` from now (None = no bound)."""
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        return cls(request_id=request_id, trace=trace, deadline=deadline)
+
+    # -- deadline --
+
+    def time_remaining(self) -> Optional[float]:
+        """Seconds left in the budget (may be negative); None when unbounded."""
+        if self.deadline is None:
+            return None
+        return self.deadline - time.monotonic()
+
+    def is_expired(self) -> bool:
+        return self.deadline is not None and time.monotonic() >= self.deadline
+
+    # -- cancellation tree --
+
+    def link_child(self, child: "Context") -> "Context":
+        self._children.append(child)
+        if child.deadline is None:
+            child.deadline = self.deadline
+        elif self.deadline is not None:
+            child.deadline = min(child.deadline, self.deadline)
+        if self.is_stopped():
+            child.stop_generating()
+        if self.is_killed():
+            child.kill()
+        return child
+
+    def child(self) -> "Context":
+        return self.link_child(
+            Context(request_id=self.id, trace=self.trace.child(),
+                    deadline=self.deadline)
+        )
+
+    def stop_generating(self) -> None:
+        self._stopped.set()
+        for c in self._children:
+            c.stop_generating()
+
+    def kill(self) -> None:
+        self._killed.set()
+        self._stopped.set()
+        for c in self._children:
+            c.kill()
+
+    def is_stopped(self) -> bool:
+        return self._stopped.is_set()
+
+    def is_killed(self) -> bool:
+        return self._killed.is_set()
+
+    async def wait_stopped(self) -> None:
+        await self._stopped.wait()
+
+    async def wait_killed(self) -> None:
+        await self._killed.wait()

@@ -1,0 +1,100 @@
+"""The PyTorch port stands alone: no module of ``dynamo_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX, the JAX package, or a package the card's
+machine lacks, and ``triton`` is never imported at module level. Its entry
+points refuse to fall back to the CPU when no device is given and no GPU is
+present, and engine construction refuses the paths this slice does not
+serve."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from dynamo_tpu_torch import run as trun
+from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine, ModelConfig
+from dynamo_tpu_torch.engine.config import check_supported
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+# never imported anywhere: JAX, the JAX package, and what the card's
+# machine does not install
+FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "xxhash", "msgpack",
+             "ml_dtypes", "tokenizers", "aiohttp"}
+# imported only inside the function that launches a kernel
+NOT_AT_MODULE_LEVEL = {"triton"}
+
+
+def _imports(tree):
+    """(top-level package, at module level?) for every absolute import; an
+    import under ``if``/``try`` at module level counts as module level, one
+    inside a function or class body does not."""
+    found = []
+
+    def visit(node, top):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    found.append((a.name.split(".")[0], top))
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                found.append((child.module.split(".")[0], top))
+            visit(child, top and not isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda,
+                        ast.ClassDef)))
+
+    visit(tree, True)
+    return found
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_module_imports_stand_alone(path):
+    for name, top in _imports(ast.parse(path.read_text())):
+        assert name not in FORBIDDEN, f"{path.name} imports {name}"
+        if top:
+            assert name not in NOT_AT_MODULE_LEVEL, \
+                f"{path.name} imports {name} at module level"
+
+
+def test_scan_sees_nested_imports():
+    tree = ast.parse("import os\n"
+                     "def f():\n    import triton\n"
+                     "try:\n    import jax\nexcept ImportError:\n    pass\n")
+    assert sorted(_imports(tree)) == [("jax", True), ("os", True),
+                                      ("triton", False)]
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_without_device_raises_on_a_cpu_machine(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(ModelConfig.tiny(), EngineConfig(num_blocks=16))
+
+
+def test_engine_asked_for_cuda_raises_on_a_cpu_machine(no_gpu):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(ModelConfig.tiny(), EngineConfig(num_blocks=16),
+                        device="cuda")
+
+
+def test_run_without_device_raises_on_a_cpu_machine(no_gpu, tmp_path):
+    batch = tmp_path / "b.jsonl"
+    batch.write_text('{"token_ids": [1, 2], "max_tokens": 2}\n')
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trun.main([f"in=batch:{batch}", "out=engine", "--model", "tiny"])
+
+
+@pytest.mark.parametrize("knob", [
+    dict(spec_mode="ngram"), dict(weight_dtype="int8"), dict(kv_dtype="fp8"),
+    dict(mesh_shape=(1, 2)), dict(pp_stages=2),
+    dict(sp_prefill_threshold=1024),
+], ids=lambda k: next(iter(k)))
+def test_unserved_paths_are_refused(knob):
+    eng = EngineConfig(num_blocks=16, **knob)
+    with pytest.raises(NotImplementedError):
+        check_supported(eng)
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
