@@ -9,16 +9,24 @@ Phases (any failure exits non-zero and prints no result line):
    source, all started together) and print the card's name and power limit;
 2. hold the paged-attention kernel against its plain PyTorch version on the
    card, in bf16 at Llama-3.2-1B attention shapes with block 0 poisoned with
-   NaN, on both faces, and time the kernel, the plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` over pre-gathered
-   K/V (the ``library_ms`` yardstick; only this script calls it);
+   NaN, on both faces, and its quantized-KV branch (int8 and fp8 pages with
+   per-(slot, head) f32 scales, NaN trash scales and NaN fp8 trash pages) at
+   the main path's shapes and on a mixed ragged batch; time the kernel, the
+   plain version and ``torch.nn.functional.scaled_dot_product_attention``
+   over pre-gathered (dequantized) K/V (the ``library_ms`` yardstick; only
+   this script calls it);
 3. serve 16 concurrent greedy requests (ISL 512, OSL 64) through the port's
-   engine at full Llama-3.2-1B width with random bf16 weights from a fixed
-   seed, through the same API ``python -m dynamo_tpu_torch.run in=batch``
-   uses, and show that decode and prefill both went through the kernel;
-   check a probe step's logits against the einsum attention path;
+   engine at full Llama-3.2-1B width with random weights from a fixed seed,
+   through the same API ``python -m dynamo_tpu_torch.run in=batch`` uses,
+   three times: bf16, int8 weights + int8 KV, fp8 weights + fp8 KV. Each run
+   shows that decode and prefill went through its kernel build and checks a
+   probe step's logits against the einsum attention path; the quantized
+   runs print their probe's divergence from the bf16 logits;
 4. profile one decode window and one prefill chunk at the main path's
-   shapes (wall time, device busy time, kernel launches, attention share).
+   shapes (wall time, device busy time, kernel launches, attention share),
+   for the bf16 and the int8 engine, and measure what quantized serving
+   adds to a decode step: the bf16 copies of the 1-byte weights and the
+   ``kv_quantize`` launches.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the ``kernels`` JSON object; the last line is
@@ -91,7 +99,8 @@ def phase_build() -> None:
           + ", ".join(f"{n} {s:.2f} s" for n, s in took.items()), flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -99,12 +108,15 @@ def phase_build() -> None:
 
 
 def make_case(name, rows, *, W, face, bs=16, KV=8, G=4, hd=64, seed=SEED,
-              dtype="bfloat16"):
+              dtype="bfloat16", kv_dtype=None):
     """A case on the card (bf16 unless ``dtype`` says otherwise).
     ``rows`` = [(q_len, ctx_len, allotment)].
     Each row's blocks are distinct and drawn at random from the pool; block
     0 (trash) and every table entry past a row's context are NaN-filled
-    pages, so a key read past ctx_len would poison the output."""
+    pages, so a key read past ctx_len would poison the output. With
+    ``kv_dtype`` ("int8" | "fp8") the pages are quantized per (slot, head)
+    by the port's ``kv_quantize``, and the poisoned slots get NaN scales
+    (and, for fp8, NaN pages: int8 has no NaN)."""
     import torch
 
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -130,15 +142,40 @@ def make_case(name, rows, *, W, face, bs=16, KV=8, G=4, hd=64, seed=SEED,
     q = torch.randn(Tq, H, hd, **kw).to(dt)
     k = torch.randn(nb, KV, bs, hd, **kw).to(dt)
     v = torch.randn(nb, KV, bs, hd, **kw).to(dt)
-    for cache in (k, v):
-        cache[0] = float("nan")
-        cache[nan_block] = float("nan")
-        for r, (_, cl, _) in enumerate(rows):
-            if cl % bs:  # partial last block: its dead tail is NaN
-                cache[tables[r, cl // bs].item(), :, cl % bs:] = float("nan")
+    scales = {}
+    if kv_dtype is not None:
+        from dynamo_tpu_torch.engine import quant
+
+        for key, cache in (("k", k), ("v", v)):
+            pages, sc = quant.kv_quantize(cache.reshape(-1, 1, hd), kv_dtype)
+            scales[key] = sc.reshape(nb, KV, bs).contiguous()
+            if key == "k":
+                k = pages.reshape(nb, KV, bs, hd)
+            else:
+                v = pages.reshape(nb, KV, bs, hd)
+    for key, cache in (("k", k), ("v", v)):
+        # poisoned slots: [block] or [block, :, offset:]
+        poison = [(0,), (nan_block,)] + [
+            (tables[r, cl // bs].item(), slice(None), slice(cl % bs, None))
+            for r, (_, cl, _) in enumerate(rows) if cl % bs]
+        for idx in poison:
+            if kv_dtype is None:
+                cache[idx] = float("nan")
+                continue
+            scales[key][idx] = float("nan")
+            if kv_dtype == "fp8":
+                cache.view(torch.uint8)[idx] = 0x7F  # e4m3fn NaN
     i32 = dict(dtype=torch.int32, device=DEV)
+    lib_kv = {}
+    if kv_dtype is not None:  # the library call's dequantized bf16 pages
+        from dynamo_tpu_torch.engine import quant
+
+        lib_kv = {key: quant.kv_dequantize(pages, scales[key], dt)
+                  for key, pages in (("k", k), ("v", v))}
     return dict(
         name=name, face=face, bs=bs, W=W, H=H, KV=KV, hd=hd, dtype=dtype,
+        kv_dtype=kv_dtype, k_scale=scales.get("k"), v_scale=scales.get("v"),
+        lib_k=lib_kv.get("k", k), lib_v=lib_kv.get("v", v),
         q=q, k=k, v=v, tables=tables,
         q_start=torch.tensor(q_start, **i32),
         q_len=torch.tensor([r[0] for r in rows], **i32),
@@ -150,16 +187,20 @@ def make_case(name, rows, *, W, face, bs=16, KV=8, G=4, hd=64, seed=SEED,
 def case_bound(c):
     """Least time on an H100 for this call's work, counting what its data
     needs: live queries read once, each row's visible K/V pages once per KV
-    head, the output written once; 4 flops per (query head, visible key,
-    dim) (QK^T and PV) at the card's peak for the case's type."""
+    head (quantized: 1 byte per element plus a 4-byte scale per slot and
+    head), the output written once; 4 flops per (query head, visible key,
+    dim) (QK^T and PV) at the card's peak for the query's type."""
     H, KV, hd = c["H"], c["KV"], c["hd"]
     es = c["q"].element_size()
+    # bytes per (slot, KV head) of one of K or V
+    slot_bytes = hd * c["k"].element_size() + (
+        4 if c["kv_dtype"] is not None else 0)
     nbytes = c["q"].shape[0] * H * hd * es  # the output
     flops = 0
     for ql, cl, _ in c["rows"]:
         if ql == 0:
             continue
-        nbytes += ql * H * hd * es + cl * KV * hd * es * 2
+        nbytes += ql * H * hd * es + cl * KV * slot_bytes * 2
         # query i sees cl - ql + i + 1 keys
         seen = ql * (cl - ql) + ql * (ql + 1) // 2
         flops += 4 * seen * H * hd
@@ -174,23 +215,27 @@ def case_bound(c):
 def run_face(c, plain: bool):
     from dynamo_tpu_torch.ops import paged_attention as pa
 
+    sc = dict(k_scale=c["k_scale"], v_scale=c["v_scale"])
     if c["face"] == "decode":
         if plain:
             return pa.paged_attention_ragged_plain(
                 c["q"], c["k"], c["v"], c["tables"], c["q_start"],
-                c["q_len"], c["ctx_len"], block_size=c["bs"], max_q_len=1)
+                c["q_len"], c["ctx_len"], block_size=c["bs"], max_q_len=1,
+                **sc)
         return pa.paged_attention_decode(
             c["q"], c["k"], c["v"], c["tables"], c["ctx_len"],
-            block_size=c["bs"])
+            block_size=c["bs"], **sc)
     fn = pa.paged_attention_ragged_plain if plain else \
         pa.paged_attention_ragged
     return fn(c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["q_len"],
-              c["ctx_len"], block_size=c["bs"], max_q_len=c["max_q_len"])
+              c["ctx_len"], block_size=c["bs"], max_q_len=c["max_q_len"],
+              **sc)
 
 
 def library_call(c):
-    """``scaled_dot_product_attention`` over K/V gathered beforehand, for a
-    batch whose rows share one query count (None otherwise)."""
+    """``scaled_dot_product_attention`` over K/V gathered (and, for
+    quantized pages, dequantized to bf16) beforehand, for a batch whose
+    rows share one query count (None otherwise)."""
     import torch
     import torch.nn.functional as F
 
@@ -203,8 +248,8 @@ def library_call(c):
     S = max(cl for _, cl, _ in c["rows"])
     nblk = -(-S // bs)
     tab = c["tables"][:, :nblk].long()
-    k = c["k"][tab].permute(0, 2, 1, 3, 4).reshape(R, KV, nblk * bs, hd)
-    v = c["v"][tab].permute(0, 2, 1, 3, 4).reshape(R, KV, nblk * bs, hd)
+    k = c["lib_k"][tab].permute(0, 2, 1, 3, 4).reshape(R, KV, nblk * bs, hd)
+    v = c["lib_v"][tab].permute(0, 2, 1, 3, 4).reshape(R, KV, nblk * bs, hd)
     k = torch.nan_to_num(k[:, :, :S]).contiguous()
     v = torch.nan_to_num(v[:, :, :S]).contiguous()
     q = torch.stack([
@@ -258,6 +303,21 @@ def phase_kernels():
                   [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
                   face="ragged", dtype="float32"),
     ]
+    # the quantized-KV branch: the main path's two shapes and a mixed
+    # ragged batch (stale tails, dead rows, NaN trash scales and pages)
+    for kv in ("int8", "fp8"):
+        cases += [
+            make_case(f"main path decode B=16 ctx 513..576 W=512 {kv}",
+                      [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
+                      W=512, face="decode", kv_dtype=kv),
+            make_case(f"main path prefill R=1 T=512 q_len=512 ctx 512 W=32 "
+                      f"{kv}", [(512, 512, 512)], W=32, face="ragged",
+                      kv_dtype=kv),
+            make_case(f"ragged mixed R=6 {kv}",
+                      [(1, 577, 1), (5, 40, 8), (64, 64, 64), (0, 0, 8),
+                       (130, 1000, 136), (17, 17, 24)], W=66,
+                      face="ragged", kv_dtype=kv),
+        ]
     results = {}
     for c in cases:
         got = run_face(c, plain=False)
@@ -286,7 +346,8 @@ def phase_kernels():
         lib_ms = cuda_ms(lib, iters=50) if lib is not None else None
         bound_ms, bound_by = case_bound(c)
         results[c["name"]] = dict(
-            face=c["face"], dtype=c["dtype"], max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+            face=c["face"], dtype=c["dtype"], kv_dtype=c["kv_dtype"],
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
         )
         print(f"[kernel] {c['name']}: max_abs_err {max_err:.3e} "
@@ -307,10 +368,12 @@ N_REQUESTS, ISL, OSL = 16, 512, 64
 PROBE_MAX_DIFF, PROBE_MIN_ARGMAX_AGREE = 0.5, 0.75
 
 
-def phase_engine(card: str):
+def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
     """Serve N_REQUESTS concurrent greedy requests through the engine API
-    ``run.py in=batch`` uses, at full Llama-3.2-1B width. Returns the
-    kernel launch counts of that run."""
+    ``run.py in=batch`` uses, at full Llama-3.2-1B width, with weights and
+    KV in ``dtype`` ("bf16" | "int8" | "fp8"). Returns the kernel launch
+    counts of that run, the engine and the probe's kernel-path logits;
+    ``ref_logits`` (the bf16 run's) are compared with a quantized run's."""
     import asyncio
 
     import torch
@@ -322,11 +385,16 @@ def phase_engine(card: str):
     from dynamo_tpu_torch.runtime.context import Context
 
     cfg = ModelConfig.llama3_1b()
+    quant = dict(weight_dtype=dtype, kv_dtype=dtype)
+    tag = "[engine]" if dtype == "bf16" else f"[engine {dtype}/{dtype}]"
     t0 = time.perf_counter()
-    engine = InferenceEngine(cfg, EngineConfig(), seed=SEED)  # cuda default
+    # cuda by default; quantized weights are quantized from the same random
+    # bf16 weights as the bf16 run's (same seed)
+    engine = InferenceEngine(cfg, EngineConfig(**quant), seed=SEED)
     torch.cuda.synchronize()
-    print(f"[engine] Llama-3.2-1B random bf16 weights (seed {SEED}) on "
-          f"{engine.device} in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"{tag} Llama-3.2-1B random weights (seed {SEED}), weights and "
+          f"KV {dtype}, on {engine.device} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     gen = torch.Generator().manual_seed(SEED + 1)
     prompts = [torch.randint(1, cfg.vocab_size, (ISL,), generator=gen)
                .tolist() for _ in range(N_REQUESTS)]
@@ -363,8 +431,12 @@ def phase_engine(card: str):
             fail(f"request {i} returned {len(out)} tokens, expected {OSL}")
         if not all(0 <= t < cfg.vocab_size for t in out):
             fail(f"request {i} returned an out-of-range token id")
+    # the counters of this run's kernel build (quantized pages count apart)
+    suffix = "" if dtype == "bf16" else f"_{dtype}"
+    launches = {name: launches[name] for name in (
+        f"paged_attention_decode{suffix}", f"paged_attention_ragged{suffix}")}
     for name, n in launches.items():
-        print(f"[engine] {name} launches in the served run: {n}")
+        print(f"{tag} {name} launches in the served run: {n}")
         if n == 0:
             fail(f"{name} was never launched on the main path")
     ttft = sorted(times[0] - t_sub for t_sub, times in stamps)
@@ -374,7 +446,7 @@ def phase_engine(card: str):
     steady = sorted(b - a for _, times in stamps
                     for a, b in zip(times, times[1:]) if a >= last_first)
     n_out = sum(len(o) for o in outs)
-    print(f"[engine] {card}: {N_REQUESTS} requests ISL {ISL} OSL {OSL} "
+    print(f"{tag} {card}: {N_REQUESTS} requests ISL {ISL} OSL {OSL} "
           f"in {wall:.3f} s: output {n_out / wall:.1f} tok/s, TTFT mean "
           f"{sum(ttft) / len(ttft) * 1e3:.1f} ms p50 "
           f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, "
@@ -385,7 +457,7 @@ def phase_engine(card: str):
           f"{engine.num_prefill_dispatches} prefill dispatches", flush=True)
 
     # probe: logits of one prompt chunk through both attention impls
-    probe_eng = EngineConfig(num_blocks=8)
+    probe_eng = EngineConfig(num_blocks=8, **quant)
     dev = engine.device
     toks = torch.tensor([prompts[1][:64]], dtype=torch.int32, device=dev)
     pos = torch.arange(64, dtype=torch.int32, device=dev)[None]
@@ -404,18 +476,97 @@ def phase_engine(card: str):
     diff = (logits["kernel"] - logits["einsum"]).abs().max().item()
     agree = (logits["kernel"].argmax(-1) == logits["einsum"].argmax(-1)) \
         .float().mean().item()
-    print(f"[engine] probe logits finite; kernel vs einsum path max |diff| "
+    print(f"{tag} probe logits finite; kernel vs einsum path max |diff| "
           f"{diff:.4f}, argmax agreement {agree:.3f}", flush=True)
     if diff > PROBE_MAX_DIFF or agree < PROBE_MIN_ARGMAX_AGREE:
-        fail(f"probe: kernel path disagrees with the einsum path "
+        fail(f"probe ({dtype}): kernel path disagrees with the einsum path "
              f"({diff} > {PROBE_MAX_DIFF} or {agree} < "
              f"{PROBE_MIN_ARGMAX_AGREE})")
-    return launches, engine
+    if ref_logits is not None:
+        qdiff = (logits["kernel"] - ref_logits).abs()
+        qagree = (logits["kernel"].argmax(-1) == ref_logits.argmax(-1)) \
+            .float().mean().item()
+        print(f"{tag} probe logits vs the bf16 run's: max |diff| "
+              f"{qdiff.max().item():.4f}, mean |diff| "
+              f"{qdiff.mean().item():.4f}, argmax agreement {qagree:.3f}",
+              flush=True)
+    return launches, engine, logits["kernel"]
 
 
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def _profiled(fn, reps: int = 5):
+    """(kernel launches, device busy ms) of one call of ``fn``, from
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cuLaunchKernelEx")) / reps
+    busy = sum(_device_us(e) for e in events
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+    return launches, busy
+
+
+def phase_quant_costs(engine, card: str) -> None:
+    """The two costs quantized serving adds to a decode step of the eager
+    port, at the main path's shapes (B=16): the bf16 copy that every
+    quantized matmul makes of its 1-byte weight (device time and bytes of
+    all of one step's casts), and ``kv_quantize`` plus the scale scatter of
+    K and V in every layer (launches, device busy time from the profiler,
+    and host wall time by CUDA events around back-to-back calls, which
+    host launches bound)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import quant
+
+    cfg, eng = engine.model_config, engine.config
+    leaves = [w for w in engine.params["layers"].values()
+              if isinstance(w, dict)]
+    if isinstance(engine.params.get("lm_head"), dict):
+        leaves.append(engine.params["lm_head"])
+    if leaves:
+        def casts():
+            for w in leaves:
+                w["q"].to(torch.bfloat16)
+        n = sum(w["q"].numel() for w in leaves)
+        ms = cuda_ms(casts, iters=10)
+        print(f"[quant] {card}: weight {eng.weight_dtype}: bf16 copies of "
+              f"one step's {len(leaves)} stacked weights ({n / 1e9:.3f} G "
+              f"elements, {3 * n / 1e9:.2f} GB read + written): {ms:.3f} "
+              f"ms, {3 * n / ms / 1e9:.2f} TB/s; {_profiled(casts)[0]:.0f} "
+              f"launches", flush=True)
+    if quant.is_quantized(eng.kv_dtype):
+        B, KV, hd = 16, cfg.num_kv_heads, cfg.head_dim_
+        x = torch.randn(B, KV, hd, device=engine.device,
+                        dtype=torch.bfloat16)
+        ks = engine.cache["ks"][0]
+        idx = (torch.arange(1, B + 1, device=engine.device)[:, None],
+               torch.arange(KV, device=engine.device)[None, :],
+               torch.zeros(B, 1, dtype=torch.long, device=engine.device))
+
+        def quantize_one():  # K or V of one layer, with its scale scatter
+            _, sc = quant.kv_quantize(x, eng.kv_dtype)
+            ks.index_put_(idx, sc)
+        wall = cuda_ms(quantize_one, iters=50)
+        n, busy = _profiled(quantize_one)
+        L = cfg.num_layers
+        print(f"[quant] {card}: kv {eng.kv_dtype}: kv_quantize + scale "
+              f"scatter of K or V, B={B}: {n:.0f} launches, device busy "
+              f"{busy:.4f} ms, back-to-back wall {wall:.4f} ms; per decode "
+              f"step (x2 x {L} layers): {2 * L * n:.0f} launches, "
+              f"{2 * L * busy:.3f} ms device busy, {2 * L * wall:.3f} ms "
+              f"wall", flush=True)
 
 
 def phase_profile(engine, card: str) -> None:
@@ -479,7 +630,8 @@ def phase_profile(engine, card: str) -> None:
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                     "cuLaunchKernelEx")) / reps
         top = sorted(kernels, key=_device_us, reverse=True)[:4]
-        print(f"[profile] {card}: {name}: wall {wall_ms:.2f} ms, device "
+        print(f"[profile] {card}: {name}, weights {eng.weight_dtype} KV "
+              f"{eng.kv_dtype}: wall {wall_ms:.2f} ms, device "
               f"busy {busy:.2f} ms ({busy / wall_ms:.0%} of wall), "
               f"attention kernel {attn:.2f} ms, {launches:.0f} kernel "
               f"launches; top: " + "; ".join(
@@ -487,27 +639,37 @@ def phase_profile(engine, card: str) -> None:
                   for e in top), flush=True)
 
 
+DECODE_CASE = "main path decode B=16 ctx 513..576 W=512"
+PREFILL_CASE = "main path prefill R=1 T=512 q_len=512 ctx 512 W=32"
 KERNELS = {
-    # name: (face, main-path case, replaced TPU function)
+    # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
-        "decode", "main path decode B=16 ctx 513..576 W=512",
-        "dynamo_tpu/ops/paged_attention.py:311"),
+        "decode", None, DECODE_CASE, "dynamo_tpu/ops/paged_attention.py:311"),
     "paged_attention_ragged": (
-        "ragged", "main path prefill R=1 T=512 q_len=512 ctx 512 W=32",
+        "ragged", None, PREFILL_CASE,
         "dynamo_tpu/ops/paged_attention.py:175"),
 }
+for _kv in ("int8", "fp8"):
+    # the quantized-KV branch (:73-76, :109-115, :265-281): the in-kernel
+    # dequant sits at :109
+    KERNELS[f"paged_attention_decode_{_kv}"] = (
+        "decode", _kv, f"{DECODE_CASE} {_kv}",
+        "dynamo_tpu/ops/paged_attention.py:109")
+    KERNELS[f"paged_attention_ragged_{_kv}"] = (
+        "ragged", _kv, f"{PREFILL_CASE} {_kv}",
+        "dynamo_tpu/ops/paged_attention.py:109")
 
 
 def kernels_line(results, launches) -> str:
     rows = []
-    for name, (face, case, replaces) in KERNELS.items():
+    for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
         rows.append({
             "name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(v["max_abs_err"] for v in results.values()
-                               if v["face"] == face
+                               if v["face"] == face and v["kv_dtype"] == kv
                                and v["dtype"] == "bfloat16"),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -535,8 +697,17 @@ def main() -> None:
           f"{torch.version.cuda}", flush=True)
     phase_build()
     results = phase_kernels()
-    launches, engine = phase_engine(card)
+    launches, engine, ref_logits = phase_engine(card)
     phase_profile(engine, card)
+    del engine
+    for dtype in ("int8", "fp8"):
+        torch.cuda.empty_cache()
+        run_launches, engine, _ = phase_engine(card, dtype, ref_logits)
+        launches.update(run_launches)
+        if dtype == "int8":
+            phase_profile(engine, card)
+        phase_quant_costs(engine, card)
+        del engine
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(kernels_line(results, launches))
     print(card)

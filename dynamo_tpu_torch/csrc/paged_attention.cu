@@ -3,7 +3,8 @@
 //
 // Replaces the one Pallas TPU kernel of dynamo_tpu: paged_attention_ragged
 // (dynamo_tpu/ops/paged_attention.py:175, body _ragged_kernel at :55, the
-// pallas_call at :299) and its decode face paged_attention_decode (:311).
+// pallas_call at :299) and its decode face paged_attention_decode (:311),
+// with the quantized-KV branch of both (:73-76, :109-115, :265-281).
 // It computes what that kernel computes, not its block-by-block schedule:
 //
 //   Queries are packed along one flat axis. Row r owns the slots
@@ -19,6 +20,16 @@
 // nor poison the sums; a zero softmax denominator divides as 1; every slot
 // of a row's allotment with no valid query (q_len == 0 rows, slots past
 // q_len) is written as exact zeros.
+//
+// Quantized KV: pages of int8 or fp8 (e4m3) with one f32 scale per (slot,
+// KV head), [NB, KV, bs]. Staging converts each page element to f32 and
+// multiplies it by its key's scale — the same single multiply as the plain
+// version and the Pallas kernel, so the staged values are bitwise the
+// dequantized cache. A key at or past the tile's causal frontier reads
+// neither its page bytes nor its scale (trash scales may be NaN). Bound: one
+// byte per element plus 4 bytes per (slot, head) for each of K and V, about
+// half of bf16's bytes at hd 64; staging is the only change, so the f32
+// arithmetic and the schedule are those of the bf16 kernel.
 //
 // What bounds it on an H100: decode reads every visible key and value once
 // per KV head and does 4 flops per (query head, key, dim) — with G = 4 query
@@ -40,9 +51,12 @@
 // MMA (wgmma), TMA staging and split-KV decode are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -60,6 +74,14 @@ struct Vec16<float> {
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
+};
+template <>
+struct Vec16<int8_t> {
+  static constexpr int N = 16;
+};
+template <>
+struct Vec16<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
 };
 
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -81,6 +103,30 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
   }
 }
 
+// 16 quantized page elements, dequantized: element times its key's scale
+__device__ __forceinline__ void load16(const int8_t* src, float s,
+                                       float* dst) {
+  const int4 v = *reinterpret_cast<const int4*>(src);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]) * s;
+}
+
+__device__ __forceinline__ void load16(const __nv_fp8_e4m3* src, float s,
+                                       float* dst) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const __nv_fp8x2_storage_t* p =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    // e4m3 -> f16 -> f32 is exact; the low byte is the lower element
+    const __half2 h(__nv_cvt_fp8x2_to_halfraw2(p[i], __NV_E4M3));
+    const float2 f = __half22float2(h);
+    dst[2 * i] = f.x * s;
+    dst[2 * i + 1] = f.y * s;
+  }
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -99,20 +145,26 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HD>
+// KT is the page type: T itself, or int8_t / __nv_fp8_e4m3 with scales
+template <typename T, typename KT, int HD>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(
     const T* __restrict__ q,                 // [Tq, H, HD]
-    const T* __restrict__ k_cache,           // [NB, KV, bs, HD]
-    const T* __restrict__ v_cache,           // [NB, KV, bs, HD]
+    const KT* __restrict__ k_cache,          // [NB, KV, bs, HD]
+    const KT* __restrict__ v_cache,          // [NB, KV, bs, HD]
+    const float* __restrict__ k_scale,       // [NB, KV, bs] (quantized KT)
+    const float* __restrict__ v_scale,       // [NB, KV, bs] (quantized KT)
     const int32_t* __restrict__ block_tables,  // [R, W]
     const int32_t* __restrict__ q_start,     // [R + 1]
     const int32_t* __restrict__ q_len,       // [R]
     const int32_t* __restrict__ ctx_len,     // [R]
     T* __restrict__ out,                     // [Tq, H, HD]
     int H, int KV, int bs, int W, int q_tile, float scale) {
+  constexpr bool kQuant = !std::is_same<T, KT>::value;
   constexpr int VN = Vec16<T>::N;
   constexpr int VPR = HD / VN;   // 16-byte vectors per head row
+  constexpr int KN = Vec16<KT>::N;
+  constexpr int KVPR = HD / KN;  // 16-byte page vectors per head row
   constexpr int DPL = HD / 32;   // output dims per lane
   constexpr int KS = HD + 1;     // padded shared-memory key stride
   const int G = H / KV;
@@ -171,20 +223,26 @@ ragged_paged_attention_kernel(
   for (int c0 = 0; c0 < n_keys; c0 += kKeys) {
     // stage this chunk's keys and values of KV head kvh; positions at or
     // past n_keys are zeros and their pages are never touched
-    for (int e = tid; e < kKeys * VPR; e += kThreads) {
-      const int kk = e / VPR;
-      const int c = (e % VPR) * VN;
+    for (int e = tid; e < kKeys * KVPR; e += kThreads) {
+      const int kk = e / KVPR;
+      const int c = (e % KVPR) * KN;
       const int pos = c0 + kk;
       float* kd = k_s + kk * KS + c;
       float* vd = v_s + kk * KS + c;
       if (pos < n_keys) {
-        const size_t base =
-            (((size_t)table[pos / bs] * KV + kvh) * bs + pos % bs) * HD + c;
-        load16(k_cache + base, kd);
-        load16(v_cache + base, vd);
+        const size_t slot = ((size_t)table[pos / bs] * KV + kvh) * bs +
+                            pos % bs;
+        const size_t base = slot * HD + c;
+        if constexpr (kQuant) {
+          load16(k_cache + base, k_scale[slot], kd);
+          load16(v_cache + base, v_scale[slot], vd);
+        } else {
+          load16(k_cache + base, kd);
+          load16(v_cache + base, vd);
+        }
       } else {
 #pragma unroll
-        for (int i = 0; i < VN; ++i) {
+        for (int i = 0; i < KN; ++i) {
           kd[i] = 0.f;
           vd[i] = 0.f;
         }
@@ -252,8 +310,9 @@ ragged_paged_attention_kernel(
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename KT, int HD>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
+                   const float* k_scale, const float* v_scale,
                    const int32_t* tables, const int32_t* q_start,
                    const int32_t* q_len, const int32_t* ctx_len, void* out,
                    int R, int H, int KV, int bs, int W, int max_q_len,
@@ -264,7 +323,7 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   const int nq = q_tile * G;
   const size_t smem =
       (size_t)(2 * nq * HD + 2 * nq + 2 * kKeys * (HD + 1)) * sizeof(float);
-  auto kernel = ragged_paged_attention_kernel<T, HD>;
+  auto kernel = ragged_paged_attention_kernel<T, KT, HD>;
   static size_t smem_allowed = 48 * 1024;  // per instantiation
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -274,54 +333,115 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   }
   const dim3 grid(R, n_tiles, KV);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), tables, q_start, q_len, ctx_len,
-      static_cast<T*>(out), H, KV, bs, W, q_tile, 1.f / sqrtf((float)HD));
+      static_cast<const T*>(q), static_cast<const KT*>(k_cache),
+      static_cast<const KT*>(v_cache), k_scale, v_scale, tables, q_start,
+      q_len, ctx_len, static_cast<T*>(out), H, KV, bs, W, q_tile,
+      1.f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
+                      const float* ks, const float* vs,
                       const int32_t* tables, const int32_t* q_start,
                       const int32_t* q_len, const int32_t* ctx_len, void* out,
                       int R, int H, int KV, int bs, int W, int max_q_len,
                       cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, k, v, tables, q_start, q_len, ctx_len, out, R,
-                           H, KV, bs, W, max_q_len, stream);
+      return launch<T, KT, 64>(q, k, v, ks, vs, tables, q_start, q_len,
+                               ctx_len, out, R, H, KV, bs, W, max_q_len,
+                               stream);
     case 128:
-      return launch<T, 128>(q, k, v, tables, q_start, q_len, ctx_len, out, R,
-                            H, KV, bs, W, max_q_len, stream);
+      return launch<T, KT, 128>(q, k, v, ks, vs, tables, q_start, q_len,
+                                ctx_len, out, R, H, KV, bs, W, max_q_len,
+                                stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+// kv_dtype: 0 = pages in q's type, 1 = int8, 2 = fp8 e4m3 (with scales)
+template <typename T>
+cudaError_t launch_kv(int kv_dtype, int hd, const void* q, const void* k,
+                      const void* v, const float* ks, const float* vs,
+                      const int32_t* tables, const int32_t* q_start,
+                      const int32_t* q_len, const int32_t* ctx_len, void* out,
+                      int R, int H, int KV, int bs, int W, int max_q_len,
+                      cudaStream_t stream) {
+  switch (kv_dtype) {
+    case 0:
+      return launch_hd<T, T>(hd, q, k, v, nullptr, nullptr, tables, q_start,
+                             q_len, ctx_len, out, R, H, KV, bs, W, max_q_len,
+                             stream);
+    case 1:
+      return launch_hd<T, int8_t>(hd, q, k, v, ks, vs, tables, q_start,
+                                  q_len, ctx_len, out, R, H, KV, bs, W,
+                                  max_q_len, stream);
+    case 2:
+      return launch_hd<T, __nv_fp8_e4m3>(hd, q, k, v, ks, vs, tables,
+                                         q_start, q_len, ctx_len, out, R, H,
+                                         KV, bs, W, max_q_len, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-extern "C" int dtt_ragged_paged_attention(
-    const void* q, const void* k_cache, const void* v_cache,
-    const void* block_tables, const void* q_start, const void* q_len,
-    const void* ctx_len, void* out, int R, int H, int KV, int hd, int bs,
-    int W, int max_q_len, int dtype, void* stream) {
+int dispatch(const void* q, const void* k_cache, const void* v_cache,
+             const void* k_scale, const void* v_scale,
+             const void* block_tables, const void* q_start,
+             const void* q_len, const void* ctx_len, void* out, int R, int H,
+             int KV, int hd, int bs, int W, int max_q_len, int dtype,
+             int kv_dtype, void* stream) {
   if (R <= 0 || KV <= 0 || H % KV != 0 || max_q_len <= 0 || bs <= 0 ||
       W <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (kv_dtype != 0 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* tables = static_cast<const int32_t*>(block_tables);
   const auto* qs = static_cast<const int32_t*>(q_start);
   const auto* ql = static_cast<const int32_t*>(q_len);
   const auto* cl = static_cast<const int32_t*>(ctx_len);
+  const auto* ks = static_cast<const float*>(k_scale);
+  const auto* vs = static_cast<const float*>(v_scale);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_hd<float>(hd, q, k_cache, v_cache, tables, qs, ql, cl, out,
-                           R, H, KV, bs, W, max_q_len, st);
+    err = launch_kv<float>(kv_dtype, hd, q, k_cache, v_cache, ks, vs, tables,
+                           qs, ql, cl, out, R, H, KV, bs, W, max_q_len, st);
   else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(hd, q, k_cache, v_cache, tables, qs, ql,
-                                   cl, out, R, H, KV, bs, W, max_q_len, st);
+    err = launch_kv<__nv_bfloat16>(kv_dtype, hd, q, k_cache, v_cache, ks, vs,
+                                   tables, qs, ql, cl, out, R, H, KV, bs, W,
+                                   max_q_len, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, out and the pages). Returns a
+// cudaError_t (0 = launched).
+extern "C" int dtt_ragged_paged_attention(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* block_tables, const void* q_start, const void* q_len,
+    const void* ctx_len, void* out, int R, int H, int KV, int hd, int bs,
+    int W, int max_q_len, int dtype, void* stream) {
+  return dispatch(q, k_cache, v_cache, nullptr, nullptr, block_tables,
+                  q_start, q_len, ctx_len, out, R, H, KV, hd, bs, W,
+                  max_q_len, dtype, 0, stream);
+}
+
+// Quantized pages: kv_dtype 1 = int8, 2 = fp8 e4m3; k_scale / v_scale are
+// [NB, KV, bs] f32. dtype as above, for q and out.
+extern "C" int dtt_ragged_paged_attention_quant(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* block_tables, const void* q_start, const void* q_len,
+    const void* ctx_len, void* out, const void* k_scale, const void* v_scale,
+    int R, int H, int KV, int hd, int bs, int W, int max_q_len, int dtype,
+    int kv_dtype, void* stream) {
+  if (kv_dtype != 1 && kv_dtype != 2) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k_cache, v_cache, k_scale, v_scale, block_tables,
+                  q_start, q_len, ctx_len, out, R, H, KV, hd, bs, W,
+                  max_q_len, dtype, kv_dtype, stream);
 }

@@ -8,8 +8,8 @@ that the reference exposes through engine flags and the ModelRuntimeConfig
 ``max_num_seqs``, ``max_num_batched_tokens``).
 
 The engine config keeps the knobs this package serves, plus the ones that
-select a path it does not serve yet (speculative decoding, quantized weights
-or KV, a mesh of more than one device, pipeline and sequence parallelism):
+select a path it does not serve yet (speculative decoding, a mesh of more
+than one device, pipeline and sequence parallelism):
 those stay so that :func:`check_supported` refuses them loudly at engine
 construction instead of ignoring them.
 """
@@ -106,12 +106,15 @@ class EngineConfig:
     # window so control-state table deltas amortise over
     # lookahead*block_size tokens instead of per-block
     block_lookahead: int = 0
+    # quantized serving (engine/quant.py): "bf16" keeps the model dtype end
+    # to end; "int8"/"fp8" store matmul weights / KV pages in 1 byte with
+    # f32 scales
+    weight_dtype: str = "bf16"          # "bf16" | "int8" | "fp8"
+    kv_dtype: str = "bf16"              # "bf16" | "int8" | "fp8"
     # -- paths not served by this package yet (check_supported refuses) --
     pp_stages: int = 1
     sp_prefill_threshold: int = 0
     spec_mode: str = "off"              # "off" | "ngram"
-    weight_dtype: str = "bf16"          # "bf16" | "int8" | "fp8"
-    kv_dtype: str = "bf16"              # "bf16" | "int8" | "fp8"
 
     def __post_init__(self):
         if len(self.mesh_shape) not in (2, 3):
@@ -138,6 +141,9 @@ class EngineConfig:
                 raise ValueError(
                     f"unknown {knob} {v!r} (expected bf16|int8|fp8)"
                 )
+        if (self.weight_dtype != "bf16" or self.kv_dtype != "bf16") \
+                and self.pp_stages > 1:
+            raise ValueError("quantized serving requires pp_stages == 1")
         # max_num_batched_tokens MAY exceed the largest prefill bucket:
         # the scheduler caps each chunk at the bucket, so extra budget
         # just lets decode seats coexist with a full-bucket prefill
@@ -155,8 +161,6 @@ def check_supported(eng: EngineConfig) -> None:
         mesh_devices *= n
     unsupported = [
         (eng.spec_mode != "off", f"spec_mode={eng.spec_mode!r}"),
-        (eng.weight_dtype != "bf16", f"weight_dtype={eng.weight_dtype!r}"),
-        (eng.kv_dtype != "bf16", f"kv_dtype={eng.kv_dtype!r}"),
         (mesh_devices > 1, f"mesh_shape={eng.mesh_shape!r}"),
         (eng.pp_stages > 1, f"pp_stages={eng.pp_stages}"),
         (eng.sp_prefill_threshold > 0,

@@ -34,6 +34,7 @@ from ..utils.device import resolve_device
 from ..utils.hotpath import hot_path
 from ..utils.logging import get_logger
 from . import model as model_lib
+from . import quant
 from .config import EngineConfig, ModelConfig, check_supported
 from .scheduler import (
     KvEvent, PrefillChunk, SchedSeq, Scheduler, SchedulerStats, SeqStatus,
@@ -411,7 +412,9 @@ class InferenceEngine(EngineCore):
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = model_lib.init_params(gen, model_config)
-        self.params = params
+        # quantize at init; a tree quantized beforehand passes unchanged
+        self.params = quant.quantize_params(params,
+                                            engine_config.weight_dtype)
         self.cache = model_lib.init_cache(model_config, engine_config,
                                           self.device)
         # packed prefill + autopilot decode windows running on

@@ -22,6 +22,11 @@ updates where the JAX code donates buffers:
   reads every seat's position, limits, sampling knobs, table and input token
   from persistent ``ctl`` tensors, which the host updates with packed deltas
   only when membership or tables change.
+- **Quantized serving** (``engine/quant.py``): matmul weights may be
+  ``{"q", "s"}`` leaves (int8/fp8 with per-output-channel f32 scales), and
+  with a quantized ``kv_dtype`` the pages are 1-byte with per-(slot, head)
+  f32 scales in ``cache["ks"]``/``cache["vs"]``, scattered beside them and
+  handed to both kernel faces.
 
 Nothing here synchronises with the host except where a docstring says so.
 """
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from ..ops.paged_attention import (
     paged_attention_decode, paged_attention_ragged,
 )
+from . import quant
 from .config import EngineConfig, ModelConfig
 
 Params = Dict[str, Any]
@@ -99,14 +105,20 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig,
     ``[num_blocks, KV, block_size, hd]`` (lists under ``"k"``/``"v"``).
     One (block, head) tile is a contiguous ``bs*hd`` run. Per-layer tensors,
     as in the JAX cache, so each layer's scatter updates its own buffer in
-    place."""
-    dt = torch_dtype(cfg)
+    place. A quantized ``kv_dtype`` stores 1-byte pages plus per-(slot,
+    head) f32 scale caches ``[num_blocks, KV, block_size]`` under
+    ``"ks"``/``"vs"``; the trash block's zero scales dequantize to zeros."""
+    quantized = quant.is_quantized(eng.kv_dtype)
+    dt = quant.storage_dtype(eng.kv_dtype) if quantized else torch_dtype(cfg)
     shape = (eng.num_blocks, cfg.num_kv_heads, eng.block_size, cfg.head_dim_)
+    planes = {"k": (shape, dt), "v": (shape, dt)}
+    if quantized:
+        planes.update(ks=(shape[:-1], torch.float32),
+                      vs=(shape[:-1], torch.float32))
     return {
-        "k": [torch.zeros(shape, dtype=dt, device=device)
-              for _ in range(cfg.num_layers)],
-        "v": [torch.zeros(shape, dtype=dt, device=device)
-              for _ in range(cfg.num_layers)],
+        key: [torch.zeros(shp, dtype=t, device=device)
+              for _ in range(cfg.num_layers)]
+        for key, (shp, t) in planes.items()
     }
 
 
@@ -150,15 +162,34 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     return _apply_rope(x, *_rope_tables(positions, theta, x.shape[-1]))
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Matmul against a weight leaf (quantized ``{"q", "s"}`` leaves wait
-    for the quantized-serving slice)."""
+def _mm(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """Matmul against a possibly-quantized weight leaf. A quantized
+    ``{"q", "s"}`` leaf multiplies by the 1-byte weight cast to x's dtype
+    (exact for int8 and e4m3) and scales the product per output channel in
+    f32, as the JAX ``_mm`` does. Eager PyTorch writes the cast copy of the
+    weight to device memory on every call, where XLA fuses the cast into
+    the matmul feed; a GEMM that reads the 1-byte weight is later work."""
+    if isinstance(w, dict):
+        y = x @ w["q"].to(x.dtype)
+        return (y.float() * w["s"][0]).to(x.dtype)
     return x @ w
 
 
 def _layer_slice(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
-    """Per-layer view of the stacked param tree (a view, not a copy)."""
-    return {name: w[li] for name, w in stacked.items()}
+    """Per-layer view of the stacked param tree (a view, not a copy);
+    quantized ``{"q", "s"}`` leaves slice both members."""
+    return {
+        name: ({k: v[li] for k, v in w.items()} if isinstance(w, dict)
+               else w[li])
+        for name, w in stacked.items()
+    }
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A 1-byte page cache as its uint8 bits, for indexing and scatter
+    (uint8 indexing exists on every backend, float8 indexing not
+    everywhere)."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
 
 
 _Q_BLOCK = 512  # query-block size for long prefill chunks: caps the f32
@@ -254,6 +285,7 @@ def forward(
                    scatter_off[:, None])                   # -> [B*T, KV]
 
     cos, sin = _rope_tables(positions, cfg.rope_theta, hd)
+    kv_quant = quant.is_quantized(eng.kv_dtype)
 
     use_kernel = resolve_attention_impl(eng, attention_class(T)) == "kernel"
     if use_kernel:
@@ -271,6 +303,9 @@ def forward(
     for li in range(cfg.num_layers):
         p = _layer_slice(stacked, li)
         lk, lv = cache["k"][li], cache["v"][li]           # [NB, KV, bs, hd]
+        # [NB, KV, bs] f32 per-(slot, head) scales of quantized pages
+        lks = cache["ks"][li] if kv_quant else None
+        lvs = cache["vs"][li] if kv_quant else None
 
         x = _rms_norm(h, p["attn_norm"], cfg.rms_norm_eps)
         q = _mm(x, p["wq"]).reshape(B, T, H, hd)
@@ -281,27 +316,46 @@ def forward(
 
         # scatter this chunk's K/V into the paged cache, in place (the JAX
         # step donates the cache and scatter-updates it)
-        lk.index_put_(scatter_idx, k.reshape(B * T, KV, hd))
-        lv.index_put_(scatter_idx, v.reshape(B * T, KV, hd))
+        k_upd = k.reshape(B * T, KV, hd)
+        v_upd = v.reshape(B * T, KV, hd)
+        if kv_quant:
+            # per-(token, head) scales: a token's bytes depend only on its
+            # own K/V, never on the block it lands in
+            k_upd, k_sc = quant.kv_quantize(k_upd, eng.kv_dtype)
+            v_upd, v_sc = quant.kv_quantize(v_upd, eng.kv_dtype)
+            lks.index_put_(scatter_idx, k_sc)
+            lvs.index_put_(scatter_idx, v_sc)
+        _bits(lk).index_put_(scatter_idx, _bits(k_upd))
+        _bits(lv).index_put_(scatter_idx, _bits(v_upd))
 
         if use_kernel and T == 1:
             attn = paged_attention_decode(
                 q[:, 0].contiguous(), lk, lv, block_tables, seq_lens,
-                block_size=bs,
+                block_size=bs, k_scale=lks, v_scale=lvs,
             )[:, None]
         elif use_kernel:
             attn = paged_attention_ragged(
                 q.reshape(B * T, H, hd).contiguous(), lk, lv, block_tables,
                 q_start, q_len, ctx_len, block_size=bs, max_q_len=T,
+                k_scale=lks, v_scale=lvs,
             ).reshape(B, T, H, hd)
         else:
             # gather the full context: [B, W*bs, KV, hd] with gathered
             # position = w*bs + offset = absolute position
             tbl = block_tables.long().reshape(-1)
-            k_all = lk[tbl].reshape(B, W, KV, bs, hd).permute(
-                0, 1, 3, 2, 4).reshape(B, W * bs, KV, hd)
-            v_all = lv[tbl].reshape(B, W, KV, bs, hd).permute(
-                0, 1, 3, 2, 4).reshape(B, W * bs, KV, hd)
+            k_all = _bits(lk)[tbl].view(lk.dtype).reshape(
+                B, W, KV, bs, hd).permute(0, 1, 3, 2, 4).reshape(
+                B, W * bs, KV, hd)
+            v_all = _bits(lv)[tbl].view(lv.dtype).reshape(
+                B, W, KV, bs, hd).permute(0, 1, 3, 2, 4).reshape(
+                B, W * bs, KV, hd)
+            if kv_quant:
+                ks_all = lks[tbl].reshape(B, W, KV, bs).permute(
+                    0, 1, 3, 2).reshape(B, W * bs, KV)
+                vs_all = lvs[tbl].reshape(B, W, KV, bs).permute(
+                    0, 1, 3, 2).reshape(B, W * bs, KV)
+                k_all = quant.kv_dequantize(k_all, ks_all, q.dtype)
+                v_all = quant.kv_dequantize(v_all, vs_all, q.dtype)
             attn = _attention(q, k_all, v_all, positions)
         h = h + _mm(attn.reshape(B, T, H * hd), p["wo"])
 
@@ -318,9 +372,18 @@ def logits_fn(cfg: ModelConfig, params: Params,
               h: torch.Tensor) -> torch.Tensor:
     """Float32 logits ``[..., V]``. A bf16 head on the card multiplies in
     bf16 with an f32 result (casting the [D, V] head to f32 would write
-    ~1 GB per step for a 1B model)."""
+    ~1 GB per step for a 1B model). A quantized untied head multiplies by
+    its 1-byte weight cast to h's dtype, then by its per-column f32
+    scale."""
     head = (params["embed"].T if cfg.tie_word_embeddings
             else params["lm_head"])
+    if isinstance(head, dict):
+        return _head_mm(h, head["q"].to(h.dtype)) * head["s"][0]
+    return _head_mm(h, head)
+
+
+def _head_mm(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``h @ head`` with an f32 result."""
     if h.dtype == torch.float32 and head.dtype == torch.float32:
         return h @ head
     if h.is_cuda:

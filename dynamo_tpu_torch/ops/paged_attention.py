@@ -21,6 +21,13 @@ Rows with ``q_len == 0`` and key slots at positions ``>= ctx_len`` (partial
 last blocks, stale table tails) contribute *exactly zero* and can never
 NaN-poison the softmax; a zero softmax denominator divides as 1; every slot of
 a row's allotment that holds no valid query comes back as exact zeros.
+
+Quantized KV (``EngineConfig.kv_dtype`` int8/fp8): the pages are int8 or
+float8_e4m3fn and ``k_scale``/``v_scale`` ``[num_blocks, KV, bs]`` f32 hold
+one scale per (slot, head). Each key is dequantized (page times scale)
+BEFORE the trash zeroing, so NaN scales in the trash block are wiped like
+NaN pages; the kernel never reads a page byte or a scale past the causal
+frontier. Without scales the unquantized kernel runs, as before.
 """
 
 from __future__ import annotations
@@ -30,12 +37,17 @@ import math
 
 import torch
 
-# launches of the CUDA kernel, per wrapper (the plain CPU path never counts)
-LAUNCHES = {"paged_attention_decode": 0, "paged_attention_ragged": 0}
+# launches of the CUDA kernel, per wrapper and, for quantized pages, per kv
+# dtype (the plain CPU path never counts)
+LAUNCHES = {"paged_attention_decode": 0, "paged_attention_ragged": 0,
+            "paged_attention_decode_int8": 0, "paged_attention_decode_fp8": 0,
+            "paged_attention_ragged_int8": 0, "paged_attention_ragged_fp8": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# quantized page dtypes: (kernel code, LAUNCHES suffix)
+_KV_CODES = {torch.int8: (1, "int8"), torch.float8_e4m3fn: (2, "fp8")}
 _HEAD_DIMS = (64, 128)
-_fn = None
+_fns = {}
 
 
 def reset_launches() -> None:
@@ -43,22 +55,56 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(quantized: bool):
+    """The C entry point: ``dtt_ragged_paged_attention`` for pages in q's
+    dtype, ``dtt_ragged_paged_attention_quant`` (two scale pointers and a
+    kv-dtype code more) for 1-byte pages."""
+    fn = _fns.get(quantized)
+    if fn is None:
         from . import _build
 
-        fn = _build.load("paged_attention").dtt_ragged_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p
-        ]
+        lib = _build.load("paged_attention")
+        if quantized:
+            fn = lib.dtt_ragged_paged_attention_quant
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+                ctypes.c_void_p
+            ]
+        else:
+            fn = lib.dtt_ragged_paged_attention
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+                ctypes.c_void_p
+            ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[quantized] = fn
+    return fn
+
+
+def _check_scales(q, k_cache, k_scale, v_scale) -> None:
+    """Scales come as a pair, exactly when the pages are 1-byte."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if k_scale is None:
+        if k_cache.dtype in _KV_CODES:
+            raise TypeError(f"{k_cache.dtype} pages need k_scale/v_scale")
+        return
+    if k_cache.dtype not in _KV_CODES:
+        raise TypeError(f"scales given with {k_cache.dtype} pages (only "
+                        "int8|float8_e4m3fn pages are quantized)")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
+        if t.shape != k_cache.shape[:-1]:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(k_cache.shape[:-1])}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
-           block_size: int, max_q_len: int) -> None:
+           block_size: int, max_q_len: int, k_scale=None,
+           v_scale=None) -> None:
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
                "block_tables": block_tables, "q_start": q_start,
                "q_len": q_len, "ctx_len": ctx_len}
@@ -69,9 +115,12 @@ def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q dtype {q.dtype} (kernel takes float32|bfloat16)")
+    _check_scales(q, k_cache, k_scale, v_scale)
+    page_dtype = k_cache.dtype if k_scale is not None else q.dtype
     for name in ("k_cache", "v_cache"):
-        if tensors[name].dtype != q.dtype:
-            raise TypeError(f"{name} dtype {tensors[name].dtype} != {q.dtype}")
+        if tensors[name].dtype != page_dtype:
+            raise TypeError(
+                f"{name} dtype {tensors[name].dtype} != {page_dtype}")
     for name in ("block_tables", "q_start", "q_len", "ctx_len"):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32")
@@ -100,24 +149,29 @@ def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
 
 
 def _launch(counter: str, q, k_cache, v_cache, block_tables, q_start, q_len,
-            ctx_len, block_size: int, max_q_len: int) -> torch.Tensor:
+            ctx_len, block_size: int, max_q_len: int, k_scale=None,
+            v_scale=None) -> torch.Tensor:
     _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
-           block_size, max_q_len)
+           block_size, max_q_len, k_scale, v_scale)
     out = torch.empty_like(q)
     R, W = block_tables.shape
     if R == 0 or q.shape[0] == 0:
         return out
     _, H, hd = q.shape
     KV = k_cache.shape[1]
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
+            ctx_len.data_ptr(), out.data_ptr())
+    dims = (R, H, KV, hd, block_size, W, max_q_len, _DTYPE_CODES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
-            ctx_len.data_ptr(), out.data_ptr(),
-            R, H, KV, hd, block_size, W, max_q_len, _DTYPE_CODES[q.dtype],
-            stream,
-        )
+        if k_scale is None:
+            err = _kernel(False)(*ptrs, *dims, stream)
+        else:
+            kv_code, suffix = _KV_CODES[k_cache.dtype]
+            counter = f"{counter}_{suffix}"
+            err = _kernel(True)(*ptrs, k_scale.data_ptr(),
+                                v_scale.data_ptr(), *dims, kv_code, stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: "
                            f"cudaError {err}")
@@ -136,6 +190,8 @@ def paged_attention_ragged(
     *,
     block_size: int,
     max_q_len: int,
+    k_scale: torch.Tensor | None = None,  # [num_blocks, KV, bs] f32
+    v_scale: torch.Tensor | None = None,  # [num_blocks, KV, bs] f32
 ) -> torch.Tensor:
     """Ragged paged attention over heterogeneous-length query rows.
 
@@ -143,16 +199,18 @@ def paged_attention_ragged(
     ``engine.model.forward`` orders things). ``max_q_len`` bounds
     ``q_start[r+1] - q_start[r]``. Returns ``[Tq, H, hd]`` in q's dtype.
     The Pallas kernel's ``q_tile``/``kv_tile`` knobs have no counterpart:
-    the CUDA kernel picks its own tiling.
+    the CUDA kernel picks its own tiling. ``k_scale``/``v_scale`` go with
+    int8/float8_e4m3fn pages (quantized KV) and only with them.
     """
     if q.device.type == "cpu":
         return paged_attention_ragged_plain(
             q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
-            block_size=block_size, max_q_len=max_q_len,
+            block_size=block_size, max_q_len=max_q_len, k_scale=k_scale,
+            v_scale=v_scale,
         )
     return _launch("paged_attention_ragged", q, k_cache, v_cache,
                    block_tables, q_start, q_len, ctx_len, block_size,
-                   max_q_len)
+                   max_q_len, k_scale, v_scale)
 
 
 def paged_attention_decode(
@@ -163,12 +221,16 @@ def paged_attention_decode(
     seq_lens: torch.Tensor,      # [B] int32 (0 = padding row)
     *,
     block_size: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Single-token-per-sequence paged attention. Returns ``[B, H, hd]``.
 
     The decode face of the ragged kernel: every row is one query slot.
     ``seq_lens[b]`` counts the valid context slots for row ``b`` *including*
     the token being decoded; ``seq_lens[b] == 0`` rows emit exact zeros.
+    ``k_scale``/``v_scale`` carry quantized-KV scales as in
+    :func:`paged_attention_ragged`.
     """
     B = q.shape[0]
     q_start = torch.arange(B + 1, dtype=torch.int32, device=q.device)
@@ -176,23 +238,27 @@ def paged_attention_decode(
     if q.device.type == "cpu":
         return paged_attention_ragged_plain(
             q, k_cache, v_cache, block_tables, q_start, q_len, seq_lens,
-            block_size=block_size, max_q_len=1,
+            block_size=block_size, max_q_len=1, k_scale=k_scale,
+            v_scale=v_scale,
         )
     return _launch("paged_attention_decode", q, k_cache, v_cache,
-                   block_tables, q_start, q_len, seq_lens, block_size, 1)
+                   block_tables, q_start, q_len, seq_lens, block_size, 1,
+                   k_scale, v_scale)
 
 
 def paged_attention_ragged_plain(
     q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len, *,
-    block_size: int, max_q_len: int,
+    block_size: int, max_q_len: int, k_scale=None, v_scale=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel's contract: gather each row's
-    context through its table, zero every key at a position >= ctx_len
-    before the dot, mask causally, softmax in f32 with a zero denominator
-    dividing as 1. Slots outside every allotment come back as zeros.
+    context through its table (quantized pages times their scales), zero
+    every key at a position >= ctx_len before the dot, mask causally,
+    softmax in f32 with a zero denominator dividing as 1. Slots outside
+    every allotment come back as zeros.
 
     Holds a host sync (the longest context bounds the gather), so it serves
     the CPU and the kernel's comparisons, never the main path on a card."""
+    _check_scales(q, k_cache, k_scale, v_scale)
     Tq, H, hd = q.shape
     KV, bs = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -209,16 +275,24 @@ def paged_attention_ragged_plain(
     tables = block_tables[:, :W].long()
     K = W * bs
 
-    def gather(cache):  # [R, K, KV, hd] in f32; position = w*bs + offset
-        g = cache[tables].permute(0, 1, 3, 2, 4).reshape(R, K, KV, hd)
-        return g.float()
+    def gather(cache, scale):  # [R, K, KV, hd] f32; position = w*bs + off
+        # 1-byte pages are gathered as their bits: uint8 indexing exists on
+        # every backend, float8 indexing not everywhere
+        g = (cache.view(torch.uint8)[tables].view(cache.dtype)
+             if cache.element_size() == 1 else cache[tables])
+        g = g.permute(0, 1, 3, 2, 4).reshape(R, K, KV, hd)
+        if scale is None:
+            return g.float()
+        sc = scale[tables].permute(0, 1, 3, 2).reshape(R, K, KV)
+        return g.float() * sc[..., None]
 
     kpos = torch.arange(K, device=dev)
     kvalid = kpos[None, :] < ctx[:, None]                   # [R, K]
-    # zero every key past ctx_len BEFORE the dot: masking scores alone would
-    # still let NaN·0 from the trash block leak through p @ v
-    k = torch.where(kvalid[:, :, None, None], gather(k_cache), 0.0)
-    v = torch.where(kvalid[:, :, None, None], gather(v_cache), 0.0)
+    # zero every key past ctx_len BEFORE the dot (and after the dequant, so
+    # NaN trash scales are wiped too): masking scores alone would still let
+    # NaN·0 from the trash block leak through p @ v
+    k = torch.where(kvalid[:, :, None, None], gather(k_cache, k_scale), 0.0)
+    v = torch.where(kvalid[:, :, None, None], gather(v_cache, v_scale), 0.0)
 
     i = torch.arange(S, device=dev)
     slot = q_start[:R, None].long() + i[None, :]            # [R, S]

@@ -1,6 +1,8 @@
 """The PyTorch port's engine against the JAX engine: the same parameters
 (carried across by ``params_from_numpy``), the same four greedy requests of
-different lengths served concurrently, identical token streams. Also runs
+different lengths served concurrently, identical token streams, with bf16
+passthrough and with quantized weights and KV (the JAX engine's quantized
+tree carried across). Also runs
 ``python -m dynamo_tpu_torch.run in=batch:FILE out=engine`` once on the
 CPU."""
 
@@ -62,6 +64,48 @@ def test_greedy_streams_match_jax_engine(decode_steps):
     assert [len(g) for g in got] == MAX_TOKENS
     assert got == want
     assert tengine.num_windows > 0 and tengine.num_prefill_dispatches >= 4
+
+
+def _numpy_tree(tree):
+    """JAX params as numpy leaves; fp8 leaves as uint8 bit views."""
+    def leaf(x):
+        a = np.asarray(x)
+        return a.view(np.uint8) if a.dtype.name == "float8_e4m3fn" else a
+    return jax.tree.map(leaf, tree)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quantized_greedy_streams_match_jax_engine(dtype):
+    quant = dict(weight_dtype=dtype, kv_dtype=dtype)
+    jengine = JaxEngine(JaxModelConfig.tiny(),
+                        JaxEngineConfig(**quant, **ENG_KW), seed=0)
+    tree = _numpy_tree(jengine.params)
+    assert isinstance(tree["layers"]["wq"], dict)
+    want = asyncio.run(_serve(jengine, JaxRequest))
+    tengine = InferenceEngine(
+        ModelConfig.tiny(), EngineConfig(**quant, **ENG_KW),
+        params=params_from_numpy(tree, ModelConfig.tiny(), "cpu",
+                                 weight_dtype=dtype),
+        device="cpu",
+    )
+    got = asyncio.run(_serve(tengine, Request))
+    assert [len(g) for g in got] == MAX_TOKENS
+    assert got == want
+
+
+def test_quantized_chunked_prefill_streams_equal_whole():
+    """Chunk boundaries change no token's quantized bytes: chunked and
+    whole-bucket prefill stream the same tokens."""
+    streams = []
+    for chunk in (0, 8):
+        engine = InferenceEngine(
+            ModelConfig.tiny(),
+            EngineConfig(weight_dtype="int8", kv_dtype="int8",
+                         prefill_chunk_tokens=chunk, **ENG_KW),
+            seed=3, device="cpu")
+        streams.append(asyncio.run(_serve(engine, Request)))
+    assert streams[0] == streams[1]
+    assert [len(g) for g in streams[0]] == MAX_TOKENS
 
 
 def test_wire_generate_and_abort():

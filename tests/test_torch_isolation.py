@@ -88,8 +88,7 @@ def test_run_without_device_raises_on_a_cpu_machine(no_gpu, tmp_path):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(spec_mode="ngram"), dict(weight_dtype="int8"), dict(kv_dtype="fp8"),
-    dict(mesh_shape=(1, 2)), dict(pp_stages=2),
+    dict(spec_mode="ngram"), dict(mesh_shape=(1, 2)), dict(pp_stages=2),
     dict(sp_prefill_threshold=1024),
 ], ids=lambda k: next(iter(k)))
 def test_unserved_paths_are_refused(knob):
@@ -98,3 +97,16 @@ def test_unserved_paths_are_refused(knob):
         check_supported(eng)
     with pytest.raises(NotImplementedError):
         InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(weight_dtype="int8"), dict(kv_dtype="fp8"),
+], ids=lambda k: next(iter(k)))
+def test_quantized_paths_are_served(knob):
+    eng = EngineConfig(num_blocks=16, **knob)
+    check_supported(eng)
+    engine = InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+    if "kv_dtype" in knob:
+        assert set(engine.cache) == {"k", "v", "ks", "vs"}
+    else:
+        assert isinstance(engine.params["layers"]["wq"], dict)

@@ -6,7 +6,11 @@ f32 softmax in a different order, so they agree to 1e-5.
 The cases are those of tests/test_ragged_attention.py and
 tests/test_paged_attention.py: mixed ragged batches, GQA group sizes, partial
 last blocks, all-trash rows, stale table tails over a NaN-poisoned block 0,
-and the decode wrapper equal to the ragged one."""
+and the decode wrapper equal to the ragged one. The quantized-KV branch
+(int8 / fp8 pages with per-(slot, head) f32 scales) is held against the
+Pallas kernel with ``k_scale``/``v_scale`` on both faces, with NaN scales
+(and NaN fp8 pages) in the trash block and stale table tails, and against
+the plain version run on the dequantized cache, bitwise."""
 
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+from dynamo_tpu.engine import quant as jq
 from dynamo_tpu.ops.paged_attention import (
     paged_attention_decode as jax_decode,
     paged_attention_ragged as jax_ragged,
@@ -93,8 +98,9 @@ def _counter_stays_zero():
     pa.reset_launches()
     yield
     # a CPU tensor never reaches the CUDA kernel
-    assert pa.LAUNCHES == {"paged_attention_decode": 0,
-                           "paged_attention_ragged": 0}
+    assert set(pa.LAUNCHES) >= {"paged_attention_decode",
+                                "paged_attention_ragged"}
+    assert all(n == 0 for n in pa.LAUNCHES.values())
 
 
 def test_mixed_ragged_batch():
@@ -203,3 +209,151 @@ def test_bf16_plain_matches_f32_within_bf16_rounding():
     ).float().numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=0, atol=5e-2)
+
+
+# ------------------------- quantized-KV branch ----------------------------
+
+
+def _quant_case(seed, kv_dtype, *, B=3, T=4, W=4, bs=16, KV=2, G=2, hd=32,
+                partial=True):
+    """A ragged case over per-token-quantized caches (quantized by the JAX
+    package's numpy twin), poisoned the way a served cache is garbage: the
+    trash block 0 and the stale tail block hold NaN scales and, for fp8, NaN
+    pages too (int8 has no NaN). Row 0's table ends in the trash block and
+    row 2's in the stale block, both past ctx_len."""
+    rng = np.random.default_rng(seed)
+    H = KV * G
+    nb = 2 + B * W
+    stale = nb - 1
+    kc = rng.standard_normal((nb, KV, bs, hd)).astype(np.float32)
+    vc = rng.standard_normal((nb, KV, bs, hd)).astype(np.float32)
+    kq, ks = jq.kv_quantize_cache_np(kc, kv_dtype)
+    vq, vs = jq.kv_quantize_cache_np(vc, kv_dtype)
+    for blk in (0, stale):
+        ks[blk] = np.nan
+        vs[blk] = np.nan
+        if kv_dtype == "fp8":
+            kq[blk] = np.nan
+            vq[blk] = np.nan
+    tables = (1 + np.arange(B * W).reshape(B, W)).astype(np.int32)
+    tables[0, W - 1] = 0
+    tables[2, 2:] = stale
+    q = rng.standard_normal((B * T, H, hd)).astype(np.float32)
+    q_start = (np.arange(B + 1) * T).astype(np.int32)
+    if partial:  # row 0 ends mid-block, row 1 dead, row 2 short
+        ctx = np.array([bs * (W - 2) + 3, bs * W, bs + 5], np.int32)[:B]
+        q_len = np.array([3, 0, T], np.int32)[:B]
+    else:
+        ctx = np.array([bs * (W - 1), bs * W, 2 * bs], np.int32)[:B]
+        q_len = np.full((B,), T, np.int32)
+    ctx = np.maximum(ctx, q_len)
+    return dict(q=q, kq=kq, vq=vq, ks=ks, vs=vs, tables=tables,
+                q_start=q_start, q_len=q_len, ctx=ctx, bs=bs, T=T,
+                kv_dtype=kv_dtype)
+
+
+def _t_pages(a, kv_dtype):
+    """numpy quantized pages (ml_dtypes fp8 or int8) as a torch tensor."""
+    if kv_dtype == "fp8":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    return torch.from_numpy(a.copy())
+
+
+def _torch_quant_args(c):
+    return (torch.from_numpy(c["q"]), _t_pages(c["kq"], c["kv_dtype"]),
+            _t_pages(c["vq"], c["kv_dtype"]), torch.from_numpy(c["tables"]),
+            torch.from_numpy(c["q_start"]), torch.from_numpy(c["q_len"]),
+            torch.from_numpy(c["ctx"]))
+
+
+@pytest.mark.parametrize("partial", [True, False])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_ragged_matches_pallas(kv_dtype, partial):
+    c = _quant_case(7, kv_dtype, partial=partial)
+    want = np.asarray(jax_ragged(
+        jnp.asarray(c["q"]), jnp.asarray(c["kq"]), jnp.asarray(c["vq"]),
+        jnp.asarray(c["tables"]), jnp.asarray(c["q_start"]),
+        jnp.asarray(c["q_len"]), jnp.asarray(c["ctx"]),
+        block_size=c["bs"], max_q_len=c["T"], interpret=True,
+        k_scale=jnp.asarray(c["ks"]), v_scale=jnp.asarray(c["vs"]),
+    ))
+    got = pa.paged_attention_ragged(
+        *_torch_quant_args(c), block_size=c["bs"], max_q_len=c["T"],
+        k_scale=torch.from_numpy(c["ks"]), v_scale=torch.from_numpy(c["vs"]),
+    ).numpy()
+    assert np.isfinite(got).all(), "trash-block NaN leaked"
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    if partial:
+        T = c["T"]
+        assert np.all(got[T:2 * T] == 0.0)          # dead row
+        assert np.all(got[3:T] == 0.0)              # slots past q_len
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_decode_matches_pallas(kv_dtype):
+    c = _quant_case(11, kv_dtype, B=3, T=1, W=3, partial=False)
+    q = c["q"]
+    lens = np.array([32, 0, 21], np.int32)  # row 0 stops before its trash
+    want = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(c["kq"]), jnp.asarray(c["vq"]),
+        jnp.asarray(c["tables"]), jnp.asarray(lens), block_size=c["bs"],
+        interpret=True, k_scale=jnp.asarray(c["ks"]),
+        v_scale=jnp.asarray(c["vs"]),
+    ))
+    args = _torch_quant_args(c)
+    got = pa.paged_attention_decode(
+        args[0], args[1], args[2], args[3], torch.from_numpy(lens),
+        block_size=c["bs"], k_scale=torch.from_numpy(c["ks"]),
+        v_scale=torch.from_numpy(c["vs"]),
+    ).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_plain_equals_dequantize_then_run(kv_dtype):
+    """In-version dequant == the plain version on the dequantized cache
+    (NaN mirrored into the same trash slots), bit for bit."""
+    c = _quant_case(13, kv_dtype)
+    q, kq, vq, tables, q_start, q_len, ctx = _torch_quant_args(c)
+    ks, vs = torch.from_numpy(c["ks"]), torch.from_numpy(c["vs"])
+    kw = dict(block_size=c["bs"], max_q_len=c["T"])
+    got = pa.paged_attention_ragged_plain(
+        q, kq, vq, tables, q_start, q_len, ctx, k_scale=ks, v_scale=vs, **kw)
+    k_ref = kq.float() * ks[..., None]
+    v_ref = vq.float() * vs[..., None]
+    want = pa.paged_attention_ragged_plain(
+        q, k_ref, v_ref, tables, q_start, q_len, ctx, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_quantized_wrappers_refuse_bad_scales():
+    c = _quant_case(17, "int8", hd=64)
+    q, kq, vq, tables, q_start, q_len, ctx = _torch_quant_args(c)
+    ks, vs = torch.from_numpy(c["ks"]), torch.from_numpy(c["vs"])
+    kw = dict(block_size=c["bs"], max_q_len=c["T"])
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_attention_ragged(q, kq, vq, tables, q_start, q_len, ctx,
+                                  k_scale=ks, **kw)
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_attention_decode(q[:3], kq, vq, tables, ctx,
+                                  block_size=c["bs"], v_scale=vs)
+    kf, vf = kq.float().bfloat16(), vq.float().bfloat16()
+    with pytest.raises(TypeError, match="scales given"):
+        pa.paged_attention_ragged(q.bfloat16(), kf, vf, tables, q_start,
+                                  q_len, ctx, k_scale=ks, v_scale=vs, **kw)
+    with pytest.raises(TypeError, match="need k_scale"):
+        pa.paged_attention_ragged(q, kq, vq, tables, q_start, q_len, ctx,
+                                  **kw)
+    with pytest.raises(ValueError, match="shape"):
+        pa._check(q, kq, vq, tables, q_start, q_len, ctx, c["bs"], c["T"],
+                  ks[:, :, :1].contiguous(), vs)
+    with pytest.raises(TypeError, match="float32"):
+        pa._check(q, kq, vq, tables, q_start, q_len, ctx, c["bs"], c["T"],
+                  ks.double(), vs)
+    # the kernel-side check takes the quantized case as it is
+    pa._check(q, kq, vq, tables, q_start, q_len, ctx, c["bs"], c["T"],
+              ks, vs)
