@@ -44,10 +44,13 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
-# kernel vs plain, (atol, rtol) per dtype. bf16: both accumulate in f32 and
-# round once to bf16, but in a different order, so an output may land on the
-# neighbouring bf16 value: 2^-7 relative (~0.008 at |o| ~ 1, ~0.016 at
-# 2 <= |o| < 4). f32: only the summation order differs.
+# kernel vs plain, (atol, rtol) per dtype. bf16: the ragged face rounds P
+# to bf16 before PV (as the einsum path and the JAX package's bf16 path do),
+# so each term of PV carries a relative error <= 2^-9 while the sums stay in
+# f32; the output then rounds once to bf16, in another summation order than
+# the plain version's, and may land on the neighbouring bf16 value: 2^-7
+# relative (~0.008 at |o| ~ 1, ~0.016 at 2 <= |o| < 4). The decode face
+# keeps p in f32. f32: only the summation order differs.
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 0.0)}
 SEED = 0
 DEV = "cuda"
@@ -84,6 +87,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+DECODE_CASE = "main path decode B=16 ctx 513..576 W=512"
+PREFILL_CASE = "main path prefill R=1 T=512 q_len=512 ctx 512 W=32"
 
 
 # ------------------------------ phase 1 ----------------------------------
@@ -269,13 +276,61 @@ def library_call(c):
     return call
 
 
-def phase_kernels():
+def device_ms(fn, reps: int = 20) -> float:
+    """Summed device time of the kernels one call of ``fn`` launches, mean
+    over ``reps`` calls, from ``torch.profiler``. Before each call a 256 MB
+    device-to-device copy evicts the 50 MB L2, as in serving, where a
+    layer's K/V is cold; the copies are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+
+    src = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    dst = torch.empty_like(src)
+    fn()
+    torch.cuda.synchronize()
+
+    def body():
+        dst.copy_(src)
+        fn()
+    events = profile_calls(body, reps, cpu=False)
+    return sum(_device_us(e) for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))) / reps / 1e3
+
+
+def profile_calls(body, reps: int, cpu: bool = True):
+    """``key_averages()`` of ``torch.profiler`` around ``reps`` calls of
+    ``body``. A profile now and then comes back without device events:
+    the first of three that has them is taken."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(3):
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                body()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(_device_us(e) > 0 for e in events
+               if e.device_type == DeviceType.CUDA):
+            return events
+    fail("torch.profiler recorded no device time")
+
+
+def kernel_cases():
     import torch
 
     gen = torch.Generator().manual_seed(SEED)
     lens = torch.randint(1, 1025, (64,), generator=gen).tolist()
     for dead in (3, 17, 40, 63):
         lens[dead] = 0
+    # long contexts: 16 rows over 4,000-8,192 keys, one row at ctx 1 and
+    # one dead row (many splits, empty splits, a one-key split)
+    long_lens = [4000 + (4192 * i) // 15 for i in range(16)]
+    long_lens[5], long_lens[11] = 1, 0
+    long_rows = [(1 if n else 0, n, 1) for n in long_lens]
     cases = [
         make_case("decode B=64 ctx 1..1024, 4 dead rows",
                   [(1 if n else 0, n, 1) for n in lens], W=66,
@@ -290,80 +345,113 @@ def phase_kernels():
         # the shapes the engine phase gives the kernel: decode bucket 16
         # over the full autopilot table (max_model_len 8192 / bs 16), and
         # one 512-token prefill chunk of a fresh prompt
-        make_case("main path decode B=16 ctx 513..576 W=512",
+        make_case(DECODE_CASE,
                   [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
                   W=512, face="decode"),
-        make_case("main path prefill R=1 T=512 q_len=512 ctx 512 W=32",
-                  [(512, 512, 512)], W=32, face="ragged"),
-        # the kernel's other builds: head dim 128 (Llama-3-8B heads) and f32
+        make_case(PREFILL_CASE, [(512, 512, 512)], W=32, face="ragged"),
+        # the kernels' other builds: head dim 128 (Llama-3-8B heads) and f32
         make_case("ragged mixed hd=128 R=3",
                   [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
                   face="ragged", hd=128),
+        make_case("decode hd=128 B=4 ctx 1..300, 1 dead row",
+                  [(1, 300, 1), (1, 1, 1), (0, 0, 1), (1, 129, 1)], W=20,
+                  face="decode", hd=128),
         make_case("ragged mixed f32 R=3",
                   [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
                   face="ragged", dtype="float32"),
+        make_case("decode f32 B=4 ctx 1..300, 1 dead row",
+                  [(1, 300, 1), (1, 1, 1), (0, 0, 1), (1, 129, 1)], W=20,
+                  face="decode", dtype="float32"),
     ]
+    for kv in (None, "int8"):
+        sfx = "" if kv is None else f" {kv}"
+        cases += [
+            make_case(f"decode B=16 ctx 4000..8192, ctx 1 + dead row, "
+                      f"W=512{sfx}", long_rows, W=512, face="decode",
+                      kv_dtype=kv),
+            # a 512-token chunk of a long prompt
+            make_case(f"ragged R=1 q_len=512 after 3584 keys, W=256{sfx}",
+                      [(512, 4096, 512)], W=256, face="ragged",
+                      kv_dtype=kv),
+        ]
     # the quantized-KV branch: the main path's two shapes and a mixed
     # ragged batch (stale tails, dead rows, NaN trash scales and pages)
     for kv in ("int8", "fp8"):
         cases += [
-            make_case(f"main path decode B=16 ctx 513..576 W=512 {kv}",
+            make_case(f"{DECODE_CASE} {kv}",
                       [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
                       W=512, face="decode", kv_dtype=kv),
-            make_case(f"main path prefill R=1 T=512 q_len=512 ctx 512 W=32 "
-                      f"{kv}", [(512, 512, 512)], W=32, face="ragged",
-                      kv_dtype=kv),
+            make_case(f"{PREFILL_CASE} {kv}", [(512, 512, 512)], W=32,
+                      face="ragged", kv_dtype=kv),
             make_case(f"ragged mixed R=6 {kv}",
                       [(1, 577, 1), (5, 40, 8), (64, 64, 64), (0, 0, 8),
                        (130, 1000, 136), (17, 17, 24)], W=66,
                       face="ragged", kv_dtype=kv),
         ]
+    return cases
+
+
+def check_case(c):
+    """Kernel vs plain on the card: finite, within TOL, exact zeros past
+    q_len and on dead rows. Returns max |kernel - plain|."""
+    import torch
+
+    got = run_face(c, plain=False)
+    torch.cuda.synchronize()
+    want = run_face(c, plain=True)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{c['name']}: kernel output not finite (trash leak)")
+    atol, rtol = TOL[c["dtype"]]
+    err = (got.float() - want.float()).abs()
+    excess = (err - rtol * want.float().abs()).max().item()
+    max_err = err.max().item()
+    if excess > atol:
+        fail(f"{c['name']}: max |kernel - plain| {max_err} "
+             f"(atol {atol} + rtol {rtol})")
+    # rows and slots with no valid query must be exact zeros
+    q_start = c["q_start"].tolist()
+    for r, (ql, _, alloc) in enumerate(c["rows"]):
+        tail = got[q_start[r] + ql:q_start[r] + alloc]
+        if tail.numel() and not torch.all(tail == 0):
+            fail(f"{c['name']}: row {r} slots past q_len not zero")
+    return max_err
+
+
+def phase_kernels(cases):
     results = {}
     for c in cases:
-        got = run_face(c, plain=False)
-        torch.cuda.synchronize()
-        want = run_face(c, plain=True)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"{c['name']}: kernel output not finite (trash leak)")
-        atol, rtol = TOL[c["dtype"]]
-        err = (got.float() - want.float()).abs()
-        excess = (err - rtol * want.float().abs()).max().item()
-        max_err = err.max().item()
-        if excess > atol:
-            fail(f"{c['name']}: max |kernel - plain| {max_err} "
-                 f"(atol {atol} + rtol {rtol})")
-        # rows and slots with no valid query must be exact zeros
-        q_start = c["q_start"].tolist()
-        for r, (ql, _, alloc) in enumerate(c["rows"]):
-            tail = got[q_start[r] + ql:q_start[r] + alloc]
-            if tail.numel() and not torch.all(tail == 0):
-                fail(f"{c['name']}: row {r} slots past q_len not zero")
-        ms = cuda_ms(lambda: run_face(c, plain=False), iters=50)
+        max_err = check_case(c)
+        ms = device_ms(lambda: run_face(c, plain=False))
+        wall_ms = cuda_ms(lambda: run_face(c, plain=False), iters=50)
         plain_ms = cuda_ms(lambda: run_face(c, plain=True), iters=5,
                            warmup=1)
         lib = library_call(c)
-        lib_ms = cuda_ms(lib, iters=50) if lib is not None else None
+        lib_ms = device_ms(lib) if lib is not None else None
+        lib_wall = cuda_ms(lib, iters=50) if lib is not None else None
         bound_ms, bound_by = case_bound(c)
         results[c["name"]] = dict(
             face=c["face"], dtype=c["dtype"], kv_dtype=c["kv_dtype"],
-            max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=max_err, ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library_wall_ms=lib_wall, bound_ms=bound_ms,
+            bound_by=bound_by,
         )
-        print(f"[kernel] {c['name']}: max_abs_err {max_err:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"sdpa {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        sdpa = ("n/a" if lib_ms is None else
+                f"{lib_ms:.4f} ms (wall per call {lib_wall:.4f} ms)")
+        print(f"[kernel] {c['name']}: max_abs_err {max_err:.3e} kernel "
+              f"{ms:.4f} ms (wall per call {wall_ms:.4f} ms) plain "
+              f"{plain_ms:.4f} ms sdpa {sdpa} bound {bound_ms:.5f} ms "
+              f"({bound_by})", flush=True)
     return results
 
 
 # ------------------------------ phase 3 ----------------------------------
 
 N_REQUESTS, ISL, OSL = 16, 512, 64
-# kernel path vs einsum path logits on one probe prompt, both bf16: the
-# einsum path rounds softmax probabilities to bf16 before P@V (as the JAX
-# reference does) while the kernel keeps them in f32, so the two drift by
-# bf16 rounding through 16 layers; random-weight logits are ~N(0, 1) and the
+# kernel path vs einsum path logits on one probe prompt, both bf16: both
+# round softmax probabilities to bf16 before P@V (as the JAX reference
+# does), but sum in other orders and the kernel rounds after scaling by the
+# running max, so the two drift by bf16 rounding through 16 layers; random-weight logits are ~N(0, 1) and the
 # top two of 128256 sit ~0.2 apart
 PROBE_MAX_DIFF, PROBE_MIN_ARGMAX_AGREE = 0.5, 0.75
 
@@ -502,14 +590,9 @@ def _profiled(fn, reps: int = 5):
     """(kernel launches, device busy ms) of one call of ``fn``, from
     ``torch.profiler``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-    events = prof.key_averages()
+    events = profile_calls(fn, reps)
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cuLaunchKernelEx")) / reps
@@ -577,7 +660,6 @@ def phase_profile(engine, card: str) -> None:
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from dynamo_tpu_torch.engine import model as model_lib
 
@@ -617,18 +699,17 @@ def phase_profile(engine, card: str) -> None:
             fn()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
         reps = 3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-        events = prof.key_averages()
+        events = profile_calls(fn, reps)
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         busy = sum(_device_us(e) for e in kernels) / reps / 1e3
+        # both faces: the ragged kernel and the decode split-KV kernel
         attn = sum(_device_us(e) for e in kernels
-                   if "ragged_paged_attention" in e.key) / reps / 1e3
+                   if "paged_attention" in e.key) / reps / 1e3
         launches = sum(e.count for e in events
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                     "cuLaunchKernelEx")) / reps
+        if attn <= 0:
+            fail(f"{name}: no device time in the attention kernels")
         top = sorted(kernels, key=_device_us, reverse=True)[:4]
         print(f"[profile] {card}: {name}, weights {eng.weight_dtype} KV "
               f"{eng.kv_dtype}: wall {wall_ms:.2f} ms, device "
@@ -639,8 +720,6 @@ def phase_profile(engine, card: str) -> None:
                   for e in top), flush=True)
 
 
-DECODE_CASE = "main path decode B=16 ctx 513..576 W=512"
-PREFILL_CASE = "main path prefill R=1 T=512 q_len=512 ctx 512 W=32"
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -696,7 +775,7 @@ def main() -> None:
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     phase_build()
-    results = phase_kernels()
+    results = phase_kernels(kernel_cases())
     launches, engine, ref_logits = phase_engine(card)
     phase_profile(engine, card)
     del engine

@@ -1,9 +1,13 @@
-"""Ragged paged attention: the CUDA kernel's wrappers and its plain version.
+"""Ragged paged attention: the CUDA kernels' wrappers and their plain
+version.
 
-ONE kernel serves every attention shape the engine runs against the paged KV
-cache (the *Ragged Paged Attention* design, PAPERS.md): decode rows
+One contract serves every attention shape the engine runs against the paged
+KV cache (the *Ragged Paged Attention* design, PAPERS.md): decode rows
 (``q_len == 1``) and prefill chunks (``q_len`` up to the chunk budget), mixed
-in one launch. Queries are packed along a single flat axis; row ``r`` owns the
+in one launch. On a card the ragged face runs a tensor-core flash-attention
+kernel and the decode face a split-KV kernel whose last split combines
+(``csrc/paged_attention.cu`` says why). Queries are packed along a single
+flat axis; row ``r`` owns the
 slots ``[q_start[r], q_start[r+1])`` and fills the first ``q_len[r]`` of them.
 Query ``i`` of row ``r`` sits at absolute position ``ctx_len - q_len + i`` and
 sees exactly the keys at positions ``<= that``.
@@ -47,7 +51,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # quantized page dtypes: (kernel code, LAUNCHES suffix)
 _KV_CODES = {torch.int8: (1, "int8"), torch.float8_e4m3fn: (2, "fp8")}
 _HEAD_DIMS = (64, 128)
+_MAX_GROUP = 16  # query heads per KV head the CUDA kernels take
+_CHUNK = 64      # keys per staged chunk of the CUDA kernels
+# (C entry point, pointer arguments, int arguments) per (face, quantized)
+_ENTRY = {
+    ("ragged", False): ("dtt_ragged_paged_attention", 8, 8),
+    ("ragged", True): ("dtt_ragged_paged_attention_quant", 10, 9),
+    ("decode", False): ("dtt_paged_attention_decode", 9, 9),
+    ("decode", True): ("dtt_paged_attention_decode_quant", 11, 10),
+}
 _fns = {}
+_sm_counts = {}
+_occupancy = {}
+# per device: the decode kernel's arrival counters, one per (row, KV head),
+# zero between calls (the last split of each resets its own)
+_arrived = {}
 
 
 def reset_launches() -> None:
@@ -55,28 +73,80 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _kernel(quantized: bool):
-    """The C entry point: ``dtt_ragged_paged_attention`` for pages in q's
-    dtype, ``dtt_ragged_paged_attention_quant`` (two scale pointers and a
-    kv-dtype code more) for 1-byte pages."""
-    fn = _fns.get(quantized)
+def _kernel(face: str, quantized: bool):
+    """The C entry point of ``face`` ("ragged" | "decode"); the quantized
+    twin takes two scale pointers and a kv-dtype code more."""
+    fn = _fns.get((face, quantized))
     if fn is None:
         from . import _build
 
-        lib = _build.load("paged_attention")
-        if quantized:
-            fn = lib.dtt_ragged_paged_attention_quant
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-                ctypes.c_void_p
-            ]
-        else:
-            fn = lib.dtt_ragged_paged_attention
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-                ctypes.c_void_p
-            ]
+        name, n_ptr, n_int = _ENTRY[face, quantized]
+        fn = getattr(_build.load("paged_attention"), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns[quantized] = fn
+        _fns[face, quantized] = fn
     return fn
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sm_counts.get(device)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device] = n
+    return n
+
+
+def _blocks_per_sm(device, H: int, KV: int, hd: int, dtype_code: int,
+                   kv_code: int) -> int:
+    """Blocks of the decode kernel one SM holds at once (from the CUDA
+    occupancy calculator; a static property of the build and the shape)."""
+    key = (device, H // KV, hd, dtype_code, kv_code)
+    n = _occupancy.get(key)
+    if n is None:
+        from . import _build
+
+        lib = _build.load("paged_attention")
+        fn = lib.dtt_paged_attention_decode_occupancy
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = fn(H, KV, hd, dtype_code, kv_code, ctypes.addressof(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"decode kernel occupancy query failed: "
+                               f"cudaError {err}, {out.value} blocks")
+        n = _occupancy[key] = out.value
+    return n
+
+
+def _arrival_counters(device, n: int) -> torch.Tensor:
+    buf = _arrived.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrived[device] = buf
+    return buf
+
+
+def _decode_grid(B: int, KV: int, W: int, bs: int, n_sm: int,
+                 blocks_per_sm: int):
+    """``(n_split, span)`` of the decode face's split-KV launch, from
+    host-known shapes only (never from ``seq_lens``, so the launch needs no
+    host sync and a CUDA graph can capture it).
+
+    The table's ``W * bs`` positions are cut into spans of ``span`` keys,
+    the least common multiple of the kernel's 64-key chunk and ``bs``
+    (whole pages, whole chunks). Split ``s`` owns the spans ``s, s +
+    n_split, s + 2 n_split, ...``, so the ``n_split`` splits cover every
+    position once and a short context still spreads over several splits.
+    ``n_split`` fills the card once: as many splits per (row, KV head)
+    as the ``n_sm * blocks_per_sm`` blocks the SMs hold at once allow (at
+    least one, never more than the spans), so no block waits for a second
+    wave."""
+    span = _CHUNK * bs // math.gcd(_CHUNK, bs)
+    n_spans = -(-(W * bs) // span)
+    n_split = max(1, min(n_spans, n_sm * blocks_per_sm // max(1, B * KV)))
+    return n_split, span
 
 
 def _check_scales(q, k_cache, k_scale, v_scale) -> None:
@@ -102,12 +172,12 @@ def _check_scales(q, k_cache, k_scale, v_scale) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
-           block_size: int, max_q_len: int, k_scale=None,
-           v_scale=None) -> None:
+def _check_common(q, k_cache, v_cache, block_tables, meta: dict,
+                  block_size: int, k_scale, v_scale) -> None:
+    """What both faces' kernels require of q, the pages, the table and the
+    int32 row metadata ``meta`` (name -> tensor)."""
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
-               "block_tables": block_tables, "q_start": q_start,
-               "q_len": q_len, "ctx_len": ctx_len}
+               "block_tables": block_tables, **meta}
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -121,7 +191,7 @@ def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
         if tensors[name].dtype != page_dtype:
             raise TypeError(
                 f"{name} dtype {tensors[name].dtype} != {page_dtype}")
-    for name in ("block_tables", "q_start", "q_len", "ctx_len"):
+    for name in ("block_tables", *meta):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
@@ -135,21 +205,66 @@ def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
         )
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} (kernel built for {_HEAD_DIMS})")
+    if H // KV > _MAX_GROUP:
+        raise ValueError(f"{H // KV} query heads per KV head (kernel takes "
+                         f"<= {_MAX_GROUP})")
     if block_tables.dim() != 2:
         raise ValueError("block_tables must be [R, W]")
+    for name in ("q", "k_cache", "v_cache"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
+           block_size: int, max_q_len: int, k_scale=None,
+           v_scale=None) -> None:
+    """The ragged kernel's requirements."""
+    _check_common(q, k_cache, v_cache, block_tables,
+                  {"q_start": q_start, "q_len": q_len, "ctx_len": ctx_len},
+                  block_size, k_scale, v_scale)
     R = block_tables.shape[0]
     if (q_start.shape != (R + 1,) or q_len.shape != (R,)
             or ctx_len.shape != (R,)):
         raise ValueError("q_start [R+1], q_len [R], ctx_len [R] expected")
     if max_q_len < 1:
         raise ValueError("max_q_len must be >= 1")
-    for name in ("q", "k_cache", "v_cache"):
-        if tensors[name].data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(counter: str, q, k_cache, v_cache, block_tables, q_start, q_len,
-            ctx_len, block_size: int, max_q_len: int, k_scale=None,
+def _check_decode(q, k_cache, v_cache, block_tables, seq_lens,
+                  block_size: int, k_scale=None, v_scale=None) -> None:
+    """The decode kernel's requirements: one query row per table row and
+    ``seq_lens`` [B] int32."""
+    _check_common(q, k_cache, v_cache, block_tables, {"seq_lens": seq_lens},
+                  block_size, k_scale, v_scale)
+    B = block_tables.shape[0]
+    if q.shape[0] != B or seq_lens.shape != (B,):
+        raise ValueError(f"q [{B}, H, hd] and seq_lens [{B}] expected for "
+                         f"block_tables of {B} rows, got q "
+                         f"{tuple(q.shape)}, seq_lens {tuple(seq_lens.shape)}")
+
+
+def _call(face: str, counter: str, q, k_cache, ptrs, dims, k_scale,
+          v_scale) -> None:
+    """Launch ``face``'s C entry point on q's current stream (scales and
+    the kv-dtype code appended for 1-byte pages); count it or raise."""
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if k_scale is None:
+            err = _kernel(face, False)(*ptrs, *dims, stream)
+        else:
+            kv_code, suffix = _KV_CODES[k_cache.dtype]
+            counter = f"{counter}_{suffix}"
+            err = _kernel(face, True)(*ptrs, k_scale.data_ptr(),
+                                      v_scale.data_ptr(), *dims, kv_code,
+                                      stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel ({face}) launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES[counter] += 1
+
+
+def _launch(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
+            block_size: int, max_q_len: int, k_scale=None,
             v_scale=None) -> torch.Tensor:
     _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
            block_size, max_q_len, k_scale, v_scale)
@@ -163,19 +278,40 @@ def _launch(counter: str, q, k_cache, v_cache, block_tables, q_start, q_len,
             block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
             ctx_len.data_ptr(), out.data_ptr())
     dims = (R, H, KV, hd, block_size, W, max_q_len, _DTYPE_CODES[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if k_scale is None:
-            err = _kernel(False)(*ptrs, *dims, stream)
-        else:
-            kv_code, suffix = _KV_CODES[k_cache.dtype]
-            counter = f"{counter}_{suffix}"
-            err = _kernel(True)(*ptrs, k_scale.data_ptr(),
-                                v_scale.data_ptr(), *dims, kv_code, stream)
-    if err != 0:
-        raise RuntimeError(f"paged attention kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES[counter] += 1
+    _call("ragged", "paged_attention_ragged", q, k_cache, ptrs, dims,
+          k_scale, v_scale)
+    return out
+
+
+def _launch_decode(q, k_cache, v_cache, block_tables, seq_lens,
+                   block_size: int, k_scale=None,
+                   v_scale=None) -> torch.Tensor:
+    _check_decode(q, k_cache, v_cache, block_tables, seq_lens, block_size,
+                  k_scale, v_scale)
+    out = torch.empty_like(q)
+    B, W = block_tables.shape
+    if B == 0:
+        return out
+    _, H, hd = q.shape
+    KV = k_cache.shape[1]
+    G = H // KV
+    dtype_code = _DTYPE_CODES[q.dtype]
+    kv_code = 0 if k_scale is None else _KV_CODES[k_cache.dtype][0]
+    n_split, span = _decode_grid(
+        B, KV, W, block_size, _sm_count(q.device),
+        _blocks_per_sm(q.device, H, KV, hd, dtype_code, kv_code))
+    # the splits' partials: acc [B, KV, n_split, G, hd], then (m, l)
+    n_part = B * KV * n_split * G
+    part = torch.empty(n_part * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    arrived = _arrival_counters(q.device, B * KV)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            part.data_ptr(), part[n_part * hd:].data_ptr(),
+            arrived.data_ptr())
+    dims = (B, H, KV, hd, block_size, W, n_split, span, dtype_code)
+    _call("decode", "paged_attention_decode", q, k_cache, ptrs, dims,
+          k_scale, v_scale)
     return out
 
 
@@ -208,9 +344,8 @@ def paged_attention_ragged(
             block_size=block_size, max_q_len=max_q_len, k_scale=k_scale,
             v_scale=v_scale,
         )
-    return _launch("paged_attention_ragged", q, k_cache, v_cache,
-                   block_tables, q_start, q_len, ctx_len, block_size,
-                   max_q_len, k_scale, v_scale)
+    return _launch(q, k_cache, v_cache, block_tables, q_start, q_len,
+                   ctx_len, block_size, max_q_len, k_scale, v_scale)
 
 
 def paged_attention_decode(
@@ -226,24 +361,33 @@ def paged_attention_decode(
 ) -> torch.Tensor:
     """Single-token-per-sequence paged attention. Returns ``[B, H, hd]``.
 
-    The decode face of the ragged kernel: every row is one query slot.
-    ``seq_lens[b]`` counts the valid context slots for row ``b`` *including*
-    the token being decoded; ``seq_lens[b] == 0`` rows emit exact zeros.
+    The decode face: every row is one query slot. ``seq_lens[b]`` (int32)
+    counts the valid context slots for row ``b`` *including* the token
+    being decoded; ``seq_lens[b] == 0`` rows emit exact zeros.
     ``k_scale``/``v_scale`` carry quantized-KV scales as in
     :func:`paged_attention_ragged`.
+
+    Split-KV contract on a card: the kernel takes ``seq_lens`` as it is
+    (no per-call metadata tensors are built) and launches once: one block
+    per (split, KV head, row) over the grid of :func:`_decode_grid`, which
+    depends on host-known shapes only. A split whose first span starts at
+    or past ``seq_lens[b]`` exits at once; every other writes its partial
+    softmax state (m, l, acc) for the G query heads of its KV head to an
+    f32 scratch allocated here. The last live split of each (row, KV head)
+    to finish, counted in a persistent per-device buffer that it resets,
+    rescales and sums the partials into the output. No key at a position
+    ``>= seq_lens[b]`` and no scale past it is read.
     """
-    B = q.shape[0]
-    q_start = torch.arange(B + 1, dtype=torch.int32, device=q.device)
-    q_len = (seq_lens > 0).to(torch.int32)
     if q.device.type == "cpu":
+        B = q.shape[0]
         return paged_attention_ragged_plain(
-            q, k_cache, v_cache, block_tables, q_start, q_len, seq_lens,
-            block_size=block_size, max_q_len=1, k_scale=k_scale,
-            v_scale=v_scale,
+            q, k_cache, v_cache, block_tables,
+            torch.arange(B + 1, dtype=torch.int32), (seq_lens > 0).to(
+                torch.int32), seq_lens, block_size=block_size, max_q_len=1,
+            k_scale=k_scale, v_scale=v_scale,
         )
-    return _launch("paged_attention_decode", q, k_cache, v_cache,
-                   block_tables, q_start, q_len, seq_lens, block_size, 1,
-                   k_scale, v_scale)
+    return _launch_decode(q, k_cache, v_cache, block_tables, seq_lens,
+                          block_size, k_scale, v_scale)
 
 
 def paged_attention_ragged_plain(

@@ -12,6 +12,8 @@ Pallas kernel with ``k_scale``/``v_scale`` on both faces, with NaN scales
 (and NaN fp8 pages) in the trash block and stale table tails, and against
 the plain version run on the dequantized cache, bitwise."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -357,3 +359,168 @@ def test_quantized_wrappers_refuse_bad_scales():
     # the kernel-side check takes the quantized case as it is
     pa._check(q, kq, vq, tables, q_start, q_len, ctx, c["bs"], c["T"],
               ks, vs)
+
+
+# ------------------- the CUDA kernels' host-side contract ------------------
+
+
+@pytest.mark.parametrize("B,KV,W,bs,n_sm,bps", [
+    (16, 8, 512, 16, 132, 4),    # the main path's decode bucket
+    (64, 8, 66, 16, 132, 4),
+    (1, 8, 512, 16, 132, 5),
+    (4, 2, 3, 16, 132, 4),       # fewer spans than the card could split
+    (8, 8, 40, 24, 132, 3),      # bs that does not divide the chunk
+    (8, 4, 2, 128, 132, 2),      # pages larger than the chunk
+    (512, 8, 512, 16, 132, 4),   # more (row, head) pairs than blocks
+])
+def test_decode_grid_covers_the_table_from_host_shapes(B, KV, W, bs, n_sm,
+                                                       bps):
+    n_split, span = pa._decode_grid(B, KV, W, bs, n_sm, bps)
+    assert span % bs == 0 and span % pa._CHUNK == 0
+    n_spans = -(-(W * bs) // span)
+    assert 1 <= n_split <= n_spans
+    # one wave: never more blocks than the SMs hold, unless one split per
+    # (row, KV head) is already too many
+    assert n_split == 1 or n_split * B * KV <= n_sm * bps
+    # split s owns the spans s, s + n_split, ...: every position of the
+    # table belongs to exactly one split
+    owners = (np.arange(W * bs) // span) % n_split
+    assert set(owners.tolist()) == set(range(n_split))
+
+
+def test_decode_grid_main_path_fills_two_waves_of_sms():
+    n_split, span = pa._decode_grid(16, 8, 512, 16, 132, 4)
+    assert (n_split, span) == (4, 64)
+    # every split is live at ctx ~560 and the grid is >= 2 x 132 blocks
+    assert all(s * span < 513 for s in range(n_split))
+    assert n_split * 16 * 8 >= 2 * 132
+
+
+def _kernel_split_positions(s, n_split, span, n_keys):
+    """The key positions split ``s`` visits, as the decode kernel walks them
+    (64-key chunks of the spans s, s + n_split, ...; stops at n_keys)."""
+    cps, out, n = span // pa._CHUNK, [], 0
+    while True:
+        c0 = (s + (n // cps) * n_split) * span + (n % cps) * pa._CHUNK
+        if c0 >= n_keys:
+            return out
+        out += [p for p in range(c0, c0 + pa._CHUNK) if p < n_keys]
+        n += 1
+
+
+@pytest.mark.parametrize("n_keys", [1, 63, 64, 65, 560, 4000, 8192])
+def test_decode_splits_visit_every_live_key_once(n_keys):
+    n_split, span = pa._decode_grid(16, 8, 512, 16, 132, 4)
+    seen = [p for s in range(n_split)
+            for p in _kernel_split_positions(s, n_split, span, n_keys)]
+    assert sorted(seen) == list(range(n_keys))
+    # the splits the combine counts as live are those that visit a key
+    live = min(n_split, -(-n_keys // span))
+    assert all(bool(_kernel_split_positions(s, n_split, span, n_keys))
+               == (s < live) for s in range(n_split))
+
+
+def test_decode_refuses_bad_seq_lens():
+    B, KV, G, hd, bs, W = 4, 2, 2, 64, 16, 4
+    q = torch.zeros(B, KV * G, hd)
+    k = torch.zeros(1 + B * W, KV, bs, hd)
+    tables = torch.arange(B * W, dtype=torch.int32).reshape(B, W) + 1
+    lens = torch.tensor([1, 17, 0, 64], dtype=torch.int32)
+    pa._check_decode(q, k, k, tables, lens, bs)  # the right ones pass
+    with pytest.raises(TypeError, match="seq_lens must be int32"):
+        pa._check_decode(q, k, k, tables, lens.long(), bs)
+    with pytest.raises(ValueError, match="seq_lens"):
+        pa._check_decode(q, k, k, tables, lens[:3].contiguous(), bs)
+    with pytest.raises(ValueError, match="seq_lens"):
+        pa._check_decode(q, k, k, tables, lens[:, None].contiguous(), bs)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa._check_decode(q, k, k, tables,
+                         torch.stack([lens, lens], 1)[:, 0], bs)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        pa._check_decode(torch.zeros(B, 17 * KV, hd), k, k, tables, lens,
+                         bs)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _kernel_numerics(q, kc, vc, tables, q_start, q_len, ctx, bs, ks=None,
+                     vs=None, chunk=64):
+    """The bf16 kernels' arithmetic in f32 on the CPU: pages converted
+    exactly, S = q . k in f32 times the K scale per key and 1/sqrt(hd),
+    online softmax over 64-key chunks, the row sum of unrounded p, P times
+    the V scale per key rounded to bf16 before PV, the output rounded to
+    bf16 once. Keys past ctx_len are never touched."""
+    Tq, H, hd = q.shape
+    KV = kc.shape[1]
+    G = H // KV
+    out = torch.zeros(Tq, H, hd)
+    for r in range(tables.shape[0]):
+        ql, cl, s0 = int(q_len[r]), int(ctx[r]), int(q_start[r])
+        if ql == 0:
+            continue
+        pos = torch.arange(cl)
+        blk = tables[r].long()[pos // bs]
+        for h in range(H):
+            kvh = h // G
+            k = kc[blk, kvh, pos % bs].float()
+            v = vc[blk, kvh, pos % bs].float()
+            ksc = ks[blk, kvh, pos % bs] if ks is not None else torch.ones(cl)
+            vsc = vs[blk, kvh, pos % bs] if vs is not None else torch.ones(cl)
+            for i in range(ql):
+                last = cl - ql + i
+                qi = q[s0 + i, h].float()
+                m, l, o = -math.inf, 0.0, torch.zeros(hd)
+                for c0 in range(0, last + 1, chunk):
+                    c1 = min(c0 + chunk, last + 1)
+                    s = (k[c0:c1] @ qi) * ksc[c0:c1] / math.sqrt(hd)
+                    m_new = max(m, float(s.max()))
+                    alpha = math.exp(m - m_new)
+                    p = torch.exp(s - m_new)
+                    l = l * alpha + float(p.sum())
+                    o = o * alpha + _bf16(p * vsc[c0:c1]) @ v[c0:c1]
+                    m = m_new
+                out[s0 + i, h] = o / l
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+def test_kernel_numerics_within_bf16_tolerance(kv_dtype):
+    """P rounded to bf16 before PV, the V scale folded into P and the K
+    scale applied to S columns keep the kernels within
+    ``chip_smoke.TOL["bfloat16"]`` of the plain version, on a mixed ragged
+    batch over NaN trash (block 0, stale tails, NaN trash scales)."""
+    import chip_smoke
+
+    atol, rtol = chip_smoke.TOL["bfloat16"]
+    if kv_dtype is None:
+        c = _make_case([(1, 37, 1), (5, 130, 2), (0, 0, 1), (8, 8, 2),
+                        (3, 200, 1)], G=4, KV=2, W=16, seed=21)
+        t = {n: torch.from_numpy(np.ascontiguousarray(c[n]))
+             for n in ("q", "k", "v", "tables", "q_start", "q_len",
+                       "ctx_len")}
+        q, kc, vc = t["q"].bfloat16(), t["k"].bfloat16(), t["v"].bfloat16()
+        args = (t["tables"], t["q_start"], t["q_len"], t["ctx_len"])
+        bs, max_q_len, ks, vs = c["bs"], 8, None, None
+    else:
+        c = _quant_case(23, kv_dtype, B=3, T=8, W=8, hd=64)
+        q, kc, vc, tables, q_start, q_len, ctx = _torch_quant_args(c)
+        q = q.bfloat16()
+        args = (tables, q_start, q_len, ctx)
+        bs, max_q_len = c["bs"], c["T"]
+        ks, vs = torch.from_numpy(c["ks"]), torch.from_numpy(c["vs"])
+    want = pa.paged_attention_ragged_plain(
+        q, kc, vc, *args, block_size=bs, max_q_len=max_q_len, k_scale=ks,
+        v_scale=vs).float()
+    got = _kernel_numerics(q, kc, vc, *args, bs, ks, vs).float()
+    assert torch.isfinite(got).all()
+    excess = ((got - want).abs() - rtol * want.abs()).max().item()
+    assert excess <= atol
+    # the rounding of P is visible, yet inside the tolerance
+    assert (got - want).abs().max().item() > 0
+    live = torch.zeros(q.shape[0], dtype=torch.bool)
+    for r in range(args[0].shape[0]):
+        s0 = int(args[1][r])
+        live[s0:s0 + int(args[2][r])] = True
+    assert torch.all(got[~live] == 0)
