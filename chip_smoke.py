@@ -26,7 +26,17 @@ Phases (any failure exits non-zero and prints no result line):
    shapes (wall time, device busy time, kernel launches, attention share),
    for the bf16 and the int8 engine, and measure what quantized serving
    adds to a decode step: the bf16 copies of the 1-byte weights and the
-   ``kv_quantize`` launches.
+   ``kv_quantize`` launches;
+5. serve the bf16 engine of phase 3 over HTTP through ``run.run_http``
+   (what ``python -m dynamo_tpu_torch.run in=http`` runs) with a seeded
+   synthetic byte-level BPE tokenizer at Llama-3's layout (128,000 regular
+   and 256 special tokens, written under ``build/``): completions served one
+   at a time must give the text of ``decode`` of the engine's own ids, chat
+   goes through the default template, 16 concurrent streams of phase 3's
+   traffic end in ``[DONE]``, ``/metrics`` counts every request, a client
+   that leaves mid-stream frees its sequence and KV blocks within a second,
+   and both attention faces launch; ``[http]`` lines print HTTP vs direct
+   TTFT, ITL and throughput and the encode time of a prompt.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the ``kernels`` JSON object; the last line is
@@ -460,8 +470,9 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
     """Serve N_REQUESTS concurrent greedy requests through the engine API
     ``run.py in=batch`` uses, at full Llama-3.2-1B width, with weights and
     KV in ``dtype`` ("bf16" | "int8" | "fp8"). Returns the kernel launch
-    counts of that run, the engine and the probe's kernel-path logits;
-    ``ref_logits`` (the bf16 run's) are compared with a quantized run's."""
+    counts of that run, the engine, the probe's kernel-path logits and the
+    run's TTFT/ITL/throughput; ``ref_logits`` (the bf16 run's) are compared
+    with a quantized run's."""
     import asyncio
 
     import torch
@@ -534,6 +545,8 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
     steady = sorted(b - a for _, times in stamps
                     for a, b in zip(times, times[1:]) if a >= last_first)
     n_out = sum(len(o) for o in outs)
+    stats = dict(ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
+                 itl_p50=sorted(itl)[len(itl) // 2], tok_s=n_out / wall)
     print(f"{tag} {card}: {N_REQUESTS} requests ISL {ISL} OSL {OSL} "
           f"in {wall:.3f} s: output {n_out / wall:.1f} tok/s, TTFT mean "
           f"{sum(ttft) / len(ttft) * 1e3:.1f} ms p50 "
@@ -578,7 +591,7 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
               f"{qdiff.max().item():.4f}, mean |diff| "
               f"{qdiff.mean().item():.4f}, argmax agreement {qagree:.3f}",
               flush=True)
-    return launches, engine, logits["kernel"]
+    return launches, engine, logits["kernel"], stats
 
 
 def _device_us(evt) -> float:
@@ -720,6 +733,510 @@ def phase_profile(engine, card: str) -> None:
                   for e in top), flush=True)
 
 
+# ------------------------------ phase 5 ----------------------------------
+
+# Llama-3's pre-tokenizer regex (its tokenizer.json: Split, Isolated)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                r"|\s+(?!\S)|\s+")
+LLAMA3_SPECIAL = {0: "<|begin_of_text|>", 1: "<|end_of_text|>",
+                  6: "<|start_header_id|>", 7: "<|end_header_id|>",
+                  9: "<|eot_id|>"}
+N_REGULAR = 128_000
+
+
+def synthetic_tokenizer_json(n_merges: int = N_REGULAR - 256,
+                             n_special: int = 256, seed: int = SEED) -> str:
+    """A byte-level BPE ``tokenizer.json`` at Llama-3's layout, made from a
+    seed: the 256 byte tokens, then ``n_merges`` merges, each joining two
+    existing tokens of at most 16 bytes between them, then ``n_special``
+    special tokens (Llama-3's names where it has them, reserved ones
+    elsewhere); Llama-3's ``Split`` regex before ``ByteLevel``,
+    ``ignore_merges``, and a ``TemplateProcessing`` that puts
+    ``<|begin_of_text|>`` first. Every merged token is whole UTF-8 text
+    (ASCII, then Latin, Greek, Cyrillic, Arabic-Indic and Devanagari
+    digits and CJK characters, each built up from its bytes, then joins of
+    whole tokens), so text decoded from them splits where they do."""
+    import random
+
+    from dynamo_tpu_torch.llm.tokenizer_json import bytes_to_unicode
+
+    table = bytes_to_unicode()
+    rng = random.Random(seed)
+    vocab = {table[b]: b for b in range(256)}
+    merges = []
+
+    def show(bs: bytes) -> str:
+        return "".join(table[x] for x in bs)
+
+    by_len = [[] for _ in range(17)]   # whole-text tokens by byte length
+
+    def add(a: bytes, b: bytes, whole: bool) -> None:
+        key = show(a + b)
+        if key in vocab or len(merges) >= n_merges:
+            return
+        vocab[key] = len(vocab)
+        merges.append([show(a), show(b)])
+        if whole:
+            by_len[len(a + b)].append(a + b)
+
+    for b in [9, 10, *range(0x20, 0x7F)]:
+        by_len[1].append(bytes([b]))
+    for cp in [*range(0xC0, 0x180), *range(0x391, 0x3CA),
+               *range(0x410, 0x450), *range(0x660, 0x66A),
+               *range(0x966, 0x970), *range(0x4E00, 0x4E00 + 512)]:
+        bs = chr(cp).encode()
+        for i in range(1, len(bs)):
+            add(bs[:i], bs[i:i + 1], whole=i + 1 == len(bs))
+    while len(merges) < n_merges:
+        la = rng.randrange(1, 16)
+        if not by_len[la]:
+            continue
+        a = rng.choice(by_len[la])
+        room = [len(by_len[n]) for n in range(1, 17 - la)]
+        r = rng.randrange(sum(room))
+        lb = 1
+        while r >= room[lb - 1]:
+            r -= room[lb - 1]
+            lb += 1
+        add(a, by_len[lb][r], whole=True)
+    n_regular = len(vocab)
+    added = []
+    for i in range(n_special):
+        name = LLAMA3_SPECIAL.get(i, f"<|reserved_special_token_{i}|>")
+        added.append({"id": n_regular + i, "content": name,
+                      "single_word": False, "lstrip": False,
+                      "rstrip": False, "normalized": False,
+                      "special": True})
+    bos = LLAMA3_SPECIAL[0]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": True, "use_regex": False}
+    return json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False}, byte_level]},
+        "post_processor": {"type": "Sequence", "processors": [
+            byte_level,
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [n_regular],
+                                      "tokens": [bos]}}}]},
+        "decoder": dict(byte_level, use_regex=True),
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }, ensure_ascii=False)
+
+
+async def _http_request(port: int, method: str, path: str, body=None,
+                        leave_after=None):
+    """One request on its own connection: (status, t_sent, frames, done,
+    body). A streamed (chunked) answer gives ``frames``, each parsed
+    ``data:`` payload stamped on arrival with the shared monotonic clock,
+    and ``done`` when ``data: [DONE]`` came; with ``leave_after`` the
+    client closes its socket after that many frames, mid-stream. A whole
+    answer gives ``body`` (parsed JSON, else text)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = b"" if body is None else json.dumps(body).encode()
+    t_sent = time.perf_counter()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                 f"Content-Type: application/json\r\nContent-Length: "
+                 f"{len(payload)}\r\nConnection: close\r\n\r\n".encode()
+                 + payload)
+    await writer.drain()
+    head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+    status = int(head.split(" ", 2)[1])
+    headers = dict(ln.lower().split(": ", 1)
+                   for ln in head.split("\r\n")[1:] if ": " in ln)
+    frames, done, out = [], False, None
+    try:
+        if headers.get("transfer-encoding") == "chunked":
+            buf = b""
+            while not done:
+                size = int((await reader.readline()).strip(), 16)
+                if size == 0:
+                    break
+                data = await reader.readexactly(size + 2)
+                t = time.perf_counter()
+                buf += data[:-2]
+                while b"\n\n" in buf:
+                    frame, buf = buf.split(b"\n\n", 1)
+                    if frame == b"data: [DONE]":
+                        done = True
+                    elif frame.startswith(b"data: "):
+                        frames.append((t, json.loads(frame[6:])))
+                if leave_after is not None and len(frames) >= leave_after:
+                    break
+        else:
+            raw = await reader.readexactly(int(headers["content-length"]))
+            out = json.loads(raw) if "json" in headers.get(
+                "content-type", "") else raw.decode()
+    finally:
+        writer.close()
+    return status, t_sent, frames, done, out
+
+
+def http_client(port: int, jobs):
+    """Run ``jobs`` (dicts of ``_http_request``'s arguments) concurrently
+    and return their results. Phase 5 calls this in a client process of
+    its own, so parsing the answers takes no time from the server's
+    interpreter."""
+    import asyncio
+
+    async def run():
+        return await asyncio.gather(*(_http_request(port, **job)
+                                      for job in jobs))
+    return asyncio.run(run())
+
+
+def traffic_stats(runs, wall: float) -> dict:
+    """TTFT p50/max, per-stream ITL p50 and output tok/s of a concurrent
+    run; ``runs`` holds (t_sent, t_first_token, t_last_token, tokens)."""
+    ttft = sorted(first - sent for sent, first, _, _ in runs)
+    itl = sorted((last - first) / (n - 1) for _, first, last, n in runs)
+    return dict(ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
+                itl_p50=itl[len(itl) // 2],
+                tok_s=sum(n for *_, n in runs) / wall)
+
+
+def frontend_us_per_token(tok, prompts, n_tokens: int) -> float:
+    """Host time the frontend spends per generated token and stream, with
+    no socket and no device: ``build_local_pipeline`` (preprocessor,
+    detokenizer, stop-string holdback) over an engine that streams
+    scripted ids, folded into completion chunks and SSE frames, for all
+    ``prompts`` at once on one event loop."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm import openai as oai
+    from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.engine import FnEngine
+
+    async def scripted(request, context):
+        ids = request["token_ids"]
+        for i in range(n_tokens):
+            await asyncio.sleep(0)
+            yield {"token_ids": [ids[i % len(ids)]], "index": i,
+                   "finished": i == n_tokens - 1,
+                   "finish_reason": "length" if i == n_tokens - 1 else None,
+                   "num_prompt_tokens": len(ids)}
+
+    pipeline = build_local_pipeline(FnEngine(scripted), tok, HTTP_MODEL)
+
+    async def one(p):
+        body = {"model": HTTP_MODEL, "prompt": p, "max_tokens": n_tokens}
+        chunks = oai.completion_stream(pipeline.generate(body, Context()),
+                                       "cmpl-x", HTTP_MODEL)
+        return sum([len(oai.sse_frame(c).encode()) async for c in chunks])
+
+    async def run():
+        await asyncio.gather(*(one(p) for p in prompts))   # warm
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one(p) for p in prompts))
+        return time.perf_counter() - t0
+    return asyncio.run(run()) / (len(prompts) * n_tokens) * 1e6
+
+
+HTTP_MODEL = "llama-3.2-1b-random"
+
+
+def phase_http(engine, card: str, direct: dict) -> None:
+    """Serve the bf16 engine over HTTP through ``run.run_http`` (what
+    ``python -m dynamo_tpu_torch.run in=http`` runs) with the synthetic
+    128,256-token tokenizer, and check it: texts served one at a time equal
+    ``decode`` of the engine's own ids; chat through the default template;
+    16 concurrent streams of phase 3's traffic; ``/metrics`` and
+    ``/health``; a client that leaves mid-stream frees its sequence and KV
+    blocks within a second; both attention faces launched. Prints HTTP vs
+    direct TTFT, ITL and throughput on ``[http]`` lines."""
+    import asyncio
+    import os
+    import re
+    import multiprocessing
+    import statistics
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from dynamo_tpu_torch import run as trun
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.runtime.context import Context
+
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "synthetic_tokenizer.json")
+    t0 = time.perf_counter()
+    data = synthetic_tokenizer_json()
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(data)
+    t1 = time.perf_counter()
+    tok = trun.load_tokenizer(path)
+    t2 = time.perf_counter()
+    cfg = engine.model_config
+    if tok.vocab_size != cfg.vocab_size:
+        fail(f"tokenizer has {tok.vocab_size} tokens, the model "
+             f"{cfg.vocab_size}")
+    print(f"[http] synthetic tokenizer: {tok.vocab_size} tokens, "
+          f"{len(data.encode()) / 1e6:.1f} MB, made in {t1 - t0:.2f} s, "
+          f"loaded in {t2 - t1:.2f} s", flush=True)
+    # prompts of whole-text tokens, so their text splits where they do
+    gen = torch.Generator().manual_seed(SEED + 5)
+    whole = [i for i in torch.randint(256, N_REGULAR, (40_000,),
+                                      generator=gen).tolist()
+             if "�" not in tok.decode([i])]
+    prompts = [whole[i * ISL:(i + 1) * ISL] for i in range(N_REQUESTS)]
+    if len(prompts[-1]) != ISL:
+        fail("not enough whole-text tokens for the prompts")
+    encode_s = []
+    for p in prompts:
+        text = tok.decode(p)
+        ts = time.perf_counter()
+        tok.encode(text)
+        encode_s.append(time.perf_counter() - ts)
+    encode_ms = statistics.median(encode_s) * 1e3
+
+    args = trun.parse_args([
+        "in=http", "out=engine", "--model", "1b", "--tokenizer", path,
+        "--model-name", HTTP_MODEL, "--host", "127.0.0.1", "--port", "0"])
+    cmpl = "/v1/completions"
+
+    def completion(p, stream: bool, max_tokens: int = OSL) -> dict:
+        return {"model": HTTP_MODEL, "prompt": p, "max_tokens": max_tokens,
+                "temperature": 0, "ignore_eos": True, "stream": stream}
+
+    async def serve():
+        loop = asyncio.get_running_loop()
+        # the client runs in a process of its own: parsing 16 streams must
+        # not share the server's interpreter lock
+        procs = ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+
+        async def client(*jobs):
+            return await loop.run_in_executor(procs, http_client, port,
+                                              list(jobs))
+
+        def job(path, body=None, method="POST", **kw):
+            return dict(method=method, path=path, body=body, **kw)
+
+        stop = asyncio.Event()
+        ready = loop.create_future()
+        server = asyncio.create_task(
+            trun.run_http(engine, tok, args, stop=stop, ready=ready))
+        try:
+            port = (await ready).port
+            await client(job("/health", method="GET"))   # client warm-up
+            pa.reset_launches()
+            # every run below starts with no prefix hits, as phase 3's do:
+            # a hit changes the prefill's chunk shape, and bf16 rounding
+            # with it (a near-tie of random weights can flip a token)
+            cold = engine.scheduler.pool.clear
+            # 1. served one at a time: HTTP text == decode(engine ids)
+            for i, p in enumerate(prompts[:4]):
+                req = {"token_ids": p, "max_tokens": OSL, "ignore_eos": True,
+                       "temperature": 0.0}
+                cold()
+                ids = [t async for o in engine.generate(req, Context())
+                       for t in o["token_ids"]]
+                want = tok.decode(ids)
+                cold()
+                (status, _, frames, done, body), = await client(
+                    job(cmpl, completion(p, stream=i % 2 == 0)))
+                if status != 200:
+                    fail(f"{cmpl}: HTTP {status}: {body}")
+                if i % 2:
+                    got = body["choices"][0]["text"]
+                    n = body["usage"]["completion_tokens"]
+                else:
+                    if not done:
+                        fail("a streamed completion did not end in [DONE]")
+                    got = "".join(f["choices"][0]["text"] for _, f in frames)
+                    n = frames[-1][1]["usage"]["completion_tokens"]
+                if n != OSL:
+                    fail(f"usage.completion_tokens {n} != {OSL}")
+                if len(ids) != OSL or got != want:
+                    at = next((j for j, (a, b) in enumerate(zip(got, want))
+                               if a != b), min(len(got), len(want)))
+                    fail(f"served-alone request {i}: HTTP text differs from "
+                         f"decode of the engine's {len(ids)} ids at char "
+                         f"{at} of {len(got)} / {len(want)}: "
+                         f"{got[at:at + 40]!r} vs {want[at:at + 40]!r}")
+            print(f"[http] 4 completions served one at a time (2 streamed): "
+                  f"text equals decode of the engine's own ids", flush=True)
+            # 2. chat through the default template, streamed and not
+            msgs = [{"role": "system", "content": "You are terse."},
+                    {"role": "user", "content": "Name three prime numbers."}]
+            chat = {"model": HTTP_MODEL, "messages": msgs, "max_tokens": 16}
+            (status, _, _, _, body), (_, _, frames, done, _) = await client(
+                job("/v1/chat/completions", chat),
+                job("/v1/chat/completions", dict(chat, stream=True)))
+            if status != 200 or not body["choices"][0]["finish_reason"] \
+                    or body["usage"]["completion_tokens"] < 1:
+                fail(f"chat: HTTP {status}: {body}")
+            if not done or not frames \
+                    or not frames[-1][1]["choices"][0]["finish_reason"]:
+                fail("streamed chat did not finish with a reason and [DONE]")
+            print(f"[http] chat x2 (template -> "
+                  f"{body['usage']['prompt_tokens']} prompt tokens): 200, "
+                  f"finish {body['choices'][0]['finish_reason']}", flush=True)
+            # 3. phase 3's traffic, 16 concurrent streams, over HTTP and
+            # straight into the engine on this same loop, at the default
+            # interpreter switch interval (5 ms) and at 0.5 ms: the event
+            # loop and the device-step thread take turns at one GIL
+            async def over_http():
+                cold()
+                t_start = time.perf_counter()
+                results = await client(*(job(cmpl, completion(p, True))
+                                         for p in prompts))
+                wall = time.perf_counter() - t_start
+                runs = []
+                for status, t_sent, frames, done, _ in results:
+                    content = [t for t, f in frames
+                               if f["choices"][0]["text"]]
+                    n = frames[-1][1]["usage"]["completion_tokens"] \
+                        if frames else 0
+                    if status != 200 or not done or n != OSL \
+                            or len(content) < 2 \
+                            or not content[0] < content[-1]:
+                        fail(f"concurrent stream: HTTP {status}, [DONE] "
+                             f"{done}, {n} tokens, {len(content)} content "
+                             f"frames")
+                    runs.append((t_sent, content[0], content[-1], n))
+                return traffic_stats(runs, wall)
+
+            async def direct():
+                cold()
+
+                async def one(p):
+                    t_sent, times = time.perf_counter(), []
+                    req = {"token_ids": p, "max_tokens": OSL,
+                           "ignore_eos": True, "temperature": 0.0}
+                    async for o in engine.generate(req, Context()):
+                        times += [time.perf_counter()] * len(o["token_ids"])
+                    if len(times) != OSL:
+                        fail(f"direct run: {len(times)} tokens")
+                    return t_sent, times[0], times[-1], len(times)
+                t_start = time.perf_counter()
+                runs = await asyncio.gather(*(one(p) for p in prompts))
+                return traffic_stats(runs, time.perf_counter() - t_start)
+
+            # each step's (start, end) in the device-step thread: is the
+            # step slower under HTTP, or the gap before the next one?
+            spans = []
+            execute = engine._execute_batch
+
+            def timed(batch):
+                t0 = time.perf_counter()
+                try:
+                    return execute(batch)
+                finally:
+                    spans.append((t0, time.perf_counter()))
+            engine._execute_batch = timed
+
+            async def measured(run):
+                spans.clear()
+                stats = await run()
+                busy = sorted(e - b for b, e in spans)
+                gaps = sorted(b2 - e1 for (_, e1), (b2, _) in
+                              zip(spans, spans[1:]))
+                return dict(stats, steps=len(spans),
+                            step_p50=busy[len(busy) // 2],
+                            gap_p50=gaps[len(gaps) // 2],
+                            gap_sum=sum(gaps))
+
+            rows = {}
+            try:
+                for interval in (None, 0.0005):
+                    old = sys.getswitchinterval()
+                    if interval is not None:
+                        sys.setswitchinterval(interval)
+                    try:
+                        rows["http", interval] = await measured(over_http)
+                        rows["direct", interval] = await measured(direct)
+                    finally:
+                        sys.setswitchinterval(old)
+            finally:
+                del engine._execute_batch
+            # 4. /metrics and /health
+            served = 4 + 2 + 2 * N_REQUESTS
+            (status, _, _, _, text), (h_status, *_) = await client(
+                job("/metrics", method="GET"), job("/health", method="GET"))
+            m = re.search(r'^dynamo_frontend_ttft_seconds_count\{model="'
+                          + HTTP_MODEL + r'"\} (\S+)$', text, re.M)
+            if status != 200 or m is None or float(m.group(1)) != served:
+                fail(f"/metrics ttft_seconds_count "
+                     f"{m and m.group(1)} != {served} requests served")
+            if h_status != 200:
+                fail(f"/health: HTTP {h_status}")
+            # 5. a client that leaves mid-stream frees its seat and blocks
+            pool_free = engine.scheduler.pool.num_free
+            (_, _, frames, _, _), = await client(job(
+                cmpl, completion(prompts[0], True, 4000), leave_after=5))
+            t_left = time.perf_counter()
+            sched = engine.scheduler
+            # a finished sequence with a window in flight waits as a zombie
+            # until the window lands, then releases its blocks
+            while sched.running or sched.waiting or sched.zombies \
+                    or sched.pool.num_free != pool_free:
+                if time.perf_counter() - t_left > 1.0:
+                    fail(f"1 s after its client left: {len(sched.running)} "
+                         f"running, {len(sched.zombies)} zombie sequences, "
+                         f"{sched.pool.num_free} of {pool_free} blocks free")
+                await asyncio.sleep(0.005)
+            freed = time.perf_counter() - t_left
+            print(f"[http] client left after {len(frames)} frames: sequence"
+                  f" gone and its KV blocks free {freed * 1e3:.1f} ms later",
+                  flush=True)
+            launches = {name: pa.LAUNCHES[name] for name in (
+                "paged_attention_decode", "paged_attention_ragged")}
+        finally:
+            stop.set()
+            await server
+            procs.shutdown(wait=True)
+        return rows, launches
+
+    rows, launches = asyncio.run(serve())
+    for name, n in launches.items():
+        print(f"[http] {name} launches in phase 5: {n}")
+        if n == 0:
+            fail(f"{name} was never launched in the HTTP phase")
+
+    def line(s):
+        return (f"TTFT p50 {s['ttft_p50'] * 1e3:.1f} ms max "
+                f"{s['ttft_max'] * 1e3:.1f} ms, ITL p50 "
+                f"{s['itl_p50'] * 1e3:.2f} ms, output {s['tok_s']:.1f} tok/s")
+    print(f"[http] {card}: {N_REQUESTS} streams ISL {ISL} OSL {OSL} over "
+          f"HTTP (client-side, client in its own process): "
+          f"{line(rows['http', None])}; median encode of a {ISL}-token "
+          f"prompt's text {encode_ms:.2f} ms", flush=True)
+    print(f"[http] {card}: the same traffic straight into the engine, "
+          f"phase 3: {line(direct)}; phase 5, same loop and prompts: "
+          f"{line(rows['direct', None])}", flush=True)
+    print(f"[http] {card}: switch interval 0.5 ms (default 5 ms): HTTP "
+          f"{line(rows['http', 0.0005])}; direct "
+          f"{line(rows['direct', 0.0005])}", flush=True)
+    for (how, interval), r in rows.items():
+        print(f"[http] {card}: {how}, switch interval "
+              f"{(interval or sys.getswitchinterval()) * 1e3:.1f} ms: "
+              f"{r['steps']} steps, step in the device-step thread p50 "
+              f"{r['step_p50'] * 1e3:.2f} ms, gap before the next step p50 "
+              f"{r['gap_p50'] * 1e3:.3f} ms (sum {r['gap_sum'] * 1e3:.1f} "
+              f"ms)", flush=True)
+    us = frontend_us_per_token(tok, prompts, OSL)
+    print(f"[http] {card}: frontend host work per generated token and "
+          f"stream (pipeline + SSE framing, {N_REQUESTS} streams on one "
+          f"loop, no socket, no device): {us:.1f} us; x {N_REQUESTS} streams "
+          f"= {us * N_REQUESTS / 1e3:.2f} ms per decode step", flush=True)
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -776,12 +1293,13 @@ def main() -> None:
           f"{torch.version.cuda}", flush=True)
     phase_build()
     results = phase_kernels(kernel_cases())
-    launches, engine, ref_logits = phase_engine(card)
+    launches, engine, ref_logits, direct = phase_engine(card)
     phase_profile(engine, card)
+    phase_http(engine, card, direct)
     del engine
     for dtype in ("int8", "fp8"):
         torch.cuda.empty_cache()
-        run_launches, engine, _ = phase_engine(card, dtype, ref_logits)
+        run_launches, engine, _, _ = phase_engine(card, dtype, ref_logits)
         launches.update(run_launches)
         if dtype == "int8":
             phase_profile(engine, card)

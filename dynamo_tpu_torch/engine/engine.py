@@ -114,7 +114,11 @@ class EngineCore(AsyncEngine):
     # ------------------------- lifecycle -------------------------------
 
     async def start(self) -> None:
+        """Start the step loop; after ``stop`` this starts it again (on
+        the running event loop, which may be another than the first)."""
         if self._loop_task is None:
+            self._stopped = False
+            self._wake = asyncio.Event()
             self._loop_task = asyncio.create_task(self._run_loop())
 
     async def stop(self) -> None:
@@ -439,12 +443,13 @@ class InferenceEngine(EngineCore):
         self._ap_dead: set = set()          # slots to kill next dispatch
         # step keys for prefills come from this generator, on the device
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self._executor = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="device-step"
-        )
+        # the one device-step thread, made at the first batch after start
+        self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
 
     def _shutdown_executor(self) -> None:
-        self._executor.shutdown(wait=False)
+        if self._executor is not None:
+            self._executor.shutdown(wait=False)
+            self._executor = None
 
     def _ap_mark_dead(self, slot: int) -> None:
         if slot >= 0 and (slot in self._ap or slot in self._ap_cols):
@@ -461,6 +466,10 @@ class InferenceEngine(EngineCore):
     # --------------------- device execution ----------------------------
 
     async def _execute_batch_async(self, batch):
+        if self._executor is None:
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="device-step"
+            )
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
             self._executor, self._execute_batch, batch

@@ -1,0 +1,844 @@
+"""OpenAI-compatible HTTP service.
+
+Role-equivalent to the reference's axum ``HttpService``
+(ref: lib/llm/src/http/service/service_v2.rs:125, openai.rs:209,439) with the
+same surface: ``/v1/chat/completions``, ``/v1/completions``, ``/v1/models``,
+health + Prometheus metrics, SSE streaming with aggregation for
+``stream=false``, and client-disconnect → context.kill propagation
+(ref: http/service/disconnect.rs).
+
+A copy of ``dynamo_tpu.frontend.service`` served by the port's own asyncio
+HTTP/1.1 server (:mod:`.http`) in place of aiohttp: the same routes, status
+codes, headers, JSON bodies and SSE frames.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import random
+import time
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator, Dict, List, Optional
+
+from .. import tracing
+from ..llm import openai as oai
+from ..llm.protocols import BackendOutput
+from ..runtime.context import Context
+from ..runtime.engine import AsyncEngine
+from ..runtime.transport import ERR_TIMEOUT, EngineError
+from ..utils.logging import TraceContext, get_logger
+from ..utils.metrics import MetricsRegistry
+from . import http as web
+
+log = get_logger("frontend.http")
+
+# per-request deadline override (milliseconds); clamped to the service's
+# configured ceiling so a client cannot buy unbounded worker time
+TIMEOUT_HEADER = "X-Request-Timeout-Ms"
+
+# request priority tier (integer, higher = more important); under graceful
+# degradation the planner orders admission to shed tiers below a cutoff
+TIER_HEADER = "X-Request-Tier"
+DEFAULT_TIER = 1
+
+
+class AdmissionError(Exception):
+    """Request shed by admission control → HTTP status + Retry-After."""
+
+    def __init__(self, status: int, retry_after_s: float, reason: str):
+        super().__init__(reason)
+        self.status = status
+        self.retry_after_s = retry_after_s
+
+
+class AdmissionController:
+    """Concurrency/queue-depth limiter: shed doomed work at the door.
+
+    Up to ``max_concurrency`` requests run; the next ``max_queue`` wait
+    their turn (bounded by the request deadline); everything beyond that is
+    rejected immediately with 429 + ``Retry-After`` instead of being
+    accepted into a melt-down (ref: the busy-threshold rejection of
+    push_router.rs:58-63, lifted to the frontend door).
+
+    Slot handoff: a release with waiters queued passes the slot to the
+    oldest waiter without touching the active count, so the limiter is FIFO
+    and never overshoots.
+
+    Tier-aware shedding: when the planner's degradation ladder sets
+    ``min_tier`` > 0, requests tagged with a lower tier are rejected at the
+    door regardless of free capacity — the cheapest relief valve, released
+    first as pressure falls.
+    """
+
+    def __init__(self, max_concurrency: int, max_queue: int = 0,
+                 retry_after_s: float = 1.0, min_tier: int = 0):
+        self.max_concurrency = max_concurrency
+        self.max_queue = max_queue
+        self.retry_after_s = retry_after_s
+        self.min_tier = min_tier
+        self._active = 0
+        self._queue: List[asyncio.Future] = []
+        self.num_admitted = 0
+        self.num_shed = 0
+        self.num_tier_shed = 0
+
+    @property
+    def active(self) -> int:
+        return self._active
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    async def acquire(self, deadline: Optional[float] = None,
+                      tier: int = DEFAULT_TIER) -> None:
+        if tier < self.min_tier:
+            self.num_shed += 1
+            self.num_tier_shed += 1
+            raise AdmissionError(
+                429, self.retry_after_s,
+                f"tier {tier} shed under degradation "
+                f"(min admitted tier {self.min_tier})",
+            )
+        if self._active < self.max_concurrency:
+            self._active += 1
+            self.num_admitted += 1
+            return
+        if len(self._queue) >= self.max_queue:
+            self.num_shed += 1
+            raise AdmissionError(
+                429, self.retry_after_s,
+                f"admission queue full ({self._active} active, "
+                f"{len(self._queue)} queued)",
+            )
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._queue.append(fut)
+        timeout = None
+        if deadline is not None:
+            timeout = max(deadline - time.monotonic(), 0.001)
+        try:
+            await asyncio.wait_for(fut, timeout)
+            self.num_admitted += 1
+        except asyncio.TimeoutError:
+            self._discard(fut)
+            self.num_shed += 1
+            raise AdmissionError(
+                503, self.retry_after_s,
+                "deadline expired while queued for admission",
+            ) from None
+        except asyncio.CancelledError:
+            self._discard(fut)
+            if fut.done() and not fut.cancelled():
+                self.release()  # the slot was already handed to us
+            raise
+
+    def _discard(self, fut: asyncio.Future) -> None:
+        try:
+            self._queue.remove(fut)
+        except ValueError:
+            pass
+
+    def release(self) -> None:
+        while self._queue:
+            fut = self._queue.pop(0)
+            if not fut.done():
+                fut.set_result(None)  # slot handed over; active unchanged
+                return
+        self._active -= 1
+
+
+@dataclass
+class ModelEntry:
+    """A served model: its pipeline engine + capability flags
+    (ref: discovery/model_entry.rs:14, model_type.rs:33)."""
+
+    name: str
+    engine: AsyncEngine          # OpenAI dict in → BackendOutput stream out
+    chat: bool = True
+    completions: bool = True
+    created: int = field(default_factory=lambda: int(time.time()))
+    metadata: dict = field(default_factory=dict)
+    tool_call_parser: Optional[str] = None
+    reasoning_parser: Optional[str] = None
+    # embeddings pipeline (llm.entrypoint.EmbeddingsPipeline); None when the
+    # backing engine has no encode path (e.g. mocker)
+    embed_engine: Optional[Any] = None
+
+    def make_parser(self):
+        """Fresh per-request stream parser pipeline (or None)."""
+        if not (self.tool_call_parser or self.reasoning_parser):
+            return None
+        from ..llm.parsers import StreamParserPipeline
+
+        return StreamParserPipeline(
+            reasoning=self.reasoning_parser,
+            tool_calls=self.tool_call_parser,
+        )
+
+
+class ModelManager:
+    """Name → entry registry the watcher populates dynamically
+    (ref: service_v2.rs:30 State/ModelManager)."""
+
+    def __init__(self):
+        self._models: Dict[str, ModelEntry] = {}
+
+    def register(self, entry: ModelEntry) -> None:
+        log.info("model registered: %s", entry.name)
+        self._models[entry.name] = entry
+
+    def remove(self, name: str) -> Optional[ModelEntry]:
+        entry = self._models.pop(name, None)
+        if entry:
+            log.info("model removed: %s", name)
+        return entry
+
+    def get(self, name: str) -> Optional[ModelEntry]:
+        return self._models.get(name)
+
+    def list(self) -> List[ModelEntry]:
+        return list(self._models.values())
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._models
+
+
+def percentile(samples: List[float], q: float) -> Optional[float]:
+    """Linear-interpolated percentile of an unsorted sample list."""
+    if not samples:
+        return None
+    xs = sorted(samples)
+    if len(xs) == 1:
+        return xs[0]
+    pos = (len(xs) - 1) * q
+    lo = int(pos)
+    frac = pos - lo
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * frac
+
+
+class WindowStats:
+    """Per-window request aggregates for the SLA planner
+    (ref: the Prometheus series planner_core.py:193 observe_metrics pulls;
+    here collected in-process and published on the store).
+
+    Latency samples are kept in bounded reservoirs (uniform replacement,
+    seeded RNG) so the drained window carries p50/p99 tails — the planner
+    enforces SLAs on percentiles, not averages that hide a melting tail."""
+
+    RESERVOIR = 2048
+
+    def __init__(self, reservoir: int = RESERVOIR) -> None:
+        self.reservoir = reservoir
+        self._rng = random.Random(0)
+        self.reset()
+
+    def reset(self) -> None:
+        self.num_requests = 0
+        self.isl_sum = 0
+        self.osl_sum = 0
+        self.ttft_sum = 0.0
+        self.ttft_count = 0
+        self.itl_sum = 0.0
+        self.itl_count = 0
+        self.ttft_samples: List[float] = []
+        self.itl_samples: List[float] = []
+        self._ttft_seen = 0
+        self._itl_seen = 0
+
+    def _sample(self, samples: List[float], seen: int, value: float) -> None:
+        if len(samples) < self.reservoir:
+            samples.append(value)
+        else:
+            j = self._rng.randrange(seen)
+            if j < self.reservoir:
+                samples[j] = value
+
+    def record_ttft(self, value_s: float) -> None:
+        self.ttft_sum += value_s
+        self.ttft_count += 1
+        self._ttft_seen += 1
+        self._sample(self.ttft_samples, self._ttft_seen, value_s)
+
+    def record_itl(self, value_s: float) -> None:
+        self.itl_sum += value_s
+        self.itl_count += 1
+        self._itl_seen += 1
+        self._sample(self.itl_samples, self._itl_seen, value_s)
+
+    def drain(self) -> dict:
+        """Snapshot + reset; averages/percentiles are None when nothing was
+        observed."""
+        out = {
+            "num_requests": self.num_requests,
+            "isl_avg": (self.isl_sum / self.num_requests
+                        if self.num_requests else None),
+            "osl_avg": (self.osl_sum / self.num_requests
+                        if self.num_requests else None),
+            "ttft_avg_s": (self.ttft_sum / self.ttft_count
+                           if self.ttft_count else None),
+            "itl_avg_s": (self.itl_sum / self.itl_count
+                          if self.itl_count else None),
+            "ttft_p50_s": percentile(self.ttft_samples, 0.50),
+            "ttft_p99_s": percentile(self.ttft_samples, 0.99),
+            "itl_p50_s": percentile(self.itl_samples, 0.50),
+            "itl_p99_s": percentile(self.itl_samples, 0.99),
+        }
+        self.reset()
+        return out
+
+
+class HttpService:
+    def __init__(
+        self,
+        manager: Optional[ModelManager] = None,
+        *,
+        metrics: Optional[MetricsRegistry] = None,
+        host: str = "0.0.0.0",
+        port: int = 8000,
+        max_concurrent_requests: Optional[int] = None,
+        max_queued_requests: int = 16,
+        request_timeout_s: Optional[float] = None,
+        retry_after_s: float = 1.0,
+    ):
+        self.manager = manager or ModelManager()
+        self.host = host
+        self.port = port
+        self.request_timeout_s = request_timeout_s
+        self.admission: Optional[AdmissionController] = None
+        if max_concurrent_requests is not None:
+            self.admission = AdmissionController(
+                max_concurrent_requests, max_queued_requests, retry_after_s
+            )
+        self.metrics = metrics or MetricsRegistry(prefix="dynamo_frontend")
+        m = self.metrics
+        self._m_requests = m.counter(
+            "http_requests_total", "HTTP requests", ["model", "endpoint", "status"]
+        )
+        self._m_inflight = m.gauge(
+            "http_inflight", "in-flight requests", ["model"]
+        )
+        self._m_shed = m.counter(
+            "admission_shed_total", "requests shed by admission control",
+            ["endpoint", "status"],
+        )
+        self._m_admitted = m.counter(
+            "admission_admitted_total", "requests admitted", ["endpoint"]
+        )
+        self._m_queue_depth = m.gauge(
+            "admission_queue_depth", "requests waiting for an admission slot"
+        )
+        self._m_min_tier = m.gauge(
+            "admission_min_tier",
+            "lowest admitted request tier (degradation ladder cutoff)"
+        )
+        self._m_tier_shed = m.counter(
+            "admission_tier_shed_total",
+            "requests shed for being below the degradation tier cutoff",
+            ["endpoint"],
+        )
+        self._m_active = m.gauge(
+            "admission_active", "requests holding an admission slot"
+        )
+        self._m_ttft = m.histogram(
+            "ttft_seconds", "time to first token", ["model"]
+        )
+        self._m_itl = m.histogram(
+            "itl_seconds", "inter-token latency", ["model"]
+        )
+        self._m_duration = m.histogram(
+            "request_seconds", "request duration", ["model"]
+        )
+        self.window_stats = WindowStats()
+        # stage_latency_seconds{stage=...} from trace spans, observed for
+        # every span regardless of the export sampling knob
+        tracing.get_tracer().attach_metrics(self.metrics)
+        self.app = self._build_app()
+
+    def _build_app(self) -> web.Application:
+        app = web.Application()
+        app.add_routes([
+            web.post("/v1/chat/completions", self._chat),
+            web.post("/v1/completions", self._completions),
+            web.post("/v1/embeddings", self._embeddings),
+            web.post("/v1/responses", self._responses),
+            web.get("/v1/models", self._models),
+            web.get("/health", self._health),
+            web.get("/live", self._live),
+            web.get("/metrics", self._metrics_route),
+        ])
+        return app
+
+    # ------------------------- lifecycle -------------------------------
+
+    async def start(self) -> None:
+        # port 0 resolves to the ephemeral port bound
+        self.port = await self.app.start(self.host, self.port)
+        log.info("http frontend listening on %s:%d", self.host, self.port)
+
+    async def stop(self) -> None:
+        tracing.get_tracer().detach_metrics(self.metrics)
+        await self.app.stop()
+
+    # ----------------------- admission / deadlines ----------------------
+
+    def _request_ctx(self, request: web.Request):
+        """(Context, upstream span id): the context carries the request
+        deadline — the configured ceiling, tightened (never widened) by an
+        ``X-Request-Timeout-Ms`` header — and continues an incoming W3C
+        ``traceparent`` trace when the caller sent one, so frontend spans
+        parent under the caller's span."""
+        timeout_s = self.request_timeout_s
+        hdr = request.headers.get(TIMEOUT_HEADER)
+        if hdr is not None:
+            try:
+                asked = float(hdr) / 1000.0
+            except ValueError:
+                asked = 0.0
+            if asked > 0:
+                timeout_s = asked if timeout_s is None else min(asked, timeout_s)
+        trace = parent = None
+        tp = request.headers.get("traceparent")
+        if tp:
+            upstream = TraceContext.parse(tp)
+            if upstream is not None:
+                trace = upstream.child()
+                parent = upstream.span_id
+        return Context.with_timeout(timeout_s, trace=trace), parent
+
+    @staticmethod
+    def _request_tier(request: web.Request, body: Optional[dict] = None) -> int:
+        """Priority tier from the ``X-Request-Tier`` header (or a ``tier``
+        body field); malformed values get the default tier, not an error."""
+        raw = request.headers.get(TIER_HEADER)
+        if raw is None and body is not None:
+            raw = body.get("tier")
+        if raw is None:
+            return DEFAULT_TIER
+        try:
+            return int(raw)
+        except (TypeError, ValueError):
+            return DEFAULT_TIER
+
+    def apply_degradation(self, actions: dict) -> None:
+        """Apply the planner's degradation orders to admission (the
+        ``shed_low_tier`` ladder step); spec/chunk clamps are worker-side."""
+        min_tier = int(actions.get("min_tier") or 0)
+        if self.admission is not None:
+            self.admission.min_tier = min_tier
+        self._m_min_tier.set(min_tier)
+        log.info("degradation orders applied: min_tier=%d level=%s",
+                 min_tier, actions.get("level"))
+
+    async def _admit(
+        self, endpoint: str, model: str, ctx: Context,
+        tier: int = DEFAULT_TIER,
+    ) -> Optional[web.Response]:
+        """Acquire an admission slot; a Response means the request was shed."""
+        if self.admission is None:
+            return None
+        span = tracing.get_tracer().start_span("frontend.admission", ctx)
+        pre_tier_shed = self.admission.num_tier_shed
+        try:
+            await self.admission.acquire(deadline=ctx.deadline, tier=tier)
+        except AdmissionError as e:
+            span.set_status("error", f"shed:{e.status}")
+            span.end()
+            self._m_shed.labels(endpoint=endpoint, status=str(e.status)).inc()
+            if self.admission.num_tier_shed > pre_tier_shed:
+                self._m_tier_shed.labels(endpoint=endpoint).inc()
+            self._m_requests.labels(
+                model=model, endpoint=endpoint, status=str(e.status)
+            ).inc()
+            self._m_queue_depth.set(self.admission.queue_depth)
+            return web.json_response(
+                {"error": {"message": str(e), "type": "overloaded_error"}},
+                status=e.status,
+                headers={"Retry-After": str(max(1, round(e.retry_after_s)))},
+            )
+        span.end()
+        self._m_admitted.labels(endpoint=endpoint).inc()
+        self._m_queue_depth.set(self.admission.queue_depth)
+        self._m_active.set(self.admission.active)
+        return None
+
+    def _release(self) -> None:
+        if self.admission is not None:
+            self.admission.release()
+            self._m_queue_depth.set(self.admission.queue_depth)
+            self._m_active.set(self.admission.active)
+
+    @staticmethod
+    def _engine_status(e: EngineError) -> int:
+        if e.code == ERR_TIMEOUT:
+            return 504
+        # draining surfaces only when migration exhausted its retries with
+        # every instance draining — a transient 503, like unavailability
+        return 503 if e.code in ("unavailable", "overloaded",
+                                 "draining") else 500
+
+    # --------------------------- routes --------------------------------
+
+    async def _health(self, request: web.Request) -> web.Response:
+        return web.json_response({
+            "status": "healthy" if self.manager.list() else "no_models",
+            "models": [e.name for e in self.manager.list()],
+        })
+
+    async def _live(self, request: web.Request) -> web.Response:
+        return web.json_response({"live": True})
+
+    async def _metrics_route(self, request: web.Request) -> web.Response:
+        return web.Response(
+            body=self.metrics.render(),
+            content_type="text/plain", charset="utf-8",
+        )
+
+    async def _models(self, request: web.Request) -> web.Response:
+        return web.json_response(oai.models_response(
+            [{"name": e.name, "created": e.created} for e in self.manager.list()]
+        ))
+
+    async def _chat(self, request: web.Request) -> web.StreamResponse:
+        return await self._serve(request, kind="chat")
+
+    async def _completions(self, request: web.Request) -> web.StreamResponse:
+        return await self._serve(request, kind="completion")
+
+    async def _embeddings(self, request: web.Request) -> web.Response:
+        """/v1/embeddings — encode-only engine step
+        (ref: openai.rs:714 embeddings route)."""
+        endpoint = "/v1/embeddings"
+        try:
+            body = await request.json()
+        except Exception:
+            return self._err(400, "invalid JSON body", "na", endpoint)
+        model = body.get("model", "")
+        inputs = body.get("input")
+        if inputs is None or inputs == "" or inputs == []:
+            return self._err(400, "missing 'input'", model, endpoint)
+        entry = self.manager.get(model)
+        if entry is None:
+            return self._err(404, f"model {model!r} not found", model,
+                             endpoint)
+        if entry.embed_engine is None:
+            return self._err(
+                400, f"model {model!r} does not support embeddings",
+                model, endpoint,
+            )
+        ctx, _upstream = self._request_ctx(request)
+        shed = await self._admit(endpoint, model, ctx,
+                                 tier=self._request_tier(request, body))
+        if shed is not None:
+            return shed
+        self._m_inflight.labels(model=model).inc()
+        t0 = time.monotonic()
+        try:
+            vectors, prompt_tokens = await entry.embed_engine.embed(inputs)
+            self._m_requests.labels(
+                model=model, endpoint=endpoint, status="200"
+            ).inc()
+            return web.json_response({
+                "object": "list",
+                "model": model,
+                "data": [
+                    {"object": "embedding", "index": i, "embedding": v}
+                    for i, v in enumerate(vectors)
+                ],
+                "usage": {"prompt_tokens": prompt_tokens,
+                          "total_tokens": prompt_tokens},
+            })
+        except EngineError as e:
+            return self._err(self._engine_status(e), str(e), model, endpoint)
+        except ValueError as e:
+            return self._err(400, str(e), model, endpoint)
+        except Exception:
+            log.exception("embeddings request failed")
+            return self._err(500, "internal error", model, endpoint)
+        finally:
+            self._release()
+            self._m_inflight.labels(model=model).dec()
+            self._m_duration.labels(model=model).observe(
+                time.monotonic() - t0
+            )
+
+    async def _responses(self, request: web.Request) -> web.StreamResponse:
+        """/v1/responses — the OpenAI Responses surface over the chat
+        pipeline (ref: openai.rs:714)."""
+        endpoint = "/v1/responses"
+        try:
+            body = await request.json()
+        except Exception:
+            return self._err(400, "invalid JSON body", "na", endpoint)
+        model = body.get("model", "")
+        try:
+            chat_body = oai.responses_to_chat(body)
+        except oai.RequestError as e:
+            return self._err(400, str(e), model, endpoint)
+        entry = self.manager.get(model)
+        if entry is None:
+            return self._err(404, f"model {model!r} not found", model,
+                             endpoint)
+        if not entry.chat:
+            return self._err(400, f"model {model!r} does not support chat",
+                             model, endpoint)
+        ctx, _upstream = self._request_ctx(request)
+        shed = await self._admit(endpoint, model, ctx,
+                                 tier=self._request_tier(request, body))
+        if shed is not None:
+            return shed
+        rid = oai.response_id()
+        stream_mode = bool(body.get("stream", False))
+        self._m_inflight.labels(model=model).inc()
+        t0 = time.monotonic()
+        try:
+            outputs = entry.engine.generate(chat_body, ctx)
+            outputs = self._observe(outputs, model, t0)
+            chunks = oai.chat_stream(
+                outputs, rid, model, parser=entry.make_parser()
+            )
+            if stream_mode:
+                return await self._sse_events(
+                    request, oai.responses_stream(chunks, rid, model),
+                    ctx, model, endpoint,
+                )
+            agg = await oai.aggregate_chat(chunks)
+            self._m_requests.labels(
+                model=model, endpoint=endpoint, status="200"
+            ).inc()
+            return web.json_response(oai.chat_to_response(agg, rid, model))
+        except EngineError as e:
+            return self._err(self._engine_status(e), str(e), model, endpoint)
+        except ValueError as e:
+            return self._err(400, str(e), model, endpoint)
+        except asyncio.CancelledError:
+            ctx.kill()
+            raise
+        except Exception:
+            log.exception("request %s failed", rid)
+            return self._err(500, "internal error", model, endpoint)
+        finally:
+            self._release()
+            self._m_inflight.labels(model=model).dec()
+            self._m_duration.labels(model=model).observe(
+                time.monotonic() - t0
+            )
+
+    async def _sse_events(
+        self, request: web.Request, events, ctx: Context, model: str,
+        endpoint: str,
+    ) -> web.StreamResponse:
+        """SSE writer for typed (event, payload) streams (Responses API)."""
+        resp = web.StreamResponse(
+            status=200,
+            headers={"Content-Type": "text/event-stream",
+                     "Cache-Control": "no-cache",
+                     "Connection": "keep-alive"},
+        )
+        await resp.prepare(request)
+        try:
+            async for event, payload in events:
+                await resp.write(oai.sse_event(event, payload).encode())
+            # no chat-style [DONE] frame: the Responses protocol ends at
+            # the typed response.completed event
+            self._m_requests.labels(
+                model=model, endpoint=endpoint, status="200"
+            ).inc()
+        except asyncio.CancelledError:
+            # client disconnect surfaces as handler cancellation: kill the
+            # request so the worker frees the seat, then re-raise — eating
+            # the CancelledError would also absorb drain/shutdown (DT303)
+            log.info("client disconnected — killing request")
+            ctx.kill()
+            self._m_requests.labels(
+                model=model, endpoint=endpoint, status="499"
+            ).inc()
+            raise
+        except ConnectionResetError:
+            log.info("client disconnected — killing request")
+            ctx.kill()
+            self._m_requests.labels(
+                model=model, endpoint=endpoint, status="499"
+            ).inc()
+        except EngineError as e:
+            await resp.write(oai.sse_event(
+                "error", {"error": {"message": str(e), "code": e.code}}
+            ).encode())
+            self._m_requests.labels(
+                model=model, endpoint=endpoint,
+                status=str(self._engine_status(e)),
+            ).inc()
+        with _suppress():
+            await resp.write_eof()
+        return resp
+
+    # ------------------------ request flow ------------------------------
+
+    async def _serve(self, request: web.Request, kind: str) -> web.StreamResponse:
+        endpoint = f"/v1/{'chat/completions' if kind == 'chat' else 'completions'}"
+        try:
+            body = await request.json()
+        except Exception:
+            return self._err(400, "invalid JSON body", "na", endpoint)
+        model = body.get("model", "")
+        try:
+            if kind == "chat":
+                oai.validate_chat_request(body)
+            else:
+                oai.validate_completion_request(body)
+        except oai.RequestError as e:
+            return self._err(400, str(e), model, endpoint)
+        entry = self.manager.get(model)
+        if entry is None:
+            return self._err(404, f"model {model!r} not found", model, endpoint)
+        if kind == "chat" and not entry.chat:
+            return self._err(400, f"model {model!r} does not support chat", model, endpoint)
+        if kind == "completion" and not entry.completions:
+            return self._err(400, f"{model!r} does not support completions", model, endpoint)
+
+        ctx, upstream = self._request_ctx(request)
+        # the root span ADOPTS the context's span id: every child minted via
+        # ctx.trace parents under it, across process boundaries
+        root = tracing.get_tracer().start_span(
+            "frontend.request", trace=ctx.trace, parent_span_id=upstream,
+            attrs={"model": model, "endpoint": endpoint}, root=True,
+        )
+        shed = await self._admit(endpoint, model, ctx,
+                                 tier=self._request_tier(request, body))
+        if shed is not None:
+            root.set_status("error", f"shed:{shed.status}")
+            root.end()
+            return shed
+        rid = oai.chat_id() if kind == "chat" else oai.completion_id()
+        stream_mode = bool(body.get("stream", False))
+        self._m_inflight.labels(model=model).inc()
+        t0 = time.monotonic()
+        try:
+            outputs = entry.engine.generate(body, ctx)
+            outputs = self._observe(outputs, model, t0)
+            if kind == "chat":
+                chunks = oai.chat_stream(
+                    outputs, rid, model, parser=entry.make_parser()
+                )
+            else:
+                chunks = oai.completion_stream(outputs, rid, model)
+            if stream_mode:
+                return await self._sse(request, chunks, ctx, model, endpoint)
+            agg = (oai.aggregate_chat(chunks) if kind == "chat"
+                   else oai.aggregate_completion(chunks))
+            result = await agg
+            self._m_requests.labels(model=model, endpoint=endpoint, status="200").inc()
+            return web.json_response(result)
+        except EngineError as e:
+            root.set_status("error", e.code)
+            return self._err(self._engine_status(e), str(e), model, endpoint)
+        except ValueError as e:
+            root.set_status("error", "bad_request")
+            return self._err(400, str(e), model, endpoint)
+        except asyncio.CancelledError:
+            ctx.kill()
+            root.set_status("error", "cancelled")
+            raise
+        except Exception:
+            log.exception("request %s failed", rid)
+            root.set_status("error", "internal")
+            return self._err(500, "internal error", model, endpoint)
+        finally:
+            self._release()
+            root.end()
+            self._m_inflight.labels(model=model).dec()
+            self._m_duration.labels(model=model).observe(time.monotonic() - t0)
+
+    async def _sse(
+        self, request: web.Request, chunks: AsyncIterator[dict],
+        ctx: Context, model: str, endpoint: str,
+    ) -> web.StreamResponse:
+        resp = web.StreamResponse(
+            status=200,
+            headers={"Content-Type": "text/event-stream",
+                     "Cache-Control": "no-cache",
+                     "Connection": "keep-alive"},
+        )
+        await resp.prepare(request)
+        try:
+            async for chunk in chunks:
+                await resp.write(oai.sse_frame(chunk).encode())
+            await resp.write(oai.SSE_DONE.encode())
+            self._m_requests.labels(model=model, endpoint=endpoint, status="200").inc()
+        except asyncio.CancelledError:
+            # client went away: kill the request so the worker frees the slot
+            # (ref: http/service/disconnect.rs), then re-raise — swallowing
+            # the CancelledError would also absorb drain/shutdown (DT303)
+            log.info("client disconnected — killing request")
+            ctx.kill()
+            self._m_requests.labels(model=model, endpoint=endpoint, status="499").inc()
+            raise
+        except ConnectionResetError:
+            log.info("client disconnected — killing request")
+            ctx.kill()
+            self._m_requests.labels(model=model, endpoint=endpoint, status="499").inc()
+        except EngineError as e:
+            # stream already started; emit an error frame then close
+            await resp.write(oai.sse_frame(
+                {"error": {"message": str(e), "code": e.code}}
+            ).encode())
+            self._m_requests.labels(
+                model=model, endpoint=endpoint,
+                status=str(self._engine_status(e)),
+            ).inc()
+        with _suppress():
+            await resp.write_eof()
+        return resp
+
+    async def _observe(
+        self, outputs: AsyncIterator[BackendOutput], model: str, t0: float
+    ) -> AsyncIterator[BackendOutput]:
+        first = True
+        prev = None
+        ws = self.window_stats
+        n_tokens = 0
+        # the finally accounts on EVERY termination path: downstream
+        # consumers (chat_stream) break at finish_reason and client
+        # disconnects close the generator chain — post-loop code after the
+        # async-for would never run (the planner saw num_requests=0
+        # forever), and counting only finished streams would skew isl_avg
+        # whenever requests abort mid-stream
+        try:
+            async for out in outputs:
+                now = time.monotonic()
+                if first:
+                    self._m_ttft.labels(model=model).observe(now - t0)
+                    ws.record_ttft(now - t0)
+                    ws.isl_sum += out.num_prompt_tokens
+                    first = False
+                elif prev is not None:
+                    self._m_itl.labels(model=model).observe(now - prev)
+                    ws.record_itl(now - prev)
+                prev = now
+                # token count, not chunk count (a chunk can carry several
+                # token ids, or none during stop-string holdback)
+                n_tokens = (out.cum_tokens if out.cum_tokens
+                            else n_tokens + len(out.token_ids))
+                yield out
+        finally:
+            if not first:
+                ws.num_requests += 1
+                ws.osl_sum += n_tokens
+
+    def _err(self, status: int, msg: str, model: str, endpoint: str) -> web.Response:
+        self._m_requests.labels(
+            model=model, endpoint=endpoint, status=str(status)
+        ).inc()
+        return web.json_response(
+            {"error": {"message": msg, "type": "invalid_request_error"
+                       if status == 400 else "server_error"}},
+            status=status,
+        )
+
+
+class _suppress:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return True

@@ -1,0 +1,145 @@
+"""Tokenizer wrapper + incremental streaming detokenizer.
+
+Role-equivalent to the reference's tokenizer layer (ref: lib/llm/src/
+tokenizers.rs:564 and the incremental ``DecodeStream``): wraps a
+``tokenizer.json`` and provides a per-request :class:`DetokenizerStream`
+that emits only complete UTF-8 text — a token boundary mid-codepoint yields
+an empty delta until the character completes. A copy of
+``dynamo_tpu.llm.tokenizer`` whose backing object is the port's own
+``tokenizer.json`` reader (:mod:`.tokenizer_json`) in place of a HuggingFace
+``tokenizers.Tokenizer``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Optional, Sequence
+
+from .tokenizer_json import JsonTokenizer
+
+_REPLACEMENT = "�"
+
+
+class Tokenizer:
+    """Uniform facade over a :class:`~.tokenizer_json.JsonTokenizer`.
+
+    Carries everything the pipeline needs: encode/decode, special-token ids,
+    and the model's chat template (read from ``tokenizer_config.json`` when
+    loading a pretrained directory).
+    """
+
+    def __init__(
+        self,
+        backing,
+        *,
+        eos_token_ids: Sequence[int] = (),
+        bos_token_id: Optional[int] = None,
+        chat_template: Optional[str] = None,
+    ):
+        self._tk = backing
+        self.eos_token_ids: tuple = tuple(eos_token_ids)
+        self.bos_token_id = bos_token_id
+        self.chat_template = chat_template
+
+    # -- construction --
+
+    @staticmethod
+    def from_file(path: str, **kw) -> "Tokenizer":
+        return Tokenizer(JsonTokenizer.from_file(path), **kw)
+
+    @staticmethod
+    def from_json_str(data: str, **kw) -> "Tokenizer":
+        """Rebuild from a serialized tokenizer.json string (how the model
+        card ships the tokenizer through the store, the role the reference's
+        NATS object store plays for MDCs; ref: model_card.rs:266)."""
+        return Tokenizer(JsonTokenizer.from_str(data), **kw)
+
+    def to_json_str(self) -> str:
+        return self._tk.to_str()
+
+    @staticmethod
+    def from_pretrained_dir(path: str) -> "Tokenizer":
+        """Load tokenizer.json + tokenizer_config.json from a local HF dir."""
+        tk = JsonTokenizer.from_file(os.path.join(path, "tokenizer.json"))
+        cfg_path = os.path.join(path, "tokenizer_config.json")
+        eos_ids: List[int] = []
+        bos_id = None
+        chat_template = None
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                cfg = json.load(f)
+            chat_template = cfg.get("chat_template")
+
+            def _tok_id(entry):
+                if entry is None:
+                    return None
+                content = (entry if isinstance(entry, str)
+                           else entry.get("content"))
+                return tk.token_to_id(content) if content else None
+
+            eos = _tok_id(cfg.get("eos_token"))
+            if eos is not None:
+                eos_ids.append(eos)
+            bos_id = _tok_id(cfg.get("bos_token"))
+        return Tokenizer(
+            tk, eos_token_ids=eos_ids, bos_token_id=bos_id,
+            chat_template=chat_template,
+        )
+
+    # -- core api --
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        return list(self._tk.encode(text, add_special_tokens=add_special_tokens).ids)
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self._tk.decode(list(ids), skip_special_tokens=skip_special_tokens)
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tk.get_vocab_size()
+
+    def stream(self, prompt_ids: Sequence[int] = ()) -> "DetokenizerStream":
+        return DetokenizerStream(self, prompt_ids)
+
+
+class DetokenizerStream:
+    """Incremental detokenization with UTF-8 boundary handling.
+
+    The sliding two-offset algorithm: decode from ``prefix_offset`` twice —
+    once up to ``read_offset`` (already-emitted text) and once to the end —
+    and emit the difference only when it is longer and does not end in a
+    replacement character (i.e. the trailing codepoint is complete). Tokens
+    that merely extend an incomplete codepoint emit ``""``.
+    """
+
+    def __init__(self, tokenizer: Tokenizer, prompt_ids: Sequence[int] = ()):
+        self._tk = tokenizer
+        # seed with the prompt tail so the first generated token detokenizes
+        # with correct merge context (e.g. leading-space handling)
+        self._ids: List[int] = list(prompt_ids)[-8:]
+        self._prefix_offset = 0
+        self._read_offset = len(self._ids)
+        self.text = ""  # generated text emitted so far
+
+    def push(self, token_ids: Sequence[int]) -> str:
+        """Add newly generated token(s); return the completed text delta."""
+        self._ids.extend(token_ids)
+        prefix = self._tk.decode(self._ids[self._prefix_offset:self._read_offset])
+        full = self._tk.decode(self._ids[self._prefix_offset:])
+        if len(full) <= len(prefix) or full.endswith(_REPLACEMENT):
+            return ""
+        delta = full[len(prefix):]
+        self._prefix_offset = self._read_offset
+        self._read_offset = len(self._ids)
+        self.text += delta
+        return delta
+
+    def flush(self) -> str:
+        """Emit whatever remains (possibly with replacement chars) at EOS."""
+        prefix = self._tk.decode(self._ids[self._prefix_offset:self._read_offset])
+        full = self._tk.decode(self._ids[self._prefix_offset:])
+        delta = full[len(prefix):] if len(full) > len(prefix) else ""
+        self._prefix_offset = self._read_offset = len(self._ids)
+        self.text += delta
+        return delta

@@ -1,16 +1,20 @@
 """Single-command launcher: ``in=X out=Y`` like the reference's dynamo-run
 (ref: launch/dynamo-run/src/main.rs:31).
 
+    python -m dynamo_tpu_torch.run in=http out=engine --model 1b \
+        --tokenizer tokenizer.json --port 8000
     python -m dynamo_tpu_torch.run in=batch:requests.jsonl out=engine --model 1b
     python -m dynamo_tpu_torch.run in=text out=engine --model tiny --device cpu
 
-Inputs: ``text`` (interactive REPL of space-separated token ids) and
-``batch:FILE`` (JSONL of ``{"token_ids": [...], "max_tokens": n,
-"temperature": t}`` rows → JSONL results, all submitted concurrently).
-Outputs: ``engine`` (the PyTorch engine, on ``cuda`` unless ``--device``
-says otherwise) and ``echo`` (token echo — protocol debugging). Token ids
-in, token ids out: the tokenizer, the HTTP frontend and the checkpoint
-loader come in a later slice.
+Inputs: ``http`` (the OpenAI frontend over the in-process engine — no
+cluster needed; needs ``--tokenizer``), ``text`` (interactive REPL) and
+``batch:FILE`` (JSONL of ``{"token_ids": [...]}`` or, with a tokenizer,
+``{"prompt": "..."}`` rows, plus ``"max_tokens"`` and ``"temperature"`` →
+JSONL results, all submitted concurrently). Without a tokenizer ``text`` and
+``batch`` take and give token ids. Outputs: ``engine`` (the PyTorch engine,
+on ``cuda`` unless ``--device`` says otherwise) and ``echo`` (token echo —
+protocol debugging). ``--tokenizer`` is a ``tokenizer.json`` file or a local
+HuggingFace directory holding one (with its ``tokenizer_config.json``).
 """
 
 from __future__ import annotations
@@ -18,10 +22,13 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 import time
+from typing import Optional
 
 from .engine.config import EngineConfig, ModelConfig
+from .llm.tokenizer import Tokenizer
 from .runtime.context import Context
 from .utils.logging import get_logger
 
@@ -67,22 +74,39 @@ def build_output(args):
     return InferenceEngine(model_cfg, eng_cfg, device=args.device)
 
 
-async def run_text(engine, args) -> None:
-    """Interactive REPL of token ids (ref: Input::Text)."""
+def load_tokenizer(path: Optional[str]) -> Optional[Tokenizer]:
+    """A ``tokenizer.json`` file, or a local HuggingFace directory."""
+    if path is None:
+        return None
+    if os.path.isdir(path):
+        return Tokenizer.from_pretrained_dir(path)
+    return Tokenizer.from_file(path)
+
+
+async def run_text(engine, tokenizer, args) -> None:
+    """Interactive REPL (ref: Input::Text): text with a tokenizer, else
+    space-separated token ids."""
     await engine.start()
-    print("dynamo-tpu-torch text mode (token ids) — empty line exits",
-          file=sys.stderr)
+    print("dynamo-tpu-torch text mode — empty line exits", file=sys.stderr)
     loop = asyncio.get_running_loop()
     while True:
         line = await loop.run_in_executor(None, _read_prompt)
         if not line:
             break
-        req = {"token_ids": [int(x) for x in line.split()],
-               "max_tokens": args.max_tokens,
+        if tokenizer is not None:
+            token_ids = tokenizer.encode(line)
+            stream = tokenizer.stream(token_ids)
+        else:
+            token_ids = [int(x) for x in line.split()]
+            stream = None
+        req = {"token_ids": token_ids, "max_tokens": args.max_tokens,
                "temperature": args.temperature}
         async for out in engine.generate(req, Context()):
             for t in out.get("token_ids", []):
-                print(f" {t}", end="", flush=True)
+                text = stream.push([t]) if stream is not None else f" {t}"
+                print(text, end="", flush=True)
+        if stream is not None:
+            print(stream.flush(), end="")
         print()
     await engine.stop()
 
@@ -94,9 +118,8 @@ def _read_prompt() -> str:
         return ""
 
 
-async def run_batch(engine, args, path: str) -> None:
-    """JSONL token-id requests in → JSONL completions out (ref:
-    Input::Batch)."""
+async def run_batch(engine, tokenizer, args, path: str) -> None:
+    """JSONL requests in → JSONL completions out (ref: Input::Batch)."""
     await engine.start()
     rows = []
     with open(path) as f:
@@ -105,9 +128,12 @@ async def run_batch(engine, args, path: str) -> None:
                 rows.append(json.loads(line))
 
     async def one(i, row):
-        if "token_ids" not in row:
-            raise ValueError(f"row {i}: no token_ids (token-id mode)")
-        token_ids = row["token_ids"]
+        if "token_ids" in row:
+            token_ids = row["token_ids"]
+        elif tokenizer is not None:
+            token_ids = tokenizer.encode(row.get("prompt", ""))
+        else:
+            raise ValueError(f"row {i}: no token_ids and no tokenizer")
         req = {"token_ids": token_ids,
                "max_tokens": row.get("max_tokens", args.max_tokens),
                "temperature": row.get("temperature", args.temperature)}
@@ -115,10 +141,13 @@ async def run_batch(engine, args, path: str) -> None:
         t0 = time.perf_counter()
         async for out in engine.generate(req, Context()):
             out_tokens.extend(out.get("token_ids", []))
-        return {"index": i, "prompt_tokens": len(token_ids),
-                "completion_tokens": len(out_tokens),
-                "token_ids": out_tokens,
-                "latency_s": round(time.perf_counter() - t0, 4)}
+        result = {"index": i, "prompt_tokens": len(token_ids),
+                  "completion_tokens": len(out_tokens),
+                  "token_ids": out_tokens,
+                  "latency_s": round(time.perf_counter() - t0, 4)}
+        if tokenizer is not None:
+            result["text"] = tokenizer.decode(out_tokens)
+        return result
 
     try:
         results = await asyncio.gather(
@@ -130,15 +159,52 @@ async def run_batch(engine, args, path: str) -> None:
         print(json.dumps(r))
 
 
+async def run_http(engine, tokenizer, args,
+                   stop: Optional[asyncio.Event] = None,
+                   ready: Optional[asyncio.Future] = None) -> None:
+    """OpenAI frontend over an in-process engine — the no-cluster quickstart
+    (ref: dynamo-run in=http out=<local engine>). Serves until ``stop`` is
+    set (forever without one); ``ready``, when given, receives the started
+    :class:`~.frontend.service.HttpService` (its ``port`` is the one bound).
+    """
+    from .frontend.service import HttpService, ModelEntry, ModelManager
+    from .llm.entrypoint import build_local_pipeline
+
+    if tokenizer is None:
+        raise SystemExit("in=http needs --tokenizer")
+    await engine.start()
+    name = args.model_name or args.model
+    pipeline = build_local_pipeline(
+        engine, tokenizer, model_name=name,
+        max_context_len=args.max_model_len,
+    )
+    manager = ModelManager()
+    manager.register(ModelEntry(name=name, engine=pipeline))
+    service = HttpService(manager, host=args.host, port=args.port)
+    try:
+        await service.start()
+        log.info("serving %s on %s:%d", name, args.host, service.port)
+        if ready is not None:
+            ready.set_result(service)
+        await (stop or asyncio.Event()).wait()
+    finally:
+        await service.stop()
+        await engine.stop()
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="dynamo-tpu-torch single-command launcher",
-        usage="python -m dynamo_tpu_torch.run in=<text|batch:FILE> "
+        usage="python -m dynamo_tpu_torch.run in=<http|text|batch:FILE> "
               "out=<engine|echo> [options]",
     )
     p.add_argument("io", nargs=2, metavar="in=/out=",
-                   help="in=text|batch:FILE and out=engine|echo")
+                   help="in=http|text|batch:FILE and out=engine|echo")
     p.add_argument("--model", default="tiny", choices=sorted(MODEL_PRESETS))
+    p.add_argument("--model-name", default=None,
+                   help="name the HTTP frontend serves (default --model)")
+    p.add_argument("--tokenizer", default=None,
+                   help="tokenizer.json, or a local HF directory with one")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "kernel versions on the CPU)")
@@ -147,6 +213,9 @@ def parse_args(argv=None):
     p.add_argument("--max-model-len", type=int, default=8192)
     p.add_argument("--max-tokens", type=int, default=64)
     p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000,
+                   help="HTTP port (0 picks a free one)")
     args = p.parse_args(argv)
     spec = {}
     for part in args.io:
@@ -157,7 +226,7 @@ def parse_args(argv=None):
     args.inp, args.out = spec["in"], spec["out"]
     if args.out not in ("engine", "echo"):
         p.error(f"unknown out={args.out}")
-    if args.inp != "text" and not args.inp.startswith("batch:"):
+    if args.inp not in ("http", "text") and not args.inp.startswith("batch:"):
         p.error(f"unknown in={args.inp}")
     return args
 
@@ -165,10 +234,14 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     engine = build_output(args)
+    tokenizer = load_tokenizer(args.tokenizer)
     if args.inp == "text":
-        asyncio.run(run_text(engine, args))
+        asyncio.run(run_text(engine, tokenizer, args))
+    elif args.inp == "http":
+        asyncio.run(run_http(engine, tokenizer, args))
     else:
-        asyncio.run(run_batch(engine, args, args.inp.split(":", 1)[1]))
+        asyncio.run(run_batch(engine, tokenizer, args,
+                              args.inp.split(":", 1)[1]))
 
 
 if __name__ == "__main__":

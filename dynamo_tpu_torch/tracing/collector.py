@@ -1,0 +1,287 @@
+"""The in-process span collector: ring buffer, sampling, sinks.
+
+One process-global :class:`SpanCollector` receives every ended span. The hot
+path is a single ``deque.append`` (GIL-atomic — no lock) into a bounded ring
+buffer; everything else happens per span end, not per token:
+
+- per-stage latency histograms (``stage_latency_seconds{stage=...}``) are
+  observed into every attached :class:`MetricsRegistry` for EVERY span,
+  sampled or not — aggregates must never depend on the sampling knob;
+- head sampling by trace id (deterministic hash, so every process in the
+  cluster makes the same keep/drop decision for a trace without any
+  coordination) gates the span exporters (JSONL / in-memory). A copy of
+  ``dynamo_tpu.tracing.collector`` that hashes with the standard library's
+  8-byte ``blake2b`` (salt as its key) in place of ``xxhash``'s xxh3,
+  which the card's machine does not install;
+- slow-request auto-dump: when a *root* span (frontend request or worker
+  ingress) ends over ``slow_threshold_s`` and its trace was not sampled,
+  the whole trace is scraped out of the ring buffer and exported anyway —
+  the pathological tail is visible even at sample_ratio 0.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import secrets
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Any, Deque, Dict, Iterator, List, Optional
+
+from .span import STATUS_ERROR, Span
+
+DEFAULT_BUFFER_SIZE = 4096
+
+
+class SpanCollector:
+    """Mints, buffers, samples, and exports spans for one process."""
+
+    def __init__(
+        self,
+        *,
+        sample_ratio: float = 0.0,
+        slow_threshold_s: Optional[float] = None,
+        buffer_size: int = DEFAULT_BUFFER_SIZE,
+        sample_salt: int = 0,
+    ):
+        self.sample_ratio = sample_ratio
+        self.slow_threshold_s = slow_threshold_s
+        self.sample_salt = sample_salt
+        self._ring: Deque[Span] = deque(maxlen=buffer_size)
+        self._exporters: List[Any] = []
+        # always-on metric sinks, keyed by id(registry) so frontend and
+        # runtime registries coexisting in one process each get their own
+        # stage_latency_seconds family
+        self._metrics: Dict[int, Any] = {}
+
+    # ------------------------- configuration ---------------------------
+
+    def configure(
+        self,
+        *,
+        sample_ratio: Optional[float] = None,
+        slow_threshold_s: Optional[float] = None,
+        buffer_size: Optional[int] = None,
+        sample_salt: Optional[int] = None,
+    ) -> "SpanCollector":
+        if sample_ratio is not None:
+            self.sample_ratio = sample_ratio
+        if slow_threshold_s is not None:
+            # 0 and negatives mean "disabled" so config files can express it
+            self.slow_threshold_s = (
+                slow_threshold_s if slow_threshold_s > 0 else None
+            )
+        if sample_salt is not None:
+            self.sample_salt = sample_salt
+        if buffer_size is not None and buffer_size != self._ring.maxlen:
+            self._ring = deque(self._ring, maxlen=max(1, buffer_size))
+        return self
+
+    def add_exporter(self, exporter: Any) -> None:
+        if exporter not in self._exporters:
+            self._exporters.append(exporter)
+
+    def remove_exporter(self, exporter: Any) -> None:
+        if exporter in self._exporters:
+            self._exporters.remove(exporter)
+
+    def add_jsonl(self, path: str) -> None:
+        """Add a JSONL exporter for ``path`` unless one already writes there
+        (several runtimes in one process share a config file)."""
+        from .export import JsonlSpanExporter
+
+        for e in self._exporters:
+            if isinstance(e, JsonlSpanExporter) and e.path == path:
+                return
+        self.add_exporter(JsonlSpanExporter(path))
+
+    def attach_metrics(self, registry: Any,
+                       name: str = "stage_latency_seconds") -> None:
+        """Mint the per-stage latency histogram on ``registry`` and observe
+        every span's duration into it (idempotent per registry)."""
+        from .export import MetricsSpanExporter
+
+        key = id(registry)
+        if key not in self._metrics:
+            self._metrics[key] = MetricsSpanExporter(registry, name=name)
+
+    def detach_metrics(self, registry: Any) -> None:
+        self._metrics.pop(id(registry), None)
+
+    # --------------------------- sampling ------------------------------
+
+    def sampled(self, trace_id: str) -> bool:
+        """Deterministic head-sampling decision for a trace id: the same id
+        and salt hash identically in every process, so a trace is either
+        exported everywhere or nowhere."""
+        if self.sample_ratio <= 0:
+            return False
+        if self.sample_ratio >= 1:
+            return True
+        digest = hashlib.blake2b(
+            trace_id.encode(), digest_size=8,
+            key=(self.sample_salt & (2 ** 64 - 1)).to_bytes(8, "little"),
+        ).digest()
+        return int.from_bytes(digest, "little") / 2.0 ** 64 \
+            < self.sample_ratio
+
+    # --------------------------- span minting --------------------------
+
+    def start_span(
+        self,
+        name: str,
+        context: Any = None,
+        *,
+        trace: Any = None,
+        parent_span_id: Optional[str] = None,
+        attrs: Optional[dict] = None,
+        root: bool = False,
+    ) -> Span:
+        """Open a span.
+
+        Two parenting forms:
+        - ``trace=``: the span ADOPTS that :class:`TraceContext`'s span id as
+          its own (the id is already on the wire / on the context, so work
+          attributed to it downstream parents correctly); pass
+          ``parent_span_id`` explicitly.
+        - ``context=``: a fresh span id is minted under
+          ``context.trace.span_id`` — the usual "sub-operation of this
+          request" form.
+        """
+        if trace is not None:
+            trace_id, span_id = trace.trace_id, trace.span_id
+            parent = parent_span_id
+        elif context is not None and getattr(context, "trace", None) is not None:
+            trace_id = context.trace.trace_id
+            parent = parent_span_id or context.trace.span_id
+            span_id = secrets.token_hex(8)
+        else:
+            trace_id = secrets.token_hex(16)
+            span_id = secrets.token_hex(8)
+            parent = parent_span_id
+        return Span(
+            name=name,
+            trace_id=trace_id,
+            span_id=span_id,
+            parent_span_id=parent,
+            start_mono=time.monotonic(),
+            start_unix=time.time(),
+            attrs=dict(attrs or {}),
+            root=root,
+            _collector=self,
+        )
+
+    def record(
+        self,
+        name: str,
+        context: Any = None,
+        *,
+        start_mono: float,
+        end_mono: float,
+        trace: Any = None,
+        parent_span_id: Optional[str] = None,
+        attrs: Optional[dict] = None,
+        status: str = "ok",
+        status_detail: Optional[str] = None,
+        root: bool = False,
+    ) -> Span:
+        """Record an already-elapsed window from explicit monotonic stamps —
+        the engine hot path stamps floats per sequence and attributes the
+        queue/prefill/decode windows once, after the stream ends, instead of
+        carrying live span objects per token."""
+        span = self.start_span(
+            name, context, trace=trace, parent_span_id=parent_span_id,
+            attrs=attrs, root=root,
+        )
+        span.start_mono = start_mono
+        # re-derive the wall anchor for the actual start moment
+        span.start_unix = time.time() - (time.monotonic() - start_mono)
+        span.status = status
+        span.status_detail = status_detail
+        span.end(end_mono)
+        return span
+
+    @contextmanager
+    def trace_span(
+        self,
+        name: str,
+        context: Any = None,
+        *,
+        trace: Any = None,
+        parent_span_id: Optional[str] = None,
+        attrs: Optional[dict] = None,
+        root: bool = False,
+    ) -> Iterator[Span]:
+        span = self.start_span(
+            name, context, trace=trace, parent_span_id=parent_span_id,
+            attrs=attrs, root=root,
+        )
+        try:
+            yield span
+        except BaseException as e:
+            span.set_status(STATUS_ERROR, repr(e))
+            raise
+        finally:
+            span.end()
+
+    # ----------------------------- sinks -------------------------------
+
+    def on_end(self, span: Span) -> None:
+        self._ring.append(span)
+        for sink in self._metrics.values():
+            sink.export(span)
+        if not self._exporters:
+            return
+        if self.sampled(span.trace_id):
+            for e in self._exporters:
+                e.export(span)
+        elif (span.root and self.slow_threshold_s is not None
+              and (span.duration_s or 0.0) >= self.slow_threshold_s):
+            # slow-request auto-dump: the trace was not head-sampled, but
+            # this root ran long — flush everything the ring still holds
+            # for it (children ended before their root, so they are here)
+            for s in self.get_trace(span.trace_id):
+                for e in self._exporters:
+                    e.export(s)
+
+    # ---------------------------- queries ------------------------------
+
+    def get_trace(self, trace_id: str) -> List[Span]:
+        """All buffered spans of a trace, oldest first."""
+        return [s for s in list(self._ring) if s.trace_id == trace_id]
+
+    def trace_ids(self, limit: int = 50) -> List[str]:
+        """Most recently seen trace ids, newest first, deduplicated."""
+        seen: List[str] = []
+        for s in reversed(list(self._ring)):
+            if s.trace_id not in seen:
+                seen.append(s.trace_id)
+                if len(seen) >= limit:
+                    break
+        return seen
+
+
+# -------------------------- process-global API --------------------------
+
+_collector = SpanCollector()
+
+
+def get_tracer() -> SpanCollector:
+    return _collector
+
+
+def configure(**kwargs: Any) -> SpanCollector:
+    return _collector.configure(**kwargs)
+
+
+def reset() -> SpanCollector:
+    """Replace the global collector (tests: isolate exporters/sampling)."""
+    global _collector
+    _collector = SpanCollector()
+    return _collector
+
+
+@contextmanager
+def trace_span(name: str, context: Any = None, **kwargs: Any) -> Iterator[Span]:
+    with _collector.trace_span(name, context, **kwargs) as span:
+        yield span

@@ -1,11 +1,15 @@
 """The PyTorch port stands alone: no module of ``dynamo_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, the JAX package, or a package the card's
-machine lacks, and ``triton`` is never imported at module level. Its entry
+machine lacks (``tokenizers``, ``aiohttp`` and ``prometheus_client`` among
+them: the port has its own replacements), and ``triton`` is never imported
+at module level. Its entry
 points refuse to fall back to the CPU when no device is given and no GPU is
 present, and engine construction refuses the paths this slice does not
 serve."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -16,12 +20,18 @@ from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine, ModelConfig
 from dynamo_tpu_torch.engine.config import check_supported
 
 ROOT = Path(__file__).resolve().parent.parent
+# a byte-level BPE tokenizer.json with no merges: enough for the launcher
+TOKENIZER_STUB = (
+    '{"added_tokens": [], "normalizer": null, "pre_tokenizer": '
+    '{"type": "ByteLevel", "add_prefix_space": false}, "post_processor": '
+    'null, "decoder": {"type": "ByteLevel"}, "model": {"type": "BPE", '
+    '"vocab": {"a": 0, "b": 1}, "merges": []}}')
 FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 # never imported anywhere: JAX, the JAX package, and what the card's
 # machine does not install
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "xxhash", "msgpack",
-             "ml_dtypes", "tokenizers", "aiohttp"}
+             "ml_dtypes", "tokenizers", "aiohttp", "prometheus_client"}
 # imported only inside the function that launches a kernel
 NOT_AT_MODULE_LEVEL = {"triton"}
 
@@ -85,6 +95,32 @@ def test_run_without_device_raises_on_a_cpu_machine(no_gpu, tmp_path):
     batch.write_text('{"token_ids": [1, 2], "max_tokens": 2}\n')
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trun.main([f"in=batch:{batch}", "out=engine", "--model", "tiny"])
+
+
+def test_run_http_without_device_raises_on_a_cpu_machine(no_gpu, tmp_path):
+    tok = tmp_path / "tok.json"
+    tok.write_text(TOKENIZER_STUB)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trun.main(["in=http", "out=engine", "--model", "tiny",
+                   "--tokenizer", str(tok), "--port", "0"])
+
+
+def test_importing_the_port_loads_nothing_forbidden():
+    """Every module of the port imported in a fresh interpreter (the HTTP
+    frontend, the tokenizer reader, the metrics and tracing copies among
+    them) leaves no forbidden package in ``sys.modules``."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "dynamo_tpu_torch").rglob("*.py")
+        if p.name != "__main__.py")
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + f"bad = {sorted(FORBIDDEN | NOT_AT_MODULE_LEVEL)!r}\n"
+            "print(sorted(m for m in bad if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("knob", [
