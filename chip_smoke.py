@@ -36,7 +36,21 @@ Phases (any failure exits non-zero and prints no result line):
    traffic end in ``[DONE]``, ``/metrics`` counts every request, a client
    that leaves mid-stream frees its sequence and KV blocks within a second,
    and both attention faces launch; ``[http]`` lines print HTTP vs direct
-   TTFT, ITL and throughput and the encode time of a prompt.
+   TTFT, ITL and throughput and the encode time of a prompt;
+6. serve the same weights through the distributed path, each entry point a
+   process of its own: ``python -m dynamo_tpu_torch.runtime.store``, worker
+   A (``python -m dynamo_tpu_torch.worker --model 1b``, seed 0) and
+   ``python -m dynamo_tpu_torch.frontend --port 0``. Completions served one
+   at a time must give phase 5's texts; only the worker may hold the GPU;
+   phase 3's traffic goes through the three processes (``[dist]`` lines:
+   TTFT, ITL and throughput beside phases 3 and 5, CPU time per token of
+   each process, the codec's µs per streamed token); then worker B joins,
+   both publish load metrics and serve under round robin, worker A is
+   SIGKILLed under 8 streams of 256 tokens that must all complete through
+   migration while A's keys leave the store within the lease TTL + 1 s, and
+   worker B drains on SIGTERM and exits 0. Both attention faces must have
+   launched in both workers; their counts are the ``launches_dist`` of the
+   ``kernels`` line. Child logs go to ``build/dist/``.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the ``kernels`` JSON object; the last line is
@@ -47,6 +61,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -910,6 +926,12 @@ def traffic_stats(runs, wall: float) -> dict:
                 tok_s=sum(n for *_, n in runs) / wall)
 
 
+def stats_line(s) -> str:
+    return (f"TTFT p50 {s['ttft_p50'] * 1e3:.1f} ms max "
+            f"{s['ttft_max'] * 1e3:.1f} ms, ITL p50 "
+            f"{s['itl_p50'] * 1e3:.2f} ms, output {s['tok_s']:.1f} tok/s")
+
+
 def frontend_us_per_token(tok, prompts, n_tokens: int) -> float:
     """Host time the frontend spends per generated token and stream, with
     no socket and no device: ``build_local_pipeline`` (preprocessor,
@@ -961,8 +983,6 @@ def phase_http(engine, card: str, direct: dict) -> None:
     blocks within a second; both attention faces launched. Prints HTTP vs
     direct TTFT, ITL and throughput on ``[http]`` lines."""
     import asyncio
-    import os
-    import re
     import multiprocessing
     import statistics
     from concurrent.futures import ProcessPoolExecutor
@@ -1040,6 +1060,7 @@ def phase_http(engine, card: str, direct: dict) -> None:
             # with it (a near-tie of random weights can flip a token)
             cold = engine.scheduler.pool.clear
             # 1. served one at a time: HTTP text == decode(engine ids)
+            wants = []
             for i, p in enumerate(prompts[:4]):
                 req = {"token_ids": p, "max_tokens": OSL, "ignore_eos": True,
                        "temperature": 0.0}
@@ -1047,6 +1068,7 @@ def phase_http(engine, card: str, direct: dict) -> None:
                 ids = [t async for o in engine.generate(req, Context())
                        for t in o["token_ids"]]
                 want = tok.decode(ids)
+                wants.append(want)
                 cold()
                 (status, _, frames, done, body), = await client(
                     job(cmpl, completion(p, stream=i % 2 == 0)))
@@ -1201,18 +1223,15 @@ def phase_http(engine, card: str, direct: dict) -> None:
             stop.set()
             await server
             procs.shutdown(wait=True)
-        return rows, launches
+        return rows, launches, wants
 
-    rows, launches = asyncio.run(serve())
+    rows, launches, wants = asyncio.run(serve())
     for name, n in launches.items():
         print(f"[http] {name} launches in phase 5: {n}")
         if n == 0:
             fail(f"{name} was never launched in the HTTP phase")
 
-    def line(s):
-        return (f"TTFT p50 {s['ttft_p50'] * 1e3:.1f} ms max "
-                f"{s['ttft_max'] * 1e3:.1f} ms, ITL p50 "
-                f"{s['itl_p50'] * 1e3:.2f} ms, output {s['tok_s']:.1f} tok/s")
+    line = stats_line
     print(f"[http] {card}: {N_REQUESTS} streams ISL {ISL} OSL {OSL} over "
           f"HTTP (client-side, client in its own process): "
           f"{line(rows['http', None])}; median encode of a {ISL}-token "
@@ -1235,6 +1254,494 @@ def phase_http(engine, card: str, direct: dict) -> None:
           f"stream (pipeline + SSE framing, {N_REQUESTS} streams on one "
           f"loop, no socket, no device): {us:.1f} us; x {N_REQUESTS} streams "
           f"= {us * N_REQUESTS / 1e3:.2f} ms per decode step", flush=True)
+    return dict(tokenizer=path, prompts=prompts, wants=wants,
+                http=rows["http", None])
+
+# ------------------------------ phase 6 ----------------------------------
+
+DIST_LEASE_TTL_S = 2.0
+# A SIGKILLed worker stays listed until its lease expires (at most the TTL
+# plus the store's 0.25 s sweep after its last keepalive), and a migrated
+# stream's retry may be routed to it meanwhile and spend an attempt on a
+# refused connection (the JAX package does the same). 8 attempts, with
+# Migration's doubling backoff from 0.05 s, outlast that window.
+DIST_MIGRATION_LIMIT = 8
+DIST_OSL_MIGRATE = 256
+DIST_KILL_AFTER_S = 2.0     # into the 256-token streams: ~60 tokens each
+DIST_LOGS = os.path.join("build", "dist")
+
+
+class Child:
+    """One entry point run as ``python -m MODULE ARGS`` in a process of its
+    own, its output in ``build/dist/NAME.log``."""
+
+    def __init__(self, name: str, module: str, args, env):
+        os.makedirs(DIST_LOGS, exist_ok=True)
+        self.name = name
+        self.log_path = os.path.join(DIST_LOGS, f"{name}.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", module, *args], stdout=self._log,
+            stderr=subprocess.STDOUT, env=env)
+        self.pid = self.proc.pid
+
+    def text(self) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def tail(self, n: int = 40) -> str:
+        return "\n".join(self.text().splitlines()[-n:])
+
+    async def wait_for(self, pattern: str, timeout: float):
+        import asyncio
+
+        deadline = time.monotonic() + timeout
+        while True:
+            m = re.search(pattern, self.text())
+            if m:
+                return m
+            if self.proc.poll() is not None:
+                fail(f"{self.name} exited ({self.proc.returncode}) before "
+                     f"{pattern!r}:\n{self.tail()}")
+            if time.monotonic() > deadline:
+                fail(f"{self.name}: no {pattern!r} in {timeout} s:\n"
+                     f"{self.tail()}")
+            await asyncio.sleep(0.1)
+
+    def cpu_s(self) -> float:
+        """User + system CPU seconds so far (stat(5) fields 14 and 15)."""
+        with open(f"/proc/{self.pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) \
+            / os.sysconf("SC_CLK_TCK")
+
+    def opens_gpu(self) -> bool:
+        """Whether the process holds a GPU device file open (a CUDA
+        context does)."""
+        for fd in os.listdir(f"/proc/{self.pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{self.pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                return True
+        return False
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        self._log.close()
+
+
+def smi_compute_pids() -> set:
+    """PIDs that ``nvidia-smi`` lists as holding a CUDA context."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return {int(x) for x in smi.stdout.split() if x.isdigit()}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def codec_us_per_token(n: int = 20000):
+    """Host µs per streamed token of the transport's codec: what a worker
+    packs (the output dict, then the data frame that carries it as its
+    payload) and what the frontend unpacks (the frame, then the payload)."""
+    from dynamo_tpu_torch.runtime import codec
+
+    item = {"token_ids": [91234], "index": 17, "finished": False,
+            "finish_reason": None, "num_prompt_tokens": ISL}
+    rid = "0123456789abcdef0123456789abcdef-17"
+
+    def pack():
+        return codec.packb({"t": "data", "rid": rid,
+                            "payload": codec.packb(item)})
+    frame = pack()
+
+    def unpack():
+        return codec.unpackb(codec.unpackb(frame)["payload"])
+    if unpack() != item:
+        fail("codec round trip of a token frame changed it")
+    out = []
+    for fn in (pack, unpack):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+    return out
+
+
+def phase_dist(card: str, served: dict, direct: dict) -> dict:
+    """The distributed path, three processes: the store, worker A and the
+    frontend (``python -m dynamo_tpu_torch.runtime.store|worker|frontend``),
+    then worker B. Checks: texts served one at a time equal phase 5's
+    (decode of phase 3's engine ids), only the worker holds the GPU, 16
+    concurrent streams end in ``[DONE]``, both workers publish load metrics
+    and serve under round robin, every stream survives a SIGKILL of worker
+    A mid-stream with its full token count, a migrated stream goes on at
+    the join as worker B goes on from the prompt plus the tokens carried
+    over, A's keys leave the store within the lease TTL + 1 s, worker B
+    drains on SIGTERM and exits 0, and both attention faces launched in
+    every worker that served. Returns the workers' summed kernel
+    launches."""
+    import asyncio
+    import multiprocessing
+    import signal
+    from concurrent.futures import ProcessPoolExecutor
+
+    from dynamo_tpu_torch.llm.entrypoint import PushSink
+    from dynamo_tpu_torch.llm.migration import Migration
+    from dynamo_tpu_torch.runtime import codec
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DYNTPU_LEASE_TTL_S=str(DIST_LEASE_TTL_S),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    addr = f"127.0.0.1:{_free_port()}"
+    worker_args = ["--model", "1b", "--model-name", HTTP_MODEL,
+                   "--tokenizer", os.path.abspath(served["tokenizer"]),
+                   "--store-addr", addr,
+                   "--migration-limit", str(DIST_MIGRATION_LIMIT)]
+    children = []
+    faces = ("paged_attention_decode", "paged_attention_ragged")
+
+    def start(name, module, args):
+        child = Child(name, module, args, env)
+        children.append(child)
+        return child
+
+    def job(prompt, max_tokens, stream=True):
+        return dict(method="POST", path="/v1/completions", body={
+            "model": HTTP_MODEL, "prompt": prompt, "max_tokens": max_tokens,
+            "temperature": 0, "ignore_eos": True, "stream": stream})
+
+    def greedy(ids, max_tokens):
+        return {"token_ids": list(ids), "max_tokens": max_tokens,
+                "temperature": 0.0, "ignore_eos": True}
+
+    def check_streams(results, n_tokens, what):
+        runs = []
+        for status, t_sent, frames, done, _ in results:
+            content = [t for t, f in frames if f["choices"][0]["text"]]
+            n = frames[-1][1]["usage"]["completion_tokens"] if frames else 0
+            if status != 200 or not done or n != n_tokens \
+                    or len(content) < 2:
+                fail(f"{what}: HTTP {status}, [DONE] {done}, {n} of "
+                     f"{n_tokens} tokens, {len(content)} content frames")
+            runs.append((t_sent, content[0], content[-1], n))
+        return runs
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        procs = ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        rt = collector = sub = None
+        clients = []
+        try:
+            t0 = time.perf_counter()
+            store = start("store", "dynamo_tpu_torch.runtime.store",
+                          ["--host", "127.0.0.1",
+                           "--port", addr.rsplit(":", 1)[1]])
+            await store.wait_for(r"store listening", 60)
+            worker_a = start("worker_a", "dynamo_tpu_torch.worker",
+                             worker_args)
+            front = start("frontend", "dynamo_tpu_torch.frontend",
+                          ["--host", "127.0.0.1", "--port", "0",
+                           "--store-addr", addr])
+            port = int((await front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+            await worker_a.wait_for(r"registered model", 300)
+
+            async def client(*jobs):
+                return await loop.run_in_executor(procs, http_client, port,
+                                                  list(jobs))
+            while True:
+                (status, _, _, _, body), = await client(
+                    dict(method="GET", path="/v1/models"))
+                if status == 200 and any(m["id"] == HTTP_MODEL
+                                         for m in body["data"]):
+                    break
+                if time.perf_counter() - t0 > 300:
+                    fail(f"/v1/models never listed {HTTP_MODEL}: {body}")
+                await asyncio.sleep(0.2)
+            print(f"[dist] store, worker A (Llama-3.2-1B width, seed 0) "
+                  f"and frontend up, /v1/models lists the model, in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            # only the worker holds the GPU
+            smi_pids = smi_compute_pids()
+            ours = {c.pid for c in (store, worker_a, front)}
+            holds = {c.name: (c.pid in smi_pids or c.opens_gpu())
+                     for c in (store, worker_a, front)}
+            print(f"[dist] GPU holders: nvidia-smi compute apps "
+                  f"{sorted(smi_pids)} (ours {sorted(smi_pids & ours)}); "
+                  f"store {holds['store']}, worker A {holds['worker_a']}, "
+                  f"frontend {holds['frontend']}", flush=True)
+            if not holds["worker_a"] or holds["store"] or holds["frontend"]:
+                fail(f"only worker A may hold the GPU: {holds}")
+
+            rt = await DistributedRuntime.from_settings(RuntimeConfig(
+                store_addr=addr, lease_ttl_s=DIST_LEASE_TTL_S))
+            backend = rt.namespace().component("backend")
+            gen_client = await backend.endpoint("generate").client()
+            clear_client = await backend.endpoint("clear_kv_blocks").client()
+            clients += [gen_client, clear_client]
+            await gen_client.wait_for_instances(1, 30)
+            await clear_client.wait_for_instances(1, 30)
+            a_id, = gen_client.instance_ids()
+
+            async def clear_all():
+                # no prefix hit may change a prefill's shape (phase 5)
+                for iid in clear_client.instance_ids():
+                    async for _ in clear_client.direct(iid, {}, Context()):
+                        pass
+
+            # 1. served one at a time: the texts of phase 5
+            for i, (p, want) in enumerate(zip(served["prompts"],
+                                              served["wants"])):
+                await clear_all()
+                (status, _, frames, done, body), = await client(
+                    job(p, OSL, stream=i % 2 == 0))
+                if status != 200:
+                    fail(f"distributed completion: HTTP {status}: {body}")
+                if i % 2:
+                    got = body["choices"][0]["text"]
+                else:
+                    if not done:
+                        fail("a streamed completion did not end in [DONE]")
+                    got = "".join(f["choices"][0]["text"] for _, f in frames)
+                if got != want:
+                    at = next((j for j, (a, b) in enumerate(zip(got, want))
+                               if a != b), min(len(got), len(want)))
+                    fail(f"distributed request {i}: text differs from phase "
+                         f"5's at char {at}: {got[at:at + 40]!r} vs "
+                         f"{want[at:at + 40]!r}")
+            print(f"[dist] {len(served['wants'])} completions served one at "
+                  f"a time (2 streamed): text equals decode of phase 3's "
+                  f"engine ids", flush=True)
+
+            # 2. phase 3's traffic through the three processes
+            prompts = served["prompts"]
+            await clear_all()
+            cpu0 = {c.name: c.cpu_s() for c in (store, worker_a, front)}
+            t_start = time.perf_counter()
+            results = await client(*(job(p, OSL) for p in prompts))
+            wall = time.perf_counter() - t_start
+            cpu = {c.name: c.cpu_s() - cpu0[c.name]
+                   for c in (store, worker_a, front)}
+            stats = traffic_stats(check_streams(results, OSL, "stream"),
+                                  wall)
+            n_tok = N_REQUESTS * OSL
+            print(f"[dist] {card}: {N_REQUESTS} streams ISL {ISL} OSL {OSL} "
+                  f"through store + worker A + frontend (client in its own "
+                  f"process): {stats_line(stats)}", flush=True)
+            print(f"[dist] {card}: the same traffic, phase 3 (straight into "
+                  f"the engine): {stats_line(direct)}; phase 5 (in-process "
+                  f"HTTP): {stats_line(served['http'])}", flush=True)
+            print(f"[dist] {card}: CPU time per generated token over the run "
+                  f"({n_tok} tokens, {wall:.3f} s): worker A "
+                  f"{cpu['worker_a'] / n_tok * 1e3:.3f} ms, frontend "
+                  f"{cpu['frontend'] / n_tok * 1e3:.3f} ms, store "
+                  f"{cpu['store'] / n_tok * 1e3:.4f} ms", flush=True)
+            pack_us, unpack_us = codec_us_per_token()
+            print(f"[dist] {card}: codec per streamed token on this host: "
+                  f"worker packs payload + frame {pack_us:.2f} us, frontend "
+                  f"unpacks frame + payload {unpack_us:.2f} us; x "
+                  f"{N_REQUESTS} streams = {pack_us * N_REQUESTS / 1e3:.3f} "
+                  f"ms of worker loop per decode step", flush=True)
+
+            # 3. two workers: load metrics, round robin, migration
+            snaps = {}
+            sub = await rt.store.subscribe(
+                backend.event_subject("load_metrics"))
+
+            async def collect():
+                async for ev in sub:
+                    if ev.get("event") != "msg":
+                        continue
+                    snap = codec.unpackb(ev["value"])
+                    # a worker's first snapshot may leave before its
+                    # launch counts are attached
+                    if "kernel_launches" in snap:
+                        snaps.setdefault(int(snap["worker_id"]),
+                                         []).append((time.perf_counter(), snap))
+            collector = asyncio.create_task(collect())
+            t_b = time.perf_counter()
+            worker_b = start("worker_b", "dynamo_tpu_torch.worker",
+                             worker_args)
+            await gen_client.wait_for_instances(2, 300)
+            await clear_client.wait_for_instances(2, 30)
+            b_id, = [i for i in gen_client.instance_ids() if i != a_id]
+            print(f"[dist] worker B up in {time.perf_counter() - t_b:.1f} s",
+                  flush=True)
+            while not (snaps.get(a_id) and snaps.get(b_id)):
+                if time.perf_counter() - t_b > 330:
+                    fail(f"load metrics from {sorted(snaps)}, want both "
+                         f"{a_id} and {b_id}")
+                await asyncio.sleep(0.1)
+
+            def decode_launches(wid):
+                return snaps[wid][-1][1]["kernel_launches"][faces[0]]
+            before = {w: decode_launches(w) for w in (a_id, b_id)}
+            await clear_all()
+            t_rr = time.perf_counter()
+            results = await client(*(job(p, OSL) for p in prompts))
+            check_streams(results, OSL, "round-robin stream")
+            await asyncio.sleep(1.5)   # one more snapshot from each
+            for w, name in ((a_id, "A"), (b_id, "B")):
+                running = max((s["num_requests_running"]
+                               for t, s in snaps[w] if t >= t_rr), default=0)
+                grew = decode_launches(w) - before[w]
+                print(f"[dist] worker {name} under {N_REQUESTS} round-robin "
+                      f"streams: load metrics show up to {running} running "
+                      f"requests, {grew} more decode-face launches",
+                      flush=True)
+                if grew <= 0:
+                    fail(f"worker {name} served nothing under round robin")
+
+            class Recorder(PushSink):
+                """The frontend's routing sink, noting how many tokens its
+                stream had yielded when each attempt was issued."""
+
+                def __init__(self, got):
+                    super().__init__(gen_client)
+                    self.got, self.joins = got, []
+
+                def generate(self, request, context):
+                    self.joins.append(len(self.got))
+                    return super().generate(request, context)
+
+            async def token_stream(prompt):
+                # the frontend's Migration over the generate endpoint, seen
+                # as token ids
+                got = []
+                sink = Recorder(got)
+                async for item in Migration(sink, DIST_MIGRATION_LIMIT) \
+                        .generate(greedy(prompt, DIST_OSL_MIGRATE), Context()):
+                    got.extend(item.get("token_ids", []))
+                return prompt, got, sink.joins
+
+            await clear_all()
+            fut = asyncio.ensure_future(client(*(
+                job(p, DIST_OSL_MIGRATE) for p in prompts[:8])))
+            token_futs = [asyncio.ensure_future(token_stream(p))
+                          for p in prompts[8:16]]
+            await asyncio.sleep(DIST_KILL_AFTER_S)
+            # kill right after A's next load snapshot, so the launch counts
+            # it carries miss only the last milliseconds of A's work
+            n_snaps = len(snaps[a_id])
+            while len(snaps[a_id]) == n_snaps:
+                await asyncio.sleep(0.002)
+            a_launches = dict(snaps[a_id][-1][1]["kernel_launches"])
+            t_kill = time.perf_counter()
+            worker_a.kill()
+            while True:
+                keys = [k for root_ in ("v1/instances/", "v1/models/")
+                        for k, _ in await rt.store.get_prefix(root_)]
+                if not any(k.endswith(f"/{a_id}") for k in keys):
+                    break
+                if time.perf_counter() - t_kill > DIST_LEASE_TTL_S + 1:
+                    fail(f"worker A's keys still in the store "
+                         f"{DIST_LEASE_TTL_S + 1} s after SIGKILL: {keys}")
+                await asyncio.sleep(0.05)
+            t_gone = time.perf_counter() - t_kill
+            results = await fut
+            check_streams(results, DIST_OSL_MIGRATE, "stream across SIGKILL")
+            gaps = sorted(min(t for t, f in frames
+                              if t > t_kill and f["choices"][0]["text"])
+                          - t_kill for _, _, frames, _, _ in results)
+            # one log line per re-issue; a re-issue routed to A before its
+            # lease expired is refused and re-issued again
+            reissued = front.text().count("migrating with")
+            print(f"[dist] SIGKILL of worker A mid-stream: all 8 streams "
+                  f"ended in [DONE] with {DIST_OSL_MIGRATE} tokens; "
+                  f"{reissued} re-issues by Migration (limit "
+                  f"{DIST_MIGRATION_LIMIT} per stream); "
+                  f"A's instance and model keys left the store "
+                  f"{t_gone * 1e3:.0f} ms after the kill (TTL "
+                  f"{DIST_LEASE_TTL_S} s); kill to each stream's next "
+                  f"token: " + ", ".join(f"{g * 1e3:.0f}" for g in gaps)
+                  + " ms", flush=True)
+            if not reissued:
+                fail("no stream migrated off the killed worker")
+
+            # The join, token by token: a migrated stream's next token must
+            # be the one B makes of the prompt plus the carried tokens,
+            # served alone. A Migration that loses the carried tokens, or
+            # repeats or skips one at the join, departs there in every
+            # migrated stream; bf16 near-ties (another batch, another
+            # split-KV split) part streams one by one, within 16 tokens in
+            # 7 of 12 migrated streams on an H100, the first token in none.
+            joins = []
+            for prompt, got, tried in await asyncio.gather(*token_futs):
+                if len(got) != DIST_OSL_MIGRATE:
+                    fail(f"token stream across SIGKILL: {len(got)} of "
+                         f"{DIST_OSL_MIGRATE} tokens")
+                if len(tried) < 2:
+                    continue
+                k = tried[-1]
+                await clear_all()
+                want = [t async for item in gen_client.direct(
+                    b_id, greedy([*prompt, *got[:k]], 16), Context())
+                        for t in item.get("token_ids", [])]
+                agree = next((i for i, (a, b) in
+                              enumerate(zip(got[k:], want)) if a != b),
+                             len(want))
+                joins.append((k, len(tried) - 1, agree))
+            departed = sum(1 for _, _, agree in joins if agree == 0)
+            print(f"[dist] {len(joins)} of 8 token-level streams migrated "
+                  f"(carried tokens, re-issues, tokens after the join equal "
+                  f"to B's alone, of 16): " + ", ".join(
+                      f"({k}, {n}, {a})" for k, n, a in joins), flush=True)
+            if len(joins) < 2 or departed == len(joins):
+                fail(f"migrated streams depart from B's continuation at the "
+                     f"join: {joins}")
+
+            worker_b.proc.send_signal(signal.SIGTERM)
+            rc = await loop.run_in_executor(None, worker_b.proc.wait, 120)
+            log_b = worker_b.text()
+            if rc != 0 or "drain requested" not in log_b:
+                fail(f"worker B on SIGTERM: exit {rc}\n{worker_b.tail()}")
+            m = re.search(r"worker exiting: kernel launches (.*)", log_b)
+            b_launches = {k: int(v) for k, v in
+                          (kv.split("=") for kv in m.group(1).split())}
+            front.proc.send_signal(signal.SIGTERM)
+            rc = await loop.run_in_executor(None, front.proc.wait, 60)
+            if rc != 0:
+                fail(f"frontend on SIGTERM: exit {rc}\n{front.tail()}")
+            launches = {}
+            for name, counts in (("A", a_launches), ("B", b_launches)):
+                print(f"[dist] worker {name} kernel launches: " + ", ".join(
+                    f"{f} {counts[f]}" for f in faces), flush=True)
+                for f in faces:
+                    if counts[f] == 0:
+                        fail(f"{f} was never launched in worker {name}")
+            for name in KERNELS:
+                launches[name] = a_launches[name] + b_launches[name]
+            print(f"[dist] phase 6 in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            return launches
+        finally:
+            if collector is not None:
+                collector.cancel()
+            for c in clients:
+                await c.stop()
+            if rt is not None:
+                await rt.shutdown()
+            procs.shutdown(wait=True)
+            for child in children:
+                child.kill()
+
+    return asyncio.run(run())
 
 
 KERNELS = {
@@ -1256,7 +1763,7 @@ for _kv in ("int8", "fp8"):
         "dynamo_tpu/ops/paged_attention.py:109")
 
 
-def kernels_line(results, launches) -> str:
+def kernels_line(results, launches, dist_launches) -> str:
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -1264,6 +1771,7 @@ def kernels_line(results, launches) -> str:
             "name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": replaces, "launches": launches[name],
+            "launches_dist": dist_launches[name],
             "max_abs_err": max(v["max_abs_err"] for v in results.values()
                                if v["face"] == face and v["kv_dtype"] == kv
                                and v["dtype"] == "bfloat16"),
@@ -1295,8 +1803,10 @@ def main() -> None:
     results = phase_kernels(kernel_cases())
     launches, engine, ref_logits, direct = phase_engine(card)
     phase_profile(engine, card)
-    phase_http(engine, card, direct)
+    served = phase_http(engine, card, direct)
     del engine
+    torch.cuda.empty_cache()
+    dist_launches = phase_dist(card, served, direct)
     for dtype in ("int8", "fp8"):
         torch.cuda.empty_cache()
         run_launches, engine, _, _ = phase_engine(card, dtype, ref_logits)
@@ -1306,7 +1816,7 @@ def main() -> None:
         phase_quant_costs(engine, card)
         del engine
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(results, launches))
+    print(kernels_line(results, launches, dist_launches))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

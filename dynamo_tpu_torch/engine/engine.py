@@ -141,6 +141,10 @@ class EngineCore(AsyncEngine):
     def stats(self) -> SchedulerStats:
         return self.scheduler.stats
 
+    def clear_kv_blocks(self) -> None:
+        """Drop the prefix cache (ref: http clear_kv_blocks endpoint)."""
+        self.scheduler.pool.clear()
+
     # ------------------------- submission ------------------------------
 
     async def submit(self, request: Request) -> AsyncIterator[StepOutput]:

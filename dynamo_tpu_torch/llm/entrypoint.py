@@ -1,18 +1,71 @@
-"""Pipeline builder: frontend → preprocessor → backend → in-process engine.
+"""Pipeline builders: frontend → preprocessor → backend → migration → router
+over the cluster, or → backend → an in-process engine.
 
-A copy of ``build_local_pipeline`` from ``dynamo_tpu.llm.entrypoint`` (ref:
-lib/llm/src/entrypoint/input/common.rs:226,303-310); the routed pipeline,
-its push sink and the embeddings pipeline come with the distributed slice.
-The returned engine accepts OpenAI request dicts and yields
-:class:`~.protocols.BackendOutput`; the HTTP layer folds those into OpenAI
-SSE frames.
+A copy of ``build_routed_pipeline``, ``PushSink`` and ``build_local_pipeline``
+of ``dynamo_tpu.llm.entrypoint`` (ref: lib/llm/src/entrypoint/input/
+common.rs:226,303-310). The returned engine accepts OpenAI request dicts and
+yields :class:`~.protocols.BackendOutput`; the HTTP layer folds those into
+OpenAI SSE frames. Multimodal cards are refused; the embeddings pipeline and
+the KV-aware sink (``make_kv_sink``) wait for their slices (ROADMAP.md queue
+A, items 7 and 1c).
 """
 
 from __future__ import annotations
 
+from typing import Any, AsyncIterator
+
+from ..runtime.component import Client
+from ..runtime.context import Context
 from ..runtime.engine import AsyncEngine, link
 from .backend import Backend
+from .discovery import ModelDeploymentCard
+from .migration import Migration
 from .preprocessor import Preprocessor
+
+
+class PushSink(AsyncEngine):
+    """Routing sink over a component Client (ref: push_router.rs:33).
+
+    Modes: round_robin | random.
+    """
+
+    def __init__(self, client: Client, mode: str = "round_robin"):
+        self.client = client
+        self.mode = mode
+
+    def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
+        if self.mode == "random":
+            return self.client.random(request, context)
+        return self.client.round_robin(request, context)
+
+
+def build_routed_pipeline(
+    card: ModelDeploymentCard,
+    client: Client,
+    *,
+    router_mode: str = "round_robin",
+) -> AsyncEngine:
+    """OpenAI dict in → BackendOutput stream out, over the cluster.
+
+    A card that advertises multimodal support is refused: the
+    encode-prefill-decode flow is not ported yet (ROADMAP.md queue A,
+    item 7)."""
+    if (card.runtime_config or {}).get("multimodal"):
+        raise NotImplementedError(
+            f"model {card.name!r} asks for multimodal serving, which "
+            "dynamo_tpu_torch does not serve yet (ROADMAP.md queue A, "
+            "item 7)"
+        )
+    tokenizer = card.load_tokenizer()
+    pre = Preprocessor(
+        tokenizer,
+        model_name=card.name,
+        max_context_len=card.context_length,
+    )
+    back = Backend(tokenizer)
+    return link(pre, back,
+                Migration(PushSink(client, router_mode),
+                          card.migration_limit))
 
 
 def build_local_pipeline(

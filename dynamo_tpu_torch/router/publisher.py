@@ -1,0 +1,198 @@
+"""Worker-side publishers: KV events + load metrics
+(ref: lib/llm/src/kv_router/publisher.rs:90,483).
+
+The reference relays engine ZMQ events onto NATS; our engine is in-process,
+so the publisher is just the engine's ``kv_event_sink`` batching onto the
+store's pub/sub. ``WorkerMetricsPublisher`` periodically publishes the
+ForwardPassMetrics-equivalent scheduler stats for the metrics aggregator and
+busy-threshold routing.
+
+A copy of ``dynamo_tpu.router.publisher`` on the package's own codec, with
+its own copies of ``RouterEvent`` (``router/indexer.py``) and of the two
+subject names (``router/kv_router.py``), which wait for the KV-aware router
+(ROADMAP.md queue A, item 1c). The load snapshot carries the scheduler stats
+and what ``extra_fn`` adds; the JAX package's spec, flight-recorder, KVBM,
+preemption and fault-firing keys come with those features. Block hashes come from this
+package's ``tokens.py`` (blake2b where the JAX package uses xxh3), so the
+events name other hashes than a JAX worker's for the same tokens.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from dataclasses import dataclass
+from typing import List, Optional
+
+from ..runtime import codec
+from ..runtime.component import Component
+from ..utils.logging import get_logger
+
+log = get_logger("kv_publisher")
+
+KV_EVENTS_SUBJECT = "kv_events"         # ref: kv_router.rs:60
+LOAD_METRICS_SUBJECT = "load_metrics"   # ref: kv_router.rs:57
+
+
+@dataclass(frozen=True)
+class RouterEvent:
+    """One worker's KV-cache event as carried on the wire
+    (ref: indexer.rs:175)."""
+
+    worker_id: int
+    kind: str                 # "stored" | "removed" | "cleared"
+    blocks: tuple             # stored: ({seq_hash, block_hash, parent},…)
+                              # removed: (seq_hash,…); cleared: ()
+
+    def to_dict(self) -> dict:
+        return {
+            "worker_id": self.worker_id,
+            "event": {"kind": self.kind, "blocks": list(self.blocks)},
+        }
+
+
+class KvEventPublisher:
+    """Batches engine KV events onto the component's ``kv_events`` subject.
+
+    Wire format: msgpack ``{"worker_id": int, "event": {kind, blocks}}`` —
+    one message per engine event batch, preserving order.
+    """
+
+    def __init__(self, component: Component, worker_id: int):
+        self.component = component
+        self.worker_id = worker_id
+        self.subject = component.event_subject(KV_EVENTS_SUBJECT)
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._task: Optional[asyncio.Task] = None
+        self.events_published = 0
+        self._pub_failures = 0
+
+    def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.create_task(self._pump())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+    def sink(self, event: dict) -> None:
+        """Engine-facing callback (``InferenceEngine.kv_event_sink``)."""
+        self._queue.put_nowait(event)
+
+    async def _pump(self) -> None:
+        store = self.component.runtime.store
+        while True:
+            events = [await self._queue.get()]
+            while True:  # drain: a prefill seals many blocks per step
+                try:
+                    events.append(self._queue.get_nowait())
+                except asyncio.QueueEmpty:
+                    break
+            try:
+                for payload in self._coalesce(events):
+                    await store.publish(
+                        self.subject + str(self.worker_id),
+                        codec.packb(payload),
+                    )
+                    self.events_published += 1
+                self._pub_failures = 0
+            except Exception as exc:
+                # traceback once per failure streak — a store outage makes
+                # every batch fail and repeating it floods the worker log
+                if self._pub_failures == 0:
+                    log.exception("kv event publish failed")
+                else:
+                    log.warning("kv event publish still failing (%d in a "
+                                "row): %s", self._pub_failures + 1, exc)
+                self._pub_failures += 1
+
+    def _coalesce(self, events: List[dict]) -> List[dict]:
+        """Merge runs of same-kind events into single wire messages (the
+        blocks field is already a list), preserving order across kinds."""
+        out: List[dict] = []
+        for event in events:
+            kind = event.get("kind")
+            blocks = tuple(event.get("blocks", ()))
+            if kind == "stored":
+                # carry the prefix-node digest explicitly: the chained
+                # seq_hash IS the path digest (tokens.py), and naming it on
+                # the wire lets radix replicas key on it without assuming
+                # the pool's internal field layout
+                blocks = tuple(
+                    {**b, "digest": b["seq_hash"]}
+                    if isinstance(b, dict) and "seq_hash" in b else b
+                    for b in blocks
+                )
+            if kind is None:
+                log.warning("malformed kv event (no kind): %r", event)
+                continue
+            if out and out[-1]["event"]["kind"] == kind and kind != "cleared":
+                out[-1]["event"]["blocks"].extend(blocks)
+            else:
+                out.append(RouterEvent(
+                    worker_id=self.worker_id, kind=kind, blocks=blocks,
+                ).to_dict())
+        return out
+
+
+class WorkerMetricsPublisher:
+    """Publishes ForwardPassMetrics-equivalent stats every ``interval_s``
+    (ref: publisher.rs:483; protocols.rs:48 ``ForwardPassMetrics``)."""
+
+    def __init__(
+        self, component: Component, worker_id: int, stats_fn,
+        interval_s: float = 1.0, extra_fn=None,
+    ):
+        self.component = component
+        self.worker_id = worker_id
+        self.stats_fn = stats_fn      # () -> SchedulerStats
+        self.extra_fn = extra_fn      # () -> dict merged into the snapshot
+        self.interval_s = interval_s
+        self.subject = component.event_subject(LOAD_METRICS_SUBJECT)
+        self._task: Optional[asyncio.Task] = None
+
+    def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.create_task(self._pump())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+    def snapshot(self) -> dict:
+        s = self.stats_fn()
+        snap = {
+            "worker_id": self.worker_id,
+            "num_requests_running": s.num_running,
+            "num_requests_waiting": s.num_waiting,
+            "kv_usage": s.kv_usage,
+            "num_total_blocks": s.num_total_blocks,
+            "prefix_cache_hits": s.prefix_cache_hits,
+            "prefix_cache_queries": s.prefix_cache_queries,
+        }
+        if self.extra_fn is not None:
+            try:
+                snap.update(self.extra_fn())
+            except Exception:
+                log.exception("metrics extra_fn failed")
+        return snap
+
+    async def _pump(self) -> None:
+        store = self.component.runtime.store
+        failures = 0
+        while True:
+            try:
+                await store.publish(
+                    self.subject + str(self.worker_id),
+                    codec.packb(self.snapshot()),
+                )
+                failures = 0
+            except Exception as exc:
+                if failures == 0:
+                    log.exception("load metrics publish failed")
+                else:
+                    log.warning("load metrics publish still failing (%d in "
+                                "a row): %s", failures + 1, exc)
+                failures += 1
+            await asyncio.sleep(self.interval_s)

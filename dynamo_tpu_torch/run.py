@@ -22,14 +22,13 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
-import os
 import sys
 import time
 from typing import Optional
 
 from .engine.config import EngineConfig, ModelConfig
-from .llm.tokenizer import Tokenizer
 from .runtime.context import Context
+from .serving import load_tokenizer
 from .utils.logging import get_logger
 
 log = get_logger("run")
@@ -72,15 +71,6 @@ def build_output(args):
         max_model_len=min(args.max_model_len, model_cfg.max_position),
     )
     return InferenceEngine(model_cfg, eng_cfg, device=args.device)
-
-
-def load_tokenizer(path: Optional[str]) -> Optional[Tokenizer]:
-    """A ``tokenizer.json`` file, or a local HuggingFace directory."""
-    if path is None:
-        return None
-    if os.path.isdir(path):
-        return Tokenizer.from_pretrained_dir(path)
-    return Tokenizer.from_file(path)
 
 
 async def run_text(engine, tokenizer, args) -> None:

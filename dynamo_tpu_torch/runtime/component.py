@@ -1,0 +1,429 @@
+"""Namespace → Component → Endpoint → Instance model over the discovery store.
+
+The cluster addressing scheme (ref: lib/runtime/src/component.rs:75-143):
+instances register under
+``v1/instances/{namespace}/{component}/{endpoint}/{instance_id}`` with their
+TCP ingress address, attached to the process's primary lease so worker death
+deregisters them automatically. ``Client`` watches that prefix and keeps a
+live instance list for routing (ref: component/client.rs:285).
+
+A copy of ``dynamo_tpu.runtime.component`` on the package's own codec. The
+system server (/health /live /metrics, built on aiohttp in the JAX package)
+is not ported yet: :meth:`DistributedRuntime.start_system_server` is
+refused, and ``from_settings`` refuses every setting this package does not
+serve (``utils.config.check_supported``).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import random
+from dataclasses import dataclass
+from typing import AsyncIterator, Callable, Dict, List, Optional
+
+from .. import tracing
+from ..utils.config import RuntimeConfig, check_supported
+from ..utils.logging import get_logger
+from ..utils.metrics import MetricsRegistry
+from . import codec
+from .context import Context
+from .engine import AsyncEngine, FnEngine
+from .store import StoreClient
+from .transport import (
+    EngineError, ERR_OVERLOADED, ERR_UNAVAILABLE, IngressServer,
+    TransportClient,
+)
+
+log = get_logger("component")
+
+INSTANCE_ROOT = "v1/instances/"
+MODEL_ROOT = "v1/models/"     # ref: kv_router.rs:36 MODEL_ROOT_PATH
+MDC_ROOT = "v1/mdc/"          # model deployment cards
+BARRIER_ROOT = "v1/barrier/"
+
+
+@dataclass(frozen=True)
+class Instance:
+    instance_id: int
+    namespace: str
+    component: str
+    endpoint: str
+    addr: str  # host:port of the worker's TCP ingress
+
+    @property
+    def key(self) -> str:
+        return (
+            f"{INSTANCE_ROOT}{self.namespace}/{self.component}/"
+            f"{self.endpoint}/{self.instance_id}"
+        )
+
+
+class DistributedRuntime:
+    """Process-local handle on the cluster (ref: lib/runtime/src/lib.rs:145).
+
+    Owns the store client (with primary lease + keepalive), the transport
+    client pool, the metrics root, and the shutdown event. Lease loss triggers
+    runtime shutdown, matching the reference's liveness contract.
+    """
+
+    def __init__(self, store: StoreClient, config: RuntimeConfig):
+        self.store = store
+        self.config = config
+        self.transport = TransportClient()
+        self.metrics = MetricsRegistry(prefix="dynamo")
+        self.shutdown_event = asyncio.Event()
+        self._ingress_servers: List[IngressServer] = []
+        # (endpoint_path, store_key) pairs written by register_llm so
+        # graceful endpoint shutdown also deregisters the models
+        self.registered_models: List[tuple] = []
+        store.on_lease_lost = self._on_lease_lost
+        # per-stage latency histograms from trace spans land in this
+        # process's registry regardless of the span-export sampling knob
+        tracing.get_tracer().attach_metrics(self.metrics)
+
+    @staticmethod
+    async def from_settings(
+        config: Optional[RuntimeConfig] = None,
+    ) -> "DistributedRuntime":
+        config = config or RuntimeConfig.from_settings()
+        check_supported(config)
+        store = await StoreClient.connect(
+            config.store_addr, lease_ttl_s=config.lease_ttl_s,
+            recover_timeout_s=config.store_recover_timeout_s,
+            reconnect_base_s=config.store_reconnect_base_s,
+            reconnect_cap_s=config.store_reconnect_cap_s,
+        )
+        tracer = tracing.get_tracer()
+        tracer.configure(
+            sample_ratio=config.trace_sample_ratio,
+            slow_threshold_s=config.trace_slow_threshold_s,
+            buffer_size=config.trace_buffer_size,
+        )
+        if config.trace_export_path:
+            tracer.add_jsonl(config.trace_export_path)
+        return DistributedRuntime(store, config)
+
+    async def start_system_server(self, port: int = 0) -> None:
+        """/health /live /metrics (ref: system_status_server.rs): not
+        ported yet."""
+        raise NotImplementedError(
+            "the system server is not served by dynamo_tpu_torch yet "
+            "(ROADMAP.md queue A, item 1d)"
+        )
+
+    def _on_lease_lost(self) -> None:
+        log.error("primary lease lost — shutting down runtime")
+        self.shutdown_event.set()
+
+    @property
+    def primary_lease(self) -> int:
+        return self.store.primary_lease
+
+    def namespace(self, name: Optional[str] = None) -> "Namespace":
+        return Namespace(self, name or self.config.namespace)
+
+    async def shutdown(self) -> None:
+        self.shutdown_event.set()
+        tracing.get_tracer().detach_metrics(self.metrics)
+        for srv in self._ingress_servers:
+            await srv.stop()
+        await self.transport.close()
+        await self.store.close()
+
+
+class Namespace:
+    def __init__(self, runtime: DistributedRuntime, name: str):
+        self.runtime = runtime
+        self.name = name
+        self.metrics = runtime.metrics.child(namespace=name)
+
+    def component(self, name: str) -> "Component":
+        return Component(self, name)
+
+
+class Component:
+    def __init__(self, namespace: Namespace, name: str):
+        self.namespace = namespace
+        self.name = name
+        self.runtime = namespace.runtime
+        self.metrics = namespace.metrics.child(component=name)
+
+    def endpoint(self, name: str) -> "Endpoint":
+        return Endpoint(self, name)
+
+    @property
+    def path(self) -> str:
+        return f"{self.namespace.name}/{self.name}"
+
+    def event_subject(self, name: str) -> str:
+        """Store key prefix used as a pub/sub subject for this component
+        (e.g. ``kv_events``, ref: kv_router.rs:60)."""
+        return f"v1/events/{self.path}/{name}/"
+
+
+class Endpoint:
+    def __init__(self, component: Component, name: str):
+        self.component = component
+        self.name = name
+        self.runtime = component.runtime
+        self.metrics = component.metrics.child(endpoint=name)
+
+    @property
+    def path(self) -> str:
+        return f"{self.component.path}/{self.name}"
+
+    @property
+    def instance_prefix(self) -> str:
+        return f"{INSTANCE_ROOT}{self.path}/"
+
+    async def serve_endpoint(
+        self,
+        handler: AsyncEngine | Callable,
+        *,
+        host: str = "0.0.0.0",
+        advertise_host: str = "127.0.0.1",
+        port: int = 0,
+        max_inflight: Optional[int] = None,
+        metadata: Optional[dict] = None,
+    ) -> "ServedEndpoint":
+        """Start a TCP ingress for ``handler`` and register the instance
+        (ref: bindings _core.pyi:216 ``serve_endpoint``)."""
+        engine = handler if isinstance(handler, AsyncEngine) else FnEngine(handler)
+        server = IngressServer(engine, host=host, port=port, max_inflight=max_inflight)
+        await server.start()
+        self.runtime._ingress_servers.append(server)
+        instance = Instance(
+            instance_id=self.runtime.primary_lease,
+            namespace=self.component.namespace.name,
+            component=self.component.name,
+            endpoint=self.name,
+            addr=f"{advertise_host}:{server.port}",
+        )
+        record = {
+            "instance_id": instance.instance_id,
+            "addr": instance.addr,
+            "transport": "tcp",
+            "metadata": metadata or {},
+        }
+        await self.runtime.store.put(
+            instance.key,
+            codec.packb(record),
+            lease=self.runtime.primary_lease,
+        )
+        log.info("serving %s as instance %d at %s",
+                 self.path, instance.instance_id, instance.addr)
+        return ServedEndpoint(self, server, instance, record=record)
+
+    async def client(self) -> "Client":
+        client = Client(self)
+        await client.start()
+        return client
+
+
+class ServedEndpoint:
+    def __init__(
+        self, endpoint: Endpoint, server: IngressServer, instance: Instance,
+        record: Optional[dict] = None,
+    ):
+        self.endpoint = endpoint
+        self.server = server
+        self.instance = instance
+        # kept so withdraw/readvertise can re-put the exact same record
+        self._record = record
+
+    async def drain_and_stop(
+        self, deadline_s: Optional[float] = None, stop_grace_s: float = 2.0,
+    ) -> None:
+        """Graceful shutdown: deregister (no new routing), reject late
+        arrivals as ``draining``, finish in-flight within ``deadline_s`` —
+        stragglers get their streams stopped so clients migrate — then stop.
+        """
+        self.server.draining = True
+        await self._deregister()
+        drained = await self.server.drain(deadline_s, stop_grace_s=stop_grace_s)
+        if not drained:
+            log.warning(
+                "%s: %d streams still in flight after drain — stopping hard",
+                self.endpoint.path, self.server.num_inflight,
+            )
+        await self.server.stop()
+
+    async def stop(self) -> None:
+        await self._deregister()
+        await self.server.stop()
+
+    async def withdraw(self) -> None:
+        """Pull the instance key so the cluster stops routing here, without
+        stopping the server (health-probe failure path)."""
+        runtime = self.endpoint.runtime
+        try:
+            await runtime.store.delete(self.instance.key)
+        except Exception as exc:
+            log.warning("withdraw of %s failed (%s) — store down? the lease "
+                        "expiring will deregister us anyway",
+                        self.instance.key, exc)
+
+    async def readvertise(self) -> None:
+        """Re-put the instance key after health recovery so routing resumes."""
+        if self.server.draining:
+            return  # a recovered-but-draining worker must stay withdrawn
+        runtime = self.endpoint.runtime
+        record = self._record or {
+            "instance_id": self.instance.instance_id,
+            "addr": self.instance.addr,
+            "transport": "tcp",
+            "metadata": {},
+        }
+        await runtime.store.put(
+            self.instance.key,
+            codec.packb(record),
+            lease=runtime.primary_lease,
+        )
+        log.info("re-advertised %s after recovery", self.instance.key)
+
+    async def _deregister(self) -> None:
+        # a drain must complete even while the store is unreachable: every
+        # store op here is best-effort (the lease dying cleans up for us)
+        runtime = self.endpoint.runtime
+        try:
+            await runtime.store.delete(self.instance.key)
+        except Exception as exc:
+            log.warning("deregister of %s failed: %s", self.instance.key, exc)
+        path = self.endpoint.path
+        for ep_path, key in list(runtime.registered_models):
+            if ep_path == path:
+                try:
+                    await runtime.store.delete(key)
+                except Exception as exc:
+                    log.warning("deregister of %s failed: %s", key, exc)
+                runtime.registered_models.remove((ep_path, key))
+
+
+class Client:
+    """Watches an endpoint's instance prefix; routes requests to instances
+    (ref: component/client.rs:285 + pipeline/network/egress/push_router.rs)."""
+
+    def __init__(self, endpoint: Endpoint):
+        self.endpoint = endpoint
+        self.runtime = endpoint.runtime
+        self.instances: Dict[int, Instance] = {}
+        # optional busy gate (ref: push_router.rs:58-63 busy-threshold
+        # rejection); installed by router.monitor.WorkerMonitor.attach()
+        self.busy_fn: Optional[Callable[[int], bool]] = None
+        self._rr = 0
+        self._watch_task: Optional[asyncio.Task] = None
+        self._watch_stream = None
+        self._instances_changed = asyncio.Event()
+        self.on_instance_removed: List[Callable[[int], None]] = []
+        self.on_instance_added: List[Callable[[int], None]] = []
+
+    async def start(self) -> None:
+        # resilient watch: across store outages the stream resyncs itself
+        # (revision catch-up or snapshot reconcile) while we keep routing to
+        # the last-known instance table (stale-while-revalidate)
+        snapshot, stream = await self.runtime.store.watch_prefix_resilient(
+            self.endpoint.instance_prefix,
+            grace_s=self.runtime.config.store_reconcile_grace_s,
+        )
+        self._watch_stream = stream
+        for key, value in snapshot:
+            self._apply("put", key, value)
+        self._watch_task = asyncio.create_task(self._watch_loop(stream))
+
+    async def stop(self) -> None:
+        if self._watch_task:
+            self._watch_task.cancel()
+        if self._watch_stream is not None:
+            await self._watch_stream.cancel()
+            self._watch_stream = None
+
+    def _apply(self, event: str, key: str, value: Optional[bytes]) -> None:
+        instance_id = int(key.rsplit("/", 1)[1])
+        if event == "put" and value is not None:
+            record = codec.unpackb(value)
+            self.instances[instance_id] = Instance(
+                instance_id=instance_id,
+                namespace=self.endpoint.component.namespace.name,
+                component=self.endpoint.component.name,
+                endpoint=self.endpoint.name,
+                addr=record["addr"],
+            )
+            for cb in self.on_instance_added:
+                cb(instance_id)
+        elif event == "delete":
+            if self.instances.pop(instance_id, None) is not None:
+                for cb in self.on_instance_removed:
+                    cb(instance_id)
+        self._instances_changed.set()
+        self._instances_changed = asyncio.Event()
+
+    async def _watch_loop(self, stream) -> None:
+        while True:
+            event = await stream.next()
+            if event is None:
+                return  # client closed for good; lease loss shuts us down
+            if event["event"] == "dropped":
+                continue  # the resilient stream resyncs; nothing to do here
+            self._apply(event["event"], event["key"], event.get("value"))
+
+    def instance_ids(self) -> List[int]:
+        return sorted(self.instances.keys())
+
+    async def wait_for_instances(self, n: int = 1, timeout_s: float = 60.0) -> None:
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        while len(self.instances) < n:
+            remaining = deadline - loop.time()
+            if remaining <= 0:
+                raise TimeoutError(
+                    f"{self.endpoint.path}: {len(self.instances)}/{n} instances"
+                )
+            event = self._instances_changed
+            try:
+                await asyncio.wait_for(asyncio.shield(event.wait()), remaining)
+            except asyncio.TimeoutError:
+                pass
+
+    # -- request push (ref: push_router.rs RouterMode Direct/Random/RoundRobin) --
+
+    def _pick(self, mode: str) -> Instance:
+        ids = self.instance_ids()
+        if not ids:
+            raise EngineError(
+                f"no instances for {self.endpoint.path}", ERR_UNAVAILABLE
+            )
+        if self.busy_fn is not None:
+            free = [i for i in ids if not self.busy_fn(i)]
+            if not free:
+                raise EngineError(
+                    f"all {len(ids)} instances of {self.endpoint.path} "
+                    "are busy", ERR_OVERLOADED,
+                )
+            ids = free
+        if mode == "random":
+            chosen = random.choice(ids)
+        else:  # round_robin
+            chosen = ids[self._rr % len(ids)]
+            self._rr += 1
+        return self.instances[chosen]
+
+    def direct(
+        self, instance_id: int, request: object, context: Context
+    ) -> AsyncIterator[object]:
+        instance = self.instances.get(instance_id)
+        if instance is None:
+            raise EngineError(
+                f"instance {instance_id} not found for {self.endpoint.path}",
+                ERR_UNAVAILABLE,
+            )
+        return self.runtime.transport.generate(instance.addr, request, context)
+
+    def round_robin(self, request: object, context: Context) -> AsyncIterator[object]:
+        return self.runtime.transport.generate(
+            self._pick("round_robin").addr, request, context
+        )
+
+    def random(self, request: object, context: Context) -> AsyncIterator[object]:
+        return self.runtime.transport.generate(
+            self._pick("random").addr, request, context
+        )

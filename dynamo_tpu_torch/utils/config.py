@@ -1,0 +1,151 @@
+"""Layered runtime configuration.
+
+Equivalent role to the reference's figment-based ``RuntimeConfig``
+(ref: lib/runtime/src/config.rs:72,194-244): defaults < config file (JSON)
+< environment variables, with the ``DYNTPU_`` prefix (the reference uses
+``DYN_``). Typed accessors with bool/int/float coercion.
+
+A copy of ``dynamo_tpu.utils.config`` holding the settings this package
+reads, under the JAX package's names, defaults and environment variables,
+so one deployment's settings configure processes of either package. The
+switches of paths not ported yet are kept too, so that :func:`check_supported`
+refuses them; ``prefix_enabled`` defaults to off here. The JAX package's
+tuning knobs of those paths (spec decode, disagg, preemption, planner, the
+flight recorder) come with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from pathlib import Path
+from typing import Optional
+
+ENV_PREFIX = "DYNTPU_"
+
+_TRUTHY = {"1", "true", "yes", "on"}
+_FALSY = {"0", "false", "no", "off", ""}
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    low = raw.strip().lower()
+    if low in _TRUTHY:
+        return True
+    if low in _FALSY:
+        return False
+    raise ValueError(f"cannot parse boolean env {name}={raw!r}")
+
+
+def env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    return default if raw is None or raw == "" else int(raw)
+
+
+def env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    return default if raw is None or raw == "" else float(raw)
+
+
+def env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+@dataclasses.dataclass
+class RuntimeConfig:
+    """Process-wide runtime settings, layered from file + env."""
+
+    namespace: str = "dynamo"
+    store_addr: str = "127.0.0.1:3280"  # lease-KV discovery store (etcd role)
+    request_timeout_s: float = 600.0
+    # frontend admission control: 0 disables the limiter entirely
+    max_concurrent_requests: int = 0
+    max_queued_requests: int = 16
+    retry_after_s: float = 1.0
+    lease_ttl_s: float = 10.0  # ref: transports/etcd.rs:89-95 (10 s TTL)
+    # graceful drain: in-flight streams get this long to finish before they
+    # are stopped (clients migrate the remainder to another worker)
+    drain_timeout_s: float = 30.0
+    # store-outage survival: how long the client retries reconnecting before
+    # declaring the lease lost, and the jittered-backoff pacing of the dials
+    store_recover_timeout_s: float = 30.0
+    store_reconnect_base_s: float = 0.25
+    store_reconnect_cap_s: float = 5.0
+    # after a snapshot reconcile, keys missing from the snapshot are only
+    # evicted once they stay gone this long (their owner may be re-putting)
+    store_reconcile_grace_s: float = 3.0
+    # -- request tracing (dynamo_tpu_torch.tracing) --
+    # head-sampling ratio by trace id in [0, 1]; 0 disables span export
+    # (stage_latency_seconds histograms are observed regardless)
+    trace_sample_ratio: float = 0.0
+    # root spans slower than this are exported even when unsampled
+    # (slow-request auto-dump); 0 disables
+    trace_slow_threshold_s: float = 0.0
+    # JSONL span export path for the offline assembler; "" disables
+    trace_export_path: str = ""
+    # in-process span ring buffer
+    trace_buffer_size: int = 4096
+    # "off" | "ngram" (only "off" is served: EngineConfig refuses ngram)
+    spec_mode: str = "off"
+    # chunked prefill: per-chunk token cap so long prompts interleave with
+    # running decodes (0 = whole-bucket prefill)
+    prefill_chunk_tokens: int = 0
+    # "bf16" | "int8" | "fp8": weight and paged-KV storage dtypes,
+    # validated again by EngineConfig at engine startup
+    weight_dtype: str = "bf16"
+    kv_dtype: str = "bf16"
+    # -- switches of paths not served yet (check_supported refuses) --
+    system_enabled: bool = False
+    health_check_enabled: bool = False
+    planner_apply_degradation: bool = False
+    # the radix prefix cache (on by default in the JAX package)
+    prefix_enabled: bool = False
+
+    @staticmethod
+    def from_settings(path: Optional[str] = None) -> "RuntimeConfig":
+        cfg = RuntimeConfig()
+        file_path = path or os.environ.get(ENV_PREFIX + "CONFIG")
+        if file_path and Path(file_path).exists():
+            data = json.loads(Path(file_path).read_text())
+            for k, v in data.items():
+                if hasattr(cfg, k):
+                    setattr(cfg, k, v)
+        # env layer wins: DYNTPU_<FIELD IN CAPITALS>, as in the JAX package
+        for field in dataclasses.fields(cfg):
+            env = ENV_PREFIX + field.name.upper()
+            current = getattr(cfg, field.name)
+            if field.type == "bool":
+                value = env_flag(env, current)
+            elif field.type == "int":
+                value = env_int(env, current)
+            elif field.type == "float":
+                value = env_float(env, current)
+            else:
+                value = env_str(env, current)
+            setattr(cfg, field.name, value)
+        return cfg
+
+
+# settings whose path this package does not serve yet, with the ROADMAP.md
+# item that brings each
+_UNPORTED = (
+    ("system_enabled", "the system server (ROADMAP.md queue A, item 1d)"),
+    ("health_check_enabled", "health probes (ROADMAP.md queue A, item 1d)"),
+    ("planner_apply_degradation",
+     "the planner's degradation watcher (ROADMAP.md queue A, item 1d)"),
+    ("prefix_enabled", "the radix prefix cache (ROADMAP.md queue A, item 4)"),
+)
+
+
+def check_supported(cfg: RuntimeConfig) -> None:
+    """Refuse every setting whose path this package does not serve yet:
+    the process would otherwise run without what was asked for."""
+    for field, what in _UNPORTED:
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"{field} ({ENV_PREFIX}{field.upper()}) needs {what}, which "
+                "dynamo_tpu_torch does not serve yet"
+            )

@@ -5,9 +5,11 @@ them: the port has its own replacements), and ``triton`` is never imported
 at module level. Its entry
 points refuse to fall back to the CPU when no device is given and no GPU is
 present, and engine construction refuses the paths this slice does not
-serve."""
+serve. The distributed entry points refuse every flag and setting whose path
+is not ported yet, and the store and the frontend never load ``torch``."""
 
 import ast
+import asyncio
 import subprocess
 import sys
 from pathlib import Path
@@ -146,3 +148,96 @@ def test_quantized_paths_are_served(knob):
         assert set(engine.cache) == {"k", "v", "ks", "vs"}
     else:
         assert isinstance(engine.params["layers"]["wq"], dict)
+
+
+# ------------------------- the distributed entry points ------------------
+
+
+def test_worker_without_device_raises_on_a_cpu_machine():
+    """``python -m dynamo_tpu_torch.worker`` with no ``--device`` on a
+    machine without a GPU: the engine is built before the store is dialled,
+    so the refusal comes first."""
+    assert not torch.cuda.is_available()
+    out = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "tiny",
+         "--store-addr", "127.0.0.1:9"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("flags", [
+    ["--weights", "/ckpt"], ["--mesh", "1,2"], ["--pp", "2"],
+    ["--spec-mode", "ngram"], ["--attention-impl", "auto"],
+    ["--disagg-mode", "prefill"], ["--disagg-queue"],
+    ["--kvbm-host-blocks", "64"], ["--kvbm-remote"], ["--mm-encoder"],
+    ["--mm-encode-component", "encoder"], ["--coordinator", "h0:1234"],
+    ["--num-hosts", "2"], ["--model", "70b"],
+], ids=lambda f: f[0].lstrip("-") + ("" if len(f) == 1 else f"={f[1]}"))
+def test_worker_refuses_unserved_flags(flags):
+    from dynamo_tpu_torch import worker
+
+    args = worker.parse_args(["--device", "cpu", *flags])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        asyncio.run(worker.run_worker(args))
+
+
+def test_worker_maps_the_jax_attention_names():
+    from dynamo_tpu_torch import worker
+
+    for name, impl in (("pallas", "kernel"), ("einsum", "einsum")):
+        args = worker.parse_args(["--attention-impl", name])
+        worker.check_supported(args)
+        assert worker.ATTENTION_IMPLS[args.attention_impl] == impl
+
+
+@pytest.mark.parametrize("flags", [
+    ["--router-mode", "kv"], ["--grpc-port", "9000"]],
+    ids=["router-mode-kv", "grpc-port"])
+def test_frontend_refuses_unserved_flags(flags):
+    from dynamo_tpu_torch.frontend import __main__ as frontend
+
+    with pytest.raises(NotImplementedError):
+        asyncio.run(frontend.run_frontend(frontend.parse_args(flags)))
+
+
+@pytest.mark.parametrize("env", [
+    "DYNTPU_PREFIX_ENABLED", "DYNTPU_SYSTEM_ENABLED",
+    "DYNTPU_HEALTH_CHECK_ENABLED", "DYNTPU_PLANNER_APPLY_DEGRADATION"])
+def test_runtime_refuses_unserved_settings(monkeypatch, env):
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    assert RuntimeConfig().prefix_enabled is False
+    monkeypatch.setenv(env, "1")
+    with pytest.raises(NotImplementedError, match=env):
+        asyncio.run(DistributedRuntime.from_settings())
+
+
+def test_routed_pipeline_refuses_a_multimodal_card():
+    from dynamo_tpu_torch.llm.discovery import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.entrypoint import build_routed_pipeline
+
+    card = ModelDeploymentCard(name="m", tokenizer_json=TOKENIZER_STUB,
+                               runtime_config={"multimodal": {
+                                   "tokens_per_image": 16}})
+    with pytest.raises(NotImplementedError, match="multimodal"):
+        build_routed_pipeline(card, client=None)
+
+
+def test_store_and_frontend_never_touch_the_gpu():
+    """The store, the frontend and a routed pipeline load no ``torch`` at
+    all, so they cannot initialise CUDA."""
+    code = (
+        "import sys\n"
+        "import dynamo_tpu_torch.runtime.store\n"
+        "import dynamo_tpu_torch.frontend.__main__\n"
+        "from dynamo_tpu_torch.llm.discovery import ModelDeploymentCard\n"
+        "from dynamo_tpu_torch.llm.entrypoint import build_routed_pipeline\n"
+        f"card = ModelDeploymentCard(name='m', tokenizer_json={TOKENIZER_STUB!r})\n"
+        "build_routed_pipeline(card, client=None)\n"
+        "print('torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
