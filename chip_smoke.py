@@ -45,12 +45,22 @@ Phases (any failure exits non-zero and prints no result line):
    phase 3's traffic goes through the three processes (``[dist]`` lines:
    TTFT, ITL and throughput beside phases 3 and 5, CPU time per token of
    each process, the codec's µs per streamed token); then worker B joins,
-   both publish load metrics and serve under round robin, worker A is
-   SIGKILLed under 8 streams of 256 tokens that must all complete through
-   migration while A's keys leave the store within the lease TTL + 1 s, and
-   worker B drains on SIGTERM and exits 0. Both attention faces must have
-   launched in both workers; their counts are the ``launches_dist`` of the
-   ``kernels`` line. Child logs go to ``build/dist/``.
+   both publish load metrics and serve under round robin; then a second
+   frontend, ``--router-mode kv``, joins the same store: of 4 groups of
+   prompts sharing a 448-token prefix (28 blocks), each group's second
+   request, sent one at a time, must land on the worker that served its
+   first with >= 28 blocks matched (read from the frontend's
+   ``router.select`` spans, ``build/dist/kv_spans.jsonl``), and 16
+   concurrent shared-prefix streams go through each frontend (``[dist]``
+   lines: TTFT and ITL under each sink, requests and cached prompt tokens
+   per worker); worker A is SIGKILLed under 8 streams of 256 tokens, 4
+   through each frontend, that must all complete through migration while
+   A's keys leave the store within the lease TTL + 1 s (the KV frontend's
+   re-issues and A's breaker are printed), and worker B and both frontends
+   exit 0 on SIGTERM. Both attention faces must have launched in both
+   workers; their counts are the ``launches_dist`` of the ``kernels`` line.
+   A ``[hash]`` line times the block hashes of one 512-token prompt. Child
+   logs go to ``build/dist/``.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the ``kernels`` JSON object; the last line is
@@ -904,14 +914,14 @@ async def _http_request(port: int, method: str, path: str, body=None,
 
 
 def http_client(port: int, jobs):
-    """Run ``jobs`` (dicts of ``_http_request``'s arguments) concurrently
-    and return their results. Phase 5 calls this in a client process of
-    its own, so parsing the answers takes no time from the server's
-    interpreter."""
+    """Run ``jobs`` (dicts of ``_http_request``'s arguments; a job's own
+    ``port`` overrides ``port``) concurrently and return their results.
+    Phases 5 and 6 call this in a client process of their own, so parsing
+    the answers takes no time from the server's interpreter."""
     import asyncio
 
     async def run():
-        return await asyncio.gather(*(_http_request(port, **job)
+        return await asyncio.gather(*(_http_request(**{"port": port, **job})
                                       for job in jobs))
     return asyncio.run(run())
 
@@ -1269,6 +1279,87 @@ DIST_MIGRATION_LIMIT = 8
 DIST_OSL_MIGRATE = 256
 DIST_KILL_AFTER_S = 2.0     # into the 256-token streams: ~60 tokens each
 DIST_LOGS = os.path.join("build", "dist")
+# the KV frontend's router.select spans (worker_id, overlap_blocks)
+KV_SPANS = os.path.join(DIST_LOGS, "kv_spans.jsonl")
+KV_GROUPS = 4
+KV_PREFIX_TOKENS = 448      # 28 blocks of 16, shared within a group
+
+
+def kv_group_prompts():
+    """Phase 6's shared-prefix traffic, as token ids: per group, a prefix of
+    ``KV_PREFIX_TOKENS`` and six prompts of ISL tokens that continue it
+    with tokens of their own (a warm-up, a check, 4 for the concurrent
+    runs)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+
+    def ids(n):
+        return torch.randint(256, N_REGULAR, (n,), generator=gen).tolist()
+    groups = []
+    for _ in range(KV_GROUPS):
+        prefix = ids(KV_PREFIX_TOKENS)
+        groups.append([prefix + ids(ISL - KV_PREFIX_TOKENS)
+                       for _ in range(6)])
+    return groups
+
+
+def read_jsonl(path):
+    """The complete lines of a JSONL file another process appends to."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f.read().split("\n")[:-1]]
+
+
+def log_records(text: str):
+    """The records of a log written with ``DYNTPU_JSONL_LOGGING=1``."""
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith("{"):
+            try:
+                out.append(json.loads(ln))
+            except json.JSONDecodeError:
+                pass
+    return out
+
+
+def hash_us_per_prompt(n: int = 200):
+    """Host µs to hash one ISL-token prompt into its chained block hashes
+    at block size 16 (``compute_block_hashes_for_seq``, what the KV router
+    runs per request): the port's xxh3 beside the blake2b chain it
+    replaced. Checks the reference's hashes of tokens 0..31 first."""
+    import hashlib
+    import random
+    import struct
+
+    from dynamo_tpu_torch.tokens import compute_block_hashes_for_seq
+
+    want = [15310707395893867146, 7844343420941177057]
+    if compute_block_hashes_for_seq(list(range(32)), 16) != want:
+        fail("block hashes of tokens 0..31 differ from the JAX package's")
+    key = struct.pack("<Q", 1337)
+
+    def blake2b_chain(tokens, bs):
+        out, parent = [], None
+        for start in range(0, len(tokens) - bs + 1, bs):
+            payload = struct.pack(f"<{bs}I", *tokens[start:start + bs])
+            if parent is not None:
+                payload = struct.pack("<Q", parent) + payload
+            parent = int.from_bytes(hashlib.blake2b(
+                payload, digest_size=8, key=key).digest(), "little")
+            out.append(parent)
+        return out
+    rng = random.Random(SEED)
+    tokens = [rng.randrange(N_REGULAR) for _ in range(ISL)]
+    out = []
+    for fn in (compute_block_hashes_for_seq, blake2b_chain):
+        fn(tokens, 16)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(tokens, 16)
+        out.append((time.perf_counter() - t0) / n * 1e6)
+    return out
 
 
 class Child:
@@ -1384,14 +1475,18 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
     then worker B. Checks: texts served one at a time equal phase 5's
     (decode of phase 3's engine ids), only the worker holds the GPU, 16
     concurrent streams end in ``[DONE]``, both workers publish load metrics
-    and serve under round robin, every stream survives a SIGKILL of worker
-    A mid-stream with its full token count, a migrated stream goes on at
-    the join as worker B goes on from the prompt plus the tokens carried
-    over, A's keys leave the store within the lease TTL + 1 s, worker B
-    drains on SIGTERM and exits 0, and both attention faces launched in
-    every worker that served. Returns the workers' summed kernel
-    launches."""
+    and serve under round robin, a ``--router-mode kv`` frontend on the
+    same store sends each prefix group's second request to the group's
+    holder with >= 28 blocks matched, every stream through either frontend
+    survives a SIGKILL of worker A mid-stream with its full token count, a
+    migrated stream goes on at the join as worker B goes on from the
+    prompt plus the tokens carried over, A's keys leave the store within
+    the lease TTL + 1 s, worker B drains on SIGTERM and exits 0, both
+    frontends exit 0, and both attention faces launched in every worker
+    that served. Returns the workers' summed kernel launches, the
+    KV-routed traffic's included."""
     import asyncio
+    import importlib.util
     import multiprocessing
     import signal
     from concurrent.futures import ProcessPoolExecutor
@@ -1401,9 +1496,12 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
     from dynamo_tpu_torch.runtime import codec
     from dynamo_tpu_torch.runtime.component import DistributedRuntime
     from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.tokens import compute_block_hashes_for_seq
     from dynamo_tpu_torch.utils.config import RuntimeConfig
 
     root = os.path.dirname(os.path.abspath(__file__))
+    if os.path.exists(KV_SPANS):
+        os.remove(KV_SPANS)
     env = dict(os.environ, DYNTPU_LEASE_TTL_S=str(DIST_LEASE_TTL_S),
                PYTHONPATH=os.pathsep.join(
                    p for p in (root, os.environ.get("PYTHONPATH")) if p))
@@ -1415,15 +1513,18 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
     children = []
     faces = ("paged_attention_decode", "paged_attention_ragged")
 
-    def start(name, module, args):
-        child = Child(name, module, args, env)
+    def start(name, module, args, **extra_env):
+        child = Child(name, module, args, dict(env, **extra_env))
         children.append(child)
         return child
 
-    def job(prompt, max_tokens, stream=True):
-        return dict(method="POST", path="/v1/completions", body={
+    def job(prompt, max_tokens, stream=True, port=None):
+        out = dict(method="POST", path="/v1/completions", body={
             "model": HTTP_MODEL, "prompt": prompt, "max_tokens": max_tokens,
             "temperature": 0, "ignore_eos": True, "stream": stream})
+        if port is not None:
+            out["port"] = port
+        return out
 
     def greedy(ids, max_tokens):
         return {"token_ids": list(ids), "max_tokens": max_tokens,
@@ -1445,7 +1546,8 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
         loop = asyncio.get_running_loop()
         procs = ProcessPoolExecutor(
             max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-        rt = collector = sub = None
+        rt = None
+        collectors = []
         clients = []
         try:
             t0 = time.perf_counter()
@@ -1552,6 +1654,15 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                   f"{cpu['worker_a'] / n_tok * 1e3:.3f} ms, frontend "
                   f"{cpu['frontend'] / n_tok * 1e3:.3f} ms, store "
                   f"{cpu['store'] / n_tok * 1e3:.4f} ms", flush=True)
+            xxh3_us, blake2b_us = hash_us_per_prompt()
+            has_xxhash = importlib.util.find_spec("xxhash") is not None
+            print(f"[hash] {card}: block hashes of one {ISL}-token prompt "
+                  f"at block size 16 ({ISL // 16} blocks) on this host: "
+                  f"xxh3 (port, pure Python) {xxh3_us:.1f} us, blake2b "
+                  f"chain it replaced {blake2b_us:.1f} us; xxhash is "
+                  + ("installed here, not timed (this script imports none "
+                     "of it)" if has_xxhash else "not installed here"),
+                  flush=True)
             pack_us, unpack_us = codec_us_per_token()
             print(f"[dist] {card}: codec per streamed token on this host: "
                   f"worker packs payload + frame {pack_us:.2f} us, frontend "
@@ -1574,7 +1685,28 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                     if "kernel_launches" in snap:
                         snaps.setdefault(int(snap["worker_id"]),
                                          []).append((time.perf_counter(), snap))
-            collector = asyncio.create_task(collect())
+            # the sequence hashes each worker's kv_events say it holds: the
+            # KV frontend's router reads the same messages
+            stored = {}
+            kv_sub = await rt.store.subscribe(
+                backend.event_subject("kv_events"))
+
+            async def collect_kv():
+                async for ev in kv_sub:
+                    if ev.get("event") != "msg":
+                        continue
+                    msg = codec.unpackb(ev["value"])
+                    held = stored.setdefault(int(msg["worker_id"]), set())
+                    kind = msg["event"]["kind"]
+                    blocks = msg["event"].get("blocks", ())
+                    if kind == "stored":
+                        held.update(b["seq_hash"] for b in blocks)
+                    elif kind == "removed":
+                        held.difference_update(blocks)
+                    else:
+                        held.clear()
+            collectors += [asyncio.create_task(collect()),
+                           asyncio.create_task(collect_kv())]
             t_b = time.perf_counter()
             worker_b = start("worker_b", "dynamo_tpu_torch.worker",
                              worker_args)
@@ -1608,6 +1740,121 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                 if grew <= 0:
                     fail(f"worker {name} served nothing under round robin")
 
+            # 4. the KV-aware router: a second frontend on the same store
+            name_of = {a_id: "A", b_id: "B"}
+            t_kv = time.perf_counter()
+            kv_front = start(
+                "frontend_kv", "dynamo_tpu_torch.frontend",
+                ["--host", "127.0.0.1", "--port", "0", "--store-addr", addr,
+                 "--router-mode", "kv"],
+                DYNTPU_TRACE_SAMPLE_RATIO="1",
+                DYNTPU_TRACE_EXPORT_PATH=os.path.abspath(KV_SPANS),
+                DYNTPU_JSONL_LOGGING="1")
+            kv_port = int((await kv_front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+            while True:
+                (status, _, _, _, body), = await client(dict(
+                    method="GET", path="/v1/models", port=kv_port))
+                if status == 200 and any(m["id"] == HTTP_MODEL
+                                         for m in body["data"]):
+                    break
+                if time.perf_counter() - t_kv > 60:
+                    fail(f"the KV frontend never listed {HTTP_MODEL}: {body}")
+                await asyncio.sleep(0.2)
+            print(f"[dist] KV frontend (--router-mode kv) up on the same "
+                  f"store in {time.perf_counter() - t_kv:.1f} s", flush=True)
+            groups = kv_group_prompts()
+
+            def selections():
+                return [s for s in read_jsonl(KV_SPANS)
+                        if s["name"] == "router.select"]
+
+            async def one_by_one(ps, port):
+                sels = []
+                for p in ps:
+                    n = len(selections())
+                    results = await client(job(p, OSL, port=port))
+                    check_streams(results, OSL, "shared-prefix stream")
+                    new = selections()[n:]
+                    sels.append(new[-1]["attrs"] if new else None)
+                return sels
+
+            def cached_tokens():
+                # prefix-cache hits are counted in blocks of 16 tokens
+                return {w: snaps[w][-1][1]["prefix_cache_hits"] * 16
+                        for w in (a_id, b_id)}
+
+            await clear_all()
+            sels = await one_by_one([g[0] for g in groups], kv_port)
+            if None in sels:
+                fail(f"the KV frontend exported no router.select span for "
+                     f"a request: {sels}")
+            holders = [s["worker_id"] for s in sels]
+            prefixes = [set(compute_block_hashes_for_seq(
+                g[0][:KV_PREFIX_TOKENS], 16)) for g in groups]
+            t_ix = time.perf_counter()
+            while not all(p <= stored.get(h, set())
+                          for p, h in zip(prefixes, holders)):
+                if time.perf_counter() - t_ix > 30:
+                    fail("the holders' kv_events never carried every "
+                         "prefix block of the first requests")
+                await asyncio.sleep(0.05)
+            await asyncio.sleep(0.5)   # the KV frontend applies the same
+            checks = await one_by_one([g[1] for g in groups], kv_port)
+            if None in checks:
+                fail(f"the KV frontend exported no router.select span for "
+                     f"a request: {checks}")
+            print(f"[dist] KV router, {KV_GROUPS} prefix groups of "
+                  f"{KV_PREFIX_TOKENS} tokens ({KV_PREFIX_TOKENS // 16} "
+                  f"blocks) + {ISL - KV_PREFIX_TOKENS} own, one request at "
+                  f"a time: first requests on "
+                  + ", ".join(name_of[w] for w in holders)
+                  + "; second requests on " + ", ".join(
+                      f"{name_of.get(s['worker_id'])} with "
+                      f"{s['overlap_blocks']} blocks" for s in checks),
+                  flush=True)
+            for g, (h, s) in enumerate(zip(holders, checks)):
+                if s["worker_id"] != h \
+                        or s["overlap_blocks"] < KV_PREFIX_TOKENS // 16:
+                    fail(f"group {g}'s second request went to "
+                         f"{name_of.get(s['worker_id'])} with "
+                         f"{s['overlap_blocks']} blocks, not to its holder "
+                         f"{name_of[h]} with >= {KV_PREFIX_TOKENS // 16}")
+
+            # the same 16 shared-prefix requests through each frontend
+            concurrent = [p for g in groups for p in g[2:]]
+            for mode, fport in (("kv", kv_port), ("round robin", port)):
+                if mode != "kv":
+                    await clear_all()
+                    await one_by_one([g[0] for g in groups], fport)
+                await asyncio.sleep(1.2)   # a snapshot after the warm-up
+                hits0 = cached_tokens()
+                n = len(selections())
+                t_run = time.perf_counter()
+                results = await client(*(job(p, OSL, port=fport)
+                                         for p in concurrent))
+                wall = time.perf_counter() - t_run
+                stats = traffic_stats(check_streams(
+                    results, OSL, f"{mode} shared-prefix stream"), wall)
+                await asyncio.sleep(1.5)   # one more snapshot from each
+                hits = {w: c - hits0[w] for w, c in cached_tokens().items()}
+                served_by = [s["attrs"]["worker_id"]
+                             for s in selections()[n:]]
+                print(f"[dist] {card}: {len(concurrent)} concurrent "
+                      f"shared-prefix streams (4 per group) through the "
+                      f"{mode} frontend: {stats_line(stats)}; " + ", ".join(
+                          f"worker {name_of[w]} "
+                          + (f"served {served_by.count(w)} requests, "
+                             if mode == "kv" else "")
+                          + f"{hits[w]} prompt tokens from cache"
+                          for w in (a_id, b_id)), flush=True)
+            select_ms = sorted(s["duration_s"] * 1e3 for s in selections())
+            print(f"[dist] KV router: {len(select_ms)} selections, "
+                  f"router.select span p50 "
+                  f"{select_ms[len(select_ms) // 2]:.3f} ms max "
+                  f"{select_ms[-1]:.3f} ms (hash of the prompt, index "
+                  f"match, cost function)", flush=True)
+
             class Recorder(PushSink):
                 """The frontend's routing sink, noting how many tokens its
                 stream had yielded when each attempt was issued."""
@@ -1630,9 +1877,13 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                     got.extend(item.get("token_ids", []))
                 return prompt, got, sink.joins
 
+            # 4 streams through each frontend, so that both sinks are held
+            # across the kill
             await clear_all()
-            fut = asyncio.ensure_future(client(*(
-                job(p, DIST_OSL_MIGRATE) for p in prompts[:8])))
+            fut = asyncio.ensure_future(client(
+                *(job(p, DIST_OSL_MIGRATE) for p in prompts[:4]),
+                *(job(p, DIST_OSL_MIGRATE, port=kv_port)
+                  for p in prompts[4:8])))
             token_futs = [asyncio.ensure_future(token_stream(p))
                           for p in prompts[8:16]]
             await asyncio.sleep(DIST_KILL_AFTER_S)
@@ -1642,7 +1893,8 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
             while len(snaps[a_id]) == n_snaps:
                 await asyncio.sleep(0.002)
             a_launches = dict(snaps[a_id][-1][1]["kernel_launches"])
-            t_kill = time.perf_counter()
+            n_sel = len(selections())
+            t_kill, t_kill_unix = time.perf_counter(), time.time()
             worker_a.kill()
             while True:
                 keys = [k for root_ in ("v1/instances/", "v1/models/")
@@ -1656,23 +1908,47 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
             t_gone = time.perf_counter() - t_kill
             results = await fut
             check_streams(results, DIST_OSL_MIGRATE, "stream across SIGKILL")
-            gaps = sorted(min(t for t, f in frames
-                              if t > t_kill and f["choices"][0]["text"])
-                          - t_kill for _, _, frames, _, _ in results)
+            gaps = [sorted(min(t for t, f in frames
+                               if t > t_kill and f["choices"][0]["text"])
+                           - t_kill for _, _, frames, _, _ in part)
+                    for part in (results[:4], results[4:])]
             # one log line per re-issue; a re-issue routed to A before its
-            # lease expired is refused and re-issued again
-            reissued = front.text().count("migrating with")
+            # lease expired (or, under the KV router, before A's breaker
+            # opened) is refused and re-issued again
+            reissued = [front.text().count("migrating with"),
+                        kv_front.text().count("migrating with")]
             print(f"[dist] SIGKILL of worker A mid-stream: all 8 streams "
-                  f"ended in [DONE] with {DIST_OSL_MIGRATE} tokens; "
-                  f"{reissued} re-issues by Migration (limit "
-                  f"{DIST_MIGRATION_LIMIT} per stream); "
-                  f"A's instance and model keys left the store "
-                  f"{t_gone * 1e3:.0f} ms after the kill (TTL "
-                  f"{DIST_LEASE_TTL_S} s); kill to each stream's next "
-                  f"token: " + ", ".join(f"{g * 1e3:.0f}" for g in gaps)
-                  + " ms", flush=True)
-            if not reissued:
-                fail("no stream migrated off the killed worker")
+                  f"(4 per frontend) ended in [DONE] with "
+                  f"{DIST_OSL_MIGRATE} tokens; A's instance and model keys "
+                  f"left the store {t_gone * 1e3:.0f} ms after the kill "
+                  f"(TTL {DIST_LEASE_TTL_S} s)", flush=True)
+            # the KV frontend's re-issues are router.select spans of the
+            # killed streams' traces
+            killed = {s["trace_id"] for s in selections()[:n_sel]
+                      if s["attrs"]["worker_id"] == a_id}
+            reissues = [(s["start_unix"] - t_kill_unix,
+                         name_of.get(s["attrs"]["worker_id"]),
+                         s["attrs"]["overlap_blocks"])
+                        for s in selections()[n_sel:]
+                        if s["trace_id"] in killed]
+            opened = [rec["ts"] - t_kill_unix
+                      for rec in log_records(kv_front.text())
+                      if "circuit OPEN" in rec.get("message", "")]
+            for mode, part, n in zip(("round robin", "kv"), gaps, reissued):
+                print(f"[dist] {mode} frontend across the kill: {n} "
+                      f"re-issues by Migration (limit {DIST_MIGRATION_LIMIT} "
+                      f"per stream); kill to each stream's next token: "
+                      + ", ".join(f"{g * 1e3:.0f}" for g in part) + " ms",
+                      flush=True)
+            print(f"[dist] KV frontend re-issues (ms after the kill, "
+                  f"instance, overlap blocks): " + ", ".join(
+                      f"({t * 1e3:.0f}, {w}, {o})" for t, w, o in reissues)
+                  + "; A's breaker opened " + (", ".join(
+                      f"{t * 1e3:.0f}" for t in opened) + " ms after the kill"
+                      if opened else "never"), flush=True)
+            if not reissued[0] or not reissued[1] or not reissues:
+                fail(f"a frontend migrated no stream off the killed worker: "
+                     f"{reissued} re-issues, KV spans {reissues}")
 
             # The join, token by token: a migrated stream's next token must
             # be the one B makes of the prompt plus the carried tokens,
@@ -1714,10 +1990,11 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
             m = re.search(r"worker exiting: kernel launches (.*)", log_b)
             b_launches = {k: int(v) for k, v in
                           (kv.split("=") for kv in m.group(1).split())}
-            front.proc.send_signal(signal.SIGTERM)
-            rc = await loop.run_in_executor(None, front.proc.wait, 60)
-            if rc != 0:
-                fail(f"frontend on SIGTERM: exit {rc}\n{front.tail()}")
+            for f in (front, kv_front):
+                f.proc.send_signal(signal.SIGTERM)
+                rc = await loop.run_in_executor(None, f.proc.wait, 60)
+                if rc != 0:
+                    fail(f"{f.name} on SIGTERM: exit {rc}\n{f.tail()}")
             launches = {}
             for name, counts in (("A", a_launches), ("B", b_launches)):
                 print(f"[dist] worker {name} kernel launches: " + ", ".join(
@@ -1731,8 +2008,8 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                   flush=True)
             return launches
         finally:
-            if collector is not None:
-                collector.cancel()
+            for task in collectors:
+                task.cancel()
             for c in clients:
                 await c.stop()
             if rt is not None:

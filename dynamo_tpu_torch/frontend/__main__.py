@@ -7,11 +7,12 @@ pipeline per model as workers come and go.
 
     python -m dynamo_tpu_torch.frontend --port 8000 --router-mode round_robin
 
-A copy of ``dynamo_tpu.frontend.__main__``: round-robin and random routing,
-``--busy-threshold``, admission control, ``--request-timeout`` and the
-``frontend_stats`` publisher. ``--router-mode kv`` (ROADMAP.md queue A, item
-1c) and ``--grpc-port`` (KServe) are refused; the planner's degradation
-watcher waits for the planner (item 1d). The frontend never touches the GPU.
+A copy of ``dynamo_tpu.frontend.__main__``: round-robin, random and
+KV-aware routing (``--router-mode kv``: one ``KvRouter`` per model, fed by
+the workers' ``kv_events``), ``--busy-threshold``, admission control,
+``--request-timeout`` and the ``frontend_stats`` publisher. ``--grpc-port``
+(KServe) is refused; the planner's degradation watcher waits for the
+planner (item 1d). The frontend never touches the GPU.
 With ``--port 0`` the log line ``frontend ready on HOST:PORT`` names the
 port bound.
 """
@@ -22,7 +23,7 @@ import argparse
 import asyncio
 
 from ..llm.discovery import ModelDeploymentCard, ModelWatcher
-from ..llm.entrypoint import build_routed_pipeline
+from ..llm.entrypoint import build_routed_pipeline, make_kv_sink
 from ..runtime import codec
 from ..runtime.component import DistributedRuntime
 from ..runtime.signals import install_shutdown_signals
@@ -44,7 +45,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument(
         "--router-mode", default="round_robin",
         choices=["round_robin", "random", "kv"],
-        help="'kv' is not served yet (ROADMAP.md queue A, item 1c)",
     )
     p.add_argument(
         "--grpc-port", type=int, default=0,
@@ -81,11 +81,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_supported(args: argparse.Namespace) -> None:
     """Refuse every flag whose path this package does not serve yet."""
-    if args.router_mode == "kv":
-        raise NotImplementedError(
-            "--router-mode kv needs the KV-aware router (ROADMAP.md queue "
-            "A, item 1c), which dynamo_tpu_torch does not serve yet"
-        )
     if args.grpc_port:
         raise NotImplementedError(
             "--grpc-port needs the KServe gRPC service, which "
@@ -119,6 +114,7 @@ async def run_frontend(args: argparse.Namespace) -> None:
         retry_after_s=config.retry_after_s,
     )
     clients = {}
+    kv_routers = {}
     monitors = {}
 
     async def on_add(card: ModelDeploymentCard, entry: dict) -> None:
@@ -137,8 +133,11 @@ async def run_frontend(args: argparse.Namespace) -> None:
             await monitor.start()
             monitor.attach()
             monitors[card.name] = monitor
+        sink = None
+        if args.router_mode == "kv":
+            sink, kv_routers[card.name] = await make_kv_sink(card, client)
         engine = build_routed_pipeline(
-            card, client, router_mode=args.router_mode,
+            card, client, router_mode=args.router_mode, sink=sink,
         )
         manager.register(ModelEntry(
             name=card.name, engine=engine,
@@ -153,6 +152,9 @@ async def run_frontend(args: argparse.Namespace) -> None:
         monitor = monitors.pop(name, None)
         if monitor:
             await monitor.stop()
+        router = kv_routers.pop(name, None)
+        if router:
+            await router.stop()
         client = clients.pop(name, None)
         if client:
             await client.stop()
@@ -171,11 +173,15 @@ async def run_frontend(args: argparse.Namespace) -> None:
                 win = service.window_stats.drain()
                 win["interval_s"] = args.stats_publish_interval
                 # live pressure signals riding the same payload: admission
-                # backlog and router breaker states (planner feeds; no
-                # breakers without the KV router)
+                # backlog and router breaker states (planner feeds)
                 if service.admission is not None:
                     win["queue_depth"] = service.admission.queue_depth
-                win["breaker_open"] = 0
+                win["breaker_open"] = sum(
+                    1
+                    for router in kv_routers.values()
+                    for state in router.breakers.states().values()
+                    if state != "closed"
+                )
                 try:
                     await runtime.store.publish(subject, codec.packb(win))
                 except Exception as exc:

@@ -1,18 +1,19 @@
 """Pipeline builders: frontend → preprocessor → backend → migration → router
 over the cluster, or → backend → an in-process engine.
 
-A copy of ``build_routed_pipeline``, ``PushSink`` and ``build_local_pipeline``
-of ``dynamo_tpu.llm.entrypoint`` (ref: lib/llm/src/entrypoint/input/
-common.rs:226,303-310). The returned engine accepts OpenAI request dicts and
-yields :class:`~.protocols.BackendOutput`; the HTTP layer folds those into
-OpenAI SSE frames. Multimodal cards are refused; the embeddings pipeline and
-the KV-aware sink (``make_kv_sink``) wait for their slices (ROADMAP.md queue
-A, items 7 and 1c).
+A copy of ``build_routed_pipeline``, ``PushSink``, ``build_local_pipeline``
+and ``make_kv_sink`` of ``dynamo_tpu.llm.entrypoint`` (ref:
+lib/llm/src/entrypoint/input/common.rs:226,303-310). The returned engine
+accepts OpenAI request dicts and yields :class:`~.protocols.BackendOutput`;
+the HTTP layer folds those into OpenAI SSE frames. ``make_kv_sink`` builds
+the KV-aware routing sink that ``--router-mode kv`` puts in place of
+``PushSink``. Multimodal cards are refused; the embeddings pipeline waits
+for its slice (ROADMAP.md queue A, item 7).
 """
 
 from __future__ import annotations
 
-from typing import Any, AsyncIterator
+from typing import Any, AsyncIterator, Optional
 
 from ..runtime.component import Client
 from ..runtime.context import Context
@@ -44,12 +45,14 @@ def build_routed_pipeline(
     client: Client,
     *,
     router_mode: str = "round_robin",
+    sink: Optional[AsyncEngine] = None,
 ) -> AsyncEngine:
     """OpenAI dict in → BackendOutput stream out, over the cluster.
 
-    A card that advertises multimodal support is refused: the
-    encode-prefill-decode flow is not ported yet (ROADMAP.md queue A,
-    item 7)."""
+    ``sink`` (from :func:`make_kv_sink`) routes in place of the
+    ``router_mode`` ``PushSink``. A card that advertises multimodal
+    support is refused: the encode-prefill-decode flow is not ported yet
+    (ROADMAP.md queue A, item 7)."""
     if (card.runtime_config or {}).get("multimodal"):
         raise NotImplementedError(
             f"model {card.name!r} asks for multimodal serving, which "
@@ -63,9 +66,8 @@ def build_routed_pipeline(
         max_context_len=card.context_length,
     )
     back = Backend(tokenizer)
-    return link(pre, back,
-                Migration(PushSink(client, router_mode),
-                          card.migration_limit))
+    inner = sink or PushSink(client, router_mode)
+    return link(pre, back, Migration(inner, card.migration_limit))
 
 
 def build_local_pipeline(
@@ -82,3 +84,16 @@ def build_local_pipeline(
     )
     back = Backend(tokenizer)
     return link(pre, back, engine)
+
+
+async def make_kv_sink(card: ModelDeploymentCard, client: Client):
+    """Build + start a KV-aware routing sink for ``build_routed_pipeline``
+    (ref: KvPushRouter kv_router.rs:423), with the router's default
+    config. Returns ``(sink, router)`` so the caller can ``router.stop()``
+    at teardown."""
+    from ..router.kv_router import KvPushRouter, KvRouter
+
+    router = KvRouter(client, client.endpoint.component,
+                      block_size=card.kv_block_size)
+    await router.start()
+    return KvPushRouter(router), router

@@ -18,7 +18,7 @@ from typing import Dict, Optional
 from ..runtime import codec
 from ..runtime.component import Client, Component
 from ..utils.logging import get_logger
-from .publisher import LOAD_METRICS_SUBJECT
+from .kv_router import LOAD_METRICS_SUBJECT
 
 log = get_logger("worker_monitor")
 

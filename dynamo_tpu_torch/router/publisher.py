@@ -7,47 +7,26 @@ store's pub/sub. ``WorkerMetricsPublisher`` periodically publishes the
 ForwardPassMetrics-equivalent scheduler stats for the metrics aggregator and
 busy-threshold routing.
 
-A copy of ``dynamo_tpu.router.publisher`` on the package's own codec, with
-its own copies of ``RouterEvent`` (``router/indexer.py``) and of the two
-subject names (``router/kv_router.py``), which wait for the KV-aware router
-(ROADMAP.md queue A, item 1c). The load snapshot carries the scheduler stats
-and what ``extra_fn`` adds; the JAX package's spec, flight-recorder, KVBM,
-preemption and fault-firing keys come with those features. Block hashes come from this
-package's ``tokens.py`` (blake2b where the JAX package uses xxh3), so the
-events name other hashes than a JAX worker's for the same tokens.
+A copy of ``dynamo_tpu.router.publisher`` on the package's own codec. The
+load snapshot carries the scheduler stats and what ``extra_fn`` adds; the
+JAX package's spec, flight-recorder, KVBM, preemption and fault-firing keys
+come with those features. Block hashes come from this package's
+``tokens.py`` (xxh3, as in the JAX package), so the events name the same
+hashes as a JAX worker's for the same tokens.
 """
 
 from __future__ import annotations
 
 import asyncio
-from dataclasses import dataclass
 from typing import List, Optional
 
 from ..runtime import codec
 from ..runtime.component import Component
 from ..utils.logging import get_logger
+from .indexer import RouterEvent
+from .kv_router import KV_EVENTS_SUBJECT, LOAD_METRICS_SUBJECT
 
 log = get_logger("kv_publisher")
-
-KV_EVENTS_SUBJECT = "kv_events"         # ref: kv_router.rs:60
-LOAD_METRICS_SUBJECT = "load_metrics"   # ref: kv_router.rs:57
-
-
-@dataclass(frozen=True)
-class RouterEvent:
-    """One worker's KV-cache event as carried on the wire
-    (ref: indexer.rs:175)."""
-
-    worker_id: int
-    kind: str                 # "stored" | "removed" | "cleared"
-    blocks: tuple             # stored: ({seq_hash, block_hash, parent},…)
-                              # removed: (seq_hash,…); cleared: ()
-
-    def to_dict(self) -> dict:
-        return {
-            "worker_id": self.worker_id,
-            "event": {"kind": self.kind, "blocks": list(self.blocks)},
-        }
 
 
 class KvEventPublisher:

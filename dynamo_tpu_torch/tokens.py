@@ -1,30 +1,31 @@
 """Block-aligned token sequences with rolling content hashes.
 
 A copy of ``dynamo_tpu.tokens`` (the prefix-cache key math behind the
-scheduler's block reuse and the engine's KV events; ref:
-lib/tokens/src/lib.rs:14-27 and lib/llm/src/tokens.rs:44,388,479) that hashes
-with the standard library's ``hashlib.blake2b`` (8-byte digest) in place of
-xxh3, with no native path and without the router-side batch helper. The chain is
-``blake2b(parent_seq_hash_le_u64 || token_bytes_u32_le, key=1337 as u64 LE)``
-(root blocks hash their token bytes alone), so hash *values* differ from the
-JAX package's; they only have to agree within this package.
+scheduler's block reuse, the engine's KV events and the KV router's index;
+ref: lib/tokens/src/lib.rs:14-27 and lib/llm/src/tokens.rs:44,388,479) on
+this package's own xxh3-64 (``utils/xxh3.py``) in place of ``xxhash``, with
+no native path. The chain is ``xxh3_64(parent_seq_hash_le_u64 ||
+token_bytes_u32_le, seed=1337)`` (root blocks hash their token bytes alone),
+so the hashes equal the JAX package's bit for bit: JAX and port processes
+share one store, and a router of either package indexes the KV events that
+workers of either package publish.
 
 Two hash kinds per block:
 - ``block_hash``: the hash of the block's own token bytes (u32 LE).
 - ``sequence_hash``: chains the parent block's sequence hash with this block's
   token bytes, so equal sequence hashes imply equal full prefixes. This is the
-  key used for KV block reuse.
+  key used for KV block reuse and radix-tree matching.
 """
 
 from __future__ import annotations
 
-import hashlib
 import struct
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence
 
+from .utils.xxh3 import xxh3_64
+
 HASH_SEED = 1337
-_HASH_KEY = struct.pack("<Q", HASH_SEED)
 
 Token = int
 BlockHash = int
@@ -36,12 +37,11 @@ def _tokens_to_bytes(tokens: Sequence[int]) -> bytes:
 
 
 def _hash64(payload: bytes) -> int:
-    digest = hashlib.blake2b(payload, digest_size=8, key=_HASH_KEY).digest()
-    return int.from_bytes(digest, "little")
+    return xxh3_64(payload, HASH_SEED)
 
 
 def compute_block_hash(tokens: Sequence[int]) -> BlockHash:
-    """Content hash of one block's tokens (u32 little-endian), blake2b-64."""
+    """Content hash of one block's tokens (u32 little-endian), xxh3-64/1337."""
     return _hash64(_tokens_to_bytes(tokens))
 
 
@@ -52,6 +52,24 @@ def compute_sequence_hash(
     if parent is None:
         return compute_block_hash(tokens)
     return _hash64(struct.pack("<Q", parent) + _tokens_to_bytes(tokens))
+
+
+def compute_block_hashes_for_seq(
+    tokens: Sequence[int], block_size: int
+) -> list[SequenceHash]:
+    """Sequence hashes for every *complete* block of ``tokens``.
+
+    The router-side hot path (same role as the reference's
+    ``compute_block_hash_for_seq``, indexer.rs:125, but chained — see module
+    docstring): only full blocks participate in prefix matching; the ragged
+    tail is ignored.
+    """
+    out: list[SequenceHash] = []
+    parent: Optional[SequenceHash] = None
+    for start in range(0, len(tokens) - block_size + 1, block_size):
+        parent = compute_sequence_hash(parent, tokens[start : start + block_size])
+        out.append(parent)
+    return out
 
 
 @dataclass(frozen=True)

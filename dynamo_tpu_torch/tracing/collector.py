@@ -10,9 +10,9 @@ buffer; everything else happens per span end, not per token:
 - head sampling by trace id (deterministic hash, so every process in the
   cluster makes the same keep/drop decision for a trace without any
   coordination) gates the span exporters (JSONL / in-memory). A copy of
-  ``dynamo_tpu.tracing.collector`` that hashes with the standard library's
-  8-byte ``blake2b`` (salt as its key) in place of ``xxhash``'s xxh3,
-  which the card's machine does not install;
+  ``dynamo_tpu.tracing.collector`` that hashes with this package's own
+  xxh3-64 (``utils/xxh3.py``, seeded by the salt) in place of ``xxhash``,
+  so a JAX process and a port process decide alike for every trace id;
 - slow-request auto-dump: when a *root* span (frontend request or worker
   ingress) ends over ``slow_threshold_s`` and its trace was not sampled,
   the whole trace is scraped out of the ring buffer and exported anyway —
@@ -21,13 +21,13 @@ buffer; everything else happens per span end, not per token:
 
 from __future__ import annotations
 
-import hashlib
 import secrets
 import time
 from collections import deque
 from contextlib import contextmanager
 from typing import Any, Deque, Dict, Iterator, List, Optional
 
+from ..utils.xxh3 import xxh3_64
 from .span import STATUS_ERROR, Span
 
 DEFAULT_BUFFER_SIZE = 4096
@@ -118,12 +118,8 @@ class SpanCollector:
             return False
         if self.sample_ratio >= 1:
             return True
-        digest = hashlib.blake2b(
-            trace_id.encode(), digest_size=8,
-            key=(self.sample_salt & (2 ** 64 - 1)).to_bytes(8, "little"),
-        ).digest()
-        return int.from_bytes(digest, "little") / 2.0 ** 64 \
-            < self.sample_ratio
+        h = xxh3_64(trace_id.encode("utf-8"), seed=self.sample_salt)
+        return h / 2.0 ** 64 < self.sample_ratio
 
     # --------------------------- span minting --------------------------
 

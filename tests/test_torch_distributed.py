@@ -9,8 +9,8 @@
 - A JAX frontend discovers and serves a port worker's model the same way,
   and the port worker's ``clear_kv_blocks`` endpoint answers a JAX client.
 - The KV events a port worker publishes have the JAX worker's structure
-  (kinds, block fields, counts; the block hashes differ by design: blake2b
-  in the port, xxh3 in JAX).
+  (kinds, block fields, counts) and name the same blocks: equal sequence
+  hashes, block hashes and parents (xxh3 in both packages).
 - ``python -m dynamo_tpu_torch.runtime.store``, ``... .worker --device
   cpu`` and ``... .frontend`` as processes serve a streamed chat
   completion, and drain and exit 0 on SIGTERM.
@@ -92,8 +92,10 @@ def engines():
 
 async def cluster_texts(worker_side, front_side, engine, eng_cfg, tok):
     """Serve the E2E requests through store + worker + frontend; returns
-    the texts and usages, what ``clear_kv_blocks`` answered, and the
-    structure of the KV events the worker published."""
+    the texts and usages, what ``clear_kv_blocks`` answered, the structure
+    of the KV events the worker published, and the blocks they name
+    (kind, sequence hash, block hash, parent; sorted, since concurrent
+    requests seal blocks in either order)."""
     w, f = SIDES[worker_side], SIDES[front_side]
     store = w["store"].StoreServer(host="127.0.0.1", port=0)
     await store.start()
@@ -173,14 +175,17 @@ async def cluster_texts(worker_side, front_side, engine, eng_cfg, tok):
             texts.append(c["text"] if "text" in c else c["message"]
                          ["content"])
             texts.append(body["usage"])
-    blocks = {}
+    blocks, named = {}, []
     for msg in kv_events:
         assert msg["worker_id"] == served.instance.instance_id
+        kind = msg["event"]["kind"]
         for b in msg["event"]["blocks"]:
             shape = tuple(sorted(b)) if isinstance(b, dict) else type(b)
-            key = (msg["event"]["kind"], shape)
+            key = (kind, shape)
             blocks[key] = blocks.get(key, 0) + 1
-    return texts, cleared, blocks
+            named.append((kind, b["seq_hash"], b["block_hash"], b["parent"])
+                         if isinstance(b, dict) else (kind, b, None, None))
+    return texts, cleared, blocks, sorted(named, key=repr)
 
 
 @pytest.fixture(scope="module")
@@ -192,16 +197,18 @@ def jax_cluster_texts():
 @pytest.mark.parametrize("front", ["port", "jax"])
 def test_port_worker_serves_like_the_jax_cluster(jax_cluster_texts, front):
     """Port worker behind a port frontend and behind a JAX frontend: the
-    JAX cluster's texts and usage, and ``clear_kv_blocks`` answers."""
+    JAX cluster's texts and usage, its KV events block for block, and
+    ``clear_kv_blocks`` answers."""
     teng, tcfg, ttok = engines()["port"]
     got = asyncio.run(cluster_texts("port", front, teng, tcfg, ttok))
-    want_texts, want_cleared, want_blocks = jax_cluster_texts
+    want_texts, want_cleared, want_blocks, want_named = jax_cluster_texts
     assert got[0] == want_texts
     assert [u["completion_tokens"] for u in want_texts[1::2]][:3] == [9, 7, 8]
     assert got[1] == want_cleared == [{"cleared": True}]
     assert got[2] == want_blocks
     assert want_blocks[("stored", ("block_hash", "block_id", "digest",
                                    "parent", "seq_hash"))] > 0
+    assert got[3] == want_named
 
 
 # ------------------------- the entry points as processes -----------------
@@ -250,7 +257,8 @@ def tok_file(tmp_path):
     return path
 
 
-def start_cluster(tmp_path, tok_file, n_workers, *worker_flags):
+def start_cluster(tmp_path, tok_file, n_workers, *worker_flags,
+                  frontend_flags=(), frontend_env=None):
     env = dict(os.environ, DYNTPU_LEASE_TTL_S="1.0",
                PYTHONPATH=str(ROOT))
     addr = f"127.0.0.1:{free_port()}"
@@ -268,7 +276,8 @@ def start_cluster(tmp_path, tok_file, n_workers, *worker_flags):
     procs["frontend"] = Proc(tmp_path, "frontend",
                              "dynamo_tpu_torch.frontend", "--host",
                              "127.0.0.1", "--port", "0", "--store-addr",
-                             addr, env=env)
+                             addr, *frontend_flags,
+                             env=dict(env, **(frontend_env or {})))
     port = int(procs["frontend"].wait_for(
         r"frontend ready on 127\.0\.0\.1:(\d+)").group(1))
     for i in range(n_workers):

@@ -6,7 +6,8 @@ at module level. Its entry
 points refuse to fall back to the CPU when no device is given and no GPU is
 present, and engine construction refuses the paths this slice does not
 serve. The distributed entry points refuse every flag and setting whose path
-is not ported yet, and the store and the frontend never load ``torch``."""
+is not ported yet and accept every router mode, and the store and the
+frontend never load ``torch``."""
 
 import ast
 import asyncio
@@ -115,6 +116,10 @@ def test_importing_the_port_loads_nothing_forbidden():
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "dynamo_tpu_torch").rglob("*.py")
         if p.name != "__main__.py")
+    # the port's own xxh3 stands in for xxhash, and the KV router is the
+    # one module that needed both it and the codec
+    assert {"dynamo_tpu_torch.utils.xxh3",
+            "dynamo_tpu_torch.router.kv_router"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + f"bad = {sorted(FORBIDDEN | NOT_AT_MODULE_LEVEL)!r}\n"
@@ -191,14 +196,20 @@ def test_worker_maps_the_jax_attention_names():
         assert worker.ATTENTION_IMPLS[args.attention_impl] == impl
 
 
-@pytest.mark.parametrize("flags", [
-    ["--router-mode", "kv"], ["--grpc-port", "9000"]],
-    ids=["router-mode-kv", "grpc-port"])
+@pytest.mark.parametrize("flags", [["--grpc-port", "9000"]],
+                         ids=["grpc-port"])
 def test_frontend_refuses_unserved_flags(flags):
     from dynamo_tpu_torch.frontend import __main__ as frontend
 
     with pytest.raises(NotImplementedError):
         asyncio.run(frontend.run_frontend(frontend.parse_args(flags)))
+
+
+@pytest.mark.parametrize("mode", ["round_robin", "random", "kv"])
+def test_frontend_serves_every_router_mode(mode):
+    from dynamo_tpu_torch.frontend import __main__ as frontend
+
+    frontend.check_supported(frontend.parse_args(["--router-mode", mode]))
 
 
 @pytest.mark.parametrize("env", [

@@ -314,8 +314,10 @@ def test_parsers_match_jax(kind, pieces):
 
 def test_tracing_collector():
     """Head sampling is a pure function of (trace id, salt) — the same in
-    two collectors, near the asked ratio — and every span's duration
-    reaches the stage histogram whether sampled or not."""
+    two collectors and in the JAX package's, near the asked ratio — and
+    every span's duration reaches the stage histogram whether sampled or
+    not."""
+    from dynamo_tpu.tracing.collector import SpanCollector as JaxCollector
     from dynamo_tpu_torch.utils.metrics import MetricsRegistry
 
     a = tracing.SpanCollector(sample_ratio=0.3, sample_salt=7)
@@ -323,6 +325,8 @@ def test_tracing_collector():
     ids = [f"{i:032x}" for i in range(4000)]
     decisions = [a.sampled(t) for t in ids]
     assert decisions == [b.sampled(t) for t in ids]
+    ref = JaxCollector(sample_ratio=0.3, sample_salt=7)
+    assert decisions == [ref.sampled(t) for t in ids]
     assert 0.25 < sum(decisions) / len(ids) < 0.35
     assert not tracing.SpanCollector(sample_ratio=0.0).sampled(ids[0])
     assert tracing.SpanCollector(sample_ratio=1.0).sampled(ids[0])
