@@ -18,15 +18,24 @@ Phases (any failure exits non-zero and prints no result line):
 3. serve 16 concurrent greedy requests (ISL 512, OSL 64) through the port's
    engine at full Llama-3.2-1B width with random weights from a fixed seed,
    through the same API ``python -m dynamo_tpu_torch.run in=batch`` uses,
-   three times: bf16, int8 weights + int8 KV, fp8 weights + fp8 KV. Each run
-   shows that decode and prefill went through its kernel build and checks a
-   probe step's logits against the einsum attention path; the quantized
-   runs print their probe's divergence from the bf16 logits;
-4. profile one decode window and one prefill chunk at the main path's
-   shapes (wall time, device busy time, kernel launches, attention share),
-   for the bf16 and the int8 engine, and measure what quantized serving
-   adds to a decode step: the bf16 copies of the 1-byte weights and the
-   ``kv_quantize`` launches;
+   three times: bf16, int8 weights + int8 KV, fp8 weights + fp8 KV. Each
+   engine captures its decode windows as CUDA graphs at construction and
+   serves the traffic at run-ahead depths 2 (the default), 1 and 2 again
+   (TTFT, ITL, throughput, steady decode step, fetch syncs and the flight
+   recorder's MFU and goodput for each); every decode window must be a
+   graph replay and the stall watchdog's einsum rebuild must not fire. Each
+   run shows that decode and prefill went through its kernel build and
+   checks a probe step's logits against the einsum attention path; the
+   quantized runs print their probe's divergence from the bf16 logits.
+   ``[graph]`` lines hold each decode graph phase 3 replays (buckets 8 and
+   16, greedy and stochastic) against the eager window on identical clones
+   of cache and ctl: samples and ctl must be bitwise equal;
+4. profile one decode window, eager and as the engine's graph replay, and
+   one prefill chunk at the main path's shapes (wall time, device busy time
+   and idle share, host kernel and graph launches, kernels on the device,
+   attention share), for the bf16 and the int8 engine, and measure what
+   quantized serving adds to a decode step: the bf16 copies of the 1-byte
+   weights and the ``kv_quantize`` launches;
 5. serve the bf16 engine of phase 3 over HTTP through ``run.run_http``
    (what ``python -m dynamo_tpu_torch.run in=http`` runs) with a seeded
    synthetic byte-level BPE tokenizer at Llama-3's layout (128,000 regular
@@ -53,8 +62,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``router.select`` spans, ``build/dist/kv_spans.jsonl``), and 16
    concurrent shared-prefix streams go through each frontend (``[dist]``
    lines: TTFT and ITL under each sink, requests and cached prompt tokens
-   per worker); worker A is SIGKILLed under 8 streams of 256 tokens, 4
-   through each frontend, that must all complete through migration while
+   per worker); worker A is SIGKILLed, once 8 in-process token streams
+   have 64 tokens each, under 8 streams of 512 tokens, 4 through each
+   frontend, that must all complete through migration while
    A's keys leave the store within the lease TTL + 1 s (the KV frontend's
    re-issues and A's breaker are printed), and worker B and both frontends
    exit 0 on SIGTERM. Both attention faces must have launched in both
@@ -62,9 +72,10 @@ Phases (any failure exits non-zero and prints no result line):
    A ``[hash]`` line times the block hashes of one 512-token prompt. Child
    logs go to ``build/dist/``.
 
-The line before the last is the card's ``nvidia-smi`` name and power limit,
-the line before that the ``kernels`` JSON object; the last line is
-``{"ok": true, "device": {...}}``.
+``[time]`` lines give each phase's time. The line before the last is the
+card's ``nvidia-smi`` name and power limit, the line before that the
+``kernels`` JSON object (launches include those that graph replays made);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -490,6 +501,47 @@ N_REQUESTS, ISL, OSL = 16, 512, 64
 # running max, so the two drift by bf16 rounding through 16 layers; random-weight logits are ~N(0, 1) and the
 # top two of 128256 sit ~0.2 apart
 PROBE_MAX_DIFF, PROBE_MIN_ARGMAX_AGREE = 0.5, 0.75
+# run-ahead depths phase 3 serves at, in turns: the default (whose first
+# run is the main path the kernels line counts), the synchronous loop, the
+# default again
+DEPTHS = (2, 1, 2)
+
+
+def depth_stats(tag: str, cfg, outs, stamps, wall: float, obs: dict,
+                n: dict) -> dict:
+    """Check one phase-3 run's streams; print and return its TTFT, ITL,
+    throughput, steady decode step, fetch syncs and flight-recorder
+    gauges."""
+    for i, out in enumerate(outs):
+        if len(out) != OSL:
+            fail(f"request {i} returned {len(out)} tokens, expected {OSL}")
+        if not all(0 <= t < cfg.vocab_size for t in out):
+            fail(f"request {i} returned an out-of-range token id")
+    ttft = sorted(times[0] - t_sub for t_sub, times in stamps)
+    itl = [(times[-1] - times[0]) / (len(times) - 1)
+           for _, times in stamps]
+    last_first = max(times[0] for _, times in stamps)
+    steady = sorted(b - a for _, times in stamps
+                    for a, b in zip(times, times[1:]) if a >= last_first)
+    n_out = sum(len(o) for o in outs)
+    stats = dict(ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
+                 itl_p50=sorted(itl)[len(itl) // 2], tok_s=n_out / wall)
+    print(f"{tag} {N_REQUESTS} requests ISL {ISL} OSL {OSL} "
+          f"in {wall:.3f} s: output {n_out / wall:.1f} tok/s, TTFT mean "
+          f"{sum(ttft) / len(ttft) * 1e3:.1f} ms p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, "
+          f"ITL mean {sum(itl) / len(itl) * 1e3:.2f} ms p50 "
+          f"{stats['itl_p50'] * 1e3:.2f} ms, decode step once every "
+          f"prompt is in (p50) {steady[len(steady) // 2] * 1e3:.2f} ms, "
+          f"{n['windows']} decode windows ({n['replays']} graph replays), "
+          f"{n['prefills']} prefill dispatches, {n['syncs']} fetch syncs "
+          f"for {n['steps']} landed batches "
+          f"({n['syncs'] / max(1, n['steps']):.2f} per batch); flight "
+          f"recorder: mfu_decode {obs['mfu_decode']:.5f} mfu_prefill "
+          f"{obs['mfu_prefill']:.5f} mfu {obs['mfu']:.5f} goodput "
+          f"{obs['goodput_tok_s']:.1f} tok/s over "
+          f"{obs['window_s']:.2f} s", flush=True)
+    return stats
 
 
 def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
@@ -535,53 +587,63 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
         stamps.append((t_sub, times))
         return out
 
-    async def serve():
+    async def serve(depth):
+        """One run of the traffic at run-ahead ``depth``, prefix cache
+        cleared, recorder reset after a warm-up request."""
+        engine.pipeline_depth = depth
+        engine.clear_kv_blocks()
         await engine.start()
         warm = []  # first launches, cuBLAS handles: not measured
         await one(prompts[0][:32], 4, warm)
         torch.cuda.synchronize()
+        engine.clear_kv_blocks()
+        engine.mark_obs_warmup_done()
         pa.reset_launches()
+        before = counters()
         stamps = []
         t_start = time.perf_counter()
         outs = await asyncio.gather(*(one(p, OSL, stamps) for p in prompts))
         wall = time.perf_counter() - t_start
         launches = dict(pa.LAUNCHES)
+        obs = engine.obs_snapshot()
         await engine.stop()
-        return outs, stamps, wall, launches
+        after = counters()
+        return (outs, stamps, wall, launches, obs,
+                {k: after[k] - before[k] for k in after})
 
-    windows0 = engine.num_windows
-    outs, stamps, wall, launches = asyncio.run(serve())
-    for i, out in enumerate(outs):
-        if len(out) != OSL:
-            fail(f"request {i} returned {len(out)} tokens, expected {OSL}")
-        if not all(0 <= t < cfg.vocab_size for t in out):
-            fail(f"request {i} returned an out-of-range token id")
+    def counters():
+        return dict(windows=engine.num_windows,
+                    replays=engine._ap_window_fn.replays,
+                    syncs=engine.num_fetch_syncs, steps=engine.num_steps,
+                    prefills=engine.num_prefill_dispatches)
+
+    graphs = engine._ap_window_fn
+    print(f"{tag} {len(graphs.capture_s)} decode graphs captured at "
+          f"construction (buckets {engine.config.decode_buckets} x "
+          f"greedy/stochastic): {sum(graphs.capture_s.values()):.2f} s",
+          flush=True)
+    for i, depth in enumerate(DEPTHS):
+        outs, stamps, wall, launches, obs, n = asyncio.run(serve(depth))
+        stats = depth_stats(f"{tag} {card}: pipeline_depth={depth}:",
+                            cfg, outs, stamps, wall, obs, n)
+        if n["replays"] != n["windows"]:
+            fail(f"{n['windows'] - n['replays']} decode windows ran "
+                 f"eagerly on the card (depth {depth})")
+        if engine.num_einsum_rebuilds:
+            fail("the stall watchdog rebuilt the decode window on einsum")
+        if i == 0:
+            # the default depth's first run is the main path
+            main_launches, main_stats = launches, stats
+    launches, stats = main_launches, main_stats
     # the counters of this run's kernel build (quantized pages count apart)
     suffix = "" if dtype == "bf16" else f"_{dtype}"
     launches = {name: launches[name] for name in (
         f"paged_attention_decode{suffix}", f"paged_attention_ragged{suffix}")}
     for name, n in launches.items():
-        print(f"{tag} {name} launches in the served run: {n}")
+        print(f"{tag} {name} launches in the served run (depth "
+              f"{DEPTHS[0]}, graph replays counted): {n}")
         if n == 0:
             fail(f"{name} was never launched on the main path")
-    ttft = sorted(times[0] - t_sub for t_sub, times in stamps)
-    itl = [(times[-1] - times[0]) / (len(times) - 1)
-           for _, times in stamps]
-    last_first = max(times[0] for _, times in stamps)
-    steady = sorted(b - a for _, times in stamps
-                    for a, b in zip(times, times[1:]) if a >= last_first)
-    n_out = sum(len(o) for o in outs)
-    stats = dict(ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
-                 itl_p50=sorted(itl)[len(itl) // 2], tok_s=n_out / wall)
-    print(f"{tag} {card}: {N_REQUESTS} requests ISL {ISL} OSL {OSL} "
-          f"in {wall:.3f} s: output {n_out / wall:.1f} tok/s, TTFT mean "
-          f"{sum(ttft) / len(ttft) * 1e3:.1f} ms p50 "
-          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, "
-          f"ITL mean {sum(itl) / len(itl) * 1e3:.2f} ms, decode step once "
-          f"every prompt is in (p50) {steady[len(steady) // 2] * 1e3:.2f} "
-          f"ms, "
-          f"{engine.num_windows - windows0} decode windows, "
-          f"{engine.num_prefill_dispatches} prefill dispatches", flush=True)
 
     # probe: logits of one prompt chunk through both attention impls
     probe_eng = EngineConfig(num_blocks=8, **quant)
@@ -618,6 +680,91 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
               f"{qdiff.mean().item():.4f}, argmax agreement {qagree:.3f}",
               flush=True)
     return launches, engine, logits["kernel"], stats
+
+
+GRAPH_BUCKETS = (8, 16)   # the decode buckets phase 3 runs (16 requests)
+
+
+def seat(ctl, B: int, ctx0: int, max_len: int, sampled: bool = False):
+    """Put B live seats into ``ctl`` in place: seat s decodes at position
+    ctx0 + s over its own 40 blocks; with ``sampled`` the odd seats sample
+    (temperature 0.8, top-k 40 or top-p 0.9, seeded or on the engine's
+    key), the even ones stay greedy."""
+    import torch
+
+    for s in range(B):
+        ctl["pos"][s] = ctx0 + s
+        ctl["vu"][s] = max_len
+        ctl["tables"][s, :40] = torch.arange(1 + 40 * s, 1 + 40 * (s + 1))
+        odd = sampled and s % 2 == 1
+        ctl["temp"][s] = 0.8 if odd else 0.0
+        ctl["tk"][s] = 40 if odd and s % 4 == 1 else 0
+        ctl["tp"][s] = 0.9 if odd and s % 4 == 3 else 1.0
+        ctl["seed"][s] = 1000 + s if s % 3 else -1
+
+
+def phase_graph(engine, card: str) -> None:
+    """[graph]: each decode graph phase 3 replays (buckets 8 and 16,
+    greedy and stochastic) against the eager window on identical clones of
+    cache and ctl. Samples and ctl must be equal bit for bit; the cache's
+    largest difference is printed (the same kernels run in the same order,
+    so it should be 0). Prints each graph's capture time and the graphs'
+    pool. The engine's cache and ctl are put back afterwards."""
+    import torch
+
+    window = engine._ap_window_fn
+    eng = engine.config
+
+    def clone(tree):
+        return {k: ([t.clone() for t in v] if isinstance(v, list)
+                    else v.clone()) for k, v in tree.items()}
+
+    def bits(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    saved_ctl, saved_cache = clone(engine._ctl), clone(engine.cache)
+    for B in GRAPH_BUCKETS:
+        for stochastic in (False, True):
+            for k, v in saved_ctl.items():
+                engine._ctl[k].copy_(v)
+            seat(engine._ctl, B, 560, eng.max_model_len, sampled=stochastic)
+            ctl_e, cache_e = clone(engine._ctl), clone(engine.cache)
+            cols = list(range(B))
+            _, _, want = window.raw(
+                engine.params, cache_e, ctl_e,
+                torch.tensor(cols, dtype=torch.int32, device=engine.device),
+                stochastic)
+            _, _, got = window(engine.params, engine.cache, engine._ctl,
+                               window.load_rows(cols), stochastic)
+            got = got.clone()
+            torch.cuda.synchronize()
+            same_samples = torch.equal(want, got)
+            same_ctl = all(torch.equal(bits(ctl_e[k]), bits(engine._ctl[k]))
+                           for k in ctl_e)
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for key in cache_e
+                       for a, b in zip(cache_e[key], engine.cache[key]))
+            bitwise = all(torch.equal(bits(a), bits(b)) for key in cache_e
+                          for a, b in zip(cache_e[key], engine.cache[key]))
+            print(f"[graph] {card}: B={B} stochastic={stochastic} weights "
+                  f"{eng.weight_dtype} KV {eng.kv_dtype}: replay vs eager "
+                  f"samples equal {same_samples}, ctl bitwise equal "
+                  f"{same_ctl}, cache max |diff| {diff:.3e} (bitwise "
+                  f"{bitwise}); captured in "
+                  f"{window.capture_s[B, stochastic] * 1e3:.1f} ms",
+                  flush=True)
+            if not (same_samples and same_ctl):
+                fail(f"decode graph B={B} stochastic={stochastic} "
+                     "disagrees with the eager window")
+    for k, v in saved_ctl.items():
+        engine._ctl[k].copy_(v)
+    for key, layers in saved_cache.items():
+        for dst, src in zip(engine.cache[key], layers):
+            dst.copy_(src)
+    torch.cuda.synchronize()
+    print(f"[graph] {card}: {len(window.capture_s)} graphs in one pool of "
+          f"{window.pool_bytes() / 2**20:.1f} MiB; device memory reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
 
 
 def _device_us(evt) -> float:
@@ -693,9 +840,12 @@ def phase_quant_costs(engine, card: str) -> None:
 
 def phase_profile(engine, card: str) -> None:
     """Where a step's time goes, at the main path's shapes: wall time of
-    the engine's step functions (host clock around synchronised calls) and,
-    from ``torch.profiler`` over a few calls, the device busy time, the
-    kernel launches and the attention kernel's share."""
+    the engine's step functions (host clock around synchronised calls), the
+    host time to enqueue one (back-to-back calls, no sync) and,
+    from ``torch.profiler`` over a few calls, the device busy time and idle
+    share, the host's kernel and graph launches, the kernels that ran on
+    the device and the attention kernel's share. The decode window runs
+    eagerly and as the engine's replayed graph, on the same seats."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -707,12 +857,16 @@ def phase_profile(engine, card: str) -> None:
     B, ctx0 = 16, 560
     ctl = model_lib.init_ctl(eng, eng.max_num_seqs, eng.max_blocks_per_seq,
                              dev)
-    for s in range(B):
-        ctl["pos"][s] = ctx0 + s
-        ctl["vu"][s] = eng.max_model_len
-        ctl["tables"][s, :40] = torch.arange(1 + 40 * s, 1 + 40 * (s + 1))
+    seat(ctl, B, ctx0, eng.max_model_len)
     rows = torch.arange(B, dtype=torch.int32, device=dev)
     window = model_lib.raw_autopilot_window_fn(cfg, eng, 1)
+    graphed = engine._ap_window_fn
+    if engine._window_K != 1:
+        fail("phase 4 profiles 1-token decode windows")
+    saved_ctl = {k: v.clone() for k, v in engine._ctl.items()}
+    for k, v in ctl.items():
+        engine._ctl[k].copy_(v)
+    graph_rows = graphed.load_rows(list(range(B)))
     T, W = 512, 32
     prefill = model_lib.raw_packed_prefill_fn(cfg, eng, T, W)
     pint = np.zeros((1, T + W + model_lib.PP_SCALARS), np.int32)
@@ -721,42 +875,62 @@ def phase_profile(engine, card: str) -> None:
     pint[0, T + W:] = (T, 0, B, 1, 0, -1, 0, int(model_lib.PP_QUANT))
     pint = torch.from_numpy(pint).to(dev)
     key = torch.tensor(1, device=dev)
-    steps = {
-        f"decode window B={B} ctx ~{ctx0}": lambda: window(
-            engine.params, engine.cache, ctl, rows, False)[2].cpu(),
+    steps = {  # each enqueues one step and returns its sampled tokens
+        f"decode window B={B} ctx ~{ctx0}, eager": lambda: window(
+            engine.params, engine.cache, ctl, rows, False)[2],
+        f"decode window B={B} ctx ~{ctx0}, graph replay": lambda: graphed(
+            engine.params, engine.cache, engine._ctl, graph_rows,
+            False)[2],
         f"prefill chunk T={T} W={W}": lambda: prefill(
             engine.params, engine.cache, ctl["last_tok"], pint, key,
-            False)[2].cpu(),
+            False)[2],
     }
-    for name, fn in steps.items():
+    launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
+    for name, enqueue in steps.items():
+        def fn():
+            return enqueue().cpu()
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
         n = 10
         t0 = time.perf_counter()
         for _ in range(n):
+            enqueue()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
             fn()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
         reps = 3
         events = profile_calls(fn, reps)
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset"))]
         busy = sum(_device_us(e) for e in kernels) / reps / 1e3
         # both faces: the ragged kernel and the decode split-KV kernel
         attn = sum(_device_us(e) for e in kernels
                    if "paged_attention" in e.key) / reps / 1e3
         launches = sum(e.count for e in events
-                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                    "cuLaunchKernelEx")) / reps
+                       if e.key in launch_keys) / reps
+        graph_launches = sum(e.count for e in events
+                             if e.key == "cudaGraphLaunch") / reps
+        on_device = sum(e.count for e in kernels) / reps
         if attn <= 0:
             fail(f"{name}: no device time in the attention kernels")
         top = sorted(kernels, key=_device_us, reverse=True)[:4]
         print(f"[profile] {card}: {name}, weights {eng.weight_dtype} KV "
-              f"{eng.kv_dtype}: wall {wall_ms:.2f} ms, device "
-              f"busy {busy:.2f} ms ({busy / wall_ms:.0%} of wall), "
-              f"attention kernel {attn:.2f} ms, {launches:.0f} kernel "
-              f"launches; top: " + "; ".join(
+              f"{eng.kv_dtype}: wall {wall_ms:.2f} ms (host enqueue "
+              f"{host_ms:.3f} ms), device "
+              f"busy {busy:.2f} ms ({busy / wall_ms:.0%} of wall, idle "
+              f"{1 - busy / wall_ms:.0%}), attention kernel {attn:.3f} ms, "
+              f"{launches:.0f} kernel launches and {graph_launches:.0f} "
+              f"cudaGraphLaunch from the host, {on_device:.0f} kernels on "
+              f"the device; top: " + "; ".join(
                   f"{e.key[:40]} {_device_us(e) / reps / 1e3:.2f} ms"
                   for e in top), flush=True)
+    for k, v in saved_ctl.items():
+        engine._ctl[k].copy_(v)
+    torch.cuda.synchronize()
 
 
 # ------------------------------ phase 5 ----------------------------------
@@ -1160,10 +1334,11 @@ def phase_http(engine, card: str, direct: dict) -> None:
                 runs = await asyncio.gather(*(one(p) for p in prompts))
                 return traffic_stats(runs, time.perf_counter() - t_start)
 
-            # each step's (start, end) in the device-step thread: is the
-            # step slower under HTTP, or the gap before the next one?
+            # each step's dispatch (start, end) in the device-step thread
+            # (the run-ahead loop waits for tokens on the fetch thread): is
+            # the dispatch slower under HTTP, or the gap before the next?
             spans = []
-            execute = engine._execute_batch
+            execute = engine._dispatch_batch
 
             def timed(batch):
                 t0 = time.perf_counter()
@@ -1171,7 +1346,7 @@ def phase_http(engine, card: str, direct: dict) -> None:
                     return execute(batch)
                 finally:
                     spans.append((t0, time.perf_counter()))
-            engine._execute_batch = timed
+            engine._dispatch_batch = timed
 
             async def measured(run):
                 spans.clear()
@@ -1196,7 +1371,7 @@ def phase_http(engine, card: str, direct: dict) -> None:
                     finally:
                         sys.setswitchinterval(old)
             finally:
-                del engine._execute_batch
+                del engine._dispatch_batch
             # 4. /metrics and /health
             served = 4 + 2 + 2 * N_REQUESTS
             (status, _, _, _, text), (h_status, *_) = await client(
@@ -1255,8 +1430,8 @@ def phase_http(engine, card: str, direct: dict) -> None:
     for (how, interval), r in rows.items():
         print(f"[http] {card}: {how}, switch interval "
               f"{(interval or sys.getswitchinterval()) * 1e3:.1f} ms: "
-              f"{r['steps']} steps, step in the device-step thread p50 "
-              f"{r['step_p50'] * 1e3:.2f} ms, gap before the next step p50 "
+              f"{r['steps']} steps, dispatch in the device-step thread p50 "
+              f"{r['step_p50'] * 1e3:.2f} ms, gap before the next p50 "
               f"{r['gap_p50'] * 1e3:.3f} ms (sum {r['gap_sum'] * 1e3:.1f} "
               f"ms)", flush=True)
     us = frontend_us_per_token(tok, prompts, OSL)
@@ -1276,8 +1451,12 @@ DIST_LEASE_TTL_S = 2.0
 # refused connection (the JAX package does the same). 8 attempts, with
 # Migration's doubling backoff from 0.05 s, outlast that window.
 DIST_MIGRATION_LIMIT = 8
-DIST_OSL_MIGRATE = 256
-DIST_KILL_AFTER_S = 2.0     # into the 256-token streams: ~60 tokens each
+DIST_OSL_MIGRATE = 512
+# the kill lands once every in-process token stream has this many of its
+# 512 tokens, then at A's next load snapshot (<= 1 s later): with decode
+# windows replayed as graphs a stream makes ~120 tokens a second, so a
+# fixed delay could land after the streams end
+DIST_KILL_AFTER_TOKENS = 64
 DIST_LOGS = os.path.join("build", "dist")
 # the KV frontend's router.select spans (worker_id, overlap_blocks)
 KV_SPANS = os.path.join(DIST_LOGS, "kv_spans.jsonl")
@@ -1867,10 +2046,13 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                     self.joins.append(len(self.got))
                     return super().generate(request, context)
 
+            progress = []
+
             async def token_stream(prompt):
                 # the frontend's Migration over the generate endpoint, seen
                 # as token ids
                 got = []
+                progress.append(got)
                 sink = Recorder(got)
                 async for item in Migration(sink, DIST_MIGRATION_LIMIT) \
                         .generate(greedy(prompt, DIST_OSL_MIGRATE), Context()):
@@ -1886,7 +2068,13 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                   for p in prompts[4:8])))
             token_futs = [asyncio.ensure_future(token_stream(p))
                           for p in prompts[8:16]]
-            await asyncio.sleep(DIST_KILL_AFTER_S)
+            t_wait = time.perf_counter()
+            while (len(progress) < len(token_futs)
+                   or min(map(len, progress)) < DIST_KILL_AFTER_TOKENS):
+                if time.perf_counter() - t_wait > 60:
+                    fail("token streams did not reach "
+                         f"{DIST_KILL_AFTER_TOKENS} tokens within 60 s")
+                await asyncio.sleep(0.002)
             # kill right after A's next load snapshot, so the launch counts
             # it carries miss only the last milliseconds of A's work
             n_snaps = len(snaps[a_id])
@@ -2059,6 +2247,18 @@ def kernels_line(results, launches, dist_launches) -> str:
     return json.dumps({"kernels": rows})
 
 
+class PhaseTimer:
+    """Prints each phase's time (``[time]`` lines) as the phases end."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
 def main() -> None:
     try:
         import torch
@@ -2076,21 +2276,32 @@ def main() -> None:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    timer = PhaseTimer()
     phase_build()
+    timer("1 build")
     results = phase_kernels(kernel_cases())
+    timer("2 kernels")
     launches, engine, ref_logits, direct = phase_engine(card)
+    phase_graph(engine, card)
+    timer("3 engine bf16 + graph check")
     phase_profile(engine, card)
+    timer("4 profile bf16")
     served = phase_http(engine, card, direct)
+    timer("5 http")
     del engine
     torch.cuda.empty_cache()
     dist_launches = phase_dist(card, served, direct)
+    timer("6 distributed")
     for dtype in ("int8", "fp8"):
         torch.cuda.empty_cache()
         run_launches, engine, _, _ = phase_engine(card, dtype, ref_logits)
         launches.update(run_launches)
+        phase_graph(engine, card)
+        timer(f"3 engine {dtype} + graph check")
         if dtype == "int8":
             phase_profile(engine, card)
         phase_quant_costs(engine, card)
+        timer(f"4 profile {dtype}")
         del engine
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(kernels_line(results, launches, dist_launches))

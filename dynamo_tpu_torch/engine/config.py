@@ -102,10 +102,37 @@ class EngineConfig:
     # tokens generated per decode window (>1 chains steps on device; tokens
     # past a sequence's EOS/capacity inside a window are discarded)
     decode_steps: int = 1
+    # run-ahead: how many scheduled windows may be in flight before the
+    # engine loop waits for a landing. >1 dispatches window N+1 (decode
+    # input tokens read from the device ring) while window N's sampled
+    # tokens are still being copied to the host, so the fetch never sits
+    # on the dispatch path. 1 = the synchronous loop.
+    pipeline_depth: int = 2
     # decode block lookahead: best-effort extra blocks reserved past each
     # window so control-state table deltas amortise over
     # lookahead*block_size tokens instead of per-block
     block_lookahead: int = 0
+    # engine stall watchdog: a dispatched window whose results don't land
+    # within stall_timeout_s + stall_timeout_per_token_s * real tokens is
+    # declared wedged — the window is cancelled, its shape class
+    # quarantined, and its seats recovered by recompute. 0 = watchdog off.
+    stall_timeout_s: float = 0.0
+    stall_timeout_per_token_s: float = 0.0
+    # per-seat recompute retries after a stall before the seat errors out
+    stall_seq_retries: int = 2
+    # consecutive stalled windows before the worker declares itself dead
+    # (aborts every seat so drain + Migration take over)
+    stall_dead_threshold: int = 3
+    # HBM-pressure ladder: graduated response to KV pool occupancy,
+    # engaged per rung when usage crosses its threshold (0.0 = rung off).
+    # rung 1: spill the coldest pending-free seat (recompute preemption);
+    # rung 2: pause speculative windows; rung 3: shed new admissions until
+    # pressure releases.
+    pressure_spill_threshold: float = 0.0
+    pressure_spec_threshold: float = 0.0
+    pressure_shed_threshold: float = 0.0
+    # hysteresis: a rung releases once usage < threshold - pressure_release
+    pressure_release: float = 0.05
     # quantized serving (engine/quant.py): "bf16" keeps the model dtype end
     # to end; "int8"/"fp8" store matmul weights / KV pages in 1 byte with
     # f32 scales
@@ -135,6 +162,20 @@ class EngineConfig:
                 )
         if self.prefill_chunk_tokens < 0:
             raise ValueError("prefill_chunk_tokens must be >= 0")
+        if self.stall_timeout_s < 0 or self.stall_timeout_per_token_s < 0:
+            raise ValueError("stall timeouts must be >= 0")
+        if self.stall_seq_retries < 0:
+            raise ValueError("stall_seq_retries must be >= 0")
+        if self.stall_dead_threshold < 1:
+            raise ValueError("stall_dead_threshold must be >= 1")
+        for rung in ("spill", "spec", "shed"):
+            v = getattr(self, f"pressure_{rung}_threshold")
+            if not (0.0 <= v <= 1.0):
+                raise ValueError(
+                    f"pressure_{rung}_threshold must be in [0, 1]"
+                )
+        if self.pressure_release < 0:
+            raise ValueError("pressure_release must be >= 0")
         for knob in ("weight_dtype", "kv_dtype"):
             v = getattr(self, knob)
             if v not in ("bf16", "int8", "fp8"):

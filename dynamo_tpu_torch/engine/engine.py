@@ -3,33 +3,48 @@
 Port of ``dynamo_tpu.engine.engine`` (role-equivalent to vLLM's ``AsyncLLM``
 in the reference's workers, ref: components/backends/vllm/src/dynamo/vllm/
 main.py:97). An asyncio step loop plans batches with the continuous-batching
-scheduler, runs the PyTorch step functions on the device from one dedicated
-executor thread (so the event loop never blocks on the device), and streams
-sampled tokens into per-request queues. KV events are surfaced in-process.
+scheduler, enqueues the PyTorch step functions on the device from one
+dedicated executor thread (so the event loop never blocks on the device),
+and streams sampled tokens into per-request queues. KV events are surfaced
+in-process.
 
-This slice keeps the synchronous loop (schedule → execute → postprocess,
-one host sync per batch) over packed prefills and autopilot decode windows.
-The run-ahead loop and its batching fetcher, the stall watchdog, the
-pressure ladder, evacuation, KVBM, the radix prefix cache, disaggregated
-reservations, tracing spans and the flight recorder wait for later slices.
+The loop is the JAX engine's: at ``pipeline_depth`` > 1 (the default, 2)
+the run-ahead loop dispatches window N+1 while window N's tokens are still
+on their way to the host — decode input tokens ride the device token ring,
+so no dispatch waits on a fetch — and a fetch thread waits on each window's
+CUDA event; at 1 the synchronous loop. On a card each decode window is a
+CUDA graph replay (``model.AutopilotWindow``). The stall watchdog, the
+HBM-pressure ladder, the flight recorder (``observability``) and the
+engine's stage spans are the JAX engine's too. Evacuation, KVBM, the radix
+prefix cache and disaggregated reservations wait for later slices.
 """
 
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import dataclasses
 import itertools
+import queue
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import (
-    Any, AsyncIterator, Callable, Dict, List, Optional, Tuple,
+    Any, AsyncIterator, Callable, Deque, Dict, List, Optional, Tuple,
 )
 
 import numpy as np
 import torch
 
+from .. import tracing
+from ..observability import flops as obs_flops
+from ..observability.flops import FlopsModel
+from ..observability.stepstats import DECODE, PREFILL, StepRecord, StepStats
+from ..runtime import faults
 from ..runtime.context import Context
 from ..runtime.engine import AsyncEngine
+from ..utils.config import env_flag, env_float, env_str
 from ..utils.device import resolve_device
 from ..utils.hotpath import hot_path
 from ..utils.logging import get_logger
@@ -56,6 +71,98 @@ class Request:
     seed: Optional[int] = None
     eos_token_ids: Tuple[int, ...] = ()
     ignore_eos: bool = False
+
+
+@dataclass
+class _Landing:
+    """One dispatched window's sampled tokens on their way to the host: a
+    flat int32 host tensor (pinned on a card) that a device→host copy
+    fills, the CUDA event recorded after that copy (None on the CPU, where
+    the copy is done when the dispatch returns), and how to unpack it."""
+
+    n_prefill: int
+    decode_shape: Optional[Tuple[int, int]]   # samples [K, B]
+    cols: Optional[List[int]]                 # slot of each decode column
+    host: Optional[torch.Tensor]
+    event: Any = None
+
+
+class _BatchingFetcher:
+    """The JAX engine's ``_BatchingFetcher`` on the card's primitives: one
+    thread drains a queue of (batch, landing, future), waits on each
+    window's CUDA event (the copy to pinned memory was enqueued at
+    dispatch, right after the window's last call), unpacks its tokens and
+    resolves the future on the event loop. One wait per WINDOW keeps
+    inter-token latency real: each window's tokens flush to the streams as
+    that window lands. On the CPU a landing has no event: its tokens are
+    already on the host, so it lands at submit."""
+
+    def __init__(self, unpack, on_sync=None):
+        self._q: Any = queue.Queue()
+        self._unpack = unpack
+        self._on_sync = on_sync   # () -> None, counts host syncs
+        self._thread: Optional[threading.Thread] = None
+
+    def ensure_started(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, args=(self._q,), daemon=True,
+                name="device-fetch",
+            )
+            self._thread.start()
+
+    def submit(self, loop, batch, landing: _Landing):
+        fut = loop.create_future()
+        if landing.event is None:
+            res, exc = self._land(batch, landing)
+            _fut_set(fut, res, exc)
+            return fut
+        self.ensure_started()
+        self._q.put((loop, batch, landing, fut))
+        return fut
+
+    def stop(self) -> None:
+        """End the thread after what is queued; a later submit starts a new
+        one on a fresh queue (the engine can start again after stop)."""
+        if self._thread is not None:
+            self._q.put(None)
+            self._q = queue.Queue()
+            self._thread = None
+
+    def _land(self, batch, landing: _Landing):
+        try:
+            if landing.event is not None:
+                # THE designed host sync: one wait per window, on this
+                # thread, off the dispatch path
+                landing.event.synchronize()
+            if landing.host is not None and self._on_sync is not None:
+                self._on_sync()
+            return self._unpack(batch, landing), None
+        except Exception as e:  # device fault surfacing at the sync
+            return None, e
+
+    def _run(self, q) -> None:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            loop, batch, landing, fut = item
+            res, exc = self._land(batch, landing)
+            try:
+                loop.call_soon_threadsafe(_fut_set, fut, res, exc)
+            except RuntimeError:
+                # the loop closed under us (engine torn down mid-flight);
+                # keep draining so the remaining futures get resolved
+                pass
+
+
+def _fut_set(fut, res, exc) -> None:
+    if fut.cancelled():
+        return
+    if exc is not None:
+        fut.set_exception(exc)
+    else:
+        fut.set_result(res)
 
 
 @dataclass
@@ -94,9 +201,10 @@ class EngineCore(AsyncEngine):
     """Device-agnostic continuous-batching engine core.
 
     Owns the scheduler, the asyncio step loop, per-request streaming queues,
-    and KV-event surfacing. Subclasses provide the batch execution.
-    ``generate`` accepts wire-format dict requests (token_ids + sampling
-    options) and yields wire-format dict outputs.
+    KV-event surfacing, the stall watchdog and the HBM-pressure ladder.
+    Subclasses provide the batch execution. ``generate`` accepts
+    wire-format dict requests (token_ids + sampling options) and yields
+    wire-format dict outputs.
     """
 
     def __init__(self, engine_config: EngineConfig):
@@ -110,6 +218,37 @@ class EngineCore(AsyncEngine):
         self._ids = itertools.count(1)
         self.kv_event_sink: Optional[Callable[[dict], None]] = None
         self._pending_events: List[dict] = []
+        # run-ahead depth: how many scheduled windows may be in flight
+        # before the loop waits for a landing. 1 = classic synchronous
+        # schedule→execute→postprocess; InferenceEngine takes the config's.
+        self.pipeline_depth = 1
+        # counters
+        self.num_generated_tokens = 0
+        self.num_steps = 0
+        # host syncs (one wait per landed window)
+        self.num_fetch_syncs = 0
+        # flight recorder (observability.StepStats) when enabled;
+        # InferenceEngine builds it
+        self.obs = None
+        # -- stall watchdog state (engine_config.stall_timeout_s > 0) --
+        # per-seq recovery attempts; a seq over stall_seq_retries is failed
+        # instead of requeued so one poisoned prompt can't loop forever
+        self._stall_retries: Dict[str, int] = {}
+        self._stall_streak = 0       # consecutive stalled landings
+        self.num_stalls = 0
+        self.stall_dead = False      # streak hit stall_dead_threshold
+        # quarantined (kind, bucket) shape classes: dispatch planning routes
+        # around them (next bucket up / einsum impl) after a stall
+        self._shape_quarantine: set = set()
+        self._window_seq = itertools.count(1)  # fault key for engine.stall
+        # -- HBM-pressure ladder state (pressure_*_threshold > 0) --
+        self.pressure_level = 0          # 0 idle .. 3 shedding
+        self.pressure_shedding = False   # rung 3: submit() rejects
+        self._pressure_spec_paused = False  # rung 2: spec decode paused
+        self._pressure_spill_cool = 0    # min ticks between rung-1 spills
+        self.num_pressure_spills = 0
+        self.num_pressure_shed = 0
+        self.pressure_peak = 0       # highest rung reached this lifetime
 
     # ------------------------- lifecycle -------------------------------
 
@@ -150,6 +289,22 @@ class EngineCore(AsyncEngine):
     async def submit(self, request: Request) -> AsyncIterator[StepOutput]:
         """Submit a request; yields StepOutputs as tokens are generated."""
         await self.start()
+        if self.pressure_shedding:
+            # the loop only ticks the ladder while seats are live; if the
+            # pool drained since the last pass, re-evaluate here so an idle
+            # engine doesn't shed forever on a stale flag
+            self._pressure_tick()
+        if self.pressure_shedding:
+            # rung 3 of the HBM-pressure ladder: refuse new admissions
+            # while resident seats drain; the router retries elsewhere
+            self.num_pressure_shed += 1
+            raise RuntimeError(
+                "admission shed: HBM pressure over pressure_shed_threshold"
+            )
+        if self.stall_dead:
+            raise RuntimeError(
+                "engine declared dead after repeated dispatch stalls"
+            )
         if not request.token_ids:
             raise ValueError("empty prompt")
         if len(request.token_ids) >= self.config.max_model_len:
@@ -168,14 +323,14 @@ class EngineCore(AsyncEngine):
             top_p=request.top_p,
             seed=_seed31(request.seed),
         )
-        queue: asyncio.Queue = asyncio.Queue()
-        self._queues[seq.seq_id] = queue
+        out_queue: asyncio.Queue = asyncio.Queue()
+        self._queues[seq.seq_id] = out_queue
         self._seqs[seq.seq_id] = seq
         self.scheduler.add(seq)
         self._wake.set()
         try:
             while True:
-                out = await queue.get()
+                out = await out_queue.get()
                 yield out
                 if out.finished:
                     return
@@ -222,8 +377,14 @@ class EngineCore(AsyncEngine):
                        "killed" if context.is_killed() else "cancelled")
 
         watcher = asyncio.create_task(_on_stop())
+        t_submit = time.monotonic()
+        seq_ref: Optional[SchedSeq] = None
         try:
             async for out in self.submit(req):
+                if seq_ref is None:
+                    # grab the scheduler-side state before _drop can pop it;
+                    # its t_scheduled/t_first_token stamps feed the spans
+                    seq_ref = self._seqs.get(req.request_id)
                 if context.is_killed():
                     return
                 yield {
@@ -237,6 +398,59 @@ class EngineCore(AsyncEngine):
                     return
         finally:
             watcher.cancel()
+            self._record_stage_spans(context, t_submit, seq_ref)
+
+    def _record_stage_spans(
+        self, context: Context, t_submit: float, seq: Optional[SchedSeq]
+    ) -> None:
+        """Attribute engine time to worker.queue / engine.prefill /
+        engine.decode spans from the scheduler's monotonic stamps. Recorded
+        after the fact (no live span objects in the step loop) so the
+        per-token hot path carries zero tracing overhead."""
+        tracer = tracing.get_tracer()
+        end = time.monotonic()
+        t_sched = seq.t_scheduled if seq is not None else None
+        t_first = seq.t_first_token if seq is not None else None
+        tracer.record("worker.queue", context,
+                      start_mono=t_submit, end_mono=(t_sched or end))
+        if t_sched is not None:
+            tracer.record("engine.prefill", context,
+                          start_mono=t_sched, end_mono=(t_first or end))
+        if t_first is not None:
+            attrs = {"num_tokens": len(seq.output_ids)}
+            if self.obs is not None:
+                osnap = self.obs.snapshot()
+                attrs["mfu"] = round(osnap["mfu"], 6)
+                attrs["goodput_tok_s"] = round(osnap["goodput_tok_s"], 3)
+                attrs["padding_waste_ratio"] = round(
+                    osnap["padding_waste_ratio"], 6
+                )
+            tracer.record("engine.decode", context, start_mono=t_first,
+                          end_mono=end, attrs=attrs)
+
+    # --------------------- flight recorder surface ---------------------
+
+    def obs_snapshot(self) -> dict:
+        """One merged dict of live recorder gauges (stepstats window) and
+        the watchdog's and the ladder's counters; {} when the recorder is
+        disabled."""
+        if self.obs is None:
+            return {}
+        snap = self.obs.snapshot()
+        snap["stalls_total"] = self.num_stalls
+        snap["stall_dead"] = int(self.stall_dead)
+        snap["stall_quarantined_shapes"] = len(self._shape_quarantine)
+        snap["pressure_level"] = self.pressure_level
+        snap["pressure_peak"] = self.pressure_peak
+        snap["pressure_spills_total"] = self.num_pressure_spills
+        snap["pressure_shed_total"] = self.num_pressure_shed
+        return snap
+
+    def mark_obs_warmup_done(self) -> None:
+        """Drop warmup steps from the recorder's window. Call after warmup
+        traffic has drained."""
+        if self.obs is not None:
+            self.obs.mark_warmup_done()
 
     # ------------------------- step loop -------------------------------
 
@@ -246,8 +460,87 @@ class EngineCore(AsyncEngine):
         raise NotImplementedError
 
     async def _run_loop(self) -> None:
+        if self.pipeline_depth > 1:
+            await self._run_loop_pipelined()
+        else:
+            await self._run_loop_sync()
+
+    async def _run_loop_pipelined(self) -> None:
+        """Run-ahead loop: schedule and dispatch window N+1 while window N
+        is still computing/fetching. Decode input tokens ride the device
+        token ring, so no dispatch ever waits on a host fetch; sampled
+        tokens are observed one-plus windows behind for emission and stop
+        checks. Landings are applied strictly in dispatch order."""
+        inflight: Deque[Tuple[Any, Any]] = deque()
+
+        async def land_next() -> None:
+            batch0, fut = inflight.popleft()
+            try:
+                results = await asyncio.wait_for(
+                    self._landing(batch0, fut), self._stall_deadline(batch0)
+                )
+            except asyncio.TimeoutError:
+                # the head landing blew its deadline: every younger window
+                # reads the wedged window's ring state, so the whole
+                # run-ahead pipeline is cancelled and recovered together
+                wedged = [batch0]
+                self._swallow_future(fut)
+                while inflight:
+                    b, f = inflight.popleft()
+                    wedged.append(b)
+                    self._swallow_future(f)
+                self._on_stall(wedged)
+                return
+            except Exception:
+                log.exception("window failed; aborting its seqs")
+                self._abort_batch(batch0)
+                return
+            self._stall_streak = 0
+            try:
+                self._postprocess(batch0, results)
+            except Exception:
+                log.exception("postprocess failed")
+            self._flush_kv_events()
+
+        while not self._stopped:
+            while inflight and inflight[0][1].done():
+                await land_next()
+            self._pressure_tick()
+            batch = self.scheduler.schedule()
+            self._mark_preempted_seats(batch)
+            if batch.is_empty:
+                if inflight:
+                    await land_next()
+                    continue
+                if self.scheduler.waiting and not self.scheduler.running:
+                    seq = self.scheduler.waiting[0]
+                    log.error("seq %s cannot fit in KV pool — failing",
+                              seq.seq_id)
+                    self.scheduler.abort(seq, "error")
+                    self._emit_finish(seq, "error")
+                    continue
+                self._wake.clear()
+                if self._stopped:
+                    break
+                await self._wake.wait()
+                continue
+            self._arm_stall_fault(batch)
+            try:
+                fut = await self._dispatch_batch_async(batch)
+            except Exception:
+                log.exception("dispatch failed; aborting scheduled seqs")
+                self._abort_batch(batch)
+                continue
+            inflight.append((batch, fut))
+            while len(inflight) >= self.pipeline_depth:
+                await land_next()
+        while inflight:  # drain so stop() leaves consistent bookkeeping
+            await land_next()
+
+    async def _run_loop_sync(self) -> None:
         """The synchronous loop: schedule → execute → postprocess."""
         while not self._stopped:
+            self._pressure_tick()
             batch = self.scheduler.schedule()
             self._mark_preempted_seats(batch)
             if batch.is_empty:
@@ -265,12 +558,21 @@ class EngineCore(AsyncEngine):
                     return
                 await self._wake.wait()
                 continue
+            self._arm_stall_fault(batch)
+            inner = asyncio.ensure_future(self._execute_batch_async(batch))
             try:
-                results = await self._execute_batch_async(batch)
+                results = await asyncio.wait_for(
+                    self._landing(batch, inner), self._stall_deadline(batch)
+                )
+            except asyncio.TimeoutError:
+                self._swallow_future(inner)
+                self._on_stall([batch])
+                continue
             except Exception:
                 log.exception("engine step failed; aborting scheduled seqs")
                 self._abort_batch(batch)
                 continue
+            self._stall_streak = 0
             try:
                 self._postprocess(batch, results)
             except Exception:
@@ -301,19 +603,245 @@ class EngineCore(AsyncEngine):
                 self.scheduler.abort(seq, "error")
                 self._emit_finish(seq, "error")
 
+    async def _dispatch_batch_async(self, batch):
+        """Enqueue the batch's device work; resolve to a future of fetched
+        results. Overridden by the device engine; the base class executes
+        synchronously."""
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        try:
+            fut.set_result(await self._execute_batch_async(batch))
+        except Exception as e:  # pragma: no cover
+            fut.set_exception(e)
+        return fut
+
     def _mark_preempted_seats(self, batch) -> None:
         """A preempted seq's blocks were just released — its device seat
-        must die before they recycle (the kill rides the next dispatch,
-        which in stream order precedes any reuse)."""
+        must die before they recycle, even if this batch is otherwise
+        empty (the kill rides the next dispatch, which in stream order
+        precedes any reuse)."""
         for seq in batch.preempted:
             if seq.preempted_slot >= 0:
                 self._ap_mark_dead(seq.preempted_slot)
                 seq.preempted_slot = -1
 
+    # ----------------------- stall watchdog ----------------------------
+    # A wedged device dispatch (a hung kernel, a driver hang) would
+    # otherwise freeze the loop forever: every queued request hangs and the
+    # worker looks alive to the router. The watchdog bounds each landing by
+    # a deadline scaled to the window's token count, cancels the wedged
+    # window, quarantines the shape class that wedged, and replays the
+    # touched seats from their journal (prompt + emitted tokens) — bounded
+    # retries per seat, bounded streak per worker.
+
+    def _stall_deadline(self, batch) -> Optional[float]:
+        """Deadline for one landing; None disables (stall_timeout_s <= 0).
+        Scales with scheduled work so big prefill windows aren't false
+        positives at the same setting that catches a wedged decode."""
+        base = self.config.stall_timeout_s
+        if base <= 0:
+            return None
+        n = sum(c.length for c in batch.prefills)
+        n += sum(r.accepted for r in batch.decode_rows)
+        return base + self.config.stall_timeout_per_token_s * n
+
+    def _arm_stall_fault(self, batch) -> None:
+        """Fault-registry seam: a ``delay`` rule on ``engine.stall`` wedges
+        this window's landing for delay_s, as a hung device dispatch would.
+        The key leads with the window kind (``decode``/``prefill``/``mixed``)
+        so a rule can pin the wedge to a window class."""
+        if batch.prefills:
+            kind = "mixed" if batch.decode_rows else "prefill"
+        else:
+            kind = "decode"
+        rule = faults.active(
+            "engine.stall", f"{kind}:{next(self._window_seq)}")
+        if rule is not None and rule.kind == faults.DELAY:
+            batch.stall_inject_s = rule.delay_s
+
+    async def _landing(self, batch, fut):
+        inject = getattr(batch, "stall_inject_s", 0.0)
+        if inject:
+            await asyncio.sleep(inject)  # seeded engine.stall wedge
+        return await fut
+
+    @staticmethod
+    def _swallow_future(fut) -> None:
+        """Detach from a wedged future: request cancellation and retrieve
+        any late exception so abandoned windows never log
+        'exception was never retrieved'."""
+        fut.cancel()
+        fut.add_done_callback(
+            lambda f: f.exception() if not f.cancelled() else None
+        )
+
+    def _shape_bucket(self, kind: str, n: int) -> int:
+        """Bucket used for stall attribution; the device engine maps
+        through its dispatch buckets."""
+        return n
+
+    def _quarantine_shape(self, cls) -> None:
+        if cls not in self._shape_quarantine:
+            self._shape_quarantine.add(cls)
+            log.warning(
+                "stall watchdog: quarantined shape class %s:%s", *cls
+            )
+
+    def _batch_shape_classes(self, batch) -> set:
+        classes = set()
+        for chunk in batch.prefills:
+            classes.add(
+                ("prefill", self._shape_bucket("prefill", chunk.length))
+            )
+        if batch.decode_rows:
+            classes.add(
+                ("decode", self._shape_bucket("decode",
+                                              len(batch.decode_rows)))
+            )
+        return classes
+
+    def _last_graph_key(self) -> str:
+        """The key of the last program built for the device (the device
+        engine's last captured decode graph)."""
+        return ""
+
+    def _on_stall(self, batches) -> None:
+        """A landing blew its deadline. Attribute the wedge to the head
+        window's shape classes (cross-checked against the last captured
+        graph's key in the log line), quarantine them, recover every
+        touched seat, and track the streak toward declaring the worker
+        dead."""
+        self.num_stalls += 1
+        self._stall_streak += 1
+        classes = self._batch_shape_classes(batches[0])
+        log.error(
+            "dispatch stall: landing blew its deadline (shape classes %s, "
+            "last graph %r, streak %d/%d)",
+            sorted(classes), self._last_graph_key(), self._stall_streak,
+            self.config.stall_dead_threshold,
+        )
+        for cls in classes:
+            self._quarantine_shape(cls)
+        self._recover_batches(batches)
+        if self._stall_streak >= self.config.stall_dead_threshold:
+            self.stall_dead = True
+            log.error(
+                "stall streak hit %d — declaring worker dead",
+                self._stall_streak,
+            )
+            for seq in list(self._seqs.values()):
+                if seq.status != SeqStatus.FINISHED:
+                    self._ap_mark_dead(seq.slot)
+                    self.scheduler.abort(seq, "error")
+                    self._emit_finish(seq, "error")
+
+    def _recover_batches(self, batches) -> None:
+        """Cancel wedged windows: discard every pending they registered
+        (mirroring _abort_batch), then requeue each touched live seat for
+        journal replay — a recompute preemption whose 'journal' is the
+        seq's own prompt + emitted tokens, giving byte-identical resumption
+        under the seq's seed. Seats over stall_seq_retries fail instead."""
+        touched: Dict[str, SchedSeq] = {}
+        for batch in batches:
+            for chunk in batch.prefills:
+                self.scheduler.on_tokens_discarded(
+                    chunk.seq, 0, first=chunk.final, prompt=chunk.length
+                )
+                touched[chunk.seq.seq_id] = chunk.seq
+            for row in batch.decode_rows:
+                self.scheduler.on_tokens_discarded(row.seq, row.accepted)
+                touched[row.seq.seq_id] = row.seq
+        for seq in touched.values():
+            if seq.status == SeqStatus.FINISHED or seq.pending_total != 0:
+                continue
+            retries = self._stall_retries.get(seq.seq_id, 0) + 1
+            self._stall_retries[seq.seq_id] = retries
+            if retries > self.config.stall_seq_retries:
+                self._ap_mark_dead(seq.slot)
+                self.scheduler.abort(seq, "error")
+                self._emit_finish(seq, "error")
+                continue
+            if seq.status is SeqStatus.WAITING:
+                continue  # never held blocks — already queued for replay
+            slot = self.scheduler.preempt_recompute(seq)
+            self._ap_mark_dead(slot)
+
+    # ---------------------- HBM-pressure ladder ------------------------
+
+    def _pressure_tick(self) -> None:
+        """Graduated response to KV-pool pressure, one check per loop pass:
+        rung 1 spills the coldest seat (recompute preemption — its sealed
+        blocks stay evictable in the prefix cache), rung 2 pauses
+        speculative decoding, rung 3 sheds new admissions. Rungs release
+        with pressure_release hysteresis so the ladder doesn't flap at a
+        threshold."""
+        cfg = self.config
+        spill_t = cfg.pressure_spill_threshold
+        spec_t = cfg.pressure_spec_threshold
+        shed_t = cfg.pressure_shed_threshold
+        if spill_t <= 0 and spec_t <= 0 and shed_t <= 0:
+            return
+        usage = self.scheduler.pool.usage
+        release = cfg.pressure_release
+        if shed_t > 0:
+            if not self.pressure_shedding and usage >= shed_t:
+                self.pressure_shedding = True
+                log.warning(
+                    "pressure ladder: shedding admissions "
+                    "(pool usage %.2f >= %.2f)", usage, shed_t,
+                )
+            elif self.pressure_shedding and usage < shed_t - release:
+                self.pressure_shedding = False
+                log.info(
+                    "pressure ladder: admissions reopened (pool usage %.2f)",
+                    usage,
+                )
+        if spec_t > 0:
+            if not self._pressure_spec_paused and usage >= spec_t:
+                self._pressure_spec_paused = True
+                self._pause_spec()
+            elif self._pressure_spec_paused and usage < spec_t - release:
+                self._pressure_spec_paused = False
+                self._resume_spec()
+        if self._pressure_spill_cool > 0:
+            self._pressure_spill_cool -= 1
+        if (spill_t > 0 and usage >= spill_t
+                and self._pressure_spill_cool == 0):
+            victim = self.scheduler._pick_victim(None)
+            if victim is not None and victim.pending_total == 0:
+                slot = self.scheduler.preempt_recompute(victim)
+                self._ap_mark_dead(slot)
+                self.num_pressure_spills += 1
+                # cooldown bounds churn: the spilled seat re-prefills
+                # (mostly prefix hits) before another spill is considered
+                self._pressure_spill_cool = 4
+                log.info(
+                    "pressure ladder: spilled seq %s (pool usage %.2f)",
+                    victim.seq_id, usage,
+                )
+        self.pressure_level = (
+            3 if self.pressure_shedding
+            else 2 if self._pressure_spec_paused
+            else 1 if (spill_t > 0 and usage >= spill_t)
+            else 0
+        )
+        if self.pressure_level > self.pressure_peak:
+            self.pressure_peak = self.pressure_level
+
+    def _pause_spec(self) -> None:
+        """Rung 2 hook: narrows the spec plan window once speculative
+        decoding is served (``spec_mode`` is refused until then, so there
+        is nothing to pause)."""
+
+    def _resume_spec(self) -> None:
+        pass
+
     def _postprocess(self, batch, results) -> None:
         """Apply step results. Decode samples are per-seq token WINDOWS
-        (length >= 1); tokens after a mid-window finish are discarded."""
+        (length >= 1); tokens after a mid-window finish are discarded (and
+        their speculative pendings cleared so zombie seqs get reaped)."""
         prefill_samples, decode_samples = results
+        self.num_steps += 1
         for chunk, sampled in zip(batch.prefills, prefill_samples):
             seq = chunk.seq
             if seq.status == SeqStatus.FINISHED:
@@ -345,6 +873,7 @@ class EngineCore(AsyncEngine):
                 self._ap_mark_dead(row.slot)
 
     def _emit_token(self, seq: SchedSeq) -> None:
+        self.num_generated_tokens += 1
         if seq.t_first_token is None:
             seq.t_first_token = time.monotonic()
         reason = self.scheduler.check_stop(seq)
@@ -398,8 +927,11 @@ class EngineCore(AsyncEngine):
 
 class InferenceEngine(EngineCore):
     """The PyTorch device engine: packed prefills and autopilot decode
-    windows over a paged KV cache on ``device``, run from one executor
-    thread so the event loop never blocks on the device.
+    windows over a paged KV cache on ``device``, enqueued from one executor
+    thread so the event loop never blocks on the device. On a card every
+    decode window replays a CUDA graph captured here, at construction, one
+    per (decode bucket, stochastic); a fetch thread waits on each window's
+    CUDA event.
 
     ``device`` defaults to ``cuda``; with no GPU present and no device
     given, construction raises (pass ``device="cpu"`` to run on the CPU).
@@ -429,9 +961,9 @@ class InferenceEngine(EngineCore):
         # device-resident control state
         self._window_K = max(1, engine_config.decode_steps)
         self._ap_Wcap = engine_config.max_blocks_per_seq
-        self._ap_window_fn = model_lib.raw_autopilot_window_fn(
-            model_config, engine_config, self._window_K)
-        self._ap_delta_fn = model_lib.raw_ctl_delta_fn(self._ap_Wcap)
+        self._ap_window_fn, self._ap_delta_fn = model_lib.make_autopilot_fns(
+            model_config, engine_config, self._window_K, self._ap_Wcap,
+            self.device)
         self._ctl = model_lib.init_ctl(
             engine_config, engine_config.max_num_seqs, self._ap_Wcap,
             self.device, seed=seed + 2,
@@ -440,20 +972,55 @@ class InferenceEngine(EngineCore):
         # dispatch counters
         self.num_windows = 0
         self.num_prefill_dispatches = 0
+        self.num_einsum_rebuilds = 0
         # host mirror of per-slot device state + seat map
         self._ap: Dict[int, Dict[str, Any]] = {}
         self._ap_cols: List[int] = []       # device slot_rows content
         self._ap_rows_dev: Optional[torch.Tensor] = None
         self._ap_dead: set = set()          # slots to kill next dispatch
+        self.pipeline_depth = max(1, engine_config.pipeline_depth)
         # step keys for prefills come from this generator, on the device
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # one-shot einsum rebuild when the largest decode bucket stalls
+        self._stall_einsum_fallback = False
+        # flight recorder: per-step MFU/goodput accounting. Records are
+        # stamped at dispatch/landing with host ints only — no extra syncs.
+        if env_flag("DYNTPU_OBS_ENABLED", True):
+            self.obs = StepStats(
+                FlopsModel(model_config),
+                n_chips=1,
+                peak_flops=obs_flops.peak_flops(
+                    (torch.cuda.get_device_name(self.device)
+                     if self.device.type == "cuda" else ""),
+                    self.device.type,
+                    # quantized weights run the matmuls at the int8/fp8
+                    # roofline — MFU against the bf16 peak would flatter
+                    engine_config.weight_dtype
+                    if quant.is_quantized(engine_config.weight_dtype)
+                    else model_config.dtype,
+                ),
+                window_s=env_float("DYNTPU_OBS_WINDOW_S", 10.0),
+                jsonl_path=env_str("DYNTPU_OBS_STEPSTATS_PATH", ""),
+            )
         # the one device-step thread, made at the first batch after start
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        # fetches (waits on each window's CUDA event) run OFF the dispatch
+        # thread, so a fetch never delays the next window's enqueue
+        self._fetcher = _BatchingFetcher(
+            self._unpack_results, on_sync=self._count_fetch_sync
+        )
+        if self._ap_window_fn.graphed:
+            # every decode graph, before the loop starts
+            self._ap_window_fn.capture_all(
+                self.params, self.cache, self._ctl, engine_config.decode_buckets)
 
     def _shutdown_executor(self) -> None:
         if self._executor is not None:
             self._executor.shutdown(wait=False)
             self._executor = None
+        self._fetcher.stop()
+        if self.obs is not None:
+            self.obs.close()
 
     def _ap_mark_dead(self, slot: int) -> None:
         if slot >= 0 and (slot in self._ap or slot in self._ap_cols):
@@ -469,32 +1036,86 @@ class InferenceEngine(EngineCore):
 
     # --------------------- device execution ----------------------------
 
-    async def _execute_batch_async(self, batch):
+    def _step_executor(self) -> concurrent.futures.ThreadPoolExecutor:
         if self._executor is None:
             self._executor = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="device-step"
             )
+        return self._executor
+
+    async def _execute_batch_async(self, batch):
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
-            self._executor, self._execute_batch, batch
+            self._step_executor(), self._execute_batch, batch
         )
+
+    async def _dispatch_batch_async(self, batch):
+        """Pipelined path: enqueue the batch's calls and the copy of its
+        tokens on the dispatch thread (no sync), then hand the landing to
+        the fetcher. Returns the asyncio future of the results."""
+        loop = asyncio.get_running_loop()
+        landing = await loop.run_in_executor(
+            self._step_executor(), self._dispatch_batch, batch
+        )
+        return self._fetcher.submit(loop, batch, landing)
 
     def _execute_batch(self, batch):
-        """Executor thread: dispatch every step of the batch, then fetch its
-        sampled tokens with one host sync."""
-        return self._fetch_results(batch, self._dispatch_batch(batch))
+        """Synchronous execution (pipeline_depth=1): dispatch, then wait
+        for the batch's tokens, in one executor turn."""
+        landing = self._dispatch_batch(batch)
+        if landing.event is not None:
+            # designed sync point of the synchronous loop: one wait per
+            # executed batch, counted in num_fetch_syncs
+            landing.event.synchronize()
+        if landing.host is not None:
+            self._count_fetch_sync()
+        return self._unpack_results(batch, landing)
 
-    def _dispatch_batch(self, batch):
-        """Build inputs + enqueue every device call for this batch. NO host
-        sync in here. Seat kills flush FIRST so the in-order stream applies
-        them before any work that could touch reused blocks."""
+    def _dispatch_batch(self, batch) -> _Landing:
+        """Build inputs + enqueue every device call for this batch, then the
+        copy of its sampled tokens to the host. NO host sync in here. Seat
+        kills flush FIRST so the in-order stream applies them before any
+        work that could touch reused blocks."""
         self._ap_flush_kills()
-        prefill_handles = [self._dispatch_prefill(c) for c in batch.prefills]
+        obs_out = batch.obs_records if self.obs is not None else None
+        prefill_handles = [self._dispatch_prefill(c, obs_out)
+                           for c in batch.prefills]
         decode_handle = (
-            self._dispatch_decode(batch.decode_rows)
+            self._dispatch_decode(batch.decode_rows, obs_out)
             if batch.decode_rows else None
         )
-        return prefill_handles, decode_handle
+        return self._start_fetch(prefill_handles, decode_handle)
+
+    @hot_path
+    def _start_fetch(self, prefill_handles, decode_handle) -> _Landing:
+        """Enqueue the ONE device→host copy of every sampled token of the
+        batch, into pinned memory on a card, right after the batch's last
+        call: a decode graph's samples live in its pool and its next replay
+        overwrites them, and no replay can come before this copy in stream
+        order. An event after the copy marks the landing."""
+        flat = list(prefill_handles)
+        if decode_handle is not None:
+            flat.append(decode_handle[0])
+        landing = _Landing(
+            n_prefill=len(prefill_handles),
+            decode_shape=(tuple(decode_handle[0].shape)
+                          if decode_handle is not None else None),
+            cols=decode_handle[1] if decode_handle is not None else None,
+            host=None,
+        )
+        if not flat:
+            return landing
+        dev = (flat[0].reshape(-1) if len(flat) == 1
+               else torch.cat([t.reshape(-1) for t in flat]))
+        if self.device.type != "cuda":
+            landing.host = dev.to("cpu")
+            return landing
+        landing.host = torch.empty(dev.shape, dtype=dev.dtype,
+                                   pin_memory=True)
+        landing.host.copy_(dev, non_blocking=True)
+        landing.event = torch.cuda.Event()
+        landing.event.record()
+        return landing
 
     def _ap_flush_kills(self) -> None:
         """Kill dead autopilot seats (one packed delta call). The dead-set
@@ -512,54 +1133,113 @@ class InferenceEngine(EngineCore):
             self._ap.pop(slot, None)
         self._ap_apply_deltas(deltas)
 
-    @hot_path
-    def _fetch_results(self, batch, handles):
-        """The designed host sync: one device→host copy of every sampled
-        token of the batch, unpacked per seat."""
-        prefill_handles, decode_handle = handles
-        to_get = list(prefill_handles)
-        if decode_handle is not None:
-            to_get.append(decode_handle[0])
-        got: List[np.ndarray] = []
-        if to_get:
-            flat = torch.cat([t.reshape(-1) for t in to_get]).cpu().numpy()
-            off = 0
-            for t in to_get:
-                got.append(flat[off:off + t.numel()].reshape(t.shape))
-                off += t.numel()
-        return self._unpack_results(batch, handles, got)
+    def _count_fetch_sync(self) -> None:
+        self.num_fetch_syncs += 1
 
     @hot_path
-    def _unpack_results(self, batch, handles, got):
-        """Map fetched arrays back to per-seat sample lists. Decode sample
-        columns follow the device seat map captured at dispatch, which may
-        order (and pad) differently than the batch's row list."""
-        prefill_handles, decode_handle = handles
-        prefill_samples = [int(g[0]) for g in got[:len(prefill_handles)]]
+    def _unpack_results(self, batch, landing: _Landing):
+        """Map a landed window's host tokens back to per-seat sample lists.
+        Decode sample columns follow the device seat map captured at
+        dispatch, which may order (and pad) differently than the batch's
+        row list."""
+        got = landing.host.numpy() if landing.host is not None else None
+        n = landing.n_prefill
+        prefill_samples = [int(got[i]) for i in range(n)]
         decode_samples: List[List[int]] = []
-        if decode_handle is not None:
+        if landing.decode_shape is not None:
             col_of: Dict[int, int] = {}
-            for col, slot in enumerate(decode_handle[1]):
+            for col, slot in enumerate(landing.cols):
                 col_of.setdefault(slot, col)
-            out = got[-1]  # [K, B]
+            out = got[n:].reshape(landing.decode_shape)  # [K, B]
             for row in batch.decode_rows:
                 col = col_of[row.slot]
                 decode_samples.append([
                     int(out[k, col])
                     for k in range(min(row.accepted, out.shape[0]))
                 ])
+        if self.obs is not None:
+            self._obs_on_land(batch, decode_samples)
         return prefill_samples, decode_samples
+
+    @hot_path
+    def _obs_on_land(self, batch, decode_samples) -> None:
+        """Stamp landing time + realized goodput on this window's records
+        and commit them to the flight recorder. Runs right after the
+        window's one designed wait, on already-fetched host ints — no extra
+        syncs."""
+        recs = getattr(batch, "obs_records", None)
+        if not recs:
+            return
+        t_land = time.monotonic()
+        emitted = sum(len(w) for w in decode_samples)
+        for rec in recs:
+            rec.t_land = t_land
+            if rec.kind != PREFILL:
+                rec.goodput_tokens = emitted
+            self.obs.commit(rec)
+        recs.clear()
 
     def _next_key(self) -> torch.Tensor:
         """A fresh step key on the device (no host sync)."""
         return torch.randint(0, 1 << 31, (), generator=self._gen,
                              device=self.device, dtype=torch.int64)
 
+    def _bucket_for(self, kind: str, n: int) -> int:
+        """Bucket ``n`` on the config's grid for ``kind``.
+        Stall-quarantined buckets route to the next rung up — another
+        captured graph (or prefill shape) doing the same work with
+        padding."""
+        cfg = self.config
+        grid = (cfg.decode_buckets if kind == "decode"
+                else cfg.prefill_buckets)
+        b = _bucket(n, grid)
+        if self._shape_quarantine and (kind, b) in self._shape_quarantine:
+            for g in grid:
+                if g >= b and (kind, g) not in self._shape_quarantine:
+                    return g
+        return b
+
+    def _shape_bucket(self, kind: str, n: int) -> int:
+        return self._bucket_for(kind, n)
+
+    def _last_graph_key(self) -> str:
+        return self._ap_window_fn.last_key
+
+    def _quarantine_shape(self, cls) -> None:
+        """When the LARGEST decode bucket wedges there is no rung to route
+        to — rebuild the decode window on the einsum attention impl instead
+        (another graph for the same shape class, captured at its first
+        call), once."""
+        kind, bucket = cls
+        if kind == "decode" and not self._stall_einsum_fallback:
+            cfg = self.config
+            if bucket >= max(cfg.decode_buckets):
+                fb_cfg = dataclasses.replace(
+                    cfg, attention_impl_decode="einsum"
+                )
+                self._ap_window_fn, self._ap_delta_fn = (
+                    model_lib.make_autopilot_fns(
+                        self.model_config, fb_cfg, self._window_K,
+                        self._ap_Wcap, self.device,
+                    )
+                )
+                # the new window's seat-map buffers start empty
+                self._ap_rows_dev = None
+                self._stall_einsum_fallback = True
+                self.num_einsum_rebuilds += 1
+                log.warning(
+                    "stall watchdog: decode:%d is the largest rung — "
+                    "rebuilt the decode window on the einsum attention "
+                    "impl instead of quarantining it", bucket,
+                )
+                return
+        super()._quarantine_shape(cls)
+
     def _prefill_arrays(self, chunk: PrefillChunk):
         cfg = self.config
         seq = chunk.seq
         if chunk.length <= max(cfg.prefill_buckets):
-            T = _bucket(chunk.length, cfg.prefill_buckets)
+            T = self._bucket_for("prefill", chunk.length)
         else:
             T = _pow2_bucket(chunk.length)
         # only the blocks this chunk can touch: W is a function of the
@@ -577,7 +1257,7 @@ class InferenceEngine(EngineCore):
         return tokens, tables
 
     @hot_path
-    def _dispatch_prefill(self, chunk: PrefillChunk):
+    def _dispatch_prefill(self, chunk: PrefillChunk, obs_out=None):
         """Enqueue one prefill chunk; returns the sampled handle [1]
         (garbage unless ``chunk.final``). Every int input rides ONE
         host→device copy. No host sync."""
@@ -586,6 +1266,17 @@ class InferenceEngine(EngineCore):
         self.num_prefill_dispatches += 1
         tokens, tables = self._prefill_arrays(chunk)
         T, W = tokens.shape[0], tables.shape[0]
+        if obs_out is not None:
+            # host-known ints only — prompt tokens are goodput at dispatch;
+            # context_sum = Σ attended context over the chunk's positions
+            L, S = chunk.length, chunk.start
+            obs_out.append(StepRecord(
+                kind=PREFILL, t_dispatch=time.monotonic(),
+                bucket=T, rows=1, live_rows=1,
+                padded_tokens=T, real_tokens=L,
+                goodput_tokens=L,
+                context_sum=L * S + L * (L + 1) // 2,
+            ))
         fn = self._packed_prefill_fns.get((T, W))
         if fn is None:
             fn = model_lib.raw_packed_prefill_fn(
@@ -601,7 +1292,9 @@ class InferenceEngine(EngineCore):
             int(round(seq.temperature * model_lib.PP_QUANT)),
             int(round(seq.top_p * model_lib.PP_QUANT)),
         )
-        # the prefill posts its sample into ctl["last_tok"] in place
+        # the prefill posts its sample into ctl["last_tok"] in place; the
+        # cache and ctl it returns are the same objects (the decode graphs
+        # read them at their captured addresses)
         self.cache, _, sampled = fn(
             self.params, self.cache, self._ctl["last_tok"],
             self._upload(pint), self._next_key(), seq.temperature > 0.0,
@@ -611,7 +1304,8 @@ class InferenceEngine(EngineCore):
     @hot_path
     def _ap_apply_deltas(self, deltas: Dict[int, Dict[str, Any]]) -> None:
         """Pack + enqueue one control-state delta call (two host→device
-        copies in all)."""
+        copies in all). The delta updates ctl in place and hands back the
+        same dict."""
         Wcap = self._ap_Wcap
         n = _pow2_bucket(len(deltas))
         trash = self.config.max_num_seqs
@@ -634,13 +1328,13 @@ class InferenceEngine(EngineCore):
                                       self._upload(df))
 
     @hot_path
-    def _dispatch_decode(self, rows):
-        """Enqueue one autopilot decode window. Steady state (same seats,
-        no growth) dispatches with ZERO fresh host tensors — all control
-        state is device-resident; the host sends packed deltas only on
-        joins, block growth, resumes, and seat-map changes. Returns
-        (samples_handle [K, B], col_map) where col_map[device column] is the
-        slot computed there."""
+    def _dispatch_decode(self, rows, obs_out=None):
+        """Enqueue one autopilot decode window (a graph replay on a card).
+        Steady state (same seats, no growth) dispatches with ZERO fresh
+        host tensors — all control state is device-resident; the host sends
+        packed deltas only on joins, block growth, resumes, and seat-map
+        changes. Returns (samples_handle [K, B], col_map) where
+        col_map[device column] is the slot computed there."""
         cfg = self.config
         bs = cfg.block_size
         K = self._window_K
@@ -681,16 +1375,27 @@ class InferenceEngine(EngineCore):
         # seat map: reuse the device map only when the LIVE seats it holds
         # are exactly the scheduled set. A LIVE slot the scheduler skipped
         # this round must not keep its column — the window would advance
-        # its device pos/ring token behind the host mirror's back.
+        # its device pos/ring token behind the host mirror's back. On a
+        # card the map is written into the bucket's captured buffer.
         needed = [r.slot for r in rows]
-        B = _bucket(len(needed), cfg.decode_buckets)
+        B = self._bucket_for("decode", len(needed))
         live = {s for s in self._ap_cols if s in self._ap}
         if (self._ap_rows_dev is None or len(self._ap_cols) != B
                 or live != set(needed)):
             cols = needed + [cfg.max_num_seqs] * (B - len(needed))
             self._ap_cols = cols
-            self._ap_rows_dev = self._upload(np.asarray(cols, np.int32))
+            self._ap_rows_dev = self._ap_window_fn.load_rows(cols)
         self.num_windows += 1
+        if obs_out is not None:
+            # realized goodput (emitted tokens) is stamped at landing —
+            # only padded/real shapes are known here
+            ctx = sum(K * r.base + K * (K + 1) // 2 for r in rows)
+            obs_out.append(StepRecord(
+                kind=DECODE, t_dispatch=time.monotonic(), bucket=B,
+                rows=B, live_rows=len(rows),
+                padded_tokens=B * K, real_tokens=len(rows) * K,
+                context_sum=ctx,
+            ))
         stochastic = any(r.seq.temperature > 0.0 for r in rows)
         self.cache, self._ctl, samples = self._ap_window_fn(
             self.params, self.cache, self._ctl, self._ap_rows_dev,

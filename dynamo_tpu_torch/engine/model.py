@@ -22,6 +22,10 @@ updates where the JAX code donates buffers:
   reads every seat's position, limits, sampling knobs, table and input token
   from persistent ``ctl`` tensors, which the host updates with packed deltas
   only when membership or tables change.
+- **Decode windows replay CUDA graphs** on a card (:class:`AutopilotWindow`,
+  from :func:`make_autopilot_fns`): one graph per (decode bucket,
+  stochastic), captured once over the eager window and replayed — the
+  counterpart of the JAX package's one jitted executable per bucket.
 - **Quantized serving** (``engine/quant.py``): matmul weights may be
   ``{"q", "s"}`` leaves (int8/fp8 with per-output-channel f32 scales), and
   with a quantized ``kv_dtype`` the pages are 1-byte with per-(slot, head)
@@ -34,11 +38,13 @@ Nothing here synchronises with the host except where a docstring says so.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..ops import paged_attention as pa
 from ..ops.paged_attention import (
     paged_attention_decode, paged_attention_ragged,
 )
@@ -689,3 +695,162 @@ def raw_autopilot_window_fn(cfg: ModelConfig, eng: EngineConfig, K: int):
         return cache, ctl, samples
 
     return window
+
+
+class AutopilotWindow:
+    """The engine's decode window. On a CUDA device: one
+    ``torch.cuda.CUDAGraph`` per ``(decode bucket B, stochastic)``, captured
+    over :func:`raw_autopilot_window_fn` and replayed, the counterpart of
+    the JAX package's one jitted executable per bucket
+    (``dynamo_tpu/engine/model.py`` ``make_autopilot_fns``). On the CPU it
+    calls the eager function: the CPU was asked for, so that is not a
+    fallback. Signature as the eager window's: ``window(params, cache, ctl,
+    slot_rows[B], stochastic) -> (cache, ctl, samples[K, B])``.
+
+    What a graph needs, and what this class does about it:
+
+    - *Persistent inputs.* A graph reads params, cache and ctl at the
+      addresses it was captured over. The engine only updates them in place
+      (the delta and prefill functions hand back the same objects), and
+      every call checks that it is handed the objects it captured.
+    - *Static rows.* Each bucket has one ``slot_rows`` buffer, shared by its
+      two graphs. :meth:`load_rows` writes a new seat map into it with a
+      copy on the stream, in place of a new tensor.
+    - *Static output.* ``samples`` lives in the graphs' pool, and the next
+      replay of the same graph overwrites it: the caller copies it out on
+      the same stream before it dispatches another window.
+    - *Warm-up.* Before its capture each graph's window runs once eagerly
+      on the capture stream, over the trash slot only (it writes the trash
+      slot and the trash block; the step counter it advances is put back),
+      so what a first call allocates — the decode kernel's arrival counters
+      and occupancy query, cuBLAS's workspace — lives outside the pool.
+      :meth:`capture_all` takes the largest bucket first, so the counters
+      never grow after a capture (``ops/paged_attention.py`` raises if they
+      would grow during one).
+    - *One pool.* All graphs share one memory pool: replays run one at a
+      time on one stream, and every graph's output stays referenced here.
+    - *Threads.* The engine captures every graph at construction, before
+      its loop starts. A window built later (the stall watchdog's einsum
+      rebuild) captures at its first call, on the device-step thread, while
+      the fetch thread may be waiting on a CUDA event: so every capture
+      runs in the ``"thread_local"`` error mode, which lets other threads
+      make CUDA calls during it.
+    - *Launch counts.* A replay never calls the kernel wrappers. A capture
+      records the paged-attention launches it holds
+      (``ops.paged_attention.take_recorded``) and each replay adds them to
+      ``LAUNCHES``.
+    - *No fallback.* A failed capture or replay raises; on a card the window
+      never runs eagerly outside the warm-up.
+    """
+
+    def __init__(self, cfg: ModelConfig, eng: EngineConfig, K: int,
+                 device: torch.device):
+        self.raw = raw_autopilot_window_fn(cfg, eng, K)
+        self.device = device
+        self.graphed = device.type == "cuda"
+        self.trash = eng.max_num_seqs       # ctl's trash slot S
+        self._graphs: Dict[Tuple[int, bool], Tuple[Any, torch.Tensor,
+                                                  Dict[str, int]]] = {}
+        self._rows: Dict[int, torch.Tensor] = {}
+        self._bound: Optional[Tuple[Any, Any, Any]] = None
+        self._pool = None
+        self._stream: Optional[torch.cuda.Stream] = None
+        self.replays = 0
+        self.capture_s: Dict[Tuple[int, bool], float] = {}
+        self.last_key = ""                   # the last graph captured
+
+    def load_rows(self, cols: List[int]) -> torch.Tensor:
+        """The device seat map ``slot_rows`` for ``cols``: on a card the
+        bucket's static buffer, refilled from pinned memory on the stream
+        (after every window already dispatched)."""
+        host = torch.tensor(cols, dtype=torch.int32)
+        if not self.graphed:
+            return host.to(self.device)
+        buf = self._rows_buffer(len(cols))
+        buf.copy_(host.pin_memory(), non_blocking=True)
+        return buf
+
+    def _rows_buffer(self, B: int) -> torch.Tensor:
+        buf = self._rows.get(B)
+        if buf is None:
+            buf = torch.full((B,), self.trash, dtype=torch.int32,
+                             device=self.device)
+            self._rows[B] = buf
+        return buf
+
+    def _check_bound(self, params, cache, ctl) -> None:
+        if self._bound is None:
+            self._bound = (params, cache, ctl)
+        bp, bc, bl = self._bound
+        if params is not bp or cache is not bc or ctl is not bl:
+            raise RuntimeError(
+                "decode graphs are bound to the params, cache and ctl they "
+                "were captured over; update those in place")
+
+    def capture_all(self, params, cache, ctl, buckets) -> None:
+        """Capture every ``(B, stochastic)`` graph of ``buckets``, largest
+        bucket first (see the class docstring)."""
+        for B in sorted(set(buckets), reverse=True):
+            for stochastic in (False, True):
+                self._capture(params, cache, ctl, B, stochastic)
+
+    def _capture(self, params, cache, ctl, B: int, stochastic: bool):
+        self._check_bound(params, cache, ctl)
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        s = self._stream
+        rows = self._rows_buffer(B)
+        s.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(s):
+            trash_rows = torch.full_like(rows, self.trash)
+            ctr = ctl["ctr"].clone()
+            self.raw(params, cache, ctl, trash_rows, stochastic)
+            ctl["ctr"].copy_(ctr)
+        pa.take_recorded()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=s,
+                              capture_error_mode="thread_local"):
+            _, _, samples = self.raw(params, cache, ctl, rows, stochastic)
+        torch.cuda.current_stream(self.device).wait_stream(s)
+        entry = (graph, samples, pa.take_recorded())
+        key = (B, stochastic)
+        self._graphs[key] = entry
+        self.capture_s[key] = time.perf_counter() - t0
+        self.last_key = f"decode_window:B={B}:stochastic={int(stochastic)}"
+        return entry
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the segments in the graphs' shared pool."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def __call__(self, params, cache, ctl, slot_rows: torch.Tensor,
+                 stochastic: bool):
+        if not self.graphed:
+            return self.raw(params, cache, ctl, slot_rows, stochastic)
+        B = slot_rows.shape[0]
+        entry = self._graphs.get((B, stochastic))
+        if entry is None:
+            entry = self._capture(params, cache, ctl, B, stochastic)
+        self._check_bound(params, cache, ctl)
+        rows = self._rows[B]
+        if slot_rows is not rows:
+            rows.copy_(slot_rows)
+        graph, samples, held = entry
+        graph.replay()
+        pa.count_replay(held)
+        self.replays += 1
+        return cache, ctl, samples
+
+
+def make_autopilot_fns(cfg: ModelConfig, eng: EngineConfig, K: int,
+                       Wcap: int, device: torch.device):
+    """(window_fn, delta_fn) of the engine's decode path: the window is an
+    :class:`AutopilotWindow` (CUDA graphs on a card); the delta stays eager
+    (its row count varies, and joins and block growth are rare)."""
+    return AutopilotWindow(cfg, eng, K, device), raw_ctl_delta_fn(Wcap)

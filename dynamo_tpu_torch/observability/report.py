@@ -1,0 +1,100 @@
+"""Where-did-the-time-go report over captured stepstats JSONL.
+
+``python -m dynamo_tpu_torch.observability <stepstats.jsonl>`` renders the
+records a serving run captured (``DYNTPU_OBS_STEPSTATS_PATH``) into a
+per-step-class accounting: device-window time, token goodput, padding and
+spec-reject FLOPs waste — the offline view of the live gauges. A copy of
+``dynamo_tpu.observability.report``: both render the same report.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, TextIO
+
+
+def load_records(fh: TextIO) -> List[dict]:
+    records = []
+    for line in fh:
+        line = line.strip()
+        if not line:
+            continue
+        records.append(json.loads(line))
+    return records
+
+
+def _pct(part: float, whole: float) -> str:
+    return f"{100.0 * part / whole:5.1f}%" if whole else "  n/a "
+
+
+def render_report(records: List[dict]) -> str:
+    """Plain-text report; deterministic for the golden test."""
+    if not records:
+        return "no step records\n"
+    by_kind: Dict[str, List[dict]] = {}
+    for r in records:
+        by_kind.setdefault(r.get("kind", "?"), []).append(r)
+    t0 = min(r["t_dispatch"] for r in records)
+    t1 = max(r.get("t_land") or r["t_dispatch"] for r in records)
+    wall = max(t1 - t0, 1e-9)
+    tot_disp = sum(r.get("flops_dispatched", 0.0) for r in records)
+    tot_good = sum(r.get("flops_goodput", 0.0) for r in records)
+    tot_real = sum(r.get("flops_real", 0.0) for r in records)
+    tot_tokens = sum(r.get("goodput_tokens", 0) for r in records)
+    lines = [
+        "engine flight recorder — where did the time go",
+        "=" * 62,
+        f"records: {len(records)}   wall: {wall:.3f}s   "
+        f"goodput: {tot_tokens} tok ({tot_tokens / wall:.1f} tok/s)",
+        "",
+        f"{'class':<12} {'steps':>6} {'tok':>8} {'pad tok':>8} "
+        f"{'busy s':>8} {'share':>6} {'waste':>6}",
+        "-" * 62,
+    ]
+    for kind in sorted(by_kind):
+        rs = by_kind[kind]
+        busy = sum(max((r.get("t_land") or r["t_dispatch"])
+                       - r["t_dispatch"], 0.0) for r in rs)
+        disp = sum(r.get("flops_dispatched", 0.0) for r in rs)
+        good = sum(r.get("flops_goodput", 0.0) for r in rs)
+        tok = sum(r.get("goodput_tokens", 0) for r in rs)
+        pad = sum(r.get("padded_tokens", 0) - r.get("real_tokens", 0)
+                  for r in rs)
+        lines.append(
+            f"{kind:<12} {len(rs):>6} {tok:>8} {pad:>8} {busy:>8.3f} "
+            f"{_pct(disp, tot_disp)} {_pct(disp - good, disp)}"
+        )
+    lines += [
+        "-" * 62,
+        f"padding waste:     {_pct(tot_disp - tot_real, tot_disp)} "
+        f"of dispatched FLOPs",
+        f"spec-reject waste: {_pct(tot_real - tot_good, tot_disp)} "
+        f"of dispatched FLOPs",
+        f"goodput FLOPs:     {_pct(tot_good, tot_disp)} of dispatched",
+    ]
+    spec_drafted = sum(r.get("spec_drafted", 0) for r in records)
+    spec_accepted = sum(r.get("spec_accepted", 0) for r in records)
+    if spec_drafted:
+        lines.append(
+            f"spec acceptance:   {spec_accepted}/{spec_drafted} "
+            f"({100.0 * spec_accepted / spec_drafted:.1f}%)"
+        )
+    return "\n".join(lines) + "\n"
+
+
+def main(argv=None) -> int:
+    import argparse
+    import sys
+
+    p = argparse.ArgumentParser(
+        prog="python -m dynamo_tpu_torch.observability",
+        description="render captured stepstats JSONL into a "
+                    "where-did-the-time-go report",
+    )
+    p.add_argument("jsonl", help="stepstats JSONL path "
+                                 "(DYNTPU_OBS_STEPSTATS_PATH capture)")
+    args = p.parse_args(argv)
+    with open(args.jsonl) as fh:
+        records = load_records(fh)
+    sys.stdout.write(render_report(records))
+    return 0

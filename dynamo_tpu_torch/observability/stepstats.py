@@ -1,0 +1,263 @@
+"""Per-engine-step flight records + windowed live gauges.
+
+A copy of ``dynamo_tpu.observability.stepstats``. The engine appends one
+:class:`StepRecord` per dispatched unit of device work (a prefill chunk,
+an autopilot decode window) with ONLY host-known Python ints — batch
+occupancy, bucketed vs real token counts, attended-context sums — and
+stamps the landing time when the engine's fetcher has waited on the
+window's CUDA event (the one designed host sync). No instrumentation ever
+touches a device tensor, so the recorder adds zero host syncs to the hot
+path.
+
+:class:`StepStats` aggregates the records into windowed gauges:
+
+* ``mfu`` — goodput model-FLOPs / (elapsed * peak * n_chips), split
+  ``mfu_prefill`` / ``mfu_decode`` by step class, plus ``mfu_dispatched``
+  counting everything the card executed (padding included)
+* ``goodput_tok_s`` — real tokens landed per second
+* ``padding_waste_ratio`` — dispatched FLOPs burnt on bucket padding
+* ``wasted_flops_ratio{cause=padding|spec_reject}`` — where the
+  non-goodput FLOPs went
+
+The FLOPs accounting uses the shared analytic model
+(:mod:`.flops` — attention term included, not just ``2·N·params``).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from dataclasses import asdict, dataclass, field
+from typing import Deque, Dict, Optional
+
+from ..utils.hotpath import hot_path
+from .flops import FlopsModel
+
+# step classes
+PREFILL = "prefill"
+DECODE = "decode"
+SPEC_VERIFY = "spec_verify"
+
+
+@dataclass
+class StepRecord:
+    """One dispatched unit of device work, host-side metadata only."""
+
+    kind: str                 # prefill | decode | spec_verify
+    t_dispatch: float         # monotonic, at enqueue on the step thread
+    t_land: float = 0.0       # monotonic, when the window's fetch landed
+    bucket: int = 0           # compiled bucket this dispatch padded up to
+    rows: int = 0             # padded batch rows the program computes
+    live_rows: int = 0        # rows carrying a scheduled sequence
+    padded_tokens: int = 0    # tokens the compiled program computes
+    real_tokens: int = 0      # tokens backed by real sequence positions
+    goodput_tokens: int = 0   # tokens that advanced a sequence (landing)
+    context_sum: int = 0      # sum of attended context over real tokens
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    # filled by StepStats.commit from the shared FLOPs model
+    flops_dispatched: float = 0.0
+    flops_real: float = 0.0
+    flops_goodput: float = 0.0
+
+
+@dataclass
+class _Window:
+    """Running sums over the committed records inside the live window."""
+
+    steps: int = 0
+    goodput_tokens: int = 0
+    real_tokens: int = 0
+    padded_tokens: int = 0
+    flops_dispatched: float = 0.0
+    flops_goodput: float = 0.0
+    flops_padding_waste: float = 0.0
+    flops_spec_waste: float = 0.0
+    flops_goodput_prefill: float = 0.0
+    flops_goodput_decode: float = 0.0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+
+    def add(self, r: StepRecord, sign: int = 1) -> None:
+        self.steps += sign
+        self.goodput_tokens += sign * r.goodput_tokens
+        self.real_tokens += sign * r.real_tokens
+        self.padded_tokens += sign * r.padded_tokens
+        self.flops_dispatched += sign * r.flops_dispatched
+        self.flops_goodput += sign * r.flops_goodput
+        self.flops_padding_waste += sign * (r.flops_dispatched - r.flops_real)
+        self.flops_spec_waste += sign * (r.flops_real - r.flops_goodput)
+        if r.kind == PREFILL:
+            self.flops_goodput_prefill += sign * r.flops_goodput
+        else:
+            self.flops_goodput_decode += sign * r.flops_goodput
+        self.spec_drafted += sign * r.spec_drafted
+        self.spec_accepted += sign * r.spec_accepted
+
+
+class StepStats:
+    """Thread-safe windowed aggregator over :class:`StepRecord` commits.
+
+    Commits arrive from the fetch/executor threads; ``snapshot()`` is read
+    from the event loop (publisher, spans, bench). The window is a deque
+    pruned by landing time, so gauges always describe the last
+    ``window_s`` seconds of *landed* device work."""
+
+    def __init__(
+        self,
+        flops_model: FlopsModel,
+        *,
+        n_chips: int = 1,
+        peak_flops: float = 1e12,
+        window_s: float = 10.0,
+        capacity: int = 8192,
+        jsonl_path: str = "",
+        clock=time.monotonic,
+    ):
+        self.flops_model = flops_model
+        self.n_chips = max(1, n_chips)
+        self.peak_flops = max(peak_flops, 1.0)
+        self.window_s = window_s
+        self.capacity = capacity
+        self.jsonl_path = jsonl_path
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._records: Deque[StepRecord] = deque()
+        self._win = _Window()
+        self._t_start = clock()       # window floor (reset at warmup end)
+        self._warmup_done = False
+        self._jsonl_fh = None
+        # lifetime totals (never pruned) — survive window rollover
+        self.total_steps = 0
+        self.total_goodput_tokens = 0
+        # per-(kind, bucket) occupancy, cumulative since warmup:
+        # "kind:bucket" -> [dispatches, real_units, padded_units] in bucket
+        # units (rows for decode/spec windows, tokens for prefill chunks).
+        # The adaptive bucket ladder (engine/ladder.py) consumes this via
+        # bucket_occupancy() and takes its own deltas.
+        self._bucket_occ: Dict[str, list] = {}
+        # snapshot cache: span recording reads this per request; recomputing
+        # the window sums each time would scale with request rate
+        self._snap_cache: Optional[Dict[str, float]] = None
+        self._snap_cache_t = 0.0
+
+    # ------------------------------ commit -----------------------------
+
+    @hot_path
+    def commit(self, rec: StepRecord) -> None:
+        """Finalize one landed record (fetch/executor thread; Python ints
+        only — no device access). The padded-shape FLOPs scale the real
+        attention term by the padding ratio, a documented lower bound for
+        gather-style attention that materialises the full bucket."""
+        fm = self.flops_model
+        rec.flops_real = fm.step_flops(rec.real_tokens, rec.context_sum)
+        if rec.real_tokens > 0:
+            padded_ctx = rec.context_sum * rec.padded_tokens / rec.real_tokens
+        else:
+            padded_ctx = 0.0
+        rec.flops_dispatched = fm.step_flops(rec.padded_tokens, padded_ctx)
+        goodput_ctx = (rec.context_sum * rec.goodput_tokens
+                       / rec.real_tokens if rec.real_tokens else 0.0)
+        rec.flops_goodput = fm.step_flops(rec.goodput_tokens, goodput_ctx)
+        with self._lock:
+            self._records.append(rec)
+            self._win.add(rec)
+            self.total_steps += 1
+            self.total_goodput_tokens += rec.goodput_tokens
+            if rec.bucket > 0:
+                occ = self._bucket_occ.setdefault(
+                    f"{rec.kind}:{rec.bucket}", [0, 0, 0])
+                occ[0] += 1
+                occ[1] += (rec.real_tokens if rec.kind == PREFILL
+                           else rec.live_rows)
+                occ[2] += rec.bucket
+            self._snap_cache = None
+            self._prune_locked(self._clock())
+        if self.jsonl_path:
+            self._write_jsonl(rec)
+
+    def _prune_locked(self, now: float) -> None:
+        floor = now - self.window_s
+        while self._records and (
+                self._records[0].t_land < floor
+                or len(self._records) > self.capacity):
+            self._win.add(self._records.popleft(), sign=-1)
+
+    def _write_jsonl(self, rec: StepRecord) -> None:
+        line = json.dumps(asdict(rec), separators=(",", ":"))
+        with self._lock:
+            if self._jsonl_fh is None:
+                self._jsonl_fh = open(self.jsonl_path, "a")
+            self._jsonl_fh.write(line + "\n")
+            self._jsonl_fh.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._jsonl_fh is not None:
+                self._jsonl_fh.close()
+                self._jsonl_fh = None
+
+    # ---------------------------- lifecycle ----------------------------
+
+    def mark_warmup_done(self) -> None:
+        """Drop everything recorded so far: compiles and cold caches make
+        warmup windows unrepresentative, and bench/steady-state gauges
+        must describe the measured loop only."""
+        with self._lock:
+            self._records.clear()
+            self._win = _Window()
+            self._t_start = self._clock()
+            self._warmup_done = True
+            self.total_steps = 0
+            self.total_goodput_tokens = 0
+            self._bucket_occ.clear()
+            self._snap_cache = None
+
+    def bucket_occupancy(self) -> Dict[str, tuple]:
+        """Cumulative per-(kind, bucket) occupancy since warmup.
+
+        ``"kind:bucket" -> (dispatches, real_units, padded_units)`` with
+        units native to the bucket axis (rows for decode/spec, tokens for
+        prefill).  Monotonic between warmup resets, so consumers (the
+        bucket ladder) can delta it safely."""
+        with self._lock:
+            return {k: tuple(v) for k, v in self._bucket_occ.items()}
+
+    # ---------------------------- snapshot -----------------------------
+
+    def snapshot(self, max_age_s: float = 0.25) -> Dict[str, float]:
+        """Live gauges over the trailing window (cached ``max_age_s``)."""
+        now = self._clock()
+        with self._lock:
+            if (self._snap_cache is not None
+                    and now - self._snap_cache_t <= max_age_s):
+                return dict(self._snap_cache)
+            self._prune_locked(now)
+            w = self._win
+            # elapsed: window span, floored at the warmup mark so a
+            # freshly-reset recorder doesn't divide by ~0
+            elapsed = min(self.window_s, max(now - self._t_start, 1e-9))
+            denom = elapsed * self.peak_flops * self.n_chips
+            dispatched = max(w.flops_dispatched, 0.0)
+            snap = {
+                "mfu": w.flops_goodput / denom,
+                "mfu_prefill": w.flops_goodput_prefill / denom,
+                "mfu_decode": w.flops_goodput_decode / denom,
+                "mfu_dispatched": dispatched / denom,
+                "goodput_tok_s": w.goodput_tokens / elapsed,
+                "padding_waste_ratio": (
+                    w.flops_padding_waste / dispatched if dispatched else 0.0),
+                "spec_reject_waste_ratio": (
+                    w.flops_spec_waste / dispatched if dispatched else 0.0),
+                "steps_in_window": float(w.steps),
+                "window_s": elapsed,
+                "total_steps": float(self.total_steps),
+                "total_goodput_tokens": float(self.total_goodput_tokens),
+                "spec_drafted": float(w.spec_drafted),
+                "spec_accepted": float(w.spec_accepted),
+            }
+            self._snap_cache = snap
+            self._snap_cache_t = now
+            return dict(snap)

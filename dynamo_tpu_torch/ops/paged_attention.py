@@ -42,10 +42,14 @@ import math
 import torch
 
 # launches of the CUDA kernel, per wrapper and, for quantized pages, per kv
-# dtype (the plain CPU path never counts)
+# dtype (the plain CPU path never counts). A call made while the stream is
+# being captured into a CUDA graph launches nothing: it is recorded in
+# _RECORDED instead, and each replay of the graph adds the launches the
+# graph holds (count_replay).
 LAUNCHES = {"paged_attention_decode": 0, "paged_attention_ragged": 0,
             "paged_attention_decode_int8": 0, "paged_attention_decode_fp8": 0,
             "paged_attention_ragged_int8": 0, "paged_attention_ragged_fp8": 0}
+_RECORDED = dict.fromkeys(LAUNCHES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # quantized page dtypes: (kernel code, LAUNCHES suffix)
@@ -66,11 +70,31 @@ _occupancy = {}
 # per device: the decode kernel's arrival counters, one per (row, KV head),
 # zero between calls (the last split of each resets its own)
 _arrived = {}
+# counter buffers that a larger one replaced: a CUDA graph captured over
+# one keeps its address, so it must never be freed and reused
+_retired = []
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def take_recorded() -> dict:
+    """The launches recorded under capture since the last call (counter
+    name -> launches): what one replay of the graph just captured
+    launches. Clears the record."""
+    held = {name: n for name, n in _RECORDED.items() if n}
+    for name in _RECORDED:
+        _RECORDED[name] = 0
+    return held
+
+
+def count_replay(held: dict) -> None:
+    """One replay of a CUDA graph that holds ``held`` launches (from
+    :func:`take_recorded` at its capture) launched them all."""
+    for name, n in held.items():
+        LAUNCHES[name] += n
 
 
 def _kernel(face: str, quantized: bool):
@@ -123,6 +147,16 @@ def _blocks_per_sm(device, H: int, KV: int, hd: int, dtype_code: int,
 def _arrival_counters(device, n: int) -> torch.Tensor:
     buf = _arrived.get(device)
     if buf is None or buf.numel() < n:
+        # allocated inside a capture, the buffer would live in the graph's
+        # memory pool, where another graph could reuse it (and the kernel
+        # needs it zero between calls): warm the largest shape up first
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode kernel arrival counters reallocated during a CUDA "
+                f"graph capture ({n} needed): run the largest decode shape "
+                "once before capturing")
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _arrived[device] = buf
     return buf
@@ -260,7 +294,10 @@ def _call(face: str, counter: str, q, k_cache, ptrs, dims, k_scale,
     if err != 0:
         raise RuntimeError(f"paged attention kernel ({face}) launch failed: "
                            f"cudaError {err}")
-    LAUNCHES[counter] += 1
+    if torch.cuda.is_current_stream_capturing():
+        _RECORDED[counter] += 1
+    else:
+        LAUNCHES[counter] += 1
 
 
 def _launch(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,

@@ -1,8 +1,9 @@
 """Deterministic fault injection for resilience tests.
 
 A copy of ``dynamo_tpu.runtime.faults``: the store and the transport of
-this package consult the same plans at the same sites (the disagg,
-preemption and engine sites wait for those slices).
+this package consult the same plans at the same sites, and so does the
+engine's stall watchdog at ``engine.stall`` (the disagg and preemption
+sites wait for those slices).
 
 A seeded :class:`FaultPlan` describes *where* (a named hook site), *when*
 (after the Nth pass, for M firings, or with a seeded probability) and *what*

@@ -1,0 +1,225 @@
+"""Offline trace assembly: join per-process span JSONL into per-trace
+timelines with a stage-breakdown summary.
+
+Each process exports its own spans (frontend, router, workers); this module
+reassembles them by ``trace_id`` and lays them on one wall-clock timeline
+using the ``start_unix`` anchor each span carries (monotonic clocks do not
+compare across processes; wall clocks do, to NTP precision — good enough
+for millisecond-scale serving stages). A copy of
+``dynamo_tpu.tracing.assemble``: both assemble the same output.
+
+CLI (also ``python -m dynamo_tpu_torch.tracing``)::
+
+    python -m dynamo_tpu_torch.tracing.assemble front.jsonl worker-*.jsonl
+    python -m dynamo_tpu_torch.tracing.assemble front.jsonl --trace-id 4bf9...
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Dict, Iterable, List, Optional
+
+
+def load_spans(paths: Iterable[str]) -> List[dict]:
+    """Read span dicts from JSONL files, deduplicating by (trace, span) id —
+    the slow-dump path can export a span twice when both the frontend and
+    worker roots of one trace run long."""
+    seen = set()
+    spans: List[dict] = []
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                d = json.loads(line)
+                key = (d.get("trace_id"), d.get("span_id"))
+                if key in seen:
+                    continue
+                seen.add(key)
+                spans.append(d)
+    return spans
+
+
+def group_traces(spans: Iterable[dict]) -> Dict[str, List[dict]]:
+    """trace_id → spans sorted by wall-clock start."""
+    out: Dict[str, List[dict]] = {}
+    for s in spans:
+        out.setdefault(s.get("trace_id", "?"), []).append(s)
+    for tid in out:
+        out[tid].sort(key=lambda s: s.get("start_unix", 0.0))
+    return out
+
+
+def stage_breakdown(spans: Iterable[dict]) -> Dict[str, dict]:
+    """Per-stage (span name) duration aggregates for one trace."""
+    out: Dict[str, dict] = {}
+    for s in spans:
+        dur = s.get("duration_s")
+        if dur is None:
+            continue
+        agg = out.setdefault(
+            s["name"], {"count": 0, "total_s": 0.0, "max_s": 0.0}
+        )
+        agg["count"] += 1
+        agg["total_s"] += dur
+        agg["max_s"] = max(agg["max_s"], dur)
+    return out
+
+
+def stage_percentiles(spans: Iterable[dict]) -> Dict[str, dict]:
+    """Per-stage (span name) duration percentiles across ALL traces in a
+    span dump — the offline half of the replay scoreboard's TTFT
+    cross-check: client-measured latencies should bracket the
+    queue+prefill stage timings reported here."""
+    durs: Dict[str, List[float]] = {}
+    for s in spans:
+        dur = s.get("duration_s")
+        if dur is None:
+            continue
+        durs.setdefault(s["name"], []).append(dur)
+
+    def pct(vals: List[float], q: float) -> float:
+        vals = sorted(vals)
+        idx = min(len(vals) - 1, int(round(q * (len(vals) - 1))))
+        return vals[idx]
+
+    return {
+        name: {
+            "count": len(vals),
+            "p50_ms": round(pct(vals, 0.50) * 1e3, 3),
+            "p99_ms": round(pct(vals, 0.99) * 1e3, 3),
+            "max_ms": round(max(vals) * 1e3, 3),
+            "total_s": round(sum(vals), 6),
+        }
+        for name, vals in sorted(durs.items())
+    }
+
+
+def render_summary(stages: Dict[str, dict]) -> str:
+    lines = [f"{'stage':<24} {'count':>6} {'p50 ms':>10} {'p99 ms':>10} "
+             f"{'max ms':>10}"]
+    for name, agg in sorted(stages.items(),
+                            key=lambda kv: -kv[1]["total_s"]):
+        lines.append(
+            f"{name:<24} {agg['count']:>6} {agg['p50_ms']:>10.3f} "
+            f"{agg['p99_ms']:>10.3f} {agg['max_ms']:>10.3f}"
+        )
+    return "\n".join(lines)
+
+
+def assemble_trace(spans: List[dict]) -> dict:
+    """One trace's spans → {trace_id, duration_s, spans, stages}.
+
+    ``duration_s`` is the wall-clock envelope (earliest start to latest
+    end); spans come back sorted by start with a ``depth`` field from the
+    parent chain for indentation."""
+    spans = sorted(spans, key=lambda s: s.get("start_unix", 0.0))
+    by_id = {s.get("span_id"): s for s in spans}
+    t0 = min((s.get("start_unix", 0.0) for s in spans), default=0.0)
+
+    def depth(s: dict) -> int:
+        d = 0
+        cur = s
+        while cur is not None and d < 32:  # cycle guard
+            pid = cur.get("parent_span_id")
+            cur = by_id.get(pid) if pid else None
+            if cur is not None:
+                d += 1
+        return d
+
+    t_end = t0
+    out_spans = []
+    for s in spans:
+        dur = s.get("duration_s") or 0.0
+        start_rel = s.get("start_unix", t0) - t0
+        t_end = max(t_end, s.get("start_unix", t0) + dur)
+        out_spans.append({**s, "depth": depth(s), "start_rel_s": start_rel})
+    return {
+        "trace_id": spans[0].get("trace_id") if spans else None,
+        "duration_s": t_end - t0,
+        "num_spans": len(spans),
+        "spans": out_spans,
+        "stages": stage_breakdown(spans),
+    }
+
+
+def render_trace(assembled: dict) -> str:
+    """Human-readable indented timeline of one assembled trace."""
+    lines = [
+        f"trace {assembled['trace_id']}  "
+        f"({assembled['num_spans']} spans, "
+        f"{assembled['duration_s'] * 1000:.1f} ms)"
+    ]
+    for s in assembled["spans"]:
+        dur = s.get("duration_s")
+        dur_txt = f"{dur * 1000:8.2f} ms" if dur is not None else "   open    "
+        status = "" if s.get("status", "ok") == "ok" else f"  [{s['status']}]"
+        attrs = s.get("attrs") or {}
+        attr_txt = ("  " + " ".join(f"{k}={v}" for k, v in attrs.items())
+                    if attrs else "")
+        lines.append(
+            f"  {s.get('start_rel_s', 0.0) * 1000:9.2f} ms  {dur_txt}  "
+            f"{'  ' * s.get('depth', 0)}{s['name']}{status}{attr_txt}"
+        )
+    lines.append("  stage breakdown:")
+    for name, agg in sorted(assembled["stages"].items(),
+                            key=lambda kv: -kv[1]["total_s"]):
+        lines.append(
+            f"    {name:<24} x{agg['count']:<3} "
+            f"total {agg['total_s'] * 1000:8.2f} ms  "
+            f"max {agg['max_s'] * 1000:8.2f} ms"
+        )
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m dynamo_tpu_torch.tracing",
+        description="Assemble per-process span JSONL into per-trace "
+                    "timelines with stage breakdowns.",
+    )
+    p.add_argument("files", nargs="+", help="span JSONL files")
+    p.add_argument("--trace-id", default=None,
+                   help="only this trace (default: all, newest last)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="emit assembled traces as JSON instead of text")
+    p.add_argument("--summary", action="store_true",
+                   help="per-stage p50/p99 across all traces instead of "
+                        "per-trace timelines")
+    args = p.parse_args(argv)
+
+    if args.summary:
+        stages = stage_percentiles(load_spans(args.files))
+        if args.as_json:
+            print(json.dumps(stages))
+        else:
+            print(render_summary(stages))
+        return 0
+
+    traces = group_traces(load_spans(args.files))
+    if args.trace_id is not None:
+        if args.trace_id not in traces:
+            print(f"trace {args.trace_id} not found", file=sys.stderr)
+            return 1
+        traces = {args.trace_id: traces[args.trace_id]}
+
+    ordered = sorted(
+        traces.items(),
+        key=lambda kv: min(s.get("start_unix", 0.0) for s in kv[1]),
+    )
+    for i, (tid, spans) in enumerate(ordered):
+        assembled = assemble_trace(spans)
+        if args.as_json:
+            print(json.dumps(assembled))
+        else:
+            if i:
+                print()
+            print(render_trace(assembled))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,7 +11,7 @@ so one deployment's settings configure processes of either package. The
 switches of paths not ported yet are kept too, so that :func:`check_supported`
 refuses them; ``prefix_enabled`` defaults to off here. The JAX package's
 tuning knobs of those paths (spec decode, disagg, preemption, planner, the
-flight recorder) come with them.
+profile directory of ``/debug/profile``) come with them.
 """
 
 from __future__ import annotations
@@ -97,6 +97,17 @@ class RuntimeConfig:
     # validated again by EngineConfig at engine startup
     weight_dtype: str = "bf16"
     kv_dtype: str = "bf16"
+    # -- engine flight recorder (dynamo_tpu_torch.observability) --
+    # master switch for the per-step recorder; it stamps host-known ints
+    # on already-planned syncs, so the steady-state overhead is a few
+    # microseconds per window
+    obs_enabled: bool = True
+    # trailing window the live gauges (mfu, goodput_tok_s,
+    # padding_waste_ratio, ...) describe
+    obs_window_s: float = 10.0
+    # append every landed StepRecord as one JSON line here ("" disables);
+    # render offline with `python -m dynamo_tpu_torch.observability <path>`
+    obs_stepstats_path: str = ""
     # -- switches of paths not served yet (check_supported refuses) --
     system_enabled: bool = False
     health_check_enabled: bool = False
