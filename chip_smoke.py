@@ -11,8 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
    card, in bf16 at Llama-3.2-1B attention shapes with block 0 poisoned with
    NaN, on both faces, and its quantized-KV branch (int8 and fp8 pages with
    per-(slot, head) f32 scales, NaN trash scales and NaN fp8 trash pages) at
-   the main path's shapes and on a mixed ragged batch; time the kernel, the
-   plain version and ``torch.nn.functional.scaled_dot_product_attention``
+   the main path's shapes and on a mixed ragged batch, and the ragged face
+   at the spec engine's verify shape (16 rows x 5 queries over ~560 keys)
+   in bf16, int8 and fp8; time the kernel, the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention``
    over pre-gathered (dequantized) K/V (the ``library_ms`` yardstick; only
    this script calls it);
 3. serve 16 concurrent greedy requests (ISL 512, OSL 64) through the port's
@@ -29,7 +31,18 @@ Phases (any failure exits non-zero and prints no result line):
    quantized runs print their probe's divergence from the bf16 logits.
    ``[graph]`` lines hold each decode graph phase 3 replays (buckets 8 and
    16, greedy and stochastic) against the eager window on identical clones
-   of cache and ctl: samples and ctl must be bitwise equal;
+   of cache and ctl: samples and ctl must be bitwise equal. Then a bf16
+   ``spec_mode="ngram"`` engine (k=4, n-gram 1..3, the same weights) serves
+   16 greedy requests whose prompts repeat a seeded 64-token segment 8
+   times (ISL 512, OSL 64), and the bf16 engine serves them at depths 1 and
+   2: a spec stream may part from a non-spec one only where the non-spec
+   model's top-2 logit margin is under 1e-3 x |top logit| (each parting's
+   margin is printed), every spec window must be a graph replay whose
+   verify forward ran the ragged face, and ``[spec]`` lines give
+   acceptance, tokens per seat per window, windows per request, TTFT, ITL,
+   tok/s and the steady window against the non-spec runs; ``[graph]``
+   lines hold each spec graph against the eager spec window (packed output
+   and ctl with the history bitwise equal);
 4. profile one decode window, eager and as the engine's graph replay, and
    one prefill chunk at the main path's shapes (wall time, device busy time
    and idle share, host kernel and graph launches, kernels on the device,
@@ -54,7 +67,16 @@ Phases (any failure exits non-zero and prints no result line):
    phase 3's traffic goes through the three processes (``[dist]`` lines:
    TTFT, ITL and throughput beside phases 3 and 5, CPU time per token of
    each process, the codec's µs per streamed token); then worker B joins,
-   both publish load metrics and serve under round robin; then a second
+   both publish load metrics and serve under round robin. Worker B runs
+   ``--spec-mode ngram`` with the control plane on (system server, a canary
+   every second, the degradation watcher) and the frontends with their
+   system servers: ``[control]`` lines show B's ``/health`` naming its
+   canary, ``/live``, the ``engine_*`` gauges on B's ``/metrics`` after the
+   traffic (decode MFU > 0, the ``spec_reject`` waste series), a
+   degradation order written to ``planner/dynamo/degradation`` making the
+   KV frontend answer tier 0 with 429 and tier 3 with 200 (and B's watcher
+   meeting the ``spec_k`` clamp), and ``NO_DEGRADATION`` admitting tier 0
+   again; then a second
    frontend, ``--router-mode kv``, joins the same store: of 4 groups of
    prompts sharing a 448-token prefix (28 blocks), each group's second
    request, sent one at a time, must land on the worker that served its
@@ -64,17 +86,21 @@ Phases (any failure exits non-zero and prints no result line):
    lines: TTFT and ITL under each sink, requests and cached prompt tokens
    per worker); worker A is SIGKILLed, once 8 in-process token streams
    have 64 tokens each, under 8 streams of 512 tokens, 4 through each
-   frontend, that must all complete through migration while
-   A's keys leave the store within the lease TTL + 1 s (the KV frontend's
-   re-issues and A's breaker are printed), and worker B and both frontends
-   exit 0 on SIGTERM. Both attention faces must have launched in both
-   workers; their counts are the ``launches_dist`` of the ``kernels`` line.
+   frontend, that must all complete through migration (on the spec
+   worker) while A's keys leave the store within the lease TTL + 1 s (the
+   KV frontend's re-issues and A's breaker are printed); worker B leaves by
+   ``POST /drain`` (exit 0, its keys gone) and both frontends exit 0 on
+   SIGTERM. Both attention faces must have launched in worker A, the
+   ragged face in worker B; their counts are the ``launches_dist`` of the
+   ``kernels`` line.
    A ``[hash]`` line times the block hashes of one 512-token prompt. Child
    logs go to ``build/dist/``.
 
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
-``kernels`` JSON object (launches include those that graph replays made);
+``kernels`` JSON object (launches include those that graph replays made;
+its last row is the ragged face at the spec-verify shape, launched by the
+spec run's verify windows);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -138,6 +164,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 DECODE_CASE = "main path decode B=16 ctx 513..576 W=512"
 PREFILL_CASE = "main path prefill R=1 T=512 q_len=512 ctx 512 W=32"
+# the spec engine's verify window: 16 rows of k + 1 = 5 queries over ~560
+# keys, the ragged face at a shape the decode graphs never give it
+SPEC_CASE = "spec verify R=16 q_len=5 ctx 518..581 W=512"
+SPEC_ROWS = [(5, 518 + (37 * i) % 64, 5) for i in range(16)]
 
 
 # ------------------------------ phase 1 ----------------------------------
@@ -396,6 +426,7 @@ def kernel_cases():
                   [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
                   W=512, face="decode"),
         make_case(PREFILL_CASE, [(512, 512, 512)], W=32, face="ragged"),
+        make_case(SPEC_CASE, SPEC_ROWS, W=512, face="ragged"),
         # the kernels' other builds: head dim 128 (Llama-3-8B heads) and f32
         make_case("ragged mixed hd=128 R=3",
                   [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
@@ -430,6 +461,8 @@ def kernel_cases():
                       W=512, face="decode", kv_dtype=kv),
             make_case(f"{PREFILL_CASE} {kv}", [(512, 512, 512)], W=32,
                       face="ragged", kv_dtype=kv),
+            make_case(f"{SPEC_CASE} {kv}", SPEC_ROWS, W=512, face="ragged",
+                      kv_dtype=kv),
             make_case(f"ragged mixed R=6 {kv}",
                       [(1, 577, 1), (5, 40, 8), (64, 64, 64), (0, 0, 8),
                        (130, 1000, 136), (17, 17, 24)], W=66,
@@ -751,7 +784,8 @@ def phase_graph(engine, card: str) -> None:
                   f"samples equal {same_samples}, ctl bitwise equal "
                   f"{same_ctl}, cache max |diff| {diff:.3e} (bitwise "
                   f"{bitwise}); captured in "
-                  f"{window.capture_s[B, stochastic] * 1e3:.1f} ms",
+                  f"{window.capture_s['decode', B, stochastic] * 1e3:.1f} "
+                  f"ms",
                   flush=True)
             if not (same_samples and same_ctl):
                 fail(f"decode graph B={B} stochastic={stochastic} "
@@ -765,6 +799,386 @@ def phase_graph(engine, card: str) -> None:
     print(f"[graph] {card}: {len(window.capture_s)} graphs in one pool of "
           f"{window.pool_bytes() / 2**20:.1f} MiB; device memory reserved "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
+
+
+# ------------------------- phase 3: spec decode ---------------------------
+
+SPEC_K, SPEC_NGRAM = 4, (1, 3)
+SPEC_SEGMENT = 64          # a seeded segment, repeated ISL / 64 times
+# Parity of the spec engine's bf16 streams with the non-spec engine's: a
+# spec stream may part from the non-spec one only at a near-tie of the
+# non-spec run's own logits (read from a rerun whose decode windows run
+# eagerly, bitwise the graphs). The limit is 2^-5 x |top logit|, eight
+# bf16 steps of the top logit: the two paths round differently (the spec
+# window's GEMMs see M=80 rows, the decode window's 16; the ragged face
+# rounds P to bf16, the decode face keeps it in f32), and the hidden state
+# is rounded to bf16 after each of the 32 residual adds, so their logits
+# differ by about a percent of the top one. A wrong acceptance lands a
+# token whose logit sits far below the top (random logits have unit
+# scale, the top ~4.5). Each parting also shows whether it meets 1e-3 x
+# |top logit|, a bound under bf16's own step (2^-8).
+PARITY_MARGIN = 2.0 ** -5
+PARITY_FINE = 1e-3
+PARITY_TOPK = 8
+
+
+def spec_prompts(vocab: int):
+    """Phase 3's spec traffic: per request a seeded 64-token segment
+    repeated to ISL tokens, the copy-heavy input of editing and summarising
+    traffic."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    return [torch.randint(1, vocab, (SPEC_SEGMENT,), generator=gen).tolist()
+            * (ISL // SPEC_SEGMENT) for _ in range(N_REQUESTS)]
+
+
+def serve_batch(engine, prompts, max_tokens, after_warmup=None):
+    """Serve ``prompts`` concurrently (greedy) through ``engine.generate``
+    after a short warm-up request (then ``after_warmup()`` runs); returns
+    (streams, per-request (submit, token times), wall s, decode-only batch
+    times s of the synchronous loop)."""
+    import asyncio
+
+    from dynamo_tpu_torch.runtime.context import Context
+
+    batch_s = []
+    orig = engine._execute_batch
+
+    def timed(batch):
+        t0 = time.perf_counter()
+        out = orig(batch)
+        if not batch.prefills:
+            batch_s.append(time.perf_counter() - t0)
+        return out
+
+    async def one(token_ids, stamps, n=max_tokens):
+        t_sub = time.perf_counter()
+        out, times = [], []
+        async for o in engine.generate(
+                {"token_ids": token_ids, "max_tokens": n,
+                 "temperature": 0.0}, Context()):
+            out.extend(o["token_ids"])
+            times.append(time.perf_counter())
+        stamps.append((t_sub, times))
+        return out
+
+    async def run():
+        await engine.start()
+        await one(prompts[0][:32], [], 4)   # warm-up, not measured
+        engine.clear_kv_blocks()
+        engine.mark_obs_warmup_done()
+        if after_warmup is not None:
+            after_warmup()
+        engine._execute_batch = timed
+        stamps = []
+        t0 = time.perf_counter()
+        try:
+            outs = await asyncio.gather(*(one(p, stamps) for p in prompts))
+        finally:
+            engine._execute_batch = orig
+        wall = time.perf_counter() - t0
+        await engine.stop()
+        return outs, stamps, wall
+    engine.clear_kv_blocks()
+    outs, stamps, wall = asyncio.run(run())
+    return outs, stamps, wall, batch_s
+
+
+def tapped_run(engine, prompts):
+    """Serve ``prompts`` through the non-spec ``engine`` at depth 1 with its
+    decode windows run eagerly (bitwise their graphs, as ``[graph]``
+    checks), recording each decode window's top-PARITY_TOPK logits per
+    seat. Returns (streams, {(request, output index): (token ids,
+    logits)})."""
+    import torch
+
+    from dynamo_tpu_torch.engine import model as model_lib
+
+    index = {tuple(p[:SPEC_SEGMENT]): r for r, p in enumerate(prompts)}
+    taps, rec = [], {}
+    logits_fn = model_lib.logits_fn
+    unpack = engine._unpack_results
+
+    def tap(cfg, params, h):
+        out = logits_fn(cfg, params, h)
+        taps.append(torch.topk(out, PARITY_TOPK))
+        return out
+
+    def unpack_tapped(batch, landing):
+        if landing.decode_shape is not None:
+            vals, ids = (t.cpu().tolist() for t in taps[-1])
+            col_of = {}
+            for col, slot in enumerate(landing.cols):
+                col_of.setdefault(slot, col)
+            for row in batch.decode_rows:
+                r = index.get(tuple(row.seq.prompt_ids[:SPEC_SEGMENT]))
+                if r is not None:
+                    c = col_of[row.slot]
+                    rec[r, len(row.seq.output_ids)] = (ids[c], vals[c])
+        taps.clear()
+        return unpack(batch, landing)
+
+    engine.pipeline_depth = 1
+    engine._ap_window_fn.graphed = False
+    model_lib.logits_fn = tap
+    engine._unpack_results = unpack_tapped
+    try:
+        outs = serve_batch(engine, prompts, OSL)[0]
+    finally:
+        model_lib.logits_fn = logits_fn
+        del engine._unpack_results
+        engine._ap_window_fn.graphed = True
+        engine.pipeline_depth = DEPTHS[0]
+    return outs, rec
+
+
+def check_parity(want, rec, got, what: str):
+    """The parity rule: ``got`` (spec) equals ``want`` (the non-spec run
+    whose logits ``rec`` holds) token for token, but may part where the
+    spec token sits under PARITY_MARGIN x |top logit| below the non-spec
+    run's top logit; prints each parting. Returns the partings."""
+    partings = []
+    for r, (a, b) in enumerate(zip(want, got)):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        if (r, j) not in rec:
+            fail(f"spec stream {r} parts at token {j}, where no decode "
+                 f"window's logits were recorded")
+        ids, vals = rec[r, j]
+        top = vals[0]
+        margin = vals[0] - vals[1]
+        gap = vals[0] - vals[ids.index(b[j])] if b[j] in ids else None
+        limit = PARITY_MARGIN * abs(top)
+        partings.append((r, j, margin, gap))
+        print(f"[spec] parity vs {what}: request {r} parts at output token "
+              f"{j}: non-spec {a[j]} (its run's top {ids[0]}, logit "
+              f"{top:.4f}), spec {b[j]}: the non-spec run's top-2 margin "
+              f"{margin:.5f}, spec token "
+              + (f"{gap:.5f}" if gap is not None else
+                 f"not in its top {PARITY_TOPK}")
+              + f" under the top (limit {limit:.5f}; 1e-3 x |top| = "
+              f"{PARITY_FINE * abs(top):.5f}: "
+              + ("met" if margin < PARITY_FINE * abs(top) else "not met")
+              + ")", flush=True)
+        if ids[0] != a[j] or gap is None or gap >= limit:
+            fail(f"spec stream {r} parts from the non-spec one ({what}) at "
+                 f"token {j} away from a near-tie: gap {gap}, limit {limit}")
+    return partings
+
+
+def phase_spec(card: str, base):
+    """[spec]: a bf16 ``spec_mode="ngram"`` engine (k=4, n-gram 1..3) with
+    phase 3's weights serves 16 greedy requests of repeated 64-token
+    segments (ISL 512, OSL 64); the phase 3 engine ``base`` serves the same
+    prompts at depths 1 and 2. Streams must meet the parity rule, every
+    spec window must be a graph replay, and the ragged face must have run
+    the verify windows. Returns the spec engine and its run's
+    paged-attention launches (graph replays counted, verify windows
+    apart)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = base.model_config
+    prompts = spec_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    spec_cfg = EngineConfig(spec_mode="ngram", spec_k=SPEC_K,
+                            spec_ngram_min=SPEC_NGRAM[0],
+                            spec_ngram_max=SPEC_NGRAM[1])
+    engine = InferenceEngine(cfg, spec_cfg, seed=SEED)
+    torch.cuda.synchronize()
+    graphs = engine._ap_window_fn
+    n_spec = sum(1 for key in graphs.capture_s if key[0] == "spec")
+    print(f"[spec] engine spec_mode=ngram k={SPEC_K} n-gram {SPEC_NGRAM}, "
+          f"same weights (seed {SEED}), pipeline_depth "
+          f"{engine.pipeline_depth}, built in "
+          f"{time.perf_counter() - t0:.2f} s; {n_spec} spec + "
+          f"{len(graphs.capture_s) - n_spec} decode graphs captured "
+          f"({sum(graphs.capture_s.values()):.2f} s)", flush=True)
+    if engine.pipeline_depth != 1 or n_spec != 2 * len(
+            spec_cfg.decode_buckets):
+        fail("the spec engine did not force depth 1 or capture its graphs")
+    if not all(torch.equal(a, b) for a, b in zip(
+            engine.params["layers"]["wq"], base.params["layers"]["wq"])):
+        fail("the spec engine's weights differ from phase 3's")
+
+    runs = {}
+    for depth in (1, 2):
+        base.pipeline_depth = depth
+        runs[depth] = serve_batch(base, prompts, OSL)
+    base.pipeline_depth = DEPTHS[0]
+    seat_windows = [0]
+    unpack = engine._unpack_spec
+
+    def counting(batch, out, col_of):
+        seat_windows[0] += len(batch.decode_rows)
+        return unpack(batch, out, col_of)
+    engine._unpack_spec = counting
+    before = {}
+
+    def mark():
+        seat_windows[0] = 0
+        before.update(windows=engine.num_windows, replays=graphs.replays,
+                      spec=graphs.spec_replays,
+                      prefills=engine.num_prefill_dispatches,
+                      stats=engine.spec_stats.to_dict())
+        pa.reset_launches()
+    outs, stamps, wall, batch_s = serve_batch(engine, prompts, OSL, mark)
+    launches = dict(pa.LAUNCHES)
+    obs = engine.obs_snapshot()
+    engine._unpack_spec = unpack
+    st = engine.spec_stats.to_dict()
+    n = {k: st[k] - before["stats"][k]
+         for k in ("drafted", "accepted", "emitted", "windows")}
+    windows = engine.num_windows - before["windows"]
+    replays = graphs.replays - before["replays"]
+    spec_replays = graphs.spec_replays - before["spec"]
+    prefills = engine.num_prefill_dispatches - before["prefills"]
+    for i, out in enumerate(outs):
+        if len(out) != OSL or not all(0 <= t < cfg.vocab_size for t in out):
+            fail(f"spec request {i}: {len(out)} tokens or an id out of range")
+    if replays != windows or spec_replays != n["windows"] \
+            or spec_replays != windows:
+        fail(f"spec windows not all graph replays: {windows} windows, "
+             f"{replays} replays, {spec_replays} spec replays, "
+             f"{n['windows']} verify windows")
+    L = cfg.num_layers
+    verify_launches = launches["paged_attention_ragged"] - L * prefills
+    if verify_launches != L * spec_replays \
+            or launches["paged_attention_decode"] != 0:
+        fail(f"verify windows did not run the ragged face: {launches}, "
+             f"{prefills} prefills, {spec_replays} spec replays")
+
+    def stats(tag, outs_, stamps_, wall_, batch_):
+        ttft = sorted(times[0] - t for t, times in stamps_)
+        itl = sorted((times[-1] - times[0]) / (len(times) - 1)
+                     for _, times in stamps_)
+        steady = sorted(batch_)
+        out = dict(ttft=ttft[len(ttft) // 2], itl=itl[len(itl) // 2],
+                   tok_s=sum(map(len, outs_)) / wall_,
+                   step=steady[len(steady) // 2] if steady else 0.0)
+        print(f"[spec] {card}: {tag}: TTFT p50 {out['ttft'] * 1e3:.1f} ms, "
+              f"ITL p50 {out['itl'] * 1e3:.2f} ms, output "
+              f"{out['tok_s']:.1f} tok/s, steady decode-only window p50 "
+              f"{out['step'] * 1e3:.2f} ms over {len(steady)} windows",
+              flush=True)
+        return out
+    summary = {f"depth {d}": stats(f"non-spec engine, depth {d}", *runs[d])
+               for d in (1, 2)}
+    summary["spec"] = stats("spec engine (depth 1)", outs, stamps, wall,
+                            batch_s)
+    rate = n["accepted"] / max(1, n["drafted"])
+    print(f"[spec] {card}: acceptance {n['accepted']}/{n['drafted']} = "
+          f"{rate:.3f}; {n['emitted']} tokens landed by {n['windows']} "
+          f"verify windows ({seat_windows[0]} seat-windows): "
+          f"{n['emitted'] / max(1, seat_windows[0]):.2f} tokens per seat "
+          f"per window, {seat_windows[0] / N_REQUESTS:.1f} windows per "
+          f"request; flight recorder mfu_decode {obs['mfu_decode']:.5f}, "
+          f"spec_reject waste {obs['spec_reject_waste_ratio']:.3f}; "
+          f"ragged-face launches in verify windows {verify_launches}",
+          flush=True)
+    t_tap = time.perf_counter()
+    tapped, rec = tapped_run(base, prompts)
+    same = sum(x == y for x, y in zip(tapped, runs[1][0]))
+    print(f"[spec] the non-spec depth-1 run again, decode windows eager "
+          f"with their logits recorded ({time.perf_counter() - t_tap:.1f} "
+          f"s): {same} of {N_REQUESTS} streams equal the graphed run's",
+          flush=True)
+    if same != N_REQUESTS:
+        fail("the eager rerun of the non-spec depth-1 traffic differs from "
+             "its graphed run")
+    partings = check_parity(tapped, rec, outs, "non-spec depth 1")
+    for what, ref in (("non-spec depth 1", runs[1][0]),
+                      ("non-spec depth 2", runs[2][0])):
+        print(f"[spec] {sum(x == y for x, y in zip(outs, ref))} of "
+              f"{N_REQUESTS} spec streams equal the {what} run's", flush=True)
+    print(f"[spec] parity: {len(partings)} of {N_REQUESTS} spec streams part "
+          f"from the non-spec depth-1 run, each at a near-tie of its logits "
+          f"(output token, top-2 margin, spec-token gap): " + ", ".join(
+              f"({j}, {m:.4f}, {g:.4f})" for _, j, m, g in partings)
+          + f"; depth 2 equals depth 1 in "
+          f"{sum(x == y for x, y in zip(runs[1][0], runs[2][0]))} streams",
+          flush=True)
+    return engine, dict(launches=verify_launches, summary=summary,
+                        acceptance=rate, partings=partings)
+
+
+def spec_seat(ctl, B: int, ctx0: int, max_len: int, sampled: bool) -> None:
+    """``seat`` plus each seat's history: a periodic 12-token pattern up to
+    its position, so the drafter proposes."""
+    import torch
+
+    seat(ctl, B, ctx0, max_len, sampled)
+    pattern = torch.arange(100, 112, dtype=torch.int32,
+                           device=ctl["hist"].device)
+    for s in range(B):
+        n = ctx0 + s + 1
+        ctl["hist"][s].fill_(-1)
+        ctl["hist"][s, :n] = pattern.repeat(-(-n // 12))[:n] + s
+        ctl["last_tok"][s] = ctl["hist"][s, n - 1]
+
+
+def phase_spec_graph(engine, card: str) -> None:
+    """[graph] for the spec windows: each spec graph phase 3 replays
+    (buckets 8 and 16, greedy and stochastic) against the eager spec window
+    on identical clones of cache and ctl (history included): packed output
+    and ctl bitwise equal."""
+    import torch
+
+    window = engine._ap_window_fn
+    eng = engine.config
+
+    def clone(tree):
+        return {k: ([t.clone() for t in v] if isinstance(v, list)
+                    else v.clone()) for k, v in tree.items()}
+
+    def bits(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    saved_ctl = clone(engine._ctl)
+    for B in GRAPH_BUCKETS:
+        for stochastic in (False, True):
+            for k, v in saved_ctl.items():
+                engine._ctl[k].copy_(v)
+            spec_seat(engine._ctl, B, 560, eng.max_model_len, stochastic)
+            ctl_e, cache_e = clone(engine._ctl), clone(engine.cache)
+            cols = list(range(B))
+            _, _, want = window.raw_spec(
+                engine.params, cache_e, ctl_e,
+                torch.tensor(cols, dtype=torch.int32, device=engine.device),
+                stochastic)
+            _, _, got = window(engine.params, engine.cache, engine._ctl,
+                               window.load_rows(cols), stochastic, spec=True)
+            got = got.clone()
+            torch.cuda.synchronize()
+            same = torch.equal(want, got)
+            differ = [k for k in ctl_e
+                      if not torch.equal(bits(ctl_e[k]), bits(engine._ctl[k]))]
+            same_ctl = not differ
+            bitwise = all(torch.equal(bits(a), bits(b)) for key in cache_e
+                          for a, b in zip(cache_e[key], engine.cache[key]))
+            landed = int(got[SPEC_K + 1].sum())
+            drafted = int(got[SPEC_K + 2].sum())
+            print(f"[graph] {card}: spec B={B} stochastic={stochastic}: "
+                  f"replay vs eager packed output equal {same}, ctl (hist "
+                  f"included) bitwise equal {same_ctl} {differ or ''}, cache "
+                  f"bitwise "
+                  f"{bitwise}; {landed} tokens landed, {drafted} drafted; "
+                  f"captured in "
+                  f"{window.capture_s['spec', B, stochastic] * 1e3:.1f} ms",
+                  flush=True)
+            if not (same and same_ctl):
+                fail(f"spec graph B={B} stochastic={stochastic} disagrees "
+                     "with the eager spec window")
+            if drafted == 0 or landed < B:
+                fail(f"spec graph B={B}: {drafted} drafts on periodic "
+                     f"histories, {landed} tokens for {B} live seats")
+    for k, v in saved_ctl.items():
+        engine._ctl[k].copy_(v)
+    torch.cuda.synchronize()
 
 
 def _device_us(evt) -> float:
@@ -1038,22 +1452,24 @@ def synthetic_tokenizer_json(n_merges: int = N_REGULAR - 256,
 
 
 async def _http_request(port: int, method: str, path: str, body=None,
-                        leave_after=None):
+                        leave_after=None, headers=None):
     """One request on its own connection: (status, t_sent, frames, done,
     body). A streamed (chunked) answer gives ``frames``, each parsed
     ``data:`` payload stamped on arrival with the shared monotonic clock,
     and ``done`` when ``data: [DONE]`` came; with ``leave_after`` the
     client closes its socket after that many frames, mid-stream. A whole
-    answer gives ``body`` (parsed JSON, else text)."""
+    answer gives ``body`` (parsed JSON, else text). ``headers`` adds
+    request headers."""
     import asyncio
 
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     payload = b"" if body is None else json.dumps(body).encode()
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     t_sent = time.perf_counter()
     writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
                  f"Content-Type: application/json\r\nContent-Length: "
-                 f"{len(payload)}\r\nConnection: close\r\n\r\n".encode()
-                 + payload)
+                 f"{len(payload)}\r\n{extra}Connection: close\r\n\r\n"
+                 .encode() + payload)
     await writer.drain()
     head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
     status = int(head.split(" ", 2)[1])
@@ -1458,6 +1874,14 @@ DIST_OSL_MIGRATE = 512
 # fixed delay could land after the streams end
 DIST_KILL_AFTER_TOKENS = 64
 DIST_LOGS = os.path.join("build", "dist")
+# worker B's canary period (JAX default 10 s): the first canary lands
+# within a second of B's start
+DIST_CANARY_S = 1.0
+# the control plane's settings on worker B (spec worker) and the frontends
+DIST_CONTROL_ENV = dict(DYNTPU_SYSTEM_ENABLED="1",
+                        DYNTPU_HEALTH_CHECK_ENABLED="1",
+                        DYNTPU_HEALTH_CHECK_PERIOD_S=str(DIST_CANARY_S),
+                        DYNTPU_PLANNER_APPLY_DEGRADATION="1")
 # the KV frontend's router.select spans (worker_id, overlap_blocks)
 KV_SPANS = os.path.join(DIST_LOGS, "kv_spans.jsonl")
 KV_GROUPS = 4
@@ -1736,9 +2160,12 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
             await store.wait_for(r"store listening", 60)
             worker_a = start("worker_a", "dynamo_tpu_torch.worker",
                              worker_args)
+            f_sys = _free_port()
             front = start("frontend", "dynamo_tpu_torch.frontend",
                           ["--host", "127.0.0.1", "--port", "0",
-                           "--store-addr", addr])
+                           "--store-addr", addr],
+                          DYNTPU_SYSTEM_ENABLED="1",
+                          DYNTPU_SYSTEM_PORT=str(f_sys))
             port = int((await front.wait_for(
                 r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
             await worker_a.wait_for(r"registered model", 300)
@@ -1746,6 +2173,11 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
             async def client(*jobs):
                 return await loop.run_in_executor(procs, http_client, port,
                                                   list(jobs))
+
+            async def admin(sys_port, method, path):
+                (status, _, _, _, body), = await client(dict(
+                    method=method, path=path, port=sys_port))
+                return status, body
             while True:
                 (status, _, _, _, body), = await client(
                     dict(method="GET", path="/v1/models"))
@@ -1887,8 +2319,12 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
             collectors += [asyncio.create_task(collect()),
                            asyncio.create_task(collect_kv())]
             t_b = time.perf_counter()
+            b_sys = _free_port()
             worker_b = start("worker_b", "dynamo_tpu_torch.worker",
-                             worker_args)
+                             [*worker_args, "--spec-mode", "ngram",
+                              "--spec-k", str(SPEC_K)],
+                             DYNTPU_SYSTEM_PORT=str(b_sys),
+                             **DIST_CONTROL_ENV)
             await gen_client.wait_for_instances(2, 300)
             await clear_client.wait_for_instances(2, 30)
             b_id, = [i for i in gen_client.instance_ids() if i != a_id]
@@ -1900,9 +2336,42 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                          f"{a_id} and {b_id}")
                 await asyncio.sleep(0.1)
 
+            # the control plane on B: the canary probe on /health, /live,
+            # and the frontend's own system server
+            t_cp = time.perf_counter()
+            while True:
+                status, health = await admin(b_sys, "GET", "/health")
+                canary = (health.get("probes", {}).get("backend/generate",
+                                                       {})
+                          if isinstance(health, dict) else {})
+                if canary.get("probes", 0) >= 1:
+                    break
+                if time.perf_counter() - t_cp > 30:
+                    fail(f"worker B's /health never ran its canary: "
+                         f"{status} {health}")
+                await asyncio.sleep(0.2)
+            live = await admin(b_sys, "GET", "/live")
+            f_health = await admin(f_sys, "GET", "/health")
+            f_live = await admin(f_sys, "GET", "/live")
+            print(f"[control] worker B (--spec-mode ngram) /health: HTTP "
+                  f"{status} {json.dumps(health)}; /live {live}; frontend "
+                  f"/health {f_health}, /live {f_live}; B's load snapshot "
+                  f"spec {snaps[b_id][-1][1].get('spec')}, obs keys "
+                  f"{len(snaps[b_id][-1][1].get('obs', {}))} (in "
+                  f"{time.perf_counter() - t_cp:.1f} s)", flush=True)
+            if status != 200 or canary.get("healthy") is not True \
+                    or live != (200, {"live": True}) \
+                    or f_health[0] != 200 or f_live != (200, {"live": True}) \
+                    or "spec" not in snaps[b_id][-1][1] \
+                    or "obs" not in snaps[b_id][-1][1]:
+                fail("worker B's or the frontend's control plane did not "
+                     "answer as expected")
+
             def decode_launches(wid):
                 return snaps[wid][-1][1]["kernel_launches"][faces[0]]
             before = {w: decode_launches(w) for w in (a_id, b_id)}
+            before_r = {w: snaps[w][-1][1]["kernel_launches"][faces[1]]
+                        for w in (a_id, b_id)}
             await clear_all()
             t_rr = time.perf_counter()
             results = await client(*(job(p, OSL) for p in prompts))
@@ -1912,20 +2381,40 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                 running = max((s["num_requests_running"]
                                for t, s in snaps[w] if t >= t_rr), default=0)
                 grew = decode_launches(w) - before[w]
+                grew_r = (snaps[w][-1][1]["kernel_launches"][faces[1]]
+                          - before_r[w])
                 print(f"[dist] worker {name} under {N_REQUESTS} round-robin "
                       f"streams: load metrics show up to {running} running "
-                      f"requests, {grew} more decode-face launches",
-                      flush=True)
-                if grew <= 0:
+                      f"requests, {grew} more decode-face and {grew_r} more "
+                      f"ragged-face launches", flush=True)
+                # worker B's verify windows run the ragged face
+                if (grew if name == "A" else grew_r) <= 0:
                     fail(f"worker {name} served nothing under round robin")
+            # B's engine gauges after the traffic (refreshed at each load
+            # snapshot, over the recorder's trailing 10 s)
+            status, text = await admin(b_sys, "GET", "/metrics")
+            m = re.search(r'^dynamo_engine_mfu_by_class\{step="decode"\} '
+                          r'(\S+)$', text or "", re.M)
+            waste = re.search(r'^dynamo_engine_wasted_flops_ratio\{cause='
+                              r'"spec_reject"\} (\S+)$', text or "", re.M)
+            print(f"[control] worker B /metrics after the traffic: HTTP "
+                  f"{status}, engine_mfu_by_class{{step=\"decode\"}} "
+                  f"{m.group(1) if m else None}, engine_wasted_flops_ratio"
+                  f"{{cause=\"spec_reject\"}} "
+                  f"{waste.group(1) if waste else None}", flush=True)
+            if status != 200 or not m or float(m.group(1)) <= 0 or not waste:
+                fail("worker B's /metrics lacks the decode MFU or the "
+                     "spec_reject waste gauge")
 
             # 4. the KV-aware router: a second frontend on the same store
             name_of = {a_id: "A", b_id: "B"}
             t_kv = time.perf_counter()
+            kv_sys = _free_port()
             kv_front = start(
                 "frontend_kv", "dynamo_tpu_torch.frontend",
                 ["--host", "127.0.0.1", "--port", "0", "--store-addr", addr,
-                 "--router-mode", "kv"],
+                 "--router-mode", "kv", "--max-concurrent-requests", "64"],
+                DYNTPU_SYSTEM_ENABLED="1", DYNTPU_SYSTEM_PORT=str(kv_sys),
                 DYNTPU_TRACE_SAMPLE_RATIO="1",
                 DYNTPU_TRACE_EXPORT_PATH=os.path.abspath(KV_SPANS),
                 DYNTPU_JSONL_LOGGING="1")
@@ -2033,6 +2522,57 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                   f"{select_ms[len(select_ms) // 2]:.3f} ms max "
                   f"{select_ms[-1]:.3f} ms (hash of the prompt, index "
                   f"match, cost function)", flush=True)
+
+            # 5. a degradation order in the store (what the planner writes):
+            # the KV frontend, which has an admission controller, sheds tier
+            # 0 and admits tier 3; B's watcher gets the spec_k clamp; then
+            # NO_DEGRADATION admits tier 0 again
+            from dynamo_tpu_torch.planner.degradation import (
+                NO_DEGRADATION, DegradationLadder,
+            )
+            t_deg = time.perf_counter()
+            ladder = DegradationLadder()
+            while "clamp_spec_k" not in ladder.engaged:
+                ladder.update(2.0)
+            order = ladder.actions()
+            deg_key = f"planner/{rt.namespace().name}/degradation"
+
+            async def tiers():
+                results = await client(*(dict(
+                    method="POST", path="/v1/completions", port=kv_port,
+                    headers={"X-Request-Tier": tier},
+                    body={"model": HTTP_MODEL, "prompt": prompts[0],
+                          "max_tokens": 4, "temperature": 0,
+                          "ignore_eos": True}) for tier in ("0", "3")))
+                return [r[0] for r in results]
+
+            async def order_until(actions, want):
+                await rt.store.put(deg_key, json.dumps(
+                    dict(actions, ts=time.time())).encode())
+                t_put = time.perf_counter()
+                while True:
+                    got = await tiers()
+                    if got == want:
+                        return time.perf_counter() - t_put
+                    if time.perf_counter() - t_put > 15:
+                        fail(f"degradation order {actions}: tiers 0 and 3 "
+                             f"answer {got}, want {want}")
+                    await asyncio.sleep(0.1)
+            if await tiers() != [200, 200]:
+                fail("tier 0 or 3 refused before any degradation order")
+            shed_s = await order_until(order, [429, 200])
+            clamp = await worker_b.wait_for(
+                r"degradation orders applied to engine: .*"
+                r"|degradation on_change failed[\s\S]*?\n([\w.]*Error: [^\n]*)",
+                10)
+            reopen_s = await order_until(dict(NO_DEGRADATION), [200, 200])
+            print(f"[control] degradation order {json.dumps(order)} in "
+                  f"{deg_key}: the KV frontend answered tier 0 with 429 and "
+                  f"tier 3 with 200 {shed_s * 1e3:.0f} ms after the write; "
+                  f"worker B: {clamp.group(1) or clamp.group(0)!r}; "
+                  f"NO_DEGRADATION admitted tier 0 again {reopen_s * 1e3:.0f}"
+                  f" ms after its write ({time.perf_counter() - t_deg:.1f} s "
+                  f"in all)", flush=True)
 
             class Recorder(PushSink):
                 """The frontend's routing sink, noting how many tokens its
@@ -2170,11 +2710,29 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                 fail(f"migrated streams depart from B's continuation at the "
                      f"join: {joins}")
 
-            worker_b.proc.send_signal(signal.SIGTERM)
+            # worker B leaves by its system server's POST /drain
+            t_drain = time.perf_counter()
+            drain = await admin(b_sys, "POST", "/drain")
             rc = await loop.run_in_executor(None, worker_b.proc.wait, 120)
+            drain_s = time.perf_counter() - t_drain
             log_b = worker_b.text()
-            if rc != 0 or "drain requested" not in log_b:
-                fail(f"worker B on SIGTERM: exit {rc}\n{worker_b.tail()}")
+            # B revokes its lease as it closes; if the revoke is lost, the
+            # lease expires within its TTL
+            while True:
+                keys = [k for root_ in ("v1/instances/", "v1/models/")
+                        for k, _ in await rt.store.get_prefix(root_)
+                        if k.endswith(f"/{b_id}")]
+                if not keys or time.perf_counter() - t_drain > \
+                        drain_s + DIST_LEASE_TTL_S + 1:
+                    break
+                await asyncio.sleep(0.05)
+            print(f"[control] POST /drain to worker B: {drain}; B exited "
+                  f"{rc} after {drain_s:.2f} s, its keys left in the store: "
+                  f"{keys}", flush=True)
+            if drain != (202, {"draining": ["dynamo/backend/generate"]}) \
+                    or rc != 0 or "drain requested" not in log_b or keys:
+                fail(f"worker B on POST /drain: {drain}, exit {rc}, keys "
+                     f"{keys}\n{worker_b.tail()}")
             m = re.search(r"worker exiting: kernel launches (.*)", log_b)
             b_launches = {k: int(v) for k, v in
                           (kv.split("=") for kv in m.group(1).split())}
@@ -2184,10 +2742,12 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                 if rc != 0:
                     fail(f"{f.name} on SIGTERM: exit {rc}\n{f.tail()}")
             launches = {}
-            for name, counts in (("A", a_launches), ("B", b_launches)):
+            # B decodes through spec windows, which run the ragged face
+            for name, counts, need in (("A", a_launches, faces),
+                                       ("B", b_launches, faces[1:])):
                 print(f"[dist] worker {name} kernel launches: " + ", ".join(
                     f"{f} {counts[f]}" for f in faces), flush=True)
-                for f in faces:
+                for f in need:
                     if counts[f] == 0:
                         fail(f"{f} was never launched in worker {name}")
             for name in KERNELS:
@@ -2228,7 +2788,10 @@ for _kv in ("int8", "fp8"):
         "dynamo_tpu/ops/paged_attention.py:109")
 
 
-def kernels_line(results, launches, dist_launches) -> str:
+def kernels_line(results, launches, dist_launches, spec_launches) -> str:
+    """The ``kernels`` JSON line: one row per kernel build, plus the
+    ragged face at the spec engine's verify shape (its launches: the verify
+    windows of phase 3's spec run)."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -2244,6 +2807,15 @@ def kernels_line(results, launches, dist_launches) -> str:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    r = results[SPEC_CASE]
+    rows.append({
+        "name": "paged_attention_ragged@spec_verify", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": KERNELS["paged_attention_ragged"][3],
+        "launches": spec_launches, "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    })
     return json.dumps({"kernels": rows})
 
 
@@ -2284,6 +2856,11 @@ def main() -> None:
     launches, engine, ref_logits, direct = phase_engine(card)
     phase_graph(engine, card)
     timer("3 engine bf16 + graph check")
+    spec_engine, spec = phase_spec(card, engine)
+    phase_spec_graph(spec_engine, card)
+    del spec_engine
+    torch.cuda.empty_cache()
+    timer("3 spec engine + graph check")
     phase_profile(engine, card)
     timer("4 profile bf16")
     served = phase_http(engine, card, direct)
@@ -2304,7 +2881,7 @@ def main() -> None:
         timer(f"4 profile {dtype}")
         del engine
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(results, launches, dist_launches))
+    print(kernels_line(results, launches, dist_launches, spec["launches"]))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

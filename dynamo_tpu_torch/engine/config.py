@@ -8,10 +8,10 @@ that the reference exposes through engine flags and the ModelRuntimeConfig
 ``max_num_seqs``, ``max_num_batched_tokens``).
 
 The engine config keeps the knobs this package serves, plus the ones that
-select a path it does not serve yet (speculative decoding, a mesh of more
-than one device, pipeline and sequence parallelism):
-those stay so that :func:`check_supported` refuses them loudly at engine
-construction instead of ignoring them.
+select a path it does not serve yet (a mesh of more than one device,
+pipeline and sequence parallelism): those stay so that
+:func:`check_supported` refuses them loudly at engine construction instead
+of ignoring them.
 """
 
 from __future__ import annotations
@@ -94,6 +94,7 @@ class EngineConfig:
     attention_impl: str = "kernel"
     # per-shape-class overrides ("" = inherit attention_impl)
     attention_impl_decode: str = ""
+    attention_impl_spec: str = ""
     attention_impl_prefill: str = ""
     # chunked prefill: cap each prefill chunk at this many tokens so long
     # prompts are admitted in slices interleaved with running decodes.
@@ -102,6 +103,24 @@ class EngineConfig:
     # tokens generated per decode window (>1 chains steps on device; tokens
     # past a sequence's EOS/capacity inside a window are discarded)
     decode_steps: int = 1
+    # speculative decoding: "ngram" replaces each decode window with a
+    # draft+verify window — a device-resident prompt-lookup drafter proposes
+    # up to spec_k continuation tokens from the seq's own on-device token
+    # history and ONE ragged [B, k+1] forward verifies them, so a single
+    # host round-trip can land up to k+1 tokens. Greedy rows get exact
+    # parity with spec_mode="off"; sampled rows emit 1 token per window.
+    spec_mode: str = "off"              # "off" | "ngram"
+    spec_k: int = 4                     # max draft tokens per window
+    spec_ngram_min: int = 1             # smallest suffix n-gram to match
+    spec_ngram_max: int = 3             # largest suffix n-gram to match
+    # adaptive kill switch: once spec_auto_disable_window draft tokens have
+    # been verified, an acceptance rate below the threshold permanently
+    # falls back to plain autopilot windows (0.0 = never disable)
+    spec_auto_disable_threshold: float = 0.0
+    spec_auto_disable_window: int = 256
+    # device token-history capacity per seat (0 = max_model_len); drafting
+    # only sees the first spec_hist_cap positions of each sequence
+    spec_hist_cap: int = 0
     # run-ahead: how many scheduled windows may be in flight before the
     # engine loop waits for a landing. >1 dispatches window N+1 (decode
     # input tokens read from the device ring) while window N's sampled
@@ -141,7 +160,6 @@ class EngineConfig:
     # -- paths not served by this package yet (check_supported refuses) --
     pp_stages: int = 1
     sp_prefill_threshold: int = 0
-    spec_mode: str = "off"              # "off" | "ngram"
 
     def __post_init__(self):
         if len(self.mesh_shape) not in (2, 3):
@@ -154,7 +172,7 @@ class EngineConfig:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}"
             )
-        for cls in ("decode", "prefill"):
+        for cls in ("decode", "spec", "prefill"):
             v = getattr(self, f"attention_impl_{cls}")
             if v not in ("",) + ATTENTION_IMPLS:
                 raise ValueError(
@@ -162,6 +180,13 @@ class EngineConfig:
                 )
         if self.prefill_chunk_tokens < 0:
             raise ValueError("prefill_chunk_tokens must be >= 0")
+        if self.spec_mode != "off":
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if not (1 <= self.spec_ngram_min <= self.spec_ngram_max):
+                raise ValueError("need 1 <= spec_ngram_min <= spec_ngram_max")
+            if self.pp_stages > 1:
+                raise ValueError("spec_mode requires pp_stages == 1")
         if self.stall_timeout_s < 0 or self.stall_timeout_per_token_s < 0:
             raise ValueError("stall timeouts must be >= 0")
         if self.stall_seq_retries < 0:
@@ -201,7 +226,6 @@ def check_supported(eng: EngineConfig) -> None:
     for n in eng.mesh_shape:
         mesh_devices *= n
     unsupported = [
-        (eng.spec_mode != "off", f"spec_mode={eng.spec_mode!r}"),
         (mesh_devices > 1, f"mesh_shape={eng.mesh_shape!r}"),
         (eng.pp_stages > 1, f"pp_stages={eng.pp_stages}"),
         (eng.sp_prefill_threshold > 0,

@@ -13,10 +13,14 @@ the run-ahead loop dispatches window N+1 while window N's tokens are still
 on their way to the host — decode input tokens ride the device token ring,
 so no dispatch waits on a fetch — and a fetch thread waits on each window's
 CUDA event; at 1 the synchronous loop. On a card each decode window is a
-CUDA graph replay (``model.AutopilotWindow``). The stall watchdog, the
-HBM-pressure ladder, the flight recorder (``observability``) and the
-engine's stage spans are the JAX engine's too. Evacuation, KVBM, the radix
-prefix cache and disaggregated reservations wait for later slices.
+CUDA graph replay (``model.AutopilotWindow``). Speculative decoding
+(``spec_mode="ngram"``) is the JAX engine's: it forces the synchronous loop
+and replaces each decode window with a draft + verify window (a graph
+replay too), with acceptance accounting, auto-disable and the pressure
+ladder's rung-2 pause. The stall watchdog, the HBM-pressure ladder, the
+flight recorder (``observability``) and the engine's stage spans are the
+JAX engine's too. Evacuation, KVBM, the radix prefix cache and
+disaggregated reservations wait for later slices.
 """
 
 from __future__ import annotations
@@ -40,10 +44,13 @@ import torch
 from .. import tracing
 from ..observability import flops as obs_flops
 from ..observability.flops import FlopsModel
-from ..observability.stepstats import DECODE, PREFILL, StepRecord, StepStats
+from ..observability.stepstats import (
+    DECODE, PREFILL, SPEC_VERIFY, StepRecord, StepStats,
+)
 from ..runtime import faults
 from ..runtime.context import Context
 from ..runtime.engine import AsyncEngine
+from ..spec.stats import SpecDecodeStats
 from ..utils.config import env_flag, env_float, env_str
 from ..utils.device import resolve_device
 from ..utils.hotpath import hot_path
@@ -81,10 +88,11 @@ class _Landing:
     the copy is done when the dispatch returns), and how to unpack it."""
 
     n_prefill: int
-    decode_shape: Optional[Tuple[int, int]]   # samples [K, B]
+    decode_shape: Optional[Tuple[int, int]]   # samples [K, B] or [k+3, B]
     cols: Optional[List[int]]                 # slot of each decode column
     host: Optional[torch.Tensor]
     event: Any = None
+    spec: bool = False                        # a packed spec-window output
 
 
 class _BatchingFetcher:
@@ -230,6 +238,9 @@ class EngineCore(AsyncEngine):
         # flight recorder (observability.StepStats) when enabled;
         # InferenceEngine builds it
         self.obs = None
+        # SpecDecodeStats when spec decode is active (InferenceEngine sets
+        # it up when spec_mode="ngram")
+        self.spec_stats = None
         # -- stall watchdog state (engine_config.stall_timeout_s > 0) --
         # per-seq recovery attempts; a seq over stall_seq_retries is failed
         # instead of requeued so one poisoned prompt can't loop forever
@@ -245,6 +256,7 @@ class EngineCore(AsyncEngine):
         self.pressure_level = 0          # 0 idle .. 3 shedding
         self.pressure_shedding = False   # rung 3: submit() rejects
         self._pressure_spec_paused = False  # rung 2: spec decode paused
+        self._pressure_spec_saved = None    # spec_plan_window to restore
         self._pressure_spill_cool = 0    # min ticks between rung-1 spills
         self.num_pressure_spills = 0
         self.num_pressure_shed = 0
@@ -418,6 +430,9 @@ class EngineCore(AsyncEngine):
                           start_mono=t_sched, end_mono=(t_first or end))
         if t_first is not None:
             attrs = {"num_tokens": len(seq.output_ids)}
+            if self.spec_stats is not None:
+                attrs["spec_drafted"] = seq.spec_drafted
+                attrs["spec_accepted"] = seq.spec_accepted
             if self.obs is not None:
                 osnap = self.obs.snapshot()
                 attrs["mfu"] = round(osnap["mfu"], 6)
@@ -829,9 +844,7 @@ class EngineCore(AsyncEngine):
             self.pressure_peak = self.pressure_level
 
     def _pause_spec(self) -> None:
-        """Rung 2 hook: narrows the spec plan window once speculative
-        decoding is served (``spec_mode`` is refused until then, so there
-        is nothing to pause)."""
+        """Rung 2 hook; the device engine narrows the spec plan window."""
 
     def _resume_spec(self) -> None:
         pass
@@ -931,7 +944,9 @@ class InferenceEngine(EngineCore):
     thread so the event loop never blocks on the device. On a card every
     decode window replays a CUDA graph captured here, at construction, one
     per (decode bucket, stochastic); a fetch thread waits on each window's
-    CUDA event.
+    CUDA event. With ``spec_mode="ngram"`` the same window object also
+    captures the spec windows, one per (decode bucket, stochastic), and the
+    loop is the synchronous one.
 
     ``device`` defaults to ``cuda``; with no GPU present and no device
     given, construction raises (pass ``device="cpu"`` to run on the CPU).
@@ -961,12 +976,28 @@ class InferenceEngine(EngineCore):
         # device-resident control state
         self._window_K = max(1, engine_config.decode_steps)
         self._ap_Wcap = engine_config.max_blocks_per_seq
+        # speculative decoding: drafter history + draft/verify window
+        self._spec_k = 0
+        self._spec_hist_cap = 0
+        self._spec_auto_disabled = False
+        if engine_config.spec_mode == "ngram":
+            self._spec_k = engine_config.spec_k
+            self._spec_hist_cap = (engine_config.spec_hist_cap
+                                   or engine_config.max_model_len)
+            self._spec_hist_fill_fn = model_lib.raw_spec_hist_fill_fn()
+            self.spec_stats = SpecDecodeStats()
+            # a spec window lands a DATA-DEPENDENT 1..k+1 tokens, so
+            # run-ahead scheduling (which predicts the next window's base)
+            # is off the table: force the synchronous loop
+            if engine_config.pipeline_depth > 1:
+                log.info("spec_mode=ngram forces pipeline_depth=1")
+            self.scheduler.spec_plan_window = self._spec_k + 1
         self._ap_window_fn, self._ap_delta_fn = model_lib.make_autopilot_fns(
             model_config, engine_config, self._window_K, self._ap_Wcap,
-            self.device)
+            self.device, spec_k=self._spec_k)
         self._ctl = model_lib.init_ctl(
             engine_config, engine_config.max_num_seqs, self._ap_Wcap,
-            self.device, seed=seed + 2,
+            self.device, seed=seed + 2, hist_cap=self._spec_hist_cap,
         )
         self._packed_prefill_fns: Dict[Tuple[int, int], Any] = {}
         # dispatch counters
@@ -979,6 +1010,8 @@ class InferenceEngine(EngineCore):
         self._ap_rows_dev: Optional[torch.Tensor] = None
         self._ap_dead: set = set()          # slots to kill next dispatch
         self.pipeline_depth = max(1, engine_config.pipeline_depth)
+        if engine_config.spec_mode == "ngram":
+            self.pipeline_depth = 1
         # step keys for prefills come from this generator, on the device
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         # one-shot einsum rebuild when the largest decode bucket stalls
@@ -1010,7 +1043,7 @@ class InferenceEngine(EngineCore):
             self._unpack_results, on_sync=self._count_fetch_sync
         )
         if self._ap_window_fn.graphed:
-            # every decode graph, before the loop starts
+            # every decode (and spec) graph, before the loop starts
             self._ap_window_fn.capture_all(
                 self.params, self.cache, self._ctl, engine_config.decode_buckets)
 
@@ -1102,6 +1135,7 @@ class InferenceEngine(EngineCore):
                           if decode_handle is not None else None),
             cols=decode_handle[1] if decode_handle is not None else None,
             host=None,
+            spec=decode_handle is not None and decode_handle[2],
         )
         if not flat:
             return landing
@@ -1150,13 +1184,17 @@ class InferenceEngine(EngineCore):
             col_of: Dict[int, int] = {}
             for col, slot in enumerate(landing.cols):
                 col_of.setdefault(slot, col)
-            out = got[n:].reshape(landing.decode_shape)  # [K, B]
-            for row in batch.decode_rows:
-                col = col_of[row.slot]
-                decode_samples.append([
-                    int(out[k, col])
-                    for k in range(min(row.accepted, out.shape[0]))
-                ])
+            # [K, B] (spec: [k+3, B] packed)
+            out = got[n:].reshape(landing.decode_shape)
+            if landing.spec:
+                decode_samples = self._unpack_spec(batch, out, col_of)
+            else:
+                for row in batch.decode_rows:
+                    col = col_of[row.slot]
+                    decode_samples.append([
+                        int(out[k, col])
+                        for k in range(min(row.accepted, out.shape[0]))
+                    ])
         if self.obs is not None:
             self._obs_on_land(batch, decode_samples)
         return prefill_samples, decode_samples
@@ -1178,6 +1216,68 @@ class InferenceEngine(EngineCore):
                 rec.goodput_tokens = emitted
             self.obs.commit(rec)
         recs.clear()
+
+    @hot_path
+    def _unpack_spec(self, batch, out, col_of) -> List[List[int]]:
+        """Spec verify window landing: packed rows 0..k are emitted token
+        candidates, row k+1 n_emitted, row k+2 n_drafted. Runs on the
+        device-step thread — spec forces the synchronous loop — so
+        correcting the host mirror's pessimistic pos here is ordered
+        strictly before the next dispatch."""
+        kk = self._spec_k
+        stats = self.spec_stats
+        decode_samples: List[List[int]] = []
+        win_drafted = win_accepted = 0
+        for row in batch.decode_rows:
+            col = col_of[row.slot]
+            n = int(out[kk + 1, col])
+            ndraft = int(out[kk + 2, col])
+            n_use = min(n, row.accepted)
+            decode_samples.append([int(out[j, col]) for j in range(n_use)])
+            row.seq.spec_drafted += ndraft
+            row.seq.spec_accepted += max(n - 1, 0)
+            win_drafted += ndraft
+            win_accepted += max(n - 1, 0)
+            stats.drafted += ndraft
+            stats.accepted += max(n - 1, 0)
+            stats.emitted += n_use
+            st = self._ap.get(row.slot)
+            if st is not None and st["seq_id"] == row.seq.seq_id:
+                st["pos"] = row.base + n
+        stats.windows += 1
+        if self.obs is not None:
+            for rec in getattr(batch, "obs_records", ()):
+                if rec.kind == SPEC_VERIFY:
+                    rec.spec_drafted += win_drafted
+                    rec.spec_accepted += win_accepted
+        th = self.config.spec_auto_disable_threshold
+        if (th > 0.0 and not self._spec_auto_disabled
+                and stats.drafted >= self.config.spec_auto_disable_window
+                and stats.acceptance_rate < th):
+            # one-way: drafting is costing more verify compute than it
+            # saves in syncs on this workload; fall back to plain windows
+            self._spec_auto_disabled = True
+            self.scheduler.spec_plan_window = None
+            log.info(
+                "spec decode auto-disabled: acceptance %.3f < %.3f after "
+                "%d drafts", stats.acceptance_rate, th, stats.drafted,
+            )
+        return decode_samples
+
+    def _pause_spec(self) -> None:
+        if self._spec_k <= 0 or self._spec_auto_disabled:
+            return
+        self._pressure_spec_saved = self.scheduler.spec_plan_window
+        self.scheduler.spec_plan_window = None
+        log.warning("pressure ladder: speculative decoding paused")
+
+    def _resume_spec(self) -> None:
+        if self._pressure_spec_saved is None:
+            return
+        if not self._spec_auto_disabled:
+            self.scheduler.spec_plan_window = self._pressure_spec_saved
+        self._pressure_spec_saved = None
+        log.info("pressure ladder: speculative decoding resumed")
 
     def _next_key(self) -> torch.Tensor:
         """A fresh step key on the device (no host sync)."""
@@ -1220,7 +1320,7 @@ class InferenceEngine(EngineCore):
                 self._ap_window_fn, self._ap_delta_fn = (
                     model_lib.make_autopilot_fns(
                         self.model_config, fb_cfg, self._window_K,
-                        self._ap_Wcap, self.device,
+                        self._ap_Wcap, self.device, spec_k=self._spec_k,
                     )
                 )
                 # the new window's seat-map buffers start empty
@@ -1333,12 +1433,18 @@ class InferenceEngine(EngineCore):
         Steady state (same seats, no growth) dispatches with ZERO fresh
         host tensors — all control state is device-resident; the host sends
         packed deltas only on joins, block growth, resumes, and seat-map
-        changes. Returns (samples_handle [K, B], col_map) where
-        col_map[device column] is the slot computed there."""
+        changes. Returns (samples_handle [K, B], col_map, spec) where
+        col_map[device column] is the slot computed there and ``spec``
+        marks a packed spec-window handle."""
         cfg = self.config
         bs = cfg.block_size
-        K = self._window_K
+        spec = self._spec_active()
+        # spec windows land a data-dependent 1..k+1 tokens; mirror the
+        # device's advance pessimistically here (max) and correct it in
+        # _unpack_spec before the next dispatch (synchronous loop)
+        K = (self._spec_k + 1) if spec else self._window_K
         deltas: Dict[int, Dict[str, Any]] = {}
+        reset_rows: List[Any] = []
         for r in rows:
             s = r.seq
             vu = min(len(s.block_table) * bs, cfg.max_model_len)
@@ -1357,6 +1463,7 @@ class InferenceEngine(EngineCore):
                     "table": s.block_table, "temp": s.temperature,
                     "tp": s.top_p,
                 }
+                reset_rows.append(r)
             elif st["vu"] != vu or st["tlen"] != tlen:
                 deltas[r.slot] = {
                     "pos": r.base, "vu": vu, "tk": s.top_k,
@@ -1372,6 +1479,8 @@ class InferenceEngine(EngineCore):
             }
         if deltas:
             self._ap_apply_deltas(deltas)
+            if spec and reset_rows:
+                self._spec_fill_hist(reset_rows)
         # seat map: reuse the device map only when the LIVE seats it holds
         # are exactly the scheduled set. A LIVE slot the scheduler skipped
         # this round must not keep its column — the window would advance
@@ -1391,7 +1500,8 @@ class InferenceEngine(EngineCore):
             # only padded/real shapes are known here
             ctx = sum(K * r.base + K * (K + 1) // 2 for r in rows)
             obs_out.append(StepRecord(
-                kind=DECODE, t_dispatch=time.monotonic(), bucket=B,
+                kind=SPEC_VERIFY if spec else DECODE,
+                t_dispatch=time.monotonic(), bucket=B,
                 rows=B, live_rows=len(rows),
                 padded_tokens=B * K, real_tokens=len(rows) * K,
                 context_sum=ctx,
@@ -1399,6 +1509,28 @@ class InferenceEngine(EngineCore):
         stochastic = any(r.seq.temperature > 0.0 for r in rows)
         self.cache, self._ctl, samples = self._ap_window_fn(
             self.params, self.cache, self._ctl, self._ap_rows_dev,
-            stochastic,
+            stochastic, spec=spec,
         )
-        return samples, list(self._ap_cols)
+        return samples, list(self._ap_cols), spec
+
+    def _spec_active(self) -> bool:
+        return (self._spec_k > 0 and not self._spec_auto_disabled
+                and not self._pressure_spec_paused)
+
+    def _spec_fill_hist(self, rows) -> None:
+        """Inject full token histories for joining/reset seats so the
+        on-device drafter has context immediately — including resumed and
+        migrated sequences, whose carried tokens arrive with the request.
+        One [n, Hcap+1] upload per join delta; steady-state windows extend
+        the history on device with no uploads at all."""
+        Hcap = self._spec_hist_cap
+        trash = self.config.max_num_seqs
+        n = _pow2_bucket(len(rows))
+        slots = np.full((n,), trash, np.int32)
+        hrows = np.full((n, Hcap + 1), -1, np.int32)
+        for i, r in enumerate(rows):
+            toks = r.seq.all_tokens()[:min(r.base + 1, Hcap)]
+            slots[i] = r.slot
+            hrows[i, :len(toks)] = toks
+        self._ctl = self._spec_hist_fill_fn(
+            self._ctl, self._upload(slots), self._upload(hrows))

@@ -26,6 +26,11 @@ updates where the JAX code donates buffers:
   from :func:`make_autopilot_fns`): one graph per (decode bucket,
   stochastic), captured once over the eager window and replayed — the
   counterpart of the JAX package's one jitted executable per bucket.
+- **Speculative decoding** (``spec_mode="ngram"``): the spec window drafts
+  from a per-seat token history in ``ctl["hist"]`` (``spec/ngram.py``) and
+  verifies ``[B, k+1]`` query rows in one forward through the kernel's
+  ragged face; on a card it is captured and replayed like the decode
+  window, in the same pool.
 - **Quantized serving** (``engine/quant.py``): matmul weights may be
   ``{"q", "s"}`` leaves (int8/fp8 with per-output-channel f32 scales), and
   with a quantized ``kv_dtype`` the pages are 1-byte with per-(slot, head)
@@ -235,10 +240,15 @@ def _attention(
     return out.reshape(B, T, H, hd).to(q.dtype)
 
 
-def attention_class(T: int) -> str:
-    """Shape class of a ``[B, T]`` chunk: decode / prefill (the spec-verify
-    class comes with speculative decoding)."""
-    return "decode" if T == 1 else "prefill"
+def attention_class(eng: EngineConfig, T: int) -> str:
+    """Shape class of a ``[B, T]`` chunk: decode / spec / prefill. T is a
+    static shape of the step, so the class (and the impl picked from it) is
+    fixed per captured graph."""
+    if T == 1:
+        return "decode"
+    if eng.spec_mode != "off" and T <= eng.spec_k + 1:
+        return "spec"
+    return "prefill"
 
 
 def resolve_attention_impl(eng: EngineConfig, attn_class: str) -> str:
@@ -293,7 +303,8 @@ def forward(
     cos, sin = _rope_tables(positions, cfg.rope_theta, hd)
     kv_quant = quant.is_quantized(eng.kv_dtype)
 
-    use_kernel = resolve_attention_impl(eng, attention_class(T)) == "kernel"
+    use_kernel = resolve_attention_impl(eng, attention_class(eng, T)) \
+        == "kernel"
     if use_kernel:
         if T == 1:
             seq_lens = torch.clamp(positions[:, 0] + 1, min=0).to(
@@ -586,7 +597,7 @@ def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
 # All per-sequence decode state lives on the device, indexed by slot:
 #
 #   ctl = {pos, vu (valid_until), temp, tk, tp, seed, last_tok [S+1],
-#          tables [S+1, Wcap], key, ctr}
+#          tables [S+1, Wcap], key, ctr[, hist [S+1, hist_cap+1]]}
 #
 # A steady-state decode window runs with NO fresh host tensors: it reads its
 # seats from a device-resident ``slot_rows`` map. The host pushes packed
@@ -599,12 +610,18 @@ CTL_I32_FIELDS = 6  # slot, pos, valid_until, top_k, seed, last_tok
 
 
 def init_ctl(eng: EngineConfig, S: int, Wcap: int, device: torch.device,
-             seed: int = 0) -> Dict[str, torch.Tensor]:
+             seed: int = 0, hist_cap: int = 0) -> Dict[str, torch.Tensor]:
     """Fresh control state as persistent tensors on ``device``; the delta
-    and window functions update them in place."""
+    and window functions update them in place.
+
+    ``hist_cap > 0`` (spec decode) adds a per-seat token history ``hist``
+    [S+1, hist_cap+1] for the n-gram drafter: ``hist[s, p]`` is sequence
+    s's token at position p, -1 = unknown; column hist_cap is a trash
+    column for padded scatters. The decode window and the delta pass the
+    extra key through untouched."""
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
-    return {
+    ctl = {
         "pos": torch.zeros((S + 1,), **i32),
         "vu": torch.zeros((S + 1,), **i32),
         "temp": torch.zeros((S + 1,), **f32),
@@ -617,6 +634,9 @@ def init_ctl(eng: EngineConfig, S: int, Wcap: int, device: torch.device,
                             device=device),
         "ctr": torch.zeros((), dtype=torch.int64, device=device),
     }
+    if hist_cap > 0:
+        ctl["hist"] = torch.full((S + 1, hist_cap + 1), -1, **i32)
+    return ctl
 
 
 def raw_ctl_delta_fn(Wcap: int):
@@ -697,36 +717,167 @@ def raw_autopilot_window_fn(cfg: ModelConfig, eng: EngineConfig, K: int):
     return window
 
 
+# ------------------- speculative decode window (draft + verify) -----------
+#
+# One autopilot window lands at most K tokens per host sync. The spec
+# window raises the per-sync yield without a draft model: an on-device
+# prompt-lookup drafter (spec/ngram.py) proposes up to k continuation
+# tokens from the seat's own token history, and ONE [B, k+1] ragged
+# forward verifies the chain against the paged cache — accepted prefix +
+# one bonus/corrective token land per sync, up to k+1 total. Greedy rows
+# are exactly parity-safe: every emitted token is the target model's own
+# argmax given a correct prefix. Draft tokens that get rejected DO write
+# KV at positions past the accepted point, but those positions are (a)
+# never attendable by any accepted query (the causal mask is
+# ``kpos <= q``), and (b) always re-scattered by the next window before
+# any later query reads them — so rejected tokens never poison the cache.
+
+
+def raw_spec_window_fn(cfg: ModelConfig, eng: EngineConfig, k: int,
+                       ngram_min: int, ngram_max: int):
+    """Draft + batched-verify decode window.
+
+    Signature: window(params, cache, ctl, slot_rows[B], stochastic) ->
+    (cache, ctl, packed[k+3, B]); cache and ctl (``hist`` included) are
+    updated in place. Packed rows 0..k are the emitted token candidates,
+    row k+1 is n_emitted per seat (how many of them are real), and row k+2
+    is n_drafted (accounting).
+
+    Drafting is restricted to greedy seats (temp <= 0); sampled seats run
+    the window as a plain single-token decode step, keyed by position for
+    seeded rows exactly like the non-spec path. Dead seats (vu <= pos)
+    feed trash and emit 0 tokens. Every scatter that may repeat an index
+    sends the repeats to the trash slot S or the history's trash cell, and
+    writes a constant there (-1, or 0 into ``last_tok``), so the order in
+    which CUDA applies repeated indices cannot change any bit of ctl: a
+    replay stays bitwise equal to the eager window. The trash values are
+    never read; the JAX window writes its garbage there instead. No scatter
+    needs ``accumulate`` except the position advance, which adds as the
+    JAX window does.
+    """
+    from ..spec.ngram import propose_drafts
+
+    def window(params, cache, ctl, slot_rows, stochastic):
+        rows = slot_rows.long()                            # [B]
+        tok0 = ctl["last_tok"][rows]
+        pos0 = ctl["pos"][rows]
+        vu = ctl["vu"][rows]
+        temp = ctl["temp"][rows]
+        tk = ctl["tk"][rows]
+        tp = ctl["tp"][rows]
+        sd = ctl["seed"][rows]
+        tables = ctl["tables"][rows]
+        hist = ctl["hist"]                                 # [S+1, Hcap+1]
+        S = ctl["last_tok"].shape[0] - 1
+        Hcap = hist.shape[1] - 1
+        live = vu > pos0
+        # keep the history coherent with the ring: the window's input token
+        # IS all_tokens[pos0] (defensive — joins already host-fill it)
+        hist.index_put_((
+            torch.where(live, rows, S),
+            torch.where(live, torch.clamp(pos0, 0, Hcap - 1), Hcap).long(),
+        ), torch.where(live, tok0, -1))
+        drafts = propose_drafts(hist[rows], pos0, k, ngram_min, ngram_max)
+        drafts = torch.where((temp <= 0.0)[:, None], drafts, -1)  # [B, k]
+        dvalid = torch.cumprod((drafts >= 0).to(torch.int32),
+                               dim=1).bool()
+        steps = torch.arange(k + 1, dtype=torch.int32, device=rows.device)
+        toks = torch.cat(
+            [tok0[:, None], torch.where(dvalid, drafts, 0)], dim=1
+        )                                                  # [B, k+1]
+        pos = pos0[:, None] + steps[None, :]
+        feed = torch.cat(
+            [torch.ones_like(dvalid[:, :1]), dvalid], dim=1
+        ) & (pos < vu[:, None])
+        pos_eff = torch.where(feed, pos, -1)
+        cache, h = forward(cfg, eng, params, cache, toks, pos_eff, tables)
+        logits = logits_fn(cfg, params, h)                 # [B, k+1, V]
+        g = torch.argmax(logits, dim=-1).to(torch.int32)   # [B, k+1]
+        key_w = step_key(ctl["key"], ctl["ctr"])
+        s0 = sample(logits[:, 0], key_w, temp, tk, tp, sd, pos0, stochastic)
+        emitted = torch.cat([s0[:, None], g[:, 1:]], dim=1)
+        # accept the longest draft prefix the target model reproduces; the
+        # query at index i (position pos0+i) verifies draft i
+        match = dvalid & (drafts == g[:, :k])              # [B, k]
+        a = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        cap = torch.clamp(vu - pos0, 0, k + 1)
+        n = torch.minimum(a + 1, cap).to(torch.int32)      # [B] emitted
+        final = torch.gather(
+            emitted, 1, torch.clamp(n - 1, min=0).long()[:, None])[:, 0]
+        write_rows = torch.where(n > 0, rows, S)
+        ctl["last_tok"].index_put_((write_rows,), torch.where(n > 0, final, 0))
+        # duplicate trash rows accumulate zero (n there is 0)
+        ctl["pos"].index_add_(0, rows, n)
+        # append the landed tokens to the history (emitted j is
+        # all_tokens[pos0+1+j]); rejects route to the trash cell
+        hv = steps[None, :] < n[:, None]
+        hist.index_put_((
+            torch.where(hv, rows[:, None], S),
+            torch.where(hv, torch.clamp(pos0[:, None] + 1 + steps[None, :],
+                                        0, Hcap - 1), Hcap).long(),
+        ), torch.where(hv, emitted, -1))
+        ctl["ctr"] += 1
+        ndraft = dvalid.to(torch.int32).sum(dim=1)
+        packed = torch.cat(
+            [emitted.T, n[None, :], ndraft[None, :]], dim=0
+        ).to(torch.int32)                                  # [k+3, B]
+        return cache, ctl, packed
+
+    return window
+
+
+def raw_spec_hist_fill_fn():
+    """Host-side history injection for joining/resumed seats.
+
+    fill(ctl, slots[n], rows[n, Hcap+1]) scatters full token-history rows
+    (-1-padded) into ``ctl["hist"]`` in place — the key is never rebound,
+    since the spec graphs read it at its captured address. Pad entries use
+    slot = S (trash). Dispatched only on seat joins/resets — steady-state
+    spec windows maintain the history on device with zero host uploads.
+    """
+
+    def fill(ctl, slots, rows):
+        ctl["hist"].index_put_((slots.long(),), rows)
+        return ctl
+
+    return fill
+
+
 class AutopilotWindow:
-    """The engine's decode window. On a CUDA device: one
-    ``torch.cuda.CUDAGraph`` per ``(decode bucket B, stochastic)``, captured
-    over :func:`raw_autopilot_window_fn` and replayed, the counterpart of
-    the JAX package's one jitted executable per bucket
-    (``dynamo_tpu/engine/model.py`` ``make_autopilot_fns``). On the CPU it
-    calls the eager function: the CPU was asked for, so that is not a
-    fallback. Signature as the eager window's: ``window(params, cache, ctl,
-    slot_rows[B], stochastic) -> (cache, ctl, samples[K, B])``.
+    """The engine's decode window, and with ``spec_k`` > 0 its spec window
+    too. On a CUDA device: one ``torch.cuda.CUDAGraph`` per ``(kind, decode
+    bucket B, stochastic)``, kind "decode" captured over
+    :func:`raw_autopilot_window_fn` and kind "spec" over
+    :func:`raw_spec_window_fn`, and replayed — the counterpart of the JAX
+    package's one jitted executable per bucket
+    (``dynamo_tpu/engine/model.py`` ``make_autopilot_fns`` and
+    ``make_spec_fns``). On the CPU it calls the eager functions: the CPU was
+    asked for, so that is not a fallback. Signature as the eager windows':
+    ``window(params, cache, ctl, slot_rows[B], stochastic, spec=False) ->
+    (cache, ctl, out)``, ``out`` being ``samples[K, B]`` or the spec
+    window's ``packed[k+3, B]``.
 
     What a graph needs, and what this class does about it:
 
     - *Persistent inputs.* A graph reads params, cache and ctl at the
       addresses it was captured over. The engine only updates them in place
-      (the delta and prefill functions hand back the same objects), and
-      every call checks that it is handed the objects it captured.
-    - *Static rows.* Each bucket has one ``slot_rows`` buffer, shared by its
-      two graphs. :meth:`load_rows` writes a new seat map into it with a
-      copy on the stream, in place of a new tensor.
-    - *Static output.* ``samples`` lives in the graphs' pool, and the next
-      replay of the same graph overwrites it: the caller copies it out on
-      the same stream before it dispatches another window.
+      (the delta, history-fill and prefill functions hand back the same
+      objects), and every call checks that it is handed the objects it
+      captured, ctl's tensors key by key (``hist`` among them).
+    - *Static rows.* Each bucket has one ``slot_rows`` buffer, shared by all
+      its graphs, decode and spec. :meth:`load_rows` writes a new seat map
+      into it with a copy on the stream, in place of a new tensor.
+    - *Static output.* ``samples`` (or ``packed``) lives in the graphs'
+      pool, and the next replay of the same graph overwrites it: the caller
+      copies it out on the same stream before it dispatches another window.
     - *Warm-up.* Before its capture each graph's window runs once eagerly
       on the capture stream, over the trash slot only (it writes the trash
-      slot and the trash block; the step counter it advances is put back),
-      so what a first call allocates — the decode kernel's arrival counters
-      and occupancy query, cuBLAS's workspace — lives outside the pool.
-      :meth:`capture_all` takes the largest bucket first, so the counters
-      never grow after a capture (``ops/paged_attention.py`` raises if they
-      would grow during one).
+      slot, the trash block and the history's trash cell; the step counter
+      it advances is put back), so what a first call allocates — the decode
+      kernel's arrival counters and occupancy query, cuBLAS's workspace —
+      lives outside the pool. :meth:`capture_all` takes the largest bucket
+      first, so the counters never grow after a capture
+      (``ops/paged_attention.py`` raises if they would grow during one).
     - *One pool.* All graphs share one memory pool: replays run one at a
       time on one stream, and every graph's output stays referenced here.
     - *Threads.* The engine captures every graph at construction, before
@@ -744,19 +895,23 @@ class AutopilotWindow:
     """
 
     def __init__(self, cfg: ModelConfig, eng: EngineConfig, K: int,
-                 device: torch.device):
+                 device: torch.device, spec_k: int = 0):
         self.raw = raw_autopilot_window_fn(cfg, eng, K)
+        self.raw_spec = (
+            raw_spec_window_fn(cfg, eng, spec_k, eng.spec_ngram_min,
+                               eng.spec_ngram_max) if spec_k > 0 else None)
         self.device = device
         self.graphed = device.type == "cuda"
         self.trash = eng.max_num_seqs       # ctl's trash slot S
-        self._graphs: Dict[Tuple[int, bool], Tuple[Any, torch.Tensor,
-                                                  Dict[str, int]]] = {}
+        self._graphs: Dict[Tuple[str, int, bool],
+                           Tuple[Any, torch.Tensor, Dict[str, int]]] = {}
         self._rows: Dict[int, torch.Tensor] = {}
-        self._bound: Optional[Tuple[Any, Any, Any]] = None
+        self._bound: Optional[Tuple[Any, Any, Any, Dict[str, Any]]] = None
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
         self.replays = 0
-        self.capture_s: Dict[Tuple[int, bool], float] = {}
+        self.spec_replays = 0
+        self.capture_s: Dict[Tuple[str, int, bool], float] = {}
         self.last_key = ""                   # the last graph captured
 
     def load_rows(self, cols: List[int]) -> torch.Tensor:
@@ -780,22 +935,33 @@ class AutopilotWindow:
 
     def _check_bound(self, params, cache, ctl) -> None:
         if self._bound is None:
-            self._bound = (params, cache, ctl)
-        bp, bc, bl = self._bound
-        if params is not bp or cache is not bc or ctl is not bl:
+            self._bound = (params, cache, ctl, dict(ctl))
+        bp, bc, bl, leaves = self._bound
+        if (params is not bp or cache is not bc or ctl is not bl
+                or len(ctl) != len(leaves)
+                or any(ctl.get(k) is not v for k, v in leaves.items())):
             raise RuntimeError(
-                "decode graphs are bound to the params, cache and ctl they "
-                "were captured over; update those in place")
+                "decode graphs are bound to the params, cache and ctl "
+                "tensors they were captured over; update those in place")
+
+    def _fn(self, spec: bool):
+        if spec and self.raw_spec is None:
+            raise RuntimeError("this window was built without spec_k")
+        return self.raw_spec if spec else self.raw
 
     def capture_all(self, params, cache, ctl, buckets) -> None:
-        """Capture every ``(B, stochastic)`` graph of ``buckets``, largest
-        bucket first (see the class docstring)."""
+        """Capture every ``(kind, B, stochastic)`` graph of ``buckets``,
+        largest bucket first (see the class docstring)."""
+        kinds = (False, True) if self.raw_spec is not None else (False,)
         for B in sorted(set(buckets), reverse=True):
-            for stochastic in (False, True):
-                self._capture(params, cache, ctl, B, stochastic)
+            for spec in kinds:
+                for stochastic in (False, True):
+                    self._capture(params, cache, ctl, B, stochastic, spec)
 
-    def _capture(self, params, cache, ctl, B: int, stochastic: bool):
+    def _capture(self, params, cache, ctl, B: int, stochastic: bool,
+                 spec: bool):
         self._check_bound(params, cache, ctl)
+        fn = self._fn(spec)
         t0 = time.perf_counter()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -806,19 +972,20 @@ class AutopilotWindow:
         with torch.cuda.stream(s):
             trash_rows = torch.full_like(rows, self.trash)
             ctr = ctl["ctr"].clone()
-            self.raw(params, cache, ctl, trash_rows, stochastic)
+            fn(params, cache, ctl, trash_rows, stochastic)
             ctl["ctr"].copy_(ctr)
         pa.take_recorded()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=s,
                               capture_error_mode="thread_local"):
-            _, _, samples = self.raw(params, cache, ctl, rows, stochastic)
+            _, _, out = fn(params, cache, ctl, rows, stochastic)
         torch.cuda.current_stream(self.device).wait_stream(s)
-        entry = (graph, samples, pa.take_recorded())
-        key = (B, stochastic)
+        entry = (graph, out, pa.take_recorded())
+        kind = "spec" if spec else "decode"
+        key = (kind, B, stochastic)
         self._graphs[key] = entry
         self.capture_s[key] = time.perf_counter() - t0
-        self.last_key = f"decode_window:B={B}:stochastic={int(stochastic)}"
+        self.last_key = f"{kind}_window:B={B}:stochastic={int(stochastic)}"
         return entry
 
     def pool_bytes(self) -> int:
@@ -830,27 +997,31 @@ class AutopilotWindow:
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def __call__(self, params, cache, ctl, slot_rows: torch.Tensor,
-                 stochastic: bool):
+                 stochastic: bool, spec: bool = False):
         if not self.graphed:
-            return self.raw(params, cache, ctl, slot_rows, stochastic)
+            return self._fn(spec)(params, cache, ctl, slot_rows, stochastic)
         B = slot_rows.shape[0]
-        entry = self._graphs.get((B, stochastic))
+        entry = self._graphs.get(("spec" if spec else "decode", B,
+                                  stochastic))
         if entry is None:
-            entry = self._capture(params, cache, ctl, B, stochastic)
+            entry = self._capture(params, cache, ctl, B, stochastic, spec)
         self._check_bound(params, cache, ctl)
         rows = self._rows[B]
         if slot_rows is not rows:
             rows.copy_(slot_rows)
-        graph, samples, held = entry
+        graph, out, held = entry
         graph.replay()
         pa.count_replay(held)
         self.replays += 1
-        return cache, ctl, samples
+        self.spec_replays += int(spec)
+        return cache, ctl, out
 
 
 def make_autopilot_fns(cfg: ModelConfig, eng: EngineConfig, K: int,
-                       Wcap: int, device: torch.device):
+                       Wcap: int, device: torch.device, spec_k: int = 0):
     """(window_fn, delta_fn) of the engine's decode path: the window is an
-    :class:`AutopilotWindow` (CUDA graphs on a card); the delta stays eager
-    (its row count varies, and joins and block growth are rare)."""
-    return AutopilotWindow(cfg, eng, K, device), raw_ctl_delta_fn(Wcap)
+    :class:`AutopilotWindow` (CUDA graphs on a card), which also serves the
+    spec window when ``spec_k`` > 0; the delta stays eager (its row count
+    varies, and joins and block growth are rare)."""
+    return (AutopilotWindow(cfg, eng, K, device, spec_k=spec_k),
+            raw_ctl_delta_fn(Wcap))

@@ -10,9 +10,11 @@ pipeline per model as workers come and go.
 A copy of ``dynamo_tpu.frontend.__main__``: round-robin, random and
 KV-aware routing (``--router-mode kv``: one ``KvRouter`` per model, fed by
 the workers' ``kv_events``), ``--busy-threshold``, admission control,
-``--request-timeout`` and the ``frontend_stats`` publisher. ``--grpc-port``
-(KServe) is refused; the planner's degradation watcher waits for the
-planner (item 1d). The frontend never touches the GPU.
+``--request-timeout``, the ``frontend_stats`` publisher, and the planner's
+degradation watcher, which applies ``planner/{ns}/degradation`` orders to
+admission (tier shedding needs ``--max-concurrent-requests``: without it
+there is no admission controller, as in the JAX frontend). ``--grpc-port``
+(KServe) is refused. The frontend never touches the GPU.
 With ``--port 0`` the log line ``frontend ready on HOST:PORT`` names the
 port bound.
 """
@@ -189,9 +191,20 @@ async def run_frontend(args: argparse.Namespace) -> None:
 
         stats_task = asyncio.create_task(_publish_stats())
 
+    # the planner's degradation ladder orders tier shedding through the
+    # store; apply it to admission as the orders move
+    from ..planner.degradation import DegradationWatcher
+
+    degradation_watcher = DegradationWatcher(
+        runtime.store, runtime.namespace().name,
+        service.apply_degradation,
+    )
+    degradation_watcher.start()
+
     async def _shutdown():
         if stats_task is not None:
             stats_task.cancel()
+        await degradation_watcher.stop()
         await watcher.stop()
         await service.stop()
         await runtime.shutdown()

@@ -1,10 +1,12 @@
 """A small HTTP/1.1 server on ``asyncio.start_server``.
 
 The port's stand-in for the part of ``aiohttp.web`` that the OpenAI frontend
-uses (the card's machine does not install aiohttp): an :class:`Application`
-of exact-path routes, :class:`Request` with ``headers`` and ``json()``,
-:class:`Response` / :func:`json_response` for whole bodies, and
-:class:`StreamResponse` for Server-Sent Events. What it does on the wire:
+and the system server use (the card's machine does not install aiohttp): an
+:class:`Application` of routes (exact paths, or aiohttp's ``{name}``
+segments, read back from ``request.match_info``), :class:`Request` with
+``headers``, ``query`` and ``json()``, :class:`Response` /
+:func:`json_response` for whole bodies, and :class:`StreamResponse` for
+Server-Sent Events. What it does on the wire:
 
 - reads the request line, the headers (at most ``MAX_HEADER_BYTES``, else
   431) and a ``Content-Length`` body (at most ``MAX_BODY_BYTES``, else 413);
@@ -25,8 +27,10 @@ from __future__ import annotations
 
 import asyncio
 import json
+import re
 from http import HTTPStatus
-from typing import Any, Awaitable, Callable, Dict, List, Optional, Set
+from typing import Any, Awaitable, Callable, Dict, List, Optional, Set, Tuple
+from urllib.parse import parse_qsl, unquote
 
 from ..utils.logging import get_logger
 
@@ -59,11 +63,16 @@ class _Headers:
 
 class Request:
     def __init__(self, method: str, path: str, version: str,
-                 headers: _Headers, body: bytes, conn: "_Connection"):
+                 headers: _Headers, body: bytes, conn: "_Connection",
+                 query: str = ""):
         self.method = method
         self.path = path
         self.version = version
         self.headers = headers
+        # the query string's parameters (the last value of a repeated name)
+        self.query: Dict[str, str] = dict(parse_qsl(query))
+        # the path's ``{name}`` segments of the route that matched
+        self.match_info: Dict[str, str] = {}
         self._body = body
         self._conn = conn
 
@@ -168,6 +177,22 @@ def post(path: str, handler: Handler) -> RouteDef:
     return RouteDef("POST", path, handler)
 
 
+def delete(path: str, handler: Handler) -> RouteDef:
+    return RouteDef("DELETE", path, handler)
+
+
+def _pattern(path: str) -> "re.Pattern[str]":
+    """A route path with ``{name}`` segments as a regex that captures each
+    (one path segment, as aiohttp's default)."""
+    out, pos = [], 0
+    for m in re.finditer(r"\{(\w+)\}", path):
+        out.append(re.escape(path[pos:m.start()]))
+        out.append(f"(?P<{m.group(1)}>[^/]+)")
+        pos = m.end()
+    out.append(re.escape(path[pos:]))
+    return re.compile("".join(out))
+
+
 class _Connection:
     """One client socket: the bytes read ahead of the current request and
     the writer."""
@@ -227,14 +252,17 @@ def _parse_head(head: bytes):
         if not sep or not name or name != name.strip():
             raise BadRequest(f"bad header line {line[:60]!r}")
         pairs.append((name, value.strip()))
-    return method, target.split("?", 1)[0], version, _Headers(pairs)
+    path, _, query = target.partition("?")
+    return method, path, query, version, _Headers(pairs)
 
 
 class Application:
-    """Exact-path routes served over one listening socket."""
+    """Routes served over one listening socket: exact paths first, then
+    paths with ``{name}`` segments in the order they were added."""
 
     def __init__(self):
         self._routes: Dict[str, Dict[str, Handler]] = {}
+        self._patterns: List[Tuple["re.Pattern[str]", Dict[str, Handler]]] = []
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: Set[asyncio.Task] = set()
         self.port: Optional[int] = None
@@ -242,8 +270,29 @@ class Application:
     def add_routes(self, routes: List[Any]) -> None:
         for r in routes:
             for one in r if isinstance(r, list) else [r]:
-                self._routes.setdefault(one.path, {})[one.method] = \
-                    one.handler
+                if "{" not in one.path:
+                    self._routes.setdefault(one.path, {})[one.method] = \
+                        one.handler
+                    continue
+                pat = _pattern(one.path)
+                for known, methods in self._patterns:
+                    if known.pattern == pat.pattern:
+                        methods[one.method] = one.handler
+                        break
+                else:
+                    self._patterns.append((pat, {one.method: one.handler}))
+
+    def _resolve(self, path: str):
+        """(methods, match_info) of the route for ``path``, or (None, {})."""
+        methods = self._routes.get(path)
+        if methods is not None:
+            return methods, {}
+        for pat, methods in self._patterns:
+            m = pat.fullmatch(path)
+            if m:
+                return methods, {k: unquote(v)
+                                 for k, v in m.groupdict().items()}
+        return None, {}
 
     async def start(self, host: str, port: int) -> int:
         """Listen; returns the bound port (``port`` 0 picks a free one)."""
@@ -299,7 +348,7 @@ class Application:
         head = await conn.read_head(MAX_HEADER_BYTES)
         if head is None:
             return False
-        method, path, version, headers = _parse_head(head)
+        method, path, query, version, headers = _parse_head(head)
         if "chunked" in (headers.get("Transfer-Encoding") or "").lower():
             raise BadRequest("chunked request bodies are not supported")
         try:
@@ -311,8 +360,8 @@ class Application:
         if length > MAX_BODY_BYTES:
             raise _TooLarge(413)
         body = await conn.read_body(length)
-        request = Request(method, path, version, headers, body, conn)
-        methods = self._routes.get(path)
+        request = Request(method, path, version, headers, body, conn, query)
+        methods, request.match_info = self._resolve(path)
         if methods is None:
             resp = Response(status=404, text="404: Not Found")
         elif method not in methods:

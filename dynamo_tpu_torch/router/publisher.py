@@ -8,9 +8,10 @@ ForwardPassMetrics-equivalent scheduler stats for the metrics aggregator and
 busy-threshold routing.
 
 A copy of ``dynamo_tpu.router.publisher`` on the package's own codec. The
-load snapshot carries the scheduler stats and what ``extra_fn`` adds; the
-JAX package's spec, flight-recorder, KVBM, preemption and fault-firing keys
-come with those features. Block hashes come from this package's
+load snapshot carries the scheduler stats, what ``extra_fn`` adds, and the
+JAX package's ``spec`` (SpecDecodeStats), ``obs`` (flight recorder) and
+``faults`` (fault-plan firings) keys; its KVBM and preemption keys come
+with ROADMAP.md queue A item 4. Block hashes come from this package's
 ``tokens.py`` (xxh3, as in the JAX package), so the events name the same
 hashes as a JAX worker's for the same tokens.
 """
@@ -120,12 +121,19 @@ class WorkerMetricsPublisher:
 
     def __init__(
         self, component: Component, worker_id: int, stats_fn,
-        interval_s: float = 1.0, extra_fn=None,
+        interval_s: float = 1.0, extra_fn=None, spec_fn=None, obs_fn=None,
+        faults_fn=None,
     ):
         self.component = component
         self.worker_id = worker_id
         self.stats_fn = stats_fn      # () -> SchedulerStats
         self.extra_fn = extra_fn      # () -> dict merged into the snapshot
+        self.spec_fn = spec_fn        # () -> SpecDecodeStats dict ("spec" key)
+        self.obs_fn = obs_fn          # () -> flight-recorder dict ("obs" key)
+        # () -> {"site/kind": fired} fault-plan firing counts ("faults"
+        # key) — how chaos injected into a live worker reaches the
+        # aggregator's worker_faults_fired_total gauge
+        self.faults_fn = faults_fn
         self.interval_s = interval_s
         self.subject = component.event_subject(LOAD_METRICS_SUBJECT)
         self._task: Optional[asyncio.Task] = None
@@ -155,6 +163,25 @@ class WorkerMetricsPublisher:
                 snap.update(self.extra_fn())
             except Exception:
                 log.exception("metrics extra_fn failed")
+        if self.spec_fn is not None:
+            try:
+                snap["spec"] = dict(self.spec_fn())
+            except Exception:
+                log.exception("metrics spec_fn failed")
+        if self.obs_fn is not None:
+            try:
+                obs = self.obs_fn()
+                if obs:
+                    snap["obs"] = dict(obs)
+            except Exception:
+                log.exception("metrics obs_fn failed")
+        if self.faults_fn is not None:
+            try:
+                fired = self.faults_fn()
+                if fired:
+                    snap["faults"] = dict(fired)
+            except Exception:
+                log.exception("metrics faults_fn failed")
         return snap
 
     async def _pump(self) -> None:

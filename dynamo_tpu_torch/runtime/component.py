@@ -8,9 +8,9 @@ deregisters them automatically. ``Client`` watches that prefix and keeps a
 live instance list for routing (ref: component/client.rs:285).
 
 A copy of ``dynamo_tpu.runtime.component`` on the package's own codec. The
-system server (/health /live /metrics, built on aiohttp in the JAX package)
-is not ported yet: :meth:`DistributedRuntime.start_system_server` is
-refused, and ``from_settings`` refuses every setting this package does not
+system server (/health /live /metrics, ``runtime/system_server.py``, on the
+port's own HTTP server) starts when ``system_enabled`` is set, as in the
+JAX package; ``from_settings`` refuses every setting this package does not
 serve (``utils.config.check_supported``).
 """
 
@@ -73,6 +73,7 @@ class DistributedRuntime:
         self.metrics = MetricsRegistry(prefix="dynamo")
         self.shutdown_event = asyncio.Event()
         self._ingress_servers: List[IngressServer] = []
+        self.system_server = None  # started when config.system_enabled
         # (endpoint_path, store_key) pairs written by register_llm so
         # graceful endpoint shutdown also deregisters the models
         self.registered_models: List[tuple] = []
@@ -101,15 +102,18 @@ class DistributedRuntime:
         )
         if config.trace_export_path:
             tracer.add_jsonl(config.trace_export_path)
-        return DistributedRuntime(store, config)
+        runtime = DistributedRuntime(store, config)
+        if config.system_enabled:
+            await runtime.start_system_server(port=config.system_port)
+        return runtime
 
     async def start_system_server(self, port: int = 0) -> None:
-        """/health /live /metrics (ref: system_status_server.rs): not
-        ported yet."""
-        raise NotImplementedError(
-            "the system server is not served by dynamo_tpu_torch yet "
-            "(ROADMAP.md queue A, item 1d)"
-        )
+        """Start /health /live /metrics (ref: system_status_server.rs)."""
+        from .system_server import SystemServer
+
+        self.system_server = SystemServer(metrics=self.metrics, port=port,
+                                          store=self.store)
+        await self.system_server.start()
 
     def _on_lease_lost(self) -> None:
         log.error("primary lease lost — shutting down runtime")
@@ -125,6 +129,9 @@ class DistributedRuntime:
     async def shutdown(self) -> None:
         self.shutdown_event.set()
         tracing.get_tracer().detach_metrics(self.metrics)
+        if self.system_server is not None:
+            self.system_server.set_live(False)
+            await self.system_server.stop()
         for srv in self._ingress_servers:
             await srv.stop()
         await self.transport.close()

@@ -888,6 +888,32 @@ class StoreClient:
                 self._start_recovery()
                 return
 
+    async def kick_keepalive(self) -> bool:
+        """Send one primary-lease keepalive now, outside the periodic loop.
+
+        Chaos-replay hook: a ``store.call``/``lease_keepalive`` fault rule
+        gates an op the replay clock does not control — the periodic loop's
+        phase is set at client spawn, so whether a finite-``times`` rule
+        fires within a replay window depends on wall-clock luck. Kicking at
+        wave install pins each firing to a deterministic point. A failed
+        kick takes the same recovery path as a failed periodic tick.
+        """
+        try:
+            resp = await asyncio.wait_for(
+                self._call(
+                    {"op": "lease_keepalive", "lease": self.primary_lease}
+                ),
+                timeout=self._lease_ttl_s,
+            )
+            if not resp.get("ok"):
+                raise LeaseExpired("primary lease expired")
+            return True
+        except Exception:
+            if not self._closed:
+                log.warning("kicked keepalive failed — recovering")
+                self._start_recovery()
+            return False
+
     # -- reconnect / lease recovery --
 
     def _fail_pending(self) -> None:

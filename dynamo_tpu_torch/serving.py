@@ -3,11 +3,17 @@ components/backends/*/src/dynamo/*/main.py — create runtime, serve generate +
 clear_kv_blocks, attach publishers, register the model, drain on signal).
 
 A copy of ``dynamo_tpu.serving`` for the aggregated path this package
-serves. Health probes and the planner's degradation watcher are refused by
-``utils.config.check_supported`` (ROADMAP.md queue A, item 1d); the
-embeddings endpoint (item 7), the multimodal encode handler (item 7) and the
-preemption coordinator (item 2) are not ported, so the card advertises chat
-and completions only.
+serves, with the JAX package's opt-in control plane: the ``engine_*``
+gauges and the ``obs``/``spec``/``faults`` keys of the load snapshot, canary
+health probes that withdraw and readvertise the instance
+(``DYNTPU_HEALTH_CHECK_ENABLED``), the planner's degradation watcher with
+``apply_engine_clamps`` (``DYNTPU_PLANNER_APPLY_DEGRADATION``) and the
+``POST /drain`` trigger of the system server (``DYNTPU_SYSTEM_ENABLED``).
+The embeddings endpoint (ROADMAP.md queue A, item 7), the multimodal encode
+handler (item 7) and the preemption coordinator (item 4) are not ported, so
+the card advertises chat and completions only, and the ``evict_to_host``
+order stays inert (no engine prefix cache before item 4, as in a JAX
+worker without one).
 """
 
 from __future__ import annotations
@@ -64,9 +70,30 @@ async def serve_engine(
     kv_pub = KvEventPublisher(endpoint.component, runtime.primary_lease)
     kv_pub.start()
     engine.kv_event_sink = kv_pub.sink
+    st = getattr(engine, "spec_stats", None)
+    # flight recorder: worker-local engine_* gauges on /metrics, and the
+    # same snapshot rides the load-metrics wire ("obs" key) so the
+    # aggregator gets per-worker MFU/goodput/waste for planner signals
+    obs_fn = None
+    if getattr(engine, "obs", None) is not None:
+        from .observability.gauges import EngineObsGauges
+
+        obs_gauges = EngineObsGauges(runtime.metrics, engine)
+        obs_fn = obs_gauges.refresh
+
+    def _faults_fired() -> dict:
+        # installed via /debug/faults (chaos replay) or in-process tests;
+        # empty when no plan is active so the snapshot stays lean
+        from .runtime import faults
+
+        plan = faults.current()
+        return plan.fired_counts() if plan is not None else {}
 
     metrics_pub = WorkerMetricsPublisher(
-        endpoint.component, runtime.primary_lease, lambda: engine.stats
+        endpoint.component, runtime.primary_lease, lambda: engine.stats,
+        spec_fn=st.to_dict if st is not None else None,
+        obs_fn=obs_fn,
+        faults_fn=_faults_fired,
     )
     metrics_pub.start()
 
@@ -79,6 +106,63 @@ async def serve_engine(
     await clear_ep.serve_endpoint(
         clear_kv, advertise_host=opts.advertise_host
     )
+
+    # active canary probes through the real generate path
+    # (ref: health_check.rs:44; enabled by DYNTPU_HEALTH_CHECK_ENABLED)
+    if runtime.config.health_check_enabled:
+        from .runtime.health import (
+            HealthCheckConfig, HealthCheckManager, engine_canary,
+        )
+
+        def _withdraw(name: str) -> None:
+            log.warning("health probe %s unhealthy — withdrawing instance", name)
+            spawn_logged(served.withdraw(), name="health-withdraw")
+
+        def _readvertise(name: str) -> None:
+            log.info("health probe %s recovered — re-advertising instance", name)
+            spawn_logged(served.readvertise(), name="health-readvertise")
+
+        health = HealthCheckManager(
+            HealthCheckConfig(period_s=runtime.config.health_check_period_s),
+            on_unhealthy=_withdraw,
+            on_recovered=_readvertise,
+        )
+        target = f"{opts.component}/{opts.endpoint}"
+        health.register(target, engine_canary(engine))
+        health.start()
+        served.health_manager = health
+        if runtime.system_server is not None:
+            runtime.system_server.register_probe(
+                target, lambda: health.status(target)
+            )
+
+    # the planner's degradation ladder can clamp spec_k /
+    # prefill_chunk_tokens cluster-wide; opt-in per worker
+    # (DYNTPU_PLANNER_APPLY_DEGRADATION) because mutating a live engine
+    # config is a behavior change operators must choose
+    if runtime.config.planner_apply_degradation:
+        from .planner.degradation import (
+            DegradationWatcher, apply_engine_clamps,
+        )
+
+        originals: dict = {}
+
+        def _apply(actions: dict) -> None:
+            changed = apply_engine_clamps(eng_cfg, actions, originals)
+            if changed:
+                log.info("degradation orders applied to engine: %s", changed)
+            # evict_to_host rung: demotes idle prefix blocks to the host
+            # pool in the JAX package; inert while engine.prefix is None
+            n_evict = int(actions.get("evict_to_host") or 0)
+            px = getattr(engine, "prefix", None)
+            if n_evict > 0 and px is not None:
+                spawn_logged(px.evict_to_host(n_evict),
+                             name="prefix-evict-to-host")
+
+        served.degradation_watcher = DegradationWatcher(
+            runtime.store, runtime.namespace().name, _apply
+        )
+        served.degradation_watcher.start()
 
     if tokenizer is not None:
         card = ModelDeploymentCard(
@@ -108,10 +192,11 @@ async def run_until_shutdown(
     runtime: DistributedRuntime, engine: EngineCore,
     served, kv_pub, metrics_pub,
 ) -> None:
-    """Install the graceful drain on SIGINT/SIGTERM, then block on runtime
-    shutdown. The JAX package also builds a ``PreemptionCoordinator`` here
-    (maintenance notices on SIGUSR1 evacuate KV before the drain); it waits
-    for the preemption slice (ROADMAP.md queue A, item 2)."""
+    """Install the graceful drain triggers (SIGINT/SIGTERM and, when the
+    system server is up, ``POST /drain``), then block on runtime shutdown.
+    The JAX package also builds a ``PreemptionCoordinator`` here
+    (maintenance notices on SIGUSR1 or ``POST /preempt`` evacuate KV before
+    the drain); it waits for ROADMAP.md queue A, item 4."""
     loop = asyncio.get_running_loop()
 
     def _graceful():
@@ -120,6 +205,12 @@ async def run_until_shutdown(
         spawn_logged(_shutdown(), name="drain-shutdown")
 
     async def _shutdown():
+        health = getattr(served, "health_manager", None)
+        if health is not None:
+            await health.stop()
+        degradation = getattr(served, "degradation_watcher", None)
+        if degradation is not None:
+            await degradation.stop()
         await served.drain_and_stop(
             deadline_s=runtime.config.drain_timeout_s
         )
@@ -128,9 +219,14 @@ async def run_until_shutdown(
         await engine.stop()
         await runtime.shutdown()
 
-    # the first signal starts the drain; a REPEAT signal while draining
-    # hard-exits (see runtime/signals.py)
-    install_shutdown_signals(_graceful, loop=loop, name="worker-drain")
+    # signals and POST /drain share one once-latch: whichever arrives
+    # first starts the drain, the rest are no-ops (a REPEAT signal while
+    # draining hard-exits — see runtime/signals.py)
+    guard = install_shutdown_signals(_graceful, loop=loop, name="worker-drain")
+    if runtime.system_server is not None:
+        runtime.system_server.register_drain(
+            served.endpoint.path, guard.trigger
+        )
     await runtime.shutdown_event.wait()
 
 

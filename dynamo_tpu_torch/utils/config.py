@@ -7,11 +7,13 @@ Equivalent role to the reference's figment-based ``RuntimeConfig``
 
 A copy of ``dynamo_tpu.utils.config`` holding the settings this package
 reads, under the JAX package's names, defaults and environment variables,
-so one deployment's settings configure processes of either package. The
-switches of paths not ported yet are kept too, so that :func:`check_supported`
-refuses them; ``prefix_enabled`` defaults to off here. The JAX package's
-tuning knobs of those paths (spec decode, disagg, preemption, planner, the
-profile directory of ``/debug/profile``) come with them.
+so one deployment's settings configure processes of either package: the
+system server, health probes, speculative decoding and the planner's
+degradation ladder among them. The switch of the radix prefix cache, not
+ported yet, is kept too, so that :func:`check_supported` refuses it;
+``prefix_enabled`` defaults to off here. The JAX package's tuning knobs of
+the paths not ported yet (disagg, preemption, KVBM, the profile directory
+of ``/debug/profile``) come with them.
 """
 
 from __future__ import annotations
@@ -60,11 +62,15 @@ class RuntimeConfig:
 
     namespace: str = "dynamo"
     store_addr: str = "127.0.0.1:3280"  # lease-KV discovery store (etcd role)
+    system_port: int = 0  # 0 = disabled; /health /live /metrics server
+    system_enabled: bool = False
     request_timeout_s: float = 600.0
     # frontend admission control: 0 disables the limiter entirely
     max_concurrent_requests: int = 0
     max_queued_requests: int = 16
     retry_after_s: float = 1.0
+    health_check_enabled: bool = False
+    health_check_period_s: float = 10.0
     lease_ttl_s: float = 10.0  # ref: transports/etcd.rs:89-95 (10 s TTL)
     # graceful drain: in-flight streams get this long to finish before they
     # are stopped (clients migrate the remainder to another worker)
@@ -88,8 +94,14 @@ class RuntimeConfig:
     trace_export_path: str = ""
     # in-process span ring buffer
     trace_buffer_size: int = 4096
-    # "off" | "ngram" (only "off" is served: EngineConfig refuses ngram)
+    # -- speculative decoding defaults (worker flags override) --
+    # "off" | "ngram"; see EngineConfig.spec_mode for semantics
     spec_mode: str = "off"
+    spec_k: int = 4
+    # acceptance rate below which drafting auto-disables (0 = never),
+    # checked once spec_auto_disable_window draft tokens were verified
+    spec_auto_disable_threshold: float = 0.0
+    spec_auto_disable_window: int = 256
     # chunked prefill: per-chunk token cap so long prompts interleave with
     # running decodes (0 = whole-bucket prefill)
     prefill_chunk_tokens: int = 0
@@ -108,10 +120,21 @@ class RuntimeConfig:
     # append every landed StepRecord as one JSON line here ("" disables);
     # render offline with `python -m dynamo_tpu_torch.observability <path>`
     obs_stepstats_path: str = ""
-    # -- switches of paths not served yet (check_supported refuses) --
-    system_enabled: bool = False
-    health_check_enabled: bool = False
+    # -- SLA planner (the JAX package's python -m dynamo_tpu.planner) --
+    # latency statistic the SLAs are enforced on: "p99" | "p50" | "avg"
+    planner_sla_quantile: str = "p99"
+    # graceful-degradation ladder (shed -> clamp spec_k -> tighten
+    # chunking) ordered before scaling; see planner/degradation.py
+    planner_degradation_enabled: bool = True
+    planner_engage_ratio: float = 1.5
+    planner_release_ratio: float = 1.0
+    planner_shed_tier: int = 1
+    planner_spec_k_clamp: int = 1
+    planner_chunk_clamp_tokens: int = 256
+    # workers poll planner/{ns}/degradation and clamp their engine knobs
+    # when enabled (frontends always apply tier shedding)
     planner_apply_degradation: bool = False
+    # -- switches of paths not served yet (check_supported refuses) --
     # the radix prefix cache (on by default in the JAX package)
     prefix_enabled: bool = False
 
@@ -143,10 +166,6 @@ class RuntimeConfig:
 # settings whose path this package does not serve yet, with the ROADMAP.md
 # item that brings each
 _UNPORTED = (
-    ("system_enabled", "the system server (ROADMAP.md queue A, item 1d)"),
-    ("health_check_enabled", "health probes (ROADMAP.md queue A, item 1d)"),
-    ("planner_apply_degradation",
-     "the planner's degradation watcher (ROADMAP.md queue A, item 1d)"),
     ("prefix_enabled", "the radix prefix cache (ROADMAP.md queue A, item 4)"),
 )
 

@@ -17,6 +17,10 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+# the exposition's content type, as prometheus_client's CONTENT_TYPE_LATEST
+# names it (what the JAX system server sends with /metrics)
+CONTENT_TYPE_LATEST = "text/plain; version=1.0.0; charset=utf-8"
+
 # Frequency buckets tuned for LLM serving latencies (TTFT/ITL in seconds),
 # same role as the reference's http/service/metrics.rs histograms.
 LATENCY_BUCKETS = (

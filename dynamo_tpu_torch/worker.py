@@ -13,7 +13,10 @@ A copy of ``dynamo_tpu.worker``: the parser keeps the JAX package's flags and
 defaults, so a JAX command line parses unchanged, and adds ``--device``
 (``cuda`` unless asked for the CPU; with no device given and no GPU present
 the worker raises). It serves the aggregated path on one device with seeded
-random weights, bf16/int8/fp8 weights and KV, and the engine sizing flags.
+random weights, bf16/int8/fp8 weights and KV, speculative decoding
+(``--spec-mode ngram --spec-k K``) and the engine sizing flags; the control
+plane (system server, health probes, degradation watcher) comes from the
+runtime settings, as in the JAX package.
 Every flag whose path this package does not serve yet raises
 ``NotImplementedError`` naming the ROADMAP.md item that brings it.
 """
@@ -81,8 +84,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pp-microbatches", type=int, default=4)
     p.add_argument("--migration-limit", type=int, default=3)
     p.add_argument("--spec-mode", default=None, choices=["off", "ngram"],
-                   help="speculative decoding (only off is served; "
-                        "default: DYNTPU_SPEC_MODE, off)")
+                   help="speculative decoding: device-side n-gram drafting "
+                        "+ batched verify (default: DYNTPU_SPEC_MODE, off)")
     p.add_argument("--spec-k", type=int, default=None,
                    help="max draft tokens verified per window "
                         "(default: DYNTPU_SPEC_K, 4)")
@@ -154,8 +157,6 @@ def check_supported(args: argparse.Namespace) -> None:
          "the checkpoint loader (ROADMAP.md queue A, item 5)"),
         (args.mesh.replace(" ", "") != "1,1", f"--mesh {args.mesh}", a6),
         (args.pp > 1, f"--pp {args.pp}", a6),
-        (args.spec_mode == "ngram", "--spec-mode ngram",
-         "speculative decoding (ROADMAP.md queue A, item 3)"),
         (args.attention_impl == "auto", "--attention-impl auto",
          "autotune (ROADMAP.md queue A, item 7)"),
         (args.disagg_mode != "agg", f"--disagg-mode {args.disagg_mode}", a4),
@@ -205,6 +206,9 @@ async def run_worker(args: argparse.Namespace) -> None:
         ),
         spec_mode=(args.spec_mode if args.spec_mode is not None
                    else config.spec_mode),
+        spec_k=(args.spec_k if args.spec_k is not None else config.spec_k),
+        spec_auto_disable_threshold=config.spec_auto_disable_threshold,
+        spec_auto_disable_window=config.spec_auto_disable_window,
         weight_dtype=(args.weight_dtype if args.weight_dtype is not None
                       else config.weight_dtype),
         kv_dtype=(args.kv_dtype if args.kv_dtype is not None

@@ -131,7 +131,7 @@ def test_importing_the_port_loads_nothing_forbidden():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(spec_mode="ngram"), dict(mesh_shape=(1, 2)), dict(pp_stages=2),
+    dict(mesh_shape=(1, 2)), dict(pp_stages=2),
     dict(sp_prefill_threshold=1024),
 ], ids=lambda k: next(iter(k)))
 def test_unserved_paths_are_refused(knob):
@@ -140,6 +140,16 @@ def test_unserved_paths_are_refused(knob):
         check_supported(eng)
     with pytest.raises(NotImplementedError):
         InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+
+
+def test_spec_mode_is_served():
+    eng = EngineConfig(num_blocks=16, spec_mode="ngram")
+    check_supported(eng)
+    engine = InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+    assert engine.pipeline_depth == 1
+    assert engine.scheduler.spec_plan_window == eng.spec_k + 1
+    assert engine._ctl["hist"].shape == (eng.max_num_seqs + 1,
+                                         eng.max_model_len + 1)
 
 
 @pytest.mark.parametrize("knob", [
@@ -173,7 +183,7 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 @pytest.mark.parametrize("flags", [
     ["--weights", "/ckpt"], ["--mesh", "1,2"], ["--pp", "2"],
-    ["--spec-mode", "ngram"], ["--attention-impl", "auto"],
+    ["--attention-impl", "auto"],
     ["--disagg-mode", "prefill"], ["--disagg-queue"],
     ["--kvbm-host-blocks", "64"], ["--kvbm-remote"], ["--mm-encoder"],
     ["--mm-encode-component", "encoder"], ["--coordinator", "h0:1234"],
@@ -185,6 +195,15 @@ def test_worker_refuses_unserved_flags(flags):
     args = worker.parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         asyncio.run(worker.run_worker(args))
+
+
+def test_worker_serves_spec_mode():
+    from dynamo_tpu_torch import worker
+
+    args = worker.parse_args(["--device", "cpu", "--spec-mode", "ngram",
+                              "--spec-k", "3"])
+    worker.check_supported(args)
+    assert (args.spec_mode, args.spec_k) == ("ngram", 3)
 
 
 def test_worker_maps_the_jax_attention_names():
@@ -212,9 +231,7 @@ def test_frontend_serves_every_router_mode(mode):
     frontend.check_supported(frontend.parse_args(["--router-mode", mode]))
 
 
-@pytest.mark.parametrize("env", [
-    "DYNTPU_PREFIX_ENABLED", "DYNTPU_SYSTEM_ENABLED",
-    "DYNTPU_HEALTH_CHECK_ENABLED", "DYNTPU_PLANNER_APPLY_DEGRADATION"])
+@pytest.mark.parametrize("env", ["DYNTPU_PREFIX_ENABLED"])
 def test_runtime_refuses_unserved_settings(monkeypatch, env):
     from dynamo_tpu_torch.runtime.component import DistributedRuntime
     from dynamo_tpu_torch.utils.config import RuntimeConfig
@@ -223,6 +240,18 @@ def test_runtime_refuses_unserved_settings(monkeypatch, env):
     monkeypatch.setenv(env, "1")
     with pytest.raises(NotImplementedError, match=env):
         asyncio.run(DistributedRuntime.from_settings())
+
+
+@pytest.mark.parametrize("env", [
+    "DYNTPU_SYSTEM_ENABLED", "DYNTPU_HEALTH_CHECK_ENABLED",
+    "DYNTPU_PLANNER_APPLY_DEGRADATION"])
+def test_runtime_serves_control_plane_settings(monkeypatch, env):
+    from dynamo_tpu_torch.utils.config import RuntimeConfig, check_supported
+
+    monkeypatch.setenv(env, "1")
+    cfg = RuntimeConfig.from_settings()
+    check_supported(cfg)
+    assert getattr(cfg, env[len("DYNTPU_"):].lower()) is True
 
 
 def test_routed_pipeline_refuses_a_multimodal_card():
