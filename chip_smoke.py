@@ -96,6 +96,37 @@ Phases (any failure exits non-zero and prints no result line):
    A ``[hash]`` line times the block hashes of one 512-token prompt. Child
    logs go to ``build/dist/``.
 
+7. move KV (``[kvmove]`` lines), at Llama-3.2-1B width, bf16 unless said:
+   (a) ``make_kv_ops`` gathers 32 random blocks of a random cache to pinned
+   host memory and scatters them in place into 32 others, for bf16, int8
+   and fp8 pages with their scales: bitwise equal to a plain host copy, the
+   cache tensors keep their storage, and the decode face over the injected
+   blocks agrees with its plain version; the bf16 gather + copy is timed;
+   (b) a prefill engine and a decode engine on the card, joined by the
+   device plane (``DevicePlane``, ``PrefillHandler``, ``DecodeHandler``),
+   serve phase 3's traffic: every handoff moves one prompt's 16 MiB, every
+   decode window is a graph replay over injected KV, both faces launch,
+   and the streams meet ``check_parity`` against phase 3's engine (an
+   eager rerun with its logits recorded); TTFT and ITL beside phase 3's,
+   the plane's and the engine's extract times for one prompt; (e) a
+   system server's ``POST /preempt`` makes the preemption coordinator
+   evacuate 16 mid-stream seats to a co-resident peer engine (their
+   streams go on there) and then 16 to the host tier (their re-admission
+   prefills onboard the spilled blocks), each spliced stream held to
+   ``check_parity``, with the report's counts and the kill-to-next-token
+   time; then, after phase 6, across processes: the relay frame's host
+   cost for one prompt, the ragged face at the shape of a prefill over an
+   onboarded prompt against its plain version, (c) a ``--disagg-mode
+   prefill --disagg-queue`` worker with a ``--disagg-mode decode`` worker,
+   then one with ``--disagg-queue``, behind a frontend (TTFT and ITL beside
+   phase 6's aggregated worker, the relay's spans), (d) a worker with
+   ``--kvbm-host-blocks`` and a G3 directory serves phase 6's shared-prefix
+   groups, its G1 is cleared and the second pass onboards from the host
+   tier (onboarded blocks, prefix hit tokens, ragged launches over the
+   onboarded prefix, both passes' TTFT), and (e) ``POST /preempt`` on that
+   worker spills 8 mid-stream seats to its host tier and it drains and
+   exits 0.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
@@ -577,6 +608,15 @@ def depth_stats(tag: str, cfg, outs, stamps, wall: float, obs: dict,
     return stats
 
 
+def main_prompts(vocab: int):
+    """Phase 3's traffic: N_REQUESTS random prompts of ISL tokens."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    return [torch.randint(1, vocab, (ISL,), generator=gen).tolist()
+            for _ in range(N_REQUESTS)]
+
+
 def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
     """Serve N_REQUESTS concurrent greedy requests through the engine API
     ``run.py in=batch`` uses, at full Llama-3.2-1B width, with weights and
@@ -605,9 +645,7 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
     print(f"{tag} Llama-3.2-1B random weights (seed {SEED}), weights and "
           f"KV {dtype}, on {engine.device} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    gen = torch.Generator().manual_seed(SEED + 1)
-    prompts = [torch.randint(1, cfg.vocab_size, (ISL,), generator=gen)
-               .tolist() for _ in range(N_REQUESTS)]
+    prompts = main_prompts(cfg.vocab_size)
 
     async def one(token_ids, max_tokens, stamps):
         req = {"token_ids": token_ids, "max_tokens": max_tokens,
@@ -888,9 +926,9 @@ def serve_batch(engine, prompts, max_tokens, after_warmup=None):
 def tapped_run(engine, prompts):
     """Serve ``prompts`` through the non-spec ``engine`` at depth 1 with its
     decode windows run eagerly (bitwise their graphs, as ``[graph]``
-    checks), recording each decode window's top-PARITY_TOPK logits per
-    seat. Returns (streams, {(request, output index): (token ids,
-    logits)})."""
+    checks), recording the top-PARITY_TOPK logits of each request's final
+    prefill chunk (output index 0) and of each decode window per seat.
+    Returns (streams, {(request, output index): (token ids, logits)})."""
     import torch
 
     from dynamo_tpu_torch.engine import model as model_lib
@@ -906,6 +944,13 @@ def tapped_run(engine, prompts):
         return out
 
     def unpack_tapped(batch, landing):
+        # one logits call per prefill chunk (dispatched first), then the
+        # decode window's; a final chunk samples output index 0
+        for i, chunk in enumerate(batch.prefills):
+            r = index.get(tuple(chunk.seq.prompt_ids[:SPEC_SEGMENT]))
+            if chunk.final and r is not None:
+                vals, ids = (t.cpu().tolist() for t in taps[i])
+                rec[r, 0] = (ids[0], vals[0])
         if landing.decode_shape is not None:
             vals, ids = (t.cpu().tolist() for t in taps[-1])
             col_of = {}
@@ -933,18 +978,20 @@ def tapped_run(engine, prompts):
     return outs, rec
 
 
-def check_parity(want, rec, got, what: str):
-    """The parity rule: ``got`` (spec) equals ``want`` (the non-spec run
+def check_parity(want, rec, got, what: str, tag: str = "[spec]"):
+    """The parity rule: ``got`` (spec, or another path such as phase 7's
+    disaggregated or evacuated streams) equals ``want`` (the non-spec run
     whose logits ``rec`` holds) token for token, but may part where the
-    spec token sits under PARITY_MARGIN x |top logit| below the non-spec
-    run's top logit; prints each parting. Returns the partings."""
+    other token sits under PARITY_MARGIN x |top logit| below the non-spec
+    run's top logit; prints each parting under ``tag``. Returns the
+    partings."""
     partings = []
     for r, (a, b) in enumerate(zip(want, got)):
         j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if j is None:
             continue
         if (r, j) not in rec:
-            fail(f"spec stream {r} parts at token {j}, where no decode "
+            fail(f"{tag} stream {r} parts at token {j}, where no decode "
                  f"window's logits were recorded")
         ids, vals = rec[r, j]
         top = vals[0]
@@ -952,7 +999,7 @@ def check_parity(want, rec, got, what: str):
         gap = vals[0] - vals[ids.index(b[j])] if b[j] in ids else None
         limit = PARITY_MARGIN * abs(top)
         partings.append((r, j, margin, gap))
-        print(f"[spec] parity vs {what}: request {r} parts at output token "
+        print(f"{tag} parity vs {what}: request {r} parts at output token "
               f"{j}: non-spec {a[j]} (its run's top {ids[0]}, logit "
               f"{top:.4f}), spec {b[j]}: the non-spec run's top-2 margin "
               f"{margin:.5f}, spec token "
@@ -963,7 +1010,7 @@ def check_parity(want, rec, got, what: str):
               + ("met" if margin < PARITY_FINE * abs(top) else "not met")
               + ")", flush=True)
         if ids[0] != a[j] or gap is None or gap >= limit:
-            fail(f"spec stream {r} parts from the non-spec one ({what}) at "
+            fail(f"{tag} stream {r} parts from the non-spec one ({what}) at "
                  f"token {j} away from a near-tie: gap {gap}, limit {limit}")
     return partings
 
@@ -2072,6 +2119,10 @@ def codec_us_per_token(n: int = 20000):
     return out
 
 
+# phase 6's aggregated worker's numbers, which phase 7 compares with
+DIST_STATS: dict = {}
+
+
 def phase_dist(card: str, served: dict, direct: dict) -> dict:
     """The distributed path, three processes: the store, worker A and the
     frontend (``python -m dynamo_tpu_torch.runtime.store|worker|frontend``),
@@ -2253,6 +2304,7 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                    for c in (store, worker_a, front)}
             stats = traffic_stats(check_streams(results, OSL, "stream"),
                                   wall)
+            DIST_STATS["aggregated"] = stats
             n_tok = N_REQUESTS * OSL
             print(f"[dist] {card}: {N_REQUESTS} streams ISL {ISL} OSL {OSL} "
                   f"through store + worker A + frontend (client in its own "
@@ -2769,6 +2821,849 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
     return asyncio.run(run())
 
 
+# ------------------------- phase 7: KV movement ---------------------------
+
+KV_BLOCKS = ISL // 16          # one 512-token prompt: 32 blocks of 16
+KV_LOGS = os.path.join(DIST_LOGS, "kvmove")
+# a stream is evacuated once every seat has emitted this many tokens
+EVAC_AFTER_TOKENS = 16
+
+
+def same_bytes(a, b) -> bool:
+    """Bitwise equality of two tensors of one shape and dtype."""
+    import torch
+
+    a, b = a.contiguous(), b.contiguous()
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def kv_round_trip(card: str) -> None:
+    """(a) ``make_kv_ops`` on the card at Llama-3.2-1B width (16 layers, 8
+    KV heads, hd 64, block 16): gather 32 random blocks of a random cache
+    to pinned host memory and scatter them into 32 other blocks in place,
+    for bf16, int8 and fp8 pages (scales too); the host payload must equal
+    a plain host copy of the cache bit for bit, the scattered blocks too,
+    the cache tensors must keep their storage, and the decode face over the
+    injected blocks must agree with its plain version. Prints the bf16
+    gather + copy to pinned memory (ms, GB/s) for one 512-token prompt
+    (16 MiB)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine import model as model_lib
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = ModelConfig.llama3_1b()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    perm = torch.randperm(159, generator=torch.Generator().manual_seed(
+        SEED)) + 1
+    src, dst = perm[:KV_BLOCKS], perm[KV_BLOCKS:2 * KV_BLOCKS]
+    for kv in ("bf16", "int8", "fp8"):
+        eng = EngineConfig(num_blocks=160, kv_dtype=kv)
+        cache = model_lib.init_cache(cfg, eng, torch.device(DEV))
+        for key, layers in cache.items():
+            for t in layers:
+                if t.dtype == torch.int8:
+                    t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                          device=DEV, dtype=torch.int8))
+                elif key in ("ks", "vs"):
+                    t.copy_(torch.rand(t.shape, generator=gen, device=DEV)
+                            * 0.05 + 1e-3)
+                else:
+                    t.copy_(torch.randn(t.shape, generator=gen, device=DEV)
+                            .to(t.dtype))
+        host = {key: [t.cpu() for t in layers]
+                for key, layers in cache.items()}
+        want = {key: torch.stack([t[src] for t in layers])
+                for key, layers in host.items()}
+        ptrs = {key: [t.data_ptr() for t in layers]
+                for key, layers in cache.items()}
+        extract, inject = model_lib.make_kv_ops(eng)
+        src_d = src.to(DEV, torch.int32)
+        dst_d = dst.to(DEV, torch.int32)
+
+        def gather_to_host():
+            data = extract(cache, src_d)
+            out = {}
+            for key, a in data.items():
+                out[key] = torch.empty(a.shape, dtype=a.dtype,
+                                       pin_memory=True)
+                out[key].copy_(a, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            return data, out
+        data, got = gather_to_host()
+        for key in want:
+            if not same_bytes(got[key], want[key]):
+                fail(f"[kvmove] {kv}: extracted {key} differs from the "
+                     f"plain host copy")
+        inject(cache, dst_d, data)
+        torch.cuda.synchronize()
+        for key, layers in cache.items():
+            for li, t in enumerate(layers):
+                if t.data_ptr() != ptrs[key][li]:
+                    fail(f"[kvmove] {kv}: inject rebound cache[{key}][{li}]")
+                if not same_bytes(t[dst_d].cpu(), want[key][li]):
+                    fail(f"[kvmove] {kv}: injected {key} layer {li} differs "
+                         f"from the source blocks")
+                other = perm[2 * KV_BLOCKS:].to(DEV)
+                if not same_bytes(t[other].cpu(), host[key][li][
+                        perm[2 * KV_BLOCKS:]]):
+                    fail(f"[kvmove] {kv}: inject wrote outside its blocks")
+        # the decode face over the injected blocks, every layer's pages
+        q = torch.randn(2, cfg.num_heads, cfg.head_dim_, generator=gen,
+                        device=DEV).to(torch.bfloat16)
+        i32 = dict(dtype=torch.int32, device=DEV)
+        tables = torch.stack([dst_d, dst_d.flip(0)])
+        lens = torch.tensor([ISL, ISL - 37], **i32)
+        worst = 0.0
+        for li in range(cfg.num_layers):
+            sc = {}
+            if kv != "bf16":
+                sc = dict(k_scale=cache["ks"][li], v_scale=cache["vs"][li])
+            o = pa.paged_attention_decode(
+                q, cache["k"][li], cache["v"][li], tables, lens,
+                block_size=16, **sc)
+            p = pa.paged_attention_ragged_plain(
+                q, cache["k"][li], cache["v"][li], tables,
+                torch.tensor([0, 1, 2], **i32), torch.ones(2, **i32), lens,
+                block_size=16, max_q_len=1, **sc)
+            atol, rtol = TOL["bfloat16"]
+            err = (o.float() - p.float()).abs()
+            if not torch.isfinite(o).all() or \
+                    (err - rtol * p.float().abs()).max().item() > atol:
+                fail(f"[kvmove] {kv}: decode face over injected KV "
+                     f"disagrees with its plain version (layer {li})")
+            worst = max(worst, err.max().item())
+        nbytes = sum(a.numel() * a.element_size() for a in data.values())
+        line = (f"[kvmove] {card}: round trip {kv}: {KV_BLOCKS} blocks "
+                f"({nbytes / 2**20:.2f} MiB with "
+                f"{'scales' if kv != 'bf16' else 'no scales'}) gathered to "
+                f"pinned host memory and scattered in place: bitwise equal "
+                f"to the plain host copy; decode face over the injected "
+                f"blocks vs plain, 16 layers, max |diff| {worst:.2e}")
+        if kv == "bf16":
+            times = []
+            for _ in range(12):
+                t0 = time.perf_counter()
+                gather_to_host()
+                times.append(time.perf_counter() - t0)
+            ms = sorted(times[2:])[len(times[2:]) // 2] * 1e3
+            line += (f"; gather + copy to pinned host p50 {ms:.3f} ms = "
+                     f"{nbytes / ms / 1e6:.1f} GB/s")
+        print(line, flush=True)
+        del cache, host, data, got
+    torch.cuda.empty_cache()
+
+
+class LocalPrefillClient:
+    """The decode handler's prefill client for engines in one process: its
+    requests go straight to the prefill handler (the completion signal
+    still rides the transport to the decode side's ``kv_inject``)."""
+
+    def __init__(self, handler):
+        self.handler = handler
+
+    def instance_ids(self):
+        return [1]
+
+    def round_robin(self, request, context):
+        from dynamo_tpu_torch.runtime.context import Context
+
+        return self.handler.generate(request, Context())
+
+
+def phase_kvmove_local(card: str, base, direct: dict) -> dict:
+    """Phase 7 in this process: (a) the round trip; (b) a prefill engine
+    and a decode engine on the card, joined by ``DevicePlane``, serve phase
+    3's traffic through ``DecodeHandler``/``PrefillHandler``; (e) the
+    preemption coordinator, triggered by ``POST /preempt`` on a system
+    server, evacuates 16 mid-stream seats of one engine to the other (the
+    co-resident peer), then 16 to the host tier, whose re-admission
+    prefills onboard the spilled blocks. Streams are held against phase
+    3's (``base``'s eager rerun, with the parity rule of ``check_parity``).
+    Returns the launch counts of (b)."""
+    import asyncio
+
+    import torch
+
+    from dynamo_tpu_torch.disagg import (
+        DecodeHandler, DevicePlane, DisaggConfig, PrefillHandler,
+    )
+    from dynamo_tpu_torch.engine import (
+        EngineConfig, InferenceEngine, ModelConfig,
+    )
+    from dynamo_tpu_torch.engine.engine import Request
+    from dynamo_tpu_torch.kvbm.manager import KvbmConfig
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.runtime import preemption
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.system_server import SystemServer
+    from dynamo_tpu_torch.runtime.transport import IngressServer
+
+    kv_round_trip(card)
+    cfg = ModelConfig.llama3_1b()
+    prompts = main_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    want, rec = tapped_run(base, prompts)
+    print(f"[kvmove] phase 3's traffic rerun on the phase 3 engine (depth "
+          f"1, eager windows, logits recorded) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    pre = InferenceEngine(cfg, EngineConfig(), seed=SEED)
+    dec = InferenceEngine(cfg, EngineConfig(), seed=SEED)
+    torch.cuda.synchronize()
+    print(f"[kvmove] prefill and decode engines (seed {SEED}, bf16, "
+          f"EngineConfig()) on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    plane = DevicePlane()
+    ph = PrefillHandler(pre, plane=plane)
+    dh = DecodeHandler(dec, LocalPrefillClient(ph),
+                       DisaggConfig(min_remote_prefill_tokens=32),
+                       plane=plane)
+    moved = []
+    transfer = plane.transfer
+
+    async def counted(*a, **kw):
+        n = await transfer(*a, **kw)
+        moved.append(n)
+        return n
+    plane.transfer = counted
+    out = {}
+
+    async def one(handler, ids, n, stamps=None):
+        t_sub = time.perf_counter()
+        toks, times = [], []
+        async for o in handler.generate(
+                {"token_ids": ids, "max_tokens": n, "temperature": 0.0},
+                Context()):
+            toks.extend(o["token_ids"])
+            times.append(time.perf_counter())
+        if stamps is not None:
+            stamps.append((t_sub, times))
+        return toks
+
+    async def disagg():
+        server = IngressServer(dh.inject_handler(), host="127.0.0.1",
+                               port=0)
+        await server.start()
+        dh.kv_inject_addr = f"127.0.0.1:{server.port}"
+        try:
+            await one(dh, prompts[0][:64], 4)       # warm-up
+            for e in (pre, dec):
+                e.clear_kv_blocks()
+            moved.clear()
+            n0 = dict(windows=dec.num_windows,
+                      replays=dec._ap_window_fn.replays)
+            remote0 = dh.num_remote_prefills
+            pa.reset_launches()
+            stamps = []
+            t_start = time.perf_counter()
+            outs = await asyncio.gather(*(one(dh, p, OSL, stamps)
+                                          for p in prompts))
+            wall = time.perf_counter() - t_start
+            out["launches"] = dict(pa.LAUNCHES)
+            out["stats"] = traffic_stats(
+                [(t_sub, times[0], times[-1], len(times))
+                 for t_sub, times in stamps], wall)
+            out["remote"] = dh.num_remote_prefills - remote0
+            out["windows"] = (dec.num_windows - n0["windows"],
+                              dec._ap_window_fn.replays - n0["replays"])
+            out["moved"] = list(moved)
+            # the device plane and the engine's extract alone, one prompt
+            # (16 MiB)
+            seq, _ = await pre.prefill_held(Request("t-pre", prompts[1], 1))
+            dseq = dec.reserve_sequence(Request("t-dec", prompts[1], 2))
+            times = []
+            for _ in range(12):
+                t = time.perf_counter()
+                await transfer(pre, seq.block_table, dec, dseq.block_table,
+                               dst_seq_id=dseq.seq_id,
+                               dst_epoch=dseq.kv_epoch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            out["plane_ms"] = sorted(times[2:])[5] * 1e3
+            times = []
+            for _ in range(12):
+                t = time.perf_counter()
+                data = await pre.extract_kv(seq)
+                times.append(time.perf_counter() - t)
+            out["extract_ms"] = sorted(times[2:])[5] * 1e3
+            out["extract_bytes"] = sum(a.numel() * a.element_size()
+                                       for a in data.values())
+            pre.release_held(seq)
+            dec.cancel_reservation(dseq)
+            return outs
+        finally:
+            if hasattr(ph, "_transport"):
+                await ph._transport.close()
+            await server.stop()
+            await pre.stop()
+            await dec.stop()
+
+    outs = asyncio.run(disagg())
+    for i, o in enumerate(outs):
+        if len(o) != OSL or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"[kvmove] disaggregated request {i}: {len(o)} tokens or "
+                 f"an id out of range")
+    if out["remote"] != N_REQUESTS or len(out["moved"]) != N_REQUESTS:
+        fail(f"[kvmove] {out['remote']} remote prefills and "
+             f"{len(out['moved'])} device-plane handoffs for {N_REQUESTS} "
+             f"requests")
+    windows, replays = out["windows"]
+    if windows != replays or windows == 0:
+        fail(f"[kvmove] the decode engine ran {windows} windows, "
+             f"{replays} of them graph replays")
+    for name in ("paged_attention_decode", "paged_attention_ragged"):
+        if out["launches"].get(name, 0) == 0:
+            fail(f"[kvmove] {name} never launched in the disaggregated run")
+    partings = check_parity(want, rec, outs,
+                            "phase 3's engine (eager rerun, aggregated)",
+                            tag="[kvmove]")
+    s = out["stats"]
+    per = out["moved"][0]
+    print(f"[kvmove] {card}: disaggregated in one process (device plane): "
+          f"{N_REQUESTS} requests ISL {ISL} OSL {OSL}: {stats_line(s)}; "
+          f"phase 3 aggregated: {stats_line(direct)}; {per / 2**20:.2f} MiB "
+          f"per handoff ({KV_BLOCKS} blocks); {windows} decode windows, all "
+          f"graph replays over injected KV; {len(partings)} of {N_REQUESTS} "
+          f"streams part from phase 3's at near-ties; kernel launches "
+          + ", ".join(f"{k}={v}" for k, v in out["launches"].items()
+                      if v), flush=True)
+    pb = out["extract_bytes"]
+    print(f"[kvmove] {card}: one {ISL}-token prompt ({pb / 2**20:.2f} MiB "
+          f"bf16): DevicePlane.transfer p50 {out['plane_ms']:.3f} ms = "
+          f"{per / out['plane_ms'] / 1e6:.1f} GB/s (gather on the prefill "
+          f"engine's step thread, in-place scatter on the decode engine's); "
+          f"engine.extract_kv (to pinned host) p50 {out['extract_ms']:.3f} "
+          f"ms = {pb / out['extract_ms'] / 1e6:.1f} GB/s", flush=True)
+
+    # (e) preemption in this process: POST /preempt, peer then host tier
+    def evacuate(src, peer, mode, tiered: bool):
+        # the host-tier drill gives the coordinator no peer: it spills
+        coord = preemption.PreemptionCoordinator(
+            src, peer=peer if mode == preemption.PEER else None,
+            notice_grace_s=0.0)
+
+        async def run():
+            tasks = []
+            server = SystemServer(host="127.0.0.1", port=0)
+            server.register_preempt("kvmove", lambda: tasks.append(
+                asyncio.ensure_future(coord.notice("admin"))))
+            await server.start()
+            progress = [0] * N_REQUESTS
+
+            async def stream(i):
+                toks = {}
+                reason = None
+                async for o in src.submit(Request(
+                        f"ev-{mode}-{i}", prompts[i], OSL)):
+                    if o.token_id >= 0:
+                        toks[o.index] = o.token_id
+                    progress[i] = len(toks)
+                    if o.finished:
+                        reason = o.finish_reason
+                return [toks[j] for j in sorted(toks)], reason
+            try:
+                jobs = [asyncio.ensure_future(stream(i))
+                        for i in range(N_REQUESTS)]
+                while min(progress) < EVAC_AFTER_TOKENS:
+                    if any(j.done() for j in jobs):
+                        fail(f"[kvmove] a stream ended before the notice "
+                             f"({mode})")
+                    await asyncio.sleep(0.001)
+                t_notice = time.perf_counter()
+                status, _, _, _, body = await _http_request(
+                    server.port, "POST", "/preempt")
+                if status != 202 or body != {"evacuating": ["kvmove"]}:
+                    fail(f"[kvmove] POST /preempt: {status} {body}")
+                report = await tasks[0]
+                t_done = time.perf_counter()
+                heads = await asyncio.gather(*jobs)
+            finally:
+                await server.stop()
+            index = {f"ev-{mode}-{i}": i for i in range(N_REQUESTS)}
+            spliced = [None] * N_REQUESTS
+            next_tok = []
+
+            async def resume(res):
+                i = index[res.record.seq_id]
+                head, reason = heads[i]
+                if res.mode == preemption.FINISHED:
+                    # the seat's last token landed before it was parked
+                    if reason != "length":
+                        fail(f"[kvmove] finished seat {i} ended {reason!r}")
+                    spliced[i] = head
+                    return
+                if res.mode != mode or reason != "evacuated":
+                    fail(f"[kvmove] stream {i}: {res.mode}, ended "
+                         f"{reason!r} ({mode})")
+                toks, times = [], []
+                if res.mode == preemption.PEER:
+                    it = peer.resume_prefilled(res.dst_seq,
+                                               res.record.first_token())
+                else:
+                    it = peer.submit(res.record.resume_request())
+                async for o in it:
+                    toks.append(o.token_id)
+                    times.append(time.perf_counter())
+                if res.mode == preemption.PEER:
+                    # index 0 re-emits the frontier token
+                    spliced[i] = head + toks[1:]
+                    next_tok.append(times[1] - t_notice)
+                else:
+                    spliced[i] = head + toks
+                    next_tok.append(times[0] - t_notice)
+            await asyncio.gather(*(resume(r) for r in report.results))
+            await src.stop()
+            await peer.stop()
+            return report, spliced, sorted(next_tok), t_done - t_notice
+
+        pa.reset_launches()
+        report, spliced, next_tok, evac_s = asyncio.run(run())
+        launches = {k: v for k, v in pa.LAUNCHES.items() if v}
+        for name in ("paged_attention_decode", "paged_attention_ragged"):
+            if not launches.get(name):
+                fail(f"[kvmove] {name} never launched in the evacuation "
+                     f"drill ({mode})")
+        counts = {m: report.count(m) for m in (
+            preemption.PEER, preemption.SPILL, preemption.FALLBACK,
+            preemption.FINISHED)}
+        # seats whose stream ends while earlier ones are moved finish in
+        # place (FINISHED), as the coordinator intends
+        if (counts[mode] == 0
+                or counts[mode] + counts[preemption.FINISHED] != N_REQUESTS):
+            fail(f"[kvmove] preemption ({mode}): report {counts}")
+        for i, o in enumerate(spliced):
+            if o is None or len(o) != OSL:
+                fail(f"[kvmove] evacuated stream {i} resumed to "
+                     f"{None if o is None else len(o)} of {OSL} tokens")
+        parts = check_parity(want, rec, spliced,
+                             f"phase 3's engine (evacuated: {mode})",
+                             tag="[kvmove]")
+        moved_b = [r.bytes_moved for r in report.results
+                   if r.mode == mode]
+        extra = ""
+        if tiered:
+            extra = (f"; the resuming engine onboarded "
+                     f"{peer.kvbm.stats.onboarded_blocks} blocks from the "
+                     f"host tier (prefix hit tokens "
+                     f"{peer.scheduler.stats.prefix_cache_hits * 16})")
+            if peer.kvbm.stats.onboarded_blocks == 0:
+                fail("[kvmove] the resumed prefills onboarded nothing from "
+                     "the host tier")
+        print(f"[kvmove] {card}: POST /preempt with {N_REQUESTS} seats "
+              f"{EVAC_AFTER_TOKENS}+ tokens in, evacuation to "
+              + ("a co-resident peer engine" if mode == preemption.PEER
+                 else "the host tier") +
+              f": PreemptionReport {counts}, deadline_blown "
+              f"{report.deadline_blown}; notice to report {evac_s * 1e3:.1f} "
+              f"ms; {sum(moved_b) / len(moved_b) / 2**20:.2f} MiB moved per "
+              f"seat; kill to next token p50 "
+              f"{next_tok[len(next_tok) // 2] * 1e3:.1f} ms max "
+              f"{next_tok[-1] * 1e3:.1f} ms; {len(parts)} of {N_REQUESTS} "
+              f"spliced streams part from phase 3's at near-ties{extra}; "
+              f"kernel launches (both engines) "
+              + ", ".join(f"{k}={v}" for k, v in launches.items()),
+              flush=True)
+
+    evacuate(dec, pre, preemption.PEER, tiered=False)
+    dec.attach_kvbm(KvbmConfig(host_blocks=4096))
+    pre.attach_kvbm(KvbmConfig(host_blocks=4096))
+    pre.kvbm.host_pool = dec.kvbm.host_pool
+    dec.clear_kv_blocks()
+    pre.clear_kv_blocks()
+    evacuate(dec, pre, preemption.SPILL, tiered=True)
+    del pre, dec
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
+ONBOARD_CASE = "ragged R=1 q_len=16 after 496 onboarded keys, W=32"
+
+
+def codec_ms_per_prompt(reps: int = 5):
+    """Host ms of the relay's frame work for one 512-token bf16 prompt
+    (16 MiB) at Llama-3.2-1B width: ``kv_to_wire`` (bytes + CRC32), the
+    codec's pack, its unpack and ``kv_from_wire`` (size and CRC checks,
+    tensors)."""
+    import torch
+
+    from dynamo_tpu_torch.disagg.protocol import kv_from_wire, kv_to_wire
+    from dynamo_tpu_torch.runtime import codec
+
+    gen = torch.Generator().manual_seed(SEED)
+    shape = (16, KV_BLOCKS, 8, 16, 64)
+    data = {k: torch.randn(shape, generator=gen).to(torch.bfloat16)
+            for k in ("k", "v")}
+    steps = {"kv_to_wire": 0.0, "pack": 0.0, "unpack": 0.0,
+             "kv_from_wire": 0.0}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        wire = kv_to_wire(data)
+        t1 = time.perf_counter()
+        raw = codec.packb(wire)
+        t2 = time.perf_counter()
+        back = codec.unpackb(raw)
+        t3 = time.perf_counter()
+        got = kv_from_wire(back)
+        t4 = time.perf_counter()
+        for k, (a, b) in zip(steps, ((t0, t1), (t1, t2), (t2, t3),
+                                     (t3, t4))):
+            steps[k] += (b - a) / reps * 1e3
+    if not all(same_bytes(got[k], data[k]) for k in data):
+        fail("[kvmove] the relay frame changed the payload")
+    return steps, len(raw)
+
+
+def phase_kvmove_procs(card: str, served: dict) -> dict:
+    """Phase 7 across processes, on phase 6's store/frontend/worker entry
+    points: (c) a ``--disagg-mode prefill --disagg-queue`` worker and a
+    ``--disagg-mode decode`` worker serve phase 3's traffic through the
+    frontend over the host relay, then a decode worker with
+    ``--disagg-queue`` (the store's pull queue) does; (d) a worker with
+    ``--kvbm-host-blocks`` and a G3 directory serves phase 6's shared-prefix
+    groups, its G1 is cleared (``clear_kv_blocks``) and it serves them
+    again: the second pass onboards from the host tier and its prefills run
+    the ragged face over the onboarded prefix; (e) ``POST /preempt`` on that
+    worker mid-stream spills every seat to its host tier and drains it.
+    Returns the workers' kernel launches per part."""
+    import asyncio
+    import multiprocessing
+    import signal
+    from concurrent.futures import ProcessPoolExecutor
+
+    from dynamo_tpu_torch.runtime import codec
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    steps, nraw = codec_ms_per_prompt()
+    print(f"[kvmove] {card}: relay frame of one {ISL}-token bf16 prompt "
+          f"({nraw / 2**20:.2f} MiB packed) on this host: " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in steps.items()), flush=True)
+    c = make_case(ONBOARD_CASE, [(16, 512, 16)], W=32, face="ragged")
+    err = check_case(c)
+    print(f"[kvmove] {ONBOARD_CASE} (the shape of a prefill over an "
+          f"onboarded {ISL}-token prompt): kernel vs plain max |diff| "
+          f"{err:.3e}", flush=True)
+    del c
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DYNTPU_LEASE_TTL_S=str(DIST_LEASE_TTL_S),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    addr = f"127.0.0.1:{_free_port()}"
+    common = ["--model", "1b", "--model-name", HTTP_MODEL,
+              "--tokenizer", os.path.abspath(served["tokenizer"]),
+              "--store-addr", addr]
+    g3 = os.path.abspath(os.path.join(DIST_LOGS, "kvmove_g3"))
+    if os.path.isdir(g3):
+        for f in os.listdir(g3):
+            os.remove(os.path.join(g3, f))
+    children = []
+    spans = {}
+
+    def start(name, module, args, **extra_env):
+        child = Child(name, module, args, dict(env, **extra_env))
+        children.append(child)
+        return child
+
+    def traced(name):
+        path = os.path.abspath(os.path.join(DIST_LOGS, f"{name}_spans.jsonl"))
+        if os.path.exists(path):
+            os.remove(path)
+        spans[name] = path
+        return dict(DYNTPU_TRACE_SAMPLE_RATIO="1",
+                    DYNTPU_TRACE_EXPORT_PATH=path)
+
+    def job(prompt, max_tokens):
+        return dict(method="POST", path="/v1/completions", body={
+            "model": HTTP_MODEL, "prompt": prompt, "max_tokens": max_tokens,
+            "temperature": 0, "ignore_eos": True, "stream": True})
+
+    def streams(results, what):
+        runs = []
+        for status, t_sent, frames, done, _ in results:
+            content = [t for t, f in frames if f["choices"][0]["text"]]
+            n = frames[-1][1]["usage"]["completion_tokens"] if frames else 0
+            if status != 200 or not done or n != OSL or len(content) < 2:
+                fail(f"[kvmove] {what}: HTTP {status}, [DONE] {done}, {n} "
+                     f"of {OSL} tokens")
+            runs.append((t_sent, content[0], content[-1], n))
+        return runs
+
+    def launches_of(child):
+        m = re.search(r"worker exiting: kernel launches (.*)", child.text())
+        if m is None:
+            fail(f"[kvmove] {child.name} left no launch counts:\n"
+                 f"{child.tail()}")
+        return {k: int(v) for k, v in
+                (kv.split("=") for kv in m.group(1).split())}
+
+    def durations(name, span):
+        return sorted(s["duration_s"] for s in read_jsonl(spans[name])
+                      if s["name"] == span)
+
+    out = {}
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        procs = ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        rt = None
+        try:
+            t0 = time.perf_counter()
+            store = start("kv_store", "dynamo_tpu_torch.runtime.store",
+                          ["--host", "127.0.0.1",
+                           "--port", addr.rsplit(":", 1)[1]])
+            await store.wait_for(r"store listening", 60)
+            front = start("kv_frontend", "dynamo_tpu_torch.frontend",
+                          ["--host", "127.0.0.1", "--port", "0",
+                           "--store-addr", addr])
+            port = int((await front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+
+            async def client(*jobs):
+                return await loop.run_in_executor(procs, http_client, port,
+                                                  list(jobs))
+
+            async def stop(child):
+                child.proc.send_signal(signal.SIGTERM)
+                rc = await loop.run_in_executor(None, child.proc.wait, 120)
+                if rc != 0:
+                    fail(f"[kvmove] {child.name} exited {rc} on SIGTERM:\n"
+                         f"{child.tail()}")
+
+            async def serve(decode, what):
+                """Wait for ``decode`` to register, warm up, then phase 3's
+                traffic through the frontend."""
+                await decode.wait_for(r"registered model", 300)
+                t_w = time.perf_counter()
+                while True:
+                    (status, *_), = await client(job(
+                        served["prompts"][0], 4))
+                    if status == 200:
+                        break
+                    if time.perf_counter() - t_w > 120:
+                        fail(f"[kvmove] {what}: the frontend never served")
+                    await asyncio.sleep(0.2)
+                t_start = time.perf_counter()
+                results = await client(*(job(p, OSL)
+                                         for p in served["prompts"]))
+                wall = time.perf_counter() - t_start
+                return traffic_stats(streams(results, what), wall)
+
+            # (c) disaggregated across processes, the host relay
+            pre = start("kv_prefill", "dynamo_tpu_torch.worker",
+                        [*common, "--disagg-mode", "prefill",
+                         "--disagg-queue"], **traced("kv_prefill"))
+            dec = start("kv_decode", "dynamo_tpu_torch.worker",
+                        [*common, "--disagg-mode", "decode"],
+                        **traced("kv_decode"))
+            await pre.wait_for(r"worker ready", 300)
+            agg = DIST_STATS.get("aggregated")
+            for mode, flags in (("push", []), ("queue", ["--disagg-queue"])):
+                if mode == "queue":
+                    dec = start("kv_decode_q", "dynamo_tpu_torch.worker",
+                                [*common, "--disagg-mode", "decode",
+                                 *flags], **traced("kv_decode_q"))
+                stats = await serve(dec, f"disaggregated ({mode})")
+                await stop(dec)
+                n_remote = len(durations(dec.name, "disagg.handoff"))
+                inject = durations(dec.name, "disagg.inject")
+                if n_remote < N_REQUESTS or len(inject) < N_REQUESTS:
+                    fail(f"[kvmove] {mode}: {n_remote} handoffs and "
+                         f"{len(inject)} relay injects for {N_REQUESTS} "
+                         f"requests:\n{dec.tail()}")
+                handoff = durations(dec.name, "disagg.handoff")
+                out[f"decode_{mode}"] = launches_of(dec)
+                print(f"[kvmove] {card}: disaggregated across processes "
+                      f"({mode} mode, host relay): {N_REQUESTS} streams ISL "
+                      f"{ISL} OSL {OSL}: {stats_line(stats)}; phase 6's "
+                      f"aggregated worker: "
+                      + (stats_line(agg) if agg else "not run")
+                      + f"; handoff (reserve to inject done) p50 "
+                      f"{handoff[len(handoff) // 2] * 1e3:.1f} ms; relay "
+                      f"inject on the decode side (frame checks + scatter) "
+                      f"p50 {inject[len(inject) // 2] * 1e3:.1f} ms",
+                      flush=True)
+            await stop(pre)
+            push = durations("kv_prefill", "disagg.transfer")
+            if len(push) < 2 * N_REQUESTS:
+                fail(f"[kvmove] the prefill worker pushed {len(push)} "
+                     f"frames for {2 * N_REQUESTS} requests")
+            print(f"[kvmove] {card}: relay push per handoff on the prefill "
+                  f"worker (extract done; frame, send, decode-side inject "
+                  f"and ack) p50 {push[len(push) // 2] * 1e3:.1f} ms max "
+                  f"{push[-1] * 1e3:.1f} ms over {len(push)} pushes",
+                  flush=True)
+            out["prefill"] = launches_of(pre)
+            # prefills run on the prefill worker, decode windows on the
+            # decode workers
+            for who, name in (("prefill", "paged_attention_ragged"),
+                              ("decode_push", "paged_attention_decode"),
+                              ("decode_queue", "paged_attention_decode")):
+                if out[who].get(name, 0) == 0:
+                    fail(f"[kvmove] {name} never launched in the {who} "
+                         f"worker")
+            print(f"[kvmove] kernel launches: prefill worker {out['prefill']}"
+                  f"; decode worker (push) {out['decode_push']}; decode "
+                  f"worker (queue) {out['decode_queue']}", flush=True)
+
+            # (d) KVBM + prefix cache on one worker
+            k_sys = _free_port()
+            # a short notice grace: the drill's seats must still be
+            # decoding when the evacuation starts
+            kw = start("kv_kvbm", "dynamo_tpu_torch.worker",
+                       [*common, "--kvbm-host-blocks", "4096",
+                        "--kvbm-disk-dir", g3, "--kvbm-disk-blocks", "4096"],
+                       DYNTPU_SYSTEM_ENABLED="1",
+                       DYNTPU_SYSTEM_PORT=str(k_sys),
+                       DYNTPU_PREEMPT_NOTICE_GRACE_S="0.2")
+            await kw.wait_for(r"registered model", 300)
+            rt = await DistributedRuntime.from_settings(RuntimeConfig(
+                store_addr=addr, lease_ttl_s=DIST_LEASE_TTL_S))
+            backend = rt.namespace().component("backend")
+            gen = await backend.endpoint("generate").client()
+            clear = await backend.endpoint("clear_kv_blocks").client()
+            await gen.wait_for_instances(1, 60)
+            await clear.wait_for_instances(1, 60)
+            snaps = []
+            sub = await rt.store.subscribe(
+                backend.event_subject("load_metrics"))
+
+            async def collect():
+                async for ev in sub:
+                    if ev.get("event") == "msg":
+                        snap = codec.unpackb(ev["value"])
+                        if "kernel_launches" in snap and "kvbm" in snap:
+                            snaps.append((time.perf_counter(), snap))
+            collector = asyncio.create_task(collect())
+
+            async def fresh_snapshot():
+                t = time.perf_counter()
+                while not snaps or snaps[-1][0] <= t:
+                    if time.perf_counter() - t > 30:
+                        fail("[kvmove] the KVBM worker published no load "
+                             "metrics")
+                    await asyncio.sleep(0.05)
+                return snaps[-1][1]
+
+            async def drained():
+                # the idle drain offloads every sealed block
+                last = None
+                for _ in range(200):
+                    snap = await fresh_snapshot()
+                    n = snap["kvbm"]["offloaded_total"]
+                    if n == last and n > 0:
+                        return snap
+                    last = n
+                fail("[kvmove] the offload backlog never drained")
+            groups = kv_group_prompts()
+            ps = [p for g in groups for p in g[2:6]]
+            await serve(kw, "KVBM worker")        # warm-up + phase 3 traffic
+            passes = []
+            for i in range(2):
+                if i:
+                    async for _ in clear.direct(clear.instance_ids()[0], {},
+                                                Context()):
+                        pass
+                before = await drained()
+                t_start = time.perf_counter()
+                results = await client(*(job(p, OSL) for p in ps))
+                wall = time.perf_counter() - t_start
+                stats = traffic_stats(streams(results, "shared prefix"),
+                                      wall)
+                after = await drained()
+                passes.append((stats, before, after))
+            (s1, b1, a1), (s2, b2, a2) = passes
+
+            def delta(b, a, *path):
+                x, y = b, a
+                for k in path:
+                    x, y = x.get(k, 0), y.get(k, 0)
+                return y - x
+            onboarded = delta(b2, a2, "kvbm", "onboarded_total")
+            hits = delta(b2, a2, "kvbm", "prefix_hit_tokens_total")
+            ragged = delta(b2, a2, "kernel_launches", "paged_attention_ragged")
+            decode = delta(b2, a2, "kernel_launches", "paged_attention_decode")
+            out["kvbm_second_pass"] = {"paged_attention_ragged": ragged,
+                                       "paged_attention_decode": decode}
+            if onboarded <= 0 or hits <= 0 or ragged <= 0 or decode <= 0:
+                fail(f"[kvmove] second pass: onboarded {onboarded}, prefix "
+                     f"hit tokens {hits}, ragged {ragged}, decode {decode}")
+            print(f"[kvmove] {card}: KVBM worker (G2 4096 blocks, G3 on "
+                  f"disk, prefix cache on): {len(ps)} shared-prefix streams "
+                  f"(4 groups of a {KV_PREFIX_TOKENS}-token prefix); pass 1 "
+                  f"{stats_line(s1)}; G1 cleared; pass 2 {stats_line(s2)}; "
+                  f"pass 2 onboarded {onboarded} blocks from the host tier, "
+                  f"prefix hit tokens {hits}, ragged launches {ragged} "
+                  f"(over the onboarded prefix), decode {decode}; host "
+                  f"pool {a2['kvbm']['host_pool_blocks']} blocks, "
+                  f"offloaded {a2['kvbm']['offloaded_total']}", flush=True)
+
+            # (e) POST /preempt mid-stream: seats spill to the host tier
+            progress = [0] * 8
+            reasons = [None] * 8
+            prompts = main_prompts(128256)[:8]
+
+            async def stream(i):
+                req = {"token_ids": prompts[i], "max_tokens": 512,
+                       "temperature": 0.0, "ignore_eos": True}
+                async for o in gen.round_robin(req, Context()):
+                    progress[i] += len(o.get("token_ids", ()))
+                    if o.get("finished"):
+                        reasons[i] = o.get("finish_reason")
+            jobs = [asyncio.create_task(stream(i)) for i in range(8)]
+            t_w = time.perf_counter()
+            while min(progress) < EVAC_AFTER_TOKENS:
+                if time.perf_counter() - t_w > 120:
+                    fail(f"[kvmove] streams never reached "
+                         f"{EVAC_AFTER_TOKENS} tokens: {progress}")
+                await asyncio.sleep(0.01)
+            (status, _, _, _, body), = await loop.run_in_executor(
+                procs, http_client, k_sys,
+                [dict(method="POST", path="/preempt")])
+            t_post = time.perf_counter()
+            await asyncio.wait_for(asyncio.gather(*jobs), 120)
+            rc = await loop.run_in_executor(None, kw.proc.wait, 120)
+            text = kw.text()
+            m = re.search(r"evacuation done: (\d+) peer, (\d+) spill, "
+                          r"(\d+) fallback, (\d+) finished", text)
+            if (status != 202 or not body.get("evacuating") or rc != 0
+                    or m is None or int(m.group(2)) != 8
+                    or any(r != "evacuated" for r in reasons)):
+                fail(f"[kvmove] POST /preempt on the KVBM worker: {status} "
+                     f"{body}, exit {rc}, report {m and m.groups()}, "
+                     f"reasons {reasons}\n{kw.tail()}")
+            out["kvbm"] = launches_of(kw)
+            print(f"[kvmove] {card}: POST /preempt on the KVBM worker with 8 "
+                  f"streams {EVAC_AFTER_TOKENS}+ tokens in: 202 {body}; "
+                  f"PreemptionReport peer {m.group(1)}, spill {m.group(2)}, "
+                  f"fallback {m.group(3)}, finished {m.group(4)}; every "
+                  f"stream ended 'evacuated'; the worker drained and exited "
+                  f"0 {time.perf_counter() - t_post:.1f} s after the POST",
+                  flush=True)
+            collector.cancel()
+            await sub.cancel()
+            for cl in (gen, clear):
+                await cl.stop()
+            await stop(front)
+            print(f"[kvmove] processes part in {time.perf_counter() - t0:.1f}"
+                  f" s", flush=True)
+        finally:
+            if rt is not None:
+                await rt.shutdown()
+            procs.shutdown(wait=False, cancel_futures=True)
+            for ch in children:
+                ch.kill()
+    asyncio.run(run())
+    return out
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -2865,10 +3760,14 @@ def main() -> None:
     timer("4 profile bf16")
     served = phase_http(engine, card, direct)
     timer("5 http")
+    phase_kvmove_local(card, engine, direct)
+    timer("7 kv movement in one process")
     del engine
     torch.cuda.empty_cache()
     dist_launches = phase_dist(card, served, direct)
     timer("6 distributed")
+    phase_kvmove_procs(card, served)
+    timer("7 kv movement across processes")
     for dtype in ("int8", "fp8"):
         torch.cuda.empty_cache()
         run_launches, engine, _, _ = phase_engine(card, dtype, ref_logits)

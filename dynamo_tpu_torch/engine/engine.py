@@ -19,8 +19,17 @@ and replaces each decode window with a draft + verify window (a graph
 replay too), with acceptance accounting, auto-disable and the pressure
 ladder's rung-2 pause. The stall watchdog, the HBM-pressure ladder, the
 flight recorder (``observability``) and the engine's stage spans are the
-JAX engine's too. Evacuation, KVBM, the radix prefix cache and
-disaggregated reservations wait for later slices.
+JAX engine's too.
+
+KV movement is the JAX engine's seams: disaggregated prefill/decode
+(``prefill_held`` / ``reserve_sequence`` / ``resume_prefilled``, epoch-guarded
+reservations), block extract/inject (``extract_kv_blocks`` /
+``inject_kv_blocks``, on the device-step thread, so in stream order after
+every window already enqueued; the inject writes the cache in place), the
+KVBM tiers (``attach_kvbm``; offload ticks in both loops, onboarding at
+admission), the radix prefix cache (``attach_prefix_cache``) and the
+preemption coordinator's evacuation hooks (``evacuable_seats`` …
+``finish_evacuated``).
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from ..runtime import faults
 from ..runtime.context import Context
 from ..runtime.engine import AsyncEngine
 from ..spec.stats import SpecDecodeStats
+from ..tokens import TokenBlockSequence
 from ..utils.config import env_flag, env_float, env_str
 from ..utils.device import resolve_device
 from ..utils.hotpath import hot_path
@@ -226,6 +236,13 @@ class EngineCore(AsyncEngine):
         self._ids = itertools.count(1)
         self.kv_event_sink: Optional[Callable[[dict], None]] = None
         self._pending_events: List[dict] = []
+        # disagg reservation epochs: seq_id -> epoch while the reservation
+        # is live (reserve_sequence .. resume_prefilled/cancel_reservation).
+        # Transfers stamped with an older epoch are rejected before write.
+        self._kv_epoch = itertools.count(1)
+        self._kv_reservations: Dict[str, int] = {}
+        self.kvbm = None  # multi-tier block manager (attach_kvbm)
+        self.prefix = None  # radix prefix cache (attach_prefix_cache)
         # run-ahead depth: how many scheduled windows may be in flight
         # before the loop waits for a landing. 1 = classic synchronous
         # schedule→execute→postprocess; InferenceEngine takes the config's.
@@ -296,6 +313,21 @@ class EngineCore(AsyncEngine):
         """Drop the prefix cache (ref: http clear_kv_blocks endpoint)."""
         self.scheduler.pool.clear()
 
+    def attach_prefix_cache(self, config=None, worker_id: int = 0,
+                            plane=None):
+        """Enable the radix-tree prefix index on this engine. Works with
+        or without a KVBM (index-only mode still gives the scheduler-hit
+        cross-check accounting); attach AFTER ``attach_kvbm`` so tier
+        transitions (offload/G4/drop) are hooked too."""
+        from ..prefix.manager import PrefixCacheManager
+
+        self.prefix = PrefixCacheManager(
+            self, kvbm=self.kvbm, config=config, worker_id=worker_id,
+            plane=plane,
+        )
+        self.scheduler.on_prefix_match = self.prefix.on_scheduler_match
+        return self.prefix
+
     # ------------------------- submission ------------------------------
 
     async def submit(self, request: Request) -> AsyncIterator[StepOutput]:
@@ -335,6 +367,22 @@ class EngineCore(AsyncEngine):
             top_p=request.top_p,
             seed=_seed31(request.seed),
         )
+        if self.kvbm is not None or self.prefix is not None:
+            # promote host-tier prefix blocks into G1 before admission so
+            # the scheduler's prefix match serves them as native hits;
+            # the token sequence is built once here and reused by the
+            # scheduler (hash-chaining the prompt is O(prompt_len))
+            seq.token_seq = TokenBlockSequence.from_tokens(
+                seq.prompt_ids, self.config.block_size
+            )
+            try:
+                if self.prefix is not None:
+                    # peer-G1 device-plane pull, then the KVBM tier chain
+                    await self.prefix.onboard(seq.token_seq)
+                else:
+                    await self.kvbm.onboard_prefix(seq.token_seq)
+            except Exception:
+                log.exception("kvbm onboard failed — prefilling from scratch")
         out_queue: asyncio.Queue = asyncio.Queue()
         self._queues[seq.seq_id] = out_queue
         self._seqs[seq.seq_id] = seq
@@ -359,6 +407,129 @@ class EngineCore(AsyncEngine):
             self._ap_mark_dead(seq.slot)
             self.scheduler.abort(seq, reason)
             self._emit_finish(seq, reason)
+
+    # --------------- disaggregated prefill/decode hooks ----------------
+    # (ref: the decode/prefill handler split in components/backends/vllm/
+    #  src/dynamo/vllm/handlers.py:89,207 — here the engine itself exposes
+    #  the hold/reserve/resume seams the reference gets from vLLM's
+    #  kv_transfer connector)
+
+    async def prefill_held(self, request: Request):
+        """Prefill-worker side: run the prompt to its first token, keeping
+        the KV blocks alive for extraction. Returns (seq, first_token);
+        caller must ``release_held(seq)`` after extracting."""
+        await self.start()
+        if not request.token_ids:
+            raise ValueError("empty prompt")
+        seq = SchedSeq(
+            seq_id=request.request_id or f"seq-{next(self._ids)}",
+            prompt_ids=list(request.token_ids),
+            max_tokens=1,
+            eos_token_ids=frozenset(),
+            temperature=request.temperature,
+            top_k=request.top_k,
+            top_p=request.top_p,
+            seed=_seed31(request.seed),
+            hold_blocks=True,
+        )
+        out_queue: asyncio.Queue = asyncio.Queue()
+        self._queues[seq.seq_id] = out_queue
+        self._seqs[seq.seq_id] = seq
+        self.scheduler.add(seq)
+        self._wake.set()
+        try:
+            out = await out_queue.get()
+        except asyncio.CancelledError:
+            # Hard-cancelled mid-prefill (queue worker killed, caller
+            # torn down): the held handle never reaches the caller, so
+            # nobody can release_held — drop the hold ourselves. With
+            # hold_blocks cleared, _finish/reap free the blocks the
+            # moment no in-flight window can still scatter into them.
+            seq.hold_blocks = False
+            if seq.status == SeqStatus.FINISHED:
+                if (seq.pending_total == 0
+                        and seq not in self.scheduler.zombies):
+                    self.scheduler.release_held(seq)
+            else:
+                self.abort(seq.seq_id, "cancelled")
+            self._queues.pop(seq.seq_id, None)
+            self._seqs.pop(seq.seq_id, None)
+            raise
+        if out.finish_reason not in ("length", "stop"):
+            self.release_held(seq)
+            raise RuntimeError(
+                f"remote prefill failed: {out.finish_reason}"
+            )
+        return seq, out.token_id
+
+    def release_held(self, seq: SchedSeq) -> None:
+        self.scheduler.release_held(seq)
+        self._queues.pop(seq.seq_id, None)
+        self._seqs.pop(seq.seq_id, None)
+
+    def reserve_sequence(self, request: Request) -> Optional[SchedSeq]:
+        """Decode-worker side: pre-allocate prompt blocks for KV injection.
+        Returns None when the pool can't host the prompt right now (caller
+        falls back to local prefill)."""
+        seq = SchedSeq(
+            seq_id=request.request_id or f"seq-{next(self._ids)}",
+            prompt_ids=list(request.token_ids),
+            max_tokens=max(1, request.max_tokens),
+            eos_token_ids=(frozenset() if request.ignore_eos
+                           else frozenset(request.eos_token_ids)),
+            temperature=request.temperature,
+            top_k=request.top_k,
+            top_p=request.top_p,
+            seed=_seed31(request.seed),
+        )
+        if not self.scheduler.reserve(seq):
+            return None
+        # epoch-guard the reservation: any transfer targeting these blocks
+        # must present this epoch, so a delayed write aimed at a recycled
+        # reservation (same seq id, new blocks) is rejected, not scattered
+        seq.kv_epoch = next(self._kv_epoch)
+        self._kv_reservations[seq.seq_id] = seq.kv_epoch
+        self._queues[seq.seq_id] = asyncio.Queue()
+        self._seqs[seq.seq_id] = seq
+        return seq
+
+    def cancel_reservation(self, seq: SchedSeq) -> None:
+        self._kv_reservations.pop(seq.seq_id, None)
+        self.scheduler.release_held(seq)  # reserved blocks, same release
+        self._queues.pop(seq.seq_id, None)
+        self._seqs.pop(seq.seq_id, None)
+
+    def reservation_valid(self, seq_id: str, epoch: int) -> bool:
+        """True while ``seq_id``'s reservation is live *and* carries
+        ``epoch``. Both the device-plane scatter and the wire-relay inject
+        check this immediately before writing; it also tells the orphan
+        sweeper a reservation is still safe to cancel."""
+        return self._kv_reservations.get(seq_id) == epoch
+
+    async def resume_prefilled(
+        self, seq: SchedSeq, first_token: int
+    ) -> AsyncIterator[StepOutput]:
+        """Decode-worker side: activate a reserved sequence whose KV was
+        injected; streams from the remotely-sampled first token onward.
+        Its first decode row has no token in flight on the device
+        (``tok_src`` 0), so the window takes ``first_token`` from the
+        host as its input."""
+        await self.start()
+        # the reservation window closes here: late transfers must not write
+        # into a sequence that is actively decoding
+        self._kv_reservations.pop(seq.seq_id, None)
+        self.scheduler.admit_prefilled(seq, first_token)
+        self._emit_token(seq)
+        self._wake.set()
+        out_queue = self._queues[seq.seq_id]
+        try:
+            while True:
+                out = await out_queue.get()
+                yield out
+                if out.finished:
+                    return
+        finally:
+            self._drop(seq)
 
     def _drop(self, seq: SchedSeq) -> None:
         if seq.status != SeqStatus.FINISHED:
@@ -535,6 +706,7 @@ class EngineCore(AsyncEngine):
                     self._emit_finish(seq, "error")
                     continue
                 self._wake.clear()
+                await self._kvbm_idle_drain()
                 if self._stopped:
                     break
                 await self._wake.wait()
@@ -549,6 +721,7 @@ class EngineCore(AsyncEngine):
             inflight.append((batch, fut))
             while len(inflight) >= self.pipeline_depth:
                 await land_next()
+            await self._kvbm_tick()
         while inflight:  # drain so stop() leaves consistent bookkeeping
             await land_next()
 
@@ -568,7 +741,10 @@ class EngineCore(AsyncEngine):
                     self.scheduler.abort(seq, "error")
                     self._emit_finish(seq, "error")
                     continue
+                # clear BEFORE the kvbm drain: a submit() arriving during the
+                # drain's awaits sets _wake, which must survive to the wait()
                 self._wake.clear()
+                await self._kvbm_idle_drain()
                 if self._stopped:
                     return
                 await self._wake.wait()
@@ -595,6 +771,26 @@ class EngineCore(AsyncEngine):
                 # request would hang forever
                 log.exception("postprocess failed")
             self._flush_kv_events()
+            await self._kvbm_tick()
+
+    async def _kvbm_tick(self) -> None:
+        """One batched offload of sealed blocks to the host tier, between
+        windows (its gather is enqueued on the device-step thread behind
+        every window already dispatched)."""
+        if self.kvbm is not None:
+            try:
+                await self.kvbm.tick()
+            except Exception:
+                log.exception("kvbm offload tick failed")
+
+    async def _kvbm_idle_drain(self) -> None:
+        """Going idle: drain the offload backlog until work arrives."""
+        if self.kvbm is not None:
+            try:
+                while not self._wake.is_set() and await self.kvbm.tick():
+                    pass
+            except Exception:
+                log.exception("kvbm idle drain failed")
 
     def _abort_batch(self, batch) -> None:
         """Fail every seq a batch touches and clear the pendings it
@@ -849,6 +1045,54 @@ class EngineCore(AsyncEngine):
     def _resume_spec(self) -> None:
         pass
 
+    # --------------------- preemption / evacuation ---------------------
+    # (runtime.preemption drives these: park a decoding seat, wait for its
+    #  inflight windows to land, stream its KV to a peer, finish it here)
+
+    def evacuable_seats(self) -> List[SchedSeq]:
+        """Decoding seats whose KV is worth moving (prefill complete).
+        PREFILL/WAITING seats are cheaper to re-prefill at the destination
+        than to stream mid-build."""
+        return [s for s in self.scheduler.running
+                if s.status is SeqStatus.RUNNING and s.prefill_done]
+
+    def park_for_evacuation(self, seq_id: str) -> Optional[SchedSeq]:
+        """Freeze a seat for KV evacuation: the scheduler plans no new
+        windows for it and never picks it as a recompute victim, so its
+        blocks stay byte-stable while the transfer reads them."""
+        seq = self._seqs.get(seq_id)
+        if seq is None or seq.status is not SeqStatus.RUNNING:
+            return None
+        seq.status = SeqStatus.EVACUATING
+        return seq
+
+    def unpark(self, seq: SchedSeq) -> None:
+        """Abort an evacuation: the seat resumes decoding locally."""
+        if seq.status is SeqStatus.EVACUATING:
+            seq.status = SeqStatus.RUNNING
+            self._wake.set()
+
+    async def wait_quiesced(
+        self, seq: SchedSeq, timeout_s: float = 10.0
+    ) -> bool:
+        """Wait until none of the seat's tokens are in an inflight window —
+        only then is its KV byte-stable and safe to read."""
+        deadline = time.monotonic() + timeout_s
+        while seq.pending_total > 0:
+            if time.monotonic() >= deadline:
+                return False
+            await asyncio.sleep(0.005)
+        return True
+
+    def finish_evacuated(self, seq: SchedSeq) -> None:
+        """The seat now lives on the receiving worker: kill the device seat
+        and close the local stream with finish_reason ``evacuated``."""
+        if seq.status is SeqStatus.FINISHED:
+            return
+        self._ap_mark_dead(seq.slot)
+        self.scheduler.abort(seq, "evacuated")
+        self._emit_finish(seq, "evacuated")
+
     def _postprocess(self, batch, results) -> None:
         """Apply step results. Decode samples are per-seq token WINDOWS
         (length >= 1); tokens after a mid-window finish are discarded (and
@@ -922,6 +1166,10 @@ class EngineCore(AsyncEngine):
         self._pending_events.append(event.to_dict())
         if len(self._pending_events) > 10000:
             del self._pending_events[:5000]
+        if self.kvbm is not None:
+            self.kvbm.on_pool_event(event)
+        if self.prefix is not None:
+            self.prefix.on_pool_event(event)
 
     def _flush_kv_events(self) -> None:
         if self.kv_event_sink is None:
@@ -1000,6 +1248,10 @@ class InferenceEngine(EngineCore):
             self.device, seed=seed + 2, hist_cap=self._spec_hist_cap,
         )
         self._packed_prefill_fns: Dict[Tuple[int, int], Any] = {}
+        # KV block gather/scatter (disagg, KVBM, prefix onboarding,
+        # evacuation); the scatter writes self.cache in place
+        self._kv_extract, self._kv_inject = model_lib.make_kv_ops(
+            engine_config)
         # dispatch counters
         self.num_windows = 0
         self.num_prefill_dispatches = 0
@@ -1062,10 +1314,143 @@ class InferenceEngine(EngineCore):
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """One host→device copy, asynchronous from pinned memory on a
         card (a pageable copy could wait for the stream to drain)."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        return self._upload_tensor(torch.from_numpy(arr))
+
+    def _upload_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        if t.device == self.device:
+            return t
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            if not t.is_pinned():
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    # ------------------ KV block transfer (disagg) ---------------------
+    # Gathers and scatters run on the single device-step thread, so they
+    # are enqueued on the engine's stream strictly after every window
+    # already dispatched (and before any later one) — at pipeline_depth 2
+    # windows may still be in flight when one is asked for. The scatter
+    # writes the cache tensors in place: the decode graphs read them at
+    # their captured addresses. The host side of a payload is a dict of CPU
+    # tensors (pinned when they came off a card).
+
+    def _padded_ids(self, block_ids) -> Tuple[np.ndarray, int]:
+        """Block ids padded to a power of two with the trash block 0, so
+        pads gather it and scatter into it, and (padded, n)."""
+        n = len(block_ids)
+        padded = np.zeros((_pow2_bucket(n),), np.int32)
+        padded[:n] = block_ids
+        return padded, n
+
+    def _gather_blocks(self, padded: np.ndarray):
+        """Device-step thread: enqueue the gather of ``padded``; returns
+        (device payload, CUDA event after it or None on the CPU)."""
+        data = self._kv_extract(self.cache, self._upload(padded))
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return data, event
+
+    def _scatter_blocks(self, padded: np.ndarray, data, event=None,
+                        seq_id: Optional[str] = None,
+                        epoch: Optional[int] = None) -> None:
+        """Device-step thread: re-check the reservation epoch, then enqueue
+        the in-place scatter of ``data`` (host or device tensors) into
+        ``padded``, after ``event`` (a gather on another engine's stream)."""
+        if epoch is not None and not self.reservation_valid(seq_id, epoch):
+            from ..disagg.ici import StaleEpochError
+
+            raise StaleEpochError(
+                f"reservation {seq_id!r} epoch {epoch} is stale"
+            )
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            if event is not None:
+                stream.wait_event(event)
+        dev = {key: self._upload_tensor(a) for key, a in data.items()}
+        if self.device.type == "cuda":
+            for a in dev.values():
+                if a.device == self.device:
+                    # made on another engine's stream: keep its memory
+                    # until this stream has read it
+                    a.record_stream(stream)
+        self._kv_inject(self.cache, self._upload(padded), dev)
+
+    async def extract_kv_blocks(self, block_ids) -> Dict[str, torch.Tensor]:
+        """Gather arbitrary physical blocks to host memory ([L, N, KV, bs,
+        hd], plus [L, N, KV, bs] scales for a quantized cache). The id list
+        is padded to a power of two (pads gather the trash block) and the
+        pad is sliced off. On a card the copy lands in pinned memory and
+        this waits on its CUDA event off the device-step thread."""
+        loop = asyncio.get_running_loop()
+        padded, n = self._padded_ids(block_ids)
+
+        def _ex():
+            data, event = self._gather_blocks(padded)
+            if event is None:
+                return {key: a.to("cpu") for key, a in data.items()}, None
+            host = {}
+            for key, a in data.items():
+                h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                h.copy_(a, non_blocking=True)
+                host[key] = h
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+        host, done = await loop.run_in_executor(self._step_executor(), _ex)
+        if done is not None:
+            await loop.run_in_executor(None, done.synchronize)
+        return {key: a[:, :n] for key, a in host.items()}
+
+    async def inject_kv_blocks(
+        self, block_ids, data: Dict[str, torch.Tensor],
+        *, seq_id: Optional[str] = None, epoch: Optional[int] = None,
+    ) -> None:
+        """Scatter per-block KV into physical blocks, in place (pads
+        scatter into the trash block, which absorbs garbage by design).
+
+        With ``seq_id``/``epoch`` the reservation is re-validated *inside*
+        the device-step callable — immediately before the write — so a
+        reservation recycled mid-flight is rejected, never scattered."""
+        loop = asyncio.get_running_loop()
+        padded, n = self._padded_ids(block_ids)
+        m = padded.shape[0]
+        if m != n:
+
+            def _pad(a: torch.Tensor) -> torch.Tensor:
+                pad_shape = list(a.shape)
+                pad_shape[1] = m - n
+                return torch.cat(
+                    [a, torch.zeros(pad_shape, dtype=a.dtype,
+                                    device=a.device)], dim=1)
+
+            data = {key: _pad(a) for key, a in data.items()}
+
+        await loop.run_in_executor(
+            self._step_executor(),
+            lambda: self._scatter_blocks(padded, data, seq_id=seq_id,
+                                         epoch=epoch))
+
+    async def extract_kv(self, seq) -> Dict[str, torch.Tensor]:
+        """Gather a held sequence's KV blocks to host memory."""
+        return await self.extract_kv_blocks(seq.block_table)
+
+    async def inject_kv(self, seq, data: Dict[str, torch.Tensor],
+                        epoch: Optional[int] = None) -> None:
+        """Scatter received KV into a reserved sequence's blocks."""
+        await self.inject_kv_blocks(
+            seq.block_table, data, seq_id=seq.seq_id, epoch=epoch
+        )
+
+    def attach_kvbm(self, config=None, remote=None):
+        """Enable the multi-tier block manager on this engine (optionally
+        with a G4 remote tier)."""
+        from ..kvbm.manager import KvbmConfig, KvbmManager
+
+        self.kvbm = KvbmManager(self, config or KvbmConfig(), remote=remote)
+        return self.kvbm
 
     # --------------------- device execution ----------------------------
 

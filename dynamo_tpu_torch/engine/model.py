@@ -1025,3 +1025,60 @@ def make_autopilot_fns(cfg: ModelConfig, eng: EngineConfig, K: int,
     varies, and joins and block growth are rare)."""
     return (AutopilotWindow(cfg, eng, K, device, spec_k=spec_k),
             raw_ctl_delta_fn(Wcap))
+
+
+# ------------------------ KV block transfer ops ---------------------------
+#
+# The data plane of KV movement (disaggregated prefill/decode, the KVBM
+# tiers, the prefix cache's device-plane onboarding, preemption
+# evacuation): gather a set of physical blocks out of the paged cache and
+# scatter received blocks into pre-allocated ones. The JAX package jits an
+# XLA gather and a donated scatter (``make_kv_ops``); here they are torch
+# index ops. The scatter writes the cache's per-layer tensors IN PLACE: the
+# decode graphs read those tensors at the addresses they were captured over.
+
+
+def cache_payload_keys(eng: EngineConfig) -> Tuple[str, ...]:
+    """The cache dict keys a block transfer must carry: quantized caches
+    add the per-(slot, head) scale planes to the K/V pages."""
+    if quant.is_quantized(eng.kv_dtype):
+        return ("k", "v", "ks", "vs")
+    return ("k", "v")
+
+
+
+
+def make_kv_ops(eng: EngineConfig):
+    """(extract, inject) block gather/scatter over the paged cache.
+
+    extract(cache, block_ids[N]) -> {"k","v"}: [L, N, KV, bs, hd]
+    (plus {"ks","vs"}: [L, N, KV, bs] when the cache is quantized), new
+    tensors on the cache's device;
+    inject(cache, block_ids[N], data) -> cache, the same object, each layer
+    written in place with ``index_copy_`` (``data`` on the cache's device).
+    Pad ids name the trash block 0: pads gather it and scatter into it.
+    """
+    keys = cache_payload_keys(eng)
+
+    def extract(cache: Cache, block_ids: torch.Tensor) -> Dict[str, Any]:
+        ids = block_ids.long()
+        return {key: torch.stack([layer.index_select(0, ids)
+                                  for layer in cache[key]])
+                for key in keys}
+
+    def inject(cache: Cache, block_ids: torch.Tensor,
+               data: Dict[str, Any]) -> Cache:
+        ids = block_ids.long()
+        for key in keys:
+            src = data[key]
+            for li, layer in enumerate(cache[key]):
+                if layer.dtype == torch.float8_e4m3fn:
+                    # no index_copy_ for fp8: copy the same bytes as uint8
+                    # through a view of the same storage
+                    layer.view(torch.uint8).index_copy_(
+                        0, ids, src[li].view(torch.uint8))
+                else:
+                    layer.index_copy_(0, ids, src[li])
+        return cache
+
+    return extract, inject

@@ -1,8 +1,10 @@
-"""Global prefix cache: the radix-tree prefix index over the tiered KV
-cache (G1 HBM / G2 host / G4 store). This package holds the index only, as
-the KV router's cluster replica; the engine-side manager waits for its slice
-(ROADMAP.md queue A, item 4)."""
+"""Global prefix cache: radix-tree prefix index over the tiered KVBM
+(G1 HBM / G2 host / G4 store) with prefix-aware routing support.
 
+A copy of ``dynamo_tpu.prefix``: the index is the KV router's cluster
+replica and, through ``manager.py``, the engine's own prefix cache."""
+
+from .manager import PrefixCacheConfig, PrefixCacheManager
 from .radix import (
     DEFAULT_TIER_WEIGHTS, TIER_G1, TIER_G2, TIER_G4, TIERS, PrefixMatch,
     RadixNode, RadixPrefixIndex,
@@ -10,5 +12,6 @@ from .radix import (
 
 __all__ = [
     "DEFAULT_TIER_WEIGHTS", "TIER_G1", "TIER_G2", "TIER_G4", "TIERS",
-    "PrefixMatch", "RadixNode", "RadixPrefixIndex",
+    "PrefixCacheConfig", "PrefixCacheManager", "PrefixMatch", "RadixNode",
+    "RadixPrefixIndex",
 ]

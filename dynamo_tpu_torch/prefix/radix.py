@@ -22,10 +22,9 @@ Recency uses a logical clock (monotone per-index counter), never wall
 time, so eviction order is a pure function of the operation sequence —
 seeded churn schedules replay deterministically.
 
-A copy of ``dynamo_tpu.prefix.radix``. In this package only the KV router
-uses it, as its cluster replica fed by ``RouterEvent`` streams; the engine
-side (``prefix/manager.py``) waits for its slice (ROADMAP.md queue A, item
-4).
+A copy of ``dynamo_tpu.prefix.radix``: the KV router's cluster replica fed
+by ``RouterEvent`` streams, and the engine-side index of
+``prefix/manager.py``.
 """
 
 from __future__ import annotations

@@ -9,9 +9,9 @@ busy-threshold routing.
 
 A copy of ``dynamo_tpu.router.publisher`` on the package's own codec. The
 load snapshot carries the scheduler stats, what ``extra_fn`` adds, and the
-JAX package's ``spec`` (SpecDecodeStats), ``obs`` (flight recorder) and
-``faults`` (fault-plan firings) keys; its KVBM and preemption keys come
-with ROADMAP.md queue A item 4. Block hashes come from this package's
+JAX package's ``spec`` (SpecDecodeStats), ``obs`` (flight recorder),
+``kvbm`` (host tiers and prefix index), ``preempt`` (the preemption
+coordinator) and ``faults`` (fault-plan firings) keys. Block hashes come from this package's
 ``tokens.py`` (xxh3, as in the JAX package), so the events name the same
 hashes as a JAX worker's for the same tokens.
 """
@@ -122,7 +122,7 @@ class WorkerMetricsPublisher:
     def __init__(
         self, component: Component, worker_id: int, stats_fn,
         interval_s: float = 1.0, extra_fn=None, spec_fn=None, obs_fn=None,
-        faults_fn=None,
+        kvbm_fn=None, preempt_fn=None, faults_fn=None,
     ):
         self.component = component
         self.worker_id = worker_id
@@ -130,6 +130,10 @@ class WorkerMetricsPublisher:
         self.extra_fn = extra_fn      # () -> dict merged into the snapshot
         self.spec_fn = spec_fn        # () -> SpecDecodeStats dict ("spec" key)
         self.obs_fn = obs_fn          # () -> flight-recorder dict ("obs" key)
+        self.kvbm_fn = kvbm_fn        # () -> host-tier dict ("kvbm" key)
+        # () -> preemption dict ("preempt" key); serving assigns it after
+        # start() (the coordinator is built once the endpoint is live)
+        self.preempt_fn = preempt_fn
         # () -> {"site/kind": fired} fault-plan firing counts ("faults"
         # key) — how chaos injected into a live worker reaches the
         # aggregator's worker_faults_fired_total gauge
@@ -175,6 +179,16 @@ class WorkerMetricsPublisher:
                     snap["obs"] = dict(obs)
             except Exception:
                 log.exception("metrics obs_fn failed")
+        if self.kvbm_fn is not None:
+            try:
+                snap["kvbm"] = dict(self.kvbm_fn())
+            except Exception:
+                log.exception("metrics kvbm_fn failed")
+        if self.preempt_fn is not None:
+            try:
+                snap["preempt"] = dict(self.preempt_fn())
+            except Exception:
+                log.exception("metrics preempt_fn failed")
         if self.faults_fn is not None:
             try:
                 fired = self.faults_fn()

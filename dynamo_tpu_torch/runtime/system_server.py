@@ -9,9 +9,10 @@ can gate traffic on worker readiness.
 A copy of ``dynamo_tpu.runtime.system_server`` on the port's own HTTP server
 (``frontend/http.py``) and Prometheus exposition (``utils/metrics.py``) in
 place of aiohttp and prometheus_client: the same routes, status codes and
-JSON bodies. ``POST /preempt`` (the preemption coordinator, ROADMAP.md queue
-A item 4) and ``GET /debug/profile`` (profiling, item 7) are refused by name
-with 501.
+JSON bodies. ``POST /preempt`` fires the registered maintenance-notice
+triggers (the preemption coordinator, ``runtime/preemption.py``);
+``GET /debug/profile`` (profiling, ROADMAP.md queue A item 7) is refused by
+name with 501.
 """
 
 from __future__ import annotations
@@ -46,6 +47,9 @@ class SystemServer:
         # admin drain triggers: name -> zero-arg callable kicking off a
         # graceful drain (same path as SIGINT/SIGTERM)
         self._drain_handlers: Dict[str, Callable[[], None]] = {}
+        # maintenance-notice triggers: name -> zero-arg callable kicking
+        # off an evacuating drain (runtime.preemption)
+        self._preempt_handlers: Dict[str, Callable[[], None]] = {}
         self._live = True
         self._app: Optional[web.Application] = None
 
@@ -57,6 +61,10 @@ class SystemServer:
 
     def register_drain(self, name: str, handler: Callable[[], None]) -> None:
         self._drain_handlers[name] = handler
+
+    def register_preempt(self, name: str,
+                         handler: Callable[[], None]) -> None:
+        self._preempt_handlers[name] = handler
 
     def set_live(self, live: bool) -> None:
         self._live = live
@@ -119,12 +127,21 @@ class SystemServer:
         return web.json_response({"draining": fired}, status=202)
 
     async def _preempt(self, request: web.Request) -> web.Response:
-        """Maintenance-notice trigger: refused until the preemption
-        coordinator is ported."""
-        return web.json_response(
-            {"error": "/preempt needs the preemption coordinator (ROADMAP.md "
-                      "queue A, item 4), which dynamo_tpu_torch does not "
-                      "serve yet"}, status=501)
+        """Maintenance-notice trigger (the HTTP twin of the node agent's
+        SIGUSR1): evacuate in-flight KV to a peer / the host tier, then
+        drain. 202 — the evacuation runs async against its deadline."""
+        if not self._preempt_handlers:
+            return web.json_response(
+                {"error": "nothing preemptible registered"}, status=404
+            )
+        fired = []
+        for name, handler in list(self._preempt_handlers.items()):
+            try:
+                handler()
+                fired.append(name)
+            except Exception:
+                log.exception("preempt handler %s failed", name)
+        return web.json_response({"evacuating": fired}, status=202)
 
     async def _livez(self, request: web.Request) -> web.Response:
         return web.json_response({"live": self._live},

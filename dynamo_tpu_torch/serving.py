@@ -2,18 +2,18 @@
 components/backends/*/src/dynamo/*/main.py — create runtime, serve generate +
 clear_kv_blocks, attach publishers, register the model, drain on signal).
 
-A copy of ``dynamo_tpu.serving`` for the aggregated path this package
-serves, with the JAX package's opt-in control plane: the ``engine_*``
-gauges and the ``obs``/``spec``/``faults`` keys of the load snapshot, canary
-health probes that withdraw and readvertise the instance
-(``DYNTPU_HEALTH_CHECK_ENABLED``), the planner's degradation watcher with
-``apply_engine_clamps`` (``DYNTPU_PLANNER_APPLY_DEGRADATION``) and the
-``POST /drain`` trigger of the system server (``DYNTPU_SYSTEM_ENABLED``).
-The embeddings endpoint (ROADMAP.md queue A, item 7), the multimodal encode
-handler (item 7) and the preemption coordinator (item 4) are not ported, so
-the card advertises chat and completions only, and the ``evict_to_host``
-order stays inert (no engine prefix cache before item 4, as in a JAX
-worker without one).
+A copy of ``dynamo_tpu.serving``, with the JAX package's opt-in control
+plane: the ``engine_*`` gauges and the ``obs``/``spec``/``kvbm``/
+``preempt``/``faults`` keys of the load snapshot, canary health probes that
+withdraw and readvertise the instance (``DYNTPU_HEALTH_CHECK_ENABLED``), the
+planner's degradation watcher with ``apply_engine_clamps`` and the prefix
+cache's ``evict_to_host`` rung (``DYNTPU_PLANNER_APPLY_DEGRADATION``), the
+``POST /drain`` trigger of the system server (``DYNTPU_SYSTEM_ENABLED``), and
+the preemption coordinator (``SIGUSR1`` or ``POST /preempt`` evacuate the
+seats' KV, then drain). A disaggregated worker serves its prefill or decode
+handler in place of the engine. The embeddings endpoint and the multimodal
+encode handler (ROADMAP.md queue A, item 7) are not ported, so the card
+advertises chat and completions only.
 """
 
 from __future__ import annotations
@@ -28,12 +28,20 @@ from .engine.engine import EngineCore
 from .llm.discovery import ModelDeploymentCard, register_llm
 from .llm.tokenizer import Tokenizer
 from .router.publisher import KvEventPublisher, WorkerMetricsPublisher
+from .runtime import codec
 from .runtime.component import DistributedRuntime
 from .runtime.signals import install_shutdown_signals
 from .runtime.tasks import spawn_logged
 from .utils.logging import get_logger
 
 log = get_logger("serving")
+
+# the planner's event subject (the JAX package's planner/connector.py)
+PLANNER_EVENTS_SUBJECT = "planner_events"
+
+
+def planner_events_subject(namespace: str) -> str:
+    return f"v1/events/{namespace}/planner/{PLANNER_EVENTS_SUBJECT}/"
 
 
 @dataclass
@@ -53,14 +61,16 @@ async def serve_engine(
     eng_cfg: EngineConfig,
     opts: ServeOptions,
     tokenizer: Optional[Tokenizer] = None,
+    handler=None,
 ):
-    """Serve ``engine`` on the cluster; returns the served endpoint and the
-    publishers (caller owns shutdown ordering)."""
+    """Serve ``engine`` (or a wrapping ``handler``) on the cluster; returns
+    the served endpoint and the publishers (caller owns shutdown
+    ordering)."""
     await engine.start()
     endpoint = (runtime.namespace().component(opts.component)
                 .endpoint(opts.endpoint))
     served = await endpoint.serve_endpoint(
-        engine,
+        handler if handler is not None else engine,
         advertise_host=opts.advertise_host,
         metadata={"model": opts.name},
     )
@@ -80,6 +90,16 @@ async def serve_engine(
 
         obs_gauges = EngineObsGauges(runtime.metrics, engine)
         obs_fn = obs_gauges.refresh
+    kvbm = getattr(engine, "kvbm", None)
+    prefix = getattr(engine, "prefix", None)
+    # prefix counters ride the "kvbm" key of the load-metrics wire; an
+    # index-only prefix cache (no KVBM attached) still publishes them
+    if kvbm is not None:
+        kvbm_fn = kvbm.snapshot
+    elif prefix is not None:
+        kvbm_fn = prefix.snapshot
+    else:
+        kvbm_fn = None
 
     def _faults_fired() -> dict:
         # installed via /debug/faults (chaos replay) or in-process tests;
@@ -93,6 +113,7 @@ async def serve_engine(
         endpoint.component, runtime.primary_lease, lambda: engine.stats,
         spec_fn=st.to_dict if st is not None else None,
         obs_fn=obs_fn,
+        kvbm_fn=kvbm_fn,
         faults_fn=_faults_fired,
     )
     metrics_pub.start()
@@ -128,7 +149,9 @@ async def serve_engine(
             on_recovered=_readvertise,
         )
         target = f"{opts.component}/{opts.endpoint}"
-        health.register(target, engine_canary(engine))
+        health.register(target, engine_canary(
+            handler if handler is not None else engine
+        ))
         health.start()
         served.health_manager = health
         if runtime.system_server is not None:
@@ -151,8 +174,9 @@ async def serve_engine(
             changed = apply_engine_clamps(eng_cfg, actions, originals)
             if changed:
                 log.info("degradation orders applied to engine: %s", changed)
-            # evict_to_host rung: demotes idle prefix blocks to the host
-            # pool in the JAX package; inert while engine.prefix is None
+            # evict_to_host rung: demote idle G1 prefix blocks to the host
+            # pool (prefix.manager) — fires on every order change while
+            # the rung holds (each deeper engage/release re-delivers it)
             n_evict = int(actions.get("evict_to_host") or 0)
             px = getattr(engine, "prefix", None)
             if n_evict > 0 and px is not None:
@@ -193,10 +217,13 @@ async def run_until_shutdown(
     served, kv_pub, metrics_pub,
 ) -> None:
     """Install the graceful drain triggers (SIGINT/SIGTERM and, when the
-    system server is up, ``POST /drain``), then block on runtime shutdown.
-    The JAX package also builds a ``PreemptionCoordinator`` here
-    (maintenance notices on SIGUSR1 or ``POST /preempt`` evacuate KV before
-    the drain); it waits for ROADMAP.md queue A, item 4."""
+    system server is up, ``POST /drain``), the maintenance-notice triggers
+    (SIGUSR1 / ``POST /preempt`` → evacuating drain), then block on runtime
+    shutdown."""
+    from .runtime.preemption import (
+        PreemptionCoordinator, install_preemption_signal,
+    )
+
     loop = asyncio.get_running_loop()
 
     def _graceful():
@@ -227,6 +254,52 @@ async def run_until_shutdown(
         runtime.system_server.register_drain(
             served.endpoint.path, guard.trigger
         )
+
+    # maintenance notices: evacuate in-flight KV (peer / host tier / re-
+    # prefill fallback), tell the planner so it scales the replacement
+    # proactively, then run the same graceful drain
+    subject = planner_events_subject(runtime.namespace().name)
+
+    def _preempt_event(event: dict) -> None:
+        spawn_logged(
+            runtime.store.publish(subject, codec.packb(event)),
+            name="preempt-event",
+        )
+
+    coordinator = PreemptionCoordinator(
+        engine,
+        worker_key=served.endpoint.path,
+        notice_grace_s=runtime.config.preempt_notice_grace_s,
+        evac_deadline_s=runtime.config.preempt_evac_deadline_s,
+        journal_cap=runtime.config.preempt_journal_cap,
+        on_event=_preempt_event,
+    )
+    served.preemption = coordinator
+
+    async def _notice_then_drain(reason: str) -> None:
+        await coordinator.notice(reason)
+        guard.trigger()
+
+    def _on_notice(reason: str):
+        return lambda: spawn_logged(
+            _notice_then_drain(reason), name="preempt-notice"
+        )
+
+    try:
+        install_preemption_signal(coordinator, loop=loop, then=guard.trigger)
+    except (NotImplementedError, RuntimeError):
+        pass  # no SIGUSR1 on this platform — HTTP trigger still works
+    if runtime.system_server is not None:
+        runtime.system_server.register_preempt(
+            served.endpoint.path, _on_notice("admin")
+        )
+    metrics_pub.preempt_fn = lambda: {
+        "notices": coordinator.num_notices,
+        "evacuated_total": coordinator.num_evacuated,
+        "spilled_total": coordinator.num_spilled,
+        "fallbacks_total": coordinator.num_fallbacks,
+    }
+
     await runtime.shutdown_event.wait()
 
 

@@ -9,11 +9,10 @@ A copy of ``dynamo_tpu.utils.config`` holding the settings this package
 reads, under the JAX package's names, defaults and environment variables,
 so one deployment's settings configure processes of either package: the
 system server, health probes, speculative decoding and the planner's
-degradation ladder among them. The switch of the radix prefix cache, not
-ported yet, is kept too, so that :func:`check_supported` refuses it;
-``prefix_enabled`` defaults to off here. The JAX package's tuning knobs of
-the paths not ported yet (disagg, preemption, KVBM, the profile directory
-of ``/debug/profile``) come with them.
+degradation ladder, the radix prefix cache (on by default, as in the JAX
+package), the disaggregated handoff and the preemption coordinator among
+them. The profile directory of ``/debug/profile`` comes with its path
+(ROADMAP.md queue A, item 7).
 """
 
 from __future__ import annotations
@@ -134,9 +133,47 @@ class RuntimeConfig:
     # workers poll planner/{ns}/degradation and clamp their engine knobs
     # when enabled (frontends always apply tier shedding)
     planner_apply_degradation: bool = False
-    # -- switches of paths not served yet (check_supported refuses) --
-    # the radix prefix cache (on by default in the JAX package)
-    prefix_enabled: bool = False
+    # -- global prefix cache (dynamo_tpu_torch.prefix) --
+    # radix-tree prefix index over the tiered KVBM: engine-side tier
+    # tracking + onboarding/demotion policies (attach_prefix_cache)
+    prefix_enabled: bool = True
+    # G1 blocks one degradation evict_to_host application may demote
+    prefix_evict_blocks: int = 64
+    # routing score weight of host-pool / store-held prefix blocks
+    # relative to device-resident G1 (= 1.0)
+    prefix_tier_weight_g2: float = 0.75
+    prefix_tier_weight_g4: float = 0.5
+    # -- disaggregated prefill/decode handoff (dynamo_tpu_torch.disagg) --
+    # how long decode waits on a queued prefill before going local
+    disagg_queue_wait_s: float = 60.0
+    # total wall budget for one KV handoff (further capped by the
+    # request's own deadline)
+    disagg_handoff_timeout_s: float = 120.0
+    # extra wait when a device transfer is mid-write at timeout
+    disagg_inflight_grace_s: float = 30.0
+    # per-attempt cap on one KV push (device transfer or relay inject)
+    disagg_inject_timeout_s: float = 10.0
+    # push retries after the first attempt (exponential backoff from
+    # the base, always bounded by the remaining handoff deadline)
+    disagg_transfer_max_retries: int = 2
+    disagg_retry_backoff_base_s: float = 0.05
+    # consecutive handoff failures before decode flips to local-prefill
+    # for the cooldown window (exported as disagg_breaker_open)
+    disagg_breaker_failure_threshold: int = 3
+    disagg_breaker_cooldown_s: float = 10.0
+    # orphan GC: sweep cadence + slack past an entry's deadline
+    disagg_orphan_sweep_interval_s: float = 5.0
+    disagg_orphan_grace_s: float = 5.0
+    # -- preemption tolerance (dynamo_tpu_torch.runtime.preemption) --
+    # wait after a maintenance notice before evacuating, so short
+    # seats finish in place instead of paying a handoff
+    preempt_notice_grace_s: float = 2.0
+    # total wall budget for evacuating all in-flight seats; seats that
+    # miss the deadline fall back to Migration re-prefill
+    preempt_evac_deadline_s: float = 30.0
+    # max seat-state journal entries retained per worker (evacuated
+    # seats are dropped oldest-first past the cap)
+    preempt_journal_cap: int = 256
 
     @staticmethod
     def from_settings(path: Optional[str] = None) -> "RuntimeConfig":
@@ -164,10 +201,8 @@ class RuntimeConfig:
 
 
 # settings whose path this package does not serve yet, with the ROADMAP.md
-# item that brings each
-_UNPORTED = (
-    ("prefix_enabled", "the radix prefix cache (ROADMAP.md queue A, item 4)"),
-)
+# item that brings each (none: every setting above has its path)
+_UNPORTED: tuple = ()
 
 
 def check_supported(cfg: RuntimeConfig) -> None:

@@ -14,8 +14,14 @@ defaults, so a JAX command line parses unchanged, and adds ``--device``
 (``cuda`` unless asked for the CPU; with no device given and no GPU present
 the worker raises). It serves the aggregated path on one device with seeded
 random weights, bf16/int8/fp8 weights and KV, speculative decoding
-(``--spec-mode ngram --spec-k K``) and the engine sizing flags; the control
-plane (system server, health probes, degradation watcher) comes from the
+(``--spec-mode ngram --spec-k K``), disaggregated prefill/decode
+(``--disagg-mode prefill|decode``, with ``--disagg-queue`` for the store's
+pull queue), the KVBM tiers (``--kvbm-host-blocks/-bytes``,
+``--kvbm-disk-dir/-blocks``, ``--kvbm-remote``, ``--kvbm-distributed``,
+``--kvbm-group*``), the radix prefix cache (on unless
+``DYNTPU_PREFIX_ENABLED=0``) and the engine sizing flags; the control plane
+(system server, health probes, degradation watcher, the preemption
+coordinator behind ``SIGUSR1`` and ``POST /preempt``) comes from the
 runtime settings, as in the JAX package.
 Every flag whose path this package does not serve yet raises
 ``NotImplementedError`` naming the ROADMAP.md item that brings it.
@@ -115,8 +121,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "drain before being stopped for client migration "
                         "(default: DYNTPU_DRAIN_TIMEOUT_S, 30)")
     p.add_argument("--advertise-host", default="127.0.0.1")
-    # the rest select paths that are not served yet; their defaults are the
-    # JAX package's
     p.add_argument("--disagg-mode", default="agg",
                    choices=["agg", "decode", "prefill"])
     p.add_argument("--prefill-component", default="prefill")
@@ -133,6 +137,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kvbm-group-role", choices=["leader", "worker"],
                    default="worker")
     p.add_argument("--kvbm-group-size", type=int, default=1)
+    # the rest select paths that are not served yet; their defaults are the
+    # JAX package's
     p.add_argument("--mm-encoder", action="store_true")
     p.add_argument("--mm-image-size", type=int, default=32)
     p.add_argument("--mm-patch-size", type=int, default=8)
@@ -149,7 +155,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def check_supported(args: argparse.Namespace) -> None:
     """Refuse every flag whose path this package does not serve yet."""
     a6 = "multi-device serving (ROADMAP.md queue A, item 6)"
-    a4 = "KV movement (ROADMAP.md queue A, item 4)"
     a7 = "multimodal serving (ROADMAP.md queue A, item 7)"
     unsupported = [
         (args.model == "70b", "--model 70b", a6),
@@ -159,11 +164,6 @@ def check_supported(args: argparse.Namespace) -> None:
         (args.pp > 1, f"--pp {args.pp}", a6),
         (args.attention_impl == "auto", "--attention-impl auto",
          "autotune (ROADMAP.md queue A, item 7)"),
-        (args.disagg_mode != "agg", f"--disagg-mode {args.disagg_mode}", a4),
-        (args.disagg_queue, "--disagg-queue", a4),
-        (args.kvbm_host_blocks or args.kvbm_host_bytes
-         or args.kvbm_disk_dir or args.kvbm_disk_blocks or args.kvbm_remote
-         or args.kvbm_distributed or args.kvbm_group, "--kvbm-*", a4),
         (args.mm_encoder or args.mm_encode_component is not None,
          "--mm-*", a7),
         (args.coordinator is not None or args.num_hosts > 1,
@@ -228,27 +228,150 @@ async def run_worker(args: argparse.Namespace) -> None:
         _build.build_all()
     runtime = await DistributedRuntime.from_settings(config)
 
+    if args.kvbm_host_blocks > 0:
+        from .kvbm.manager import KvbmConfig, StoreRemoteTier
+
+        remote = None
+        if args.kvbm_remote:
+            remote = StoreRemoteTier(
+                runtime.store, namespace=config.namespace
+            )
+        engine.attach_kvbm(KvbmConfig(
+            host_blocks=args.kvbm_host_blocks,
+            host_bytes=args.kvbm_host_bytes,
+            disk_dir=args.kvbm_disk_dir,
+            disk_blocks=args.kvbm_disk_blocks,
+        ), remote=remote)
+
+    kvbm_dist = None
+    if args.kvbm_group:
+        # a group member that never starts the presence plane would leave
+        # the leader waiting at the barrier for a check-in that never comes
+        args.kvbm_distributed = True
+    if args.kvbm_distributed and engine.kvbm is None:
+        raise SystemExit(
+            "--kvbm-distributed/--kvbm-group require KVBM "
+            "(--kvbm-host-blocks > 0)"
+        )
+    if args.kvbm_distributed:
+        from .kvbm.distributed import (
+            DistributedKvbm, KvbmGroup, engine_layout,
+        )
+
+        kvbm_dist = DistributedKvbm(
+            engine.kvbm, runtime.store, runtime.primary_lease,
+            namespace=config.namespace, advertise_host=args.advertise_host,
+            scope=name,
+        )
+        await kvbm_dist.start()
+        if args.kvbm_group:
+            layout = engine_layout(engine)
+            if args.kvbm_group_role == "leader":
+                await KvbmGroup.lead(
+                    runtime.store, args.kvbm_group, args.kvbm_group_size,
+                    layout,
+                )
+            else:
+                await KvbmGroup.join(
+                    runtime.store, args.kvbm_group,
+                    f"worker-{runtime.primary_lease}", layout,
+                )
+            log.info("kvbm group %s formed (%s)", args.kvbm_group,
+                     args.kvbm_group_role)
+
+    if config.prefix_enabled:
+        from .prefix.manager import PrefixCacheConfig
+
+        # after attach_kvbm so the manager chains the host-pool drop hook
+        # and mirrors the G2/G4 tiers; works index-only without KVBM
+        engine.attach_prefix_cache(
+            config=PrefixCacheConfig(
+                evict_to_host_blocks=config.prefix_evict_blocks,
+                tier_weight_g2=config.prefix_tier_weight_g2,
+                tier_weight_g4=config.prefix_tier_weight_g4,
+            ),
+            worker_id=runtime.primary_lease,
+        )
+
+    handler = None
+    queue_worker = None
+    component = args.component
+    if args.disagg_mode == "prefill":
+        from .disagg import DisaggConfig, PrefillHandler, PrefillQueueWorker
+
+        # prefill workers serve on their own component; decode workers own
+        # model registration (ref: vllm main.py:137 init_prefill)
+        component = args.prefill_component
+        handler = PrefillHandler(
+            engine, config=DisaggConfig.from_runtime(config)
+        )
+        handler.start_orphan_sweeper()
+        if args.disagg_queue:
+            queue_worker = PrefillQueueWorker(
+                handler, runtime.store, queue_name=args.disagg_queue_name
+            )
+            queue_worker.start()
+        tokenizer = None
+    elif args.disagg_mode == "decode":
+        from .disagg import DecodeHandler, DisaggConfig
+
+        prefill_client = await (
+            runtime.namespace().component(args.prefill_component)
+            .endpoint("generate").client()
+        )
+        handler = DecodeHandler(
+            engine, prefill_client,
+            DisaggConfig.from_runtime(
+                config,
+                min_remote_prefill_tokens=args.min_remote_prefill_tokens,
+                use_queue=args.disagg_queue,
+                queue_name=args.disagg_queue_name,
+            ),
+            store=runtime.store,
+        )
+        handler.start_orphan_sweeper()
+
     opts = ServeOptions(
-        name=name, component=args.component, endpoint=args.endpoint,
+        name=name, component=component, endpoint=args.endpoint,
         advertise_host=args.advertise_host,
         migration_limit=args.migration_limit,
         tool_call_parser=args.tool_call_parser,
         reasoning_parser=args.reasoning_parser,
     )
     served, kv_pub, metrics_pub = await serve_engine(
-        runtime, engine, eng_cfg, opts, tokenizer
+        runtime, engine, eng_cfg, opts, tokenizer, handler=handler
     )
-    # The kernels' launch counts ride every load-metrics snapshot (the JAX
-    # worker puts its disagg handler's counters in the same seam): a worker
-    # that dies without a shutdown leaves its last counts with subscribers.
-    # Readers look keys up by name, so the JAX router and monitor ignore it.
-    metrics_pub.extra_fn = lambda: {"kernel_launches": dict(pa.LAUNCHES)}
-    log.info("worker ready: model=%s device=%s engine=%s",
-             name, engine.device, eng_cfg)
+    # The kernels' launch counts ride every load-metrics snapshot, beside
+    # the disagg handler's health gauges (fallbacks, breaker state,
+    # retries, orphan reaps — and in queue mode the prefill backlog) as the
+    # JAX worker publishes them: a worker that dies without a shutdown
+    # leaves its last counts with subscribers. Readers look keys up by
+    # name, so the JAX router and monitor ignore the launch counts.
+    disagg_extra = (handler.metrics_extra
+                    if args.disagg_mode in ("prefill", "decode") else dict)
+    metrics_pub.extra_fn = lambda: {
+        **disagg_extra(), "kernel_launches": dict(pa.LAUNCHES)}
+    if args.disagg_mode == "decode" and args.disagg_queue:
+        handler.start_depth_monitor()
+    if args.disagg_mode == "decode":
+        inject_ep = (runtime.namespace().component(component)
+                     .endpoint("kv_inject"))
+        inject_served = await inject_ep.serve_endpoint(
+            handler.inject_handler(), advertise_host=args.advertise_host
+        )
+        handler.kv_inject_addr = inject_served.instance.addr
+    log.info("worker ready: model=%s mode=%s device=%s engine=%s",
+             name, args.disagg_mode, engine.device, eng_cfg)
     try:
         await run_until_shutdown(runtime, engine, served, kv_pub,
                                  metrics_pub)
     finally:
+        if queue_worker is not None:
+            await queue_worker.stop()
+        if kvbm_dist is not None:
+            await kvbm_dist.stop()
+        if hasattr(handler, "close"):
+            handler.close()
         log.info("worker exiting: kernel launches %s", launch_counts())
 
 

@@ -224,18 +224,48 @@ def test_trace_routes_answer_as_the_jax_server(monkeypatch, path):
 
 
 def test_unported_admin_routes_are_refused_by_name():
+    """``/debug/profile`` (profiling, ROADMAP.md queue A item 7) is the one
+    admin route left unported; ``/preempt`` is served (below)."""
     async def script():
         server = tsys.SystemServer(host="127.0.0.1", port=0)
         await server.start()
         try:
             async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
-                return [await _get(s, server.port, m, p) for m, p in (
-                    ("POST", "/preempt"), ("GET", "/debug/profile"))]
+                return [await _get(s, server.port, "GET", "/debug/profile")]
         finally:
             await server.stop()
     for status, body in asyncio.run(script()):
         assert status == 501
         assert "ROADMAP.md" in body["error"]
+
+
+def test_preempt_route_answers_as_the_jax_server():
+    """``POST /preempt`` with nothing registered (404), then with two
+    maintenance-notice triggers, one of which raises (202 naming the one
+    that fired): the same statuses, bodies and firings as JAX's server."""
+    async def script(side):
+        server = SIDES[side].sys.SystemServer(host="127.0.0.1", port=0)
+        fired = []
+        await server.start()
+        try:
+            async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
+                out = [await _get(s, server.port, "POST", "/preempt")]
+                server.register_preempt("w/1", lambda: fired.append("w/1"))
+
+                def broken():
+                    raise RuntimeError("boom")
+
+                server.register_preempt("w/2", broken)
+                out.append(await _get(s, server.port, "POST", "/preempt"))
+                return out, fired
+        finally:
+            await server.stop()
+
+    want, got = asyncio.run(script("jax")), asyncio.run(script("port"))
+    assert got == want
+    assert got[0][0][0] == 404
+    assert got[0][1] == (202, {"evacuating": ["w/1"]})
+    assert got[1] == ["w/1"]
 
 
 # ------------------------------ gauges -----------------------------------

@@ -5,9 +5,10 @@ them: the port has its own replacements), and ``triton`` is never imported
 at module level. Its entry
 points refuse to fall back to the CPU when no device is given and no GPU is
 present, and engine construction refuses the paths this slice does not
-serve. The distributed entry points refuse every flag and setting whose path
-is not ported yet and accept every router mode, and the store and the
-frontend never load ``torch``."""
+serve. The distributed entry points refuse every flag whose path is not
+ported yet and accept every router mode, the KV-movement flags and the
+settings of the prefix cache, the disaggregated handoff and preemption, and
+the store and the frontend never load ``torch``."""
 
 import ast
 import asyncio
@@ -32,9 +33,16 @@ TOKENIZER_STUB = (
 FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 # never imported anywhere: JAX, the JAX package, and what the card's
-# machine does not install
+# machine does not install (or no record says it does)
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "xxhash", "msgpack",
-             "ml_dtypes", "tokenizers", "aiohttp", "prometheus_client"}
+             "ml_dtypes", "tokenizers", "aiohttp", "prometheus_client",
+             "safetensors", "grpc"}
+# the modules of the KV-movement slice (each scanned like every other)
+KV_MOVEMENT = ["disagg/__init__.py", "disagg/protocol.py", "disagg/ici.py",
+               "disagg/handlers.py", "kvbm/__init__.py", "kvbm/host_pool.py",
+               "kvbm/manager.py", "kvbm/distributed.py",
+               "runtime/barrier.py", "runtime/preemption.py",
+               "prefix/manager.py"]
 # imported only inside the function that launches a kernel
 NOT_AT_MODULE_LEVEL = {"triton"}
 
@@ -67,6 +75,16 @@ def test_module_imports_stand_alone(path):
         if top:
             assert name not in NOT_AT_MODULE_LEVEL, \
                 f"{path.name} imports {name} at module level"
+
+
+def test_scan_covers_the_kv_movement_modules():
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(KV_MOVEMENT) <= scanned
+    for rel in KV_MOVEMENT:
+        names = {n for n, _ in _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
+        assert not names & FORBIDDEN, rel
 
 
 def test_scan_sees_nested_imports():
@@ -120,6 +138,9 @@ def test_importing_the_port_loads_nothing_forbidden():
     # one module that needed both it and the codec
     assert {"dynamo_tpu_torch.utils.xxh3",
             "dynamo_tpu_torch.router.kv_router"} <= set(mods)
+    assert {"dynamo_tpu_torch." + m[:-3].replace("/", ".")
+            for m in KV_MOVEMENT if not m.endswith("__init__.py")} \
+        <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + f"bad = {sorted(FORBIDDEN | NOT_AT_MODULE_LEVEL)!r}\n"
@@ -183,9 +204,7 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 @pytest.mark.parametrize("flags", [
     ["--weights", "/ckpt"], ["--mesh", "1,2"], ["--pp", "2"],
-    ["--attention-impl", "auto"],
-    ["--disagg-mode", "prefill"], ["--disagg-queue"],
-    ["--kvbm-host-blocks", "64"], ["--kvbm-remote"], ["--mm-encoder"],
+    ["--attention-impl", "auto"], ["--mm-encoder"],
     ["--mm-encode-component", "encoder"], ["--coordinator", "h0:1234"],
     ["--num-hosts", "2"], ["--model", "70b"],
 ], ids=lambda f: f[0].lstrip("-") + ("" if len(f) == 1 else f"={f[1]}"))
@@ -195,6 +214,19 @@ def test_worker_refuses_unserved_flags(flags):
     args = worker.parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         asyncio.run(worker.run_worker(args))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--disagg-mode", "prefill"], ["--disagg-mode", "decode"],
+    ["--disagg-queue"], ["--kvbm-host-blocks", "64"], ["--kvbm-remote"],
+    ["--kvbm-disk-dir", "/tmp/g3"], ["--kvbm-distributed"],
+    ["--kvbm-group", "g"],
+], ids=lambda f: f[0].lstrip("-") + ("" if len(f) == 1 else f"={f[1]}"))
+def test_worker_serves_kv_movement_flags(flags):
+    from dynamo_tpu_torch import worker
+
+    args = worker.parse_args(["--device", "cpu", *flags])
+    worker.check_supported(args)
 
 
 def test_worker_serves_spec_mode():
@@ -231,20 +263,9 @@ def test_frontend_serves_every_router_mode(mode):
     frontend.check_supported(frontend.parse_args(["--router-mode", mode]))
 
 
-@pytest.mark.parametrize("env", ["DYNTPU_PREFIX_ENABLED"])
-def test_runtime_refuses_unserved_settings(monkeypatch, env):
-    from dynamo_tpu_torch.runtime.component import DistributedRuntime
-    from dynamo_tpu_torch.utils.config import RuntimeConfig
-
-    assert RuntimeConfig().prefix_enabled is False
-    monkeypatch.setenv(env, "1")
-    with pytest.raises(NotImplementedError, match=env):
-        asyncio.run(DistributedRuntime.from_settings())
-
-
 @pytest.mark.parametrize("env", [
     "DYNTPU_SYSTEM_ENABLED", "DYNTPU_HEALTH_CHECK_ENABLED",
-    "DYNTPU_PLANNER_APPLY_DEGRADATION"])
+    "DYNTPU_PLANNER_APPLY_DEGRADATION", "DYNTPU_PREFIX_ENABLED"])
 def test_runtime_serves_control_plane_settings(monkeypatch, env):
     from dynamo_tpu_torch.utils.config import RuntimeConfig, check_supported
 
@@ -266,12 +287,15 @@ def test_routed_pipeline_refuses_a_multimodal_card():
 
 
 def test_store_and_frontend_never_touch_the_gpu():
-    """The store, the frontend and a routed pipeline load no ``torch`` at
-    all, so they cannot initialise CUDA."""
+    """The store, the frontend, its KV router (with the prefix package it
+    imports) and a routed pipeline load no ``torch`` at all, so they cannot
+    initialise CUDA (nor stall the frontend's loop on torch's import)."""
     code = (
         "import sys\n"
         "import dynamo_tpu_torch.runtime.store\n"
         "import dynamo_tpu_torch.frontend.__main__\n"
+        "import dynamo_tpu_torch.router.kv_router\n"
+        "import dynamo_tpu_torch.prefix\n"
         "from dynamo_tpu_torch.llm.discovery import ModelDeploymentCard\n"
         "from dynamo_tpu_torch.llm.entrypoint import build_routed_pipeline\n"
         f"card = ModelDeploymentCard(name='m', tokenizer_json={TOKENIZER_STUB!r})\n"

@@ -301,15 +301,14 @@ def test_fault_plan_injects_the_same_faults_as_jax():
 def test_runtime_config_reads_the_jax_settings(monkeypatch, tmp_path):
     """Every setting the port reads comes from the same config-file key and
     environment variable, with the same default and coercion, as the JAX
-    package's (``prefix_enabled`` aside: off by default in the port)."""
+    package's (``prefix_enabled`` included: on by default in both)."""
     import dataclasses
 
     fields = [f.name for f in dataclasses.fields(tconfig.RuntimeConfig)]
     jdefault, tdefault = jconfig.RuntimeConfig(), tconfig.RuntimeConfig()
     for name in fields:
-        if name != "prefix_enabled":
-            assert getattr(tdefault, name) == getattr(jdefault, name), name
-    assert jdefault.prefix_enabled and not tdefault.prefix_enabled
+        assert getattr(tdefault, name) == getattr(jdefault, name), name
+    assert jdefault.prefix_enabled and tdefault.prefix_enabled
     values = {"namespace": "ns1", "store_addr": "10.0.0.1:1", "spec_mode":
               "ngram", "weight_dtype": "int8", "trace_export_path": "/t"}
     for name in fields:
