@@ -127,17 +127,43 @@ Phases (any failure exits non-zero and prints no result line):
    worker spills 8 mid-stream seats to its host tier and it drains and
    exits 0.
 
+8. serve Mixtral-8x7B at full width, 16 of its 32 layers (``[moe]``
+   lines): bf16 random weights from seed 0 drawn one expert matrix at a
+   time, ``EngineConfig()``, phase 3's traffic at depth 2 (TTFT, ITL,
+   tok/s, ``mfu_decode``/``mfu_prefill``, both faces' launches at head dim
+   128), the probe (argmax agreement only: the two paths can route a token
+   to different experts), each decode graph phase 3 replays against its
+   eager window bit for bit, phase 4's profile of its decode window and
+   prefill chunk, and one layer's ``moe_ffn`` against a plain f32
+   reference at N=16 and N=512 with its share of each step; the kernel
+   cases of phase 2 include both faces at this model's serving shapes;
+
+9. load a checkpoint (``[load]`` lines): phase 3's bf16 weights written as
+   an HF checkpoint (``config.json`` + two ``*.safetensors`` shards, HF
+   names, ``[out, in]``) by the port's writer under ``build/``, loaded back
+   in this process at bf16 and int8 (leaves bitwise equal to the engine's,
+   and for int8 to ``quantize_params`` of the checkpoint), then served by
+   ``python -m dynamo_tpu_torch.run in=batch:... out=engine --weights DIR``
+   at bf16 and at int8 weights + KV in a process of its own: read rate,
+   peak host RSS, time to ready, both faces' launches there, and its
+   streams held to ``check_parity`` against phase 3's engine of the same
+   dtype (an eager rerun with its logits recorded). The bf16 part runs
+   after phase 7's in-process part, the int8 part after phase 4's int8
+   profile, phase 8 last.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
-its last row is the ragged face at the spec-verify shape, launched by the
-spec run's verify windows);
+after the kernel builds come the ragged face at the spec-verify shape,
+launched by the spec run's verify windows, and both faces at Mixtral's
+head dim 128, launched by phase 8's run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -199,6 +225,10 @@ PREFILL_CASE = "main path prefill R=1 T=512 q_len=512 ctx 512 W=32"
 # keys, the ragged face at a shape the decode graphs never give it
 SPEC_CASE = "spec verify R=16 q_len=5 ctx 518..581 W=512"
 SPEC_ROWS = [(5, 518 + (37 * i) % 64, 5) for i in range(16)]
+# the [moe] phase's serving shapes: Mixtral's attention (32 query / 8 KV
+# heads at head dim 128) at the decode window's and prefill chunk's shapes
+MOE_DECODE_CASE = "mixtral decode hd=128 B=16 ctx 513..576 W=512"
+MOE_PREFILL_CASE = "mixtral prefill hd=128 R=1 T=512 ctx 512 W=32"
 
 
 # ------------------------------ phase 1 ----------------------------------
@@ -458,6 +488,11 @@ def kernel_cases():
                   W=512, face="decode"),
         make_case(PREFILL_CASE, [(512, 512, 512)], W=32, face="ragged"),
         make_case(SPEC_CASE, SPEC_ROWS, W=512, face="ragged"),
+        make_case(MOE_DECODE_CASE,
+                  [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
+                  W=512, face="decode", hd=128),
+        make_case(MOE_PREFILL_CASE, [(512, 512, 512)], W=32, face="ragged",
+                  hd=128),
         # the kernels' other builds: head dim 128 (Llama-3-8B heads) and f32
         make_case("ragged mixed hd=128 R=3",
                   [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
@@ -565,6 +600,13 @@ N_REQUESTS, ISL, OSL = 16, 512, 64
 # running max, so the two drift by bf16 rounding through 16 layers; random-weight logits are ~N(0, 1) and the
 # top two of 128256 sit ~0.2 apart
 PROBE_MAX_DIFF, PROBE_MIN_ARGMAX_AGREE = 0.5, 0.75
+# The MoE model's probe: the two paths' bf16 differences move a router logit
+# by ~1e-2, and where a token's 2nd and 3rd experts sit closer than that the
+# paths route it to different experts, which changes its hidden state by a
+# whole expert's output (O(1) logits). So no |diff| bound holds; a kernel
+# that computed garbage would agree on ~1/32000 of the argmaxes, a right one
+# on most.
+PROBE_MOE_MIN_ARGMAX_AGREE = 0.5
 # run-ahead depths phase 3 serves at, in turns: the default (whose first
 # run is the main path the kernels line counts), the synchronous loop, the
 # default again
@@ -617,13 +659,15 @@ def main_prompts(vocab: int):
             for _ in range(N_REQUESTS)]
 
 
-def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
+def phase_engine(card: str, dtype: str = "bf16", ref_logits=None,
+                 cfg=None, depths=DEPTHS, label: str = "Llama-3.2-1B"):
     """Serve N_REQUESTS concurrent greedy requests through the engine API
-    ``run.py in=batch`` uses, at full Llama-3.2-1B width, with weights and
-    KV in ``dtype`` ("bf16" | "int8" | "fp8"). Returns the kernel launch
-    counts of that run, the engine, the probe's kernel-path logits and the
-    run's TTFT/ITL/throughput; ``ref_logits`` (the bf16 run's) are compared
-    with a quantized run's."""
+    ``run.py in=batch`` uses, at full width of ``cfg`` (Llama-3.2-1B by
+    default), with weights and KV in ``dtype`` ("bf16" | "int8" | "fp8"),
+    at each run-ahead depth of ``depths``. Returns the kernel launch counts
+    of the first run, the engine, the probe's kernel-path logits and the
+    first run's TTFT/ITL/throughput; ``ref_logits`` (the bf16 run's) are
+    compared with a quantized run's."""
     import asyncio
 
     import torch
@@ -634,17 +678,21 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.runtime.context import Context
 
-    cfg = ModelConfig.llama3_1b()
+    cfg = cfg or ModelConfig.llama3_1b()
     quant = dict(weight_dtype=dtype, kv_dtype=dtype)
-    tag = "[engine]" if dtype == "bf16" else f"[engine {dtype}/{dtype}]"
+    if cfg.is_moe:
+        tag = "[moe]"
+    else:
+        tag = "[engine]" if dtype == "bf16" else f"[engine {dtype}/{dtype}]"
     t0 = time.perf_counter()
     # cuda by default; quantized weights are quantized from the same random
     # bf16 weights as the bf16 run's (same seed)
     engine = InferenceEngine(cfg, EngineConfig(**quant), seed=SEED)
     torch.cuda.synchronize()
-    print(f"{tag} Llama-3.2-1B random weights (seed {SEED}), weights and "
+    print(f"{tag} {label} random weights (seed {SEED}), weights and "
           f"KV {dtype}, on {engine.device} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     prompts = main_prompts(cfg.vocab_size)
 
     async def one(token_ids, max_tokens, stamps):
@@ -693,7 +741,7 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
           f"construction (buckets {engine.config.decode_buckets} x "
           f"greedy/stochastic): {sum(graphs.capture_s.values()):.2f} s",
           flush=True)
-    for i, depth in enumerate(DEPTHS):
+    for i, depth in enumerate(depths):
         outs, stamps, wall, launches, obs, n = asyncio.run(serve(depth))
         stats = depth_stats(f"{tag} {card}: pipeline_depth={depth}:",
                             cfg, outs, stamps, wall, obs, n)
@@ -712,7 +760,7 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
         f"paged_attention_decode{suffix}", f"paged_attention_ragged{suffix}")}
     for name, n in launches.items():
         print(f"{tag} {name} launches in the served run (depth "
-              f"{DEPTHS[0]}, graph replays counted): {n}")
+              f"{depths[0]}, graph replays counted): {n}")
         if n == 0:
             fail(f"{name} was never launched on the main path")
 
@@ -738,7 +786,12 @@ def phase_engine(card: str, dtype: str = "bf16", ref_logits=None):
         .float().mean().item()
     print(f"{tag} probe logits finite; kernel vs einsum path max |diff| "
           f"{diff:.4f}, argmax agreement {agree:.3f}", flush=True)
-    if diff > PROBE_MAX_DIFF or agree < PROBE_MIN_ARGMAX_AGREE:
+    if cfg.is_moe:
+        if agree < PROBE_MOE_MIN_ARGMAX_AGREE:
+            fail(f"probe (MoE): kernel path disagrees with the einsum path "
+                 f"(argmax agreement {agree} < "
+                 f"{PROBE_MOE_MIN_ARGMAX_AGREE})")
+    elif diff > PROBE_MAX_DIFF or agree < PROBE_MIN_ARGMAX_AGREE:
         fail(f"probe ({dtype}): kernel path disagrees with the einsum path "
              f"({diff} > {PROBE_MAX_DIFF} or {agree} < "
              f"{PROBE_MIN_ARGMAX_AGREE})")
@@ -1306,7 +1359,9 @@ def phase_profile(engine, card: str) -> None:
     from ``torch.profiler`` over a few calls, the device busy time and idle
     share, the host's kernel and graph launches, the kernels that ran on
     the device and the attention kernel's share. The decode window runs
-    eagerly and as the engine's replayed graph, on the same seats."""
+    eagerly and as the engine's replayed graph, on the same seats. Returns
+    each step's device busy ms ("decode_eager", "decode_graph",
+    "prefill")."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1337,17 +1392,20 @@ def phase_profile(engine, card: str) -> None:
     pint = torch.from_numpy(pint).to(dev)
     key = torch.tensor(1, device=dev)
     steps = {  # each enqueues one step and returns its sampled tokens
-        f"decode window B={B} ctx ~{ctx0}, eager": lambda: window(
-            engine.params, engine.cache, ctl, rows, False)[2],
-        f"decode window B={B} ctx ~{ctx0}, graph replay": lambda: graphed(
-            engine.params, engine.cache, engine._ctl, graph_rows,
-            False)[2],
-        f"prefill chunk T={T} W={W}": lambda: prefill(
+        "decode_eager": (
+            f"decode window B={B} ctx ~{ctx0}, eager", lambda: window(
+                engine.params, engine.cache, ctl, rows, False)[2]),
+        "decode_graph": (
+            f"decode window B={B} ctx ~{ctx0}, graph replay",
+            lambda: graphed(engine.params, engine.cache, engine._ctl,
+                            graph_rows, False)[2]),
+        "prefill": (f"prefill chunk T={T} W={W}", lambda: prefill(
             engine.params, engine.cache, ctl["last_tok"], pint, key,
-            False)[2],
+            False)[2]),
     }
     launch_keys = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
-    for name, enqueue in steps.items():
+    busy_of = {}
+    for step, (name, enqueue) in steps.items():
         def fn():
             return enqueue().cpu()
         for _ in range(3):
@@ -1378,6 +1436,7 @@ def phase_profile(engine, card: str) -> None:
         on_device = sum(e.count for e in kernels) / reps
         if attn <= 0:
             fail(f"{name}: no device time in the attention kernels")
+        busy_of[step] = busy
         top = sorted(kernels, key=_device_us, reverse=True)[:4]
         print(f"[profile] {card}: {name}, weights {eng.weight_dtype} KV "
               f"{eng.kv_dtype}: wall {wall_ms:.2f} ms (host enqueue "
@@ -1392,6 +1451,7 @@ def phase_profile(engine, card: str) -> None:
     for k, v in saved_ctl.items():
         engine._ctl[k].copy_(v)
     torch.cuda.synchronize()
+    return busy_of
 
 
 # ------------------------------ phase 5 ----------------------------------
@@ -3664,6 +3724,245 @@ def phase_kvmove_procs(card: str, served: dict) -> dict:
     return out
 
 
+# --------------------------- phase 8: MoE ---------------------------------
+
+MOE_LAYERS = 16   # of Mixtral-8x7B's 32: the bf16 weights of 16 layers
+                  # (~47 GB) and 2 GiB of KV fit one 80 GB card
+
+
+def moe_reference(x, wr, wg, wu, wd, k: int, C: int):
+    """Plain f32 reference of one MoE layer: each token's top-``k``
+    experts (softmax of f32 router logits, ties to the lower index, gates
+    renormalised), routed token by token in token-major, slot-minor order;
+    a pick beyond an expert's ``C`` slots is dropped (GShard). Returns
+    (out [N, D] f32, dropped picks)."""
+    import torch
+    import torch.nn.functional as F
+
+    xf = x.float()
+    probs = torch.softmax(xf @ wr.float(), dim=-1).cpu()
+    load = [0] * wr.shape[1]
+    picks = {}                          # expert -> [(token, gate)]
+    dropped = 0
+    for n in range(x.shape[0]):
+        row = probs[n].tolist()
+        top = sorted(range(len(row)), key=lambda e: -row[e])[:k]
+        total = sum(row[e] for e in top)
+        for e in top:
+            if load[e] < C:
+                picks.setdefault(e, []).append((n, row[e] / total))
+            else:
+                dropped += 1
+            load[e] += 1
+    out = torch.zeros_like(xf)
+    for e, got in picks.items():
+        idx = torch.tensor([n for n, _ in got], device=x.device)
+        g = torch.tensor([w for _, w in got], device=x.device)[:, None]
+        xe = xf[idx]
+        h = F.silu(xe @ wg[e].float()) * (xe @ wu[e].float())
+        out.index_add_(0, idx, g * (h @ wd[e].float()))
+    return out, dropped
+
+
+def check_moe_ffn(engine, card: str, busy: dict) -> dict:
+    """[moe] ``moe_ffn`` with layer 0's weights on seeded bf16 inputs at the
+    decode window's N=16 and the prefill chunk's N=512, against
+    :func:`moe_reference` (TOL bf16); its device time and its share of the
+    step (times the layers) beside the step's device busy time from
+    phase 4's profile of the MoE engine."""
+    import torch
+
+    from dynamo_tpu_torch.parallel.moe import moe_capacity, moe_ffn
+
+    cfg = engine.model_config
+    lay = engine.params["layers"]
+    w = [lay[k][0] for k in ("w_router", "w_gate", "w_up", "w_down")]
+    k, cf = cfg.num_experts_per_token, cfg.moe_capacity_factor
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
+    atol, rtol = TOL["bfloat16"]
+    out = {}
+    for N, step in ((16, "decode_graph"), (512, "prefill")):
+        x = torch.randn(N, cfg.hidden_size, generator=gen, device=DEV,
+                        dtype=torch.float32).to(torch.bfloat16)
+        C = moe_capacity(N, cfg.num_experts, k, cf)
+        got = moe_ffn(x, *w, top_k=k, capacity_factor=cf)
+        want, dropped = moe_reference(x, *w, k, C)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"[moe] moe_ffn N={N}: not finite or misshapen")
+        err = (got.float() - want).abs()
+        excess = (err - rtol * want.abs()).max().item()
+        ms = device_ms(lambda: moe_ffn(x, *w, top_k=k, capacity_factor=cf))
+        share = cfg.num_layers * ms / busy[step]
+        print(f"[moe] {card}: moe_ffn N={N} (C={C}, {dropped} of {N * k} "
+              f"picks past capacity) vs the plain f32 reference: max "
+              f"|diff| {err.max().item():.3e} (atol {atol} + rtol {rtol}); "
+              f"device {ms:.4f} ms per layer, x {cfg.num_layers} layers = "
+              f"{cfg.num_layers * ms:.3f} ms of the {step} step's "
+              f"{busy[step]:.3f} ms device busy ({share:.0%})", flush=True)
+        if excess > atol:
+            fail(f"[moe] moe_ffn N={N} disagrees with the reference: "
+                 f"{err.max().item()}")
+        out[N] = dict(ms=ms, share=share, max_abs_err=err.max().item())
+    return out
+
+
+def phase_moe(card: str):
+    """[moe]: Mixtral-8x7B at full width (D 4096, F 14336, 8 experts top-2,
+    32 / 8 heads at head dim 128, vocab 32,000, untied, theta 1e6), 16 of
+    its 32 layers, bf16, random weights from seed 0, ``EngineConfig()``:
+    phase 3's traffic at depth 2 (TTFT, ITL, tok/s, the flight recorder's
+    ``mfu_decode``/``mfu_prefill``), the probe, each decode graph phase 3
+    replays against its eager window bit for bit, phase 4's profile of a
+    decode window and a prefill chunk, and one layer's ``moe_ffn`` against
+    its plain reference with its share of each step. Returns the launch
+    counts of the served run."""
+    import torch
+
+    from dynamo_tpu_torch.engine import ModelConfig
+
+    cfg = dataclasses.replace(ModelConfig.mixtral_8x7b(),
+                              num_layers=MOE_LAYERS)
+    launches, engine, _, stats = phase_engine(
+        card, cfg=cfg, depths=(DEPTHS[0],),
+        label=f"Mixtral-8x7B ({MOE_LAYERS} of 32 layers)")
+    phase_graph(engine, card)
+    busy = phase_profile(engine, card)
+    check_moe_ffn(engine, card, busy)
+    print(f"[moe] {card}: device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------- phase 9: the loader --------------------------
+
+LOAD_DIR = os.path.join("build", "ckpt_llama_3_2_1b")
+LOAD_LINE = re.compile(r"loaded (\d+) tensors \(([\d.]+) GB\) .* in "
+                       r"([\d.]+) s: ([\d.]+) GB/s, peak host RSS "
+                       r"(not measured|[\d.]+ GiB \([\d.]+ GiB before\))")
+READY_LINE = re.compile(r"engine ready ([\d.]+) s after the launcher "
+                        r"started")
+LAUNCH_LINE = re.compile(r"run exiting: kernel launches (.*)")
+
+
+def same_tree(a, b) -> bool:
+    """Two parameter trees hold the same leaves, bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(same_tree(a[k], b[k]) for k in a))
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def phase_load(card: str, engine, dtype: str) -> None:
+    """[load]: the checkpoint loader on phase 3's ``dtype`` engine. For
+    bf16, the engine's parameters are written as an HF checkpoint
+    (``config.json`` + two ``*.safetensors`` shards, HF names, ``[out,
+    in]``, bf16) by the port's writer under ``build/``. Loaded in this
+    process, the leaves must equal the engine's bit for bit (for int8:
+    ``quantize_params`` of the bf16 checkpoint, ``q`` and ``s``, and the
+    int8 engine's own leaves). Then ``python -m dynamo_tpu_torch.run
+    in=batch:... out=engine --weights DIR`` (``--weight-dtype`` and
+    ``--kv-dtype`` ``dtype``) serves phase 3's traffic in a process of its
+    own: its streams must meet ``check_parity`` against the engine's
+    tapped rerun, both faces must launch there, and its read rate, peak
+    host RSS and time to ready are printed."""
+    import shutil
+
+    import torch
+
+    from dynamo_tpu_torch.engine import quant, weights
+
+    cfg = engine.model_config
+    files = sorted(os.path.join(LOAD_DIR, f) for f in (
+        os.listdir(LOAD_DIR) if os.path.isdir(LOAD_DIR) else [])
+        if f.endswith(".safetensors"))
+    if dtype == "bf16":
+        shutil.rmtree(LOAD_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        weights.save_hf_params(LOAD_DIR, engine.params, cfg, n_shards=2)
+        files = sorted(os.path.join(LOAD_DIR, f)
+                       for f in os.listdir(LOAD_DIR)
+                       if f.endswith(".safetensors"))
+        print(f"[load] {card}: wrote {len(files)} shards, "
+              f"{sum(os.path.getsize(f) for f in files) / 1e9:.3f} GB, in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if len(files) != 2:
+        fail(f"[load] expected 2 checkpoint shards under {LOAD_DIR}")
+    loaded = weights.load_hf_params(LOAD_DIR, cfg, dtype)
+    st = dict(weights.last_load_stats)
+    same = same_tree(loaded, engine.params)
+    what = "the engine's"
+    if dtype != "bf16":
+        src = weights.load_hf_params(LOAD_DIR, cfg, "bf16")
+        same = same and same_tree(loaded, quant.quantize_params(src, dtype))
+        what = "quantize_params of the bf16 checkpoint and the engine's"
+        del src
+    del loaded
+    torch.cuda.empty_cache()
+    print(f"[load] {card}: in process, {st['n_tensors']} tensors "
+          f"({st['bytes'] / 1e9:.3f} GB) onto the card at {dtype} in "
+          f"{st['seconds']:.2f} s, {st['gb_s']:.2f} GB/s; leaves equal "
+          f"{what} bit for bit: {same}", flush=True)
+    if not same:
+        fail(f"[load] {dtype} leaves differ from {what}")
+
+    prompts = main_prompts(cfg.vocab_size)
+    batch = os.path.join("build", f"load_batch_{dtype}.jsonl")
+    with open(batch, "w") as f:
+        for p in prompts:
+            f.write(json.dumps({"token_ids": p, "max_tokens": OSL}) + "\n")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.run", f"in=batch:{batch}",
+         "out=engine", "--weights", LOAD_DIR, "--weight-dtype", dtype,
+         "--kv-dtype", dtype, "--max-tokens", str(OSL)],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join("build", f"load_run_{dtype}.log"), "w") as f:
+        f.write(out.stderr)
+    if out.returncode != 0:
+        fail(f"[load] run.py --weights ({dtype}) exited "
+             f"{out.returncode}: {out.stderr[-2000:]}")
+    load = LOAD_LINE.search(out.stderr)
+    ready = READY_LINE.search(out.stderr)
+    counts = LAUNCH_LINE.search(out.stderr)
+    if not (load and ready and counts):
+        fail(f"[load] run.py --weights ({dtype}) logged no load, ready or "
+             f"launch line")
+    launches = dict(kv.split("=") for kv in counts.group(1).split())
+    suffix = "" if dtype == "bf16" else f"_{dtype}"
+    for face in ("decode", "ragged"):
+        if int(launches.get(f"paged_attention_{face}{suffix}", 0)) == 0:
+            fail(f"[load] the {face} face never launched in run.py")
+    rows = sorted((json.loads(line) for line in out.stdout.splitlines()
+                   if line.strip()), key=lambda r: r["index"])
+    got = [r["token_ids"] for r in rows]
+    if [len(g) for g in got] != [OSL] * len(prompts):
+        fail(f"[load] run.py --weights ({dtype}) returned short streams")
+    print(f"[load] {card}: run.py --weights {dtype}: loaded "
+          f"{load.group(1)} tensors ({load.group(2)} GB) in "
+          f"{load.group(3)} s at {load.group(4)} GB/s, peak host RSS "
+          f"during the load {load.group(5)}; engine ready "
+          f"{ready.group(1)} s after the launcher started; process wall "
+          f"{wall:.1f} s; kernel launches "
+          f"{counts.group(1)}", flush=True)
+    want, rec = tapped_run(engine, prompts)
+    partings = check_parity(want, rec, got, f"phase 3's {dtype} engine",
+                            tag="[load]")
+    print(f"[load] {card}: {dtype} streams served from the checkpoint "
+          f"vs phase 3's {dtype} engine (eager rerun): "
+          f"{len(prompts) - len(partings)} of {len(prompts)} identical, "
+          f"{len(partings)} part at near-ties", flush=True)
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -3683,10 +3982,12 @@ for _kv in ("int8", "fp8"):
         "dynamo_tpu/ops/paged_attention.py:109")
 
 
-def kernels_line(results, launches, dist_launches, spec_launches) -> str:
+def kernels_line(results, launches, dist_launches, spec_launches,
+                 moe_launches) -> str:
     """The ``kernels`` JSON line: one row per kernel build, plus the
     ragged face at the spec engine's verify shape (its launches: the verify
-    windows of phase 3's spec run)."""
+    windows of phase 3's spec run) and both faces at Mixtral's head dim 128
+    (their launches: the [moe] phase's served run)."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -3711,6 +4012,17 @@ def kernels_line(results, launches, dist_launches, spec_launches) -> str:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     })
+    for name, case in (("paged_attention_decode", MOE_DECODE_CASE),
+                       ("paged_attention_ragged", MOE_PREFILL_CASE)):
+        r = results[case]
+        rows.append({
+            "name": f"{name}@mixtral_hd128", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": KERNELS[name][3], "launches": moe_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     return json.dumps({"kernels": rows})
 
 
@@ -3762,6 +4074,8 @@ def main() -> None:
     timer("5 http")
     phase_kvmove_local(card, engine, direct)
     timer("7 kv movement in one process")
+    phase_load(card, engine, "bf16")
+    timer("9 loader bf16")
     del engine
     torch.cuda.empty_cache()
     dist_launches = phase_dist(card, served, direct)
@@ -3778,9 +4092,17 @@ def main() -> None:
             phase_profile(engine, card)
         phase_quant_costs(engine, card)
         timer(f"4 profile {dtype}")
+        if dtype == "int8":
+            phase_load(card, engine, "int8")
+            timer("9 loader int8")
         del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe(card)
+    timer("8 moe")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(results, launches, dist_launches, spec["launches"]))
+    print(kernels_line(results, launches, dist_launches, spec["launches"],
+                       moe_launches))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

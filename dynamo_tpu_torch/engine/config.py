@@ -22,8 +22,7 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Dense Llama-class decoder-only transformer shapes (the JAX
-    package's MoE fields wait for the MoE slice)."""
+    """Llama-class decoder-only transformer shapes, dense or MoE."""
 
     vocab_size: int = 128256
     hidden_size: int = 4096
@@ -37,10 +36,18 @@ class ModelConfig:
     max_position: int = 8192
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    # MoE (0 experts = dense). Mixtral-class models set these.
+    num_experts: int = 0
+    num_experts_per_token: int = 0
+    moe_capacity_factor: float = 2.0
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     # -- canned configs ---------------------------------------------------
 
@@ -55,6 +62,25 @@ class ModelConfig:
             hidden_size=2048, intermediate_size=8192, num_layers=16,
             num_heads=32, num_kv_heads=8, head_dim=64,
             tie_word_embeddings=True,
+        )
+
+    @staticmethod
+    def mixtral_8x7b() -> "ModelConfig":
+        """Mixtral-class MoE shapes (8 experts, top-2 routing)."""
+        return ModelConfig(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8,
+            rope_theta=1e6, num_experts=8, num_experts_per_token=2,
+        )
+
+    @staticmethod
+    def tiny_moe(vocab_size: int = 512) -> "ModelConfig":
+        """CPU-testable MoE toy (8 experts, top-2)."""
+        return ModelConfig(
+            vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=8, num_kv_heads=8, head_dim=8,
+            max_position=512, rope_theta=10000.0, dtype="float32",
+            num_experts=8, num_experts_per_token=2,
         )
 
     @staticmethod

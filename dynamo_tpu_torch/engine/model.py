@@ -1,10 +1,12 @@
 """Llama-class transformer in PyTorch with a paged KV cache.
 
-Port of ``dynamo_tpu.engine.model`` (the dense, single-device path). The
-functions keep their JAX names, layouts and contracts, so the tests hold each
-against its JAX counterpart on the same numpy inputs; inside they are plain
-PyTorch, with an explicit ``device``, explicit generators, and in-place
-updates where the JAX code donates buffers:
+Port of ``dynamo_tpu.engine.model`` (the single-device path, dense and
+MoE: a Mixtral-class config routes each layer's FFN through
+``parallel/moe.py``). The functions keep their JAX names, layouts and
+contracts, so the tests hold each against its JAX counterpart on the same
+numpy inputs; inside they are plain PyTorch, with an explicit ``device``,
+explicit generators, and in-place updates where the JAX code donates
+buffers:
 
 - **One unified step** serves prefill chunks and decode batches:
   ``tokens [B, T]`` with per-sequence block tables. Prefill runs ``B=1``
@@ -53,6 +55,7 @@ from ..ops import paged_attention as pa
 from ..ops.paged_attention import (
     paged_attention_decode, paged_attention_ragged,
 )
+from ..parallel.moe import moe_ffn
 from . import quant
 from .config import EngineConfig, ModelConfig
 
@@ -71,8 +74,11 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random-init parameters on the generator's device (stacked per-layer
-    ``[L, …]`` leaves, as in the JAX tree). The draws differ from
-    ``jax.random``'s for the same seed."""
+    ``[L, …]`` leaves, as in the JAX tree; MoE expert leaves ``[L, E, …]``
+    plus ``w_router [L, D, E]``). The draws differ from ``jax.random``'s
+    for the same seed. Expert stacks are drawn one (layer, expert) matrix
+    at a time into a leaf made in the model dtype, so no f32 copy of a
+    whole stack exists (at Mixtral width one would be ~30 GB)."""
     dt = torch_dtype(cfg)
     dev = generator.device
     hd = cfg.head_dim_
@@ -89,6 +95,14 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     def ones(shape):
         return torch.ones(shape, device=dev, dtype=dt)
 
+    def experts(shape, fan_in):
+        leaf = torch.empty((L, cfg.num_experts) + shape, device=dev,
+                           dtype=dt)
+        for li in range(L):
+            for e in range(cfg.num_experts):
+                leaf[li, e] = norm(shape, fan_in)
+        return leaf
+
     layers: Dict[str, Any] = {
         "attn_norm": ones((L, D)),
         "wq": norm((L, D, H * hd), D),
@@ -96,10 +110,16 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
         "wv": norm((L, D, KV * hd), D),
         "wo": norm((L, H * hd, D), H * hd),
         "mlp_norm": ones((L, D)),
-        "w_gate": norm((L, D, F_), D),
-        "w_up": norm((L, D, F_), D),
-        "w_down": norm((L, F_, D), F_),
     }
+    if cfg.is_moe:
+        layers["w_router"] = norm((L, D, cfg.num_experts), D)
+        layers["w_gate"] = experts((D, F_), D)
+        layers["w_up"] = experts((D, F_), D)
+        layers["w_down"] = experts((F_, D), F_)
+    else:
+        layers["w_gate"] = norm((L, D, F_), D)
+        layers["w_up"] = norm((L, D, F_), D)
+        layers["w_down"] = norm((L, F_, D), F_)
     params: Params = {
         "embed": norm((V, D), D),
         "layers": layers,
@@ -194,6 +214,15 @@ def _layer_slice(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
                else w[li])
         for name, w in stacked.items()
     }
+
+
+def _dequant_leaf(w: Any, dtype: torch.dtype) -> torch.Tensor:
+    """A whole weight leaf in ``dtype``, for consumers that need a plain
+    tensor (the MoE expert stacks). A quantized leaf makes a transient
+    full-precision copy of the stack each call, as the JAX code does."""
+    if isinstance(w, dict):
+        return (w["q"].float() * w["s"]).to(dtype)
+    return w
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -377,9 +406,24 @@ def forward(
         h = h + _mm(attn.reshape(B, T, H * hd), p["wo"])
 
         x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
-        gate = F.silu(_mm(x, p["w_gate"]).float())
-        up = _mm(x, p["w_up"]).float()
-        h = h + _mm((gate * up).to(h.dtype), p["w_down"])
+        if cfg.is_moe:
+            # every row of the chunk is routed, padding included, in the
+            # reference's order: capacity slots go to rows in [B*T] order
+            D = x.shape[-1]
+            out = moe_ffn(
+                x.reshape(B * T, D),
+                p["w_router"],
+                _dequant_leaf(p["w_gate"], x.dtype),
+                _dequant_leaf(p["w_up"], x.dtype),
+                _dequant_leaf(p["w_down"], x.dtype),
+                top_k=cfg.num_experts_per_token,
+                capacity_factor=cfg.moe_capacity_factor,
+            )
+            h = h + out.reshape(B, T, D)
+        else:
+            gate = F.silu(_mm(x, p["w_gate"]).float())
+            up = _mm(x, p["w_up"]).float()
+            h = h + _mm((gate * up).to(h.dtype), p["w_down"])
 
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return cache, h

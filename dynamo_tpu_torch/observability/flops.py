@@ -1,13 +1,14 @@
 """The analytic FLOPs/parameter model of the flight recorder
 (``observability/stepstats.py``), and the card's peak rates.
 
-A copy of ``dynamo_tpu.observability.flops`` for the port's dense models
-(the MoE terms come with the MoE slice). Two terms per processed token:
+A copy of ``dynamo_tpu.observability.flops``, dense and MoE. Two terms per
+processed token:
 
 * **matmul**: ``2 * n_active_params`` — every weight participates in one
   multiply-accumulate per token (2 FLOPs/MAC). The embedding *lookup* is
   excluded (it is a gather, not a matmul); the lm_head projection is
-  included.
+  included. An MoE layer counts its router and only the
+  ``num_experts_per_token`` experts a token is routed to.
 * **attention**: ``4 * num_layers * num_heads * head_dim * context`` —
   the QK^T scores plus the PV mix, both ``num_heads * head_dim * context``
   MACs per query token.
@@ -75,7 +76,10 @@ def param_count(cfg) -> int:
         cfg.intermediate_size, cfg.num_layers, cfg.vocab_size,
     )
     attn = D * H * hd + 2 * D * KV * hd + H * hd * D   # wq, wk, wv, wo
-    mlp = 3 * D * F
+    if cfg.is_moe:
+        mlp = D * cfg.num_experts + 3 * cfg.num_experts * D * F
+    else:
+        mlp = 3 * D * F
     per_layer = attn + mlp + 2 * D                      # + the two norms
     total = V * D + L * per_layer + D                   # embed + final_norm
     if not cfg.tie_word_embeddings:
@@ -85,12 +89,17 @@ def param_count(cfg) -> int:
 
 def active_param_count(cfg) -> int:
     """Parameters doing matmul work per token: the full count minus the
-    embedding table (gather, not matmul)."""
-    D, V = cfg.hidden_size, cfg.vocab_size
+    embedding table (gather, not matmul), with MoE expert weights scaled
+    to the ``num_experts_per_token`` actually routed."""
+    D, F, L, V = (cfg.hidden_size, cfg.intermediate_size,
+                  cfg.num_layers, cfg.vocab_size)
     active = param_count(cfg) - V * D
     if cfg.tie_word_embeddings:
         # the tied table still runs as the lm_head matmul
         active += D * V
+    if cfg.is_moe and cfg.num_experts > cfg.num_experts_per_token:
+        inactive_experts = cfg.num_experts - cfg.num_experts_per_token
+        active -= L * inactive_experts * 3 * D * F
     return active
 
 

@@ -5,6 +5,8 @@
         --tokenizer tokenizer.json --port 8000
     python -m dynamo_tpu_torch.run in=batch:requests.jsonl out=engine --model 1b
     python -m dynamo_tpu_torch.run in=text out=engine --model tiny --device cpu
+    python -m dynamo_tpu_torch.run in=batch:prompts.jsonl out=engine \
+        --weights /models/llama3-1b --weight-dtype int8
 
 Inputs: ``http`` (the OpenAI frontend over the in-process engine — no
 cluster needed; needs ``--tokenizer``), ``text`` (interactive REPL) and
@@ -15,6 +17,13 @@ JSONL results, all submitted concurrently). Without a tokenizer ``text`` and
 on ``cuda`` unless ``--device`` says otherwise) and ``echo`` (token echo —
 protocol debugging). ``--tokenizer`` is a ``tokenizer.json`` file or a local
 HuggingFace directory holding one (with its ``tokenizer_config.json``).
+
+``--weights DIR`` serves a local HF checkpoint (``*.safetensors``, read by
+the port's own reader): its ``config.json``, when present, overrides
+``--model``, and the tokenizer defaults to the same directory (token ids
+when it holds none). ``--weight-dtype int8|fp8`` quantizes the weights as
+they load, ``--kv-dtype`` the KV pages (the worker's flags of the same
+names).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 import time
 from typing import Optional
@@ -37,6 +47,7 @@ MODEL_PRESETS = {
     "tiny": ModelConfig.tiny,
     "1b": ModelConfig.llama3_1b,
     "8b": ModelConfig.llama3_8b,
+    "mixtral": ModelConfig.mixtral_8x7b,
 }
 
 
@@ -66,11 +77,34 @@ def build_output(args):
     from .engine.engine import InferenceEngine
 
     model_cfg = MODEL_PRESETS[args.model]()
+    params = None
+    if args.weights:
+        from .engine.weights import load_hf_params, model_config_from_hf
+
+        if os.path.exists(os.path.join(args.weights, "config.json")):
+            model_cfg = model_config_from_hf(args.weights)
+        params = load_hf_params(args.weights, model_cfg, args.weight_dtype,
+                                device=args.device)
     eng_cfg = EngineConfig(
         num_blocks=args.num_blocks, block_size=args.block_size,
         max_model_len=min(args.max_model_len, model_cfg.max_position),
+        weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype,
     )
-    return InferenceEngine(model_cfg, eng_cfg, device=args.device)
+    return InferenceEngine(model_cfg, eng_cfg, params=params,
+                           device=args.device)
+
+
+def build_tokenizer(args):
+    """``--tokenizer``, else the ``--weights`` directory's tokenizer; with
+    ``--weights`` and no tokenizer there, token-id mode."""
+    if args.tokenizer is not None or args.weights is None:
+        return load_tokenizer(args.tokenizer)
+    try:
+        return load_tokenizer(args.weights)
+    except OSError:
+        log.warning("no tokenizer at %s — running token-id mode",
+                    args.weights)
+        return None
 
 
 async def run_text(engine, tokenizer, args) -> None:
@@ -161,7 +195,7 @@ async def run_http(engine, tokenizer, args,
     from .llm.entrypoint import build_local_pipeline
 
     if tokenizer is None:
-        raise SystemExit("in=http needs --tokenizer")
+        raise SystemExit("in=http needs --tokenizer or --weights")
     await engine.start()
     name = args.model_name or args.model
     pipeline = build_local_pipeline(
@@ -193,8 +227,18 @@ def parse_args(argv=None):
     p.add_argument("--model", default="tiny", choices=sorted(MODEL_PRESETS))
     p.add_argument("--model-name", default=None,
                    help="name the HTTP frontend serves (default --model)")
+    p.add_argument("--weights", default=None,
+                   help="local HF checkpoint dir (*.safetensors [+ "
+                        "config.json, which overrides --model]); the "
+                        "tokenizer defaults to it")
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer.json, or a local HF directory with one")
+    p.add_argument("--weight-dtype", default="bf16",
+                   choices=["bf16", "int8", "fp8"],
+                   help="weight storage: int8/fp8 quantize at load time")
+    p.add_argument("--kv-dtype", default="bf16",
+                   choices=["bf16", "int8", "fp8"],
+                   help="paged-KV storage dtype")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "kernel versions on the CPU)")
@@ -222,16 +266,27 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> None:
+    t0 = time.perf_counter()
     args = parse_args(argv)
     engine = build_output(args)
-    tokenizer = load_tokenizer(args.tokenizer)
-    if args.inp == "text":
-        asyncio.run(run_text(engine, tokenizer, args))
-    elif args.inp == "http":
-        asyncio.run(run_http(engine, tokenizer, args))
-    else:
-        asyncio.run(run_batch(engine, tokenizer, args,
-                              args.inp.split(":", 1)[1]))
+    tokenizer = build_tokenizer(args)
+    if args.out == "engine":
+        log.info("engine ready %.2f s after the launcher started",
+                 time.perf_counter() - t0)
+    try:
+        if args.inp == "text":
+            asyncio.run(run_text(engine, tokenizer, args))
+        elif args.inp == "http":
+            asyncio.run(run_http(engine, tokenizer, args))
+        else:
+            asyncio.run(run_batch(engine, tokenizer, args,
+                                  args.inp.split(":", 1)[1]))
+    finally:
+        if args.out == "engine":
+            from .ops import paged_attention as pa
+
+            log.info("run exiting: kernel launches %s", " ".join(
+                f"{name}={n}" for name, n in pa.LAUNCHES.items()))
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ A copy of ``dynamo_tpu.worker``: the parser keeps the JAX package's flags and
 defaults, so a JAX command line parses unchanged, and adds ``--device``
 (``cuda`` unless asked for the CPU; with no device given and no GPU present
 the worker raises). It serves the aggregated path on one device with seeded
-random weights, bf16/int8/fp8 weights and KV, speculative decoding
+random weights or a local HF checkpoint (``--weights DIR``: its
+``config.json`` overrides ``--model``, the tokenizer defaults to the
+directory), bf16/int8/fp8 weights and KV, speculative decoding
 (``--spec-mode ngram --spec-k K``), disaggregated prefill/decode
 (``--disagg-mode prefill|decode``, with ``--disagg-queue`` for the store's
 pull queue), the KVBM tiers (``--kvbm-host-blocks/-bytes``,
@@ -72,8 +74,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="set to split <think>…</think> into "
                         "reasoning_content (e.g. 'think')")
     p.add_argument("--weights", default=None,
-                   help="HF checkpoint dir (not served yet: ROADMAP.md "
-                        "queue A, item 5)")
+                   help="HF checkpoint dir [*.safetensors + config.json, "
+                        "which overrides --model]; tokenizer defaults to "
+                        "this dir")
     p.add_argument("--store-addr", default=None)
     p.add_argument("--namespace", default=None)
     p.add_argument("--component", default="backend")
@@ -158,8 +161,6 @@ def check_supported(args: argparse.Namespace) -> None:
     a7 = "multimodal serving (ROADMAP.md queue A, item 7)"
     unsupported = [
         (args.model == "70b", "--model 70b", a6),
-        (args.weights is not None, "--weights",
-         "the checkpoint loader (ROADMAP.md queue A, item 5)"),
         (args.mesh.replace(" ", "") != "1,1", f"--mesh {args.mesh}", a6),
         (args.pp > 1, f"--pp {args.pp}", a6),
         (args.attention_impl == "auto", "--attention-impl auto",
@@ -192,6 +193,20 @@ async def run_worker(args: argparse.Namespace) -> None:
         config.drain_timeout_s = args.drain_timeout
 
     model_cfg = MODEL_PRESETS[args.model]()
+    weight_dtype = (args.weight_dtype if args.weight_dtype is not None
+                    else config.weight_dtype)
+    kv_dtype = (args.kv_dtype if args.kv_dtype is not None
+                else config.kv_dtype)
+    params = None
+    if args.weights:
+        from .engine.weights import load_hf_params, model_config_from_hf
+
+        if os.path.exists(os.path.join(args.weights, "config.json")):
+            model_cfg = model_config_from_hf(args.weights)
+        params = load_hf_params(args.weights, model_cfg, weight_dtype,
+                                device=args.device)
+        if args.tokenizer is None:
+            args.tokenizer = args.weights
     eng_cfg = EngineConfig(
         block_size=args.block_size,
         num_blocks=args.num_blocks,
@@ -209,10 +224,8 @@ async def run_worker(args: argparse.Namespace) -> None:
         spec_k=(args.spec_k if args.spec_k is not None else config.spec_k),
         spec_auto_disable_threshold=config.spec_auto_disable_threshold,
         spec_auto_disable_window=config.spec_auto_disable_window,
-        weight_dtype=(args.weight_dtype if args.weight_dtype is not None
-                      else config.weight_dtype),
-        kv_dtype=(args.kv_dtype if args.kv_dtype is not None
-                  else config.kv_dtype),
+        weight_dtype=weight_dtype,
+        kv_dtype=kv_dtype,
     )
     tokenizer = load_tokenizer(args.tokenizer)
     name = args.model_name or args.model
@@ -221,7 +234,8 @@ async def run_worker(args: argparse.Namespace) -> None:
     # (random weights at full width, the KV cache) and the kernel build are
     # seconds of work that would starve the lease keepalive and get the
     # worker evicted at birth.
-    engine = InferenceEngine(model_cfg, eng_cfg, device=args.device)
+    engine = InferenceEngine(model_cfg, eng_cfg, params=params,
+                             device=args.device)
     if engine.device.type == "cuda":
         from .ops import _build
 

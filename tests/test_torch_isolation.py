@@ -43,6 +43,9 @@ KV_MOVEMENT = ["disagg/__init__.py", "disagg/protocol.py", "disagg/ici.py",
                "kvbm/manager.py", "kvbm/distributed.py",
                "runtime/barrier.py", "runtime/preemption.py",
                "prefix/manager.py"]
+# the loader and MoE slice's modules
+LOADER_AND_MOE = ["engine/safetensors.py", "engine/weights.py",
+                  "parallel/__init__.py", "parallel/moe.py"]
 # imported only inside the function that launches a kernel
 NOT_AT_MODULE_LEVEL = {"triton"}
 
@@ -82,6 +85,19 @@ def test_scan_covers_the_kv_movement_modules():
                for p in FILES if "dynamo_tpu_torch" in p.parts}
     assert set(KV_MOVEMENT) <= scanned
     for rel in KV_MOVEMENT:
+        names = {n for n, _ in _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
+        assert not names & FORBIDDEN, rel
+
+
+def test_scan_covers_the_loader_and_moe_modules():
+    """The checkpoint loader, the port's safetensors reader and the MoE
+    package are scanned like every other module: none imports
+    ``safetensors``, ``ml_dtypes`` or JAX."""
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(LOADER_AND_MOE) <= scanned
+    for rel in LOADER_AND_MOE:
         names = {n for n, _ in _imports(ast.parse(
             (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
         assert not names & FORBIDDEN, rel
@@ -203,7 +219,7 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--weights", "/ckpt"], ["--mesh", "1,2"], ["--pp", "2"],
+    ["--mesh", "1,2"], ["--pp", "2"],
     ["--attention-impl", "auto"], ["--mm-encoder"],
     ["--mm-encode-component", "encoder"], ["--coordinator", "h0:1234"],
     ["--num-hosts", "2"], ["--model", "70b"],
@@ -214,6 +230,22 @@ def test_worker_refuses_unserved_flags(flags):
     args = worker.parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         asyncio.run(worker.run_worker(args))
+
+
+def test_worker_weights_without_a_checkpoint_raises_as_jax_does(tmp_path):
+    """``--weights`` is served: a directory that holds no checkpoint raises
+    ``FileNotFoundError`` from the loader, as the JAX worker's does."""
+    from dynamo_tpu.engine import weights as jw
+    from dynamo_tpu.engine.config import ModelConfig as JaxModelConfig
+    from dynamo_tpu_torch import worker
+
+    missing = str(tmp_path / "ckpt")
+    args = worker.parse_args(["--device", "cpu", "--weights", missing])
+    worker.check_supported(args)
+    with pytest.raises(FileNotFoundError, match="no \\*.safetensors"):
+        asyncio.run(worker.run_worker(args))
+    with pytest.raises(FileNotFoundError, match="no \\*.safetensors"):
+        jw.load_hf_params(missing, JaxModelConfig.tiny())
 
 
 @pytest.mark.parametrize("flags", [
