@@ -151,12 +151,40 @@ Phases (any failure exits non-zero and prints no result line):
    after phase 7's in-process part, the int8 part after phase 4's int8
    profile, phase 8 last.
 
+10. profile the engine for the SLA planner (``[profile]`` lines): what
+   ``python -m dynamo_tpu_torch.planner.profiler --model 1b`` runs, in this
+   process, at ISLs 128, 512 and 1024, batches 1, 8 and 16 and contexts 128
+   and 512 (TTFT per ISL, ITL per batch and context, KV usage), written to
+   ``build/profile_llama_3_2_1b.json``, which both interpolators load; the
+   sweep's prefills launch the ragged face, its decode windows (graph
+   replays) the decode face;
+
+11. replay a trace (``[replay]`` lines): the ``bursty`` scenario at ISL 512
+   / OSL 64 with half of each prompt shared within a tenant's pool (32
+   requests, two tenants, two deadline tiers, an abort storm and a
+   maintenance preemption) through ``run_cluster_replay`` against two port
+   engines at Llama-3.2-1B width on the card behind the SimCluster front
+   (KV router, Migration, the store, its snapshot in a temporary
+   directory): per-tier TTFT/ITL p50/p99, goodput, the prefix-hit rate,
+   the outcome digest, chip-seconds per 1M output tokens on the one card
+   beside the scoreboard's (which counts each engine as a chip) and the
+   roofline's ideal, and every scoreboard cross-check (TTFT against spans,
+   tokens against the flight recorder, prefix hits against the radix
+   index, token loss, fault attribution), each of which must pass; then
+   (``[planner]`` lines) the planner builds both interpolators from phase
+   10's profile, observes the replay as one window (request count, mean
+   ISL/OSL, TTFT/ITL p99) and writes its replica targets through a
+   ``VirtualConnector`` to a store, read back. Phases 10 and 11 run after
+   the int8 and fp8 engines are freed, before phase 8.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
 after the kernel builds come the ragged face at the spec-verify shape,
 launched by the spec run's verify windows, and both faces at Mixtral's
-head dim 128, launched by phase 8's run);
+head dim 128, launched by phase 8's run; each kernel build's row also
+carries ``launches_profile`` and ``launches_replay``, the counts of phases
+10 and 11);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -3963,6 +3991,268 @@ def phase_load(card: str, engine, dtype: str) -> None:
           f"{len(partings)} part at near-ties", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the SLA profiler, the trace replay, the planner's targets
+
+PROFILE_ARGS = ["--model", "1b", "--isls", "128,512,1024",
+                "--batches", "1,8,16", "--contexts", "128,512"]
+PROFILE_PATH = os.path.join("build", "profile_llama_3_2_1b.json")
+PROFILE_KEYS = ("prefill_isl", "prefill_ttft_s", "prefill_thpt_per_chip",
+                "decode_kv_usage", "decode_context_length", "decode_itl_s",
+                "decode_thpt_per_chip")
+# the replay's traffic: the bursty scenario at ISL 512 / OSL 64, half of
+# every prompt shared within a tenant's pool (multi-tenant system prompts)
+REPLAY_TRACE = dict(isl=512, osl=64, vocab_size=32000, prefix_ratio=0.5)
+REPLAY_TIME_SCALE = 1.0
+# the planner reads the replay as one window against the limits PERF.md
+# proposes for 512-token prompts
+PLANNER_TTFT_SLA_S = 1.0
+PLANNER_ITL_SLA_S = 0.05
+
+
+def phase_sla_profile(card: str):
+    """Phase 10: ``python -m dynamo_tpu_torch.planner.profiler --model 1b``
+    (ISLs 128/512/1024, batches 1/8/16, contexts 128/512) in this process,
+    on the card: the prefill sweep runs the ragged face, the decode sweep
+    the decode face (graph replays). Writes the profile JSON under
+    ``build/``; both interpolators must load it. Returns (profile, the
+    sweep's launches)."""
+    import asyncio
+
+    import torch
+
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.planner import profiler
+    from dynamo_tpu_torch.planner.interpolation import (
+        DecodeInterpolator, PrefillInterpolator,
+    )
+
+    args = profiler.parse_args(PROFILE_ARGS + ["--out", PROFILE_PATH])
+    t0 = time.perf_counter()
+    engine = profiler.build_engine(args)
+    torch.cuda.synchronize()
+    print(f"[profile] Llama-3.2-1B engine (seed {SEED}, bf16, the "
+          f"profiler's EngineConfig) built in {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+
+    async def sweep():
+        pa.reset_launches()
+        try:
+            prof = await profiler.run_profile(args, engine)
+            return prof, dict(pa.LAUNCHES)
+        finally:
+            await engine.stop()
+
+    t0 = time.perf_counter()
+    profile, launches = asyncio.run(sweep())
+    wall = time.perf_counter() - t0
+    os.makedirs("build", exist_ok=True)
+    with open(PROFILE_PATH, "w") as f:
+        json.dump(profile, f, indent=2)
+    missing = [k for k in PROFILE_KEYS if k not in profile]
+    if missing:
+        fail(f"[profile] keys missing from the profile: {missing}")
+    vals = [v for k in PROFILE_KEYS for v in profile[k]]
+    if not all(isinstance(v, (int, float)) and v == v and v >= 0
+               for v in vals):
+        fail(f"[profile] a value is not a finite number >= 0: {profile}")
+    if not (all(v > 0 for v in profile["prefill_ttft_s"]
+                + profile["decode_itl_s"] + profile["decode_thpt_per_chip"])
+            and len(profile["decode_itl_s"]) == 6):
+        fail(f"[profile] empty or zero measurements: {profile}")
+    pre = PrefillInterpolator.from_profile(profile)
+    dec = DecodeInterpolator.from_profile(profile)
+    for isl, ttft, thpt in zip(profile["prefill_isl"],
+                               profile["prefill_ttft_s"],
+                               profile["prefill_thpt_per_chip"]):
+        print(f"[profile] {card}: prefill ISL {isl}: TTFT "
+              f"{ttft * 1e3:.2f} ms, {thpt:.0f} prompt tok/s "
+              f"(interpolated {pre.interpolate_ttft(isl) * 1e3:.2f} ms)",
+              flush=True)
+    batches = [int(b) for b in args.batches.split(",")
+               for _ in args.contexts.split(",")]
+    for b, kv, ctx, itl, thpt in zip(
+            batches, profile["decode_kv_usage"],
+            profile["decode_context_length"], profile["decode_itl_s"],
+            profile["decode_thpt_per_chip"]):
+        print(f"[profile] {card}: decode batch {b} context {ctx}: ITL p50 "
+              f"{itl * 1e3:.2f} ms, {thpt:.1f} tok/s, KV usage {kv:.4f}",
+              flush=True)
+    best = dec.find_best_throughput_per_chip(PLANNER_ITL_SLA_S, 512 + 32)
+    print(f"[profile] best decode point under ITL "
+          f"{PLANNER_ITL_SLA_S * 1e3:.0f} ms at context 544: "
+          f"{best[0]:.1f} tok/s at KV usage {best[1]:.3f} (ITL "
+          f"{best[2] * 1e3:.2f} ms); sweep {wall:.1f} s; launches {launches}",
+          flush=True)
+    for name in ("paged_attention_decode", "paged_attention_ragged"):
+        if launches[name] <= 0:
+            fail(f"[profile] {name} never launched in the sweep")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return profile, launches
+
+
+def replay_trace():
+    from dynamo_tpu_torch.replay.__main__ import scenario_config
+    from dynamo_tpu_torch.replay.trace import generate_trace
+
+    return generate_trace(dataclasses.replace(
+        scenario_config("bursty", SEED), **REPLAY_TRACE))
+
+
+def replay_settings():
+    """What ``python -m dynamo_tpu_torch.replay --model 1b`` runs."""
+    from dynamo_tpu_torch.replay.__main__ import replay_settings
+
+    return replay_settings("1b", time_scale=REPLAY_TIME_SCALE, n_workers=2,
+                           engine_seed=SEED)
+
+
+def phase_replay(card: str):
+    """Phase 11: ``run_cluster_replay`` of the bursty trace (32 requests,
+    ISL 512 / OSL 64, two tenants' shared-prefix pools, an abort storm, a
+    maintenance preemption) against two port engines at Llama-3.2-1B width
+    on the card behind the SimCluster front (KV router, Migration, the
+    store). Every scoreboard cross-check must pass. Returns (scoreboard,
+    run, the replay's launches)."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.replay.driver import run_cluster_replay
+    from dynamo_tpu_torch.replay.scoreboard import build_scoreboard
+
+    trace = replay_trace()
+    settings = replay_settings()
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="replay-") as work:
+        run = asyncio.run(run_cluster_replay(trace, settings, workdir=work))
+    launches = dict(pa.LAUNCHES)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rep = build_scoreboard(trace, run)
+    print(f"[replay] {card}: bursty seed {SEED}, {rep['requests']} requests "
+          f"(ISL {REPLAY_TRACE['isl']}, OSL {REPLAY_TRACE['osl']}, time "
+          f"scale {REPLAY_TIME_SCALE}) on 2 engines: {rep['completed']} "
+          f"completed, {rep['aborted']} aborted, {rep['errors']} errors, "
+          f"{rep['evacuation_resumes']} evacuation resumes; replay "
+          f"{rep['elapsed_s']} s (phase {wall:.1f} s with engine builds); "
+          f"digest {rep['outcome_digest']}", flush=True)
+    for tier, row in sorted(rep["tiers"].items()):
+        print(f"[replay] tier {tier}: {row['completed']} scored, TTFT p50 / "
+              f"p99 {row['ttft_p50_ms']} / {row['ttft_p99_ms']} ms, ITL p50 "
+              f"/ p99 {row['itl_p50_ms']} / {row['itl_p99_ms']} ms, goodput "
+              f"{row['goodput_tok_s']} tok/s, SLO violations "
+              f"{row['slo_violation_rate']} (SLO {row['slo']})", flush=True)
+    out_tokens = rep["output_tokens"]
+    per_card = (run.elapsed_s / (out_tokens / 1e6)) if out_tokens else None
+    print(f"[replay] output {out_tokens} tokens, {rep['output_tok_s']} tok/s;"
+          f" prefix hits {rep['prefix_hit_tokens']:.0f} of "
+          f"{rep['prefix_hit_potential_tokens']:.0f} potential tokens (rate "
+          f"{rep['prefix_hit_rate']}); preempt {rep['preempt']}", flush=True)
+    print(f"[replay] chip-seconds per 1M output tokens: {per_card:.2f} on "
+          f"the one card (elapsed x 1); the scoreboard's "
+          f"{rep['chip_seconds_per_1m_output_tokens']} counts each engine "
+          f"as a chip ({rep['chips']}, as the reference counts each "
+          f"engine's mesh) though both share this card; roofline ideal "
+          f"{rep['ideal_chip_seconds_per_1m_output_tokens']} (Llama-3.2-1B "
+          f"FLOPs at {rep['device_kind']}'s bf16 peak)", flush=True)
+    for name, chk in rep["checks"].items():
+        detail = {k: chk[k] for k in (
+            "samples", "median_overhead_s", "min_overhead_s",
+            "max_overhead_s", "client_expected_tokens", "recorder_tokens",
+            "bounds", "scheduler_hit_tokens", "index_hit_tokens",
+            "completed_full", "resumed", "aborted", "silent_losses",
+            "fired") if k in chk}
+        print(f"[replay] check {name}: "
+              f"{'ok' if chk.get('ok') else 'FAIL: ' + str(chk.get('reason'))}"
+              f" {json.dumps(detail, sort_keys=True)}", flush=True)
+    print(f"[replay] launches {launches}", flush=True)
+    if not rep["ok"]:
+        fail("[replay] a scoreboard cross-check failed")
+    if rep["errors"] or rep["completed"] + rep["aborted"] != rep["requests"]:
+        fail("[replay] requests ended in error or unaccounted")
+    if rep["preempt"]["notices"] != 1:
+        fail(f"[replay] the preemption event did not fire: {rep['preempt']}")
+    if rep["device_kind"] != torch.cuda.get_device_name(0):
+        fail(f"[replay] engines ran on {rep['device_kind']}, not the card")
+    for name in ("paged_attention_decode", "paged_attention_ragged"):
+        if launches[name] <= 0:
+            fail(f"[replay] {name} never launched in the replay")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep, run, launches
+
+
+def phase_planner(card: str, profile: dict, rep: dict, run) -> None:
+    """The planner over the card's numbers: both interpolators from phase
+    10's profile, one ``WindowMetrics`` from phase 11's measured window,
+    targets emitted through a ``VirtualConnector`` on a store in this
+    process and read back from it."""
+    import asyncio
+
+    from dynamo_tpu_torch.planner import (
+        DecodeInterpolator, Planner, PlannerConfig, PrefillInterpolator,
+        VirtualConnector, WindowMetrics,
+    )
+    from dynamo_tpu_torch.replay.datagen import percentile
+    from dynamo_tpu_torch.runtime.store import StoreClient, StoreServer
+
+    done = [o for o in run.outcomes if o.error is None and not o.aborted
+            and o.finish_reason is not None]
+    ttfts = [o.ttft_s for o in done if o.ttft_s is not None]
+    itls = [x for o in done for x in o.itls]
+    window = WindowMetrics(
+        num_requests=float(len(run.outcomes)),
+        isl_avg=sum(o.isl for o in run.outcomes) / len(run.outcomes),
+        osl_avg=sum(o.osl for o in run.outcomes) / len(run.outcomes),
+        ttft_p50_s=percentile(ttfts, 50), ttft_p99_s=percentile(ttfts, 99),
+        itl_p50_s=percentile(itls, 50), itl_p99_s=percentile(itls, 99),
+        ttft_avg_s=sum(ttfts) / len(ttfts), itl_avg_s=sum(itls) / len(itls),
+    )
+
+    async def plan():
+        server = StoreServer(host="127.0.0.1", port=0)
+        await server.start()
+        client = await StoreClient.connect(f"127.0.0.1:{server.port}")
+        try:
+            conn = VirtualConnector(client, namespace="smoke")
+            planner = Planner(
+                PlannerConfig(ttft_sla_s=PLANNER_TTFT_SLA_S,
+                              itl_sla_s=PLANNER_ITL_SLA_S,
+                              adjustment_interval_s=run.elapsed_s),
+                PrefillInterpolator.from_profile(profile),
+                DecodeInterpolator.from_profile(profile), conn)
+            planner.observe(window)
+            targets = await planner.make_adjustments()
+            stored = (await conn.read_target("prefill"),
+                      await conn.read_target("backend"))
+            return (targets, stored, planner.p_correction,
+                    planner.d_correction, planner.pressure(),
+                    await conn.read_degradation())
+        finally:
+            await client.close()
+            await server.stop()
+
+    targets, stored, pcorr, dcorr, pressure, order = asyncio.run(plan())
+    if targets is None or tuple(targets) != stored or min(targets) < 1:
+        fail(f"[planner] targets {targets} vs store {stored}")
+    print(f"[planner] {card}: window {window.num_requests:.0f} requests in "
+          f"{run.elapsed_s:.2f} s, ISL {window.isl_avg:.0f}, OSL "
+          f"{window.osl_avg:.0f}, TTFT p99 {window.ttft_p99_s * 1e3:.1f} ms, "
+          f"ITL p99 {window.itl_p99_s * 1e3:.2f} ms against SLAs "
+          f"{PLANNER_TTFT_SLA_S * 1e3:.0f} / {PLANNER_ITL_SLA_S * 1e3:.0f} "
+          f"ms; corrections prefill {pcorr:.3f} decode {dcorr:.3f}, "
+          f"pressure {pressure:.3f}", flush=True)
+    print(f"[planner] targets: prefill {targets[0]}, decode {targets[1]} "
+          f"(store: {stored[0]}, {stored[1]}); degradation order "
+          f"{json.dumps(order, sort_keys=True)}", flush=True)
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -3983,11 +4273,13 @@ for _kv in ("int8", "fp8"):
 
 
 def kernels_line(results, launches, dist_launches, spec_launches,
-                 moe_launches) -> str:
+                 moe_launches, slice_launches) -> str:
     """The ``kernels`` JSON line: one row per kernel build, plus the
     ragged face at the spec engine's verify shape (its launches: the verify
     windows of phase 3's spec run) and both faces at Mixtral's head dim 128
-    (their launches: the [moe] phase's served run)."""
+    (their launches: the [moe] phase's served run). ``slice_launches``
+    maps a key (``launches_profile``, ``launches_replay``) to the counts of
+    the path it names, added to every kernel build's row."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -3996,6 +4288,7 @@ def kernels_line(results, launches, dist_launches, spec_launches,
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": replaces, "launches": launches[name],
             "launches_dist": dist_launches[name],
+            **{key: counts[name] for key, counts in slice_launches.items()},
             "max_abs_err": max(v["max_abs_err"] for v in results.values()
                                if v["face"] == face and v["kv_dtype"] == kv
                                and v["dtype"] == "bfloat16"),
@@ -4098,11 +4391,21 @@ def main() -> None:
         del engine
     gc.collect()
     torch.cuda.empty_cache()
+    profile, profile_launches = phase_sla_profile(card)
+    timer("10 SLA profile")
+    rep, run, replay_launches = phase_replay(card)
+    timer("11 replay")
+    phase_planner(card, profile, rep, run)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer("11 planner")
     moe_launches = phase_moe(card)
     timer("8 moe")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(kernels_line(results, launches, dist_launches, spec["launches"],
-                       moe_launches))
+                       moe_launches, {"launches_profile": profile_launches,
+                                      "launches_replay": replay_launches}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,15 @@ DTYPES = {
     "F8_E4M3": torch.float8_e4m3fn,
 }
 _NAMES = {v: k for k, v in DTYPES.items()}
+# bytes per element of every dtype the format defines: a header entry is
+# checked against these when the file is opened, so a corrupt header fails
+# there while an unread tensor of a dtype outside DTYPES passes
+ITEMSIZE = {
+    "BOOL": 1, "U8": 1, "I8": 1, "F8_E4M3": 1, "F8_E5M2": 1,
+    "I16": 2, "U16": 2, "F16": 2, "BF16": 2,
+    "I32": 4, "U32": 4, "F32": 4,
+    "I64": 8, "U64": 8, "F64": 8,
+}
 _MAX_HEADER = 100 << 20      # the library refuses larger headers too
 _ALIGN = 8
 
@@ -59,7 +68,7 @@ class SafeFile:
             header = json.loads(self._f.read(n))
             self._meta = header.pop("__metadata__", None)
             self._base = 8 + n
-            self._info: Dict[str, Tuple[torch.dtype, List[int],
+            self._info: Dict[str, Tuple[str, List[int],
                                         Tuple[int, int]]] = {}
             for name, e in header.items():
                 self._info[name] = self._check(name, e, size - self._base)
@@ -70,21 +79,29 @@ class SafeFile:
             raise
 
     def _check(self, name, e, data_len):
-        if e["dtype"] not in DTYPES:
-            raise ValueError(f"{self.path}: {name}: dtype {e['dtype']} "
-                             f"not one of {sorted(DTYPES)}")
-        dt = DTYPES[e["dtype"]]
+        dtype = e["dtype"]
+        if dtype not in ITEMSIZE:
+            raise ValueError(f"{self.path}: {name}: dtype {dtype} not one "
+                             f"of the format's {sorted(ITEMSIZE)}")
         shape = [int(d) for d in e["shape"]]
         begin, end = (int(o) for o in e["data_offsets"])
         numel = 1
         for d in shape:
             numel *= d
         if not 0 <= begin <= end <= data_len \
-                or end - begin != numel * dt.itemsize:
+                or end - begin != numel * ITEMSIZE[dtype]:
             raise ValueError(f"{self.path}: {name}: data_offsets "
-                             f"{[begin, end]} do not fit {e['dtype']} "
-                             f"{shape}")
-        return dt, shape, (begin, end)
+                             f"{[begin, end]} do not fit {dtype} {shape}")
+        return dtype, shape, (begin, end)
+
+    def _torch_dtype(self, name: str) -> torch.dtype:
+        """The torch dtype of ``name``; raises, by name, for a dtype this
+        package does not read (checked only when the tensor is read)."""
+        dtype = self._info[name][0]
+        if dtype not in DTYPES:
+            raise ValueError(f"{self.path}: {name}: dtype {dtype} not one "
+                             f"of {sorted(DTYPES)}")
+        return DTYPES[dtype]
 
     def __enter__(self) -> "SafeFile":
         return self
@@ -109,12 +126,14 @@ class SafeFile:
         return self._meta
 
     def nbytes(self, name: str) -> int:
+        self._torch_dtype(name)
         begin, end = self._info[name][2]
         return end - begin
 
     def get_tensor(self, name: str) -> torch.Tensor:
         """The tensor ``name`` as a CPU tensor viewing the mapping."""
-        dt, shape, (begin, end) = self._info[name]
+        dt = self._torch_dtype(name)
+        _, shape, (begin, end) = self._info[name]
         if end == begin:
             return torch.empty(shape, dtype=dt)
         raw = torch.frombuffer(self._mm, dtype=torch.uint8,

@@ -29,8 +29,7 @@ never flaps. Every transition is emitted as a trace span (name
 A copy of ``dynamo_tpu.planner.degradation``: the ladder, its store order
 (``planner/{ns}/degradation``, JSON) and the watcher that workers and
 frontends run, so a JAX planner's orders steer port processes and the other
-way round. The planner core that drives the ladder waits for ROADMAP.md
-queue A item 7.
+way round. The planner core (:mod:`.core`) drives the ladder.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from .engine.config import EngineConfig
 from .engine.engine import EngineCore
 from .llm.discovery import ModelDeploymentCard, register_llm
 from .llm.tokenizer import Tokenizer
+from .planner.connector import planner_events_subject
 from .router.publisher import KvEventPublisher, WorkerMetricsPublisher
 from .runtime import codec
 from .runtime.component import DistributedRuntime
@@ -35,13 +36,6 @@ from .runtime.tasks import spawn_logged
 from .utils.logging import get_logger
 
 log = get_logger("serving")
-
-# the planner's event subject (the JAX package's planner/connector.py)
-PLANNER_EVENTS_SUBJECT = "planner_events"
-
-
-def planner_events_subject(namespace: str) -> str:
-    return f"v1/events/{namespace}/planner/{PLANNER_EVENTS_SUBJECT}/"
 
 
 @dataclass

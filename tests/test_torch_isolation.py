@@ -36,7 +36,7 @@ FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
 # machine does not install (or no record says it does)
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "xxhash", "msgpack",
              "ml_dtypes", "tokenizers", "aiohttp", "prometheus_client",
-             "safetensors", "grpc"}
+             "safetensors", "grpc", "benchmarks"}
 # the modules of the KV-movement slice (each scanned like every other)
 KV_MOVEMENT = ["disagg/__init__.py", "disagg/protocol.py", "disagg/ici.py",
                "disagg/handlers.py", "kvbm/__init__.py", "kvbm/host_pool.py",
@@ -46,6 +46,19 @@ KV_MOVEMENT = ["disagg/__init__.py", "disagg/protocol.py", "disagg/ici.py",
 # the loader and MoE slice's modules
 LOADER_AND_MOE = ["engine/safetensors.py", "engine/weights.py",
                   "parallel/__init__.py", "parallel/moe.py"]
+# the planner, aggregator, mocker and replay slice's modules
+PLANNER_AND_REPLAY = ["llm/recorder.py", "planner/predictors.py",
+                      "planner/interpolation.py", "planner/core.py",
+                      "planner/connector.py", "planner/orchestrator.py",
+                      "planner/profiler.py",
+                      "planner/kubernetes_connector.py",
+                      "planner/__main__.py", "metrics_aggregator.py",
+                      "mocker/__init__.py", "mocker/engine.py",
+                      "mocker/cluster.py", "mocker/__main__.py",
+                      "replay/__init__.py", "replay/datagen.py",
+                      "replay/trace.py", "replay/driver.py",
+                      "replay/scoreboard.py", "replay/__main__.py",
+                      "utils/httpclient.py"]
 # imported only inside the function that launches a kernel
 NOT_AT_MODULE_LEVEL = {"triton"}
 
@@ -101,6 +114,16 @@ def test_scan_covers_the_loader_and_moe_modules():
         names = {n for n, _ in _imports(ast.parse(
             (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
         assert not names & FORBIDDEN, rel
+
+
+def test_scan_covers_the_planner_and_replay_modules():
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(PLANNER_AND_REPLAY) <= scanned
+    for rel in PLANNER_AND_REPLAY:
+        names = {n for n, _ in _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
+        assert not names & FORBIDDEN, (rel, names & FORBIDDEN)
 
 
 def test_scan_sees_nested_imports():

@@ -70,9 +70,11 @@ def assert_trees_equal_bitwise(got, want, path=""):
     np.testing.assert_array_equal(bits(got), bits(want), err_msg=path)
 
 
-def write_with_library(path, cfg, params, tied_head=None):
+def write_with_library(path, cfg, params, tied_head=None, n_shards=1,
+                       extra=None):
     """The JAX tree written in HF layout by the ``safetensors`` package
-    (the JAX tests' oracle layout)."""
+    (the JAX tests' oracle layout), in ``n_shards`` files; ``extra``
+    tensors go into the last one."""
     def c(x):
         return np.ascontiguousarray(np.asarray(x))
     lay = params["layers"]
@@ -104,7 +106,16 @@ def write_with_library(path, cfg, params, tied_head=None):
             else:
                 tensors[f"model.layers.{i}.{names[leaf]}.weight"] = c(
                     w if w.ndim == 1 else w.T)
-    lib_save(tensors, str(Path(path) / "model.safetensors"))
+    if n_shards == 1 and not extra:
+        lib_save(tensors, str(Path(path) / "model.safetensors"))
+        return
+    names = sorted(tensors)
+    for k in range(n_shards):
+        shard = {n: tensors[n] for n in names[k::n_shards]}
+        if k == n_shards - 1:
+            shard.update(extra or {})
+        lib_save(shard, str(Path(path) / f"model-{k + 1:05d}-of-"
+                                         f"{n_shards:05d}.safetensors"))
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
@@ -157,6 +168,33 @@ def test_tied_lm_head_is_skipped(tmp_path):
     got = tw.load_hf_params(tmp_path, tc, device="cpu")
     assert "lm_head" not in got
     assert_trees_equal_bitwise(got, jw.load_hf_params(str(tmp_path), jc))
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.float64, np.bool_,
+                                   np.int32], ids=["I64", "F64", "BOOL",
+                                                   "I32"])
+def test_unread_tensor_of_another_dtype_loads_in_both(tmp_path, dtype):
+    """A buffer the loaders skip may have any dtype the format defines:
+    shard 2 of 2 carries one the port does not read, and both loaders
+    load the same 21 tensors, bitwise."""
+    jc, tc = jcfg.ModelConfig.tiny(), tcfg.ModelConfig.tiny()
+    params = jm.init_params(jax.random.PRNGKey(3), jc)
+    name = "model.layers.0.self_attn.rotary_emb.extra_buffer"
+    write_with_library(tmp_path, jc, params, n_shards=2,
+                       extra={name: (np.arange(6) % 2).astype(dtype)})
+    assert len(sorted(tmp_path.glob("*.safetensors"))) == 2
+    got = tw.load_hf_params(tmp_path, tc, device="cpu")
+    assert tw.last_load_stats["n_tensors"] == 21
+    assert tw.last_load_stats["n_files"] == 2
+    assert_trees_equal_bitwise(got, jw.load_hf_params(str(tmp_path), jc))
+    # read, it still raises by name
+    from dynamo_tpu_torch.engine.safetensors import SafeFile
+    with SafeFile(sorted(tmp_path.glob("*.safetensors"))[-1]) as sf:
+        assert name in sf.keys()
+        with pytest.raises(ValueError, match="extra_buffer: dtype"):
+            sf.get_tensor(name)
+        with pytest.raises(ValueError, match="extra_buffer: dtype"):
+            sf.nbytes(name)
 
 
 def test_missing_checkpoint_raises_in_both(tmp_path):
