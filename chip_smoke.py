@@ -16,7 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
    in bf16, int8 and fp8; time the kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention``
    over pre-gathered (dequantized) K/V (the ``library_ms`` yardstick; only
-   this script calls it);
+   this script calls it); hold the kernel at non-default launch parameters
+   (``LAUNCH_CASES``: a q_tile below the default, the other kv_chunk,
+   n_split 1 and the span count) against the plain version, and launch
+   parameters of 0 bitwise against a call without them;
 3. serve 16 concurrent greedy requests (ISL 512, OSL 64) through the port's
    engine at full Llama-3.2-1B width with random weights from a fixed seed,
    through the same API ``python -m dynamo_tpu_torch.run in=batch`` uses,
@@ -177,6 +180,34 @@ Phases (any failure exits non-zero and prints no result line):
    ``VirtualConnector`` to a store, read back. Phases 10 and 11 run after
    the int8 and fp8 engines are freed, before phase 8.
 
+12. tune attention (``[autotune]`` lines): engines with
+   ``attention_impl="auto"`` and spec on, at bf16 and int8 KV, with
+   ``DYNTPU_AUTOTUNE_CACHE`` in a temporary directory under ``build/``:
+   the probe's kernel and einsum ms per class, every candidate's gate
+   error and ms at both table widths, the winners and the build time;
+   each engine is built twice, and the second build must hit the cache,
+   sweep nothing and build faster; a non-spec engine on the bf16 winners
+   serves phase 3's traffic at depth 2 (TTFT, ITL, tok/s beside phase 3's;
+   streams held to the parity rule against phase 3's, partings printed
+   with their margins), and each winner is held against the plain version
+   and timed at the main path's shape;
+
+13. adapt the decode buckets (``[ladder]`` lines): an engine with
+   ``adaptive_buckets=True``, ``ladder_compile_budget=2``, decode buckets
+   (32,) and 32 seats serves waves of 8 concurrent greedy requests (ISL
+   512, OSL 64) until the decode ladder has split 32 at 8 and converged;
+   the capture watch must count exactly one graph captured after warm-up
+   (``decode_window:B=8:stochastic=0``), one more wave must capture
+   nothing, and its streams are held to the parity rule against a
+   static-grid engine's (padding waste of each, and the decode window's
+   device ms at B=32 and B=8 with 8 live rows, printed);
+
+14. take a profile under load (``[profile]`` lines): a system server
+   beside phase 3's engine while it serves phase 3's traffic;
+   ``GET /debug/profile?ms=500`` must answer 200 with a Chrome trace that
+   names both faces' kernels, and a second request during the capture
+   409. Phases 12–14 run after phase 3's spec check.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
@@ -184,7 +215,8 @@ after the kernel builds come the ragged face at the spec-verify shape,
 launched by the spec run's verify windows, and both faces at Mixtral's
 head dim 128, launched by phase 8's run; each kernel build's row also
 carries ``launches_profile`` and ``launches_replay``, the counts of phases
-10 and 11);
+10 and 11; rows named ``...@tuned_<class>`` are phase 12's winning launch
+parameters, each with its ``launch``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -397,12 +429,15 @@ def run_face(c, plain: bool):
                 **sc)
         return pa.paged_attention_decode(
             c["q"], c["k"], c["v"], c["tables"], c["ctx_len"],
-            block_size=c["bs"], **sc)
-    fn = pa.paged_attention_ragged_plain if plain else \
-        pa.paged_attention_ragged
-    return fn(c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["q_len"],
-              c["ctx_len"], block_size=c["bs"], max_q_len=c["max_q_len"],
-              **sc)
+            block_size=c["bs"], **sc, **c.get("launch", {}))
+    if plain:
+        return pa.paged_attention_ragged_plain(
+            c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["q_len"],
+            c["ctx_len"], block_size=c["bs"], max_q_len=c["max_q_len"], **sc)
+    return pa.paged_attention_ragged(
+        c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["q_len"],
+        c["ctx_len"], block_size=c["bs"], max_q_len=c["max_q_len"], **sc,
+        **c.get("launch", {}))
 
 
 def library_call(c):
@@ -485,6 +520,22 @@ def profile_calls(body, reps: int, cpu: bool = True):
     fail("torch.profiler recorded no device time")
 
 
+def main_cases(kv_dtype=None):
+    """The shapes the engine phase gives the kernel: decode bucket 16 over
+    the full autopilot table (max_model_len 8192 / bs 16), one 512-token
+    prefill chunk of a fresh prompt, and the spec engine's verify window."""
+    sfx = "" if kv_dtype is None else f" {kv_dtype}"
+    return [
+        make_case(DECODE_CASE + sfx,
+                  [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
+                  W=512, face="decode", kv_dtype=kv_dtype),
+        make_case(PREFILL_CASE + sfx, [(512, 512, 512)], W=32,
+                  face="ragged", kv_dtype=kv_dtype),
+        make_case(SPEC_CASE + sfx, SPEC_ROWS, W=512, face="ragged",
+                  kv_dtype=kv_dtype),
+    ]
+
+
 def kernel_cases():
     import torch
 
@@ -508,14 +559,7 @@ def kernel_cases():
         make_case("ragged mixed R=6",
                   [(1, 577, 1), (5, 40, 8), (64, 64, 64), (0, 0, 8),
                    (130, 1000, 136), (17, 17, 24)], W=66, face="ragged"),
-        # the shapes the engine phase gives the kernel: decode bucket 16
-        # over the full autopilot table (max_model_len 8192 / bs 16), and
-        # one 512-token prefill chunk of a fresh prompt
-        make_case(DECODE_CASE,
-                  [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
-                  W=512, face="decode"),
-        make_case(PREFILL_CASE, [(512, 512, 512)], W=32, face="ragged"),
-        make_case(SPEC_CASE, SPEC_ROWS, W=512, face="ragged"),
+        *main_cases(),
         make_case(MOE_DECODE_CASE,
                   [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
                   W=512, face="decode", hd=128),
@@ -549,20 +593,74 @@ def kernel_cases():
     # the quantized-KV branch: the main path's two shapes and a mixed
     # ragged batch (stale tails, dead rows, NaN trash scales and pages)
     for kv in ("int8", "fp8"):
-        cases += [
-            make_case(f"{DECODE_CASE} {kv}",
-                      [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
-                      W=512, face="decode", kv_dtype=kv),
-            make_case(f"{PREFILL_CASE} {kv}", [(512, 512, 512)], W=32,
-                      face="ragged", kv_dtype=kv),
-            make_case(f"{SPEC_CASE} {kv}", SPEC_ROWS, W=512, face="ragged",
-                      kv_dtype=kv),
+        cases += main_cases(kv) + [
             make_case(f"ragged mixed R=6 {kv}",
                       [(1, 577, 1), (5, 40, 8), (64, 64, 64), (0, 0, 8),
                        (130, 1000, 136), (17, 17, 24)], W=66,
                       face="ragged", kv_dtype=kv),
         ]
-    return cases
+    by_name = {c["name"]: c for c in cases}
+    return cases + [launched(by_name[base], launch)
+                    for base, launch in LAUNCH_CASES]
+
+
+# non-default launch parameters (engine/autotune.py's candidates) on the
+# main path's cases: a q_tile below the default (16 query slots of G = 4
+# at T = 512, 5 at the spec shape), the kv_chunk the page dtype does not
+# take by default, and the decode face's extreme split counts (1, and the
+# 128 spans of a 512-block table)
+LAUNCH_CASES = [
+    (PREFILL_CASE, {"q_tile": 8}), (PREFILL_CASE, {"kv_chunk": 128}),
+    (SPEC_CASE, {"q_tile": 1}), (SPEC_CASE, {"kv_chunk": 128}),
+    (DECODE_CASE, {"n_split": 1}), (DECODE_CASE, {"n_split": 128}),
+    ("ragged mixed R=6", {"q_tile": 4, "kv_chunk": 128}),
+    (MOE_PREFILL_CASE, {"kv_chunk": 128}),
+    (MOE_DECODE_CASE, {"n_split": 1}),
+    ("ragged mixed f32 R=3", {"q_tile": 2}),
+    ("decode f32 B=4 ctx 1..300, 1 dead row", {"n_split": 5}),
+]
+for _kv in ("int8", "fp8"):
+    LAUNCH_CASES += [
+        (f"{PREFILL_CASE} {_kv}", {"q_tile": 8, "kv_chunk": 64}),
+        (f"{SPEC_CASE} {_kv}", {"q_tile": 1}),
+        (f"{DECODE_CASE} {_kv}", {"n_split": 1}),
+        (f"{DECODE_CASE} {_kv}", {"n_split": 128}),
+        (f"ragged mixed R=6 {_kv}", {"kv_chunk": 64}),
+    ]
+
+
+def launched(c, launch: dict):
+    """Case ``c`` (same tensors) at non-default launch parameters."""
+    desc = " ".join(f"{k}={v}" for k, v in launch.items())
+    return dict(c, name=f"{c['name']} [{desc}]", launch=launch)
+
+
+def check_default_launch(cases) -> None:
+    """Launch parameters of 0 must launch exactly what a call without them
+    launches: bitwise the same output, on every base case."""
+    import torch
+
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    n = 0
+    for c in cases:
+        if "launch" in c:
+            continue
+        zeros = {"n_split": 0} if c["face"] == "decode" else \
+            {"q_tile": 0, "kv_chunk": 0}
+        want = run_face(c, plain=False)
+        got = run_face(dict(c, launch=zeros), plain=False)
+        torch.cuda.synchronize()
+        if not torch.equal(want.view(torch.uint8), got.view(torch.uint8)):
+            fail(f"{c['name']}: launch parameters (0, 0) do not launch what "
+                 "a call without them launches")
+        n += 1
+    dev = torch.device(DEV)
+    n_split, _ = pa._decode_grid(16, 8, 512, 16, pa._sm_count(dev),
+                                 pa._blocks_per_sm(dev, 32, 8, 64, 1, 0))
+    print(f"[kernel] launch parameters (0, 0) bitwise equal to the call "
+          f"without them on {n} cases; the decode face's default n_split "
+          f"at the main path's B=16, W=512 (bf16): {n_split}", flush=True)
 
 
 def check_case(c):
@@ -606,6 +704,7 @@ def phase_kernels(cases):
         bound_ms, bound_by = case_bound(c)
         results[c["name"]] = dict(
             face=c["face"], dtype=c["dtype"], kv_dtype=c["kv_dtype"],
+            launch=c.get("launch"),
             max_abs_err=max_err, ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
             library_ms=lib_ms, library_wall_ms=lib_wall, bound_ms=bound_ms,
             bound_by=bound_by,
@@ -659,7 +758,8 @@ def depth_stats(tag: str, cfg, outs, stamps, wall: float, obs: dict,
                     for a, b in zip(times, times[1:]) if a >= last_first)
     n_out = sum(len(o) for o in outs)
     stats = dict(ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
-                 itl_p50=sorted(itl)[len(itl) // 2], tok_s=n_out / wall)
+                 itl_p50=sorted(itl)[len(itl) // 2], tok_s=n_out / wall,
+                 outs=outs)
     print(f"{tag} {N_REQUESTS} requests ISL {ISL} OSL {OSL} "
           f"in {wall:.3f} s: output {n_out / wall:.1f} tok/s, TTFT mean "
           f"{sum(ttft) / len(ttft) * 1e3:.1f} ms p50 "
@@ -952,11 +1052,13 @@ def spec_prompts(vocab: int):
             * (ISL // SPEC_SEGMENT) for _ in range(N_REQUESTS)]
 
 
-def serve_batch(engine, prompts, max_tokens, after_warmup=None):
+def serve_batch(engine, prompts, max_tokens, after_warmup=None,
+                warm_up: bool = True):
     """Serve ``prompts`` concurrently (greedy) through ``engine.generate``
-    after a short warm-up request (then ``after_warmup()`` runs); returns
-    (streams, per-request (submit, token times), wall s, decode-only batch
-    times s of the synchronous loop)."""
+    after a short warm-up request (then the recorder's and the capture
+    watch's warm-up mark, then ``after_warmup()``; ``warm_up=False`` skips
+    all three); returns (streams, per-request (submit, token times), wall
+    s, decode-only batch times s of the synchronous loop)."""
     import asyncio
 
     from dynamo_tpu_torch.runtime.context import Context
@@ -984,11 +1086,12 @@ def serve_batch(engine, prompts, max_tokens, after_warmup=None):
 
     async def run():
         await engine.start()
-        await one(prompts[0][:32], [], 4)   # warm-up, not measured
-        engine.clear_kv_blocks()
-        engine.mark_obs_warmup_done()
-        if after_warmup is not None:
-            after_warmup()
+        if warm_up:
+            await one(prompts[0][:32], [], 4)   # warm-up, not measured
+            engine.clear_kv_blocks()
+            engine.mark_obs_warmup_done()
+            if after_warmup is not None:
+                after_warmup()
         engine._execute_batch = timed
         stamps = []
         t0 = time.perf_counter()
@@ -4253,6 +4356,399 @@ def phase_planner(card: str, profile: dict, rep: dict, run) -> None:
           f"{json.dumps(order, sort_keys=True)}", flush=True)
 
 
+# ------------------------- phase 12: autotune -----------------------------
+
+
+def run_stats(outs, stamps, wall: float) -> dict:
+    """TTFT/ITL/tok/s of a ``serve_batch`` run (``traffic_stats``' keys)."""
+    return traffic_stats([(t_sub, times[0], times[-1], max(2, len(times)))
+                          for t_sub, times in stamps], wall) | dict(
+        tok_s=sum(len(o) for o in outs) / wall)
+
+
+def print_autotune(tag: str, choice: dict, build_s: float) -> None:
+    for cls, info in choice.get("classes", {}).items():
+        print(f"{tag} probe {cls} (B={info['B']}, T={info['T']}): kernel "
+              f"{info['kernel_ms']:.4f} ms, einsum {info['einsum_ms']:.4f} "
+              f"ms -> {info['impl']} (einsum / kernel {info['ratio']})",
+              flush=True)
+    if not choice["autotune_cache_hit"]:
+        for cls, res in choice.get("sweep", {}).items():
+            for cand in res["candidates"]:
+                gate = ", ".join(f"{w} {e:.2e}"
+                                 for w, e in cand["max_err"].items())
+                ms = ", ".join(f"{w} {t:.5f}" for w, t in cand["ms"].items())
+                print(f"{tag} sweep {cls} (B={res['B']}, T={res['T']}) "
+                      f"tile {cand['tile']}: gate max err {gate} (tol "
+                      f"{res['tol']}); ms {ms}; total {cand['total_ms']:.5f}"
+                      + ("" if cand["eligible"] else
+                         f"; ineligible: {cand['reason']}"), flush=True)
+            print(f"{tag} sweep {cls}: winner {res['winner']} of "
+                  f"{len(res['candidates'])} candidates at widths "
+                  f"{res['widths']} blocks", flush=True)
+    print(f"{tag} engine built in {build_s:.2f} s: tiles {choice['tiles']}, "
+          f"cache hit {choice['autotune_cache_hit']}, probe launches "
+          f"{choice['probe_launches']}, sweep launches "
+          f"{choice['sweep_launches']} (key {choice['config_hash']})",
+          flush=True)
+
+
+def tuned_launch(face: str, tile) -> dict:
+    """A class tile as the wrapper's launch keywords."""
+    if face == "decode":
+        return {"n_split": tile[1]}
+    return {"q_tile": tile[0], "kv_chunk": tile[1]}
+
+
+def phase_autotune(card: str, base, direct: dict):
+    """[autotune]: engines with ``attention_impl="auto"`` and spec on (all
+    three classes probed and swept), at bf16 and int8 KV, with
+    ``DYNTPU_AUTOTUNE_CACHE`` in a temporary directory under ``build/``;
+    each is built twice, and the second build must hit the cache, sweep
+    nothing and build faster. Then a non-spec engine on the bf16 winners
+    serves phase 3's traffic at depth 2; its streams are held to the parity
+    rule against phase 3's (``base``). The winners at the main path's
+    shapes are held against the plain version and timed. Returns the
+    ``kernels`` line's rows of the tuned launches."""
+    import tempfile
+
+    import torch
+    from dynamo_tpu_torch.engine import (
+        EngineConfig, InferenceEngine, ModelConfig,
+    )
+    from dynamo_tpu_torch.engine import autotune
+    from dynamo_tpu_torch.engine import model as model_lib
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = ModelConfig.llama3_1b()
+    os.makedirs("build", exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="autotune-", dir="build")
+    os.environ[autotune.CACHE_ENV] = os.path.join(cache_dir, "tune.json")
+    choices = {}
+    try:
+        for kv in ("bf16", "int8"):
+            tag = f"[autotune {kv} KV]"
+            auto_cfg = EngineConfig(attention_impl="auto", spec_mode="ngram",
+                                    spec_k=SPEC_K, kv_dtype=kv)
+            builds = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                engine = InferenceEngine(cfg, auto_cfg, seed=SEED)
+                torch.cuda.synchronize()
+                builds.append((time.perf_counter() - t0,
+                               engine.attention_impl_choice,
+                               engine.config))
+                del engine
+                torch.cuda.empty_cache()
+            (first_s, first, resolved), (second_s, second, _) = builds
+            if set(first.get("classes", {})) != {"decode", "spec",
+                                                 "prefill"}:
+                fail(f"{tag} the probe did not time all three classes")
+            swept = {cls for cls in ("decode", "spec", "prefill")
+                     if model_lib.resolve_attention_impl(resolved, cls)
+                     == "kernel"}
+            if set(first.get("sweep", {})) != swept or (
+                    swept and not first["sweep_launches"]):
+                fail(f"{tag} the sweep did not run every kernel class")
+            for cls in sorted({"decode", "spec", "prefill"} - swept):
+                # einsum won the probe (a finding): the engine serves the
+                # class on einsum, and the kernel's candidates are still
+                # swept and gated here
+                B, T = autotune.class_shapes(cfg, resolved)[cls]
+                first.setdefault("sweep", {})[cls] = autotune.sweep_class(
+                    cfg, resolved, cls, B, T, torch.device(DEV))
+                print(f"{tag} einsum won the {cls} probe; its kernel "
+                      f"candidates are swept here", flush=True)
+            print_autotune(tag, first, first_s)
+            print_autotune(tag, second, second_s)
+            if not (second["autotune_cache_hit"]
+                    and second["sweep_launches"] == 0
+                    and second["tiles"] == first["tiles"]):
+                fail(f"{tag} the second build did not take the cached "
+                     f"winners without a sweep: {second}")
+            if second_s >= first_s:
+                fail(f"{tag} the cached build took {second_s:.2f} s, the "
+                     f"sweeping one {first_s:.2f} s")
+            choices[kv] = (first, resolved)
+    finally:
+        os.environ.pop(autotune.CACHE_ENV, None)
+
+    # the bf16 winners, served (spec off, so the run-ahead loop serves)
+    first, resolved = choices["bf16"]
+    tiles = {cls: tuple(t) for cls, t in first["tiles"].items()}
+    tuned_cfg = EngineConfig(
+        attention_impl_decode=resolved.attention_impl_decode,
+        attention_impl_prefill=resolved.attention_impl_prefill,
+        attention_tile_decode=tiles["decode"],
+        attention_tile_prefill=tiles["prefill"])
+    engine = InferenceEngine(cfg, tuned_cfg, seed=SEED)
+    prompts = main_prompts(cfg.vocab_size)
+    outs, stamps, wall, _ = serve_batch(engine, prompts, OSL,
+                                        after_warmup=pa.reset_launches)
+    launches = {name: pa.LAUNCHES[name] for name in (
+        "paged_attention_decode", "paged_attention_ragged")}
+    tuned = run_stats(outs, stamps, wall)
+    print(f"[autotune] {card}: phase 3's traffic on the bf16 winners "
+          f"(decode {tiles['decode']}, prefill {tiles['prefill']}) at depth "
+          f"{engine.pipeline_depth}: {stats_line(tuned)}; phase 3 (default "
+          f"launches): {stats_line(direct)}; launches {launches}",
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    for face, n in launches.items():
+        kernel_class = "decode" if face.endswith("decode") else "prefill"
+        if n == 0 and model_lib.resolve_attention_impl(
+                resolved, kernel_class) == "kernel":
+            fail(f"[autotune] {face} never launched on the winners")
+    want = direct["outs"]
+    parted = [r for r, (a, b) in enumerate(zip(want, outs)) if a != b]
+    if parted:
+        # the margins of phase 3's run at each parting, from an eager rerun
+        # with its logits recorded
+        rerun, rec = tapped_run(base, prompts)
+        if rerun != want:
+            fail("[autotune] phase 3's eager rerun differs from its run")
+        check_parity(want, rec, outs, "phase 3 (default launches)",
+                     tag="[autotune]")
+    print(f"[autotune] streams on the winners: {len(prompts) - len(parted)} "
+          f"of {len(prompts)} equal to phase 3's", flush=True)
+
+    # each class's winner at the main path's shape, against the plain
+    # version, timed as phase 2 times it
+    rows = []
+    for kv, (choice, _) in choices.items():
+        tiles = choice["tiles"]
+        for c in main_cases(None if kv == "bf16" else kv):
+            kernel_class = ("decode" if c["face"] == "decode" else
+                            "spec" if c["name"].startswith(SPEC_CASE)
+                            else "prefill")
+            if tiles[kernel_class] == [0, 0]:
+                continue
+            tc = launched(c, tuned_launch(c["face"], tiles[kernel_class]))
+            r = phase_kernels([tc])[tc["name"]]
+            del tc
+            if kv != "bf16" or kernel_class == "spec":
+                continue  # swept and timed, not served: not in the line
+            name = f"paged_attention_{c['face']}"
+            rows.append({
+                "name": f"{name}@tuned_{kernel_class}", "route": "cuda",
+                "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+                "replaces": KERNELS[name][3],
+                "launch": tuned_launch(c["face"], tiles[kernel_class]),
+                "launches": launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
+        torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------- phase 13: ladder -----------------------------
+
+LADDER_WAVE = 8            # concurrent requests per wave
+LADDER_BUCKETS = (32,)     # one rung, 24 rows over the wave
+LADDER_ENV = {"DYNTPU_LADDER_MIN_DISPATCHES": "6",
+              "DYNTPU_LADDER_HYSTERESIS": "1"}
+LADDER_MAX_WAVES = 6
+
+
+def wave_prompts(vocab: int, wave: int):
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 100 + wave)
+    return [torch.randint(1, vocab, (ISL,), generator=gen).tolist()
+            for _ in range(LADDER_WAVE)]
+
+
+def window_ms(engine, B: int, live: int, reps: int = 20) -> float:
+    """Device ms of one greedy decode window of bucket B with ``live``
+    seated rows (the rest padding), graph replays timed with CUDA events."""
+    import torch
+
+    window = engine._ap_window_fn
+    seat(engine._ctl, live, 560, engine.config.max_model_len)
+    rows = window.load_rows(list(range(live)) +
+                            [engine.config.max_num_seqs] * (B - live))
+    call = lambda: window(engine.params, engine.cache, engine._ctl,  # noqa
+                          rows, False)
+    return cuda_ms(call, iters=reps)
+
+
+def phase_ladder(card: str):
+    """[ladder]: the twin of ``tests/test_ladder.py``'s engine test at
+    Llama-3.2-1B width. An engine with ``adaptive_buckets=True``,
+    ``ladder_compile_budget=2``, decode buckets (32,) and 32 seats serves
+    waves of 8 concurrent greedy requests (ISL 512, OSL 64): every window
+    pads 8 rows to 32, so the decode ladder must split at 8 (one graph
+    captured after warm-up, counted by the capture watch) and converge;
+    then one more wave must capture nothing. A static-grid engine (same
+    weights, ladder off) serves the waves too: its padding waste is the
+    before, the ladder engine's the after, and its streams (from an eager
+    rerun with the logits recorded) hold the ladder's to the parity rule.
+    Prints the splits, retires and rungs, and the decode window's device
+    ms at B=32 and B=8 with 8 live rows."""
+    import torch
+    from dynamo_tpu_torch.engine import (
+        EngineConfig, InferenceEngine, ModelConfig,
+    )
+    from dynamo_tpu_torch.observability import compilewatch
+
+    cfg = ModelConfig.llama3_1b()
+    eng = dict(decode_buckets=LADDER_BUCKETS, max_num_seqs=32,
+               ladder_compile_budget=2)
+    saved = {k: os.environ.get(k) for k in LADDER_ENV}
+    os.environ.update(LADDER_ENV)
+    try:
+        engine = InferenceEngine(cfg, EngineConfig(adaptive_buckets=True,
+                                                   **eng), seed=SEED)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    static = InferenceEngine(cfg, EngineConfig(**eng), seed=SEED)
+    dec = engine._ladders["decode"]
+    # the JAX test's order: one short warm-up request, then steady state
+    serve_batch(engine, [main_prompts(cfg.vocab_size)[0][:32]], 4,
+                warm_up=False)
+    compilewatch.get_watch().reset()
+    engine.mark_obs_warmup_done()
+    for wave in range(LADDER_MAX_WAVES):
+        prompts = wave_prompts(cfg.vocab_size, wave)
+        outs, stamps, wall, _ = serve_batch(engine, prompts, OSL,
+                                            warm_up=False)
+        snap = engine.obs_snapshot()
+        print(f"[ladder] {card}: wave {wave}: "
+              f"{stats_line(run_stats(outs, stamps, wall))}; rungs "
+              f"{snap['ladder_decode_rungs']}, splits "
+              f"{snap['ladder_decode_splits_total']}, retires "
+              f"{snap['ladder_decode_retires_total']}, budget left "
+              f"{snap['ladder_decode_budget_remaining']}, converged "
+              f"{bool(snap['ladder_decode_converged'])}; padding_waste_ratio "
+              f"{snap['padding_waste_ratio']:.4f}; graph captures after "
+              f"warm-up {snap['recompiles_by_fn']}", flush=True)
+        if dec.snapshot()["splits_total"] and dec.converged:
+            break
+    for ev in dec._events:
+        print(f"[ladder] event {ev}", flush=True)
+    steady = compilewatch.steady_by_label()
+    if dec.buckets() != (8, 32) or dec.snapshot()["splits_total"] != 1:
+        fail(f"[ladder] the decode ladder did not split 32 at 8: "
+             f"{dec.snapshot()}")
+    if not dec.converged or steady != {"decode_window:B=8:stochastic=0": 1}:
+        fail(f"[ladder] not converged on one new capture: {steady}")
+
+    prompts = wave_prompts(cfg.vocab_size, LADDER_MAX_WAVES)
+    engine.obs.mark_warmup_done()   # the recorder's window: this wave only
+    with compilewatch.assert_no_recompiles():
+        got = serve_batch(engine, prompts, OSL, warm_up=False)[0]
+    after = engine.obs_snapshot()["padding_waste_ratio"]
+    print(f"[ladder] the wave after convergence captured nothing "
+          f"(captures after warm-up: {compilewatch.steady_by_label()})",
+          flush=True)
+    outs = serve_batch(static, prompts, OSL)[0]
+    before = static.obs_snapshot()["padding_waste_ratio"]
+    want, rec = tapped_run(static, prompts)
+    if want != outs:
+        fail("[ladder] the static engine's eager rerun differs from its run")
+    partings = check_parity(want, rec, got, "the static grid (32)",
+                            tag="[ladder]")
+    print(f"[ladder] streams after convergence: {len(prompts) - len(partings)}"
+          f" of {len(prompts)} equal to the static grid's; padding_waste_ratio"
+          f" of the wave: static grid {before:.4f}, ladder {after:.4f}",
+          flush=True)
+    ms32 = window_ms(engine, 32, LADDER_WAVE)
+    ms8 = window_ms(engine, 8, LADDER_WAVE)
+    print(f"[ladder] {card}: decode window device ms with {LADDER_WAVE} live "
+          f"rows: B=32 (before the split) {ms32:.3f} ms, B=8 (after) "
+          f"{ms8:.3f} ms", flush=True)
+    del engine, static
+    torch.cuda.empty_cache()
+
+
+# --------------------------- phase 14: profile ----------------------------
+
+PROFILE_MS = 500
+FACE_KERNELS = ("ragged_paged_attention_mma_kernel",
+                "paged_attention_decode_split_kernel")
+
+
+def phase_debug_profile(card: str, engine) -> None:
+    """[profile]: a system server (``runtime/system_server.py``, what a
+    worker runs with ``DYNTPU_SYSTEM_ENABLED``) beside phase 3's engine
+    while it serves phase 3's traffic: ``GET /debug/profile?ms=500``, sent
+    0.1 s before the traffic starts, must answer 200 with a Chrome trace
+    that names both faces' kernels, and a second request during the
+    capture 409."""
+    import asyncio
+    import urllib.error
+    import urllib.request
+
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.system_server import SystemServer
+
+    prompts = main_prompts(engine.model_config.vocab_size)
+    trace_dir = os.path.join("build", "profiles")
+
+    def get(port, ms):
+        url = (f"http://127.0.0.1:{port}/debug/profile?ms={ms}"
+               f"&dir={trace_dir}")
+        try:
+            with urllib.request.urlopen(url, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    async def one(p):
+        out = []
+        async for o in engine.generate({"token_ids": p, "max_tokens": OSL,
+                                        "temperature": 0.0}, Context()):
+            out.extend(o["token_ids"])
+        return out
+
+    async def run():
+        server = SystemServer(host="127.0.0.1", port=0)
+        await server.start()
+        await engine.start()
+        try:
+            # the capture starts on an idle loop, then the traffic comes:
+            # a loaded loop answers a request only between the prefills'
+            # host work, which may leave none of them inside the capture
+            first = asyncio.ensure_future(
+                asyncio.to_thread(get, server.port, PROFILE_MS))
+            await asyncio.sleep(0.1)
+            traffic = asyncio.gather(*(one(p) for p in prompts))
+            await asyncio.sleep(0.1)
+            second = await asyncio.to_thread(get, server.port, 50)
+            return await first, second, await traffic
+        finally:
+            await engine.stop()
+            await server.stop()
+
+    engine.clear_kv_blocks()
+    t0 = time.perf_counter()
+    (s1, body), (s2, busy), outs = asyncio.run(run())
+    if s1 != 200 or s2 != 409:
+        fail(f"[profile] /debug/profile answered {s1} then {s2} "
+             f"(want 200, then 409 during the capture): {body} {busy}")
+    with open(body["trace_file"]) as f:
+        text = f.read()
+    found = {k: text.count(k) for k in FACE_KERNELS}
+    print(f"[profile] {card}: /debug/profile?ms={PROFILE_MS} during phase "
+          f"3's traffic: 200 in {time.perf_counter() - t0:.2f} s (captured "
+          f"{body['captured_ms']} ms, activities {body['activities']}), "
+          f"{os.path.getsize(body['trace_file']) / 2**20:.1f} MiB trace "
+          f"{body['trace_file']}; a second request during it: {s2} "
+          f"({busy['error']}); kernel names in the trace: {found}",
+          flush=True)
+    if not all(found.values()):
+        fail(f"[profile] the trace does not name both faces: {found}")
+    if any(len(o) != OSL for o in outs):
+        fail("[profile] a stream served during the capture came up short")
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -4272,14 +4768,29 @@ for _kv in ("int8", "fp8"):
         "dynamo_tpu/ops/paged_attention.py:109")
 
 
+def launch_configs(results, case: str):
+    """Phase 2's non-default launch parameters on ``case``: each with its
+    device ms and its error against the plain version."""
+    return [{"launch": v["launch"], "ms": v["ms"],
+             "max_abs_err": v["max_abs_err"]}
+            for k, v in results.items()
+            if v["launch"] and k.startswith(f"{case} [")]
+
+
 def kernels_line(results, launches, dist_launches, spec_launches,
-                 moe_launches, slice_launches) -> str:
-    """The ``kernels`` JSON line: one row per kernel build, plus the
+                 moe_launches, slice_launches, tuned_rows=()) -> str:
+    """The ``kernels`` JSON line: one row per kernel build (with
+    ``launch_configs``, the non-default launch parameters phase 2 held on
+    that build's main-path case), plus the
     ragged face at the spec engine's verify shape (its launches: the verify
     windows of phase 3's spec run) and both faces at Mixtral's head dim 128
     (their launches: the [moe] phase's served run). ``slice_launches``
     maps a key (``launches_profile``, ``launches_replay``) to the counts of
-    the path it names, added to every kernel build's row."""
+    the path it names, added to every kernel build's row. ``tuned_rows``
+    (phase 12) are the autotune's winning launches, each with its
+    ``launch`` parameters (the bf16 decode and prefill winners that differ
+    from the defaults; their launches are those of the run served on
+    them)."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -4295,6 +4806,7 @@ def kernels_line(results, launches, dist_launches, spec_launches,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "launch_configs": launch_configs(results, case),
         })
     r = results[SPEC_CASE]
     rows.append({
@@ -4304,6 +4816,7 @@ def kernels_line(results, launches, dist_launches, spec_launches,
         "launches": spec_launches, "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "launch_configs": launch_configs(results, SPEC_CASE),
     })
     for name, case in (("paged_attention_decode", MOE_DECODE_CASE),
                        ("paged_attention_ragged", MOE_PREFILL_CASE)):
@@ -4316,6 +4829,7 @@ def kernels_line(results, launches, dist_launches, spec_launches,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    rows.extend(tuned_rows)
     return json.dumps({"kernels": rows})
 
 
@@ -4351,7 +4865,10 @@ def main() -> None:
     timer = PhaseTimer()
     phase_build()
     timer("1 build")
-    results = phase_kernels(kernel_cases())
+    cases = kernel_cases()
+    check_default_launch(cases)
+    results = phase_kernels(cases)
+    del cases
     timer("2 kernels")
     launches, engine, ref_logits, direct = phase_engine(card)
     phase_graph(engine, card)
@@ -4361,6 +4878,12 @@ def main() -> None:
     del spec_engine
     torch.cuda.empty_cache()
     timer("3 spec engine + graph check")
+    tuned_rows = phase_autotune(card, engine, direct)
+    timer("12 autotune")
+    phase_ladder(card)
+    timer("13 ladder")
+    phase_debug_profile(card, engine)
+    timer("14 profile")
     phase_profile(engine, card)
     timer("4 profile bf16")
     served = phase_http(engine, card, direct)
@@ -4405,7 +4928,8 @@ def main() -> None:
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(kernels_line(results, launches, dist_launches, spec["launches"],
                        moe_launches, {"launches_profile": profile_launches,
-                                      "launches_replay": replay_launches}))
+                                      "launches_replay": replay_launches},
+                       tuned_rows))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,12 @@
 //    chunks only up to its tile's causal frontier; the per-row causal mask
 //    touches S only in chunks that straddle a row's frontier. Tiles are
 //    scheduled heaviest (longest causal prefix) first.
+//    Launch parameters (engine/autotune.py sweeps them per shape class):
+//    q_tile, the query slots of a block (default min(max_q_len, 64 / G));
+//    a smaller tile gives more blocks over the same keys. kv_chunk, the
+//    keys per chunk, 64 or 128, both instantiated for every page type
+//    (each instantiation raises its own shared-memory limit once); 0
+//    launches the default for the page type.
 //    Quantized pages are staged raw by cp.async and converted to bf16 in
 //    shared memory once per chunk: int8 (|q| <= 127, 7 significant bits)
 //    and e4m3 (4) are exact in bf16, int8 through byte permutes and one
@@ -73,7 +79,8 @@
 //    head, stages each span's pages with 16-byte cp.async copies into a
 //    two-stage ring (table entries read one chunk ahead) and keeps a
 //    partial softmax state. n_split is a function of host-known shapes
-//    only (B, KV, W, bs, SM count, the kernel's blocks per SM), so the
+//    only (B, KV, W, bs, SM count, the kernel's blocks per SM; or the
+//    autotune's winner, 1 .. the span count), so the
 //    launch needs no host sync and the grid fills the card once; blocks
 //    whose first span starts at or past seq_len exit at once. Each split
 //    writes (m, l, acc[G, hd]) to an f32 scratch; the last live split of a
@@ -1441,16 +1448,21 @@ struct Ragged {
   const int32_t *tables, *q_start, *q_len, *ctx_len;
   void* out;
   int R, H, KV, bs, W, max_q_len;
+  // launch parameters (0 = the default): query slots per block, and keys
+  // per staged chunk of the tensor-core kernel (64 or 128)
+  int q_tile, kv_chunk;
   cudaStream_t stream;
 
   template <typename T, typename KT, int HD>
   cudaError_t run() const {
     const int G = H / KV;
     const float scale = 1.f / sqrtf((float)HD);
+    const int qt = q_tile > 0 ? q_tile : max(1, min(max_q_len, kMaxRows / G));
+    if (G > kMaxRows || qt * G > kMaxRows) return cudaErrorInvalidValue;
     if constexpr (std::is_same<T, float>::value) {
-      const int q_tile = max(1, min(max_q_len, kMaxRows / G));
-      const int n_tiles = (max_q_len + q_tile - 1) / q_tile;
-      const int nq = q_tile * G;
+      if (kv_chunk != 0) return cudaErrorInvalidValue;  // 32-key chunks
+      const int n_tiles = (max_q_len + qt - 1) / qt;
+      const int nq = qt * G;
       const size_t smem =
           (size_t)(2 * nq * HD + 2 * nq + 2 * kKeys * (HD + 1)) *
           sizeof(float);
@@ -1461,31 +1473,32 @@ struct Ragged {
       kernel<<<dim3(R, n_tiles, KV), kThreads, smem, stream>>>(
           static_cast<const float*>(q), static_cast<const KT*>(k),
           static_cast<const KT*>(v), ks, vs, tables, q_start, q_len, ctx_len,
-          static_cast<float*>(out), H, KV, bs, W, q_tile, scale);
+          static_cast<float*>(out), H, KV, bs, W, qt, scale);
     } else {
-      if (G > kMaxRows) return cudaErrorInvalidValue;
       // quantized pages amortise their convert pass over 128 keys
-      constexpr int CH = std::is_same<KT, __nv_bfloat16>::value ? 64 : 128;
-      const cudaError_t err = run_mma<KT, HD, CH>(scale);
+      const int ch = kv_chunk > 0
+                         ? kv_chunk
+                         : (std::is_same<KT, __nv_bfloat16>::value ? 64 : 128);
+      cudaError_t err = cudaErrorInvalidValue;
+      if (ch == 64) err = run_mma<KT, HD, 64>(scale, qt);
+      if (ch == 128) err = run_mma<KT, HD, 128>(scale, qt);
       if (err != cudaSuccess) return err;
     }
     return cudaGetLastError();
   }
 
   template <typename KT, int HD, int CH>
-  cudaError_t run_mma(float scale) const {
-    const int G = H / KV;
-    const int q_tile = max(1, min(max_q_len, kMaxRows / G));
-    const int n_tiles = (max_q_len + q_tile - 1) / q_tile;
+  cudaError_t run_mma(float scale, int qt) const {
+    const int n_tiles = (max_q_len + qt - 1) / qt;
     constexpr size_t smem = mma_smem_bytes<KT, HD, CH>();
     auto kernel = ragged_paged_attention_mma_kernel<KT, HD, CH>;
-    static size_t allowed = 48 * 1024;
+    static size_t allowed = 48 * 1024;  // one limit per instantiation
     const cudaError_t err = allow_smem(kernel, smem, &allowed);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(KV, R, n_tiles), kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k),
         static_cast<const KT*>(v), ks, vs, tables, q_start, q_len, ctx_len,
-        static_cast<__nv_bfloat16*>(out), H, KV, bs, W, q_tile,
+        static_cast<__nv_bfloat16*>(out), H, KV, bs, W, qt,
         scale * kLog2e);
     return cudaSuccess;
   }
@@ -1552,20 +1565,26 @@ bool bad_dims(int R, int H, int KV, int bs, int W) {
 }  // namespace
 
 // Ragged face. dtype: 0 = float32, 1 = bfloat16 (q, out and the pages).
+// q_tile: query slots per block, 1 .. 64 / (H / KV) (0 = min(max_q_len,
+// 64 / (H / KV))); kv_chunk: keys per staged chunk of bf16 queries, 64 or
+// 128 (0 = 64 for bf16 pages, 128 for 1-byte pages; f32 queries take 0).
 // Returns a cudaError_t (0 = launched).
 extern "C" int dtt_ragged_paged_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* block_tables, const void* q_start, const void* q_len,
     const void* ctx_len, void* out, int R, int H, int KV, int hd, int bs,
-    int W, int max_q_len, int dtype, void* stream) {
-  if (bad_dims(R, H, KV, bs, W) || max_q_len <= 0)
+    int W, int max_q_len, int q_tile, int kv_chunk, int dtype,
+    void* stream) {
+  if (bad_dims(R, H, KV, bs, W) || max_q_len <= 0 || q_tile < 0 ||
+      kv_chunk < 0)
     return (int)cudaErrorInvalidValue;
   const Ragged f{q, k_cache, v_cache, nullptr, nullptr,
                  static_cast<const int32_t*>(block_tables),
                  static_cast<const int32_t*>(q_start),
                  static_cast<const int32_t*>(q_len),
                  static_cast<const int32_t*>(ctx_len), out, R, H, KV, bs, W,
-                 max_q_len, static_cast<cudaStream_t>(stream)};
+                 max_q_len, q_tile, kv_chunk,
+                 static_cast<cudaStream_t>(stream)};
   return (int)by_types(dtype, 0, hd, f);
 }
 
@@ -1575,10 +1594,11 @@ extern "C" int dtt_ragged_paged_attention_quant(
     const void* q, const void* k_cache, const void* v_cache,
     const void* block_tables, const void* q_start, const void* q_len,
     const void* ctx_len, void* out, const void* k_scale, const void* v_scale,
-    int R, int H, int KV, int hd, int bs, int W, int max_q_len, int dtype,
-    int kv_dtype, void* stream) {
-  if (bad_dims(R, H, KV, bs, W) || max_q_len <= 0 ||
-      (kv_dtype != 1 && kv_dtype != 2) || !k_scale || !v_scale)
+    int R, int H, int KV, int hd, int bs, int W, int max_q_len, int q_tile,
+    int kv_chunk, int dtype, int kv_dtype, void* stream) {
+  if (bad_dims(R, H, KV, bs, W) || max_q_len <= 0 || q_tile < 0 ||
+      kv_chunk < 0 || (kv_dtype != 1 && kv_dtype != 2) || !k_scale ||
+      !v_scale)
     return (int)cudaErrorInvalidValue;
   const Ragged f{q, k_cache, v_cache,
                  static_cast<const float*>(k_scale),
@@ -1587,7 +1607,8 @@ extern "C" int dtt_ragged_paged_attention_quant(
                  static_cast<const int32_t*>(q_start),
                  static_cast<const int32_t*>(q_len),
                  static_cast<const int32_t*>(ctx_len), out, R, H, KV, bs, W,
-                 max_q_len, static_cast<cudaStream_t>(stream)};
+                 max_q_len, q_tile, kv_chunk,
+                 static_cast<cudaStream_t>(stream)};
   return (int)by_types(dtype, kv_dtype, hd, f);
 }
 

@@ -7,6 +7,18 @@ that the reference exposes through engine flags and the ModelRuntimeConfig
 (ref: lib/llm/src/local_model/runtime_config.rs:9 — ``total_kv_blocks``,
 ``max_num_seqs``, ``max_num_batched_tokens``).
 
+Attention tiles (``attention_tile_{decode,spec,prefill}``, filled by
+``engine/autotune.py``'s sweep or set by hand; ``(0, 0)`` = the kernel's
+defaults) name the CUDA kernel's launch parameters, not the Pallas
+kernel's ``(q_tile, kv_tile)``:
+
+- ragged classes (spec, prefill): ``(q_tile, kv_chunk)`` — query slots per
+  block of the ragged face (its default ``64 // G``, capped at the chunk
+  length) and keys per staged chunk (64 or 128; the default is 64 for bf16
+  pages, 128 for 1-byte pages);
+- decode class: ``(0, n_split)`` — the decode face's split count (its
+  default fills the card once, ``ops/paged_attention.py`` ``_decode_grid``).
+
 The engine config keeps the knobs this package serves, plus the ones that
 select a path it does not serve yet (a mesh of more than one device,
 pipeline and sequence parallelism): those stay so that
@@ -93,7 +105,11 @@ class ModelConfig:
         )
 
 
-ATTENTION_IMPLS = ("kernel", "einsum")
+ATTENTION_IMPLS = ("kernel", "einsum", "auto")
+# what a shape class resolves to ("auto" is resolved per class at startup)
+CLASS_IMPLS = ("kernel", "einsum")
+# keys per staged chunk the ragged face is built for (0 = its default)
+KV_CHUNKS = (0, 64, 128)
 
 
 @dataclass(frozen=True)
@@ -116,12 +132,29 @@ class EngineConfig:
     mesh_shape: Tuple[int, ...] = (1, 1)
     # attention implementation: "kernel" runs the paged-attention kernel
     # (ops/paged_attention.py: CUDA on a card, its plain version on the
-    # CPU); "einsum" materialises the gathered context
+    # CPU); "einsum" materialises the gathered context; "auto" times both
+    # per shape class at engine startup (engine/autotune.py)
     attention_impl: str = "kernel"
     # per-shape-class overrides ("" = inherit attention_impl)
     attention_impl_decode: str = ""
     attention_impl_spec: str = ""
     attention_impl_prefill: str = ""
+    # per-shape-class launch parameters of the CUDA kernel (module
+    # docstring): (q_tile, kv_chunk) for spec/prefill, (0, n_split) for
+    # decode; (0, 0) = the kernel's defaults. engine/autotune.py's sweep
+    # fills them with the fastest candidate that passed its numeric gate
+    # (persisted across runs via DYNTPU_AUTOTUNE_CACHE)
+    attention_tile_decode: Tuple[int, int] = (0, 0)
+    attention_tile_spec: Tuple[int, int] = (0, 0)
+    attention_tile_prefill: Tuple[int, int] = (0, 0)
+    # adaptive bucket ladders (engine/ladder.py): split hot decode/prefill
+    # buckets and retire cold ones from the flight recorder's per-bucket
+    # occupancy, under ladder_compile_budget extra rungs per ladder. Off by
+    # default: static buckets stay fully deterministic
+    adaptive_buckets: bool = False
+    # max rungs each ladder may ADD over its lifetime; bounds the decode
+    # graphs captured after warm-up (one per new rung and sampling mode)
+    ladder_compile_budget: int = 4
     # chunked prefill: cap each prefill chunk at this many tokens so long
     # prompts are admitted in slices interleaved with running decodes.
     # 0 = off (chunks capped only by the largest prefill bucket).
@@ -200,10 +233,29 @@ class EngineConfig:
             )
         for cls in ("decode", "spec", "prefill"):
             v = getattr(self, f"attention_impl_{cls}")
-            if v not in ("",) + ATTENTION_IMPLS:
+            if v not in ("",) + CLASS_IMPLS:
                 raise ValueError(
                     f"unknown attention_impl_{cls} {v!r}"
                 )
+        # what the kernel's launch takes regardless of the model (the
+        # wrappers check the rest: q_tile against 64 // G, n_split against
+        # the table's span count, kv_chunk against shared memory)
+        for cls in ("decode", "spec", "prefill"):
+            tile = tuple(getattr(self, f"attention_tile_{cls}"))
+            if len(tile) != 2 or tile[0] < 0 or tile[1] < 0:
+                raise ValueError(
+                    f"attention_tile_{cls} must be a pair of ints >= 0")
+        for cls in ("spec", "prefill"):
+            kv_chunk = getattr(self, f"attention_tile_{cls}")[1]
+            if kv_chunk not in KV_CHUNKS:
+                raise ValueError(
+                    f"attention_tile_{cls} kv_chunk {kv_chunk} not one of "
+                    f"{KV_CHUNKS} (the ragged face's staged chunks)")
+        if self.attention_tile_decode[0] != 0:
+            raise ValueError("attention_tile_decode is (0, n_split): the "
+                             "decode face has one query per row")
+        if self.ladder_compile_budget < 0:
+            raise ValueError("ladder_compile_budget must be >= 0")
         if self.prefill_chunk_tokens < 0:
             raise ValueError("prefill_chunk_tokens must be >= 0")
         if self.spec_mode != "off":

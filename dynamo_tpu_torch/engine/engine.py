@@ -19,7 +19,11 @@ and replaces each decode window with a draft + verify window (a graph
 replay too), with acceptance accounting, auto-disable and the pressure
 ladder's rung-2 pause. The stall watchdog, the HBM-pressure ladder, the
 flight recorder (``observability``) and the engine's stage spans are the
-JAX engine's too.
+JAX engine's too, and so are its tuning and instruments: attention
+autotune at construction (``engine/autotune.py``; ``attention_impl_choice``),
+adaptive bucket ladders (``engine/ladder.py``; a new decode rung is a graph
+captured at its first call) and the graph-capture watch
+(``observability/compilewatch.py``) in the obs snapshot.
 
 KV movement is the JAX engine's seams: disaggregated prefill/decode
 (``prefill_held`` / ``reserve_sequence`` / ``resume_prefilled``, epoch-guarded
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from ..observability import compilewatch
 from ..observability import flops as obs_flops
 from ..observability.flops import FlopsModel
 from ..observability.stepstats import (
@@ -268,6 +273,10 @@ class EngineCore(AsyncEngine):
         # quarantined (kind, bucket) shape classes: dispatch planning routes
         # around them (next bucket up / einsum impl) after a stall
         self._shape_quarantine: set = set()
+        # adaptive bucket ladders (engine/ladder.py), kind -> BucketLadder;
+        # InferenceEngine builds them when enabled, {} keeps every bucketing
+        # call on the static grid
+        self._ladders: Dict[str, Any] = {}
         self._window_seq = itertools.count(1)  # fault key for engine.stall
         # -- HBM-pressure ladder state (pressure_*_threshold > 0) --
         self.pressure_level = 0          # 0 idle .. 3 shedding
@@ -617,12 +626,13 @@ class EngineCore(AsyncEngine):
     # --------------------- flight recorder surface ---------------------
 
     def obs_snapshot(self) -> dict:
-        """One merged dict of live recorder gauges (stepstats window) and
-        the watchdog's and the ladder's counters; {} when the recorder is
-        disabled."""
+        """One merged dict of live recorder gauges (stepstats window), the
+        graph-capture watch's counters and the watchdog's and the ladders'
+        counters; {} when the recorder is disabled."""
         if self.obs is None:
             return {}
         snap = self.obs.snapshot()
+        snap.update(compilewatch.snapshot())
         snap["stalls_total"] = self.num_stalls
         snap["stall_dead"] = int(self.stall_dead)
         snap["stall_quarantined_shapes"] = len(self._shape_quarantine)
@@ -630,13 +640,26 @@ class EngineCore(AsyncEngine):
         snap["pressure_peak"] = self.pressure_peak
         snap["pressure_spills_total"] = self.num_pressure_spills
         snap["pressure_shed_total"] = self.num_pressure_shed
+        # adaptive bucket ladders: scalar gauges by the exact keys
+        # observability.gauges reads; the rungs tuple is non-scalar and
+        # stays off the wire dict
+        for kind, lad in self._ladders.items():
+            ls = lad.snapshot()
+            snap[f"ladder_{kind}_rungs"] = ls["rungs"]
+            snap[f"ladder_{kind}_rungs_n"] = len(ls["rungs"])
+            snap[f"ladder_{kind}_splits_total"] = ls["splits_total"]
+            snap[f"ladder_{kind}_retires_total"] = ls["retires_total"]
+            snap[f"ladder_{kind}_budget_remaining"] = ls["budget_remaining"]
+            snap[f"ladder_{kind}_converged"] = int(ls["converged"])
         return snap
 
     def mark_obs_warmup_done(self) -> None:
-        """Drop warmup steps from the recorder's window. Call after warmup
-        traffic has drained."""
+        """Drop warmup steps from the recorder's window and arm the
+        steady-state graph-capture watch. Call after warmup traffic has
+        drained."""
         if self.obs is not None:
             self.obs.mark_warmup_done()
+            compilewatch.mark_warmup_done()
 
     # ------------------------- step loop -------------------------------
 
@@ -1210,6 +1233,14 @@ class InferenceEngine(EngineCore):
     ):
         check_supported(engine_config)
         self.device = resolve_device(device)
+        # attention autotune, BEFORE any step function is built or graph
+        # captured: the impl probe (attention_impl="auto" times the kernel
+        # against einsum per shape class on the card) plus each class's
+        # launch parameters: explicit config > persisted cache
+        # (DYNTPU_AUTOTUNE_CACHE) > the sweep on the card > the defaults
+        from .autotune import autotune_attention
+        engine_config, self.attention_impl_choice = autotune_attention(
+            model_config, engine_config, self.device)
         super().__init__(engine_config)
         self.model_config = model_config
         if params is None:
@@ -1286,6 +1317,35 @@ class InferenceEngine(EngineCore):
                 ),
                 window_s=env_float("DYNTPU_OBS_WINDOW_S", 10.0),
                 jsonl_path=env_str("DYNTPU_OBS_STEPSTATS_PATH", ""),
+            )
+        # waste-driven adaptive bucket ladders: consume the recorder's
+        # per-bucket occupancy, split hot rungs / retire cold ones under an
+        # explicit compile budget (a new decode rung is a graph captured at
+        # its first call). Needs the recorder (the occupancy source).
+        if self.obs is not None and (engine_config.adaptive_buckets or env_flag(
+                "DYNTPU_LADDER_ENABLED", False)):
+            from .ladder import BucketLadder
+            budget = engine_config.ladder_compile_budget
+            self._ladders = {
+                # decode windows and spec verify windows share the row
+                # bucket grid (and its graphs' buckets)
+                "decode": BucketLadder(
+                    "decode", engine_config.decode_buckets,
+                    kinds=(DECODE, SPEC_VERIFY),
+                    compile_budget=budget, step=8,
+                ),
+                "prefill": BucketLadder(
+                    "prefill", engine_config.prefill_buckets,
+                    kinds=(PREFILL,),
+                    compile_budget=budget, step=16,
+                ),
+            }
+            # the scheduler snaps chunked-prefill caps onto live rungs
+            self.scheduler.prefill_ladder = self._ladders["prefill"]
+            log.info(
+                "adaptive bucket ladders on: budget=%d rungs decode=%r "
+                "prefill=%r", budget, engine_config.decode_buckets,
+                engine_config.prefill_buckets,
             )
         # the one device-step thread, made at the first batch after start
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
@@ -1601,6 +1661,18 @@ class InferenceEngine(EngineCore):
                 rec.goodput_tokens = emitted
             self.obs.commit(rec)
         recs.clear()
+        if self._ladders:
+            self._ladder_tick()
+
+    @hot_path
+    def _ladder_tick(self) -> None:
+        """Feed the recorder's occupancy histogram to the bucket ladders
+        and run one (cheap, host-int) adaptation check. Called on every
+        landing; BucketLadder.min_dispatches gates actual epochs."""
+        occ = self.obs.bucket_occupancy()
+        for lad in self._ladders.values():
+            lad.ingest(occ)
+            lad.maybe_adapt()
 
     @hot_path
     def _unpack_spec(self, batch, out, col_of) -> List[List[int]]:
@@ -1670,19 +1742,25 @@ class InferenceEngine(EngineCore):
                              device=self.device, dtype=torch.int64)
 
     def _bucket_for(self, kind: str, n: int) -> int:
-        """Bucket ``n`` on the config's grid for ``kind``.
+        """Bucket ``n`` on the live grid for ``kind`` (the ladder's rungs
+        when it is on, the static config grid otherwise).
         Stall-quarantined buckets route to the next rung up — another
         captured graph (or prefill shape) doing the same work with
         padding."""
-        cfg = self.config
-        grid = (cfg.decode_buckets if kind == "decode"
-                else cfg.prefill_buckets)
+        grid = self._grid(kind)
         b = _bucket(n, grid)
         if self._shape_quarantine and (kind, b) in self._shape_quarantine:
             for g in grid:
                 if g >= b and (kind, g) not in self._shape_quarantine:
                     return g
         return b
+
+    def _grid(self, kind: str) -> Tuple[int, ...]:
+        lad = self._ladders.get(kind)
+        if lad is not None:
+            return lad.buckets()
+        return (self.config.decode_buckets if kind == "decode"
+                else self.config.prefill_buckets)
 
     def _shape_bucket(self, kind: str, n: int) -> int:
         return self._bucket_for(kind, n)
@@ -1698,7 +1776,7 @@ class InferenceEngine(EngineCore):
         kind, bucket = cls
         if kind == "decode" and not self._stall_einsum_fallback:
             cfg = self.config
-            if bucket >= max(cfg.decode_buckets):
+            if bucket >= max(self._grid("decode")):
                 fb_cfg = dataclasses.replace(
                     cfg, attention_impl_decode="einsum"
                 )
@@ -1712,6 +1790,7 @@ class InferenceEngine(EngineCore):
                 self._ap_rows_dev = None
                 self._stall_einsum_fallback = True
                 self.num_einsum_rebuilds += 1
+                compilewatch.note("decode_window:einsum_rebuild")
                 log.warning(
                     "stall watchdog: decode:%d is the largest rung — "
                     "rebuilt the decode window on the einsum attention "

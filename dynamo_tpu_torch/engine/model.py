@@ -33,6 +33,9 @@ buffers:
   verifies ``[B, k+1]`` query rows in one forward through the kernel's
   ragged face; on a card it is captured and replayed like the decode
   window, in the same pool.
+- **Tuned launches**: ``forward`` hands the kernel the launch parameters of
+  its shape class (``attention_tile_*``, :func:`class_tile`), so a captured
+  graph replays the tuned launch (``engine/autotune.py``).
 - **Quantized serving** (``engine/quant.py``): matmul weights may be
   ``{"q", "s"}`` leaves (int8/fp8 with per-output-channel f32 scales), and
   with a quantized ``kv_dtype`` the pages are 1-byte with per-(slot, head)
@@ -44,13 +47,16 @@ Nothing here synchronises with the host except where a docstring says so.
 
 from __future__ import annotations
 
+import gc
 import math
 import time
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..observability import compilewatch
 from ..ops import paged_attention as pa
 from ..ops.paged_attention import (
     paged_attention_decode, paged_attention_ragged,
@@ -282,11 +288,35 @@ def attention_class(eng: EngineConfig, T: int) -> str:
 
 def resolve_attention_impl(eng: EngineConfig, attn_class: str) -> str:
     """The attention impl ("kernel" | "einsum") of a shape class: its
-    per-class override when set, else ``attention_impl`` — "kernel" by
+    per-class override when set (``engine/autotune.py`` sets all three for
+    ``attention_impl="auto"``), else ``attention_impl`` — "kernel" by
     default for every class (on a card the CUDA kernel, on the CPU its
-    plain version)."""
-    return getattr(eng, f"attention_impl_{attn_class}", "") \
-        or eng.attention_impl
+    plain version). An "auto" no probe has resolved is einsum, as the JAX
+    package's is."""
+    override = getattr(eng, f"attention_impl_{attn_class}", "")
+    if override:
+        return override
+    return "einsum" if eng.attention_impl == "auto" else eng.attention_impl
+
+
+def class_tile(eng: EngineConfig, attn_class: str, T: int,
+               W: int) -> Tuple[int, int]:
+    """The kernel launch parameters a shape class's tile gives a ``[B, T]``
+    step over a ``W``-block table: ``(q_tile, kv_chunk)`` for the ragged
+    classes, ``(0, n_split)`` for decode (``engine/config.py``).
+
+    Tuned tiles are advisory, as the JAX package's ``_class_tile`` makes
+    them: a q_tile that does not divide this step's T (a winner picked at
+    the largest prefill bucket against a shorter chunk), or an n_split over
+    this table's span count, falls back to the kernel's default (0). What
+    the kernel cannot take at any shape still raises in the wrapper."""
+    q_tile, second = getattr(eng, f"attention_tile_{attn_class}", (0, 0))
+    if attn_class == "decode":
+        return 0, (second if second <= pa.decode_spans(
+            W, eng.block_size)[1] else 0)
+    if q_tile > 0 and T % q_tile:
+        q_tile = 0
+    return q_tile, second
 
 
 def forward(
@@ -332,9 +362,10 @@ def forward(
     cos, sin = _rope_tables(positions, cfg.rope_theta, hd)
     kv_quant = quant.is_quantized(eng.kv_dtype)
 
-    use_kernel = resolve_attention_impl(eng, attention_class(eng, T)) \
-        == "kernel"
+    attn_class = attention_class(eng, T)
+    use_kernel = resolve_attention_impl(eng, attn_class) == "kernel"
     if use_kernel:
+        q_tile, kv_arg = class_tile(eng, attn_class, T, W)
         if T == 1:
             seq_lens = torch.clamp(positions[:, 0] + 1, min=0).to(
                 torch.int32)
@@ -377,13 +408,13 @@ def forward(
         if use_kernel and T == 1:
             attn = paged_attention_decode(
                 q[:, 0].contiguous(), lk, lv, block_tables, seq_lens,
-                block_size=bs, k_scale=lks, v_scale=lvs,
+                block_size=bs, k_scale=lks, v_scale=lvs, n_split=kv_arg,
             )[:, None]
         elif use_kernel:
             attn = paged_attention_ragged(
                 q.reshape(B * T, H, hd).contiguous(), lk, lv, block_tables,
                 q_start, q_len, ctx_len, block_size=bs, max_q_len=T,
-                k_scale=lks, v_scale=lvs,
+                k_scale=lks, v_scale=lvs, q_tile=q_tile, kv_chunk=kv_arg,
             ).reshape(B, T, H, hd)
         else:
             # gather the full context: [B, W*bs, KV, hd] with gathered
@@ -887,6 +918,24 @@ def raw_spec_hist_fill_fn():
     return fill
 
 
+@contextmanager
+def gc_paused():
+    """Around a CUDA graph capture: a cyclic garbage collection inside it
+    (on any thread) could destroy a dead graph, which invalidates the
+    capture; so the collector waits until the capture is done."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _window_key(kind: str, B: int, stochastic: bool) -> str:
+    return f"{kind}_window:B={B}:stochastic={int(stochastic)}"
+
+
 class AutopilotWindow:
     """The engine's decode window, and with ``spec_k`` > 0 its spec window
     too. On a CUDA device: one ``torch.cuda.CUDAGraph`` per ``(kind, decode
@@ -929,13 +978,19 @@ class AutopilotWindow:
       rebuild) captures at its first call, on the device-step thread, while
       the fetch thread may be waiting on a CUDA event: so every capture
       runs in the ``"thread_local"`` error mode, which lets other threads
-      make CUDA calls during it.
+      make CUDA calls during it, with the garbage collector paused
+      (:func:`gc_paused`).
     - *Launch counts.* A replay never calls the kernel wrappers. A capture
       records the paged-attention launches it holds
       (``ops.paged_attention.take_recorded``) and each replay adds them to
       ``LAUNCHES``.
     - *No fallback.* A failed capture or replay raises; on a card the window
       never runs eagerly outside the warm-up.
+    - *New rungs.* A bucket the engine never captured at construction (a
+      rung the adaptive ladder adds, ``engine/ladder.py``) is captured at
+      its first call, on the device-step thread, like the einsum rebuild's.
+      Every capture is counted by ``observability/compilewatch.py`` under
+      its key; on the CPU, the first call of a key is.
     """
 
     def __init__(self, cfg: ModelConfig, eng: EngineConfig, K: int,
@@ -957,6 +1012,7 @@ class AutopilotWindow:
         self.spec_replays = 0
         self.capture_s: Dict[Tuple[str, int, bool], float] = {}
         self.last_key = ""                   # the last graph captured
+        self._seen: set = set()              # keys called eagerly (CPU)
 
     def load_rows(self, cols: List[int]) -> torch.Tensor:
         """The device seat map ``slot_rows`` for ``cols``: on a card the
@@ -1020,16 +1076,17 @@ class AutopilotWindow:
             ctl["ctr"].copy_(ctr)
         pa.take_recorded()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=s,
-                              capture_error_mode="thread_local"):
+        with gc_paused(), torch.cuda.graph(
+                graph, pool=self._pool, stream=s,
+                capture_error_mode="thread_local"):
             _, _, out = fn(params, cache, ctl, rows, stochastic)
         torch.cuda.current_stream(self.device).wait_stream(s)
         entry = (graph, out, pa.take_recorded())
-        kind = "spec" if spec else "decode"
-        key = (kind, B, stochastic)
+        key = ("spec" if spec else "decode", B, stochastic)
         self._graphs[key] = entry
         self.capture_s[key] = time.perf_counter() - t0
-        self.last_key = f"{kind}_window:B={B}:stochastic={int(stochastic)}"
+        self.last_key = _window_key(*key)
+        compilewatch.note(self.last_key, self.capture_s[key])
         return entry
 
     def pool_bytes(self) -> int:
@@ -1043,6 +1100,12 @@ class AutopilotWindow:
     def __call__(self, params, cache, ctl, slot_rows: torch.Tensor,
                  stochastic: bool, spec: bool = False):
         if not self.graphed:
+            key = ("spec" if spec else "decode", slot_rows.shape[0],
+                   stochastic)
+            if key not in self._seen:
+                self._seen.add(key)
+                self.last_key = _window_key(*key)
+                compilewatch.note(self.last_key)
             return self._fn(spec)(params, cache, ctl, slot_rows, stochastic)
         B = slot_rows.shape[0]
         entry = self._graphs.get(("spec" if spec else "decode", B,

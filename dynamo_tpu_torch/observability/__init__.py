@@ -1,4 +1,5 @@
-"""Engine flight recorder: live MFU/goodput accounting.
+"""Engine flight recorder: live MFU/goodput accounting, the graph-capture
+watch, on-demand profiles.
 
 A copy of ``dynamo_tpu.observability`` for what the port's engine records:
 
@@ -7,10 +8,12 @@ A copy of ``dynamo_tpu.observability`` for what the port's engine records:
 * :mod:`.stepstats` — per-engine-step records + windowed live gauges
 * :mod:`.report` — ``python -m dynamo_tpu_torch.observability`` JSONL
   report
+* :mod:`.compilewatch` — the compile watchdog's twin: decode/spec graph
+  captures and einsum rebuilds per key, after warm-up
+* :mod:`.profiling` — ``/debug/profile?ms=N`` on ``torch.profiler``
 * :mod:`.gauges` — the worker's ``engine_*`` Prometheus gauges
 
-The compile watchdog's twin and ``/debug/profile`` come with ROADMAP.md
-queue A item 7. Nothing here imports torch, so control-plane processes can
+Nothing here imports torch at module level, so control-plane processes can
 use the package.
 """
 

@@ -9,8 +9,11 @@ overhead.
 
 A copy of ``dynamo_tpu.observability.gauges`` on the port's
 ``MetricsRegistry``, with the same metric names, labels and help text. The
-compile-watchdog and bucket-ladder families stay registered: the port's
-recorder has no such keys yet, so they read 0 or carry no series.
+engine's snapshot carries the graph-capture watch's keys
+(``observability/compilewatch.py``: ``engine_recompiles_total{fn}`` counts
+steady-state graph captures per window key; ``engine_involuntary_remats_
+total`` stays 0, XLA's remat warning having no counterpart) and, with
+adaptive buckets on, the ladders' keys (``engine_ladder_*{kind}``).
 """
 
 from __future__ import annotations

@@ -26,6 +26,15 @@ last blocks, stale table tails) contribute *exactly zero* and can never
 NaN-poison the softmax; a zero softmax denominator divides as 1; every slot of
 a row's allotment that holds no valid query comes back as exact zeros.
 
+Launch parameters: ``paged_attention_ragged`` takes ``q_tile`` (query slots
+per block, at most ``64 // G``) and ``kv_chunk`` (keys per staged chunk, 64 or
+128), ``paged_attention_decode`` takes ``n_split`` (splits of the context, at
+most the table's span count); 0 launches the kernel's default, which is what
+a call without them launches. ``engine/autotune.py`` sweeps them per shape
+class. A value the kernel cannot take raises ``ValueError`` by name before
+anything launches (on the CPU too, where the plain version, whose result does
+not depend on them, runs).
+
 Quantized KV (``EngineConfig.kv_dtype`` int8/fp8): the pages are int8 or
 float8_e4m3fn and ``k_scale``/``v_scale`` ``[num_blocks, KV, bs]`` f32 hold
 one scale per (slot, head). Each key is dequantized (page times scale)
@@ -38,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -57,15 +67,21 @@ _KV_CODES = {torch.int8: (1, "int8"), torch.float8_e4m3fn: (2, "fp8")}
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 16  # query heads per KV head the CUDA kernels take
 _CHUNK = 64      # keys per staged chunk of the CUDA kernels
+_MAX_ROWS = 64   # flat query rows (q slots x G heads) per ragged block
+KV_CHUNKS = (64, 128)  # keys per staged chunk the ragged face is built for
+# dynamic shared memory one block may opt into on an H100 (sm_90); a card
+# reports its own (shared_memory_per_block_optin)
+SMEM_OPTIN_SM90 = 232448
 # (C entry point, pointer arguments, int arguments) per (face, quantized)
 _ENTRY = {
-    ("ragged", False): ("dtt_ragged_paged_attention", 8, 8),
-    ("ragged", True): ("dtt_ragged_paged_attention_quant", 10, 9),
+    ("ragged", False): ("dtt_ragged_paged_attention", 8, 10),
+    ("ragged", True): ("dtt_ragged_paged_attention_quant", 10, 11),
     ("decode", False): ("dtt_paged_attention_decode", 9, 9),
     ("decode", True): ("dtt_paged_attention_decode_quant", 11, 10),
 }
 _fns = {}
 _sm_counts = {}
+_smem_limits = {}
 _occupancy = {}
 # per device: the decode kernel's arrival counters, one per (row, KV head),
 # zero between calls (the last split of each resets its own)
@@ -162,25 +178,83 @@ def _arrival_counters(device, n: int) -> torch.Tensor:
     return buf
 
 
+def decode_spans(W: int, bs: int) -> Tuple[int, int]:
+    """``(span, n_spans)``: the decode face cuts a table's ``W * bs``
+    positions into spans of ``span`` keys, the least common multiple of
+    the kernel's 64-key chunk and ``bs`` (whole pages, whole chunks)."""
+    span = _CHUNK * bs // math.gcd(_CHUNK, bs)
+    return span, -(-(W * bs) // span)
+
+
+def check_n_split(n_split: int, W: int, bs: int) -> None:
+    """Raise by name for a decode split count the kernel cannot take:
+    negative, or more splits than the table has spans."""
+    _, n_spans = decode_spans(W, bs)
+    if n_split < 0 or n_split > n_spans:
+        raise ValueError(
+            f"n_split {n_split}: the decode face takes 0 (its default) or "
+            f"1..{n_spans}, the spans of a {W}-block table of {bs}")
+
+
 def _decode_grid(B: int, KV: int, W: int, bs: int, n_sm: int,
-                 blocks_per_sm: int):
+                 blocks_per_sm: int, n_split: int = 0):
     """``(n_split, span)`` of the decode face's split-KV launch, from
     host-known shapes only (never from ``seq_lens``, so the launch needs no
     host sync and a CUDA graph can capture it).
 
-    The table's ``W * bs`` positions are cut into spans of ``span`` keys,
-    the least common multiple of the kernel's 64-key chunk and ``bs``
-    (whole pages, whole chunks). Split ``s`` owns the spans ``s, s +
-    n_split, s + 2 n_split, ...``, so the ``n_split`` splits cover every
-    position once and a short context still spreads over several splits.
-    ``n_split`` fills the card once: as many splits per (row, KV head)
-    as the ``n_sm * blocks_per_sm`` blocks the SMs hold at once allow (at
-    least one, never more than the spans), so no block waits for a second
-    wave."""
-    span = _CHUNK * bs // math.gcd(_CHUNK, bs)
-    n_spans = -(-(W * bs) // span)
-    n_split = max(1, min(n_spans, n_sm * blocks_per_sm // max(1, B * KV)))
-    return n_split, span
+    Split ``s`` owns the spans ``s, s + n_split, s + 2 n_split, ...`` of
+    :func:`decode_spans`, so the ``n_split`` splits cover every position
+    once and a short context still spreads over several splits. A
+    ``n_split`` given (the autotune's) is taken as it is; the default fills
+    the card once: as many splits per (row, KV head) as the ``n_sm *
+    blocks_per_sm`` blocks the SMs hold at once allow (at least one, never
+    more than the spans), so no block waits for a second wave."""
+    check_n_split(n_split, W, bs)
+    span, n_spans = decode_spans(W, bs)
+    if n_split:
+        return n_split, span
+    return max(1, min(n_spans, n_sm * blocks_per_sm // max(1, B * KV))), span
+
+
+def ragged_smem_bytes(hd: int, kv_chunk: int, quantized: bool) -> int:
+    """Dynamic shared memory of one block of the ragged face's tensor-core
+    kernel (``mma_smem_bytes`` in ``csrc/paged_attention.cu``)."""
+    stages = 3 if kv_chunk == 64 else 2
+    q_tile = _MAX_ROWS * (hd + 8) * 2
+    tile = kv_chunk * (hd + 8) * 2
+    raw_stage = 2 * kv_chunk * (hd + 16) + 2 * kv_chunk * 4
+    return q_tile + (2 * tile + stages * raw_stage if quantized
+                     else 2 * stages * tile)
+
+
+def ragged_tile(q_tile: int, kv_chunk: int, *, G: int, max_q_len: int,
+                hd: int, q_dtype: torch.dtype, quantized: bool,
+                smem_optin: int = SMEM_OPTIN_SM90) -> Tuple[int, int]:
+    """The ``(q_tile, kv_chunk)`` one ragged launch runs, 0 standing for
+    the default (``min(max_q_len, 64 // G)`` query slots; 64 keys for bf16
+    pages, 128 for 1-byte pages; the f32 build's fixed 32-key chunks report
+    0). Raises ``ValueError`` naming a value the kernel cannot take."""
+    max_tile = max(1, _MAX_ROWS // G)
+    if q_tile < 0 or q_tile > max_tile:
+        raise ValueError(
+            f"q_tile {q_tile}: a ragged block holds {_MAX_ROWS} flat rows, "
+            f"so at most {max_tile} query slots of {G} heads (0 = default)")
+    qt = q_tile or max(1, min(max_q_len, max_tile))
+    if q_dtype == torch.float32:
+        if kv_chunk:
+            raise ValueError(f"kv_chunk {kv_chunk}: the f32 build stages "
+                             "32-key chunks and takes only 0")
+        return qt, 0
+    ch = kv_chunk or (128 if quantized else 64)
+    if ch not in KV_CHUNKS:
+        raise ValueError(f"kv_chunk {kv_chunk}: the ragged face is built "
+                         f"for {KV_CHUNKS} keys per chunk (0 = default)")
+    smem = ragged_smem_bytes(hd, ch, quantized)
+    if smem > smem_optin:
+        raise ValueError(
+            f"kv_chunk {ch}: {smem} bytes of shared memory per block, over "
+            f"the card's opt-in limit of {smem_optin}")
+    return qt, ch
 
 
 def _check_scales(q, k_cache, k_scale, v_scale) -> None:
@@ -300,29 +374,42 @@ def _call(face: str, counter: str, q, k_cache, ptrs, dims, k_scale,
         LAUNCHES[counter] += 1
 
 
+def _smem_optin(device) -> int:
+    n = _smem_limits.get(device)
+    if n is None:
+        n = _smem_limits[device] = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+    return n
+
+
 def _launch(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
-            block_size: int, max_q_len: int, k_scale=None,
-            v_scale=None) -> torch.Tensor:
+            block_size: int, max_q_len: int, k_scale=None, v_scale=None,
+            q_tile: int = 0, kv_chunk: int = 0) -> torch.Tensor:
     _check(q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
            block_size, max_q_len, k_scale, v_scale)
+    _, H, hd = q.shape
+    KV = k_cache.shape[1]
+    q_tile, kv_chunk = ragged_tile(
+        q_tile, kv_chunk, G=H // KV, max_q_len=max_q_len, hd=hd,
+        q_dtype=q.dtype, quantized=k_scale is not None,
+        smem_optin=_smem_optin(q.device))
     out = torch.empty_like(q)
     R, W = block_tables.shape
     if R == 0 or q.shape[0] == 0:
         return out
-    _, H, hd = q.shape
-    KV = k_cache.shape[1]
     ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
             ctx_len.data_ptr(), out.data_ptr())
-    dims = (R, H, KV, hd, block_size, W, max_q_len, _DTYPE_CODES[q.dtype])
+    dims = (R, H, KV, hd, block_size, W, max_q_len, q_tile, kv_chunk,
+            _DTYPE_CODES[q.dtype])
     _call("ragged", "paged_attention_ragged", q, k_cache, ptrs, dims,
           k_scale, v_scale)
     return out
 
 
 def _launch_decode(q, k_cache, v_cache, block_tables, seq_lens,
-                   block_size: int, k_scale=None,
-                   v_scale=None) -> torch.Tensor:
+                   block_size: int, k_scale=None, v_scale=None,
+                   n_split: int = 0) -> torch.Tensor:
     _check_decode(q, k_cache, v_cache, block_tables, seq_lens, block_size,
                   k_scale, v_scale)
     out = torch.empty_like(q)
@@ -336,7 +423,7 @@ def _launch_decode(q, k_cache, v_cache, block_tables, seq_lens,
     kv_code = 0 if k_scale is None else _KV_CODES[k_cache.dtype][0]
     n_split, span = _decode_grid(
         B, KV, W, block_size, _sm_count(q.device),
-        _blocks_per_sm(q.device, H, KV, hd, dtype_code, kv_code))
+        _blocks_per_sm(q.device, H, KV, hd, dtype_code, kv_code), n_split)
     # the splits' partials: acc [B, KV, n_split, G, hd], then (m, l)
     n_part = B * KV * n_split * G
     part = torch.empty(n_part * (hd + 2), dtype=torch.float32,
@@ -365,24 +452,32 @@ def paged_attention_ragged(
     max_q_len: int,
     k_scale: torch.Tensor | None = None,  # [num_blocks, KV, bs] f32
     v_scale: torch.Tensor | None = None,  # [num_blocks, KV, bs] f32
+    q_tile: int = 0,
+    kv_chunk: int = 0,
 ) -> torch.Tensor:
     """Ragged paged attention over heterogeneous-length query rows.
 
     The K/V of every query must already be scattered into the cache (how
     ``engine.model.forward`` orders things). ``max_q_len`` bounds
     ``q_start[r+1] - q_start[r]``. Returns ``[Tq, H, hd]`` in q's dtype.
-    The Pallas kernel's ``q_tile``/``kv_tile`` knobs have no counterpart:
-    the CUDA kernel picks its own tiling. ``k_scale``/``v_scale`` go with
-    int8/float8_e4m3fn pages (quantized KV) and only with them.
+    ``q_tile``/``kv_chunk`` are the CUDA kernel's launch parameters (the
+    counterpart of the Pallas kernel's ``q_tile``/``kv_tile``; see
+    :func:`ragged_tile`). ``k_scale``/``v_scale`` go with int8/float8_e4m3fn
+    pages (quantized KV) and only with them.
     """
     if q.device.type == "cpu":
+        H, KV = q.shape[1], k_cache.shape[1]
+        ragged_tile(q_tile, kv_chunk, G=H // KV, max_q_len=max_q_len,
+                    hd=q.shape[2], q_dtype=q.dtype,
+                    quantized=k_scale is not None)
         return paged_attention_ragged_plain(
             q, k_cache, v_cache, block_tables, q_start, q_len, ctx_len,
             block_size=block_size, max_q_len=max_q_len, k_scale=k_scale,
             v_scale=v_scale,
         )
     return _launch(q, k_cache, v_cache, block_tables, q_start, q_len,
-                   ctx_len, block_size, max_q_len, k_scale, v_scale)
+                   ctx_len, block_size, max_q_len, k_scale, v_scale,
+                   q_tile, kv_chunk)
 
 
 def paged_attention_decode(
@@ -395,6 +490,7 @@ def paged_attention_decode(
     block_size: int,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    n_split: int = 0,
 ) -> torch.Tensor:
     """Single-token-per-sequence paged attention. Returns ``[B, H, hd]``.
 
@@ -407,7 +503,8 @@ def paged_attention_decode(
     Split-KV contract on a card: the kernel takes ``seq_lens`` as it is
     (no per-call metadata tensors are built) and launches once: one block
     per (split, KV head, row) over the grid of :func:`_decode_grid`, which
-    depends on host-known shapes only. A split whose first span starts at
+    depends on host-known shapes only (``n_split`` > 0 sets the split count
+    instead, up to the table's span count). A split whose first span starts at
     or past ``seq_lens[b]`` exits at once; every other writes its partial
     softmax state (m, l, acc) for the G query heads of its KV head to an
     f32 scratch allocated here. The last live split of each (row, KV head)
@@ -416,6 +513,7 @@ def paged_attention_decode(
     ``>= seq_lens[b]`` and no scale past it is read.
     """
     if q.device.type == "cpu":
+        check_n_split(n_split, block_tables.shape[1], block_size)
         B = q.shape[0]
         return paged_attention_ragged_plain(
             q, k_cache, v_cache, block_tables,
@@ -424,7 +522,7 @@ def paged_attention_decode(
             k_scale=k_scale, v_scale=v_scale,
         )
     return _launch_decode(q, k_cache, v_cache, block_tables, seq_lens,
-                          block_size, k_scale, v_scale)
+                          block_size, k_scale, v_scale, n_split)
 
 
 def paged_attention_ragged_plain(

@@ -11,8 +11,8 @@ A copy of ``dynamo_tpu.runtime.system_server`` on the port's own HTTP server
 place of aiohttp and prometheus_client: the same routes, status codes and
 JSON bodies. ``POST /preempt`` fires the registered maintenance-notice
 triggers (the preemption coordinator, ``runtime/preemption.py``);
-``GET /debug/profile`` (profiling, ROADMAP.md queue A item 7) is refused by
-name with 501.
+``GET /debug/profile?ms=N`` captures a ``torch.profiler`` trace
+(``observability/profiling.py``).
 """
 
 from __future__ import annotations
@@ -155,11 +155,28 @@ class SystemServer:
                             headers={"Content-Type": CONTENT_TYPE_LATEST})
 
     async def _profile(self, request: web.Request) -> web.Response:
-        """On-demand device profile: refused until profiling is ported."""
-        return web.json_response(
-            {"error": "/debug/profile needs profiling (ROADMAP.md queue A, "
-                      "item 7), which dynamo_tpu_torch does not serve yet"},
-            status=501)
+        """On-demand device profile: ``GET /debug/profile?ms=N`` captures a
+        ``torch.profiler`` trace for N ms (clamped) into a fresh directory
+        and returns its path. One capture at a time per process;
+        concurrent requests get 409."""
+        from ..observability import profiling
+
+        try:
+            ms = int(request.query.get("ms", profiling.DEFAULT_MS))
+        except ValueError:
+            return web.json_response(
+                {"error": "ms must be an integer"}, status=400
+            )
+        try:
+            result = await profiling.capture(
+                ms, base_dir=request.query.get("dir", "")
+            )
+        except profiling.ProfileBusyError as exc:
+            return web.json_response({"error": str(exc)}, status=409)
+        except Exception as exc:  # profiler unavailable in this process
+            log.exception("profile capture failed")
+            return web.json_response({"error": str(exc)}, status=500)
+        return web.json_response(result)
 
     async def _traces(self, request: web.Request) -> web.Response:
         """Recent trace ids still resident in this process's span buffer."""

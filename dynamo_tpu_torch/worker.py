@@ -16,7 +16,9 @@ the worker raises). It serves the aggregated path on one device with seeded
 random weights or a local HF checkpoint (``--weights DIR``: its
 ``config.json`` overrides ``--model``, the tokenizer defaults to the
 directory), bf16/int8/fp8 weights and KV, speculative decoding
-(``--spec-mode ngram --spec-k K``), disaggregated prefill/decode
+(``--spec-mode ngram --spec-k K``), attention autotune (``--attention-impl
+auto``, winners cached under ``DYNTPU_AUTOTUNE_CACHE``; the resolved choice is
+logged at startup), disaggregated prefill/decode
 (``--disagg-mode prefill|decode``, with ``--disagg-queue`` for the store's
 pull queue), the KVBM tiers (``--kvbm-host-blocks/-bytes``,
 ``--kvbm-disk-dir/-blocks``, ``--kvbm-remote``, ``--kvbm-distributed``,
@@ -36,6 +38,7 @@ import asyncio
 import os
 
 from .engine.config import EngineConfig, ModelConfig
+from .engine import model as model_lib
 from .engine.engine import InferenceEngine
 from .ops import paged_attention as pa
 from .runtime.component import DistributedRuntime
@@ -54,7 +57,7 @@ MODEL_PRESETS = {
 # the JAX package's attention names: its Pallas kernel is this package's
 # CUDA kernel
 ATTENTION_IMPLS = {"pallas": "kernel", "kernel": "kernel",
-                   "einsum": "einsum", "auto": None}
+                   "einsum": "einsum", "auto": "auto"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -102,8 +105,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=sorted(ATTENTION_IMPLS),
                    help="attention path: 'pallas' (the JAX name) and "
                         "'kernel' run the CUDA paged-attention kernel, "
-                        "'einsum' the gathered context; 'auto' is not "
-                        "served yet")
+                        "'einsum' the gathered context; 'auto' times both "
+                        "per shape class at startup and sweeps the "
+                        "kernel's launch parameters (winners cached in "
+                        "DYNTPU_AUTOTUNE_CACHE)")
     p.add_argument("--weight-dtype", default=None,
                    choices=["bf16", "int8", "fp8"],
                    help="weight storage dtype: int8/fp8 quantize at load "
@@ -163,8 +168,6 @@ def check_supported(args: argparse.Namespace) -> None:
         (args.model == "70b", "--model 70b", a6),
         (args.mesh.replace(" ", "") != "1,1", f"--mesh {args.mesh}", a6),
         (args.pp > 1, f"--pp {args.pp}", a6),
-        (args.attention_impl == "auto", "--attention-impl auto",
-         "autotune (ROADMAP.md queue A, item 7)"),
         (args.mm_encoder or args.mm_encode_component is not None,
          "--mm-*", a7),
         (args.coordinator is not None or args.num_hosts > 1,
@@ -236,6 +239,13 @@ async def run_worker(args: argparse.Namespace) -> None:
     # worker evicted at birth.
     engine = InferenceEngine(model_cfg, eng_cfg, params=params,
                              device=args.device)
+    choice = engine.attention_impl_choice
+    log.info("attention: impls decode=%s spec=%s prefill=%s, tiles %s "
+             "(cache hit %s, probed %s)",
+             *(model_lib.resolve_attention_impl(engine.config, cls)
+               for cls in ("decode", "spec", "prefill")),
+             choice["tiles"], choice["autotune_cache_hit"],
+             choice.get("probed", False))
     if engine.device.type == "cuda":
         from .ops import _build
 

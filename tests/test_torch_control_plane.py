@@ -223,20 +223,24 @@ def test_trace_routes_answer_as_the_jax_server(monkeypatch, path):
     assert got[0][0] == 200
 
 
-def test_unported_admin_routes_are_refused_by_name():
-    """``/debug/profile`` (profiling, ROADMAP.md queue A item 7) is the one
-    admin route left unported; ``/preempt`` is served (below)."""
+def test_unported_admin_routes_are_refused_by_name(tmp_path):
+    """No admin route is left unported: ``/debug/profile``, the last one
+    (refused with 501 until profiling was ported), answers 200 with a
+    ``torch.profiler`` trace, as the JAX server answers with its own;
+    ``/preempt`` is served (below)."""
     async def script():
         server = tsys.SystemServer(host="127.0.0.1", port=0)
         await server.start()
         try:
             async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
-                return [await _get(s, server.port, "GET", "/debug/profile")]
+                return [await _get(s, server.port, "GET",
+                                   f"/debug/profile?ms=20&dir={tmp_path}")]
         finally:
             await server.stop()
     for status, body in asyncio.run(script()):
-        assert status == 501
-        assert "ROADMAP.md" in body["error"]
+        assert status == 200
+        assert os.path.isfile(body["trace_file"])
+        assert body["requested_ms"] == 20
 
 
 def test_preempt_route_answers_as_the_jax_server():

@@ -59,6 +59,10 @@ PLANNER_AND_REPLAY = ["llm/recorder.py", "planner/predictors.py",
                       "replay/trace.py", "replay/driver.py",
                       "replay/scoreboard.py", "replay/__main__.py",
                       "utils/httpclient.py"]
+# the engine-tuning slice's modules (autotune, ladders, the capture watch,
+# on-demand profiles)
+TUNING = ["engine/autotune.py", "engine/ladder.py",
+          "observability/compilewatch.py", "observability/profiling.py"]
 # imported only inside the function that launches a kernel
 NOT_AT_MODULE_LEVEL = {"triton"}
 
@@ -124,6 +128,21 @@ def test_scan_covers_the_planner_and_replay_modules():
         names = {n for n, _ in _imports(ast.parse(
             (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
         assert not names & FORBIDDEN, (rel, names & FORBIDDEN)
+
+
+def test_scan_covers_the_tuning_modules():
+    """The tuning slice's modules are scanned like every other; the two
+    observability modules, which control-plane processes load, import no
+    torch at module level."""
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(TUNING) <= scanned
+    for rel in TUNING:
+        found = _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))
+        assert not {n for n, _ in found} & FORBIDDEN, rel
+        if rel.startswith("observability/"):
+            assert ("torch", True) not in found, rel
 
 
 def test_scan_sees_nested_imports():
@@ -242,8 +261,7 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "1,2"], ["--pp", "2"],
-    ["--attention-impl", "auto"], ["--mm-encoder"],
+    ["--mesh", "1,2"], ["--pp", "2"], ["--mm-encoder"],
     ["--mm-encode-component", "encoder"], ["--coordinator", "h0:1234"],
     ["--num-hosts", "2"], ["--model", "70b"],
 ], ids=lambda f: f[0].lstrip("-") + ("" if len(f) == 1 else f"={f[1]}"))
@@ -291,6 +309,22 @@ def test_worker_serves_spec_mode():
                               "--spec-k", "3"])
     worker.check_supported(args)
     assert (args.spec_mode, args.spec_k) == ("ngram", 3)
+
+
+def test_worker_serves_attention_impl_auto():
+    """``--attention-impl auto`` is served (autotune): the worker passes it
+    to the engine, which probes on a card and resolves to einsum on the
+    CPU, as the JAX worker does off a TPU."""
+    from dynamo_tpu_torch import worker
+
+    args = worker.parse_args(["--device", "cpu", "--attention-impl", "auto"])
+    worker.check_supported(args)
+    assert worker.ATTENTION_IMPLS[args.attention_impl] == "auto"
+    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
+        num_blocks=64, max_model_len=256, attention_impl="auto"),
+        device="cpu")
+    assert engine.attention_impl_choice["impl"] == "einsum"
+    assert engine.config.attention_impl_decode == "einsum"
 
 
 def test_worker_maps_the_jax_attention_names():
