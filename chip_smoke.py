@@ -186,7 +186,9 @@ Phases (any failure exits non-zero and prints no result line):
    the probe's kernel and einsum ms per class, every candidate's gate
    error and ms at both table widths, the winners and the build time;
    each engine is built twice, and the second build must hit the cache,
-   sweep nothing and build faster; a non-spec engine on the bf16 winners
+   sweep nothing and tune faster (``tune_s``, the tuning step's own
+   time, not the whole build's, whose weight init is as noisy as the
+   sweep is long); a non-spec engine on the bf16 winners
    serves phase 3's traffic at depth 2 (TTFT, ITL, tok/s beside phase 3's;
    streams held to the parity rule against phase 3's, partings printed
    with their margins), and each winner is held against the plain version
@@ -204,9 +206,49 @@ Phases (any failure exits non-zero and prints no result line):
 
 14. take a profile under load (``[profile]`` lines): a system server
    beside phase 3's engine while it serves phase 3's traffic;
-   ``GET /debug/profile?ms=500`` must answer 200 with a Chrome trace that
-   names both faces' kernels, and a second request during the capture
-   409. Phases 12–14 run after phase 3's spec check.
+   ``GET /debug/profile?ms=500`` (which stops while the traffic still
+   runs) must answer 200 with a Chrome trace that names both faces'
+   kernels, and a second request during the capture 409. Phases 12–14
+   run after phase 3's spec check.
+
+15. embed (``[embed]`` lines), after phase 14, on phase 3's bf16 engine:
+   ``engine.embed`` (the encode-only step behind ``/v1/embeddings``) on 16
+   inputs of 17..2,000 tokens from seed 0: unit norms, two calls bitwise
+   equal, each input alone against the same input in its batch and the
+   batch against the plain f32 ``encode_forward`` on f32 copies of the
+   parameters (1 - cos within 1e-3 and 1.5e-4), two planted faults on
+   the f32 reference (pad rows pooled, last token dropped) read above
+   1.5e-4; time per call, prompt tokens/s, the device's busy share; then 8 embed calls interleaved with
+   phase 3's traffic (their vectors within 1e-3 of quiet calls', streams
+   held to the parity rule against phase 3's, no graph captured after
+   warm-up);
+
+16. serve images (``[mm]`` lines), after phase 15, on phase 3's engine
+   with the JAX package's vision encoder config at 224 px / 14 px patches
+   (256 placeholders x 2,048): the encoder on the card against its f32
+   plain version on the CPU (1e-4); prompts of 400 text tokens, one image
+   and 20 more, spliced by ``MultimodalProcessor`` (content-addressed hash
+   ids): image A (across the 512-token chunk boundary: 2 mm prefill
+   chunks) and A again held to the parity rule against the same prompt
+   prefilled in one chunk (budget 1,024, an engine sharing the weights,
+   built while images encode on another thread); A again hits every full
+   block, image B and the text-only prompt only the 400 text tokens; B's
+   stream differs from A's; TTFT with the image against text-only at 676
+   tokens; images encoded on their own thread while phase 3's traffic
+   runs (streams against phase 3's); encode and ``content_token`` ms per
+   image. Then, after phase 5, through processes: the store, ``python -m
+   dynamo_tpu_torch.multimodal --model-dim 2048 --image-size 224
+   --patch-size 14``, a worker with ``--model 1b --mm-encode-component
+   encoder`` and the frontend: ``POST /v1/embeddings`` with a string and
+   with token arrays (200, ``usage.prompt_tokens``, vectors against phase
+   3's engine within 1e-3), after a warm-up chat with a third image,
+   chats carrying ``.npy`` data URLs (image A, A again, B) and a
+   text-only chat stream to ``[DONE]`` with their TTFTs and the texts
+   phase 3's engine gives for the same bodies in this process, the
+   frontend holds no GPU, and each process exits 0 on SIGTERM (the
+   encoder after 4 images, the worker having launched both faces and run
+   as many mm prefill chunks and prefix-hit blocks as phase 3's engine on
+   the same bodies). Child logs in ``build/dist/epd_*.log``.
 
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
@@ -214,9 +256,11 @@ card's ``nvidia-smi`` name and power limit, the line before that the
 after the kernel builds come the ragged face at the spec-verify shape,
 launched by the spec run's verify windows, and both faces at Mixtral's
 head dim 128, launched by phase 8's run; each kernel build's row also
-carries ``launches_profile`` and ``launches_replay``, the counts of phases
-10 and 11; rows named ``...@tuned_<class>`` are phase 12's winning launch
-parameters, each with its ``launch``);
+carries ``launches_profile``, ``launches_replay``, ``launches_embed`` and
+``launches_mm``, the counts of phases 10, 11, 15 (the traffic with embed
+calls interleaved) and 16 (the image prompts A, A again, B and text-only);
+rows named ``...@tuned_<class>`` are phase 12's winning launch parameters,
+each with its ``launch``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -230,6 +274,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, published
@@ -244,6 +289,7 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 0.0)}
 SEED = 0
 DEV = "cuda"
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -1052,13 +1098,22 @@ def spec_prompts(vocab: int):
             * (ISL // SPEC_SEGMENT) for _ in range(N_REQUESTS)]
 
 
+def prompt_ids(p):
+    """The token ids of a prompt: a list of ids, or a request body with
+    ``token_ids`` (and, for an image prompt, its ``mm`` field)."""
+    return p["token_ids"] if isinstance(p, dict) else p
+
+
 def serve_batch(engine, prompts, max_tokens, after_warmup=None,
-                warm_up: bool = True):
-    """Serve ``prompts`` concurrently (greedy) through ``engine.generate``
-    after a short warm-up request (then the recorder's and the capture
-    watch's warm-up mark, then ``after_warmup()``; ``warm_up=False`` skips
-    all three); returns (streams, per-request (submit, token times), wall
-    s, decode-only batch times s of the synchronous loop)."""
+                warm_up: bool = True, alongside=None):
+    """Serve ``prompts`` (lists of ids, or request bodies that may carry
+    ``mm``) concurrently (greedy) through ``engine.generate`` after a short
+    text warm-up request (then the recorder's and the capture watch's
+    warm-up mark, then ``after_warmup()``; ``warm_up=False`` skips all
+    three); ``alongside``, an async callable, runs concurrently with the
+    traffic on the same event loop. Returns (streams, per-request (submit,
+    token times), wall s, decode-only batch times s of the synchronous
+    loop)."""
     import asyncio
 
     from dynamo_tpu_torch.runtime.context import Context
@@ -1073,12 +1128,13 @@ def serve_batch(engine, prompts, max_tokens, after_warmup=None,
             batch_s.append(time.perf_counter() - t0)
         return out
 
-    async def one(token_ids, stamps, n=max_tokens):
+    async def one(prompt, stamps, n=max_tokens):
+        body = dict(prompt) if isinstance(prompt, dict) else {
+            "token_ids": prompt}
+        body.update(max_tokens=n, temperature=0.0)
         t_sub = time.perf_counter()
         out, times = [], []
-        async for o in engine.generate(
-                {"token_ids": token_ids, "max_tokens": n,
-                 "temperature": 0.0}, Context()):
+        async for o in engine.generate(body, Context()):
             out.extend(o["token_ids"])
             times.append(time.perf_counter())
         stamps.append((t_sub, times))
@@ -1087,7 +1143,8 @@ def serve_batch(engine, prompts, max_tokens, after_warmup=None,
     async def run():
         await engine.start()
         if warm_up:
-            await one(prompts[0][:32], [], 4)   # warm-up, not measured
+            # warm-up, not measured
+            await one(prompt_ids(prompts[0])[:32], [], 4)
             engine.clear_kv_blocks()
             engine.mark_obs_warmup_done()
             if after_warmup is not None:
@@ -1096,7 +1153,9 @@ def serve_batch(engine, prompts, max_tokens, after_warmup=None,
         stamps = []
         t0 = time.perf_counter()
         try:
-            outs = await asyncio.gather(*(one(p, stamps) for p in prompts))
+            side = [alongside()] if alongside is not None else []
+            outs = (await asyncio.gather(
+                *(one(p, stamps) for p in prompts), *side))[:len(prompts)]
         finally:
             engine._execute_batch = orig
         wall = time.perf_counter() - t0
@@ -1117,7 +1176,8 @@ def tapped_run(engine, prompts):
 
     from dynamo_tpu_torch.engine import model as model_lib
 
-    index = {tuple(p[:SPEC_SEGMENT]): r for r, p in enumerate(prompts)}
+    index = {tuple(prompt_ids(p)[:SPEC_SEGMENT]): r
+             for r, p in enumerate(prompts)}
     taps, rec = [], {}
     logits_fn = model_lib.logits_fn
     unpack = engine._unpack_results
@@ -4386,7 +4446,8 @@ def print_autotune(tag: str, choice: dict, build_s: float) -> None:
             print(f"{tag} sweep {cls}: winner {res['winner']} of "
                   f"{len(res['candidates'])} candidates at widths "
                   f"{res['widths']} blocks", flush=True)
-    print(f"{tag} engine built in {build_s:.2f} s: tiles {choice['tiles']}, "
+    print(f"{tag} engine built in {build_s:.2f} s (tuning "
+          f"{choice['tune_s']:.3f} s): tiles {choice['tiles']}, "
           f"cache hit {choice['autotune_cache_hit']}, probe launches "
           f"{choice['probe_launches']}, sweep launches "
           f"{choice['sweep_launches']} (key {choice['config_hash']})",
@@ -4466,9 +4527,13 @@ def phase_autotune(card: str, base, direct: dict):
                     and second["tiles"] == first["tiles"]):
                 fail(f"{tag} the second build did not take the cached "
                      f"winners without a sweep: {second}")
-            if second_s >= first_s:
-                fail(f"{tag} the cached build took {second_s:.2f} s, the "
-                     f"sweeping one {first_s:.2f} s")
+            # the tuning step's own time: the whole build's also holds
+            # random weights' init, whose host noise (~1 s) is as large as
+            # the sweep
+            if second["tune_s"] >= first["tune_s"]:
+                fail(f"{tag} the cached build tuned in "
+                     f"{second['tune_s']:.3f} s, the sweeping one in "
+                     f"{first['tune_s']:.3f} s")
             choices[kv] = (first, resolved)
     finally:
         os.environ.pop(autotune.CACHE_ENV, None)
@@ -4670,7 +4735,12 @@ def phase_ladder(card: str):
 
 # --------------------------- phase 14: profile ----------------------------
 
+# shorter than phase 3's traffic (~0.9 s): the profiler stops while the
+# engine serves
 PROFILE_MS = 500
+# phase 14's own time limit: on a hang every thread's stack goes to
+# stderr and the script exits non-zero (faulthandler)
+PROFILE_WATCHDOG_S = 240
 FACE_KERNELS = ("ragged_paged_attention_mma_kernel",
                 "paged_attention_decode_split_kernel")
 
@@ -4729,7 +4799,8 @@ def phase_debug_profile(card: str, engine) -> None:
 
     engine.clear_kv_blocks()
     t0 = time.perf_counter()
-    (s1, body), (s2, busy), outs = asyncio.run(run())
+    with watchdog(PROFILE_WATCHDOG_S):
+        (s1, body), (s2, busy), outs = asyncio.run(run())
     if s1 != 200 or s2 != 409:
         fail(f"[profile] /debug/profile answered {s1} then {s2} "
              f"(want 200, then 409 during the capture): {body} {busy}")
@@ -4747,6 +4818,724 @@ def phase_debug_profile(card: str, engine) -> None:
         fail(f"[profile] the trace does not name both faces: {found}")
     if any(len(o) != OSL for o in outs):
         fail("[profile] a stream served during the capture came up short")
+
+
+# --------------------------- phase 15: embeddings --------------------------
+
+EMBED_N = 16                 # inputs of one embed call, lengths 17..2000
+EMBED_MIN, EMBED_MAX = 17, 2000
+# 1 - cos budgets. An input alone against the same input in its batch: the
+# same bf16 model, only the GEMMs' row counts differ (and with them
+# cuBLAS's summation order), so the pooled vectors part at bf16's last bits:
+# 1e-3, the budget the CPU tests pin for bf16 against the JAX package. The
+# bf16 engine against the plain f32 ``encode_forward`` on f32 copies of the
+# same parameters read 3.4e-5 on an H100; mean-pooled states of a random
+# decoder share a large common direction, so a fault moves the vector
+# less than an unrelated one would: on the same card the planted faults
+# read 9.1e-2 (pad rows pooled) and 6.6e-4 (last token dropped). 1.5e-4
+# sits between, ~4x from each, and every run re-reads the faults against
+# it.
+EMBED_BATCH_COS = 1e-3
+EMBED_F32_COS = 1.5e-4
+EMBED_REPS = 3
+EMBED_SIDE_CALLS = 8         # embed calls interleaved with phase 3's traffic
+EMBED_TEXT = ("Embeddings are mean-pooled, normalised final hidden states of "
+              "the decoder, computed on the worker's encode-only step.")
+
+
+def embed_inputs(vocab: int):
+    """EMBED_N random prompts of lengths spread evenly over EMBED_MIN..
+    EMBED_MAX, in a seeded order (so each batch mixes buckets)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    lengths = [EMBED_MIN + round(i * (EMBED_MAX - EMBED_MIN) / (EMBED_N - 1))
+               for i in range(EMBED_N)]
+    order = torch.randperm(EMBED_N, generator=gen).tolist()
+    return [torch.randint(1, vocab, (lengths[i],), generator=gen).tolist()
+            for i in order]
+
+
+def one_minus_cos(a, b) -> list:
+    """1 - cos of each row pair of two lists of vectors."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                            * np.linalg.norm(b, axis=-1))
+    return (1.0 - cos).tolist()
+
+
+def phase_embed(card: str, engine, direct: dict) -> dict:
+    """[embed]: ``engine.embed`` (the encode-only step behind
+    ``/v1/embeddings``) on phase 3's bf16 engine at Llama-3.2-1B width: 16
+    inputs of 17..2,000 tokens from seed 0. Unit norms, two calls bitwise
+    equal, each input alone against the same input in its batch and the
+    batch against the plain f32 ``encode_forward`` on f32 copies of the
+    parameters (1 - cos within EMBED_BATCH_COS and EMBED_F32_COS); time
+    per call, prompt tokens/s and the device's busy share. Then embed calls
+    interleaved with phase 3's traffic: their vectors equal the quiet
+    call's bit for bit, the streams meet the parity rule against phase 3's,
+    and the capture watch counts no capture after warm-up. Returns the
+    interleaved run's kernel launches."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from dynamo_tpu_torch.engine import model as model_lib
+    from dynamo_tpu_torch.observability import compilewatch
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = engine.model_config
+    inputs = embed_inputs(cfg.vocab_size)
+    n_tok = sum(map(len, inputs))
+
+    def embed(batch):
+        return asyncio.run(engine.embed(batch))
+
+    first = embed(inputs)          # first shapes, cuBLAS handles: not timed
+    walls = []
+    for _ in range(EMBED_REPS):
+        t0 = time.perf_counter()
+        again = embed(inputs)
+        walls.append(time.perf_counter() - t0)
+        if again != first:
+            fail("[embed] two embed calls on the same inputs differ")
+    vecs = np.asarray(first)
+    if vecs.shape != (EMBED_N, cfg.hidden_size) or not np.isfinite(
+            vecs).all():
+        fail(f"[embed] vectors misshapen or not finite: {vecs.shape}")
+    norms = np.linalg.norm(vecs, axis=-1)
+    if np.abs(norms - 1.0).max() > 1e-4:
+        fail(f"[embed] vectors are not unit norm: {norms}")
+    alone = [embed([ids])[0] for ids in inputs]
+    d_alone = one_minus_cos(alone, first)
+    # the plain f32 reference, one input at a time
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = engine.params
+    p32 = {"embed": p["embed"].float(), "final_norm": p["final_norm"].float(),
+           "layers": {k: v.float() for k, v in p["layers"].items()}}
+    encode32 = model_lib.make_encode_fn(cfg32)
+    ref = []
+    for ids in inputs:
+        t = torch.tensor([ids], dtype=torch.int32, device=engine.device)
+        pos = torch.arange(len(ids), dtype=torch.int32,
+                           device=engine.device)[None]
+        ref.append(encode32(p32, t, pos)[0].cpu().tolist())
+    d_f32 = one_minus_cos(first, ref)
+
+    # planted faults on the same f32 reference, each of which the limit
+    # must see on some input: the pad rows of each input's power-of-two
+    # bucket (embed's padding) pooled as if they were tokens, and the last
+    # token dropped from the pool
+    def faulted(ids, n_pad):
+        t = torch.tensor([ids + [0] * n_pad], dtype=torch.int32,
+                         device=engine.device)
+        pos = torch.arange(len(ids) + n_pad, dtype=torch.int32,
+                           device=engine.device)[None]
+        return encode32(p32, t, pos)[0].cpu().tolist()
+    planted = {
+        "pad rows pooled": [
+            faulted(ids, (1 << (len(ids) - 1).bit_length()) - len(ids))
+            for ids in inputs],
+        "last token dropped": [faulted(ids[:-1], 0) for ids in inputs]}
+    planted = {k: max(one_minus_cos(v, ref)) for k, v in planted.items()}
+    del p32
+    torch.cuda.empty_cache()
+    wall = sorted(walls)[len(walls) // 2]
+    events = profile_calls(lambda: embed(inputs), 1, cpu=False)
+    cuda = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                  key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in cuda) / 1e3
+    top = "; ".join(f"{e.key[:60]} {_device_us(e) / 1e3:.1f} ms"
+                    for e in cuda[:5])
+    lens = sorted(map(len, inputs))
+    print(f"[embed] {card}: Llama-3.2-1B bf16, {EMBED_N} inputs of "
+          f"{lens[0]}..{lens[-1]} tokens ({n_tok} in all): {wall * 1e3:.1f} "
+          f"ms per call (median of {EMBED_REPS}: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
+          f"{n_tok / wall:.0f} prompt tokens/s, device busy {busy_ms:.1f} "
+          f"ms of the call ({busy_ms / (wall * 1e3):.3f} busy share, "
+          f"profiled call); norms within {np.abs(norms - 1).max():.2e} of "
+          f"1; two calls bitwise equal", flush=True)
+    print(f"[embed] device time by kernel, top 5 of {len(cuda)}: {top}",
+          flush=True)
+    print(f"[embed] 1 - cos: each input alone vs in its batch max "
+          f"{max(d_alone):.2e} (limit {EMBED_BATCH_COS}); the bf16 engine vs "
+          f"plain f32 encode_forward max {max(d_f32):.2e} mean "
+          f"{sum(d_f32) / len(d_f32):.2e} (limit {EMBED_F32_COS}); "
+          f"planted faults vs the f32 reference, max over the inputs: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in planted.items())}",
+          flush=True)
+    if max(d_alone) > EMBED_BATCH_COS:
+        fail(f"[embed] an input alone differs from its batch: {d_alone}")
+    if max(d_f32) > EMBED_F32_COS:
+        fail(f"[embed] the bf16 engine disagrees with f32 encode_forward: "
+             f"{d_f32}")
+    if min(planted.values()) <= EMBED_F32_COS:
+        fail(f"[embed] a planted fault reads within the limit "
+             f"{EMBED_F32_COS}: {planted}")
+
+    # interleaved with phase 3's traffic
+    prompts = main_prompts(cfg.vocab_size)
+    side_out = []
+
+    async def side():
+        for i in range(EMBED_SIDE_CALLS):
+            part = [inputs[(4 * i + j) % EMBED_N] for j in range(4)]
+            side_out.append((part, await engine.embed(part)))
+            await asyncio.sleep(0.05)
+
+    compilewatch.get_watch().reset()
+    pa.reset_launches()
+    outs, stamps, wall, _ = serve_batch(engine, prompts, OSL,
+                                        alongside=side)
+    launches = dict(pa.LAUNCHES)
+    steady = compilewatch.steady_by_label()
+    quiet = {tuple(ids): v for ids, v in zip(inputs, alone)}
+    batched = {tuple(ids): v for ids, v in zip(inputs, first)}
+    n_same = 0
+    for part, got in side_out:
+        # a 4-input call groups like an input alone or like the full batch
+        # only where its buckets coincide; hold it to the budget and count
+        # the bitwise ones
+        want = [quiet[tuple(ids)] for ids in part]
+        if max(one_minus_cos(got, want)) > EMBED_BATCH_COS:
+            fail("[embed] an embed call during the traffic disagrees")
+        n_same += sum(g == batched[tuple(ids)] or g == quiet[tuple(ids)]
+                      for ids, g in zip(part, got))
+    print(f"[embed] {EMBED_SIDE_CALLS} embed calls of 4 inputs interleaved "
+          f"with phase 3's traffic: {stats_line(run_stats(outs, stamps, wall))}"
+          f"; phase 3: {stats_line(direct)}; {n_same} of "
+          f"{4 * EMBED_SIDE_CALLS} vectors bitwise equal to a quiet call's; "
+          f"graph captures after warm-up {steady}; launches {launches}",
+          flush=True)
+    if len(side_out) != EMBED_SIDE_CALLS:
+        fail("[embed] not every interleaved embed call returned")
+    if steady:
+        fail(f"[embed] graphs captured after warm-up: {steady}")
+    for face in ("paged_attention_decode", "paged_attention_ragged"):
+        if launches[face] == 0:
+            fail(f"[embed] {face} never launched in the interleaved run")
+    want = direct["outs"]
+    parted = [r for r, (a, b) in enumerate(zip(want, outs)) if a != b]
+    if parted:
+        rerun, rec = tapped_run(engine, prompts)
+        if rerun != want:
+            fail("[embed] phase 3's eager rerun differs from its run")
+        check_parity(want, rec, outs, "phase 3", tag="[embed]")
+    print(f"[embed] streams with embed calls interleaved: "
+          f"{len(prompts) - len(parted)} of {len(prompts)} equal to phase "
+          f"3's", flush=True)
+    return launches
+
+
+# ------------------------ phase 16: multimodal EPD ------------------------
+
+MM_IMAGE, MM_PATCH = 224, 14  # 256 placeholder tokens per image
+MM_TEXT = 400                 # text before the image: 25 blocks of 16, so
+MM_TAIL = 20                  # the image spans rows 400..655, across the
+                              # first chunk's end (512) under the default
+                              # budget
+MM_ENCODE_TOL = 1e-4          # the encoder on the card vs its f32 plain
+                              # version on the CPU (TF32 off)
+MM_TTFT_REPS = 3
+MM_OSL = 32                   # tokens per chat request over HTTP
+
+
+class IdsTokenizer:
+    """Text of space-separated ids → the ids: lets ``splice`` run on
+    prompts made of random ids."""
+
+    bos_token_id = None
+    eos_token_ids = ()
+
+    def encode(self, text):
+        return [int(t) for t in text.split()]
+
+
+def mm_images():
+    import numpy as np
+
+    return [np.random.RandomState(SEED + 16 + i).rand(
+        MM_IMAGE, MM_IMAGE, 3).astype(np.float32) for i in range(2)]
+
+
+def serve_one(engine, body, max_tokens):
+    """One greedy request through ``engine.generate`` (no cache clearing):
+    (tokens, TTFT s)."""
+    import asyncio
+
+    from dynamo_tpu_torch.runtime.context import Context
+
+    async def run():
+        await engine.start()
+        out, t0, first = [], time.perf_counter(), None
+        async for o in engine.generate(
+                dict(body, max_tokens=max_tokens, temperature=0.0),
+                Context()):
+            first = first or time.perf_counter()
+            out.extend(o["token_ids"])
+        await engine.stop()
+        return out, first - t0
+    return asyncio.run(run())
+
+
+class EncodeLoop:
+    """Encodes an image over and over on a thread of its own (as an encode
+    handler does) while the main thread works; counts the images and keeps
+    the first error."""
+
+    def __init__(self, encoder, image):
+        import threading
+
+        self.n, self.error = 0, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, args=(encoder, image), name="mm-encode")
+
+    def _run(self, encoder, image):
+        try:
+            while not self._stop.is_set():
+                encoder.encode(image)
+                self.n += 1
+        except Exception as e:     # reported by stop()
+            self.error = e
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        if self.error is not None:
+            fail(f"[mm] encoding on its own thread failed: {self.error!r}")
+
+
+def phase_mm(card: str, engine, direct: dict) -> dict:
+    """[mm] in one process, at Llama-3.2-1B width (phase 3's bf16 engine)
+    with the JAX package's vision encoder config (width 64, 2 layers, 4
+    heads) at 224 px / 14 px patches projecting to 2,048: the encoder on
+    the card against its plain f32 version on the CPU (MM_ENCODE_TOL);
+    prompts of 400 text tokens, one image (256 placeholders) and 20 more,
+    spliced by the ``MultimodalProcessor`` (content-addressed hash ids);
+    image A's stream (its image across two prefill chunks) held to the
+    parity rule against the same prompt prefilled in one chunk (budget
+    1,024); A again hits every full block (the image's included) and meets
+    the rule; image B hits the text prefix only and streams differently;
+    the text-only prompt hits the text prefix only; TTFT with the image
+    against text-only at the same length; images encoded on a thread of
+    their own while an engine captures its graphs and while phase 3's
+    traffic runs (no capture error, streams against phase 3's). Returns
+    the phase's kernel launches and what the process phase needs."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.multimodal import encoder as mm_enc
+    from dynamo_tpu_torch.multimodal.processor import (
+        MM_MARKER, MultimodalProcessor, content_token,
+    )
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    cfg = engine.model_config
+    vcfg = mm_enc.VisionEncoderConfig(image_size=MM_IMAGE,
+                                      patch_size=MM_PATCH,
+                                      model_dim=cfg.hidden_size)
+    encoder = mm_enc.VisionEncoder(vcfg, seed=SEED)
+    images = mm_images()
+    cpu_params = {k: (v.cpu() if torch.is_tensor(v) else
+                      {kk: vv.cpu() for kk, vv in v.items()})
+                  for k, v in encoder.params.items()}
+    errs = []
+    for img in images:
+        got = encoder.encode(img)
+        want = mm_enc.encode_image(vcfg, cpu_params,
+                                   torch.from_numpy(img)).numpy()
+        if got.shape != (vcfg.tokens_per_image, cfg.hidden_size):
+            fail(f"[mm] encoder output {got.shape}")
+        errs.append(float(np.abs(got - want).max()))
+    if max(errs) > MM_ENCODE_TOL:
+        fail(f"[mm] the encoder on the card disagrees with its f32 plain "
+             f"version: {errs}")
+    t0 = time.perf_counter()
+    for i in range(10):
+        encoder.encode(images[i % 2])
+    enc_ms = (time.perf_counter() - t0) / 10 * 1e3
+    t0 = time.perf_counter()
+    for i in range(4):
+        content_token(images[i % 2], 0)
+    ct_ms = (time.perf_counter() - t0) / 4 * 1e3
+    print(f"[mm] {card}: vision encoder (width {vcfg.width}, "
+          f"{vcfg.num_layers} layers, {vcfg.num_heads} heads) at "
+          f"{MM_IMAGE} px / {MM_PATCH} px patches -> "
+          f"{vcfg.tokens_per_image} x {vcfg.model_dim}: max |card - f32 "
+          f"CPU plain| {max(errs):.2e} (limit {MM_ENCODE_TOL}); encode "
+          f"{enc_ms:.2f} ms per image (host clock, copies in and out "
+          f"included); content_token (pure-Python XXH3 over "
+          f"{images[0].nbytes} bytes) {ct_ms:.1f} ms per image on the host",
+          flush=True)
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    text = torch.randint(1, cfg.vocab_size, (MM_TEXT,), generator=gen)
+    tail = torch.randint(1, cfg.vocab_size, (MM_TAIL,), generator=gen)
+    proc = MultimodalProcessor(IdsTokenizer(), vcfg.tokens_per_image,
+                               local_encoder=encoder)
+    rendered = (" ".join(map(str, text.tolist())) + MM_MARKER
+                + " ".join(map(str, tail.tolist())))
+    bodies = []
+    for img in images:
+        ids, mm = asyncio.run(proc.process(rendered, [img]))
+        bodies.append({"token_ids": ids, "mm": mm, "ignore_eos": True})
+    a, b = bodies
+    plain = {"token_ids": a["token_ids"], "ignore_eos": True}
+    n_prompt = len(a["token_ids"])
+    img_end = MM_TEXT + vcfg.tokens_per_image
+    if a["mm"]["positions"] != list(range(MM_TEXT, img_end)):
+        fail("[mm] placeholder positions misplaced")
+
+    # the reference: the same prompt prefilled in one chunk, on an engine
+    # sharing the weights, built while images encode on another thread
+    with EncodeLoop(encoder, images[0]) as loop_build:
+        one_chunk = InferenceEngine(cfg, EngineConfig(
+            max_num_batched_tokens=1024, decode_buckets=(8,),
+            max_num_seqs=8,
+            prefill_buckets=EngineConfig().prefill_buckets + (1024,)),
+            params=engine.params, seed=SEED)
+        torch.cuda.synchronize()
+    want, rec = tapped_run(one_chunk, [a])
+    if one_chunk.num_mm_prefills != 1:
+        fail(f"[mm] the one-chunk engine ran {one_chunk.num_mm_prefills} "
+             f"mm prefill chunks for one image prompt")
+    del one_chunk
+    torch.cuda.empty_cache()
+
+    engine.clear_kv_blocks()
+    pa.reset_launches()
+    bs = engine.config.block_size
+
+    def served(body):
+        hits0, mm0 = engine.stats.prefix_cache_hits, engine.num_mm_prefills
+        out, ttft = serve_one(engine, body, OSL)
+        return (out, ttft, (engine.stats.prefix_cache_hits - hits0) * bs,
+                engine.num_mm_prefills - mm0)
+
+    out_a, _, hit_a, mm_a = served(a)
+    out_a2, _, hit_a2, mm_a2 = served(a)
+    out_b, _, hit_b, mm_b = served(b)
+    out_t, _, hit_t, mm_t = served(plain)
+    launches = dict(pa.LAUNCHES)
+    print(f"[mm] prompts of {n_prompt} tokens (image rows {MM_TEXT}.."
+          f"{img_end - 1}, chunk budget {engine.config.max_num_batched_tokens}"
+          f"): A cold {mm_a} mm prefill chunks, {hit_a} prefix-hit tokens; A "
+          f"again {hit_a2} hit tokens, {mm_a2} mm chunks, bitwise A: "
+          f"{out_a2 == out_a}; B {hit_b} hit tokens, {mm_b} mm chunks, "
+          f"equal to A: {out_b == out_a}; text-only {hit_t} hit tokens, "
+          f"equal to A: {out_t == out_a}; num_mm_prefills "
+          f"{engine.num_mm_prefills}; launches {launches}", flush=True)
+    n_parted = sum(len(check_parity(want, rec, [out], what, tag="[mm]"))
+                   for out, what in (
+                       (out_a, "the one-chunk prefill (A across two chunks)"),
+                       (out_a2, "the one-chunk prefill (A again)")))
+    print(f"[mm] A across two chunks and A again: {2 - n_parted} of 2 "
+          f"streams equal to the one-chunk prefill's", flush=True)
+    if mm_a != 2:
+        fail(f"[mm] the image across the chunk boundary took {mm_a} mm "
+             f"prefill chunks, not 2")
+    if hit_a != 0 or hit_a2 < img_end // bs * bs:
+        fail(f"[mm] A again hit {hit_a2} tokens, short of the image's end "
+             f"{img_end}")
+    if hit_b != MM_TEXT // bs * bs or hit_t != MM_TEXT // bs * bs:
+        fail(f"[mm] B or text-only hit past the text prefix: {hit_b}, "
+             f"{hit_t}")
+    if out_b == out_a:
+        fail("[mm] images A and B gave the same stream")
+    for face in ("paged_attention_decode", "paged_attention_ragged"):
+        if launches[face] == 0:
+            fail(f"[mm] {face} never launched in the mm run")
+
+    ttfts = {"image": [], "text": []}
+    for _ in range(MM_TTFT_REPS):
+        for kind, body in (("image", a), ("text", plain)):
+            engine.clear_kv_blocks()
+            ttfts[kind].append(serve_one(engine, body, 1)[1])
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in ttfts.items()}
+    print(f"[mm] {card}: TTFT at {n_prompt} prompt tokens, cold cache, "
+          f"one request (median of {MM_TTFT_REPS}): with the image "
+          f"{med['image']:.1f} ms, text-only {med['text']:.1f} ms "
+          f"(image: {', '.join(f'{t * 1e3:.1f}' for t in ttfts['image'])}; "
+          f"text: {', '.join(f'{t * 1e3:.1f}' for t in ttfts['text'])})",
+          flush=True)
+
+    # images encoded while phase 3's traffic runs
+    prompts = main_prompts(cfg.vocab_size)
+    with EncodeLoop(encoder, images[1]) as loop_serve:
+        outs, stamps, wall, _ = serve_batch(engine, prompts, OSL)
+    parted = [r for r, (x, y) in enumerate(zip(direct["outs"], outs))
+              if x != y]
+    if parted:
+        rerun, rec3 = tapped_run(engine, prompts)
+        if rerun != direct["outs"]:
+            fail("[mm] phase 3's eager rerun differs from its run")
+        check_parity(direct["outs"], rec3, outs, "phase 3", tag="[mm]")
+    print(f"[mm] images encoded on their own thread: {loop_build.n} while an "
+          f"engine captured its decode graphs, {loop_serve.n} while phase "
+          f"3's traffic ran ({stats_line(run_stats(outs, stamps, wall))}; "
+          f"{len(prompts) - len(parted)} of {len(prompts)} streams equal to "
+          f"phase 3's)", flush=True)
+    if loop_build.n == 0 or loop_serve.n == 0:
+        fail("[mm] no image encoded alongside the engine")
+    return {"launches": launches, "images": images, "encoder": encoder}
+
+
+def npy_data_url(img) -> str:
+    import base64
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, img)
+    return ("data:application/x-npy;base64,"
+            + base64.b64encode(buf.getvalue()).decode())
+
+
+def phase_epd_procs(card: str, served: dict, engine, mm: dict) -> None:
+    """[embed] and [mm] over processes: the store, the encode worker
+    (``python -m dynamo_tpu_torch.multimodal --model-dim 2048 --image-size
+    224 --patch-size 14``), a worker (``--model 1b --mm-encode-component
+    encoder``, phase 5's tokenizer) and the frontend. ``POST
+    /v1/embeddings`` with a string and with a list of token arrays: 200,
+    ``usage.prompt_tokens`` right, vectors equal to phase 3's engine's
+    in this process (EMBED_BATCH_COS); after a warm-up chat with a third
+    image, chat requests carrying ``.npy`` data URLs (image A, A again, B)
+    and a text-only chat stream to ``[DONE]`` with the texts that phase
+    3's engine gives for the same bodies in this process (the same
+    multimodal preprocessor on phase 16's encoder, the same order of
+    prefix hits), the frontend holds no GPU, and each process exits 0 on
+    SIGTERM: the encoder having encoded 4 images, the worker having
+    launched both faces and run as many mm prefill chunks and prefix-hit
+    blocks as phase 3's engine on the same bodies (in which every image
+    chat runs an mm chunk, A again hits every block up to the image's end
+    and B none past its start)."""
+    import asyncio
+    import signal
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.preprocessor import Preprocessor
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+    from dynamo_tpu_torch.multimodal.processor import (
+        MultimodalPreprocessor, MultimodalProcessor,
+    )
+    from dynamo_tpu_torch.runtime.context import Context
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    addr = f"127.0.0.1:{_free_port()}"
+    children = []
+
+    def start(name, module, args):
+        child = Child(name, module, args, env)
+        children.append(child)
+        return child
+
+    tok = Tokenizer.from_file(served["tokenizer"])
+    ids = tok.encode(EMBED_TEXT)
+    arrays = [x[:300] for x in embed_inputs(engine.model_config.vocab_size)
+              [:3]]
+    want = asyncio.run(engine.embed([ids])) + asyncio.run(
+        engine.embed(arrays))
+
+    question = "Describe this picture in a few words: "
+    img_a, img_b = mm["images"]
+    warm = np.random.RandomState(SEED + 18).rand(
+        MM_IMAGE, MM_IMAGE, 3).astype(np.float32)
+
+    def chat_body(img):
+        content = question if img is None else [
+            {"type": "text", "text": question},
+            {"type": "image_url", "image_url": {"url": npy_data_url(img)}}]
+        return {"model": HTTP_MODEL, "max_tokens": MM_OSL, "temperature": 0,
+                "ignore_eos": True,
+                "messages": [{"role": "user", "content": content}]}
+
+    chats = [chat_body(img) for img in (warm, img_a, img_a, img_b, None)]
+    # what phase 3's engine gives for the same bodies, in the same order
+    # from a cold cache (so the same prefix hits and chunk shapes), with
+    # each body's mm prefill chunks and prefix-hit blocks
+    pre = MultimodalPreprocessor(
+        Preprocessor(tok, model_name=HTTP_MODEL),
+        MultimodalProcessor(tok, (MM_IMAGE // MM_PATCH) ** 2,
+                            local_encoder=mm["encoder"]))
+    back = Backend(tok)
+
+    async def expected():
+        engine.clear_kv_blocks()
+        out, counts, wires = [], [], []
+        for body in chats:
+            wire = await back.forward(await pre.forward(body, Context()),
+                                      Context())
+            wires.append(wire)
+            mm0 = engine.num_mm_prefills
+            hits0 = engine.stats.prefix_cache_hits
+            out.append(tok.decode([t async for o in engine.generate(
+                wire, Context()) for t in o["token_ids"]]))
+            counts.append((engine.num_mm_prefills - mm0,
+                           engine.stats.prefix_cache_hits - hits0))
+        await engine.stop()
+        return out[1:], counts, wires[1]["mm"]["positions"]
+    want_texts, want_counts, pos = asyncio.run(expected())
+    bs = engine.config.block_size
+    # A again hits every full block up to the image's end; B only those
+    # before the image
+    print(f"[mm] phase 3's engine on the chat bodies (warm-up image, A, A "
+          f"again, B, text-only; image rows {pos[0]}..{pos[-1]}): (mm "
+          f"prefill chunks, prefix-hit blocks) {want_counts}", flush=True)
+    if (min(c[0] for c in want_counts[:2] + want_counts[3:4]) < 1
+            or want_counts[2][1] < (pos[-1] + 1) // bs
+            or want_counts[3][1] > pos[0] // bs):
+        fail(f"[mm] in process, an image chat ran no mm chunk, A again "
+             f"stopped short of the image's end or B hit past its start: "
+             f"{want_counts}")
+
+    async def run():
+        try:
+            t0 = time.perf_counter()
+            store = start("epd_store", "dynamo_tpu_torch.runtime.store",
+                          ["--host", "127.0.0.1",
+                           "--port", addr.rsplit(":", 1)[1]])
+            await store.wait_for(r"store listening", 60)
+            enc = start("epd_encoder", "dynamo_tpu_torch.multimodal",
+                        ["--store-addr", addr, "--model-dim",
+                         str(engine.model_config.hidden_size),
+                         "--image-size", str(MM_IMAGE),
+                         "--patch-size", str(MM_PATCH)])
+            worker = start("epd_worker", "dynamo_tpu_torch.worker",
+                           ["--model", "1b", "--model-name", HTTP_MODEL,
+                            "--tokenizer", os.path.abspath(
+                                served["tokenizer"]),
+                            "--store-addr", addr,
+                            "--mm-encode-component", "encoder",
+                            "--mm-image-size", str(MM_IMAGE),
+                            "--mm-patch-size", str(MM_PATCH)])
+            front = start("epd_frontend", "dynamo_tpu_torch.frontend",
+                          ["--host", "127.0.0.1", "--port", "0",
+                           "--store-addr", addr])
+            port = int((await front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+            ready = await enc.wait_for(
+                rf"encode worker ready: {MM_IMAGE}x{MM_IMAGE} px -> "
+                rf"{(MM_IMAGE // MM_PATCH) ** 2} tokens x "
+                rf"{engine.model_config.hidden_size} dim on (\S+)", 120)
+            if not ready.group(1).startswith(DEV):
+                fail(f"[mm] the encode worker runs on {ready.group(1)}")
+            await worker.wait_for(r"registered model", 300)
+            for _ in range(100):
+                status, _, _, _, body = await _http_request(
+                    port, "GET", "/v1/models")
+                if status == 200 and body["data"]:
+                    break
+                await asyncio.sleep(0.1)
+            print(f"[mm] store, encode worker, worker and frontend up in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if front.opens_gpu():
+                fail("[mm] the frontend holds the GPU")
+
+            got = []
+            for inputs, n_want in ((EMBED_TEXT, len(ids)),
+                                   (arrays, sum(map(len, arrays)))):
+                status, _, _, _, body = await _http_request(
+                    port, "POST", "/v1/embeddings",
+                    {"model": HTTP_MODEL, "input": inputs})
+                if status != 200 or body["usage"]["prompt_tokens"] != n_want:
+                    fail(f"[embed] /v1/embeddings: HTTP {status}, {body!r}"
+                         [:400])
+                got += [d["embedding"] for d in body["data"]]
+            d = one_minus_cos(got, want)
+            diff = max(abs(x - y) for g, w in zip(got, want)
+                       for x, y in zip(g, w))
+            print(f"[embed] POST /v1/embeddings through store, worker and "
+                  f"frontend: 200 for a string ({len(ids)} tokens) and for "
+                  f"{len(arrays)} token arrays ({sum(map(len, arrays))} "
+                  f"tokens), usage.prompt_tokens right; vs phase 3's engine "
+                  f"in this process: max 1 - cos {max(d):.2e} (limit "
+                  f"{EMBED_BATCH_COS}), max |diff| {diff:.2e}", flush=True)
+            if max(d) > EMBED_BATCH_COS:
+                fail("[embed] the worker's vectors differ from the "
+                     "in-process engine's")
+
+            texts, ttft, n_prompt = [], [], []
+            for body in chats:
+                status, t_sent, frames, done, _ = await _http_request(
+                    port, "POST", "/v1/chat/completions",
+                    dict(body, stream=True))
+                text = "".join(f["choices"][0]["delta"].get("content") or ""
+                               for _, f in frames if f.get("choices"))
+                n = frames[-1][1]["usage"]["completion_tokens"] \
+                    if frames else 0
+                if status != 200 or not done or n != MM_OSL:
+                    fail(f"[mm] chat with an image: HTTP {status}, [DONE] "
+                         f"{done}, {n} of {MM_OSL} tokens")
+                firsts = [t for t, f in frames if f.get("choices") and
+                          f["choices"][0]["delta"].get("content")]
+                texts.append(text)
+                ttft.append((firsts[0] - t_sent) * 1e3)
+                n_prompt.append(frames[-1][1]["usage"]["prompt_tokens"])
+            texts = texts[1:]
+            same = [g == w for g, w in zip(texts, want_texts)]
+            print(f"[mm] chat over HTTP with .npy data URLs "
+                  f"({len(npy_data_url(img_a))} bytes each): a warm-up "
+                  f"image, then A, A again, B, text-only, {MM_OSL} tokens "
+                  f"each; prompt tokens {n_prompt}; TTFT "
+                  f"{', '.join(f'{t:.1f}' for t in ttft)} ms (warm-up, A "
+                  f"cold, A hitting the cache, B, text-only); texts equal "
+                  f"to phase 3's engine in this process: {same}; A again "
+                  f"same text as A: {texts[1] == texts[0]}; B's text "
+                  f"differs from A's: {texts[2] != texts[0]}", flush=True)
+            if not all(same):
+                fail(f"[mm] chat texts over HTTP differ from the in-process "
+                     f"ones: {texts} vs {want_texts}")
+            for child in (front, worker, enc):
+                child.proc.send_signal(signal.SIGTERM)
+                rc = child.proc.wait(timeout=60)
+                if rc != 0:
+                    fail(f"[mm] {child.name} exited {rc}:\n{child.tail()}")
+            if "encode worker exiting: 4 images encoded" not in enc.text():
+                fail(f"[mm] the encode worker did not encode 4 images:\n"
+                     f"{enc.tail()}")
+            m = re.search(r"worker exiting: kernel launches (.*)",
+                          worker.text())
+            counts = dict(kv.split("=") for kv in m.group(1).split()) \
+                if m else {}
+            m = re.search(r"worker exiting: engine counts mm_prefills=(\d+) "
+                          r"prefix_hit_blocks=(\d+)", worker.text())
+            got_counts = tuple(map(int, m.groups())) if m else None
+            want_total = tuple(map(sum, zip(*want_counts)))
+            print(f"[mm] every process exited 0 on SIGTERM; the worker's "
+                  f"launches: {counts}; its (mm prefill chunks, prefix-hit "
+                  f"blocks) {got_counts}, phase 3's engine on the same "
+                  f"bodies {want_total}", flush=True)
+            for face in ("paged_attention_decode", "paged_attention_ragged"):
+                if int(counts.get(face, 0)) == 0:
+                    fail(f"[mm] {face} never launched in the EPD worker")
+            # a worker that dropped or zeroed the images splices nothing;
+            # one that hashed the placeholders lets B hit A's image blocks
+            if got_counts != want_total:
+                fail(f"[mm] the EPD worker's mm prefill chunks and prefix "
+                     f"hits {got_counts} differ from the in-process "
+                     f"engine's {want_total}")
+        finally:
+            for child in children:
+                child.kill()
+    asyncio.run(run())
 
 
 KERNELS = {
@@ -4785,8 +5574,9 @@ def kernels_line(results, launches, dist_launches, spec_launches,
     ragged face at the spec engine's verify shape (its launches: the verify
     windows of phase 3's spec run) and both faces at Mixtral's head dim 128
     (their launches: the [moe] phase's served run). ``slice_launches``
-    maps a key (``launches_profile``, ``launches_replay``) to the counts of
-    the path it names, added to every kernel build's row. ``tuned_rows``
+    maps a key (``launches_profile``, ``launches_replay``,
+    ``launches_embed``, ``launches_mm``) to the counts of the path it
+    names, added to every kernel build's row. ``tuned_rows``
     (phase 12) are the autotune's winning launches, each with its
     ``launch`` parameters (the bf16 decode and prefill winners that differ
     from the defaults; their launches are those of the run served on
@@ -4833,6 +5623,25 @@ def kernels_line(results, launches, dist_launches, spec_launches,
     return json.dumps({"kernels": rows})
 
 
+SCRIPT_LIMIT_S = 1150   # the whole script, under the run's 1200 s
+
+
+@contextmanager
+def watchdog(seconds: float):
+    """Arm ``faulthandler`` to dump every thread's stack and exit
+    non-zero after ``seconds``; on leaving, re-arm the whole script's
+    limit (SCRIPT_LIMIT_S from the start)."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.dump_traceback_later(
+            max(1.0, SCRIPT_LIMIT_S - (time.perf_counter() - T_START)),
+            exit=True)
+
+
 class PhaseTimer:
     """Prints each phase's time (``[time]`` lines) as the phases end."""
 
@@ -4859,6 +5668,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    import faulthandler
+    faulthandler.dump_traceback_later(SCRIPT_LIMIT_S, exit=True)
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -4884,10 +5695,16 @@ def main() -> None:
     timer("13 ladder")
     phase_debug_profile(card, engine)
     timer("14 profile")
+    embed_launches = phase_embed(card, engine, direct)
+    timer("15 embeddings")
+    mm = phase_mm(card, engine, direct)
+    timer("16 multimodal in one process")
     phase_profile(engine, card)
     timer("4 profile bf16")
     served = phase_http(engine, card, direct)
     timer("5 http")
+    phase_epd_procs(card, served, engine, mm)
+    timer("15-16 embeddings and EPD across processes")
     phase_kvmove_local(card, engine, direct)
     timer("7 kv movement in one process")
     phase_load(card, engine, "bf16")
@@ -4925,10 +5742,13 @@ def main() -> None:
     timer("11 planner")
     moe_launches = phase_moe(card)
     timer("8 moe")
+    faulthandler.cancel_dump_traceback_later()
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(kernels_line(results, launches, dist_launches, spec["launches"],
                        moe_launches, {"launches_profile": profile_launches,
-                                      "launches_replay": replay_launches},
+                                      "launches_replay": replay_launches,
+                                      "launches_embed": embed_launches,
+                                      "launches_mm": mm["launches"]},
                        tuned_rows))
     print(card)
     print(json.dumps({"ok": True, "device": {

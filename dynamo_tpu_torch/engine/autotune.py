@@ -51,6 +51,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -594,9 +595,10 @@ def autotune_attention(
     kernel's defaults. The returned choice dict always carries
     ``autotune_cache_hit``, ``config_hash``, the resolved ``tiles``, and
     ``probe_launches`` and ``sweep_launches`` (the kernel launches the probe
-    and the sweep made), so serving and benchmarks can report what actually
-    ran.
+    and the sweep made) and ``tune_s`` (this call's host seconds), so
+    serving and benchmarks can report what actually ran.
     """
+    t0 = time.perf_counter()
     device = torch.device(device)
     launches0 = _launches()
     cfg, choice = probe_attention_impl(model_config, engine_config, device)
@@ -646,6 +648,7 @@ def autotune_attention(
             tiles[cls] = explicit
     choice["tiles"] = {cls: list(t) for cls, t in tiles.items()}
     choice["sweep_launches"] = _launches() - launches0
+    choice["tune_s"] = time.perf_counter() - t0
     resolved = dataclasses.replace(
         cfg,
         attention_tile_decode=tiles["decode"],

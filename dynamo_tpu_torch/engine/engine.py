@@ -34,6 +34,13 @@ KVBM tiers (``attach_kvbm``; offload ticks in both loops, onboarding at
 admission), the radix prefix cache (``attach_prefix_cache``) and the
 preemption coordinator's evacuation hooks (``evacuable_seats`` …
 ``finish_evacuated``).
+
+Embeddings and multimodal prompts are the JAX engine's too: ``embed`` (the
+encode-only step behind ``/v1/embeddings``, on the device-step thread) and
+requests whose ``mm_*`` fields splice an encode worker's embeddings over
+placeholder rows in the prefill chunks that hold them (an image may span
+two chunks), with KV block hashes chained over the content-addressed
+``mm_hash_token_ids``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import torch
 from .. import tracing
 from ..observability import compilewatch
 from ..observability import flops as obs_flops
+from ..observability import profiling
 from ..observability.flops import FlopsModel
 from ..observability.stepstats import (
     DECODE, PREFILL, SPEC_VERIFY, StepRecord, StepStats,
@@ -93,6 +101,13 @@ class Request:
     seed: Optional[int] = None
     eos_token_ids: Tuple[int, ...] = ()
     ignore_eos: bool = False
+    # multimodal EPD: precomputed vision embeddings spliced over
+    # placeholder prompt positions, plus the content-addressed ids used
+    # for KV block hashing (never as model inputs) so the prefix cache
+    # can't serve one image's KV for another
+    mm_positions: Optional[List[int]] = None
+    mm_embeddings: Optional[np.ndarray] = None   # [len(mm_positions), D]
+    mm_hash_token_ids: Optional[List[int]] = None
 
 
 @dataclass
@@ -177,6 +192,20 @@ class _BatchingFetcher:
                 # the loop closed under us (engine torn down mid-flight);
                 # keep draining so the remaining futures get resolved
                 pass
+
+
+def _launching(fn, *args, **kwargs):
+    with profiling.LAUNCH_GATE.launching():
+        return fn(*args, **kwargs)
+
+
+class _StepExecutor(concurrent.futures.ThreadPoolExecutor):
+    """The device-step thread. Each task holds the profiler's launch gate,
+    so ``/debug/profile`` never starts or stops the profiler while the
+    engine launches (a stop deadlocked against a graph launch)."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        return super().submit(_launching, fn, *args, **kwargs)
 
 
 def _fut_set(fut, res, exc) -> None:
@@ -365,6 +394,19 @@ class EngineCore(AsyncEngine):
                 f"prompt length {len(request.token_ids)} exceeds "
                 f"max_model_len {self.config.max_model_len}"
             )
+        if request.mm_positions:
+            # admission-time rejection fails only THIS request; a raise in
+            # the step would abort every co-scheduled request
+            model_cfg = getattr(self, "model_config", None)
+            if (model_cfg is not None and request.mm_embeddings is not None
+                    and np.asarray(request.mm_embeddings).shape[-1]
+                    != model_cfg.hidden_size):
+                raise ValueError(
+                    f"mm embedding width "
+                    f"{np.asarray(request.mm_embeddings).shape[-1]} != "
+                    f"model hidden size {model_cfg.hidden_size} — is the "
+                    f"encode worker's --model-dim wrong?"
+                )
         seq = SchedSeq(
             seq_id=request.request_id or f"seq-{next(self._ids)}",
             prompt_ids=list(request.token_ids),
@@ -375,15 +417,39 @@ class EngineCore(AsyncEngine):
             top_k=request.top_k,
             top_p=request.top_p,
             seed=_seed31(request.seed),
+            mm_positions=(list(request.mm_positions)
+                          if request.mm_positions else None),
+            mm_embeddings=request.mm_embeddings,
         )
+        if request.mm_positions:
+            # content-addressed KV hashing: block hashes chain over ids
+            # that fold in the image content, so the prefix cache can't
+            # serve one image's KV for a prompt carrying another; built
+            # here, so the scheduler does not build one from prompt_ids
+            hash_ids = request.mm_hash_token_ids
+            if hash_ids is None or len(hash_ids) != len(request.token_ids):
+                raise ValueError(
+                    "multimodal requests need mm_hash_token_ids aligned "
+                    "with token_ids"
+                )
+            if (request.mm_embeddings is None
+                    or len(request.mm_embeddings)
+                    != len(request.mm_positions)):
+                raise ValueError(
+                    "mm_embeddings rows must match mm_positions"
+                )
+            seq.token_seq = TokenBlockSequence.from_tokens(
+                list(hash_ids), self.config.block_size
+            )
         if self.kvbm is not None or self.prefix is not None:
             # promote host-tier prefix blocks into G1 before admission so
             # the scheduler's prefix match serves them as native hits;
             # the token sequence is built once here and reused by the
             # scheduler (hash-chaining the prompt is O(prompt_len))
-            seq.token_seq = TokenBlockSequence.from_tokens(
-                seq.prompt_ids, self.config.block_size
-            )
+            if seq.token_seq is None:  # mm requests pre-built theirs
+                seq.token_seq = TokenBlockSequence.from_tokens(
+                    seq.prompt_ids, self.config.block_size
+                )
             try:
                 if self.prefix is not None:
                     # peer-G1 device-plane pull, then the KVBM tier chain
@@ -550,7 +616,15 @@ class EngineCore(AsyncEngine):
 
     async def generate(self, request: Any,
                        context: Context) -> AsyncIterator[dict]:
-        """Wire-format adapter: dict in, dict stream out."""
+        """Wire-format adapter: dict in, dict stream out. A multimodal
+        request's ``mm`` field ({positions, embeddings as a wire array,
+        hash_token_ids}) rides into the :class:`Request`."""
+        mm = request.get("mm") or {}
+        mm_embeddings = None
+        if mm:
+            from ..multimodal.wire import array_from_wire
+
+            mm_embeddings = array_from_wire(mm["embeddings"])
         req = Request(
             request_id=context.id,
             token_ids=list(request["token_ids"]),
@@ -561,6 +635,9 @@ class EngineCore(AsyncEngine):
             seed=request.get("seed"),
             eos_token_ids=tuple(request.get("eos_token_ids", ())),
             ignore_eos=bool(request.get("ignore_eos", False)),
+            mm_positions=(list(mm["positions"]) if mm else None),
+            mm_embeddings=mm_embeddings,
+            mm_hash_token_ids=(list(mm["hash_token_ids"]) if mm else None),
         )
 
         async def _on_stop() -> None:
@@ -1278,7 +1355,9 @@ class InferenceEngine(EngineCore):
             engine_config, engine_config.max_num_seqs, self._ap_Wcap,
             self.device, seed=seed + 2, hist_cap=self._spec_hist_cap,
         )
-        self._packed_prefill_fns: Dict[Tuple[int, int], Any] = {}
+        self._packed_prefill_fns: Dict[Tuple[int, int, bool], Any] = {}
+        # the encode-only step of embed()
+        self._encode_fn = model_lib.make_encode_fn(model_config)
         # KV block gather/scatter (disagg, KVBM, prefix onboarding,
         # evacuation); the scatter writes self.cache in place
         self._kv_extract, self._kv_inject = model_lib.make_kv_ops(
@@ -1286,6 +1365,7 @@ class InferenceEngine(EngineCore):
         # dispatch counters
         self.num_windows = 0
         self.num_prefill_dispatches = 0
+        self.num_mm_prefills = 0
         self.num_einsum_rebuilds = 0
         # host mirror of per-slot device state + seat map
         self._ap: Dict[int, Dict[str, Any]] = {}
@@ -1512,11 +1592,61 @@ class InferenceEngine(EngineCore):
         self.kvbm = KvbmManager(self, config or KvbmConfig(), remote=remote)
         return self.kvbm
 
+    # ----------------------- embeddings (encode) -----------------------
+
+    async def embed(self, token_ids_batch: List[List[int]]
+                    ) -> List[List[float]]:
+        """Encode-only step for ``/v1/embeddings``: mean-pooled, normalised
+        final hidden states. Runs on the device-step thread, so it is
+        serialised with the windows and prefills the engine enqueues there,
+        on the same stream. Inputs are grouped by power-of-two (B, T)
+        buckets, as the JAX engine groups them for its programs: one
+        batched forward and one device→host copy per group."""
+        loop = asyncio.get_running_loop()
+
+        for ids in token_ids_batch:
+            if not ids:
+                raise ValueError("empty embedding input")
+            if len(ids) >= self.config.max_model_len:
+                raise ValueError(
+                    f"embedding input length {len(ids)} exceeds "
+                    f"max_model_len {self.config.max_model_len}"
+                )
+
+        def _run() -> List[List[float]]:
+            out: List[Optional[List[float]]] = [None] * len(token_ids_batch)
+            groups: Dict[int, List[int]] = {}
+            for i, ids in enumerate(token_ids_batch):
+                groups.setdefault(_pow2_bucket(len(ids)), []).append(i)
+            for T, idxs in groups.items():
+                B = _pow2_bucket(len(idxs))
+                tokens = np.zeros((B, T), np.int32)
+                positions = np.full((B, T), -1, np.int32)
+                for row, i in enumerate(idxs):
+                    ids = token_ids_batch[i]
+                    tokens[row, :len(ids)] = ids
+                    positions[row, :len(ids)] = np.arange(len(ids))
+                vecs = self._encode_fn(
+                    self.params, self._upload(tokens),
+                    self._upload(positions)).cpu().numpy()
+                for row, i in enumerate(idxs):
+                    out[i] = vecs[row].tolist()
+            return out  # type: ignore[return-value]
+
+        return await loop.run_in_executor(self._step_executor(), _run)
+
+    async def embed_endpoint(self, request: Any, context: Context):
+        """Wire adapter for the worker's ``embed`` endpoint."""
+        vectors = await self.embed(
+            [list(ids) for ids in request["token_ids_batch"]]
+        )
+        yield {"embeddings": vectors}
+
     # --------------------- device execution ----------------------------
 
     def _step_executor(self) -> concurrent.futures.ThreadPoolExecutor:
         if self._executor is None:
-            self._executor = concurrent.futures.ThreadPoolExecutor(
+            self._executor = _StepExecutor(
                 max_workers=1, thread_name_prefix="device-step"
             )
         return self._executor
@@ -1841,29 +1971,59 @@ class InferenceEngine(EngineCore):
                 goodput_tokens=L,
                 context_sum=L * S + L * (L + 1) // 2,
             ))
-        fn = self._packed_prefill_fns.get((T, W))
+        mm_rows = self._mm_chunk_rows(chunk)
+        mm = bool(mm_rows)
+        fn = self._packed_prefill_fns.get((T, W, mm))
         if fn is None:
             fn = model_lib.raw_packed_prefill_fn(
-                self.model_config, cfg, T, W)
-            self._packed_prefill_fns[(T, W)] = fn
+                self.model_config, cfg, T, W, mm=mm)
+            self._packed_prefill_fns[(T, W, mm)] = fn
         slot = seq.slot if seq.slot >= 0 else cfg.max_num_seqs
-        pint = np.zeros((1, T + W + model_lib.PP_SCALARS), np.int32)
+        M = T + W + model_lib.PP_SCALARS
+        pint = np.zeros((1, M + (T if mm else 0)), np.int32)
         pint[0, :T] = tokens
         pint[0, T:T + W] = tables
-        pint[0, T + W:] = (
+        pint[0, T + W:M] = (
             chunk.length, chunk.start, slot, 1 if chunk.final else 0,
             seq.top_k, seq.seed,
             int(round(seq.temperature * model_lib.PP_QUANT)),
             int(round(seq.top_p * model_lib.PP_QUANT)),
         )
+        extra = ()
+        if mm:
+            # the chunk's part of the image(s): its embedding rows into a
+            # [T, D] f32 block, the mask after the scalars
+            mm_embeds = np.zeros((T, self.model_config.hidden_size),
+                                 np.float32)
+            emb = np.asarray(seq.mm_embeddings, np.float32)
+            for row, k in mm_rows:
+                mm_embeds[row] = emb[k]
+                pint[0, M + row] = 1
+            self.num_mm_prefills += 1
+            extra = (self._upload(mm_embeds),)
         # the prefill posts its sample into ctl["last_tok"] in place; the
         # cache and ctl it returns are the same objects (the decode graphs
         # read them at their captured addresses)
         self.cache, _, sampled = fn(
             self.params, self.cache, self._ctl["last_tok"],
             self._upload(pint), self._next_key(), seq.temperature > 0.0,
+            *extra,
         )
         return sampled
+
+    def _mm_chunk_rows(self, chunk: PrefillChunk):
+        """(chunk-relative row, embedding index) of multimodal placeholder
+        positions inside this chunk (decode never needs this — placeholders
+        live in the prompt only). An image split over two chunks gives each
+        chunk its own rows."""
+        seq = chunk.seq
+        if not seq.mm_positions:
+            return []
+        lo, hi = chunk.start, chunk.start + chunk.length
+        return [
+            (p - lo, k) for k, p in enumerate(seq.mm_positions)
+            if lo <= p < hi
+        ]
 
     @hot_path
     def _ap_apply_deltas(self, deltas: Dict[int, Dict[str, Any]]) -> None:

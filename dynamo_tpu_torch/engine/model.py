@@ -41,6 +41,11 @@ buffers:
   with a quantized ``kv_dtype`` the pages are 1-byte with per-(slot, head)
   f32 scales in ``cache["ks"]``/``cache["vs"]``, scattered beside them and
   handed to both kernel faces.
+- **Multimodal prefill and embeddings**: ``forward`` splices precomputed
+  image embeddings over placeholder rows (``mm_embeds``/``mm_mask``; the
+  packed prefill's ``mm`` variant uploads them), and ``encode_forward`` is
+  the encode-only step of ``/v1/embeddings`` (dense causal attention over
+  the chunk through the plain ``_attention``, mean-pooled, L2-normalised).
 
 Nothing here synchronises with the host except where a docstring says so.
 """
@@ -327,12 +332,18 @@ def forward(
     tokens: torch.Tensor,        # [B, T] int (0 = pad)
     positions: torch.Tensor,     # [B, T] int absolute, -1 = pad
     block_tables: torch.Tensor,  # [B, W] int physical block ids (0 = trash)
+    mm_embeds: Optional[torch.Tensor] = None,  # [B, T, D] vision embeddings
+    mm_mask: Optional[torch.Tensor] = None,    # [B, T] True = use mm_embeds
 ) -> Tuple[Cache, torch.Tensor]:
     """Run the transformer over a token chunk, updating the paged cache IN
     PLACE (the returned cache is the same dict and tensors).
 
     Valid tokens of each row are a prefix of it (the prefill/decode feed
     contract), so the kernel's ragged metadata is a count and a max.
+    ``mm_embeds``/``mm_mask`` (multimodal prefill chunks only; the decode
+    and spec graphs are captured without them) put the encode worker's
+    embeddings, cast to the model dtype, in place of the placeholder rows'
+    token embeddings before the first layer.
     Returns (cache, hidden states [B, T, D]).
     """
     B, T = tokens.shape
@@ -345,6 +356,11 @@ def forward(
     block_tables = block_tables.to(torch.int32).contiguous()
 
     h = params["embed"][tokens.long()]                    # [B, T, D]
+    if mm_embeds is not None:
+        # multimodal EPD: placeholder positions take the encode worker's
+        # precomputed embeddings instead of token embeddings (ref: the
+        # TRT-LLM EPD flow, request_handlers/handler_base.py:64-234)
+        h = torch.where(mm_mask.bool()[..., None], mm_embeds.to(h.dtype), h)
 
     # physical (block, offset) per (b, t); pads go to the trash block 0
     pos_safe = torch.clamp(positions, min=0)
@@ -485,6 +501,79 @@ def _head_mm(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return h.float() @ head.float()
 
 
+# --------------------------- encode (embeddings) --------------------------
+
+
+def encode_forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,      # [B, T] int (0 = pad)
+    positions: torch.Tensor,   # [B, T] int, -1 = pad
+) -> torch.Tensor:
+    """Encode-only forward: dense causal attention over the chunk through
+    the plain :func:`_attention`, no paged cache — the engine step for
+    ``/v1/embeddings`` (ref: the embeddings route in
+    lib/llm/src/http/service/openai.rs:714; the decoder itself encodes).
+
+    Returns L2-normalised mean-pooled final hidden states ``[B, D]`` in f32
+    (the mean over positions >= 0, divided by ``max(count, 1)``; the norm
+    floored at 1e-12). Pad rows attend to nothing valid: their softmax is
+    uniform over masked scores, finite, and pooled out.
+    """
+    B, T = tokens.shape
+    hd = cfg.head_dim_
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    positions = positions.long()
+
+    h = params["embed"][tokens.long()]                    # [B, T, D]
+    cos, sin = _rope_tables(positions, cfg.rope_theta, hd)
+    stacked = params["layers"]
+    for li in range(cfg.num_layers):
+        p = _layer_slice(stacked, li)
+        x = _rms_norm(h, p["attn_norm"], cfg.rms_norm_eps)
+        q = _apply_rope(_mm(x, p["wq"]).reshape(B, T, H, hd), cos, sin)
+        k = _apply_rope(_mm(x, p["wk"]).reshape(B, T, KV, hd), cos, sin)
+        v = _mm(x, p["wv"]).reshape(B, T, KV, hd)
+        attn = _attention(q, k, v, positions)
+        h = h + _mm(attn.reshape(B, T, H * hd), p["wo"])
+        x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
+        if cfg.is_moe:
+            D = x.shape[-1]
+            out = moe_ffn(
+                x.reshape(B * T, D),
+                p["w_router"],
+                _dequant_leaf(p["w_gate"], x.dtype),
+                _dequant_leaf(p["w_up"], x.dtype),
+                _dequant_leaf(p["w_down"], x.dtype),
+                top_k=cfg.num_experts_per_token,
+                capacity_factor=cfg.moe_capacity_factor,
+            )
+            h = h + out.reshape(B, T, D)
+        else:
+            gate = F.silu(_mm(x, p["w_gate"]).float())
+            up = _mm(x, p["w_up"]).float()
+            h = h + _mm((gate * up).to(h.dtype), p["w_down"])
+    h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+
+    valid = (positions >= 0).float()[:, :, None]          # [B, T, 1]
+    pooled = (h.float() * valid).sum(dim=1) / torch.clamp(
+        valid.sum(dim=1), min=1.0)                         # [B, D]
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-12)
+
+
+def make_encode_fn(cfg: ModelConfig):
+    """The encode step: ``(params, tokens[B,T], positions[B,T]) -> [B, D]``,
+    run eagerly without autograd (the JAX package jits one program per
+    (B, T) bucket; eager PyTorch makes no program to count)."""
+
+    def encode(params, tokens, positions):
+        with torch.inference_mode():
+            return encode_forward(cfg, params, tokens, positions)
+
+    return encode
+
+
 # ----------------------------- sampling ----------------------------------
 
 
@@ -607,9 +696,11 @@ def raw_step_fn(cfg: ModelConfig, eng: EngineConfig):
     """
 
     def step(params, cache, tokens, positions, block_tables, last_idx, key,
-             temperature, top_k, top_p, seeds, stochastic):
+             temperature, top_k, top_p, seeds, stochastic, mm_embeds=None,
+             mm_mask=None):
         cache, h = forward(cfg, eng, params, cache, tokens, positions,
-                           block_tables)
+                           block_tables, mm_embeds=mm_embeds,
+                           mm_mask=mm_mask)
         B = tokens.shape[0]
         rows = torch.arange(B, device=tokens.device)
         last_idx = last_idx.long()
@@ -627,7 +718,7 @@ PP_QUANT = 1e4   # temperature / top_p fixed-point scale in the int pack
 
 
 def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
-                          W: int):
+                          W: int, mm: bool = False):
     """Prefill step with ALL inputs packed into ONE host-to-device copy.
 
     ``pint [1, T + W + PP_SCALARS]`` int32 = tokens(T), tables(W), then n,
@@ -637,12 +728,19 @@ def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
     ``last_tok[slot]`` in place so the first decode window chains on device;
     others post to the trash slot.
 
-    Signature: prefill(params, cache, last_tok[S+1], pint, key, stochastic)
-    -> (cache, last_tok, sampled[1])
+    With ``mm`` (the multimodal prefill, the counterpart of the JAX
+    ``make_mm_prefill_fn`` / ``make_mm_ring_prefill_fn``) ``pint`` carries
+    T more ints after the scalars, the placeholder mask, and the step takes
+    ``mm_embeds [T, D]`` f32, a second upload, spliced over the masked rows.
+
+    Signature: prefill(params, cache, last_tok[S+1], pint, key, stochastic
+    [, mm_embeds]) -> (cache, last_tok, sampled[1])
     """
     base = raw_step_fn(cfg, eng)
+    M = T + W + PP_SCALARS
 
-    def prefill(params, cache, last_tok, pint, key, stochastic):
+    def prefill(params, cache, last_tok, pint, key, stochastic,
+                mm_embeds=None):
         tokens = pint[:, :T]
         tables = pint[:, T:T + W]
         n = pint[0, T + W + 0]
@@ -656,9 +754,13 @@ def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
         idx = torch.arange(T, dtype=torch.int32, device=pint.device)
         positions = torch.where(idx < n, start + idx, -1)[None, :]
         last_idx = torch.clamp(n - 1, min=0)[None]
+        mm_mask = pint[:, M:M + T] > 0 if mm else None
+        if mm:
+            mm_embeds = mm_embeds[None]
         cache, sampled = base(params, cache, tokens, positions, tables,
                               last_idx, key, temp, top_k, tp, seed,
-                              stochastic)
+                              stochastic, mm_embeds=mm_embeds,
+                              mm_mask=mm_mask)
         S = last_tok.shape[0] - 1
         slot_eff = torch.where(write > 0, slot, S).long()[None]
         last_tok.index_put_((slot_eff,), sampled)

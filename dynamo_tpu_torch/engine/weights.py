@@ -15,7 +15,7 @@ scales over axis -2, the bytes of the JAX loader's ``quant.quantize_np``),
 and written into its slot; its file pages are then dropped. Host memory
 holds about one tensor at a time, never a stacked leaf.
 ``load_hf_params_sharded`` waits for multi-device serving (ROADMAP.md queue
-A, item 6), the orbax checkpoints for item 7.
+A, item 6), the orbax checkpoints for item 7d.
 
 :func:`params_from_numpy` turns the JAX package's parameter tree
 (``dynamo_tpu.engine.model.init_params``), converted leaf by leaf to numpy,

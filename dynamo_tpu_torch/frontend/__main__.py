@@ -13,8 +13,11 @@ the workers' ``kv_events``), ``--busy-threshold``, admission control,
 ``--request-timeout``, the ``frontend_stats`` publisher, and the planner's
 degradation watcher, which applies ``planner/{ns}/degradation`` orders to
 admission (tier shedding needs ``--max-concurrent-requests``: without it
-there is no admission controller, as in the JAX frontend). ``--grpc-port``
-(KServe) is refused. The frontend never touches the GPU.
+there is no admission controller, as in the JAX frontend). A model whose
+card advertises ``embeddings`` gets ``/v1/embeddings`` over its workers'
+``embed`` endpoint; one whose card advertises ``multimodal`` gets the
+encode-prefill-decode preprocessor over the advertised ``encode`` endpoint.
+``--grpc-port`` (KServe) is refused. The frontend never touches the GPU.
 With ``--port 0`` the log line ``frontend ready on HOST:PORT`` names the
 port bound.
 """
@@ -25,7 +28,9 @@ import argparse
 import asyncio
 
 from ..llm.discovery import ModelDeploymentCard, ModelWatcher
-from ..llm.entrypoint import build_routed_pipeline, make_kv_sink
+from ..llm.entrypoint import (
+    EmbeddingsPipeline, build_routed_pipeline, make_kv_sink,
+)
 from ..runtime import codec
 from ..runtime.component import DistributedRuntime
 from ..runtime.signals import install_shutdown_signals
@@ -85,8 +90,8 @@ def check_supported(args: argparse.Namespace) -> None:
     """Refuse every flag whose path this package does not serve yet."""
     if args.grpc_port:
         raise NotImplementedError(
-            "--grpc-port needs the KServe gRPC service, which "
-            "dynamo_tpu_torch does not serve yet"
+            "--grpc-port needs the KServe gRPC service (ROADMAP.md queue "
+            "A, item 7d), which dynamo_tpu_torch does not serve yet"
         )
 
 
@@ -138,11 +143,42 @@ async def run_frontend(args: argparse.Namespace) -> None:
         sink = None
         if args.router_mode == "kv":
             sink, kv_routers[card.name] = await make_kv_sink(card, client)
+        tokenizer = card.load_tokenizer()  # shared by every pipeline piece
+        mm_processor = None
+        mm_cfg = (card.runtime_config or {}).get("multimodal")
+        if mm_cfg:
+            from ..multimodal.processor import MultimodalProcessor
+
+            encode_client = await (
+                runtime.namespace(entry["namespace"])
+                .component(mm_cfg["component"])
+                .endpoint(mm_cfg.get("endpoint", "encode")).client()
+            )
+            clients[card.name + "/encode"] = encode_client
+            mm_processor = MultimodalProcessor(
+                tokenizer,
+                tokens_per_image=int(mm_cfg["tokens_per_image"]),
+                encode_client=encode_client,
+            )
         engine = build_routed_pipeline(
             card, client, router_mode=args.router_mode, sink=sink,
+            mm_processor=mm_processor, tokenizer=tokenizer,
         )
+        # embeddings ride the worker's encode-only "embed" endpoint; the
+        # card advertises the capability (mocker-backed models don't have
+        # it and their requests 400 immediately)
+        embed_engine = None
+        if "embeddings" in card.model_type:
+            embed_client = await (
+                runtime.namespace(entry["namespace"])
+                .component(entry["component"]).endpoint("embed").client()
+            )
+            clients[card.name + "/embed"] = embed_client
+            embed_engine = EmbeddingsPipeline(card, embed_client,
+                                              tokenizer=tokenizer)
         manager.register(ModelEntry(
             name=card.name, engine=engine,
+            embed_engine=embed_engine,
             chat="chat" in card.model_type,
             completions="completions" in card.model_type,
             tool_call_parser=card.tool_call_parser,
@@ -160,6 +196,12 @@ async def run_frontend(args: argparse.Namespace) -> None:
         client = clients.pop(name, None)
         if client:
             await client.stop()
+        embed_client = clients.pop(name + "/embed", None)
+        if embed_client:
+            await embed_client.stop()
+        encode_client = clients.pop(name + "/encode", None)
+        if encode_client:
+            await encode_client.stop()
 
     watcher = ModelWatcher(runtime, on_add, on_remove)
     await watcher.start()

@@ -8,11 +8,22 @@ the system temp dir). With a card in the process the capture records its
 CUDA activity (every kernel, from whichever thread or graph replay launched
 it) beside the CPU's; without one, the CPU's only. ``torch`` is imported at
 the first capture, never with this module.
+
+Starting and stopping the profiler toggles CUPTI, and on an H100 (torch
+2.11, CUDA 12.8) a stop on the event loop's thread deadlocked against a
+CUDA graph launch on the engine's step thread, both blocked on the host
+(``scripts/profile_soak.py`` repeats captures to catch it).
+:data:`LAUNCH_GATE` keeps the two apart: code that launches on the card
+from a thread of its own (the engine's step thread, the vision encoder)
+holds :meth:`LaunchGate.launching`, and the capture starts and stops the
+profiler under :meth:`LaunchGate.toggling`, off the event loop.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import contextlib
 import os
 import tempfile
 import threading
@@ -27,6 +38,49 @@ MAX_MS = 30_000
 TRACE_FILE = "trace.json"
 
 _capture_lock = threading.Lock()  # one capture per process, ever
+
+
+class LaunchGate:
+    """Any number of launching threads at once, or one profiler toggle
+    alone. A toggle waits for the launches in flight to end and holds new
+    ones back until it is done."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._launching = 0
+        self._toggling = False
+
+    @contextlib.contextmanager
+    def launching(self):
+        with self._cond:
+            while self._toggling:
+                self._cond.wait()
+            self._launching += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._launching -= 1
+                if not self._launching:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def toggling(self):
+        with self._cond:
+            while self._toggling:
+                self._cond.wait()
+            self._toggling = True
+            while self._launching:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._toggling = False
+                self._cond.notify_all()
+
+
+LAUNCH_GATE = LaunchGate()
 
 
 def default_base_dir() -> str:
@@ -48,6 +102,16 @@ async def capture(ms: int, base_dir: str = "") -> dict:
     base = base_dir or default_base_dir()
     if not _capture_lock.acquire(blocking=False):
         raise ProfileBusyError("a profile capture is already running")
+    loop = asyncio.get_running_loop()
+    # start and stop on one thread of their own: a toggle may wait for the
+    # step thread's task in flight, which must not hold up the event loop
+    toggler = concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="profile-toggle")
+
+    def toggle(fn):
+        with LAUNCH_GATE.toggling():
+            fn()
+
     try:
         os.makedirs(base, exist_ok=True)
         trace_dir = tempfile.mkdtemp(
@@ -61,18 +125,19 @@ async def capture(ms: int, base_dir: str = "") -> dict:
             activities.append(ProfilerActivity.CUDA)
         prof = profile(activities=activities)
         t0 = time.monotonic()
-        prof.start()
+        await loop.run_in_executor(toggler, toggle, prof.start)
         try:
             # the wait yields the event loop: the engine keeps serving
             # (that is the point: profile it under load)
             await asyncio.sleep(ms / 1000.0)
         finally:
-            prof.stop()
+            await loop.run_in_executor(toggler, toggle, prof.stop)
         wall_ms = (time.monotonic() - t0) * 1000.0
         trace_file = os.path.join(trace_dir, TRACE_FILE)
         # writing a loaded trace takes a while: off the event loop
         await asyncio.to_thread(prof.export_chrome_trace, trace_file)
     finally:
+        toggler.shutdown(wait=False)
         _capture_lock.release()
     log.info("profiler trace captured to %s (%.0f ms)", trace_file, wall_ms)
     return {

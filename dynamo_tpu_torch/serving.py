@@ -11,9 +11,11 @@ cache's ``evict_to_host`` rung (``DYNTPU_PLANNER_APPLY_DEGRADATION``), the
 ``POST /drain`` trigger of the system server (``DYNTPU_SYSTEM_ENABLED``), and
 the preemption coordinator (``SIGUSR1`` or ``POST /preempt`` evacuate the
 seats' KV, then drain). A disaggregated worker serves its prefill or decode
-handler in place of the engine. The embeddings endpoint and the multimodal
-encode handler (ROADMAP.md queue A, item 7) are not ported, so the card
-advertises chat and completions only.
+handler in place of the engine. An engine with ``embed_endpoint`` also
+serves ``embed`` and its card advertises ``embeddings`` (the mocker has
+none); ``ServeOptions.mm`` advertises multimodal serving in the card's
+``runtime_config`` and ``ServeOptions.mm_handler`` serves a colocated
+``encode`` endpoint.
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ class ServeOptions:
     migration_limit: int = 3
     tool_call_parser: Optional[str] = None
     reasoning_parser: Optional[str] = None
+    # multimodal EPD: advertisement for the card's runtime_config
+    # ({tokens_per_image, image_size, component, endpoint}) and an
+    # optional colocated encode handler to serve
+    mm: Optional[dict] = None
+    mm_handler: object = None
 
 
 async def serve_engine(
@@ -122,6 +129,16 @@ async def serve_engine(
         clear_kv, advertise_host=opts.advertise_host
     )
 
+    # encode-only embeddings endpoint (device engines only — the mocker has
+    # no hidden states; ref: the embeddings route openai.rs:714)
+    supports_embeddings = hasattr(engine, "embed_endpoint")
+    if supports_embeddings:
+        embed_ep = (runtime.namespace().component(opts.component)
+                    .endpoint("embed"))
+        await embed_ep.serve_endpoint(
+            engine.embed_endpoint, advertise_host=opts.advertise_host
+        )
+
     # active canary probes through the real generate path
     # (ref: health_check.rs:44; enabled by DYNTPU_HEALTH_CHECK_ENABLED)
     if runtime.config.health_check_enabled:
@@ -182,10 +199,27 @@ async def serve_engine(
         )
         served.degradation_watcher.start()
 
+    if opts.mm_handler is not None:
+        mm_ep = (runtime.namespace().component(opts.component)
+                 .endpoint("encode"))
+        await mm_ep.serve_endpoint(
+            opts.mm_handler, advertise_host=opts.advertise_host
+        )
+
     if tokenizer is not None:
+        model_type = ["chat", "completions"]
+        if supports_embeddings:
+            model_type.append("embeddings")
+        runtime_config = {
+            "total_kv_blocks": eng_cfg.num_blocks,
+            "max_num_seqs": eng_cfg.max_num_seqs,
+            "max_num_batched_tokens": eng_cfg.max_num_batched_tokens,
+        }
+        if opts.mm is not None:
+            runtime_config["multimodal"] = opts.mm
         card = ModelDeploymentCard(
             name=opts.name,
-            model_type=["chat", "completions"],
+            model_type=model_type,
             tokenizer_json=tokenizer.to_json_str(),
             chat_template=tokenizer.chat_template,
             context_length=eng_cfg.max_model_len,
@@ -193,11 +227,7 @@ async def serve_engine(
             migration_limit=opts.migration_limit,
             eos_token_ids=list(tokenizer.eos_token_ids),
             bos_token_id=tokenizer.bos_token_id,
-            runtime_config={
-                "total_kv_blocks": eng_cfg.num_blocks,
-                "max_num_seqs": eng_cfg.max_num_seqs,
-                "max_num_batched_tokens": eng_cfg.max_num_batched_tokens,
-            },
+            runtime_config=runtime_config,
             tool_call_parser=opts.tool_call_parser,
             reasoning_parser=opts.reasoning_parser,
         )

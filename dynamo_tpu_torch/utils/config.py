@@ -11,8 +11,9 @@ so one deployment's settings configure processes of either package: the
 system server, health probes, speculative decoding and the planner's
 degradation ladder, the radix prefix cache (on by default, as in the JAX
 package), the disaggregated handoff and the preemption coordinator among
-them. The profile directory of ``/debug/profile`` comes with its path
-(ROADMAP.md queue A, item 7).
+them. ``/debug/profile`` reads its directory (``DYNTPU_OBS_PROFILE_DIR``)
+in ``observability/profiling.py``; the JAX package's ``obs_profile_dir``
+field is not copied.
 """
 
 from __future__ import annotations

@@ -23,7 +23,11 @@ logged at startup), disaggregated prefill/decode
 pull queue), the KVBM tiers (``--kvbm-host-blocks/-bytes``,
 ``--kvbm-disk-dir/-blocks``, ``--kvbm-remote``, ``--kvbm-distributed``,
 ``--kvbm-group*``), the radix prefix cache (on unless
-``DYNTPU_PREFIX_ENABLED=0``) and the engine sizing flags; the control plane
+``DYNTPU_PREFIX_ENABLED=0``), the ``embed`` endpoint behind
+``/v1/embeddings``, multimodal encode-prefill-decode (``--mm-encoder`` for a
+colocated vision encoder, ``--mm-encode-component`` for a separate
+``python -m dynamo_tpu_torch.multimodal`` worker) and the engine sizing
+flags; the control plane
 (system server, health probes, degradation watcher, the preemption
 coordinator behind ``SIGUSR1`` and ``POST /preempt``) comes from the
 runtime settings, as in the JAX package.
@@ -145,12 +149,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kvbm-group-role", choices=["leader", "worker"],
                    default="worker")
     p.add_argument("--kvbm-group-size", type=int, default=1)
-    # the rest select paths that are not served yet; their defaults are the
-    # JAX package's
-    p.add_argument("--mm-encoder", action="store_true")
+    p.add_argument("--mm-encoder", action="store_true",
+                   help="multimodal EPD with a colocated vision encoder "
+                        "(serves an 'encode' endpoint next to generate)")
     p.add_argument("--mm-image-size", type=int, default=32)
     p.add_argument("--mm-patch-size", type=int, default=8)
-    p.add_argument("--mm-encode-component", default=None)
+    p.add_argument("--mm-encode-component", default=None,
+                   help="multimodal EPD against a separate encode worker "
+                        "serving <component>/encode")
+    # the rest select paths that are not served yet; their defaults are the
+    # JAX package's
     p.add_argument("--coordinator",
                    default=os.environ.get("JAX_COORDINATOR_ADDRESS"))
     p.add_argument("--num-hosts", type=int,
@@ -163,13 +171,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def check_supported(args: argparse.Namespace) -> None:
     """Refuse every flag whose path this package does not serve yet."""
     a6 = "multi-device serving (ROADMAP.md queue A, item 6)"
-    a7 = "multimodal serving (ROADMAP.md queue A, item 7)"
     unsupported = [
         (args.model == "70b", "--model 70b", a6),
         (args.mesh.replace(" ", "") != "1,1", f"--mesh {args.mesh}", a6),
         (args.pp > 1, f"--pp {args.pp}", a6),
-        (args.mm_encoder or args.mm_encode_component is not None,
-         "--mm-*", a7),
         (args.coordinator is not None or args.num_hosts > 1,
          "multi-host serving (--coordinator/--num-hosts)", a6),
     ]
@@ -183,6 +188,13 @@ def check_supported(args: argparse.Namespace) -> None:
 
 def launch_counts() -> str:
     return " ".join(f"{name}={n}" for name, n in pa.LAUNCHES.items())
+
+
+def engine_counts(engine) -> str:
+    """The engine's prefill chunks that spliced image rows and its
+    prefix-cache block hits, logged at exit beside the launches."""
+    return (f"mm_prefills={engine.num_mm_prefills} "
+            f"prefix_hit_blocks={engine.stats.prefix_cache_hits}")
 
 
 async def run_worker(args: argparse.Namespace) -> None:
@@ -355,12 +367,35 @@ async def run_worker(args: argparse.Namespace) -> None:
         )
         handler.start_orphan_sweeper()
 
+    mm_opts = None
+    mm_handler = None
+    if args.mm_encoder or args.mm_encode_component:
+        from .multimodal.encoder import (
+            EncodeHandler, VisionEncoder, VisionEncoderConfig,
+        )
+
+        vcfg = VisionEncoderConfig(
+            image_size=args.mm_image_size, patch_size=args.mm_patch_size,
+            model_dim=model_cfg.hidden_size,
+        )
+        mm_opts = {
+            "tokens_per_image": vcfg.tokens_per_image,
+            "image_size": vcfg.image_size,
+            "component": args.mm_encode_component or component,
+            "endpoint": "encode",
+        }
+        if not args.mm_encode_component:
+            # --mm-encoder: a colocated encoder on the engine's device
+            mm_handler = EncodeHandler(VisionEncoder(vcfg,
+                                                     device=engine.device))
+
     opts = ServeOptions(
         name=name, component=component, endpoint=args.endpoint,
         advertise_host=args.advertise_host,
         migration_limit=args.migration_limit,
         tool_call_parser=args.tool_call_parser,
         reasoning_parser=args.reasoning_parser,
+        mm=mm_opts, mm_handler=mm_handler,
     )
     served, kv_pub, metrics_pub = await serve_engine(
         runtime, engine, eng_cfg, opts, tokenizer, handler=handler
@@ -397,6 +432,7 @@ async def run_worker(args: argparse.Namespace) -> None:
         if hasattr(handler, "close"):
             handler.close()
         log.info("worker exiting: kernel launches %s", launch_counts())
+        log.info("worker exiting: engine counts %s", engine_counts(engine))
 
 
 def main(argv=None) -> None:

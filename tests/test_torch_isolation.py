@@ -6,9 +6,10 @@ at module level. Its entry
 points refuse to fall back to the CPU when no device is given and no GPU is
 present, and engine construction refuses the paths this slice does not
 serve. The distributed entry points refuse every flag whose path is not
-ported yet and accept every router mode, the KV-movement flags and the
-settings of the prefix cache, the disaggregated handoff and preemption, and
-the store and the frontend never load ``torch``."""
+ported yet and accept every router mode, the KV-movement and multimodal
+flags and the settings of the prefix cache, the disaggregated handoff and
+preemption, and the store and the frontend (its multimodal and embeddings
+pieces included) never load ``torch``."""
 
 import ast
 import asyncio
@@ -63,6 +64,10 @@ PLANNER_AND_REPLAY = ["llm/recorder.py", "planner/predictors.py",
 # on-demand profiles)
 TUNING = ["engine/autotune.py", "engine/ladder.py",
           "observability/compilewatch.py", "observability/profiling.py"]
+# the embeddings and multimodal slice's modules
+MULTIMODAL = ["multimodal/__init__.py", "multimodal/__main__.py",
+              "multimodal/encoder.py", "multimodal/processor.py",
+              "multimodal/wire.py"]
 # imported only inside the function that launches a kernel
 NOT_AT_MODULE_LEVEL = {"triton"}
 
@@ -143,6 +148,23 @@ def test_scan_covers_the_tuning_modules():
         assert not {n for n, _ in found} & FORBIDDEN, rel
         if rel.startswith("observability/"):
             assert ("torch", True) not in found, rel
+
+
+def test_scan_covers_the_multimodal_modules():
+    """The multimodal modules are scanned like every other: none imports
+    ``xxhash`` (the processor hashes with the port's own XXH3) nor JAX;
+    the processor, the wire arrays and the package's ``__init__``, which
+    the frontend loads, import no torch at all."""
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(MULTIMODAL) <= scanned
+    for rel in MULTIMODAL:
+        found = _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))
+        assert not {n for n, _ in found} & FORBIDDEN, rel
+        if rel in ("multimodal/__init__.py", "multimodal/processor.py",
+                   "multimodal/wire.py"):
+            assert "torch" not in {n for n, _ in found}, rel
 
 
 def test_scan_sees_nested_imports():
@@ -261,8 +283,7 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "1,2"], ["--pp", "2"], ["--mm-encoder"],
-    ["--mm-encode-component", "encoder"], ["--coordinator", "h0:1234"],
+    ["--mesh", "1,2"], ["--pp", "2"], ["--coordinator", "h0:1234"],
     ["--num-hosts", "2"], ["--model", "70b"],
 ], ids=lambda f: f[0].lstrip("-") + ("" if len(f) == 1 else f"={f[1]}"))
 def test_worker_refuses_unserved_flags(flags):
@@ -341,7 +362,7 @@ def test_worker_maps_the_jax_attention_names():
 def test_frontend_refuses_unserved_flags(flags):
     from dynamo_tpu_torch.frontend import __main__ as frontend
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 7d"):
         asyncio.run(frontend.run_frontend(frontend.parse_args(flags)))
 
 
@@ -364,15 +385,71 @@ def test_runtime_serves_control_plane_settings(monkeypatch, env):
     assert getattr(cfg, env[len("DYNTPU_"):].lower()) is True
 
 
-def test_routed_pipeline_refuses_a_multimodal_card():
+@pytest.mark.parametrize("flags", [
+    ["--mm-encoder"], ["--mm-encode-component", "encoder"],
+    ["--mm-encoder", "--mm-image-size", "224", "--mm-patch-size", "14"],
+], ids=["mm-encoder", "mm-encode-component", "mm-encoder-224"])
+def test_worker_serves_multimodal_flags(flags):
+    """``--mm-*`` is served (queue A item 7c): the flags pass
+    ``check_supported`` and keep the JAX package's defaults."""
+    from dynamo_tpu_torch import worker
+
+    args = worker.parse_args(["--device", "cpu", *flags])
+    worker.check_supported(args)
+    assert args.mm_image_size in (32, 224)
+    assert args.mm_patch_size in (8, 14)
+
+
+def test_routed_pipeline_serves_a_multimodal_card():
+    """A card that advertises multimodal serving gets the multimodal
+    preprocessor in front of the text one."""
     from dynamo_tpu_torch.llm.discovery import ModelDeploymentCard
     from dynamo_tpu_torch.llm.entrypoint import build_routed_pipeline
+    from dynamo_tpu_torch.multimodal.processor import (
+        MultimodalPreprocessor, MultimodalProcessor,
+    )
 
     card = ModelDeploymentCard(name="m", tokenizer_json=TOKENIZER_STUB,
                                runtime_config={"multimodal": {
                                    "tokens_per_image": 16}})
-    with pytest.raises(NotImplementedError, match="multimodal"):
-        build_routed_pipeline(card, client=None)
+    tok = card.load_tokenizer()
+    pipe = build_routed_pipeline(
+        card, client=None, tokenizer=tok,
+        mm_processor=MultimodalProcessor(tok, 16, encode_client=object()))
+    pre = pipe._operators[0]
+    assert isinstance(pre, MultimodalPreprocessor)
+    assert pre.inner.tokenizer is tok
+
+
+def test_frontend_multimodal_and_embeddings_pieces_never_load_torch():
+    """What the frontend builds for a multimodal and embeddings card (the
+    multimodal processor and preprocessor, the wire arrays, the embeddings
+    pipeline) loads no ``torch``; importing the encoder module loads
+    it."""
+    code = (
+        "import sys\n"
+        "import dynamo_tpu_torch.multimodal as mm\n"
+        "from dynamo_tpu_torch.multimodal.processor import "
+        "MultimodalProcessor, content_token\n"
+        "from dynamo_tpu_torch.llm.discovery import ModelDeploymentCard\n"
+        "from dynamo_tpu_torch.llm.entrypoint import (\n"
+        "    EmbeddingsPipeline, build_routed_pipeline)\n"
+        "import numpy as np\n"
+        f"card = ModelDeploymentCard(name='m', tokenizer_json={TOKENIZER_STUB!r},\n"
+        "    runtime_config={'multimodal': {'tokens_per_image': 4}})\n"
+        "tok = card.load_tokenizer()\n"
+        "build_routed_pipeline(card, client=None, tokenizer=tok,\n"
+        "    mm_processor=MultimodalProcessor(tok, 4, encode_client=1))\n"
+        "EmbeddingsPipeline(card, client=None, tokenizer=tok)\n"
+        "mm.array_from_wire(mm.array_to_wire(np.zeros(3)))\n"
+        "content_token(np.zeros((2, 2, 3)), 0)\n"
+        "before = 'torch' in sys.modules\n"
+        "import dynamo_tpu_torch.multimodal.encoder\n"
+        "print(before, 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False True"
 
 
 def test_store_and_frontend_never_touch_the_gpu():

@@ -8,7 +8,10 @@ the re-admission prefill is served from it); a fallback (journal only);
 quantized spill finding about the reference is pinned in both packages: the
 spill carries the pages without their scales, so a quantized seat's spilled
 blocks fail to onboard and the resume re-prefills from scratch, with the
-right tokens. CPU, ``ModelConfig.tiny``."""
+right tokens. So is the multimodal finding: ``SeatRecord`` carries no
+``mm_*`` fields, so a multimodal seat resumed from its record is re-prefilled
+as text over its placeholder ids (its image lost) and its KV blocks are
+hashed over the placeholder ids. CPU, ``ModelConfig.tiny``."""
 
 import asyncio
 
@@ -59,9 +62,10 @@ def test_seat_records_equal_jax(seed):
     assert vars(got) == vars(want)
     for fn in ("peer_request", "resume_request"):
         g, w = vars(getattr(got, fn)()), vars(getattr(want, fn)())
-        # the JAX request's multimodal fields (not ported) stay unset
-        assert g == {k: w[k] for k in g}
-        assert all(w[k] is None for k in set(w) - set(g))
+        # a record carries no multimodal fields in either package (the
+        # finding pinned by test_mm_seat_record_loses_its_image_in_both)
+        assert g == w
+        assert g["mm_positions"] is None and g["mm_hash_token_ids"] is None
     assert got.first_token() == want.first_token() == 8
 
 
@@ -260,3 +264,90 @@ def test_notice_is_idempotent_and_lost_notices_are_reported(tree):
     assert asyncio.run(run("port")) == asyncio.run(run("jax")) == \
         (1, [], [], False)
     assert tfaults.DROP == jfaults.DROP
+
+
+# --------------------- the multimodal record finding ----------------------
+
+MM_N = 8
+MM_PROMPT = PROMPT[:4] + [0] * MM_N + PROMPT[4:]
+MM_HASH_IDS = (PROMPT[:4] + [0x80000000 + 77 + j for j in range(MM_N)]
+               + PROMPT[4:])
+
+
+def mm_req(pkg, rid, max_tokens=8):
+    cls = JRequest if pkg == "jax" else Request
+    return cls(request_id=rid, token_ids=list(MM_PROMPT),
+               max_tokens=max_tokens, ignore_eos=True,
+               mm_positions=list(range(4, 4 + MM_N)),
+               mm_embeddings=np.random.RandomState(3).randn(
+                   MM_N, 64).astype(np.float32),
+               mm_hash_token_ids=list(MM_HASH_IDS))
+
+
+async def mm_fallback(pkg, tree):
+    """An image seat evacuated with no peer and no host tier (FALLBACK),
+    resumed on a fresh engine from its journal record; beside it, for every
+    frontier k, the first token a re-prefill of the prompt and the first k
+    outputs gives without the image."""
+    mod = jpre if pkg == "jax" else tpre
+    from dynamo_tpu.tokens import compute_block_hashes_for_seq as hashes
+
+    src, ref, resume = (make_engine(pkg, tree) for _ in range(3))
+    coord = mod.PreemptionCoordinator(src, notice_grace_s=0.0)
+    events = []
+    resume.kv_event_sink = events.append
+    try:
+        want, _ = await collect(ref.submit(mm_req(pkg, "m0")))
+        without = []
+        for k in range(1, len(want)):
+            cls = JRequest if pkg == "jax" else Request
+            toks, _ = await collect(ref.submit(cls(
+                request_id=f"t{k}", token_ids=MM_PROMPT + want[:k],
+                max_tokens=1, ignore_eos=True)))
+            without.append(toks[0])
+        task = await drive_until(src, mm_req(pkg, "m0"), 2)
+        report = await coord.notice("test")
+        got, reason = await task
+        res = report.results[0]
+        rec = res.record
+        rreq = rec.resume_request()
+        tail, _ = await collect(resume.submit(rreq))
+        stored = [b["seq_hash"] for e in events if e["kind"] == "stored"
+                  for b in e["blocks"]]
+        n_full = len(rec.all_tokens) // ENG_KW["block_size"]
+        return {
+            "mode": res.mode == mod.FALLBACK, "reason": reason,
+            "want": want, "without": without,
+            "record_has_mm": any(k.startswith("mm") for k in vars(rec)),
+            "request_mm": (rreq.mm_positions, rreq.mm_embeddings,
+                           rreq.mm_hash_token_ids),
+            "tail_first_is_textual": tail[0] == without[len(got) - 1],
+            "hashed_over_placeholders": stored[:n_full] == hashes(
+                rec.all_tokens, ENG_KW["block_size"])[:n_full],
+            "hashed_over_content": stored[:n_full] == hashes(
+                MM_HASH_IDS + rec.output_ids,
+                ENG_KW["block_size"])[:n_full],
+        }
+    finally:
+        for e in (src, ref, resume):
+            await e.stop()
+
+
+def test_mm_seat_record_loses_its_image_in_both(tree):
+    """A finding about the reference, mirrored: ``SeatRecord``
+    (``dynamo_tpu/runtime/preemption.py:53-75``) has no ``mm_*`` fields, so
+    ``resume_request`` rebuilds a text request over the placeholder ids.
+    For every frontier the re-prefilled continuation differs from the
+    un-preempted image run's next token, the resumed seat's first token is
+    the text-only one, and the receiver hashes the placeholder ids, not the
+    content-addressed ones. The port does exactly what JAX does."""
+    want = asyncio.run(mm_fallback("jax", tree))
+    got = asyncio.run(mm_fallback("port", tree))
+    assert got == want
+    assert got["mode"] and got["reason"] == "evacuated"
+    assert not got["record_has_mm"]
+    assert got["request_mm"] == (None, None, None)
+    assert all(w != t for w, t in zip(got["want"][1:], got["without"]))
+    assert got["tail_first_is_textual"]
+    assert got["hashed_over_placeholders"]
+    assert not got["hashed_over_content"]

@@ -202,3 +202,85 @@ def test_engine_snapshot_and_gauges_carry_the_watch(watch, monkeypatch):
     assert 'dynamo_engine_ladder_splits_total{kind="decode"} 1.0' in text
     assert ('dynamo_engine_recompiles_total{fn="decode_window:B=8:'
             'stochastic=0"} 1.0') in text
+
+
+def test_launch_gate_keeps_toggles_and_launches_apart():
+    """A toggle waits for the launch in flight and holds new launches back
+    until it is done; launches on several threads run together."""
+    import threading
+
+    gate = tprof.LaunchGate()
+    order = []
+    in_launch, release = threading.Event(), threading.Event()
+
+    def launcher(name, hold=None):
+        with gate.launching():
+            order.append(f"{name} in")
+            if hold is not None:
+                in_launch.set()
+                hold.wait(5)
+            order.append(f"{name} out")
+
+    def toggler():
+        with gate.toggling():
+            order.append("toggle")
+            late = threading.Thread(target=launcher, args=("late",))
+            late.start()
+            late.join(0.2)
+            assert late.is_alive()          # held back by the toggle
+            order.append("toggle done")
+        late.join(5)
+
+    a = threading.Thread(target=launcher, args=("a", release))
+    a.start()
+    assert in_launch.wait(5)
+    with gate.launching():                  # a second launcher runs at once
+        order.append("b")
+    t = threading.Thread(target=toggler)
+    t.start()
+    t.join(0.2)
+    assert t.is_alive() and "toggle" not in order   # waits for a
+    release.set()
+    a.join(5)
+    t.join(5)
+    assert order == ["a in", "b", "a out", "toggle", "toggle done",
+                     "late in", "late out"]
+
+
+def test_engine_step_thread_and_capture_share_the_gate(tmp_path):
+    """Every task of an engine's step thread holds the launch gate, and a
+    capture under load takes it to start and stop: the streams served
+    during a capture are whole."""
+    tree = jax.tree.map(np.asarray, jm.init_params(
+        jax.random.PRNGKey(0), jcfg.ModelConfig.tiny(512)))
+    mc = tcfg.ModelConfig.tiny(512)
+    engine = InferenceEngine(
+        mc, tcfg.EngineConfig(block_size=4, num_blocks=64, max_num_seqs=4,
+                              max_num_batched_tokens=64, max_model_len=128,
+                              decode_buckets=(4,), prefill_buckets=(16,)),
+        params=params_from_numpy(tree, mc, "cpu"), device="cpu")
+    held = engine._step_executor().submit(
+        lambda: tprof.LAUNCH_GATE._launching).result()
+    assert held == 1 and tprof.LAUNCH_GATE._launching == 0
+
+    async def one(i):
+        out = []
+        async for o in engine.submit(Request(
+                request_id=f"p{i}", token_ids=[i + 1, 2, 3], max_tokens=24,
+                ignore_eos=True)):
+            out.append(o.token_id)
+        return out
+
+    async def go():
+        await engine.start()
+        try:
+            capture = asyncio.ensure_future(
+                tprof.capture(20, base_dir=str(tmp_path)))
+            outs = await asyncio.gather(*(one(i) for i in range(4)))
+            return await capture, outs
+        finally:
+            await engine.stop()
+    meta, outs = asyncio.run(go())
+    assert os.path.getsize(meta["trace_file"]) > 0
+    assert [len(o) for o in outs] == [24] * 4
+    assert not tprof.LAUNCH_GATE._toggling
