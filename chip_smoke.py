@@ -250,6 +250,26 @@ Phases (any failure exits non-zero and prints no result line):
    as many mm prefill chunks and prefix-hit blocks as phase 3's engine on
    the same bodies). Child logs in ``build/dist/epd_*.log``.
 
+17. tensor- and expert-parallel serving (``[tp]`` lines), two ranks on
+   the one card over gloo (``DYNTPU_DIST_BACKEND=gloo``; NCCL takes one
+   device per rank): after phase 9, a ``--mesh 1,2`` worker (rank 0 starts
+   rank 1 itself) loads phase 9's Llama-3.2-1B checkpoint through
+   ``load_hf_params_sharded`` behind the store and the frontend; phase 3's
+   traffic through the frontend over HTTP (TTFT, ITL, tok/s of a
+   correctness run, not a tensor-parallel speed) and through the
+   ``generate`` endpoint (streams held to the parity rule against phase
+   3's one-rank engine on the same weights); each rank's launches of both
+   faces, the follower's plans (equal to the leader's) and the
+   all_reduce calls and bytes per step from the ranks' exit lines. After
+   phase 8, Mixtral-8x7B at full width cut to 4 of 32 layers: each
+   rank's ``moe_ffn`` at its 4 experts timed and its partials summed
+   against the one-rank output, a checkpoint written (free disk checked),
+   served one-rank in this process and by a ``--mesh 1,2`` worker with
+   the experts over tp, both on the synchronous loop, one request at a
+   time, streams held to the parity rule. Phase 2 holds both faces at one
+   rank's shard shapes (16 query / 4 KV heads at head dim 64 and 128)
+   against their plain versions. Child logs in ``build/dist/tp_*.log``.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
@@ -260,7 +280,9 @@ carries ``launches_profile``, ``launches_replay``, ``launches_embed`` and
 ``launches_mm``, the counts of phases 10, 11, 15 (the traffic with embed
 calls interleaved) and 16 (the image prompts A, A again, B and text-only);
 rows named ``...@tuned_<class>`` are phase 12's winning launch parameters,
-each with its ``launch``);
+each with its ``launch``; rows named ``...@tp2_shard_hd<64|128>`` are
+both faces at phase 17's shard shapes, with ``launches_per_rank`` of the
+2-rank Llama-3.2-1B and Mixtral runs);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -335,6 +357,16 @@ SPEC_ROWS = [(5, 518 + (37 * i) % 64, 5) for i in range(16)]
 # heads at head dim 128) at the decode window's and prefill chunk's shapes
 MOE_DECODE_CASE = "mixtral decode hd=128 B=16 ctx 513..576 W=512"
 MOE_PREFILL_CASE = "mixtral prefill hd=128 R=1 T=512 ctx 512 W=32"
+# phase 17's shapes: one rank's heads at tp 2 (16 query / 4 KV heads) of
+# Llama-3.2-1B (hd 64) and Mixtral-8x7B (hd 128)
+TP_CASES = {
+    ("decode", 64): "tp2 shard decode 16/4 heads hd=64 B=16 ctx 513..576 "
+                    "W=512",
+    ("ragged", 64): "tp2 shard prefill 16/4 heads hd=64 R=1 T=512 W=32",
+    ("decode", 128): "tp2 shard decode 16/4 heads hd=128 B=16 ctx 513..576 "
+                     "W=512",
+    ("ragged", 128): "tp2 shard prefill 16/4 heads hd=128 R=1 T=512 W=32",
+}
 
 
 # ------------------------------ phase 1 ----------------------------------
@@ -611,6 +643,12 @@ def kernel_cases():
                   W=512, face="decode", hd=128),
         make_case(MOE_PREFILL_CASE, [(512, 512, 512)], W=32, face="ragged",
                   hd=128),
+        *(make_case(name, [(1, 513 + (37 * i) % 64, 1) for i in range(16)],
+                    W=512, face="decode", KV=4, hd=hd)
+          if face == "decode" else
+          make_case(name, [(512, 512, 512)], W=32, face="ragged", KV=4,
+                    hd=hd)
+          for (face, hd), name in TP_CASES.items()),
         # the kernels' other builds: head dim 128 (Llama-3-8B heads) and f32
         make_case("ragged mixed hd=128 R=3",
                   [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
@@ -1085,6 +1123,12 @@ SPEC_SEGMENT = 64          # a seeded segment, repeated ISL / 64 times
 PARITY_MARGIN = 2.0 ** -5
 PARITY_FINE = 1e-3
 PARITY_TOPK = 8
+# An MoE row's routing near-tie (check_parity's router_gaps): router logits
+# have unit scale with random weights (x is RMS-normed, w_router ~
+# N(0, 1/D)), and the two paths' bf16 differences move them by ~1e-2 (the
+# [moe] probe's comment), so a gap under 2^-5 between the last expert
+# picked and the first left out can flip.
+ROUTER_MARGIN = 2.0 ** -5
 
 
 def spec_prompts(vocab: int):
@@ -1166,26 +1210,40 @@ def serve_batch(engine, prompts, max_tokens, after_warmup=None,
     return outs, stamps, wall, batch_s
 
 
-def tapped_run(engine, prompts):
+def tapped_run(engine, prompts, osl: int = OSL, router_gaps=None):
     """Serve ``prompts`` through the non-spec ``engine`` at depth 1 with its
     decode windows run eagerly (bitwise their graphs, as ``[graph]``
     checks), recording the top-PARITY_TOPK logits of each request's final
     prefill chunk (output index 0) and of each decode window per seat.
-    Returns (streams, {(request, output index): (token ids, logits)})."""
+    Returns (streams, {(request, output index): (token ids, logits)}).
+    With a dict ``router_gaps`` (an MoE engine) it also records, under the
+    same keys, the smallest gap over the layers between the router logits
+    of the last expert a row picks and the first it does not (the row whose
+    hidden state gives that output)."""
     import torch
 
     from dynamo_tpu_torch.engine import model as model_lib
 
     index = {tuple(prompt_ids(p)[:SPEC_SEGMENT]): r
              for r, p in enumerate(prompts)}
-    taps, rec = [], {}
+    taps, rec, gaps = [], {}, []
     logits_fn = model_lib.logits_fn
+    moe_ffn = model_lib.moe_ffn
     unpack = engine._unpack_results
+    cur = {}
 
     def tap(cfg, params, h):
         out = logits_fn(cfg, params, h)
         taps.append(torch.topk(out, PARITY_TOPK))
+        gaps.append(cur.pop("gap", None))
         return out
+
+    def moe_tap(x, w_router, *args, top_k, **kw):
+        top = torch.topk(x.float() @ w_router.float(), top_k + 1).values
+        gap = top[:, top_k - 1] - top[:, top_k]
+        cur["gap"] = gap if "gap" not in cur else torch.minimum(
+            cur["gap"], gap)
+        return moe_ffn(x, w_router, *args, top_k=top_k, **kw)
 
     def unpack_tapped(batch, landing):
         # one logits call per prefill chunk (dispatched first), then the
@@ -1195,6 +1253,8 @@ def tapped_run(engine, prompts):
             if chunk.final and r is not None:
                 vals, ids = (t.cpu().tolist() for t in taps[i])
                 rec[r, 0] = (ids[0], vals[0])
+                if router_gaps is not None:
+                    router_gaps[r, 0] = gaps[i][chunk.length - 1].item()
         if landing.decode_shape is not None:
             vals, ids = (t.cpu().tolist() for t in taps[-1])
             col_of = {}
@@ -1205,30 +1265,45 @@ def tapped_run(engine, prompts):
                 if r is not None:
                     c = col_of[row.slot]
                     rec[r, len(row.seq.output_ids)] = (ids[c], vals[c])
+                    if router_gaps is not None:
+                        router_gaps[r, len(row.seq.output_ids)] = \
+                            gaps[-1][c].item()
         taps.clear()
+        gaps.clear()
         return unpack(batch, landing)
 
     engine.pipeline_depth = 1
     engine._ap_window_fn.graphed = False
     model_lib.logits_fn = tap
+    if router_gaps is not None:
+        model_lib.moe_ffn = moe_tap
     engine._unpack_results = unpack_tapped
     try:
-        outs = serve_batch(engine, prompts, OSL)[0]
+        outs = serve_batch(engine, prompts, osl)[0]
     finally:
         model_lib.logits_fn = logits_fn
+        model_lib.moe_ffn = moe_ffn
         del engine._unpack_results
         engine._ap_window_fn.graphed = True
         engine.pipeline_depth = DEPTHS[0]
     return outs, rec
 
 
-def check_parity(want, rec, got, what: str, tag: str = "[spec]"):
+def check_parity(want, rec, got, what: str, tag: str = "[spec]",
+                 router_gaps=None):
     """The parity rule: ``got`` (spec, or another path such as phase 7's
     disaggregated or evacuated streams) equals ``want`` (the non-spec run
     whose logits ``rec`` holds) token for token, but may part where the
     other token sits under PARITY_MARGIN x |top logit| below the non-spec
     run's top logit; prints each parting under ``tag``. Returns the
-    partings."""
+    partings.
+
+    With ``router_gaps`` (an MoE model, ``tapped_run``'s) a parting may
+    instead sit at a near-tie of the routing: at a row whose router logits
+    of the last expert picked and the first one left out, in some layer,
+    were under ROUTER_MARGIN apart. Rounding there hands the row another
+    expert, which moves its hidden state by that expert's whole output, so
+    the other token need not be a near-tie of the logits (finding d)."""
     partings = []
     for r, (a, b) in enumerate(zip(want, got)):
         j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -1254,8 +1329,18 @@ def check_parity(want, rec, got, what: str, tag: str = "[spec]"):
               + ("met" if margin < PARITY_FINE * abs(top) else "not met")
               + ")", flush=True)
         if ids[0] != a[j] or gap is None or gap >= limit:
+            rgap = (router_gaps or {}).get((r, j))
+            if ids[0] == a[j] and rgap is not None and rgap < ROUTER_MARGIN:
+                print(f"{tag} parity vs {what}: request {r} token {j} sits "
+                      f"at a routing near-tie: router logit gap {rgap:.5f} "
+                      f"at the top-k boundary (limit {ROUTER_MARGIN:.5f})",
+                      flush=True)
+                continue
             fail(f"{tag} stream {r} parts from the non-spec one ({what}) at "
-                 f"token {j} away from a near-tie: gap {gap}, limit {limit}")
+                 f"token {j} away from a near-tie: gap {gap}, limit {limit}"
+                 + ("" if rgap is None else
+                    f", router logit gap {rgap:.5f} (limit "
+                    f"{ROUTER_MARGIN:.5f})"))
     return partings
 
 
@@ -4064,7 +4149,8 @@ def phase_load(card: str, engine, dtype: str) -> None:
     ``--kv-dtype`` ``dtype``) serves phase 3's traffic in a process of its
     own: its streams must meet ``check_parity`` against the engine's
     tapped rerun, both faces must launch there, and its read rate, peak
-    host RSS and time to ready are printed."""
+    host RSS and time to ready are printed. Returns the rerun's streams,
+    its recorded logits and the prompts (phase 17's reference)."""
     import shutil
 
     import torch
@@ -4152,6 +4238,7 @@ def phase_load(card: str, engine, dtype: str) -> None:
           f"vs phase 3's {dtype} engine (eager rerun): "
           f"{len(prompts) - len(partings)} of {len(prompts)} identical, "
           f"{len(partings)} part at near-ties", flush=True)
+    return want, rec, prompts
 
 
 # ---------------------------------------------------------------------------
@@ -5538,6 +5625,392 @@ def phase_epd_procs(card: str, served: dict, engine, mm: dict) -> None:
     asyncio.run(run())
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor- and expert-parallel serving, two ranks on one card
+
+TP = 2
+# NCCL refuses two ranks on one device: the two ranks run over gloo, each
+# collective staged through the host
+TP_ENV = {"DYNTPU_DIST_BACKEND": "gloo"}
+TP_MODEL = "llama-3.2-1b-tp2"
+TP_LINE = re.compile(r"worker exiting: tp rank=(\d+) world=(\d+) "
+                     r"backend=(\w+) (.*?) plans=(\S*) launches=(\S*)")
+# [tp] Mixtral-8x7B at full width, cut to 4 of its 32 layers (two ranks'
+# weight loads and the gloo steps of 32 layers would not fit the run's
+# time); 4 sequential requests (alone, a seat's MoE capacity is never
+# shared with another live row: its routing cannot depend on when the
+# other requests arrived), OSL 32
+TP_MOE_LAYERS = 4
+TP_MOE_DIR = os.path.join("build", "ckpt_mixtral_tp")
+TP_MOE_REQUESTS = 4
+TP_MOE_OSL = 32
+
+
+def tp_rank_lines(text: str) -> dict:
+    """rank -> {"backend", "stats" (comm counters), "plans" (per kind),
+    "launches" (per kernel)} from a tensor-parallel worker's exit lines
+    (every rank writes to the worker's log)."""
+    def kv(field, sep):
+        return {k: int(v) for k, v in (
+            item.split(sep) for item in field.replace(",", " ").split()
+            if sep in item)}
+    out = {}
+    for m in TP_LINE.finditer(text):
+        out[int(m.group(1))] = dict(
+            world=int(m.group(2)), backend=m.group(3),
+            stats=kv(m.group(4), "="), plans=kv(m.group(5), ":"),
+            launches=kv(m.group(6), ":"))
+    return out
+
+
+def tp_check_ranks(text: str, tag: str, kv: str = "") -> dict:
+    """The phase's checks on a tensor-parallel worker's exit lines: both
+    ranks logged, over gloo, both faces launched on each rank, the
+    follower replayed exactly the plans the leader emitted, and both made
+    the same all_reduce calls and bytes. Prints the collectives per step.
+    Returns face -> [launches per rank]."""
+    ranks = tp_rank_lines(text)
+    if sorted(ranks) != list(range(TP)):
+        fail(f"{tag} exit lines of ranks {sorted(ranks)}, want "
+             f"{list(range(TP))}")
+    lead, fol = ranks[0], ranks[1]
+    if {r["backend"] for r in ranks.values()} != {"gloo"}:
+        fail(f"{tag} ranks ran over {[r['backend'] for r in ranks.values()]}")
+    if fol["plans"] != lead["plans"]:
+        fail(f"{tag} the follower replayed {fol['plans']}, the leader "
+             f"emitted {lead['plans']}")
+    for key in ("all_reduce_calls", "all_reduce_bytes"):
+        if fol["stats"][key] != lead["stats"][key]:
+            fail(f"{tag} {key}: leader {lead['stats'][key]}, follower "
+                 f"{fol['stats'][key]}")
+    faces = {}
+    for face in ("decode", "ragged"):
+        name = f"paged_attention_{face}{kv}"
+        per_rank = [ranks[r]["launches"].get(name, 0) for r in range(TP)]
+        if min(per_rank) == 0:
+            fail(f"{tag} {name} launches per rank {per_rank}: a face did "
+                 f"not launch on a rank")
+        faces[f"paged_attention_{face}"] = per_rank
+    steps = sum(lead["plans"].get(k, 0) for k in ("pp", "w", "sw"))
+    calls = lead["stats"]["all_reduce_calls"]
+    nbytes = lead["stats"]["all_reduce_bytes"]
+    host_ms = [ranks[r]["stats"]["all_reduce_us"] / 1e3 / steps
+               for r in range(TP)]
+    print(f"{tag} plans per kind {lead['plans']} (leader emitted = follower "
+          f"replayed); {steps} device steps; all_reduce per rank {calls} "
+          f"calls, {nbytes / 1e6:.1f} MB: {calls / steps:.1f} calls and "
+          f"{nbytes / steps / 1e6:.3f} MB per step, host time blocked in "
+          f"them per step rank 0 {host_ms[0]:.2f} ms, rank 1 "
+          f"{host_ms[1]:.2f} ms; broadcast "
+          f"{lead['stats']['broadcast_calls']} (the leader's attention "
+          f"choice); launches per rank {faces}", flush=True)
+    return faces
+
+
+async def tp_generate(addr: str, component: str, prompts, max_tokens: int,
+                      concurrent: bool):
+    """Greedy token streams of ``prompts`` through a worker's ``generate``
+    endpoint (the path the frontend's router takes), concurrently or one
+    at a time."""
+    import asyncio
+
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    rt = await DistributedRuntime.from_settings(RuntimeConfig(
+        store_addr=addr))
+    try:
+        client = await (rt.namespace().component(component)
+                        .endpoint("generate").client())
+        await client.wait_for_instances(1, 60)
+
+        async def one(ids):
+            out = []
+            async for o in client.round_robin(
+                    {"token_ids": list(ids), "max_tokens": max_tokens,
+                     "temperature": 0.0, "ignore_eos": True}, Context()):
+                out.extend(o["token_ids"])
+            return out
+        if concurrent:
+            return await asyncio.gather(*(one(p) for p in prompts))
+        return [await one(p) for p in prompts]
+    finally:
+        await rt.shutdown()
+
+
+def tp_start(name: str, addr: str, args, env):
+    """A ``--mesh 1,2`` worker process (it starts rank 1 itself, on the
+    same card, over gloo)."""
+    return Child(name, "dynamo_tpu_torch.worker",
+                 ["--mesh", f"1,{TP}", "--store-addr", addr, *args],
+                 dict(env, **TP_ENV))
+
+
+def tp_env():
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+
+def phase_tp(card: str, served: dict, ref) -> dict:
+    """[tp] (a): Llama-3.2-1B at full width and depth, bf16, served by a
+    ``--mesh 1,2`` worker (rank 0 leads; it starts rank 1 itself on the
+    same card; both over gloo) from phase 9's checkpoint through
+    ``load_hf_params_sharded``, behind the store and the frontend. Phase
+    3's traffic (16 concurrent greedy requests, ISL 512, OSL 64) through
+    the frontend over HTTP gives TTFT, ITL and tok/s — a correctness run of
+    two ranks on one card over host-staged gloo, not a tensor-parallel
+    speed; the same traffic through the worker's ``generate`` endpoint
+    gives token streams that must meet the parity rule against phase 3's
+    one-rank engine on the same weights (``ref``: phase 9's eager rerun).
+    Each rank's launches of both faces (> 0), the follower's plans
+    (= the leader's) and the all_reduce calls and bytes per step come from
+    the ranks' exit lines. Returns face -> launches per rank."""
+    import asyncio
+    import multiprocessing
+    import signal
+    from concurrent.futures import ProcessPoolExecutor
+
+    want, rec, prompts = ref
+    env = tp_env()
+    addr = f"127.0.0.1:{_free_port()}"
+    children = []
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        procs = ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            t0 = time.perf_counter()
+            store = Child("tp_store", "dynamo_tpu_torch.runtime.store",
+                          ["--host", "127.0.0.1",
+                           "--port", addr.rsplit(":", 1)[1]], env)
+            children.append(store)
+            await store.wait_for(r"store listening", 60)
+            worker = tp_start("tp_worker", addr, [
+                "--weights", os.path.abspath(LOAD_DIR),
+                "--model-name", TP_MODEL,
+                "--tokenizer", os.path.abspath(served["tokenizer"])], env)
+            children.append(worker)
+            front = Child("tp_frontend", "dynamo_tpu_torch.frontend",
+                          ["--host", "127.0.0.1", "--port", "0",
+                           "--store-addr", addr], env)
+            children.append(front)
+            port = int((await front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+            await worker.wait_for(r"registered model", 300)
+            text = worker.text()
+            loads = re.findall(r"loaded (\d+) tensors \(([\d.]+) GB\) .*"
+                               r"shard (\d)/2\) .* in ([\d.]+) s", text)
+            print(f"[tp] {card}: store, a --mesh 1,2 worker (rank 1 started "
+                  f"by rank 0, both on cuda:0 over gloo) and the frontend "
+                  f"up in {time.perf_counter() - t0:.1f} s; sharded loads "
+                  + "; ".join(f"rank {r}: {n} tensors, {gb} GB in {s} s"
+                              for n, gb, r, s in loads), flush=True)
+            if len(loads) != TP:
+                fail(f"[tp] {len(loads)} sharded loads logged, want {TP}")
+
+            def job(ids):
+                return dict(method="POST", path="/v1/completions", body={
+                    "model": TP_MODEL, "prompt": list(ids),
+                    "max_tokens": OSL, "temperature": 0,
+                    "ignore_eos": True, "stream": True})
+            while True:
+                (status, _, _, _, body), = await loop.run_in_executor(
+                    procs, http_client, port,
+                    [dict(method="GET", path="/v1/models")])
+                if status == 200 and any(m["id"] == TP_MODEL
+                                         for m in body["data"]):
+                    break
+                if time.perf_counter() - t0 > 300:
+                    fail(f"[tp] /v1/models never listed {TP_MODEL}")
+                await asyncio.sleep(0.2)
+            t_start = time.perf_counter()
+            results = await loop.run_in_executor(
+                procs, http_client, port, [job(p) for p in prompts])
+            wall = time.perf_counter() - t_start
+            runs = []
+            for status, t_sent, frames, done, body in results:
+                content = [t for t, f in frames if f["choices"][0]["text"]]
+                n = (frames[-1][1]["usage"]["completion_tokens"]
+                     if frames else 0)
+                if status != 200 or not done or n != OSL or len(content) < 2:
+                    fail(f"[tp] HTTP stream: {status}, [DONE] {done}, {n} of "
+                         f"{OSL} tokens: {body or frames[-2:]}")
+                runs.append((t_sent, content[0], content[-1], n))
+            stats = traffic_stats(runs, wall)
+            print(f"[tp] {card}: {N_REQUESTS} streams ISL {ISL} OSL {OSL} "
+                  f"through store + the 2-rank worker + frontend: "
+                  f"{stats_line(stats)} — a correctness run of two ranks on "
+                  f"one card over host-staged gloo, not a tensor-parallel "
+                  f"speed", flush=True)
+            got = await tp_generate(addr, "backend", prompts, OSL,
+                                    concurrent=True)
+            if [len(g) for g in got] != [OSL] * len(prompts):
+                fail("[tp] short streams from the generate endpoint")
+            partings = check_parity(want, rec, got,
+                                    "phase 3's one-rank bf16 engine",
+                                    tag="[tp]")
+            print(f"[tp] {card}: streams of the 2-rank worker vs phase 3's "
+                  f"one-rank engine on the same weights: "
+                  f"{len(prompts) - len(partings)} of {len(prompts)} "
+                  f"identical, {len(partings)} part at near-ties",
+                  flush=True)
+            worker.proc.send_signal(signal.SIGTERM)
+            rc = await loop.run_in_executor(None, worker.proc.wait, 90)
+            if rc != 0:
+                fail(f"[tp] the worker exited {rc}:\n{worker.tail()}")
+            return tp_check_ranks(worker.text(), "[tp]")
+        finally:
+            procs.shutdown(wait=True)
+
+    try:
+        return asyncio.run(run())
+    finally:
+        for c in reversed(children):
+            c.kill()
+
+
+def phase_tp_moe(card: str, served: dict) -> dict:
+    """[tp] (c): Mixtral-8x7B at full width (TP_MOE_LAYERS of 32 layers),
+    bf16, random weights from seed 0: written as an HF checkpoint (free
+    disk checked first), served one-rank in this process and by a
+    ``--mesh 1,2`` worker with the experts over tp (4 of 8 per rank,
+    ``load_hf_params_sharded`` reads each rank's experts only), both on
+    the synchronous loop, requests one at a time; the 2-rank streams must
+    meet the parity rule against the one-rank run's. Each rank's
+    ``moe_ffn`` at its own 4 experts is timed on the card (N = 16, the
+    decode window, and 512, a prefill chunk) and the two ranks' partial
+    outputs must sum to the one-rank ``moe_ffn``'s. Returns face ->
+    launches per rank."""
+    import asyncio
+    import shutil
+
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine import ModelConfig, weights
+    from dynamo_tpu_torch.engine.model import torch_dtype
+    from dynamo_tpu_torch.parallel.moe import moe_ffn
+
+    cfg = dataclasses.replace(ModelConfig.mixtral_8x7b(),
+                              num_layers=TP_MOE_LAYERS)
+    engine = InferenceEngine(cfg, EngineConfig(pipeline_depth=1),
+                             seed=SEED, device=DEV)
+    # each rank's moe_ffn: layer 0's router and its half of the experts
+    lay = engine.params["layers"]
+    w = [lay[k][0] for k in ("w_router", "w_gate", "w_up", "w_down")]
+    k, cf = cfg.num_experts_per_token, cfg.moe_capacity_factor
+    El = cfg.num_experts // TP
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    for N in (16, 512):
+        x = torch.randn(N, cfg.hidden_size, generator=gen, device=DEV,
+                        dtype=torch.float32).to(torch_dtype(cfg))
+        full = moe_ffn(x, *w, top_k=k, capacity_factor=cf).float()
+        parts, ms = [], []
+        for r in range(TP):
+            ws = [w[0]] + [t[r * El:(r + 1) * El] for t in w[1:]]
+
+            def call(ws=ws, r=r):
+                return moe_ffn(x, *ws, top_k=k, capacity_factor=cf,
+                               expert_offset=r * El)
+            parts.append(call())
+            ms.append(device_ms(call))
+        one_ms = device_ms(lambda: moe_ffn(x, *w, top_k=k,
+                                           capacity_factor=cf))
+        err = (sum(parts) - full).abs().max().item()
+        atol, rtol = TOL[cfg.dtype]
+        print(f"[tp] {card}: moe_ffn N={N} per rank (4 of 8 experts, "
+              f"expert_offset 0 / 4): rank 0 {ms[0]:.4f} ms, rank 1 "
+              f"{ms[1]:.4f} ms device, vs {one_ms:.4f} ms one-rank (all 8); "
+              f"sum of the partials vs the one-rank output max |diff| "
+              f"{err:.3e}", flush=True)
+        if not err <= atol + rtol * full.abs().max().item():
+            fail(f"[tp] moe_ffn partials disagree with the one-rank output "
+                 f"at N={N}: {err}")
+
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in weights.hf_tensors(engine.params, cfg))
+    free = shutil.disk_usage(os.path.abspath("build")).free
+    print(f"[tp] {card}: Mixtral-8x7B at {TP_MOE_LAYERS} of 32 layers: "
+          f"{nbytes / 1e9:.2f} GB of bf16 weights; free disk under build/ "
+          f"{free / 1e9:.1f} GB", flush=True)
+    if free < 1.2 * nbytes:
+        fail(f"[tp] {free / 1e9:.1f} GB free on disk, the checkpoint "
+             f"needs {nbytes / 1e9:.2f} GB")
+    shutil.rmtree(TP_MOE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    weights.save_hf_params(TP_MOE_DIR, engine.params, cfg, n_shards=4)
+    print(f"[tp] {card}: wrote the checkpoint in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = main_prompts(cfg.vocab_size)[:TP_MOE_REQUESTS]
+    want, rec, rgaps = [], {}, {}
+    for i, p in enumerate(prompts):
+        # one request at a time, as the worker will be served
+        g1 = {}
+        w1, r1 = tapped_run(engine, [p], osl=TP_MOE_OSL, router_gaps=g1)
+        want += w1
+        rec.update({(i, j): v for (_, j), v in r1.items()})
+        rgaps.update({(i, j): v for (_, j), v in g1.items()})
+    near = sum(g < ROUTER_MARGIN for g in rgaps.values())
+    print(f"[tp] {card}: one-rank Mixtral reference: {near} of "
+          f"{len(rgaps)} output rows sit at a routing near-tie (router "
+          f"logit gap at the top-k boundary under {ROUTER_MARGIN}); "
+          f"smallest gap {min(rgaps.values()):.5f}", flush=True)
+    del engine, lay, w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    env = tp_env()
+    addr = f"127.0.0.1:{_free_port()}"
+    children = []
+
+    async def run():
+        import signal
+
+        store = Child("tp_moe_store", "dynamo_tpu_torch.runtime.store",
+                      ["--host", "127.0.0.1",
+                       "--port", addr.rsplit(":", 1)[1]], env)
+        children.append(store)
+        await store.wait_for(r"store listening", 60)
+        t0 = time.perf_counter()
+        worker = tp_start("tp_moe_worker", addr, [
+            "--weights", os.path.abspath(TP_MOE_DIR),
+            "--model-name", "mixtral-tp2", "--pipeline-depth", "1",
+            "--tokenizer", os.path.abspath(served["tokenizer"])], env)
+        children.append(worker)
+        await worker.wait_for(r"registered model", 400)
+        print(f"[tp] {card}: the Mixtral --mesh 1,2 worker (experts over "
+              f"tp) up in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        got = await tp_generate(addr, "backend", prompts, TP_MOE_OSL,
+                                concurrent=False)
+        wall = time.perf_counter() - t0
+        partings = check_parity(want, rec, got,
+                                "the one-rank Mixtral engine", tag="[tp]",
+                                router_gaps=rgaps)
+        print(f"[tp] {card}: Mixtral streams, 2 ranks (experts over tp) vs "
+              f"one rank, {TP_MOE_REQUESTS} requests one at a time on the "
+              f"synchronous loop: {len(prompts) - len(partings)} of "
+              f"{len(prompts)} identical, {len(partings)} part at "
+              f"near-ties; {wall:.1f} s for "
+              f"{TP_MOE_REQUESTS * TP_MOE_OSL} tokens", flush=True)
+        worker.proc.send_signal(signal.SIGTERM)
+        loop = asyncio.get_running_loop()
+        rc = await loop.run_in_executor(None, worker.proc.wait, 90)
+        if rc != 0:
+            fail(f"[tp] the Mixtral worker exited {rc}:\n{worker.tail()}")
+        return tp_check_ranks(worker.text(), "[tp] Mixtral")
+
+    try:
+        return asyncio.run(run())
+    finally:
+        for c in reversed(children):
+            c.kill()
+        shutil.rmtree(TP_MOE_DIR, ignore_errors=True)
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -5567,7 +6040,8 @@ def launch_configs(results, case: str):
 
 
 def kernels_line(results, launches, dist_launches, spec_launches,
-                 moe_launches, slice_launches, tuned_rows=()) -> str:
+                 moe_launches, slice_launches, tp_launches,
+                 tuned_rows=()) -> str:
     """The ``kernels`` JSON line: one row per kernel build (with
     ``launch_configs``, the non-default launch parameters phase 2 held on
     that build's main-path case), plus the
@@ -5580,7 +6054,9 @@ def kernels_line(results, launches, dist_launches, spec_launches,
     (phase 12) are the autotune's winning launches, each with its
     ``launch`` parameters (the bf16 decode and prefill winners that differ
     from the defaults; their launches are those of the run served on
-    them)."""
+    them). Phase 17 adds both faces at one rank's shard shapes of tp 2,
+    head dim 64 (Llama-3.2-1B) and 128 (Mixtral-8x7B): ``tp_launches[hd]``
+    maps each face to its launches per rank in the served runs."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -5615,6 +6091,19 @@ def kernels_line(results, launches, dist_launches, spec_launches,
             "name": f"{name}@mixtral_hd128", "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": KERNELS[name][3], "launches": moe_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    for (face, hd), case in TP_CASES.items():
+        name = f"paged_attention_{face}"
+        per_rank = tp_launches[hd][name]
+        r = results[case]
+        rows.append({
+            "name": f"{name}@tp2_shard_hd{hd}", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": KERNELS[name][3], "launches": sum(per_rank),
+            "launches_per_rank": per_rank,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5707,10 +6196,14 @@ def main() -> None:
     timer("15-16 embeddings and EPD across processes")
     phase_kvmove_local(card, engine, direct)
     timer("7 kv movement in one process")
-    phase_load(card, engine, "bf16")
+    tp_ref = phase_load(card, engine, "bf16")
     timer("9 loader bf16")
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
+    tp_launches = {64: phase_tp(card, served, tp_ref)}
+    del tp_ref
+    timer("17 tensor parallel, Llama-3.2-1B")
     dist_launches = phase_dist(card, served, direct)
     timer("6 distributed")
     phase_kvmove_procs(card, served)
@@ -5742,6 +6235,8 @@ def main() -> None:
     timer("11 planner")
     moe_launches = phase_moe(card)
     timer("8 moe")
+    tp_launches[128] = phase_tp_moe(card, served)
+    timer("17 expert parallel, Mixtral-8x7B")
     faulthandler.cancel_dump_traceback_later()
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(kernels_line(results, launches, dist_launches, spec["launches"],
@@ -5749,7 +6244,7 @@ def main() -> None:
                                       "launches_replay": replay_launches,
                                       "launches_embed": embed_launches,
                                       "launches_mm": mm["launches"]},
-                       tuned_rows))
+                       tp_launches, tuned_rows))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

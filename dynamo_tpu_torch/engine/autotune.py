@@ -656,3 +656,49 @@ def autotune_attention(
         attention_tile_prefill=tiles["prefill"],
     )
     return resolved, choice
+
+
+_IMPL_CODES = ("kernel", "einsum")
+
+
+def share_choice(
+    engine_config: EngineConfig,
+    tune: Callable[[], Tuple[EngineConfig, dict]],
+    device,
+) -> Tuple[EngineConfig, dict]:
+    """``tune()`` on a one-rank engine. Under tensor parallelism rank 0
+    runs ``tune()`` and one ``broadcast`` hands its resolved per-class
+    impls and tiles to every rank, so followers launch exactly what the
+    leader launches and never time the card themselves (two ranks on one
+    card timing at once could pick differently)."""
+    from ..parallel import comm
+
+    if model_lib.tp_size(engine_config) == 1:
+        return tune()
+    if comm.rank() == 0:
+        cfg, choice = tune()
+        packed = []
+        for cls in CLASSES:
+            packed.append(_IMPL_CODES.index(
+                model_lib.resolve_attention_impl(cfg, cls)))
+            packed.extend(getattr(cfg, f"attention_tile_{cls}"))
+    else:
+        cfg, choice = engine_config, None
+        packed = [0] * (3 * len(CLASSES))
+    t = comm.broadcast(torch.tensor(packed, dtype=torch.int64,
+                                    device=torch.device(device)))
+    vals = [int(v) for v in t.cpu()]
+    fields = {}
+    for i, cls in enumerate(CLASSES):
+        impl, q_tile, second = vals[3 * i:3 * i + 3]
+        fields[f"attention_impl_{cls}"] = _IMPL_CODES[impl]
+        fields[f"attention_tile_{cls}"] = (q_tile, second)
+    cfg = dataclasses.replace(cfg, **fields)
+    if choice is None:
+        choice = {"impl": fields["attention_impl_decode"],
+                  "from_leader": True,
+                  "autotune_cache_hit": False, "probed": False,
+                  "probe_launches": 0, "sweep_launches": 0,
+                  "tiles": {cls: list(fields[f"attention_tile_{cls}"])
+                            for cls in CLASSES}}
+    return cfg, choice

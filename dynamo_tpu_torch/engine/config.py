@@ -20,10 +20,11 @@ kernel's ``(q_tile, kv_tile)``:
   default fills the card once, ``ops/paged_attention.py`` ``_decode_grid``).
 
 The engine config keeps the knobs this package serves, plus the ones that
-select a path it does not serve yet (a mesh of more than one device,
-pipeline and sequence parallelism): those stay so that
-:func:`check_supported` refuses them loudly at engine construction instead
-of ignoring them.
+select a path it does not serve yet (a data-parallel or 3-D mesh, pipeline
+and sequence parallelism): those stay so that :func:`check_supported`
+refuses them loudly at engine construction instead of ignoring them. A
+``(1, tp)`` mesh is served: one engine per rank of a ``torch.distributed``
+world (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -66,6 +67,13 @@ class ModelConfig:
     @staticmethod
     def llama3_8b() -> "ModelConfig":
         return ModelConfig()
+
+    @staticmethod
+    def llama3_70b() -> "ModelConfig":
+        return ModelConfig(
+            hidden_size=8192, intermediate_size=28672, num_layers=80,
+            num_heads=64, num_kv_heads=8,
+        )
 
     @staticmethod
     def llama3_1b() -> "ModelConfig":
@@ -128,7 +136,8 @@ class EngineConfig:
     decode_buckets: Tuple[int, ...] = (8, 16, 32, 64)
     # prefill chunk lengths likewise bucketed (powers of two)
     prefill_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512)
-    # (dp, tp) or (dp, fsdp, tp) mesh axis sizes; only one device is served
+    # (dp, tp) or (dp, fsdp, tp) mesh axis sizes; (1, tp) is served, one
+    # rank per process (parallel/multihost.py)
     mesh_shape: Tuple[int, ...] = (1, 1)
     # attention implementation: "kernel" runs the paged-attention kernel
     # (ops/paged_attention.py: CUDA on a card, its plain version on the
@@ -299,12 +308,13 @@ class EngineConfig:
 
 def check_supported(eng: EngineConfig) -> None:
     """Refuse, at engine construction, every path this package does not
-    serve yet (each is still served by the JAX package)."""
-    mesh_devices = 1
-    for n in eng.mesh_shape:
-        mesh_devices *= n
+    serve yet (each is still served by the JAX package): a mesh other than
+    ``(1, tp)``, pipeline and sequence parallelism (ROADMAP.md queue A,
+    item 6, later part)."""
+    from ..parallel.layout import check_mesh_shape
+
+    check_mesh_shape(eng.mesh_shape)
     unsupported = [
-        (mesh_devices > 1, f"mesh_shape={eng.mesh_shape!r}"),
         (eng.pp_stages > 1, f"pp_stages={eng.pp_stages}"),
         (eng.sp_prefill_threshold > 0,
          f"sp_prefill_threshold={eng.sp_prefill_threshold}"),
@@ -312,5 +322,6 @@ def check_supported(eng: EngineConfig) -> None:
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(
-                f"{what} is not served by dynamo_tpu_torch yet"
+                f"{what} is not served by dynamo_tpu_torch yet: it needs "
+                "ROADMAP.md queue A, item 6 (later part)"
             )

@@ -41,6 +41,16 @@ requests whose ``mm_*`` fields splice an encode worker's embeddings over
 placeholder rows in the prefill chunks that hold them (an image may span
 two chunks), with KV block hashes chained over the content-addressed
 ``mm_hash_token_ids``.
+
+Tensor and expert parallelism (``mesh_shape=(1, tp)``, one engine per rank,
+``parallel/multihost.py``): each rank's engine holds its shard of the
+params and cache; the leader's engine schedules and hands every device
+call's host arrays to ``step_sink`` *before* launching it (the JAX emission
+sites), and the followers' engines replay them (``replay_plan``). Attention
+choices and launch parameters come from the leader (autotune runs on rank 0
+and is broadcast), decode windows run eager (no CUDA graphs under tp > 1),
+and KV movement, the KVBM tiers, preemption evacuation, ``embed`` and
+multimodal requests are refused by name, as in the JAX multi-host worker.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from ..parallel.layout import check_divisible, make_mesh
 from ..observability import compilewatch
 from ..observability import flops as obs_flops
 from ..observability import profiling
@@ -277,6 +288,8 @@ class EngineCore(AsyncEngine):
         self._kv_reservations: Dict[str, int] = {}
         self.kvbm = None  # multi-tier block manager (attach_kvbm)
         self.prefix = None  # radix prefix cache (attach_prefix_cache)
+        # tensor-parallel degree (InferenceEngine sets it from mesh_shape)
+        self.tp = 1
         # run-ahead depth: how many scheduled windows may be in flight
         # before the loop waits for a landing. 1 = classic synchronous
         # schedule→execute→postprocess; InferenceEngine takes the config's.
@@ -396,7 +409,10 @@ class EngineCore(AsyncEngine):
             )
         if request.mm_positions:
             # admission-time rejection fails only THIS request; a raise in
-            # the step would abort every co-scheduled request
+            # the step would abort every co-scheduled request (and, under
+            # tensor parallelism, after parts of the batch reached the
+            # followers)
+            self.refuse_under_tp("multimodal prefill")
             model_cfg = getattr(self, "model_config", None)
             if (model_cfg is not None and request.mm_embeddings is not None
                     and np.asarray(request.mm_embeddings).shape[-1]
@@ -1149,10 +1165,20 @@ class EngineCore(AsyncEngine):
     # (runtime.preemption drives these: park a decoding seat, wait for its
     #  inflight windows to land, stream its KV to a peer, finish it here)
 
+    def refuse_under_tp(self, what: str) -> None:
+        """Raise, by name, for a path a tensor-parallel engine does not
+        serve (the scope of the JAX multi-host worker)."""
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"{what} on a tensor-parallel engine (tp={self.tp}) needs "
+                "multi-device serving, ROADMAP.md queue A, item 6 (later "
+                "part)")
+
     def evacuable_seats(self) -> List[SchedSeq]:
         """Decoding seats whose KV is worth moving (prefill complete).
         PREFILL/WAITING seats are cheaper to re-prefill at the destination
         than to stream mid-build."""
+        self.refuse_under_tp("preemption evacuation")
         return [s for s in self.scheduler.running
                 if s.status is SeqStatus.RUNNING and s.prefill_done]
 
@@ -1298,6 +1324,12 @@ class InferenceEngine(EngineCore):
 
     ``device`` defaults to ``cuda``; with no GPU present and no device
     given, construction raises (pass ``device="cpu"`` to run on the CPU).
+
+    With ``mesh_shape=(1, tp)`` the engine is one rank of a tensor-parallel
+    world (``parallel/comm.py`` initialised first): ``params`` may be the
+    full tree (each rank keeps its slice; ``None`` builds the full tree
+    from ``seed`` on every rank, so the weights equal the one-rank
+    engine's) or this rank's shard (``weights.load_hf_params_sharded``).
     """
 
     def __init__(
@@ -1310,22 +1342,35 @@ class InferenceEngine(EngineCore):
     ):
         check_supported(engine_config)
         self.device = resolve_device(device)
+        tp = model_lib.tp_size(engine_config)
+        check_divisible(model_config, tp)
+        # this rank's coordinates and process group (one rank: no group)
+        self.mesh = make_mesh(engine_config.mesh_shape)
         # attention autotune, BEFORE any step function is built or graph
         # captured: the impl probe (attention_impl="auto" times the kernel
         # against einsum per shape class on the card) plus each class's
         # launch parameters: explicit config > persisted cache
-        # (DYNTPU_AUTOTUNE_CACHE) > the sweep on the card > the defaults
-        from .autotune import autotune_attention
-        engine_config, self.attention_impl_choice = autotune_attention(
-            model_config, engine_config, self.device)
+        # (DYNTPU_AUTOTUNE_CACHE) > the sweep on the card > the defaults.
+        # Under tp > 1 rank 0 tunes at the shard's head counts and the
+        # others take its choice (two ranks timing one card at once could
+        # choose differently)
+        from .autotune import autotune_attention, share_choice
+        engine_config, self.attention_impl_choice = share_choice(
+            engine_config, lambda: autotune_attention(
+                model_lib.shard_model_config(model_config, tp),
+                engine_config, self.device), self.device)
         super().__init__(engine_config)
+        self.tp = tp
         self.model_config = model_config
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = model_lib.init_params(gen, model_config)
-        # quantize at init; a tree quantized beforehand passes unchanged
-        self.params = quant.quantize_params(params,
-                                            engine_config.weight_dtype)
+        # quantize at init (a tree quantized beforehand passes unchanged),
+        # then keep this rank's slice (a sharded tree passes unchanged)
+        self.params = model_lib.shard_params(
+            quant.quantize_params(params, engine_config.weight_dtype),
+            model_config, engine_config)
+        del params          # on a rank of a world: the full tree
         self.cache = model_lib.init_cache(model_config, engine_config,
                                           self.device)
         # packed prefill + autopilot decode windows running on
@@ -1356,12 +1401,29 @@ class InferenceEngine(EngineCore):
             self.device, seed=seed + 2, hist_cap=self._spec_hist_cap,
         )
         self._packed_prefill_fns: Dict[Tuple[int, int, bool], Any] = {}
+        # the unified step, built by the first "p"/"d" plan a follower
+        # replays (parallel/multihost.py)
+        self._step_fn = None
         # the encode-only step of embed()
         self._encode_fn = model_lib.make_encode_fn(model_config)
         # KV block gather/scatter (disagg, KVBM, prefix onboarding,
         # evacuation); the scatter writes self.cache in place
         self._kv_extract, self._kv_inject = model_lib.make_kv_ops(
             engine_config)
+        # tensor parallelism: the leader's plan sink (parallel/multihost.py
+        # StepBroadcaster.sink), called on the device-step thread BEFORE
+        # each launch — a gloo all_reduce blocks the host, so a leader
+        # that launched first would wait in the collective for a follower
+        # still waiting for the plan; and the plans a follower replayed,
+        # per kind
+        self.step_sink: Optional[Callable[[str, Dict[str, np.ndarray]],
+                                          None]] = None
+        self.num_replayed: Dict[str, int] = {}
+        if tp > 1:
+            log.info("tp=%d rank %d: decode windows run eager (no CUDA "
+                     "graphs under tensor parallelism); KV movement, KVBM, "
+                     "evacuation, embed and mm are refused", tp,
+                     self.mesh.coords["tp"])
         # dispatch counters
         self.num_windows = 0
         self.num_prefill_dispatches = 0
@@ -1384,7 +1446,8 @@ class InferenceEngine(EngineCore):
         if env_flag("DYNTPU_OBS_ENABLED", True):
             self.obs = StepStats(
                 FlopsModel(model_config),
-                n_chips=1,
+                # MFU per card: the whole model's flops over the world
+                n_chips=tp,
                 peak_flops=obs_flops.peak_flops(
                     (torch.cuda.get_device_name(self.device)
                      if self.device.type == "cuda" else ""),
@@ -1523,6 +1586,7 @@ class InferenceEngine(EngineCore):
         is padded to a power of two (pads gather the trash block) and the
         pad is sliced off. On a card the copy lands in pinned memory and
         this waits on its CUDA event off the device-step thread."""
+        self.refuse_under_tp("KV block extract")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
 
@@ -1554,6 +1618,7 @@ class InferenceEngine(EngineCore):
         With ``seq_id``/``epoch`` the reservation is re-validated *inside*
         the device-step callable — immediately before the write — so a
         reservation recycled mid-flight is rejected, never scattered."""
+        self.refuse_under_tp("KV block inject")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
         m = padded.shape[0]
@@ -1587,6 +1652,7 @@ class InferenceEngine(EngineCore):
     def attach_kvbm(self, config=None, remote=None):
         """Enable the multi-tier block manager on this engine (optionally
         with a G4 remote tier)."""
+        self.refuse_under_tp("the KVBM tiers")
         from ..kvbm.manager import KvbmConfig, KvbmManager
 
         self.kvbm = KvbmManager(self, config or KvbmConfig(), remote=remote)
@@ -1602,6 +1668,7 @@ class InferenceEngine(EngineCore):
         on the same stream. Inputs are grouped by power-of-two (B, T)
         buckets, as the JAX engine groups them for its programs: one
         batched forward and one device→host copy per group."""
+        self.refuse_under_tp("embed (/v1/embeddings)")
         loop = asyncio.get_running_loop()
 
         for ids in token_ids_batch:
@@ -1973,11 +2040,7 @@ class InferenceEngine(EngineCore):
             ))
         mm_rows = self._mm_chunk_rows(chunk)
         mm = bool(mm_rows)
-        fn = self._packed_prefill_fns.get((T, W, mm))
-        if fn is None:
-            fn = model_lib.raw_packed_prefill_fn(
-                self.model_config, cfg, T, W, mm=mm)
-            self._packed_prefill_fns[(T, W, mm)] = fn
+        fn = self._prefill_fn(T, W, mm)
         slot = seq.slot if seq.slot >= 0 else cfg.max_num_seqs
         M = T + W + model_lib.PP_SCALARS
         pint = np.zeros((1, M + (T if mm else 0)), np.int32)
@@ -2001,15 +2064,28 @@ class InferenceEngine(EngineCore):
                 pint[0, M + row] = 1
             self.num_mm_prefills += 1
             extra = (self._upload(mm_embeds),)
+        stochastic = seq.temperature > 0.0
+        if self.step_sink is not None:
+            self.step_sink("pp", {"pint": pint,
+                                  "tw": np.array([T, W], np.int32),
+                                  "st": np.array([stochastic], np.int32)})
         # the prefill posts its sample into ctl["last_tok"] in place; the
         # cache and ctl it returns are the same objects (the decode graphs
         # read them at their captured addresses)
         self.cache, _, sampled = fn(
             self.params, self.cache, self._ctl["last_tok"],
-            self._upload(pint), self._next_key(), seq.temperature > 0.0,
-            *extra,
+            self._upload(pint), self._next_key(), stochastic, *extra,
         )
         return sampled
+
+    def _prefill_fn(self, T: int, W: int, mm: bool):
+        """The packed prefill of a (T, W[, mm]) chunk shape, built once."""
+        fn = self._packed_prefill_fns.get((T, W, mm))
+        if fn is None:
+            fn = model_lib.raw_packed_prefill_fn(
+                self.model_config, self.config, T, W, mm=mm)
+            self._packed_prefill_fns[(T, W, mm)] = fn
+        return fn
 
     def _mm_chunk_rows(self, chunk: PrefillChunk):
         """(chunk-relative row, embedding index) of multimodal placeholder
@@ -2048,6 +2124,8 @@ class InferenceEngine(EngineCore):
             di[i, 6:6 + len(table)] = table
             df[i, 0] = d["temp"]
             df[i, 1] = d["tp"]
+        if self.step_sink is not None:
+            self.step_sink("ctl", {"di": di, "df": df})
         self._ctl = self._ap_delta_fn(self._ctl, self._upload(di),
                                       self._upload(df))
 
@@ -2116,6 +2194,8 @@ class InferenceEngine(EngineCore):
         if (self._ap_rows_dev is None or len(self._ap_cols) != B
                 or live != set(needed)):
             cols = needed + [cfg.max_num_seqs] * (B - len(needed))
+            if self.step_sink is not None:
+                self.step_sink("cols", {"rows": np.asarray(cols, np.int32)})
             self._ap_cols = cols
             self._ap_rows_dev = self._ap_window_fn.load_rows(cols)
         self.num_windows += 1
@@ -2131,6 +2211,9 @@ class InferenceEngine(EngineCore):
                 context_sum=ctx,
             ))
         stochastic = any(r.seq.temperature > 0.0 for r in rows)
+        if self.step_sink is not None:
+            self.step_sink("sw" if spec else "w",
+                           {"st": np.array([stochastic], np.int32)})
         self.cache, self._ctl, samples = self._ap_window_fn(
             self.params, self.cache, self._ctl, self._ap_rows_dev,
             stochastic, spec=spec,
@@ -2156,5 +2239,7 @@ class InferenceEngine(EngineCore):
             toks = r.seq.all_tokens()[:min(r.base + 1, Hcap)]
             slots[i] = r.slot
             hrows[i, :len(toks)] = toks
+        if self.step_sink is not None:
+            self.step_sink("sph", {"slots": slots, "hist": hrows})
         self._ctl = self._spec_hist_fill_fn(
             self._ctl, self._upload(slots), self._upload(hrows))

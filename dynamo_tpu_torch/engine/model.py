@@ -46,12 +46,27 @@ buffers:
   packed prefill's ``mm`` variant uploads them), and ``encode_forward`` is
   the encode-only step of ``/v1/embeddings`` (dense causal attention over
   the chunk through the plain ``_attention``, mean-pooled, L2-normalised).
+- **Tensor and expert parallelism** (``eng.mesh_shape == (1, tp)``, one
+  rank per process, ``parallel/``): each rank holds its slice of the tree
+  (:func:`shard_params`, the ``SpecLayout`` table) and its KV heads of the
+  cache, and ``forward`` is the Megatron form of that layout —
+  ``wq``/``wk``/``wv``/``w_gate``/``w_up`` column-sharded and local, ``wo``
+  and dense ``w_down`` row-sharded with one ``all_reduce`` (of the f32
+  partial products) after each, experts over ``ep`` with one
+  ``all_reduce`` after the MoE FFN, and a vocab-sharded embedding lookup
+  and head, each ending in one ``all_reduce`` (rows and logit columns a
+  rank does not hold are zeros there, so those two sums are exact). Every
+  rank then holds the same hidden states and full logits and samples the
+  same tokens. Both kernel faces run unchanged at ``H/tp`` query heads and
+  ``KV/tp`` KV heads. ``encode_forward``, the multimodal splice and the KV
+  block ops are single-rank (the engine refuses them under ``tp > 1``).
 
 Nothing here synchronises with the host except where a docstring says so.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import math
 import time
@@ -66,6 +81,8 @@ from ..ops import paged_attention as pa
 from ..ops.paged_attention import (
     paged_attention_decode, paged_attention_ragged,
 )
+from ..parallel import comm
+from ..parallel.layout import SpecLayout, make_mesh, map_specs, shard_tensor
 from ..parallel.moe import moe_ffn
 from . import quant
 from .config import EngineConfig, ModelConfig
@@ -78,6 +95,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def tp_size(eng: EngineConfig) -> int:
+    """The tensor-parallel degree of the engine's ``(dp, tp)`` mesh."""
+    return int(eng.mesh_shape[-1])
 
 
 # ------------------------------ init ------------------------------------
@@ -152,7 +174,9 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig,
     ``"ks"``/``"vs"``; the trash block's zero scales dequantize to zeros."""
     quantized = quant.is_quantized(eng.kv_dtype)
     dt = quant.storage_dtype(eng.kv_dtype) if quantized else torch_dtype(cfg)
-    shape = (eng.num_blocks, cfg.num_kv_heads, eng.block_size, cfg.head_dim_)
+    # under tensor parallelism each rank holds its KV heads (cache_block)
+    shape = (eng.num_blocks, cfg.num_kv_heads // tp_size(eng),
+             eng.block_size, cfg.head_dim_)
     planes = {"k": (shape, dt), "v": (shape, dt)}
     if quantized:
         planes.update(ks=(shape[:-1], torch.float32),
@@ -162,6 +186,40 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig,
               for _ in range(cfg.num_layers)]
         for key, (shp, t) in planes.items()
     }
+
+
+# ---------------------------- shardings ----------------------------------
+
+
+def shard_model_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The attention shapes one rank of a ``tp``-way mesh runs: its query
+    and KV head counts (what autotune times the kernel at)."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                               num_kv_heads=cfg.num_kv_heads // tp)
+
+
+def param_specs(cfg: ModelConfig, eng: EngineConfig) -> Dict[str, Any]:
+    """The canonical per-leaf spec table of the engine's mesh
+    (``parallel/layout.py`` ``SpecLayout``), quantized leaves mirrored."""
+    return SpecLayout.for_mesh(eng.mesh_shape).param_specs(
+        cfg, eng.weight_dtype)
+
+
+def shard_params(params: Params, cfg: ModelConfig,
+                 eng: EngineConfig) -> Params:
+    """This rank's slice of every leaf of a full tree (the counterpart of
+    the JAX ``shard_params``' ``device_put``); the full leaves can be freed
+    as soon as the caller drops the tree. A tree already sharded (its
+    embedding holds ``V / tp`` rows, as ``weights.load_hf_params_sharded``
+    gives it) is kept, and so is any tree of a one-rank mesh."""
+    tp = tp_size(eng)
+    if tp == 1 or params["embed"].shape[0] != cfg.vocab_size:
+        return params
+    mesh = make_mesh(eng.mesh_shape)
+    return map_specs(lambda t, sp: shard_tensor(t, sp, mesh), params,
+                     param_specs(cfg, eng))
 
 
 # ----------------------------- modules -----------------------------------
@@ -215,6 +273,34 @@ def _mm(x: torch.Tensor, w: Any) -> torch.Tensor:
         y = x @ w["q"].to(x.dtype)
         return (y.float() * w["s"][0]).to(x.dtype)
     return x @ w
+
+
+def _row_mm(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """A row-parallel matmul (``wo``, dense ``w_down``) under tensor
+    parallelism: this rank's partial product over its rows of ``w``, in
+    f32, summed over the ranks by one ``all_reduce``, then cast to x's
+    dtype once (as the one-rank ``_mm`` casts its f32-accumulated
+    product)."""
+    if isinstance(w, dict):
+        y = (x @ w["q"].to(x.dtype)).float() * w["s"][0]
+    else:
+        y = _head_mm(x, w)
+    return comm.all_reduce(y).to(x.dtype)
+
+
+def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Token embeddings from a (possibly vocab-sharded) table: a rank
+    holding rows ``[lo, lo + rows)`` of the vocabulary looks up the tokens
+    in its range, writes zeros for the rest, and one ``all_reduce`` sums
+    the ranks' rows — exact, as each element has one nonzero term."""
+    rows = embed.shape[0]
+    if rows == vocab_size:
+        return embed[tokens.long()]
+    local = tokens.long() - comm.rank() * rows
+    inside = (local >= 0) & (local < rows)
+    h = embed[torch.where(inside, local, 0)]
+    return comm.all_reduce(torch.where(inside[..., None], h, 0.0))
 
 
 def _layer_slice(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
@@ -350,12 +436,13 @@ def forward(
     W = block_tables.shape[1]
     bs = eng.block_size
     hd = cfg.head_dim_
-    H, KV = cfg.num_heads, cfg.num_kv_heads
+    tp = tp_size(eng)
+    H, KV = cfg.num_heads // tp, cfg.num_kv_heads // tp   # this rank's heads
     dev = tokens.device
     positions = positions.long()
     block_tables = block_tables.to(torch.int32).contiguous()
 
-    h = params["embed"][tokens.long()]                    # [B, T, D]
+    h = _embed_lookup(params["embed"], tokens, cfg.vocab_size)  # [B, T, D]
     if mm_embeds is not None:
         # multimodal EPD: placeholder positions take the encode worker's
         # precomputed embeddings instead of token embeddings (ref: the
@@ -450,12 +537,15 @@ def forward(
                 k_all = quant.kv_dequantize(k_all, ks_all, q.dtype)
                 v_all = quant.kv_dequantize(v_all, vs_all, q.dtype)
             attn = _attention(q, k_all, v_all, positions)
-        h = h + _mm(attn.reshape(B, T, H * hd), p["wo"])
+        attn = attn.reshape(B, T, H * hd)
+        h = h + (_mm(attn, p["wo"]) if tp == 1 else _row_mm(attn, p["wo"]))
 
         x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
         if cfg.is_moe:
             # every row of the chunk is routed, padding included, in the
-            # reference's order: capacity slots go to rows in [B*T] order
+            # reference's order: capacity slots go to rows in [B*T] order.
+            # Under tp each rank runs its experts (ep rides tp) and one
+            # all_reduce sums their f32 partial outputs
             D = x.shape[-1]
             out = moe_ffn(
                 x.reshape(B * T, D),
@@ -465,12 +555,18 @@ def forward(
                 _dequant_leaf(p["w_down"], x.dtype),
                 top_k=cfg.num_experts_per_token,
                 capacity_factor=cfg.moe_capacity_factor,
+                expert_offset=None if tp == 1 else comm.rank() * (
+                    cfg.num_experts // tp),
             )
+            if tp > 1:
+                out = comm.all_reduce(out).to(x.dtype)
             h = h + out.reshape(B, T, D)
         else:
             gate = F.silu(_mm(x, p["w_gate"]).float())
             up = _mm(x, p["w_up"]).float()
-            h = h + _mm((gate * up).to(h.dtype), p["w_down"])
+            act = (gate * up).to(h.dtype)
+            h = h + (_mm(act, p["w_down"]) if tp == 1
+                     else _row_mm(act, p["w_down"]))
 
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return cache, h
@@ -482,12 +578,26 @@ def logits_fn(cfg: ModelConfig, params: Params,
     bf16 with an f32 result (casting the [D, V] head to f32 would write
     ~1 GB per step for a 1B model). A quantized untied head multiplies by
     its 1-byte weight cast to h's dtype, then by its per-column f32
-    scale."""
+    scale.
+
+    A vocab-sharded head (tensor parallelism: fewer columns than the
+    vocabulary) writes this rank's columns into zeroed full logits and one
+    ``all_reduce`` fills in the others' — exact, so every rank samples the
+    same tokens from the same logits."""
     head = (params["embed"].T if cfg.tie_word_embeddings
             else params["lm_head"])
     if isinstance(head, dict):
-        return _head_mm(h, head["q"].to(h.dtype)) * head["s"][0]
-    return _head_mm(h, head)
+        y = _head_mm(h, head["q"].to(h.dtype)) * head["s"][0]
+    else:
+        y = _head_mm(h, head)
+    cols = y.shape[-1]
+    if cols == cfg.vocab_size:
+        return y
+    full = torch.zeros(y.shape[:-1] + (cfg.vocab_size,), dtype=y.dtype,
+                       device=y.device)
+    lo = comm.rank() * cols
+    full[..., lo:lo + cols] = y
+    return comm.all_reduce(full)
 
 
 def _head_mm(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -1102,7 +1212,10 @@ class AutopilotWindow:
             raw_spec_window_fn(cfg, eng, spec_k, eng.spec_ngram_min,
                                eng.spec_ngram_max) if spec_k > 0 else None)
         self.device = device
-        self.graphed = device.type == "cuda"
+        # under tensor parallelism the window runs eager: a gloo
+        # collective cannot be captured, and capture with NCCL inside
+        # waits for a machine with two cards to be tested on
+        self.graphed = device.type == "cuda" and tp_size(eng) == 1
         self.trash = eng.max_num_seqs       # ctl's trash slot S
         self._graphs: Dict[Tuple[str, int, bool],
                            Tuple[Any, torch.Tensor, Dict[str, int]]] = {}

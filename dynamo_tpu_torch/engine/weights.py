@@ -14,8 +14,10 @@ there, quantized there when ``weight_dtype`` asks for it (per-output-channel
 scales over axis -2, the bytes of the JAX loader's ``quant.quantize_np``),
 and written into its slot; its file pages are then dropped. Host memory
 holds about one tensor at a time, never a stacked leaf.
-``load_hf_params_sharded`` waits for multi-device serving (ROADMAP.md queue
-A, item 6), the orbax checkpoints for item 7d.
+:func:`load_hf_params_sharded` does the same for one rank of a tensor-
+parallel mesh: it reads only the rank's slice of each tensor (its experts
+only, for MoE stacks) into leaves of the shard's shape. The orbax
+checkpoints wait for ROADMAP.md queue A, item 7d.
 
 :func:`params_from_numpy` turns the JAX package's parameter tree
 (``dynamo_tpu.engine.model.init_params``), converted leaf by leaf to numpy,
@@ -39,6 +41,9 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.layout import (
+    Mesh, SpecLayout, shard_range, shard_shape, shard_tensor,
+)
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 from . import quant
@@ -156,6 +161,30 @@ def load_hf_params(path, cfg: ModelConfig, weight_dtype: str = "bf16",
     tensor is quantized as it arrives, so the leaves hold the 1-byte
     payload plus float32 scales and no full-precision copy of a quantized
     leaf ever exists."""
+    return _load(path, cfg, weight_dtype, device, None)
+
+
+def load_hf_params_sharded(path, cfg: ModelConfig, mesh: Mesh,
+                           weight_dtype: str = "bf16", device=None) -> Params:
+    """This rank's shard of an HF checkpoint: every leaf at its shard shape
+    on the ``(1, tp)`` ``mesh`` (``parallel/layout.py``), bitwise equal to
+    slicing what :func:`load_hf_params` loads.
+
+    Only the rank's part of each tensor is read from the mapping: a
+    contiguous row range of a column-sharded HF ``[out, in]`` tensor (and
+    of the vocab-sharded embedding and head), a strided column range of a
+    row-sharded one, the rank's experts of an MoE stack (the others are
+    never read), the whole of a replicated one. A quantized row-sharded
+    leaf (``wo``, dense ``w_down``) is the exception: its per-output-
+    channel scale is an amax over the contraction axis, which the ranks
+    split, so the whole tensor is staged, quantized, then sliced — as the
+    JAX loader quantizes after staging. Peak host staging stays one
+    tensor (``last_load_stats["peak_staging_bytes"]``)."""
+    return _load(path, cfg, weight_dtype, device, mesh)
+
+
+def _load(path, cfg: ModelConfig, weight_dtype: str, device,
+          mesh: Optional[Mesh]) -> Params:
     t0 = time.perf_counter()
     path = Path(path)
     files = sorted(path.glob("*.safetensors"))
@@ -164,8 +193,13 @@ def load_hf_params(path, cfg: ModelConfig, weight_dtype: str = "bf16",
     device = resolve_device(device)
     dt = torch_dtype(cfg)
     quantized = quant.is_quantized(weight_dtype)
+    if mesh is None:
+        mesh = Mesh({"dp": 1, "tp": 1}, {"dp": 0, "tp": 0})
+    lay = SpecLayout.for_mesh((mesh.shape["dp"], mesh.shape["tp"]))
+    specs = lay.param_specs(cfg)        # weight specs (quantized or not)
 
     def _buf(name: str, shape: tuple):
+        shape = shard_shape(shape, specs["layers"][name], mesh)
         if quantized and quant.is_weight_leaf(name):
             return {"q": torch.zeros(shape, device=device,
                                      dtype=quant.storage_dtype(weight_dtype)),
@@ -177,6 +211,7 @@ def load_hf_params(path, cfg: ModelConfig, weight_dtype: str = "bf16",
     top: Dict[str, Any] = {}
     seen = set()
     nbytes = 0
+    staged = 0
     rss = [_rss_bytes()]   # before, then after each tensor
 
     for f in files:
@@ -186,14 +221,37 @@ def load_hf_params(path, cfg: ModelConfig, weight_dtype: str = "bf16",
                 if dest is None:
                     continue
                 leaf, i, e, transpose = dest
-                t = sf.get_tensor(name).to(device, copy=True)
-                nbytes += sf.nbytes(name)
+                # the spec of this one tensor in our [in, out] layout (the
+                # stacked leaf's without its L / (L, E) dims)
+                sp = specs[leaf] if i is None else specs["layers"][leaf]
+                if e is not None:
+                    lo, hi = shard_range(cfg.num_experts, sp[1], mesh)
+                    if not lo <= e < hi:
+                        continue        # another rank's expert
+                    e -= lo
+                sp = sp[-2:] if i is not None else sp
+                whole = (quantized and quant.is_weight_leaf(leaf)
+                         and sp[-2] is not None)
+                t = sf.get_tensor(name)
+                if not whole:
+                    hf_sp = sp[::-1] if transpose else sp
+                    t = t[tuple(slice(*shard_range(n, ax, mesh))
+                                for n, ax in zip(t.shape, hf_sp))]
+                n = t.numel() * t.element_size()
+                staged = max(staged, n)
+                t = t.to(device, copy=True)
+                nbytes += n
                 sf.release(name)
                 if transpose:
                     t = t.T
                 slot = (i,) if e is None else (i, e)
                 if quantized and quant.is_weight_leaf(leaf):
                     qd = quant.quantize(t, weight_dtype)
+                    if whole:
+                        qd = {"q": shard_tensor(qd["q"], sp, mesh),
+                              "s": shard_tensor(qd["s"],
+                                                SpecLayout.scale_spec(sp),
+                                                mesh)}
                     if i is None:
                         top[leaf] = {k: v.contiguous() for k, v in qd.items()}
                     else:
@@ -221,10 +279,12 @@ def load_hf_params(path, cfg: ModelConfig, weight_dtype: str = "bf16",
     last_load_stats.update(
         n_tensors=len(seen), n_files=len(files), bytes=nbytes, seconds=secs,
         gb_s=nbytes / max(secs, 1e-9) / 1e9, rss_before_bytes=rss[0],
-        peak_rss_bytes=peak)
+        peak_rss_bytes=peak, peak_staging_bytes=staged,
+        shard=(mesh.coords["tp"], mesh.shape["tp"]))
     log.info("loaded %d tensors (%.3f GB) from %s (%d files, "
-             "weight_dtype=%s) onto %s in %.2f s: %.2f GB/s, peak host RSS "
-             "%s", len(seen), nbytes / 1e9, path, len(files), weight_dtype,
+             "weight_dtype=%s, shard %d/%d) onto %s in %.2f s: %.2f GB/s, "
+             "peak host RSS %s", len(seen), nbytes / 1e9, path, len(files),
+             weight_dtype, mesh.coords["tp"], mesh.shape["tp"],
              device, secs, last_load_stats["gb_s"],
              "not measured" if peak is None else
              f"{peak / 2**30:.2f} GiB ({rss[0] / 2**30:.2f} GiB before)")

@@ -1,3 +1,6 @@
-"""Parallel building blocks of the port. One device so far: the MoE FFN
-(``moe.py``); tensor, sequence, pipeline and expert-parallel sharding
-stay with ROADMAP.md queue A, item 6."""
+"""Parallel building blocks of the port: the sharding layout
+(``layout.py``), the collectives (``comm.py``), the MoE FFN with expert
+parallelism (``moe.py``) and multi-controller serving over
+``torch.distributed`` (``multihost.py``: the leader schedules, followers
+replay its step plans). Sequence- and pipeline-parallel serving stay with
+ROADMAP.md queue A, item 6 (later part)."""

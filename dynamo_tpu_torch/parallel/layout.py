@@ -1,0 +1,309 @@
+"""Canonical sharding layout: the one place axis names, meshes and
+per-leaf partition specs come from.
+
+Port of ``dynamo_tpu.parallel.layout``. The JAX package is single-program:
+GSPMD reads a ``PartitionSpec`` per leaf and partitions one program over a
+``Mesh``. Here each rank is a process (``torch.distributed``), so a spec is
+read twice: once to slice the rank's part of a full tensor
+(:func:`shard_tensor`), and once by the model, whose ``forward`` is written
+for the slices (column-sharded projections local, one ``all_reduce`` after
+each row-sharded one; ``engine/model.py``). A spec is a tuple with one entry
+per dim: ``None`` (replicated along that dim) or an axis name, the same
+entries as the JAX ``PartitionSpec`` of the same leaf.
+
+The serving mesh is ``(dp, tp)``. This slice serves ``dp == 1`` (data
+parallelism only matters with sequence-parallel prefill) and no ``fsdp``
+axis; :meth:`SpecLayout.for_mesh` and :func:`check_divisible` refuse the
+rest by name. ``ep`` falls back to ``tp`` as in the JAX layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+AXIS_DP = "dp"
+AXIS_TP = "tp"
+AXIS_SP = "sp"
+AXIS_EP = "ep"
+AXIS_PP = "pp"
+AXIS_FSDP = "fsdp"
+
+ALL_AXES: Tuple[str, ...] = (
+    AXIS_DP, AXIS_TP, AXIS_SP, AXIS_EP, AXIS_PP, AXIS_FSDP,
+)
+
+Spec = Tuple[Optional[str], ...]
+
+ITEM6 = "multi-device serving (ROADMAP.md queue A, item 6)"
+
+
+def spec(*entries: Optional[str]) -> Spec:
+    """The one validated spec constructor (entries: None or an axis)."""
+    for e in entries:
+        if e is not None and e not in ALL_AXES:
+            raise ValueError(f"unknown mesh axis {e!r}; canonical axes: "
+                             f"{ALL_AXES}")
+    return tuple(entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place on the serving mesh: the axis sizes, its
+    coordinate on each axis, and the process group its collectives run
+    over (``None`` for a one-rank mesh)."""
+
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    group: Any = None
+
+
+def check_mesh_shape(shape: Sequence[int]) -> Tuple[int, int]:
+    """``(dp, tp)`` of a served mesh shape; every other shape is refused
+    by name."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 3:
+        raise NotImplementedError(
+            f"a 3-D (dp, fsdp, tp) mesh {shape} needs {ITEM6}, later part: "
+            "dynamo_tpu_torch serves (1, tp)")
+    if len(shape) != 2:
+        raise ValueError(f"mesh shape must be (dp, tp), got {shape}")
+    dp, tp = shape
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {shape}")
+    if dp > 1:
+        raise NotImplementedError(
+            f"dp={dp} (mesh {shape}) needs sequence-parallel prefill, "
+            f"{ITEM6}, later part: dynamo_tpu_torch serves (1, tp)")
+    return dp, tp
+
+
+def make_mesh(shape: Sequence[int]) -> Mesh:
+    """The rank's coordinates on the ``(dp, tp)`` serving mesh and its
+    process group (``parallel/comm.py``). A ``(1, 1)`` mesh needs no
+    process group; a larger one needs ``comm`` initialised with
+    ``world_size == dp * tp``."""
+    from . import comm
+
+    dp, tp = check_mesh_shape(shape)
+    if tp == 1:
+        return Mesh({AXIS_DP: 1, AXIS_TP: 1}, {AXIS_DP: 0, AXIS_TP: 0})
+    if comm.world_size() != dp * tp:
+        raise RuntimeError(
+            f"mesh {tuple(shape)} needs a world of {dp * tp} ranks; "
+            f"torch.distributed has {comm.world_size()} (call "
+            "parallel.multihost.initialize_distributed first)")
+    return Mesh({AXIS_DP: dp, AXIS_TP: tp},
+                {AXIS_DP: 0, AXIS_TP: comm.rank()}, comm.group())
+
+
+def check_divisible(cfg, tp: int) -> None:
+    """Refuse a model whose head, KV-head, expert, FFN or vocab count the
+    tp axis does not divide: each rank holds whole heads and experts."""
+    if tp == 1:
+        return
+    counts = [("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
+              ("vocab_size", cfg.vocab_size)]
+    if cfg.is_moe:
+        counts.append(("num_experts", cfg.num_experts))
+    else:
+        counts.append(("intermediate_size", cfg.intermediate_size))
+    for what, n in counts:
+        if n % tp:
+            raise NotImplementedError(
+                f"{what}={n} is not divisible by tp={tp}: uneven shards "
+                f"need {ITEM6}, later part")
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecLayout:
+    """Frozen per-leaf spec table over the serving mesh; each field holds
+    the axis a role shards over, or ``None`` when the mesh does not carry
+    it at a size above 1. The table is the JAX ``SpecLayout``'s:
+
+    ====================  ====================  =============================
+    leaf                  shape                 spec
+    ====================  ====================  =============================
+    embed                 [V, D]                (tp, fsdp)   vocab-sharded
+    layers/attn_norm      [L, D]                ()           replicated
+    layers/wq, wk, wv     [L, D, Hx*hd]         (None, fsdp, tp)   column
+    layers/wo             [L, H*hd, D]          (None, tp, fsdp)   row
+    layers/mlp_norm       [L, D]                ()           replicated
+    layers/w_gate, w_up   [L, D, F]             (None, fsdp, tp)   column
+    layers/w_down         [L, F, D]             (None, tp, fsdp)   row
+    layers/w_router       [L, D, E]             ()           replicated
+    layers/w_* (moe)      [L, E, ., .]          (None, ep, None, None)
+    final_norm            [D]                   ()           replicated
+    lm_head               [D, V]                (fsdp, tp)   column
+    KV cache (per layer)  [NB, KV, bs, hd]      (None, tp, None, None)
+    logits                [B, V]                (None, tp)
+    ====================  ====================  =============================
+
+    A quantized leaf is ``{"q": weight spec, "s": scale spec}``; the scale
+    keeps the weight's spec with the contraction entry (-2) replicated.
+    """
+
+    dp: Optional[str] = None
+    fsdp: Optional[str] = None
+    tp: Optional[str] = None
+    ep: Optional[str] = None
+
+    @staticmethod
+    def for_mesh(mesh_shape: Optional[Sequence[int]]) -> "SpecLayout":
+        """The layout of a ``(dp, tp)`` mesh shape, singleton axes
+        dropped; ``ep`` rides ``tp``."""
+        if mesh_shape is None:
+            return SpecLayout()
+        _, tp = check_mesh_shape(mesh_shape)
+        have_tp = AXIS_TP if tp > 1 else None
+        return SpecLayout(tp=have_tp, ep=have_tp)
+
+    # ----------------------- parameter specs ---------------------------
+
+    def embed(self) -> Spec:
+        return spec(self.tp, self.fsdp)
+
+    def norm_stacked(self) -> Spec:
+        return spec(None, None)
+
+    def norm(self) -> Spec:
+        return spec(None)
+
+    def column_stacked(self) -> Spec:
+        """[L, in, out] column-parallel: wq/wk/wv, dense w_gate/w_up."""
+        return spec(None, self.fsdp, self.tp)
+
+    def row_stacked(self) -> Spec:
+        """[L, in, out] row-parallel: wo, dense w_down."""
+        return spec(None, self.tp, self.fsdp)
+
+    def router_stacked(self) -> Spec:
+        return spec(None, None, None)
+
+    def expert_stacked(self) -> Spec:
+        """[L, E, in, out]: experts spread over ep (tp fallback)."""
+        return spec(None, self.ep, None, None)
+
+    def lm_head(self) -> Spec:
+        return spec(self.fsdp, self.tp)
+
+    @staticmethod
+    def scale_spec(weight_spec: Spec) -> Spec:
+        """Per-channel scales: the weight's spec with the contraction
+        entry (-2, size 1 in the scale) replicated."""
+        entries = list(weight_spec)
+        entries[-2] = None
+        return spec(*entries)
+
+    def param_specs(self, cfg, weight_dtype: str = "bf16") -> Dict[str, Any]:
+        """Spec tree matching ``model.init_params(cfg)`` (quantized matmul
+        leaves as ``{"q", "s"}`` dicts)."""
+        from ..engine import quant
+
+        def w(s: Spec, name: str) -> Any:
+            if quant.is_quantized(weight_dtype) and quant.is_weight_leaf(
+                    name):
+                return {"q": s, "s": self.scale_spec(s)}
+            return s
+
+        layers: Dict[str, Any] = {
+            "attn_norm": self.norm_stacked(),
+            "wq": w(self.column_stacked(), "wq"),
+            "wk": w(self.column_stacked(), "wk"),
+            "wv": w(self.column_stacked(), "wv"),
+            "wo": w(self.row_stacked(), "wo"),
+            "mlp_norm": self.norm_stacked(),
+        }
+        if cfg.is_moe:
+            layers["w_router"] = self.router_stacked()
+            layers["w_gate"] = w(self.expert_stacked(), "w_gate")
+            layers["w_up"] = w(self.expert_stacked(), "w_up")
+            layers["w_down"] = w(self.expert_stacked(), "w_down")
+        else:
+            layers["w_gate"] = w(self.column_stacked(), "w_gate")
+            layers["w_up"] = w(self.column_stacked(), "w_up")
+            layers["w_down"] = w(self.row_stacked(), "w_down")
+        specs: Dict[str, Any] = {
+            "embed": self.embed(),
+            "layers": layers,
+            "final_norm": self.norm(),
+        }
+        if not cfg.tie_word_embeddings:
+            specs["lm_head"] = w(self.lm_head(), "lm_head")
+        return specs
+
+    # ---------------------- cache / activations ------------------------
+
+    def cache_block(self) -> Spec:
+        """One paged-cache layer [NB, KV, bs, hd]: KV heads over tp."""
+        return spec(None, self.tp, None, None)
+
+    def cache_scale_block(self) -> Spec:
+        """Per-layer KV-scale cache [NB, KV, bs] of a quantized cache."""
+        return spec(None, self.tp, None)
+
+    def cache_specs(self, cfg, kv_dtype: str = "bf16") -> Dict[str, Any]:
+        from ..engine import quant
+
+        specs = {
+            "k": [self.cache_block()] * cfg.num_layers,
+            "v": [self.cache_block()] * cfg.num_layers,
+        }
+        if quant.is_quantized(kv_dtype):
+            specs["ks"] = [self.cache_scale_block()] * cfg.num_layers
+            specs["vs"] = [self.cache_scale_block()] * cfg.num_layers
+        return specs
+
+    def hidden(self) -> Spec:
+        """Activations [B, T, D]: replicated (Megatron)."""
+        return spec(None, None, None)
+
+    def logits(self) -> Spec:
+        """[B, V]: vocab over tp, matching the vocab-sharded head."""
+        return spec(None, self.tp)
+
+
+# ----------------------------- slicing -------------------------------------
+
+
+def shard_range(n: int, axis: Optional[str], mesh: Mesh) -> Tuple[int, int]:
+    """``[lo, hi)`` of this rank's even share of a dim of size ``n``
+    split over ``axis`` (the whole dim for ``None``)."""
+    if axis is None:
+        return 0, n
+    size = mesh.shape.get(axis, 1)
+    idx = mesh.coords.get(axis, 0)
+    if n % size:
+        raise NotImplementedError(
+            f"a dim of {n} does not split evenly over {axis}={size}: "
+            f"uneven shards need {ITEM6}, later part")
+    step = n // size
+    return idx * step, (idx + 1) * step
+
+
+def shard_shape(shape: Sequence[int], sp: Spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of this rank's slice of a leaf of ``shape``."""
+    out = []
+    for n, axis in zip(shape, sp):
+        lo, hi = shard_range(n, axis, mesh)
+        out.append(hi - lo)
+    return tuple(out)
+
+
+def shard_tensor(t, sp: Spec, mesh: Mesh):
+    """This rank's slice of a full tensor, contiguous (a new tensor, so
+    the full one can be freed)."""
+    idx = []
+    for n, axis in zip(t.shape, sp):
+        lo, hi = shard_range(n, axis, mesh)
+        idx.append(slice(lo, hi))
+    return t[tuple(idx)].contiguous()
+
+
+def map_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a param/cache tree and its spec tree."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, tree[k], specs[k]) for k in specs}
+    if isinstance(specs, list):
+        return [map_specs(fn, a, s) for a, s in zip(tree, specs)]
+    return fn(tree, specs)

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts FFN on one device.
+"""Mixture-of-Experts FFN, on one device or with experts over ranks.
 
 Port of ``dynamo_tpu.parallel.moe``: GShard-style capacity-based dispatch
 built from one-hot products and batched expert matmuls, with no per-token
@@ -7,13 +7,19 @@ it is captured in a CUDA graph like any other. Routing is the reference's,
 row for row: router logits in f32, softmax, top-k with ties to the lower
 expert index (``jax.lax.top_k``'s order), renormalised gates, and capacity
 slots handed out in token-major, slot-minor order, padded rows included.
-The expert-parallel sharding of the JAX module (experts over a mesh axis)
-stays with multi-device serving (ROADMAP.md queue A, item 6).
+
+Expert parallelism (``expert_offset``): a rank holding experts
+``[e0, e0 + E/ep)`` of the stacks routes every token over all E experts
+(the router is replicated), dispatches to its own experts only, and returns
+its f32 partial output; the caller's one ``all_reduce`` sums the ranks'
+partials. That is the contraction over ``e`` the JAX layout splits over
+``ep`` (``SpecLayout.expert_stacked``), split the same way.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,12 +55,19 @@ def moe_ffn(
     *,
     top_k: int,
     capacity_factor: float = 2.0,
+    expert_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """Top-k routed SwiGLU experts; returns [N, D] in x's dtype.
 
     A (token, slot) past its expert's capacity loses that expert's
     contribution (its gate is zeroed; the other gates keep their
-    renormalised values), as in the reference."""
+    renormalised values), as in the reference.
+
+    With ``expert_offset`` the stacks hold experts ``[expert_offset,
+    expert_offset + w_gate.shape[0])`` of the router's E: routing and
+    capacity are the whole model's, only those experts are run, and the
+    result is their f32 partial sum (one term of the expert-parallel
+    ``all_reduce``)."""
     N, D = x.shape
     E = w_router.shape[1]
     C = moe_capacity(N, E, top_k, capacity_factor)
@@ -79,9 +92,13 @@ def moe_ffn(
     dispatch = torch.einsum("nke,nkc->nec", assign, pos_hot)
     combine = torch.einsum("nke,nkc,nk->nec", assign, pos_hot, gates)
 
+    if expert_offset is not None:
+        local = slice(expert_offset, expert_offset + w_gate.shape[0])
+        dispatch, combine = dispatch[:, local], combine[:, local]
     xin = torch.einsum("nec,nd->ecd", dispatch, x.float()).to(dt)
     gate = F.silu(torch.bmm(xin, w_gate).float())          # [E, C, F]
     up = torch.bmm(xin, w_up).float()
     h = (gate * up).to(dt)
     out = torch.bmm(h, w_down)                             # [E, C, D]
-    return torch.einsum("nec,ecd->nd", combine, out.float()).to(dt)
+    y = torch.einsum("nec,ecd->nd", combine, out.float())
+    return y if expert_offset is not None else y.to(dt)

@@ -13,8 +13,9 @@ Output keys match ``PrefillInterpolator.from_profile`` /
 A copy of ``dynamo_tpu.planner.profiler`` driving the port's
 ``InferenceEngine`` on the card (``--device cpu`` for the CPU): the prefill
 sweep runs the ragged face of the paged-attention kernel, the decode sweep
-its decode face. One card is served: ``--model 70b`` and a ``--mesh``
-other than ``1,1`` are refused.
+its decode face. One card is profiled: ``--model 70b`` and a ``--mesh``
+other than ``1,1`` are refused (a tensor-parallel worker is served, its
+profile waits for ROADMAP.md queue A, item 6, later part).
 """
 
 from __future__ import annotations
@@ -117,7 +118,9 @@ async def profile_decode(
 
 def check_supported(args: argparse.Namespace) -> None:
     """Refuse what this package does not serve yet, by name."""
-    a6 = "multi-device serving (ROADMAP.md queue A, item 6)"
+    # the worker serves --mesh 1,N and --model 70b; profiling a
+    # tensor-parallel world is the later part of item 6
+    a6 = "multi-device profiling (ROADMAP.md queue A, item 6, later part)"
     for bad, what in ((args.model == "70b", "--model 70b"),
                       (args.mesh.replace(" ", "") != "1,1",
                        f"--mesh {args.mesh}")):

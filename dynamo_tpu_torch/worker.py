@@ -26,8 +26,14 @@ pull queue), the KVBM tiers (``--kvbm-host-blocks/-bytes``,
 ``DYNTPU_PREFIX_ENABLED=0``), the ``embed`` endpoint behind
 ``/v1/embeddings``, multimodal encode-prefill-decode (``--mm-encoder`` for a
 colocated vision encoder, ``--mm-encode-component`` for a separate
-``python -m dynamo_tpu_torch.multimodal`` worker) and the engine sizing
-flags; the control plane
+``python -m dynamo_tpu_torch.multimodal`` worker), tensor- and
+expert-parallel serving (``--mesh 1,N``: rank 0 is the leader that
+schedules, registers and answers, ranks 1..N-1 replay its step plans,
+``parallel/multihost.py``; alone on one host the worker starts ranks
+1..N-1 itself as child processes on ``cuda:i mod device_count`` with a
+coordinator on localhost, and with ``--coordinator HOST:PORT --num-hosts H
+--host-index h`` the world spans H hosts of N/H ranks each; ``--model
+70b``) and the engine sizing flags; the control plane
 (system server, health probes, degradation watcher, the preemption
 coordinator behind ``SIGUSR1`` and ``POST /preempt``) comes from the
 runtime settings, as in the JAX package.
@@ -40,6 +46,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import os
+import sys
 
 from .engine.config import EngineConfig, ModelConfig
 from .engine import model as model_lib
@@ -56,7 +63,7 @@ MODEL_PRESETS = {
     "tiny": ModelConfig.tiny,
     "1b": ModelConfig.llama3_1b,
     "8b": ModelConfig.llama3_8b,
-    "70b": None,    # needs more than one device
+    "70b": ModelConfig.llama3_70b,
 }
 # the JAX package's attention names: its Pallas kernel is this package's
 # CUDA kernel
@@ -94,11 +101,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-batched-tokens", type=int, default=512)
     p.add_argument("--max-model-len", type=int, default=8192)
     p.add_argument("--mesh", default="1,1", help="dp,tp mesh axis sizes "
-                   "(only 1,1 is served)")
+                   "(1,N is served: N tensor-parallel ranks)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel stages (only 1 is served)")
     p.add_argument("--pp-microbatches", type=int, default=4)
     p.add_argument("--migration-limit", type=int, default=3)
+    p.add_argument("--pipeline-depth", type=int, default=None,
+                   help="windows in flight before the loop waits for a "
+                        "landing (default: the engine's, 2; 1 = the "
+                        "synchronous loop)")
     p.add_argument("--spec-mode", default=None, choices=["off", "ngram"],
                    help="speculative decoding: device-side n-gram drafting "
                         "+ batched verify (default: DYNTPU_SPEC_MODE, off)")
@@ -157,27 +168,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mm-encode-component", default=None,
                    help="multimodal EPD against a separate encode worker "
                         "serving <component>/encode")
-    # the rest select paths that are not served yet; their defaults are the
-    # JAX package's
+    # the world of a tensor-parallel worker; the defaults are the JAX
+    # package's
     p.add_argument("--coordinator",
-                   default=os.environ.get("JAX_COORDINATOR_ADDRESS"))
+                   default=os.environ.get("JAX_COORDINATOR_ADDRESS"),
+                   help="HOST:PORT of the world's TCP store (rank 0's host)")
     p.add_argument("--num-hosts", type=int,
                    default=int(os.environ.get("JAX_PROCESS_COUNT", "1")))
     p.add_argument("--host-index", type=int,
                    default=int(os.environ.get("JAX_PROCESS_INDEX", "0")))
-    return p.parse_args(argv)
+    p.add_argument("--local-rank", type=int, default=0,
+                   help="this process's rank on its host (set on the ranks "
+                        "a --mesh 1,N worker starts itself)")
+    args = p.parse_args(argv)
+    # the command line the ranks this worker starts itself run with
+    args.argv = list(sys.argv[1:] if argv is None else argv)
+    return args
+
+
+def mesh_shape(args: argparse.Namespace):
+    return tuple(int(x) for x in args.mesh.replace(" ", "").split(","))
 
 
 def check_supported(args: argparse.Namespace) -> None:
     """Refuse every flag whose path this package does not serve yet."""
-    a6 = "multi-device serving (ROADMAP.md queue A, item 6)"
+    from .parallel.layout import check_mesh_shape
+
+    a6 = "multi-device serving (ROADMAP.md queue A, item 6, later part)"
+    _, tp = check_mesh_shape(mesh_shape(args))
     unsupported = [
-        (args.model == "70b", "--model 70b", a6),
-        (args.mesh.replace(" ", "") != "1,1", f"--mesh {args.mesh}", a6),
         (args.pp > 1, f"--pp {args.pp}", a6),
-        (args.coordinator is not None or args.num_hosts > 1,
-         "multi-host serving (--coordinator/--num-hosts)", a6),
     ]
+    if tp > 1:
+        # the scope of the JAX multi-host worker: the aggregated path
+        unsupported += [
+            (args.disagg_mode != "agg", f"--disagg-mode {args.disagg_mode}"
+             " on a tensor-parallel worker", a6),
+            (args.kvbm_host_blocks > 0 or args.kvbm_distributed
+             or args.kvbm_group is not None,
+             "the KVBM tiers on a tensor-parallel worker", a6),
+            (args.mm_encoder or args.mm_encode_component is not None,
+             "multimodal EPD on a tensor-parallel worker", a6),
+        ]
     for bad, what, needs in unsupported:
         if bad:
             raise NotImplementedError(
@@ -197,8 +229,56 @@ def engine_counts(engine) -> str:
             f"prefix_hit_blocks={engine.stats.prefix_cache_hits}")
 
 
+def tp_counts(engine, broadcaster=None) -> str:
+    """A tensor-parallel rank's collectives and its plans (emitted by the
+    leader, replayed by a follower), logged at exit beside the launches."""
+    from .parallel import comm
+
+    plans = (broadcaster.kinds if broadcaster is not None
+             else engine.num_replayed)
+    return (f"rank={comm.rank()} world={comm.world_size()} "
+            f"backend={comm.backend()} {comm.stats_line()} plans="
+            + ",".join(f"{k}:{n}" for k, n in sorted(plans.items()))
+            + " launches=" + ",".join(f"{k}:{n}"
+                                      for k, n in pa.LAUNCHES.items()))
+
+
 async def run_worker(args: argparse.Namespace) -> None:
     check_supported(args)
+    children = []
+    try:
+        await _run_worker(args, children)
+    finally:
+        if children:
+            from .parallel.multihost import stop_local_ranks
+
+            stop_local_ranks(children)
+
+
+async def _run_worker(args: argparse.Namespace, children: list) -> None:
+    from .parallel.multihost import (
+        MultihostConfig, free_port, initialize_distributed, rank_device,
+        spawn_local_ranks,
+    )
+
+    _, tp = mesh_shape(args)
+    mh = MultihostConfig(
+        coordinator=args.coordinator, num_hosts=args.num_hosts,
+        host_index=args.host_index, world_size=tp,
+        local_rank=args.local_rank)
+    if mh.enabled:
+        if mh.coordinator is None and mh.num_hosts == 1:
+            # --mesh 1,N alone: one host, a coordinator on localhost
+            mh.coordinator = f"127.0.0.1:{free_port()}"
+        mh.check()
+        device = rank_device(args.device, mh.local_rank)
+        if mh.local_rank == 0 and mh.per_host > 1:
+            children.extend(spawn_local_ranks(args.argv, mh))
+        # before any weight is loaded: the rendezvous waits for every rank
+        import torch
+
+        initialize_distributed(mh, torch.device(device))
+        args.device = device
     config = RuntimeConfig.from_settings()
     if args.store_addr:
         config.store_addr = args.store_addr
@@ -214,12 +294,23 @@ async def run_worker(args: argparse.Namespace) -> None:
                 else config.kv_dtype)
     params = None
     if args.weights:
-        from .engine.weights import load_hf_params, model_config_from_hf
+        from .engine.weights import (
+            load_hf_params, load_hf_params_sharded, model_config_from_hf,
+        )
 
         if os.path.exists(os.path.join(args.weights, "config.json")):
             model_cfg = model_config_from_hf(args.weights)
-        params = load_hf_params(args.weights, model_cfg, weight_dtype,
-                                device=args.device)
+        if mh.enabled:
+            # this rank's slices only (peak host staging: one tensor)
+            from .parallel.layout import check_divisible, make_mesh
+
+            check_divisible(model_cfg, tp)
+            params = load_hf_params_sharded(
+                args.weights, model_cfg, make_mesh(mesh_shape(args)),
+                weight_dtype, device=args.device)
+        else:
+            params = load_hf_params(args.weights, model_cfg, weight_dtype,
+                                    device=args.device)
         if args.tokenizer is None:
             args.tokenizer = args.weights
     eng_cfg = EngineConfig(
@@ -228,6 +319,9 @@ async def run_worker(args: argparse.Namespace) -> None:
         max_num_seqs=args.max_num_seqs,
         max_num_batched_tokens=args.max_batched_tokens,
         max_model_len=min(args.max_model_len, model_cfg.max_position),
+        mesh_shape=mesh_shape(args),
+        **({} if args.pipeline_depth is None
+           else {"pipeline_depth": args.pipeline_depth}),
         attention_impl=ATTENTION_IMPLS[args.attention_impl],
         prefill_chunk_tokens=(
             args.prefill_chunk_tokens
@@ -263,6 +357,29 @@ async def run_worker(args: argparse.Namespace) -> None:
 
         _build.build_all()
     runtime = await DistributedRuntime.from_settings(config)
+
+    broadcaster = None
+    if mh.enabled and not mh.is_leader:
+        # follower: replay the leader's step plans; no serving, no
+        # registration, no KV events — the leader is the single front door
+        await _follow(runtime, engine, mh, name, args.component)
+        return
+    if mh.enabled:
+        # leader: stream every step to the followers before launching it,
+        # and gate model registration on all of them being connected
+        from .parallel.multihost import (
+            StepBroadcaster, StepStreamHandler, leader_gate,
+        )
+
+        broadcaster = StepBroadcaster(asyncio.get_running_loop())
+        engine.step_sink = broadcaster.sink
+        step_ep = (runtime.namespace().component(args.component)
+                   .endpoint("step_stream"))
+        await step_ep.serve_endpoint(
+            StepStreamHandler(broadcaster,
+                              heartbeat_interval_s=mh.heartbeat_interval_s),
+            advertise_host=args.advertise_host)
+        await leader_gate(runtime.store, mh, broadcaster, name)
 
     if args.kvbm_host_blocks > 0:
         from .kvbm.manager import KvbmConfig, StoreRemoteTier
@@ -433,6 +550,40 @@ async def run_worker(args: argparse.Namespace) -> None:
             handler.close()
         log.info("worker exiting: kernel launches %s", launch_counts())
         log.info("worker exiting: engine counts %s", engine_counts(engine))
+        if broadcaster is not None:
+            log.info("worker exiting: tp %s", tp_counts(engine, broadcaster))
+
+
+async def _follow(runtime, engine, mh, name: str, component: str) -> None:
+    """A follower rank's life: replay plans until the leader is gone, log
+    the rank's counts, and exit hard (a supervisor restarts the group; a
+    graceful exit could block in a collective with a dead peer). SIGTERM
+    ends the replay the same way."""
+    import signal
+
+    from .parallel.multihost import follower_loop
+
+    log.info("worker ready: model=%s mode=follower rank=%d/%d device=%s",
+             name, mh.rank, mh.world_size, engine.device)
+    task = asyncio.current_task()
+    loop = asyncio.get_running_loop()
+    loop.add_signal_handler(signal.SIGTERM, task.cancel)
+    try:
+        await follower_loop(runtime, engine, mh, name, component=component)
+        log.warning("follower exiting (leader lost)")
+    except asyncio.CancelledError:
+        log.info("follower stopped (SIGTERM)")
+    except BaseException:  # noqa: BLE001 — os._exit below
+        # the traceback reaches the log before the hard exit discards it
+        log.exception("follower loop ended abnormally")
+    finally:
+        log.info("worker exiting: kernel launches %s", launch_counts())
+        log.info("worker exiting: tp %s", tp_counts(engine))
+        try:
+            await asyncio.wait_for(runtime.shutdown(), timeout=10)
+        except BaseException:  # noqa: BLE001
+            log.exception("follower cleanup failed")
+        os._exit(1)
 
 
 def main(argv=None) -> None:

@@ -232,15 +232,54 @@ def test_importing_the_port_loads_nothing_forbidden():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(1, 2)), dict(pp_stages=2),
+    dict(mesh_shape=(2, 1)), dict(mesh_shape=(1, 2, 2)), dict(pp_stages=2),
     dict(sp_prefill_threshold=1024),
-], ids=lambda k: next(iter(k)))
+], ids=["mesh_shape", "mesh_shape_3d", "pp_stages", "sp_prefill_threshold"])
 def test_unserved_paths_are_refused(knob):
+    """A data-parallel (dp > 1) or 3-D mesh, pipeline and sequence
+    parallelism are refused; a (1, tp) mesh is served (below)."""
     eng = EngineConfig(num_blocks=16, **knob)
     with pytest.raises(NotImplementedError):
         check_supported(eng)
     with pytest.raises(NotImplementedError):
         InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+
+
+def test_tensor_parallel_mesh_is_served():
+    """``mesh_shape=(1, 2)`` passes the check; building its engine needs a
+    world of two ranks (tests/test_torch_tensor_parallel.py builds them),
+    and without one construction says so."""
+    eng = EngineConfig(num_blocks=16, mesh_shape=(1, 2))
+    check_supported(eng)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+    assert ModelConfig.llama3_70b().num_layers == 80
+
+
+@pytest.mark.parametrize("what", [
+    "extract", "inject", "kvbm", "evacuation", "embed", "mm",
+])
+def test_tensor_parallel_engine_refuses_the_single_rank_paths(what):
+    """Under tp > 1 the engine refuses KV movement, the KVBM tiers,
+    preemption evacuation, embeddings and multimodal prefill by name, as
+    the JAX multi-host worker's scope does."""
+    from dynamo_tpu_torch.engine.engine import EngineCore, Request
+
+    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
+        num_blocks=16, max_model_len=64), device="cpu")
+    engine.tp = 2          # what a rank of a (1, 2) world's engine holds
+    calls = {
+        "extract": lambda: asyncio.run(engine.extract_kv_blocks([1])),
+        "inject": lambda: asyncio.run(engine.inject_kv_blocks([1], {})),
+        "kvbm": lambda: engine.attach_kvbm(),
+        "evacuation": engine.evacuable_seats,
+        "embed": lambda: asyncio.run(engine.embed([[1, 2]])),
+        "mm": lambda: asyncio.run(EngineCore.submit(engine, Request(
+            request_id="m", token_ids=[1, 2], mm_positions=[0],
+        )).__anext__()),
+    }
+    with pytest.raises(NotImplementedError, match="item 6"):
+        calls[what]()
 
 
 def test_spec_mode_is_served():
@@ -283,15 +322,54 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "1,2"], ["--pp", "2"], ["--coordinator", "h0:1234"],
-    ["--num-hosts", "2"], ["--model", "70b"],
-], ids=lambda f: f[0].lstrip("-") + ("" if len(f) == 1 else f"={f[1]}"))
+    ["--mesh", "2,1"], ["--mesh", "1,2,2"], ["--pp", "2"],
+    ["--mesh", "1,2", "--disagg-mode", "prefill"],
+    ["--mesh", "1,2", "--kvbm-host-blocks", "64"],
+    ["--mesh", "1,2", "--mm-encoder"],
+], ids=lambda f: "+".join(
+    a.lstrip("-") if i % 2 == 0 else f"={a}" for i, a in enumerate(f)
+).replace("+=", "="))
 def test_worker_refuses_unserved_flags(flags):
+    """Still refused: a data-parallel or 3-D mesh, pipeline stages, and
+    on a tensor-parallel worker the disaggregated, KVBM and multimodal
+    paths."""
     from dynamo_tpu_torch import worker
 
     args = worker.parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         asyncio.run(worker.run_worker(args))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "1,2"], ["--coordinator", "h0:1234", "--mesh", "1,2"],
+    ["--num-hosts", "2", "--mesh", "1,2"], ["--model", "70b"],
+], ids=lambda f: f[0].lstrip("-") + f"={f[1]}")
+def test_worker_serves_tensor_parallel_flags(flags):
+    """``--mesh 1,N``, ``--coordinator``, ``--num-hosts`` and ``--model
+    70b`` are served (tests/test_torch_multihost.py runs the worlds)."""
+    from dynamo_tpu_torch import worker
+    from dynamo_tpu_torch.parallel.multihost import MultihostConfig
+
+    args = worker.parse_args(["--device", "cpu", *flags])
+    worker.check_supported(args)
+    assert worker.MODEL_PRESETS[args.model]() is not None
+    tp = worker.mesh_shape(args)[1]
+    mh = MultihostConfig(coordinator=args.coordinator or "127.0.0.1:1",
+                         num_hosts=args.num_hosts, world_size=tp)
+    mh.check()
+    assert mh.per_host == tp // args.num_hosts
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "1,2"], ["--model", "70b"]],
+                         ids=lambda f: f[0].lstrip("-"))
+def test_profiler_still_refuses_tensor_parallel(flags):
+    """The profiler profiles one card: a tensor-parallel world's profile
+    is item 6's later part."""
+    from dynamo_tpu_torch.planner import profiler
+
+    args = profiler.parse_args(["--device", "cpu", *flags])
+    with pytest.raises(NotImplementedError, match="item 6, later part"):
+        profiler.check_supported(args)
 
 
 def test_worker_weights_without_a_checkpoint_raises_as_jax_does(tmp_path):

@@ -1,0 +1,259 @@
+"""A local tensor-parallel world for the port's tests: N rank processes on
+the CPU, joined by ``torch.distributed`` over gloo, that run the functions
+a test sends them and return their results.
+
+Each rank is a spawned process that imports torch and the port only (no
+JAX). ``World.run(fn, *args)`` calls ``fn(rank, world, *args)`` on every
+rank at once and returns the ranks' results in rank order; a rank that
+raises fails the call with its traceback, and every call has a timeout.
+Rank 0 can lead an engine whose step plans reach the followers through
+the world's plan queues (:func:`lead` / :func:`follow`), so an engine-level
+test exercises the port's ``step_sink`` and ``replay_plan`` without a
+store; the processes-over-TCP path has its own test file.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import queue
+import socket
+import traceback
+from typing import Any, Callable, List
+
+START_TIMEOUT_S = 60.0
+CALL_TIMEOUT_S = 120.0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, n: int, port: int, cmd, res, plans) -> None:
+    import torch
+
+    from dynamo_tpu_torch.parallel import comm
+
+    torch.set_num_threads(1)
+    comm.init(rank, n, f"tcp://127.0.0.1:{port}", "gloo", CALL_TIMEOUT_S)
+    res.put((rank, "ready", None))
+    while True:
+        job = cmd.get()
+        if job is None:
+            break
+        fn, args = job
+        try:
+            out = fn(rank, plans, *args)
+            res.put((rank, "ok", out))
+        except BaseException:  # noqa: BLE001 — reported to the test
+            res.put((rank, "error", traceback.format_exc()))
+    comm.destroy()
+
+
+class World:
+    """N gloo ranks on the CPU; use as a context manager."""
+
+    def __init__(self, n: int):
+        ctx = mp.get_context("spawn")
+        port = _free_port()
+        self.n = n
+        self._cmd = [ctx.Queue() for _ in range(n)]
+        self._res = ctx.Queue()
+        plans = [ctx.Queue() for _ in range(n)]
+        self._procs = [
+            ctx.Process(target=_rank_main,
+                        args=(r, n, port, self._cmd[r], self._res, plans),
+                        daemon=True)
+            for r in range(n)
+        ]
+        for p in self._procs:
+            p.start()
+        self._collect("ready", START_TIMEOUT_S)
+
+    def _collect(self, want: str, timeout_s: float) -> List[Any]:
+        out: List[Any] = [None] * self.n
+        errors = []
+        for _ in range(self.n):
+            try:
+                rank, status, val = self._res.get(timeout=timeout_s)
+            except queue.Empty:
+                self.close()
+                raise TimeoutError(f"a rank did not answer in {timeout_s}s")
+            if status == "error":
+                errors.append(f"rank {rank}:\n{val}")
+            out[rank] = val
+        if errors:
+            self.close()
+            raise RuntimeError("\n".join(errors))
+        return out
+
+    def run(self, fn: Callable, *args, timeout_s: float = CALL_TIMEOUT_S
+            ) -> List[Any]:
+        for q in self._cmd:
+            q.put((fn, args))
+        return self._collect("ok", timeout_s)
+
+    def close(self) -> None:
+        for q in self._cmd:
+            try:
+                q.put(None)
+            except (ValueError, OSError):
+                pass
+        for p in self._procs:
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+    def __enter__(self) -> "World":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# ------------------------------ rank functions ------------------------------
+
+
+def _cfg(name: str, **kw):
+    from dynamo_tpu_torch.engine.config import ModelConfig
+
+    return getattr(ModelConfig, name)(**kw)
+
+
+def forward_logits(rank, plans, cfg_name, tree, eng_kw, steps,
+                   weight_dtype="bf16"):
+    """This rank's ``forward`` + ``logits_fn`` over its shard of the JAX
+    tree ``tree`` (numpy leaves), one call per ``(tokens, positions,
+    tables)`` step on one cache: [(hidden, logits)] as numpy, and the
+    shard shapes of ``wq`` and a cache layer."""
+    import torch
+
+    from dynamo_tpu_torch.engine import model as tm
+    from dynamo_tpu_torch.engine import quant
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+
+    cfg = _cfg(cfg_name)
+    eng = EngineConfig(weight_dtype=weight_dtype, **eng_kw)
+    params = tm.shard_params(
+        quant.quantize_params(
+            params_from_numpy(tree, cfg, "cpu", weight_dtype=weight_dtype),
+            weight_dtype),
+        cfg, eng)
+    cache = tm.init_cache(cfg, eng, torch.device("cpu"))
+    outs = []
+    with torch.inference_mode():
+        for tokens, positions, tables in steps:
+            cache, h = tm.forward(cfg, eng, params, cache,
+                                  torch.from_numpy(tokens),
+                                  torch.from_numpy(positions),
+                                  torch.from_numpy(tables))
+            outs.append((h.float().numpy(),
+                         tm.logits_fn(cfg, params, h).numpy()))
+    wq = params["layers"]["wq"]
+    wq = wq["q"] if isinstance(wq, dict) else wq
+    return outs, {"wq": tuple(wq.shape), "cache_k": tuple(cache["k"][0].shape)}
+
+
+def lead(engine, plans, n: int) -> None:
+    """Install rank 0's plan sink: each plan, encoded as the wire carries
+    it, goes to every follower's queue before the leader launches."""
+    from dynamo_tpu_torch.parallel.multihost import encode_plan
+
+    emitted = {}
+
+    def sink(kind, arrays):
+        emitted[kind] = emitted.get(kind, 0) + 1
+        plan = encode_plan(kind, arrays)
+        for r in range(1, n):
+            plans[r].put(plan)
+
+    engine.step_sink = sink
+    return emitted
+
+
+def follow(engine, plans, rank: int) -> None:
+    """Replay the leader's plans on this rank until it sends ``None``."""
+    from dynamo_tpu_torch.parallel.multihost import decode_plan, replay_plan
+
+    while True:
+        plan = plans[rank].get(timeout=CALL_TIMEOUT_S)
+        if plan is None:
+            return
+        replay_plan(engine, *decode_plan(plan))
+
+
+def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
+          ckpt=None):
+    """Serve ``requests`` (dicts of ``Request`` fields) on a tensor-
+    parallel engine built from the full tree ``tree`` or, with ``ckpt``,
+    from this rank's shard of that HF checkpoint: rank 0 leads and returns
+    the token streams, the plan kinds it emitted, its launches and
+    collectives; the others replay and return the kinds they replayed."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine, Request
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+    from dynamo_tpu_torch.parallel import comm
+
+    cfg = _cfg(cfg_name)
+    eng = EngineConfig(weight_dtype=weight_dtype, **eng_kw)
+    if ckpt is None:
+        params = params_from_numpy(tree, cfg, "cpu",
+                                   weight_dtype=weight_dtype)
+    else:
+        from dynamo_tpu_torch.engine.weights import load_hf_params_sharded
+        from dynamo_tpu_torch.parallel.layout import make_mesh
+
+        params = load_hf_params_sharded(ckpt, cfg, make_mesh(eng.mesh_shape),
+                                        weight_dtype, device="cpu")
+    engine = InferenceEngine(cfg, eng, params=params, device="cpu")
+    comm.reset_stats()
+    n = comm.world_size()
+    if rank != 0:
+        follow(engine, plans, rank)
+        return {"replayed": dict(engine.num_replayed),
+                "all_reduce_calls": comm.STATS["all_reduce_calls"]}
+    emitted = lead(engine, plans, n)
+
+    async def go():
+        async def one(i, r):
+            req = Request(request_id=f"r{i}", **r)
+            return [o.token_id async for o in engine.submit(req)]
+        try:
+            return await asyncio.gather(
+                *(one(i, r) for i, r in enumerate(requests)))
+        finally:
+            await engine.stop()
+
+    try:
+        streams = asyncio.run(go())
+    finally:
+        for r in range(1, n):
+            plans[r].put(None)
+    return {"streams": streams, "emitted": emitted,
+            "windows": engine.num_windows,
+            "spec_drafted": (engine.spec_stats.drafted
+                             if engine.spec_stats is not None else 0),
+            "all_reduce_calls": comm.STATS["all_reduce_calls"]}
+
+
+def step_plans(rank, plans, cfg_name, tree, eng_kw, step_arrays):
+    """Every rank replays the same ``p`` / ``d`` plans (the unified step a
+    JAX leader's synchronous path emits) on an engine over its shard; each
+    returns its K pages of layer 0 as numpy."""
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+    from dynamo_tpu_torch.parallel.multihost import (
+        decode_plan, encode_plan, replay_plan,
+    )
+
+    cfg = _cfg(cfg_name)
+    engine = InferenceEngine(cfg, EngineConfig(**eng_kw),
+                             params=params_from_numpy(tree, cfg, "cpu"),
+                             device="cpu")
+    for kind, arrays in step_arrays:
+        replay_plan(engine, *decode_plan(encode_plan(kind, arrays)))
+    return engine.cache["k"][0].numpy(), dict(engine.num_replayed)
