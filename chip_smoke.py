@@ -270,6 +270,31 @@ Phases (any failure exits non-zero and prints no result line):
    rank's shard shapes (16 query / 4 KV heads at head dim 64 and 128)
    against their plain versions. Child logs in ``build/dist/tp_*.log``.
 
+18. sequence-parallel (ring) prefill (``[sp]`` lines), ranks spawned by
+   the script itself on the one card over gloo, after phase 17: (a)
+   Llama-3.2-1B at full width and depth, bf16, random weights from seed
+   0, mesh (2, 1), ``sp_prefill_threshold`` 2,048: 4 prompts of ISL 8,128
+   (each one 8,192-token sp chunk: T split over the two dp rows, exact
+   ring attention over them) with OSL 64, one at a time, then phase 3's
+   traffic (which stays on the chunked path, replicated over dp); streams
+   under the parity rule against a one-rank engine with chunked prefill on
+   the same weights; sp prefills per rank (4 each), the followers' plans
+   (``rsp`` among them) equal to the leader's, ring hops, bytes and
+   host-staged bytes per sp prefill, each rank's peak device memory in its
+   sp prefills beside the one-rank engine's in one 8,192-token chunk, TTFT
+   beside the chunked one (a correctness run), and both faces launched on
+   both ranks. (c) ``ring_attention`` and ``ulysses_attention`` on the two
+   ranks at one 1B layer's attention (32 / 8 heads, hd 64, T 8,192, bf16
+   in, causal) against the plain ``_full_attention``, with their times and
+   one ring hop's, each output within two bf16 ulps of the plain one
+   (``SP_ATTN_RTOL``); then which gloo collectives take CUDA tensors: the
+   script fails if one that ``parallel/comm.py`` hands CUDA tensors
+   (``GLOO_CUDA_OPS``) refuses them, and reports send/recv, which
+   ``comm.ppermute`` stages through the host. (b) mesh (2, 2): four ranks
+   at full width cut to 4 of 16 layers, one prompt of ISL 8,128 against
+   its one-rank run.
+   Child logs in ``build/dist/sp_*.log``.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
@@ -282,7 +307,10 @@ calls interleaved) and 16 (the image prompts A, A again, B and text-only);
 rows named ``...@tuned_<class>`` are phase 12's winning launch parameters,
 each with its ``launch``; rows named ``...@tp2_shard_hd<64|128>`` are
 both faces at phase 17's shard shapes, with ``launches_per_rank`` of the
-2-rank Llama-3.2-1B and Mixtral runs);
+2-rank Llama-3.2-1B and Mixtral runs; every kernel build's row carries
+``launches_sp`` and ``launches_sp_2x2``, phase 18's (a) and (b) summed
+over their ranks — the ring is plain PyTorch, not a kernel, and has no
+row);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1232,8 +1260,8 @@ def tapped_run(engine, prompts, osl: int = OSL, router_gaps=None):
     unpack = engine._unpack_results
     cur = {}
 
-    def tap(cfg, params, h):
-        out = logits_fn(cfg, params, h)
+    def tap(cfg, params, h, mesh=None):
+        out = logits_fn(cfg, params, h, mesh)
         taps.append(torch.topk(out, PARITY_TOPK))
         gaps.append(cur.pop("gap", None))
         return out
@@ -6011,6 +6039,696 @@ def phase_tp_moe(card: str, served: dict) -> dict:
         shutil.rmtree(TP_MOE_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: sequence-parallel (ring) prefill on a (dp, tp) mesh, ranks
+# sharing one card
+
+SP_THRESHOLD = 2048        # a fresh prompt this long prefills as one chunk
+SP_ISL = 8128              # bucketed to an 8,192-token sp chunk
+SP_OSL = 64
+SP_REQUESTS = 4            # one at a time
+SP_MESH = (2, 1)
+# (b): four ranks at full width, cut to 4 of Llama-3.2-1B's 16 layers: four
+# CUDA contexts, four copies of the weights and four ranks' eager steps
+# over host-staged gloo on one card would not fit the script's time at
+# full depth
+SP_MESH_B = (2, 2)
+SP_LAYERS_B = 4
+# (c): ring and Ulysses at one Llama-3.2-1B layer's attention shape
+SP_ATTN = dict(T=8192, H=32, KV=8, hd=64)
+SP_ATTN_REPS = 3
+# ring and Ulysses against the plain _full_attention, both rounded to
+# bf16 from f32: |err| <= SP_ATTN_ATOL + SP_ATTN_RTOL * |want|, two bf16
+# ulps of the plain value (an ulp is at most 2**-7 of it) above a floor
+# for f32 summation order near zero. A dropped or misordered hop moves a
+# row by about its own size, far above two ulps
+SP_ATTN_RTOL = 2.0 ** -6
+SP_ATTN_ATOL = 1e-5
+# the gloo collectives that parallel/comm.py hands CUDA tensors directly;
+# its ring hop (send/recv) stages through the host instead
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all")
+SP_RANK_TIMEOUT_S = 300.0  # every collective of a rank, and every job
+
+
+def sp_prompts(vocab: int):
+    """Phase 18's long prompts: SP_REQUESTS random prompts of SP_ISL
+    tokens."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    return [torch.randint(1, vocab, (SP_ISL,), generator=gen).tolist()
+            for _ in range(SP_REQUESTS)]
+
+
+def sp_rank_main(rank: int, n: int, port: int, tag: str, dev: str, cmd,
+                 res, plans) -> None:
+    """A rank of phase 18's world: its output in
+    ``build/dist/sp_<tag>_rank<r>.log``, gloo on ``dev`` (cuda:0), then
+    the jobs the script sends (``fn(rank, plans, *args)``) until it sends
+    ``None``."""
+    import traceback
+
+    os.makedirs(DIST_LOGS, exist_ok=True)
+    log = open(os.path.join(DIST_LOGS, f"sp_{tag}_rank{rank}.log"), "w")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    try:
+        import torch
+
+        from dynamo_tpu_torch.parallel import comm
+
+        torch.cuda.set_device(torch.device(dev).index or 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        comm.init(rank, n, f"tcp://127.0.0.1:{port}", "gloo",
+                  SP_RANK_TIMEOUT_S)
+        res.put((rank, "ready", None))
+    except BaseException:  # noqa: BLE001 — reported to the script
+        res.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        job = cmd.get()
+        if job is None:
+            break
+        fn, args = job
+        try:
+            res.put((rank, "ok", fn(rank, plans, *args)))
+        except BaseException:  # noqa: BLE001
+            res.put((rank, "error", traceback.format_exc()))
+    comm.destroy()
+
+
+class SpWorld:
+    """N rank processes on the card, joined over gloo (the script's own
+    copy of the tests' plan-queue world: the leader's plans reach each
+    follower's queue)."""
+
+    def __init__(self, n: int, tag: str):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.n, self.tag = n, tag
+        self._cmd = [ctx.Queue() for _ in range(n)]
+        self._res = ctx.Queue()
+        plans = [ctx.Queue() for _ in range(n)]
+        port = _free_port()
+        self.procs = [ctx.Process(target=sp_rank_main, args=(
+            r, n, port, tag, DEV, self._cmd[r], self._res, plans),
+            daemon=True) for r in range(n)]
+        for p in self.procs:
+            p.start()
+        self._collect(120.0)
+
+    def _collect(self, timeout_s: float, must: bool = True):
+        """Every rank's answer; with ``must`` a rank's error or silence
+        fails the script, without it (a probe that may end a rank) each
+        rank's answer is ``(status, value)``, a silent rank's
+        ``("exit", its exit code)``."""
+        import queue
+
+        out, errors = [None] * self.n, []
+        pending = set(range(self.n))
+        deadline = time.monotonic() + timeout_s
+        while pending:
+            try:
+                rank, status, val = self._res.get(timeout=1.0)
+            except queue.Empty:
+                # a rank that ended without answering never will: wait no
+                # longer once every silent rank has ended (one more look
+                # for an answer sent just before its rank ended)
+                ended = all(self.procs[r].exitcode is not None
+                            for r in pending)
+                if not ended and time.monotonic() < deadline:
+                    continue
+                try:
+                    rank, status, val = self._res.get(timeout=1.0)
+                except queue.Empty:
+                    codes = [p.exitcode for p in self.procs]
+                    if not must:
+                        return [o if o is not None else ("exit", codes[r])
+                                for r, o in enumerate(out)]
+                    self.close()
+                    fail(f"[sp] a rank of the {self.tag} world ended or "
+                         f"did not answer in {timeout_s:.0f} s (exit codes "
+                         f"{codes}; logs "
+                         f"{DIST_LOGS}/sp_{self.tag}_rank*.log)")
+            pending.discard(rank)
+            if status == "error":
+                errors.append(f"rank {rank}:\n{val}")
+            out[rank] = val if must else (status, val)
+        if errors and must:
+            self.close()
+            fail("[sp] " + "\n".join(errors))
+        return out
+
+    def run(self, fn, *args, timeout_s: float = SP_RANK_TIMEOUT_S,
+            must: bool = True):
+        for q in self._cmd:
+            q.put((fn, args))
+        return self._collect(timeout_s, must)
+
+    def close(self) -> None:
+        for q in self._cmd:
+            try:
+                q.put(None)
+            except (ValueError, OSError):
+                pass
+        for p in self.procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def sp_lead(engine, plans, n: int) -> dict:
+    """Rank 0's plan sink: each plan, encoded as the wire carries it, to
+    every follower's queue before the leader launches the step."""
+    from dynamo_tpu_torch.parallel.multihost import encode_plan
+
+    emitted = {}
+
+    def sink(kind, arrays):
+        emitted[kind] = emitted.get(kind, 0) + 1
+        plan = encode_plan(kind, arrays)
+        for r in range(1, n):
+            plans[r].put(plan)
+
+    engine.step_sink = sink
+    return emitted
+
+
+def sp_follow(engine, plans, rank: int) -> None:
+    from dynamo_tpu_torch.parallel.multihost import decode_plan, replay_plan
+
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.parallel import comm
+
+    while True:
+        plan = plans[rank].get(timeout=SP_RANK_TIMEOUT_S)
+        if plan is None:
+            return
+        if plan == "reset":      # the leader's counts start here
+            pa.reset_launches()
+            comm.reset_stats()
+            continue
+        replay_plan(engine, *decode_plan(plan))
+
+
+def sp_watch_peaks(engine) -> list:
+    """Wrap the engine's sp prefill so each call records this rank's
+    device memory: (allocated before, peak during) in bytes, the peak
+    counter reset just before the call (a measurement hook: it
+    synchronises the card around each sp prefill)."""
+    import torch
+
+    peaks = []
+    make = engine._sp_prefill_fn
+
+    def for_shape(T, W):
+        fn = make(T, W)
+
+        def measured(*args):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            peaks.append((base, torch.cuda.max_memory_allocated()))
+            return out
+        return measured
+
+    engine._sp_prefill_fn = for_shape
+    return peaks
+
+
+def sp_serve_job(rank, plans, dev, cfg, mesh, threshold, long_prompts,
+                 short_prompts):
+    """One rank of an sp engine on ``mesh`` with sp threshold
+    ``threshold`` (``cfg``: Llama-3.2-1B, bf16, random weights from SEED
+    on every rank, on ``dev``): rank 0 leads and
+    serves the long prompts one at a time (TTFT and stream of each), then
+    the short ones concurrently; the others replay its plans. Every rank
+    returns its sp prefills, plans, collectives, kernel launches and the
+    device memory of each sp prefill."""
+    import asyncio
+
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.runtime.context import Context
+
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, EngineConfig(
+        mesh_shape=mesh, sp_prefill_threshold=threshold), seed=SEED,
+        device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    peaks = sp_watch_peaks(engine)
+    n = comm.world_size()
+    out = {"build_s": build_s, "resident": resident,
+           "graphed": engine._ap_window_fn.graphed}
+
+    async def one(ids, max_tokens):
+        t_sub = time.perf_counter()
+        toks, times = [], []
+        async for o in engine.generate({"token_ids": ids,
+                                        "max_tokens": max_tokens,
+                                        "temperature": 0.0}, Context()):
+            toks.extend(o["token_ids"])
+            times.append(time.perf_counter())
+        return toks, times[0] - t_sub, (t_sub, times[0], times[-1],
+                                        len(toks))
+
+    async def lead():
+        await engine.start()
+        try:
+            # warm-up on the chunked path (cuBLAS handles, first launches)
+            await one(long_prompts[0][:32], 4)
+            engine.clear_kv_blocks()
+            pa.reset_launches()
+            comm.reset_stats()
+            for r in range(1, n):       # the followers reset here too
+                plans[r].put("reset")
+            longs = [await one(p, SP_OSL) for p in long_prompts]
+            t_short = time.perf_counter()
+            shorts = await asyncio.gather(*(one(p, OSL)
+                                            for p in short_prompts))
+            return longs, shorts, time.perf_counter() - t_short
+        finally:
+            await engine.stop()
+
+    if rank != 0:
+        sp_follow(engine, plans, rank)
+    else:
+        emitted = sp_lead(engine, plans, n)
+        try:
+            longs, shorts, short_wall = asyncio.run(lead())
+        finally:
+            for r in range(1, n):
+                plans[r].put(None)
+        out.update(
+            long_streams=[t for t, _, _ in longs],
+            long_ttft=[f for _, f, _ in longs],
+            long_itl=[(last - first) / max(1, k - 1)
+                      for _, _, (_, first, last, k) in longs],
+            short_streams=[t for t, _, _ in shorts],
+            short_runs=[run for _, _, run in shorts],
+            short_wall=short_wall, emitted=dict(emitted))
+    out.update(replayed=dict(engine.num_replayed),
+               sp_prefills=engine.num_sp_prefills, stats=dict(comm.STATS),
+               launches=dict(pa.LAUNCHES), peaks=peaks)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_attention_job(rank, plans, dev, T, H, KV, hd):
+    """(c): ``ring_attention`` and ``ulysses_attention`` on this rank's
+    slice of one Llama-3.2-1B layer's attention (causal, bf16 in, the
+    f32 online softmax inside) against the plain ``_full_attention`` over
+    the whole sequence (on this rank, its rows compared); the time of each
+    call (host clock around a synchronised call: the gloo hops block the
+    host) and of one ring hop of a K chunk."""
+    import torch
+
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.layout import make_mesh
+    from dynamo_tpu_torch.parallel.ring_attention import ring_attention
+    from dynamo_tpu_torch.parallel.ulysses import (
+        _full_attention, ulysses_attention,
+    )
+
+    n = comm.world_size()
+    dpg = make_mesh((n, 1)).dp_group
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    q, k, v = (torch.randn(1, T, x, hd, generator=gen, device=dev)
+               .to(torch.bfloat16) for x in (H, KV, KV))
+    C = T // n
+    mine = slice(rank * C, (rank + 1) * C)
+    want = _full_attention(q, k, v, True)[:, mine].float()
+    torch.cuda.synchronize()
+    plain_ms = []
+    for _ in range(SP_ATTN_REPS):
+        t0 = time.perf_counter()
+        _full_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"plain_ms": min(plain_ms)}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        ms = []
+        for _ in range(SP_ATTN_REPS):
+            comm.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(q[:, mine], k[:, mine], v[:, mine], dpg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        err = (got.float() - want).abs()
+        out[name] = {"ms": min(ms), "stats": dict(comm.STATS),
+                     "max_abs_err": err.max().item(),
+                     # the worst excess over the relative part of the limit
+                     "excess": (err - SP_ATTN_RTOL * want.abs()).max().item(),
+                     "finite": bool(torch.isfinite(got).all())}
+    chunk = k[:, mine].contiguous()
+    hop = []
+    for _ in range(SP_ATTN_REPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comm.ppermute(chunk, dpg)
+        torch.cuda.synchronize()
+        hop.append((time.perf_counter() - t0) * 1e3)
+    out["hop_ms"] = min(hop)
+    out["hop_bytes"] = chunk.numel() * chunk.element_size()
+    return out
+
+
+def sp_probe_job(rank, plans, dev, ops):
+    """Hand each gloo collective of ``ops`` (``GLOO_CUDA_OPS`` and
+    ``"ppermute"``, send/recv) a CUDA tensor directly over the world and
+    check its result: op -> "yes" or the error. Point-to-point runs last:
+    a transport that reads a device pointer on the host may raise, or
+    abort the process, so the script probes it in a world of its own."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel import comm
+
+    g = comm.world_group()
+    n, i = g.size, g.index
+    device = torch.device(dev)
+    out = {}
+
+    def attempt(op, fn, want):
+        if op not in ops:
+            return
+        try:
+            ok = torch.equal(fn().cpu(), want)
+            out[op] = "yes" if ok else "wrong result"
+        except Exception as e:  # noqa: BLE001 — the answer is the probe's
+            out[op] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+
+    def mine(k=4):
+        return torch.arange(k, dtype=torch.float32, device=device) + 10 * i
+
+    def plain(k=4, j=i):
+        return torch.arange(k, dtype=torch.float32) + 10 * j
+
+    def reduce():
+        t = mine()
+        dist.all_reduce(t, group=g.pg)
+        return t
+    attempt("all_reduce", reduce, sum(plain(j=j) for j in range(n)))
+
+    def bcast():
+        t = mine()
+        dist.broadcast(t, src=g.ranks[0], group=g.pg)
+        return t
+    attempt("broadcast", bcast, plain(j=0))
+
+    def gather():
+        parts = [torch.empty(4, device=device) for _ in range(n)]
+        dist.all_gather(parts, mine(), group=g.pg)
+        return torch.cat(parts)
+    attempt("all_gather", gather, torch.cat([plain(j=j) for j in range(n)]))
+
+    def a2a():
+        src = mine(2 * n)
+        dst = torch.empty_like(src)
+        dist.all_to_all_single(dst, src, group=g.pg)
+        return dst
+    attempt("all_to_all", a2a, torch.cat([
+        plain(2 * n, j)[2 * i:2 * i + 2] for j in range(n)]))
+
+    def p2p():
+        recv = torch.empty(4, device=device)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, mine(), g.ranks[(i + 1) % n], g.pg),
+            dist.P2POp(dist.irecv, recv, g.ranks[(i - 1) % n], g.pg)])
+        for w in works:
+            w.wait(datetime.timedelta(seconds=SP_RANK_TIMEOUT_S))
+        return recv
+    attempt("ppermute", p2p, plain(j=(i - 1) % n))
+    return out
+
+
+def sp_check_ranks(got, tag: str, n_sp: int, layers: int, dp: int,
+                   faces_run=("decode",)) -> dict:
+    """Phase 18's checks on one world's ranks: ``n_sp`` sp prefills on
+    every rank, the followers replayed exactly the plans the leader
+    emitted (``rsp`` among them), both faces launched on every rank whose
+    run had short traffic, and each sp prefill made ``2 (dp - 1)`` ring
+    hops per layer. Prints the collectives per sp prefill; returns face ->
+    launches per rank."""
+    lead = got[0]
+    if lead["emitted"].get("rsp", 0) != n_sp:
+        fail(f"{tag} the leader emitted {lead['emitted'].get('rsp', 0)} "
+             f"rsp plans, want {n_sp}")
+    for r, g in enumerate(got):
+        if g["sp_prefills"] != n_sp:
+            fail(f"{tag} rank {r} ran {g['sp_prefills']} sp prefills, "
+                 f"want {n_sp}")
+        if g["graphed"]:
+            fail(f"{tag} rank {r} captured decode graphs on a multi-rank "
+                 "mesh")
+    for r, g in enumerate(got[1:], 1):
+        if g["replayed"] != lead["emitted"]:
+            fail(f"{tag} rank {r} replayed {g['replayed']}, the leader "
+                 f"emitted {lead['emitted']}")
+    faces = {}
+    for face in ("decode", "ragged"):
+        name = f"paged_attention_{face}"
+        faces[name] = [g["launches"].get(name, 0) for g in got]
+    for face in faces_run:
+        name = f"paged_attention_{face}"
+        if min(faces[name]) == 0:
+            fail(f"{tag} the {face} face did not launch on every rank: "
+                 f"{faces[name]}")
+    hops = [g["stats"]["ppermute_calls"] / n_sp for g in got]
+    if any(h != 2 * (dp - 1) * layers for h in hops):
+        fail(f"{tag} ring hops per sp prefill {hops}, want "
+             f"{2 * (dp - 1) * layers} (K and V, dp - 1 each, per layer)")
+    st = lead["stats"]
+    per = {k: st[k] / n_sp for k in (
+        "ppermute_bytes", "ppermute_us", "staged_bytes", "all_gather_calls",
+        "all_gather_bytes", "all_gather_us", "all_reduce_calls",
+        "all_reduce_bytes")}
+    print(f"{tag} plans per kind {lead['emitted']} (leader emitted = every "
+          f"follower replayed); sp prefills per rank "
+          f"{[g['sp_prefills'] for g in got]}; per sp prefill on rank 0: "
+          f"{hops[0]:.0f} ring hops, {per['ppermute_bytes'] / 1e6:.2f} MB "
+          f"sent, {per['ppermute_us'] / 1e3:.1f} ms of host blocked in "
+          f"them, {per['staged_bytes'] / 1e6:.2f} MB staged through the "
+          f"host (the hops: gloo send/recv takes no CUDA tensor), "
+          f"{per['all_gather_calls']:.0f} all_gathers of "
+          f"{per['all_gather_bytes'] / 1e6:.2f} MB "
+          f"({per['all_gather_us'] / 1e3:.1f} ms), "
+          f"{per['all_reduce_calls']:.0f} all_reduces of "
+          f"{per['all_reduce_bytes'] / 1e6:.2f} MB; launches per rank "
+          f"{faces}", flush=True)
+    return faces
+
+
+def phase_sp(card: str) -> dict:
+    """[sp] Sequence-parallel (ring) prefill, ranks sharing cuda:0 over
+    gloo. (a) Llama-3.2-1B at full width and depth, bf16, random weights
+    from SEED, mesh (2, 1), threshold 2,048: 4 prompts of ISL 8,128 (each
+    one 8,192-token sp chunk) with OSL 64, one at a time, then phase 3's
+    traffic on the chunked path; streams under the parity rule against a
+    one-rank engine with chunked prefill on the same weights; sp prefills
+    and ``rsp`` replays per rank, ring hops and bytes per sp prefill, each
+    rank's peak device memory in an sp prefill beside the one-rank
+    engine's in one 8,192-token chunk, and TTFT beside the chunked one
+    (a correctness run: two ranks on one card over host-staged gloo).
+    (c) ring and Ulysses at one 1B layer's attention shape against the
+    plain ``_full_attention``, then the gloo probe. (b) mesh (2, 2), four
+    ranks at full width cut to 4 of 16 layers, one long prompt against its
+    one-rank run. Returns the launch counts of (a) and (b), summed over
+    ranks, for the kernels line."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine import ModelConfig
+    from dynamo_tpu_torch.engine import model as model_lib
+    from dynamo_tpu_torch.parallel import comm
+
+    cfg = ModelConfig.llama3_1b()
+    longs = sp_prompts(cfg.vocab_size)
+    shorts = main_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    ref = InferenceEngine(cfg, EngineConfig(), seed=SEED, device=DEV)
+    want_long, rec_long, ttft_ref = [], {}, []
+    for i, p in enumerate(longs):
+        w, r = tapped_run(ref, [p], osl=SP_OSL)
+        want_long += w
+        rec_long.update({(i, j): v for (_, j), v in r.items()})
+        _, stamps, _, _ = serve_batch(ref, [p], 1)
+        ttft_ref.append(stamps[0][1][0] - stamps[0][0])
+    want_short, rec_short = tapped_run(ref, shorts)
+    # the one-rank engine's device memory in ONE 8,192-token chunk
+    T = 1 << (SP_ISL - 1).bit_length()        # the sp chunk's bucket
+    W = ref.config.max_blocks_per_seq
+    fn = model_lib.raw_packed_prefill_fn(cfg, ref.config, T, W)
+    pint = np.zeros((1, T + W + model_lib.PP_SCALARS), np.int32)
+    pint[0, :SP_ISL] = longs[0]
+    pint[0, T:T + W] = np.arange(1, W + 1)
+    pint[0, T + W:] = (SP_ISL, 0, ref.config.max_num_seqs, 0, 0, -1, 0,
+                       int(model_lib.PP_QUANT))
+    torch.cuda.synchronize()
+    one_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(ref.params, ref.cache, ref._ctl["last_tok"],
+       torch.from_numpy(pint).to(DEV), ref._next_key(), False)
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated()
+    ref_s = time.perf_counter() - t0
+    del ref, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[sp] {card}: one-rank reference (chunked prefill, 512-token "
+          f"chunks) for {SP_REQUESTS} prompts of ISL {SP_ISL} OSL {SP_OSL} "
+          f"and phase 3's traffic in {ref_s:.1f} s; its TTFT per long "
+          f"prompt {[round(t * 1e3, 1) for t in ttft_ref]} ms; one "
+          f"8,192-token chunk on one rank: {one_base / 2**30:.3f} GiB "
+          f"resident, peak {one_peak / 2**30:.3f} GiB "
+          f"(+{(one_peak - one_base) / 2**30:.3f} GiB)", flush=True)
+
+    t0 = time.perf_counter()
+    world = SpWorld(SP_MESH[0] * SP_MESH[1], "dp2")
+    try:
+        up_s = time.perf_counter() - t0
+        got = world.run(sp_serve_job, DEV, cfg, SP_MESH, SP_THRESHOLD,
+                        longs, shorts)
+        lead = got[0]
+        print(f"[sp] {card}: mesh {SP_MESH}, two ranks on cuda:0 over "
+              f"gloo (up in {up_s:.1f} s, engines built in "
+              f"{[round(g['build_s'], 1) for g in got]} s, decode windows "
+              f"eager on every rank: no graph is captured on a multi-rank "
+              f"mesh)", flush=True)
+        partings = check_parity(want_long, rec_long, lead["long_streams"],
+                                "the one-rank chunked engine", tag="[sp]")
+        print(f"[sp] {card}: long streams (one 8,192-token sp chunk each) "
+              f"vs the one-rank chunked engine: "
+              f"{SP_REQUESTS - len(partings)} of {SP_REQUESTS} identical, "
+              f"{len(partings)} part at near-ties", flush=True)
+        partings = check_parity(want_short, rec_short, lead["short_streams"],
+                                "the one-rank chunked engine", tag="[sp]")
+        print(f"[sp] {card}: phase 3's traffic on the (2, 1) engine (the "
+              f"chunked path, replicated over dp): "
+              f"{N_REQUESTS - len(partings)} of {N_REQUESTS} identical, "
+              f"{len(partings)} part at near-ties; "
+              + stats_line(traffic_stats(lead["short_runs"],
+                                         lead["short_wall"])), flush=True)
+        faces_a = sp_check_ranks(got, "[sp] (2, 1)", SP_REQUESTS,
+                                 cfg.num_layers, SP_MESH[0],
+                                 ("decode", "ragged"))
+        for r, g in enumerate(got):
+            rise = [(p - b) / 2**30 for b, p in g["peaks"]]
+            print(f"[sp] {card}: rank {r} device memory in its sp "
+                  f"prefills: {g['resident'] / 2**30:.3f} GiB resident "
+                  f"after the engine, peak "
+                  f"{max(p for _, p in g['peaks']) / 2**30:.3f} GiB "
+                  f"(+{max(rise):.3f} GiB over the allocation before the "
+                  f"prefill); the one-rank engine's one 8,192-token chunk "
+                  f"+{(one_peak - one_base) / 2**30:.3f} GiB", flush=True)
+        print(f"[sp] {card}: TTFT of the sp prefill per long prompt "
+              f"{[round(t * 1e3, 1) for t in lead['long_ttft']]} ms vs the "
+              f"one-rank chunked {[round(t * 1e3, 1) for t in ttft_ref]} ms"
+              f"; ITL {[round(t * 1e3, 2) for t in lead['long_itl']]} ms — "
+              f"a correctness run (two ranks on one card, ring hops staged "
+              f"through the host), not a sequence-parallel speed",
+              flush=True)
+
+        a = SP_ATTN
+        attn = world.run(sp_attention_job, DEV, a["T"], a["H"], a["KV"],
+                         a["hd"])
+        for r, res in enumerate(attn):
+            for name in ("ring", "ulysses"):
+                x = res[name]
+                if not x["finite"] or x["excess"] > SP_ATTN_ATOL:
+                    fail(f"[sp] {name} attention on rank {r} disagrees "
+                         f"with the plain version: max |err| "
+                         f"{x['max_abs_err']}, {x['excess']} above "
+                         f"{SP_ATTN_RTOL} * |want| (limit {SP_ATTN_ATOL})")
+        r0 = attn[0]
+        print(f"[sp] {card}: attention at T {a['T']}, {a['H']} / {a['KV']} "
+              f"heads, hd {a['hd']}, bf16 in, causal, on 2 ranks vs the "
+              f"plain _full_attention (limit |err| <= {SP_ATTN_ATOL} + "
+              f"{SP_ATTN_RTOL} * |want|; worst excess ring "
+              f"{max(x['ring']['excess'] for x in attn):.3e}, Ulysses "
+              f"{max(x['ulysses']['excess'] for x in attn):.3e}): ring "
+              f"max |err| "
+              f"{max(x['ring']['max_abs_err'] for x in attn):.3e} in "
+              f"{r0['ring']['ms']:.2f} ms (rank 0; "
+              f"{r0['ring']['stats']['ppermute_calls']} hops of "
+              f"{r0['hop_bytes'] / 1e6:.2f} MB, one hop "
+              f"{r0['hop_ms']:.3f} ms), Ulysses max |err| "
+              f"{max(x['ulysses']['max_abs_err'] for x in attn):.3e} in "
+              f"{r0['ulysses']['ms']:.2f} ms "
+              f"({r0['ulysses']['stats']['all_to_all_calls']} all_to_alls "
+              f"of {r0['ulysses']['stats']['all_to_all_bytes'] / 1e6:.1f} "
+              f"MB), the plain version on one rank {r0['plain_ms']:.2f} ms "
+              f"(host clock around synchronised calls)", flush=True)
+        probe = world.run(sp_probe_job, DEV, GLOO_CUDA_OPS)
+    finally:
+        world.close()
+    # send/recv handed a CUDA pointer may raise or abort a rank: in a world
+    # of its own, whose end is the answer too
+    world = SpWorld(2, "probe")
+    try:
+        p2p = world.run(sp_probe_job, DEV, ["ppermute"], timeout_s=60.0,
+                        must=False)
+    finally:
+        world.close()
+    answer = "; ".join(
+        f"rank {r}: " + (val["ppermute"] if status == "ok" else
+                         f"ended, exit code {val}" if status == "exit"
+                         else val.strip().splitlines()[-1])
+        for r, (status, val) in enumerate(p2p))
+    print(f"[sp] {card}: gloo handed CUDA tensors directly: {probe[0]}; "
+          f"send/recv (the ring hop, staged by comm.ppermute): {answer}",
+          flush=True)
+    for r, res in enumerate(probe):
+        for op, ans in res.items():
+            if ans != "yes":
+                fail(f"[sp] parallel/comm.py hands gloo's {op} CUDA "
+                     f"tensors; the probe on rank {r} says {ans}")
+
+    cfg_b = dataclasses.replace(cfg, num_layers=SP_LAYERS_B)
+    ref = InferenceEngine(cfg_b, EngineConfig(), seed=SEED, device=DEV)
+    want_b, rec_b = tapped_run(ref, longs[:1], osl=SP_OSL)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    world = SpWorld(SP_MESH_B[0] * SP_MESH_B[1], "dp2tp2")
+    try:
+        got_b = world.run(sp_serve_job, DEV, cfg_b, SP_MESH_B, SP_THRESHOLD,
+                          longs[:1], [])
+    finally:
+        world.close()
+    partings = check_parity(want_b, rec_b, got_b[0]["long_streams"],
+                            "its one-rank chunked run", tag="[sp]")
+    print(f"[sp] {card}: mesh {SP_MESH_B}, four ranks on cuda:0 at "
+          f"{SP_LAYERS_B} of 16 layers, one prompt of ISL {SP_ISL}: "
+          f"{1 - len(partings)} of 1 streams identical to its one-rank "
+          f"run; TTFT {got_b[0]['long_ttft'][0] * 1e3:.1f} ms; "
+          f"{time.perf_counter() - t0:.1f} s with the world", flush=True)
+    faces_b = sp_check_ranks(got_b, "[sp] (2, 2)", 1, SP_LAYERS_B,
+                             SP_MESH_B[0])
+    if min(got_b[0]["stats"]["all_reduce_calls"],
+           got_b[1]["stats"]["all_reduce_calls"]) == 0:
+        fail("[sp] (2, 2) made no tp all_reduce")
+    return {"launches_sp": {k: sum(v) for k, v in faces_a.items()},
+            "launches_sp_2x2": {k: sum(v) for k, v in faces_b.items()},
+            "launches_sp_per_rank": faces_a}
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -6065,7 +6783,8 @@ def kernels_line(results, launches, dist_launches, spec_launches,
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": replaces, "launches": launches[name],
             "launches_dist": dist_launches[name],
-            **{key: counts[name] for key, counts in slice_launches.items()},
+            **{key: counts.get(name, 0)
+               for key, counts in slice_launches.items()},
             "max_abs_err": max(v["max_abs_err"] for v in results.values()
                                if v["face"] == face and v["kv_dtype"] == kv
                                and v["dtype"] == "bfloat16"),
@@ -6204,6 +6923,8 @@ def main() -> None:
     tp_launches = {64: phase_tp(card, served, tp_ref)}
     del tp_ref
     timer("17 tensor parallel, Llama-3.2-1B")
+    sp = phase_sp(card)
+    timer("18 sequence parallel")
     dist_launches = phase_dist(card, served, direct)
     timer("6 distributed")
     phase_kvmove_procs(card, served)
@@ -6243,7 +6964,10 @@ def main() -> None:
                        moe_launches, {"launches_profile": profile_launches,
                                       "launches_replay": replay_launches,
                                       "launches_embed": embed_launches,
-                                      "launches_mm": mm["launches"]},
+                                      "launches_mm": mm["launches"],
+                                      "launches_sp": sp["launches_sp"],
+                                      "launches_sp_2x2":
+                                      sp["launches_sp_2x2"]},
                        tp_launches, tuned_rows))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -666,14 +666,14 @@ def share_choice(
     tune: Callable[[], Tuple[EngineConfig, dict]],
     device,
 ) -> Tuple[EngineConfig, dict]:
-    """``tune()`` on a one-rank engine. Under tensor parallelism rank 0
-    runs ``tune()`` and one ``broadcast`` hands its resolved per-class
-    impls and tiles to every rank, so followers launch exactly what the
-    leader launches and never time the card themselves (two ranks on one
-    card timing at once could pick differently)."""
+    """``tune()`` on a one-rank engine. On a mesh of more than one rank,
+    rank 0 runs ``tune()`` and one ``broadcast`` over the world hands its
+    resolved per-class impls and tiles to every rank, so followers launch
+    exactly what the leader launches and never time the card themselves
+    (two ranks on one card timing at once could pick differently)."""
     from ..parallel import comm
 
-    if model_lib.tp_size(engine_config) == 1:
+    if model_lib.mesh_ranks(engine_config) == 1:
         return tune()
     if comm.rank() == 0:
         cfg, choice = tune()
@@ -686,7 +686,8 @@ def share_choice(
         cfg, choice = engine_config, None
         packed = [0] * (3 * len(CLASSES))
     t = comm.broadcast(torch.tensor(packed, dtype=torch.int64,
-                                    device=torch.device(device)))
+                                    device=torch.device(device)),
+                       group=comm.world_group())
     vals = [int(v) for v in t.cpu()]
     fields = {}
     for i, cls in enumerate(CLASSES):

@@ -225,9 +225,14 @@ class EngineConfig:
     # f32 scales
     weight_dtype: str = "bf16"          # "bf16" | "int8" | "fp8"
     kv_dtype: str = "bf16"              # "bf16" | "int8" | "fp8"
+    # sequence-parallel prefill: on a mesh of more than one rank, a fresh
+    # prompt at least this long is prefilled as ONE chunk with its T axis
+    # split over the dp rows (ring attention over the dp column,
+    # engine/model.py), so a long prompt need not fit one rank's prefill
+    # budget. 0 = disabled (chunked prefill)
+    sp_prefill_threshold: int = 0
     # -- paths not served by this package yet (check_supported refuses) --
     pp_stages: int = 1
-    sp_prefill_threshold: int = 0
 
     def __post_init__(self):
         if len(self.mesh_shape) not in (2, 3):
@@ -309,15 +314,16 @@ class EngineConfig:
 def check_supported(eng: EngineConfig) -> None:
     """Refuse, at engine construction, every path this package does not
     serve yet (each is still served by the JAX package): a mesh other than
-    ``(1, tp)``, pipeline and sequence parallelism (ROADMAP.md queue A,
-    item 6, later part)."""
+    ``(dp, tp)`` and pipeline parallelism (ROADMAP.md queue A, item 6,
+    later part)."""
     from ..parallel.layout import check_mesh_shape
 
-    check_mesh_shape(eng.mesh_shape)
+    dp, _ = check_mesh_shape(eng.mesh_shape)
     unsupported = [
         (eng.pp_stages > 1, f"pp_stages={eng.pp_stages}"),
-        (eng.sp_prefill_threshold > 0,
-         f"sp_prefill_threshold={eng.sp_prefill_threshold}"),
+        # an sp chunk is bucketed to a power of two, which dp must divide
+        (eng.sp_prefill_threshold > 0 and dp & (dp - 1),
+         f"sp_prefill_threshold on dp={dp} (not a power of two)"),
     ]
     for bad, what in unsupported:
         if bad:

@@ -42,15 +42,18 @@ placeholder rows in the prefill chunks that hold them (an image may span
 two chunks), with KV block hashes chained over the content-addressed
 ``mm_hash_token_ids``.
 
-Tensor and expert parallelism (``mesh_shape=(1, tp)``, one engine per rank,
-``parallel/multihost.py``): each rank's engine holds its shard of the
-params and cache; the leader's engine schedules and hands every device
-call's host arrays to ``step_sink`` *before* launching it (the JAX emission
-sites), and the followers' engines replay them (``replay_plan``). Attention
-choices and launch parameters come from the leader (autotune runs on rank 0
-and is broadcast), decode windows run eager (no CUDA graphs under tp > 1),
-and KV movement, the KVBM tiers, preemption evacuation, ``embed`` and
-multimodal requests are refused by name, as in the JAX multi-host worker.
+Tensor, expert and data parallelism (``mesh_shape=(dp, tp)``, one engine
+per rank, ``parallel/multihost.py``): each rank's engine holds its shard of
+the params and cache (replicated over dp); the leader's engine schedules
+and hands every device call's host arrays to ``step_sink`` *before*
+launching it (the JAX emission sites), and the followers' engines replay
+them (``replay_plan``). Attention choices and launch parameters come from
+the leader (autotune runs on rank 0 and is broadcast), decode windows run
+eager (no CUDA graphs on a mesh of more than one rank), and KV movement,
+the KVBM tiers, preemption evacuation, ``embed`` and multimodal requests
+are refused by name, as in the JAX multi-host worker. With
+``sp_prefill_threshold`` a fresh prompt at least that long is prefilled as
+one sequence-parallel chunk (``rsp`` plans; ``engine/model.py``).
 """
 
 from __future__ import annotations
@@ -288,8 +291,10 @@ class EngineCore(AsyncEngine):
         self._kv_reservations: Dict[str, int] = {}
         self.kvbm = None  # multi-tier block manager (attach_kvbm)
         self.prefix = None  # radix prefix cache (attach_prefix_cache)
-        # tensor-parallel degree (InferenceEngine sets it from mesh_shape)
+        # tensor-parallel degree and the mesh's ranks, dp * tp
+        # (InferenceEngine sets them from mesh_shape)
         self.tp = 1
+        self.world = 1
         # run-ahead depth: how many scheduled windows may be in flight
         # before the loop waits for a landing. 1 = classic synchronous
         # schedule→execute→postprocess; InferenceEngine takes the config's.
@@ -412,7 +417,7 @@ class EngineCore(AsyncEngine):
             # the step would abort every co-scheduled request (and, under
             # tensor parallelism, after parts of the batch reached the
             # followers)
-            self.refuse_under_tp("multimodal prefill")
+            self.refuse_multi_rank("multimodal prefill")
             model_cfg = getattr(self, "model_config", None)
             if (model_cfg is not None and request.mm_embeddings is not None
                     and np.asarray(request.mm_embeddings).shape[-1]
@@ -1165,20 +1170,21 @@ class EngineCore(AsyncEngine):
     # (runtime.preemption drives these: park a decoding seat, wait for its
     #  inflight windows to land, stream its KV to a peer, finish it here)
 
-    def refuse_under_tp(self, what: str) -> None:
-        """Raise, by name, for a path a tensor-parallel engine does not
-        serve (the scope of the JAX multi-host worker)."""
-        if self.tp > 1:
+    def refuse_multi_rank(self, what: str) -> None:
+        """Raise, by name, for a path an engine on a mesh of more than one
+        rank does not serve (the scope of the JAX multi-host worker). It
+        keys on the ranks, not on tp: a ``(2, 1)`` rank has ``tp == 1``."""
+        if self.world > 1:
             raise NotImplementedError(
-                f"{what} on a tensor-parallel engine (tp={self.tp}) needs "
-                "multi-device serving, ROADMAP.md queue A, item 6 (later "
-                "part)")
+                f"{what} on a multi-rank engine ({self.world} ranks, "
+                f"tp={self.tp}) needs multi-device serving, ROADMAP.md "
+                "queue A, item 6 (later part)")
 
     def evacuable_seats(self) -> List[SchedSeq]:
         """Decoding seats whose KV is worth moving (prefill complete).
         PREFILL/WAITING seats are cheaper to re-prefill at the destination
         than to stream mid-build."""
-        self.refuse_under_tp("preemption evacuation")
+        self.refuse_multi_rank("preemption evacuation")
         return [s for s in self.scheduler.running
                 if s.status is SeqStatus.RUNNING and s.prefill_done]
 
@@ -1325,11 +1331,13 @@ class InferenceEngine(EngineCore):
     ``device`` defaults to ``cuda``; with no GPU present and no device
     given, construction raises (pass ``device="cpu"`` to run on the CPU).
 
-    With ``mesh_shape=(1, tp)`` the engine is one rank of a tensor-parallel
-    world (``parallel/comm.py`` initialised first): ``params`` may be the
-    full tree (each rank keeps its slice; ``None`` builds the full tree
+    With ``mesh_shape=(dp, tp)`` the engine is one rank of a world of
+    ``dp * tp`` (``parallel/comm.py`` initialised first): ``params`` may be
+    the full tree (each rank keeps its slice; ``None`` builds the full tree
     from ``seed`` on every rank, so the weights equal the one-rank
     engine's) or this rank's shard (``weights.load_hf_params_sharded``).
+    ``sp_prefill_threshold > 0`` on such a mesh turns on the
+    sequence-parallel prefill (``_sp_prefill_fn``).
     """
 
     def __init__(
@@ -1361,6 +1369,7 @@ class InferenceEngine(EngineCore):
                 engine_config, self.device), self.device)
         super().__init__(engine_config)
         self.tp = tp
+        self.world = model_lib.mesh_ranks(engine_config)
         self.model_config = model_config
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -1419,11 +1428,21 @@ class InferenceEngine(EngineCore):
         self.step_sink: Optional[Callable[[str, Dict[str, np.ndarray]],
                                           None]] = None
         self.num_replayed: Dict[str, int] = {}
-        if tp > 1:
-            log.info("tp=%d rank %d: decode windows run eager (no CUDA "
-                     "graphs under tensor parallelism); KV movement, KVBM, "
-                     "evacuation, embed and mm are refused", tp,
-                     self.mesh.coords["tp"])
+        # sequence-parallel prefill (the JAX engine builds it when the
+        # mesh has more than one device and the threshold is above 0)
+        self._sp_prefill_fn = None
+        self.num_sp_prefills = 0
+        if self.world > 1 and engine_config.sp_prefill_threshold > 0:
+            self._sp_prefill_fn = model_lib.make_sp_ring_prefill_fn(
+                model_config, engine_config)
+            self.scheduler.sp_enabled = True
+        if self.world > 1:
+            log.info("mesh %s rank %s: decode windows run eager (no CUDA "
+                     "graphs on a multi-rank mesh); sp prefill %s; KV "
+                     "movement, KVBM, evacuation, embed and mm are refused",
+                     tuple(engine_config.mesh_shape), self.mesh.coords,
+                     f"from {engine_config.sp_prefill_threshold} tokens"
+                     if self._sp_prefill_fn is not None else "off")
         # dispatch counters
         self.num_windows = 0
         self.num_prefill_dispatches = 0
@@ -1447,7 +1466,7 @@ class InferenceEngine(EngineCore):
             self.obs = StepStats(
                 FlopsModel(model_config),
                 # MFU per card: the whole model's flops over the world
-                n_chips=tp,
+                n_chips=self.world,
                 peak_flops=obs_flops.peak_flops(
                     (torch.cuda.get_device_name(self.device)
                      if self.device.type == "cuda" else ""),
@@ -1586,7 +1605,7 @@ class InferenceEngine(EngineCore):
         is padded to a power of two (pads gather the trash block) and the
         pad is sliced off. On a card the copy lands in pinned memory and
         this waits on its CUDA event off the device-step thread."""
-        self.refuse_under_tp("KV block extract")
+        self.refuse_multi_rank("KV block extract")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
 
@@ -1618,7 +1637,7 @@ class InferenceEngine(EngineCore):
         With ``seq_id``/``epoch`` the reservation is re-validated *inside*
         the device-step callable — immediately before the write — so a
         reservation recycled mid-flight is rejected, never scattered."""
-        self.refuse_under_tp("KV block inject")
+        self.refuse_multi_rank("KV block inject")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
         m = padded.shape[0]
@@ -1652,7 +1671,7 @@ class InferenceEngine(EngineCore):
     def attach_kvbm(self, config=None, remote=None):
         """Enable the multi-tier block manager on this engine (optionally
         with a G4 remote tier)."""
-        self.refuse_under_tp("the KVBM tiers")
+        self.refuse_multi_rank("the KVBM tiers")
         from ..kvbm.manager import KvbmConfig, KvbmManager
 
         self.kvbm = KvbmManager(self, config or KvbmConfig(), remote=remote)
@@ -1668,7 +1687,7 @@ class InferenceEngine(EngineCore):
         on the same stream. Inputs are grouped by power-of-two (B, T)
         buckets, as the JAX engine groups them for its programs: one
         batched forward and one device→host copy per group."""
-        self.refuse_under_tp("embed (/v1/embeddings)")
+        self.refuse_multi_rank("embed (/v1/embeddings)")
         loop = asyncio.get_running_loop()
 
         for ids in token_ids_batch:
@@ -1996,13 +2015,16 @@ class InferenceEngine(EngineCore):
                 return
         super()._quarantine_shape(cls)
 
-    def _prefill_arrays(self, chunk: PrefillChunk):
+    def _prefill_arrays(self, chunk: PrefillChunk, use_sp: bool = False):
         cfg = self.config
         seq = chunk.seq
-        if chunk.length <= max(cfg.prefill_buckets):
+        if chunk.length <= max(cfg.prefill_buckets) and not use_sp:
             T = self._bucket_for("prefill", chunk.length)
         else:
-            T = _pow2_bucket(chunk.length)
+            # sp full-prompt chunks (and any oversized chunk) bucket to the
+            # next power of two, which a power-of-two dp always divides
+            T = max(_pow2_bucket(chunk.length),
+                    self.config.mesh_shape[0] if use_sp else 1)
         # only the blocks this chunk can touch: W is a function of the
         # chunk shape alone
         bs = cfg.block_size
@@ -2025,7 +2047,13 @@ class InferenceEngine(EngineCore):
         cfg = self.config
         seq = chunk.seq
         self.num_prefill_dispatches += 1
-        tokens, tables = self._prefill_arrays(chunk)
+        use_sp = (
+            self._sp_prefill_fn is not None
+            and chunk.start == 0 and chunk.final
+            and chunk.length >= cfg.sp_prefill_threshold
+            and not seq.mm_positions  # the sp path has no mm splicing
+        )
+        tokens, tables = self._prefill_arrays(chunk, use_sp)
         T, W = tokens.shape[0], tables.shape[0]
         if obs_out is not None:
             # host-known ints only — prompt tokens are goodput at dispatch;
@@ -2040,7 +2068,8 @@ class InferenceEngine(EngineCore):
             ))
         mm_rows = self._mm_chunk_rows(chunk)
         mm = bool(mm_rows)
-        fn = self._prefill_fn(T, W, mm)
+        fn = self._sp_prefill_fn(T, W) if use_sp else self._prefill_fn(
+            T, W, mm)
         slot = seq.slot if seq.slot >= 0 else cfg.max_num_seqs
         M = T + W + model_lib.PP_SCALARS
         pint = np.zeros((1, M + (T if mm else 0)), np.int32)
@@ -2066,9 +2095,11 @@ class InferenceEngine(EngineCore):
             extra = (self._upload(mm_embeds),)
         stochastic = seq.temperature > 0.0
         if self.step_sink is not None:
-            self.step_sink("pp", {"pint": pint,
-                                  "tw": np.array([T, W], np.int32),
-                                  "st": np.array([stochastic], np.int32)})
+            self.step_sink("rsp" if use_sp else "pp", {
+                "pint": pint, "tw": np.array([T, W], np.int32),
+                "st": np.array([stochastic], np.int32)})
+        if use_sp:
+            self.num_sp_prefills += 1
         # the prefill posts its sample into ctl["last_tok"] in place; the
         # cache and ctl it returns are the same objects (the decode graphs
         # read them at their captured addresses)

@@ -59,7 +59,35 @@ buffers:
   rank then holds the same hidden states and full logits and samples the
   same tokens. Both kernel faces run unchanged at ``H/tp`` query heads and
   ``KV/tp`` KV heads. ``encode_forward``, the multimodal splice and the KV
-  block ops are single-rank (the engine refuses them under ``tp > 1``).
+  block ops are single-rank (the engine refuses them on any multi-rank
+  mesh). Every ``all_reduce`` runs over the rank's **tp row**: on a
+  ``(dp, tp)`` mesh the ``dp`` replicas hold the same parameters and
+  cache and run the same dense step redundantly, as GSPMD runs the JAX
+  package's replicated activations. The groups come from the engine's
+  mesh (``make_mesh(eng.mesh_shape)``, its ``tp_group`` and
+  ``dp_group``), bound when a step function is built and handed to
+  ``forward`` and ``logits_fn``: no collective reads a group from process
+  state, so two engines on two meshes in one process keep their own.
+- **Sequence-parallel prefill** (``forward(..., sp=True)``, the engine's
+  ``sp_prefill_threshold``): a fresh prompt's one chunk of ``T`` tokens is
+  split along T over the dp rows, Megatron's context parallel times
+  tensor parallel. dp row ``d`` takes the contiguous slice ``[d*T/dp,
+  (d+1)*T/dp)`` — the union of the JAX mesh-major chunks ``d*tp ..
+  d*tp+tp-1`` of ``SpecLayout.seq_axes`` — and inside the row the tp
+  ranks run the column/row split above on that slice (their
+  ``all_reduce`` stays on the tp row). Attention is
+  ``parallel/ring_attention.py`` over the **dp column** (the ranks of
+  equal tp index) on the rank's ``H/tp`` heads, from the unquantized K/V
+  as in JAX; the cache then takes the whole prompt's K/V of the rank's
+  ``KV/tp`` heads by one exact ``all_gather`` over the dp column per K and
+  V (quantized there for 1-byte pages) — the port's form of the JAX
+  gather-then-slice re-landing. An MoE layer gathers its input rows over
+  the dp column too: capacity routing is a function of every row of the
+  chunk in order. The function is the JAX package's; the placement
+  differs in one respect: activations per rank are O(T/dp), where the JAX
+  composite axis gives O(T/(dp*tp)). At ``dp = 1`` the ring has one
+  member and the sp chunk is the tp forward over the whole prompt, with
+  ring attention's f32 einsum in place of the kernel.
 
 Nothing here synchronises with the host except where a docstring says so.
 """
@@ -82,8 +110,11 @@ from ..ops.paged_attention import (
     paged_attention_decode, paged_attention_ragged,
 )
 from ..parallel import comm
-from ..parallel.layout import SpecLayout, make_mesh, map_specs, shard_tensor
+from ..parallel.layout import (
+    Mesh, SpecLayout, make_mesh, map_specs, shard_tensor,
+)
 from ..parallel.moe import moe_ffn
+from ..parallel.ring_attention import ring_attention
 from . import quant
 from .config import EngineConfig, ModelConfig
 
@@ -100,6 +131,11 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def tp_size(eng: EngineConfig) -> int:
     """The tensor-parallel degree of the engine's ``(dp, tp)`` mesh."""
     return int(eng.mesh_shape[-1])
+
+
+def mesh_ranks(eng: EngineConfig) -> int:
+    """The ranks of the engine's ``(dp, tp)`` mesh, ``dp * tp``."""
+    return int(eng.mesh_shape[0]) * int(eng.mesh_shape[-1])
 
 
 # ------------------------------ init ------------------------------------
@@ -213,11 +249,12 @@ def shard_params(params: Params, cfg: ModelConfig,
     the JAX ``shard_params``' ``device_put``); the full leaves can be freed
     as soon as the caller drops the tree. A tree already sharded (its
     embedding holds ``V / tp`` rows, as ``weights.load_hf_params_sharded``
-    gives it) is kept, and so is any tree of a one-rank mesh."""
-    tp = tp_size(eng)
-    if tp == 1 or params["embed"].shape[0] != cfg.vocab_size:
-        return params
+    gives it) is kept, and so is any tree of a one-rank mesh. On a mesh
+    of more than one rank it makes the mesh first (``make_mesh``, which
+    creates its groups on every rank alike)."""
     mesh = make_mesh(eng.mesh_shape)
+    if tp_size(eng) == 1 or params["embed"].shape[0] != cfg.vocab_size:
+        return params
     return map_specs(lambda t, sp: shard_tensor(t, sp, mesh), params,
                      param_specs(cfg, eng))
 
@@ -275,32 +312,33 @@ def _mm(x: torch.Tensor, w: Any) -> torch.Tensor:
     return x @ w
 
 
-def _row_mm(x: torch.Tensor, w: Any) -> torch.Tensor:
+def _row_mm(x: torch.Tensor, w: Any, tpg: comm.Group) -> torch.Tensor:
     """A row-parallel matmul (``wo``, dense ``w_down``) under tensor
     parallelism: this rank's partial product over its rows of ``w``, in
-    f32, summed over the ranks by one ``all_reduce``, then cast to x's
+    f32, summed over the tp row ``tpg`` by one ``all_reduce``, then cast to x's
     dtype once (as the one-rank ``_mm`` casts its f32-accumulated
     product)."""
     if isinstance(w, dict):
         y = (x @ w["q"].to(x.dtype)).float() * w["s"][0]
     else:
         y = _head_mm(x, w)
-    return comm.all_reduce(y).to(x.dtype)
+    return comm.all_reduce(y, tpg).to(x.dtype)
 
 
 def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
-                  vocab_size: int) -> torch.Tensor:
+                  vocab_size: int, tpg: comm.Group) -> torch.Tensor:
     """Token embeddings from a (possibly vocab-sharded) table: a rank
     holding rows ``[lo, lo + rows)`` of the vocabulary looks up the tokens
-    in its range, writes zeros for the rest, and one ``all_reduce`` sums
-    the ranks' rows — exact, as each element has one nonzero term."""
+    in its range, writes zeros for the rest, and one ``all_reduce`` over
+    the tp row ``tpg`` sums the ranks' rows — exact, as each element has
+    one nonzero term."""
     rows = embed.shape[0]
     if rows == vocab_size:
         return embed[tokens.long()]
-    local = tokens.long() - comm.rank() * rows
+    local = tokens.long() - tpg.index * rows
     inside = (local >= 0) & (local < rows)
     h = embed[torch.where(inside, local, 0)]
-    return comm.all_reduce(torch.where(inside[..., None], h, 0.0))
+    return comm.all_reduce(torch.where(inside[..., None], h, 0.0), tpg)
 
 
 def _layer_slice(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
@@ -420,9 +458,22 @@ def forward(
     block_tables: torch.Tensor,  # [B, W] int physical block ids (0 = trash)
     mm_embeds: Optional[torch.Tensor] = None,  # [B, T, D] vision embeddings
     mm_mask: Optional[torch.Tensor] = None,    # [B, T] True = use mm_embeds
+    sp: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Cache, torch.Tensor]:
     """Run the transformer over a token chunk, updating the paged cache IN
-    PLACE (the returned cache is the same dict and tensors).
+    PLACE (the returned cache is the same dict and tensors). ``mesh``
+    carries the rank's tp row and dp column (default
+    ``make_mesh(eng.mesh_shape)``; the step builders bind it once).
+
+    With ``sp`` the chunk MUST be a full fresh prompt (start 0) whose T the
+    dp column divides: this rank runs its dp row's slice of T (module
+    docstring), attention is the exact ring over the dp column, and every
+    rank's cache takes the whole prompt's K/V of its heads. The returned
+    hidden states are then this rank's slice ``[B, T/dp, D]``. Pad tails
+    are safe: the ring masks by absolute chunk index, so pad keys (index
+    above every real query) never reach a real row, and pad rows scatter
+    to the trash block.
 
     Valid tokens of each row are a prefix of it (the prefill/decode feed
     contract), so the kernel's ragged metadata is a count and a max.
@@ -441,8 +492,18 @@ def forward(
     dev = tokens.device
     positions = positions.long()
     block_tables = block_tables.to(torch.int32).contiguous()
+    mesh = make_mesh(eng.mesh_shape) if mesh is None else mesh
+    tpg = mesh.tp_group
+    dpg = mesh.dp_group if sp else comm.SOLO
+    if T % dpg.size:
+        raise ValueError(f"an sp chunk of T={T} does not split over "
+                         f"dp={dpg.size}")
+    Tl = T // dpg.size                      # this rank's rows of the chunk
+    mine = slice(dpg.index * Tl, (dpg.index + 1) * Tl)
+    pos_local = positions[:, mine]
 
-    h = _embed_lookup(params["embed"], tokens, cfg.vocab_size)  # [B, T, D]
+    h = _embed_lookup(params["embed"], tokens[:, mine],
+                      cfg.vocab_size, tpg)               # [B, Tl, D]
     if mm_embeds is not None:
         # multimodal EPD: placeholder positions take the encode worker's
         # precomputed embeddings instead of token embeddings (ref: the
@@ -462,11 +523,11 @@ def forward(
                    torch.arange(KV, device=dev)[None, :],
                    scatter_off[:, None])                   # -> [B*T, KV]
 
-    cos, sin = _rope_tables(positions, cfg.rope_theta, hd)
+    cos, sin = _rope_tables(pos_local, cfg.rope_theta, hd)
     kv_quant = quant.is_quantized(eng.kv_dtype)
 
     attn_class = attention_class(eng, T)
-    use_kernel = resolve_attention_impl(eng, attn_class) == "kernel"
+    use_kernel = not sp and resolve_attention_impl(eng, attn_class) == "kernel"
     if use_kernel:
         q_tile, kv_arg = class_tile(eng, attn_class, T, W)
         if T == 1:
@@ -488,16 +549,17 @@ def forward(
         lvs = cache["vs"][li] if kv_quant else None
 
         x = _rms_norm(h, p["attn_norm"], cfg.rms_norm_eps)
-        q = _mm(x, p["wq"]).reshape(B, T, H, hd)
-        k = _mm(x, p["wk"]).reshape(B, T, KV, hd)
-        v = _mm(x, p["wv"]).reshape(B, T, KV, hd)
+        q = _mm(x, p["wq"]).reshape(B, Tl, H, hd)
+        k = _mm(x, p["wk"]).reshape(B, Tl, KV, hd)
+        v = _mm(x, p["wv"]).reshape(B, Tl, KV, hd)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
 
         # scatter this chunk's K/V into the paged cache, in place (the JAX
-        # step donates the cache and scatter-updates it)
-        k_upd = k.reshape(B * T, KV, hd)
-        v_upd = v.reshape(B * T, KV, hd)
+        # step donates the cache and scatter-updates it); an sp rank first
+        # gathers the other dp rows' slices of its heads (exact copies)
+        k_upd = comm.all_gather(k, dpg, dim=1).reshape(B * T, KV, hd)
+        v_upd = comm.all_gather(v, dpg, dim=1).reshape(B * T, KV, hd)
         if kv_quant:
             # per-(token, head) scales: a token's bytes depend only on its
             # own K/V, never on the block it lands in
@@ -508,7 +570,9 @@ def forward(
         _bits(lk).index_put_(scatter_idx, _bits(k_upd))
         _bits(lv).index_put_(scatter_idx, _bits(v_upd))
 
-        if use_kernel and T == 1:
+        if sp:
+            attn = ring_attention(q, k, v, dpg)
+        elif use_kernel and T == 1:
             attn = paged_attention_decode(
                 q[:, 0].contiguous(), lk, lv, block_tables, seq_lens,
                 block_size=bs, k_scale=lks, v_scale=lvs, n_split=kv_arg,
@@ -537,43 +601,46 @@ def forward(
                 k_all = quant.kv_dequantize(k_all, ks_all, q.dtype)
                 v_all = quant.kv_dequantize(v_all, vs_all, q.dtype)
             attn = _attention(q, k_all, v_all, positions)
-        attn = attn.reshape(B, T, H * hd)
-        h = h + (_mm(attn, p["wo"]) if tp == 1 else _row_mm(attn, p["wo"]))
+        attn = attn.reshape(B, Tl, H * hd)
+        h = h + (_mm(attn, p["wo"]) if tp == 1
+                 else _row_mm(attn, p["wo"], tpg))
 
         x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
         if cfg.is_moe:
             # every row of the chunk is routed, padding included, in the
             # reference's order: capacity slots go to rows in [B*T] order.
             # Under tp each rank runs its experts (ep rides tp) and one
-            # all_reduce sums their f32 partial outputs
+            # all_reduce sums their f32 partial outputs. An sp rank routes
+            # the whole chunk (gathered over the dp column), then keeps its
+            # rows: capacity slots depend on every row before its own
             D = x.shape[-1]
             out = moe_ffn(
-                x.reshape(B * T, D),
+                comm.all_gather(x, dpg, dim=1).reshape(B * T, D),
                 p["w_router"],
                 _dequant_leaf(p["w_gate"], x.dtype),
                 _dequant_leaf(p["w_up"], x.dtype),
                 _dequant_leaf(p["w_down"], x.dtype),
                 top_k=cfg.num_experts_per_token,
                 capacity_factor=cfg.moe_capacity_factor,
-                expert_offset=None if tp == 1 else comm.rank() * (
+                expert_offset=None if tp == 1 else tpg.index * (
                     cfg.num_experts // tp),
             )
             if tp > 1:
-                out = comm.all_reduce(out).to(x.dtype)
-            h = h + out.reshape(B, T, D)
+                out = comm.all_reduce(out, tpg).to(x.dtype)
+            h = h + out.reshape(B, T, D)[:, mine]
         else:
             gate = F.silu(_mm(x, p["w_gate"]).float())
             up = _mm(x, p["w_up"]).float()
             act = (gate * up).to(h.dtype)
             h = h + (_mm(act, p["w_down"]) if tp == 1
-                     else _row_mm(act, p["w_down"]))
+                     else _row_mm(act, p["w_down"], tpg))
 
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return cache, h
 
 
-def logits_fn(cfg: ModelConfig, params: Params,
-              h: torch.Tensor) -> torch.Tensor:
+def logits_fn(cfg: ModelConfig, params: Params, h: torch.Tensor,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Float32 logits ``[..., V]``. A bf16 head on the card multiplies in
     bf16 with an f32 result (casting the [D, V] head to f32 would write
     ~1 GB per step for a 1B model). A quantized untied head multiplies by
@@ -582,8 +649,9 @@ def logits_fn(cfg: ModelConfig, params: Params,
 
     A vocab-sharded head (tensor parallelism: fewer columns than the
     vocabulary) writes this rank's columns into zeroed full logits and one
-    ``all_reduce`` fills in the others' — exact, so every rank samples the
-    same tokens from the same logits."""
+    ``all_reduce`` over ``mesh``'s tp row fills in the others' — exact, so
+    every rank samples the same tokens from the same logits. Such a head
+    needs ``mesh``."""
     head = (params["embed"].T if cfg.tie_word_embeddings
             else params["lm_head"])
     if isinstance(head, dict):
@@ -593,11 +661,14 @@ def logits_fn(cfg: ModelConfig, params: Params,
     cols = y.shape[-1]
     if cols == cfg.vocab_size:
         return y
+    if mesh is None:
+        raise ValueError(f"a vocab-sharded head ({cols} of "
+                         f"{cfg.vocab_size} columns) needs the mesh")
     full = torch.zeros(y.shape[:-1] + (cfg.vocab_size,), dtype=y.dtype,
                        device=y.device)
-    lo = comm.rank() * cols
+    lo = mesh.tp_group.index * cols
     full[..., lo:lo + cols] = y
-    return comm.all_reduce(full)
+    return comm.all_reduce(full, mesh.tp_group)
 
 
 def _head_mm(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -793,8 +864,26 @@ def step_key(key: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
 # --------------------------- the step function ----------------------------
 
 
-def raw_step_fn(cfg: ModelConfig, eng: EngineConfig):
-    """The unified prefill/decode step.
+def _sp_last_rows(h: torch.Tensor, last_idx: torch.Tensor,
+                  g: comm.Group) -> torch.Tensor:
+    """``[B, D]``: row ``last_idx[b]`` of the chunk's hidden states, which
+    an sp rank holds only if its dp row owns that position. Every dp row
+    offers the row it would own, one exact ``all_gather`` over the dp
+    column ``g`` collects them, and the owner's is selected on the device
+    — a broadcast from the owner, without reading ``last_idx`` on the
+    host."""
+    B, C, _ = h.shape
+    rows = torch.arange(B, device=h.device)
+    local = torch.clamp(last_idx - g.index * C, 0, C - 1)
+    offered = comm.all_gather(h[rows, local][None], g, dim=0)   # [n, B, D]
+    owner = torch.clamp(last_idx // C, max=g.size - 1)
+    return offered[owner, rows]
+
+
+def raw_step_fn(cfg: ModelConfig, eng: EngineConfig, sp: bool = False):
+    """The unified prefill/decode step (with ``sp``, the sequence-parallel
+    prefill of a fresh prompt's one chunk: every rank returns the same
+    sample).
 
     Signature:
       step(params, cache, tokens[B,T], positions[B,T], block_tables[B,W],
@@ -802,19 +891,22 @@ def raw_step_fn(cfg: ModelConfig, eng: EngineConfig):
            stochastic) -> (cache, sampled[B])
 
     ``last_idx[b]`` selects which chunk position's logits to sample (the last
-    valid token of the chunk).
+    valid token of the chunk). The engine's mesh is bound here, once.
     """
+    mesh = make_mesh(eng.mesh_shape)
 
     def step(params, cache, tokens, positions, block_tables, last_idx, key,
              temperature, top_k, top_p, seeds, stochastic, mm_embeds=None,
              mm_mask=None):
         cache, h = forward(cfg, eng, params, cache, tokens, positions,
                            block_tables, mm_embeds=mm_embeds,
-                           mm_mask=mm_mask)
+                           mm_mask=mm_mask, sp=sp, mesh=mesh)
         B = tokens.shape[0]
         rows = torch.arange(B, device=tokens.device)
         last_idx = last_idx.long()
-        logits = logits_fn(cfg, params, h[rows, last_idx])    # [B, V]
+        h_last = (_sp_last_rows(h, last_idx, mesh.dp_group) if sp
+                  else h[rows, last_idx])
+        logits = logits_fn(cfg, params, h_last, mesh)         # [B, V]
         pos_last = positions[rows, last_idx]
         sampled = sample(logits, key, temperature, top_k, top_p, seeds,
                          pos_last, stochastic)
@@ -823,12 +915,66 @@ def raw_step_fn(cfg: ModelConfig, eng: EngineConfig):
     return step
 
 
+def raw_ring_prefill_fn(cfg: ModelConfig, eng: EngineConfig,
+                        sp: bool = False):
+    """The unified prefill step that also posts its sampled token to the
+    token ring ``last_tok``: rows with ``write_mask > 0`` (completing their
+    prompt) write ``sampled`` into ``last_tok[slot]`` in place, so the
+    first decode window chains on device; the others write the trash slot.
+    ``sp`` makes it the sequence-parallel prefill.
+
+    Signature:
+      prefill(params, cache, last_tok, tokens[B,T], positions[B,T],
+              block_tables[B,W], last_idx[B], slot_ids[B], write_mask[B],
+              key, temperature[B], top_k[B], top_p[B], seeds[B],
+              stochastic[, mm_embeds, mm_mask])
+        -> (cache, last_tok, sampled[B])
+    """
+    base = raw_step_fn(cfg, eng, sp=sp)
+
+    def prefill(params, cache, last_tok, tokens, positions, block_tables,
+                last_idx, slot_ids, write_mask, key, temperature, top_k,
+                top_p, seeds, stochastic, mm_embeds=None, mm_mask=None):
+        cache, sampled = base(params, cache, tokens, positions, block_tables,
+                              last_idx, key, temperature, top_k, top_p,
+                              seeds, stochastic, mm_embeds=mm_embeds,
+                              mm_mask=mm_mask)
+        S = last_tok.shape[0] - 1
+        slot_eff = torch.where(write_mask > 0, slot_ids, S).long()
+        last_tok.index_put_((slot_eff,), sampled)
+        return cache, last_tok, sampled
+
+    return prefill
+
+
+def make_sp_prefill_fn(cfg: ModelConfig, eng: EngineConfig):
+    """The sequence-parallel unified step (``raw_step_fn`` with ``sp``):
+    every rank of the mesh calls it on the same full-prompt chunk and
+    returns the same sample."""
+    return raw_step_fn(cfg, eng, sp=True)
+
+
+def make_sp_ring_prefill_fn(cfg: ModelConfig, eng: EngineConfig):
+    """The engine's sequence-parallel prefill: ``fn(T, W)`` is the packed
+    prefill of a ``(T, W)`` sp chunk (:func:`raw_packed_prefill_fn` with
+    ``sp``, the ``last_tok`` write included), built once per shape."""
+    fns: Dict[Tuple[int, int], Any] = {}
+
+    def for_shape(T: int, W: int):
+        fn = fns.get((T, W))
+        if fn is None:
+            fn = fns[(T, W)] = raw_packed_prefill_fn(cfg, eng, T, W, sp=True)
+        return fn
+
+    return for_shape
+
+
 PP_SCALARS = 8   # n, start, slot, write, top_k, seed, temp_q, top_p_q
 PP_QUANT = 1e4   # temperature / top_p fixed-point scale in the int pack
 
 
 def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
-                          W: int, mm: bool = False):
+                          W: int, mm: bool = False, sp: bool = False):
     """Prefill step with ALL inputs packed into ONE host-to-device copy.
 
     ``pint [1, T + W + PP_SCALARS]`` int32 = tokens(T), tables(W), then n,
@@ -843,10 +989,13 @@ def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
     T more ints after the scalars, the placeholder mask, and the step takes
     ``mm_embeds [T, D]`` f32, a second upload, spliced over the masked rows.
 
+    With ``sp`` it is the sequence-parallel prefill of a fresh prompt's
+    one chunk (``forward(..., sp=True)``; T divisible by the dp column).
+
     Signature: prefill(params, cache, last_tok[S+1], pint, key, stochastic
     [, mm_embeds]) -> (cache, last_tok, sampled[1])
     """
-    base = raw_step_fn(cfg, eng)
+    ring = raw_ring_prefill_fn(cfg, eng, sp=sp)
     M = T + W + PP_SCALARS
 
     def prefill(params, cache, last_tok, pint, key, stochastic,
@@ -867,14 +1016,9 @@ def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
         mm_mask = pint[:, M:M + T] > 0 if mm else None
         if mm:
             mm_embeds = mm_embeds[None]
-        cache, sampled = base(params, cache, tokens, positions, tables,
-                              last_idx, key, temp, top_k, tp, seed,
-                              stochastic, mm_embeds=mm_embeds,
-                              mm_mask=mm_mask)
-        S = last_tok.shape[0] - 1
-        slot_eff = torch.where(write > 0, slot, S).long()[None]
-        last_tok.index_put_((slot_eff,), sampled)
-        return cache, last_tok, sampled
+        return ring(params, cache, last_tok, tokens, positions, tables,
+                    last_idx, slot[None], write[None], key, temp, top_k, tp,
+                    seed, stochastic, mm_embeds=mm_embeds, mm_mask=mm_mask)
 
     return prefill
 
@@ -963,6 +1107,7 @@ def raw_autopilot_window_fn(cfg: ModelConfig, eng: EngineConfig, K: int):
     keys derive from the carried key + counter, so a window carries zero
     fresh host tensors.
     """
+    mesh = make_mesh(eng.mesh_shape)
 
     def window(params, cache, ctl, slot_rows, stochastic):
         rows = slot_rows.long()
@@ -979,8 +1124,9 @@ def raw_autopilot_window_fn(cfg: ModelConfig, eng: EngineConfig, K: int):
         for k in range(K):
             key_k = step_key(ctl["key"], ctl["ctr"] * K + k)
             pos_eff = torch.where(pos < vu[:, None], pos, -1)
-            cache, h = forward(cfg, eng, params, cache, tok, pos_eff, tables)
-            logits = logits_fn(cfg, params, h[:, 0])
+            cache, h = forward(cfg, eng, params, cache, tok, pos_eff, tables,
+                               mesh=mesh)
+            logits = logits_fn(cfg, params, h[:, 0], mesh)
             s = sample(logits, key_k, temp, tk, tp, sd, pos[:, 0],
                        stochastic)
             outs.append(s)
@@ -1044,6 +1190,8 @@ def raw_spec_window_fn(cfg: ModelConfig, eng: EngineConfig, k: int,
     """
     from ..spec.ngram import propose_drafts
 
+    mesh = make_mesh(eng.mesh_shape)
+
     def window(params, cache, ctl, slot_rows, stochastic):
         rows = slot_rows.long()                            # [B]
         tok0 = ctl["last_tok"][rows]
@@ -1077,8 +1225,9 @@ def raw_spec_window_fn(cfg: ModelConfig, eng: EngineConfig, k: int,
             [torch.ones_like(dvalid[:, :1]), dvalid], dim=1
         ) & (pos < vu[:, None])
         pos_eff = torch.where(feed, pos, -1)
-        cache, h = forward(cfg, eng, params, cache, toks, pos_eff, tables)
-        logits = logits_fn(cfg, params, h)                 # [B, k+1, V]
+        cache, h = forward(cfg, eng, params, cache, toks, pos_eff, tables,
+                           mesh=mesh)
+        logits = logits_fn(cfg, params, h, mesh)           # [B, k+1, V]
         g = torch.argmax(logits, dim=-1).to(torch.int32)   # [B, k+1]
         key_w = step_key(ctl["key"], ctl["ctr"])
         s0 = sample(logits[:, 0], key_w, temp, tk, tp, sd, pos0, stochastic)
@@ -1212,10 +1361,12 @@ class AutopilotWindow:
             raw_spec_window_fn(cfg, eng, spec_k, eng.spec_ngram_min,
                                eng.spec_ngram_max) if spec_k > 0 else None)
         self.device = device
-        # under tensor parallelism the window runs eager: a gloo
-        # collective cannot be captured, and capture with NCCL inside
-        # waits for a machine with two cards to be tested on
-        self.graphed = device.type == "cuda" and tp_size(eng) == 1
+        # on a mesh of more than one rank the window runs eager: a gloo
+        # collective cannot be captured, capture with NCCL inside waits
+        # for a machine with two cards to be tested on, and a (dp, 1)
+        # window (no collective) is kept eager too until a card shows its
+        # replay on every rank
+        self.graphed = device.type == "cuda" and mesh_ranks(eng) == 1
         self.trash = eng.max_num_seqs       # ctl's trash slot S
         self._graphs: Dict[Tuple[str, int, bool],
                            Tuple[Any, torch.Tensor, Dict[str, int]]] = {}

@@ -1,26 +1,36 @@
-"""The collectives of tensor- and expert-parallel serving.
+"""The collectives of tensor-, expert- and sequence-parallel serving.
 
-One ``all_reduce`` (sum) and one ``broadcast`` over the rank's process
-group, and nothing else: no module of the package calls a
-``torch.distributed`` collective except through here, and none needs
-``all_gather``, ``all_to_all`` or ``reduce_scatter`` (gloo has none of them
-for CUDA tensors, and two ranks on one card run over gloo). Every call is
-counted with its bytes (:data:`STATS`), so a run can report the collectives
-per step.
+No module of the package calls a ``torch.distributed`` collective except
+through here. Every collective takes the :class:`Group` it runs over
+explicitly: a group of the serving mesh (``parallel/layout.py``
+``make_mesh`` hands them out on its ``Mesh``: the rank's tp row, its dp
+column) or the world. ``all_reduce`` (sum) and ``broadcast`` carry the
+Megatron sums of ``engine/model.py`` over the tp row, ``ppermute`` the
+ring attention's hop, ``all_gather`` the sp prefill's K/V for the cache
+and ``all_to_all`` Ulysses. Every call is counted with its bytes and the
+host microseconds it blocked (:data:`STATS`), so a run can report the
+collectives per step.
 
 The backend follows the device: ``nccl`` for ``cuda``, ``gloo`` for the
 CPU. ``DYNTPU_DIST_BACKEND`` overrides it (``gloo`` puts two ranks on one
-card, each collective staged through the host). NCCL refuses two ranks on
-one device, so :func:`check_backend` refuses that at init with a message,
-never switching backend behind the caller's back.
+card). NCCL refuses two ranks on one device, so :func:`check_backend`
+refuses that at init with a message, never switching backend behind the
+caller's back. Under ``nccl`` every collective here runs natively, and so
+does every one under gloo but the ring hop: gloo's ``all_reduce``,
+``broadcast``, ``all_gather`` and ``all_to_all`` take CUDA tensors (they
+copy through the host themselves), its send/recv does not (an H100 run of
+``chip_smoke.py`` phase 18 probes all five). :func:`ppermute` therefore
+copies a CUDA tensor to the host on purpose under gloo, and counts those
+bytes as ``staged_bytes`` — a named path, never a silent switch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,13 +42,35 @@ log = get_logger("parallel.comm")
 BACKEND_ENV = "DYNTPU_DIST_BACKEND"
 
 # calls, bytes and host microseconds per collective since the last reset
-# (host ints; the time is the blocking call's, launch to return)
-STATS: Dict[str, int] = {"all_reduce_calls": 0, "all_reduce_bytes": 0,
-                         "all_reduce_us": 0, "broadcast_calls": 0,
-                         "broadcast_bytes": 0}
+# (host ints; the time is the blocking call's, launch to return), plus the
+# bytes the ring hop copied through the host (gloo's send/recv takes no
+# CUDA tensor)
+_OPS = ("all_reduce", "broadcast", "ppermute", "all_gather", "all_to_all")
+STATS: Dict[str, int] = {f"{op}_{what}": 0 for op in _OPS
+                         for what in ("calls", "bytes", "us")}
+STATS["staged_bytes"] = 0
 
-_state: Dict[str, object] = {"rank": 0, "size": 1, "group": None,
-                             "backend": ""}
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """A process group of the mesh: its global ``ranks`` in group order,
+    this rank's ``index`` in it, and the ``torch.distributed`` group
+    (``None`` for a group of one rank, which needs none)."""
+
+    ranks: Tuple[int, ...]
+    index: int
+    pg: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+SOLO = Group((0,), 0)
+
+_state: Dict[str, object] = {"rank": 0, "size": 1, "world": SOLO,
+                             "backend": "", "timeout_s": 1800.0,
+                             "meshes": {}}
 
 
 def reset_stats() -> None:
@@ -76,13 +108,14 @@ def init(rank: int, world_size: int, init_method: str, backend: str,
          timeout_s: float) -> None:
     """Join the world: ``torch.distributed.init_process_group`` over a TCP
     store at ``init_method`` (``tcp://host:port``). ``timeout_s`` bounds
-    the rendezvous and every later collective, so a rank whose peer died
-    inside one is freed after it."""
+    the rendezvous and every later collective (a ring hop's wait too), so
+    a rank whose peer died inside one is freed after it."""
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
-    _state.update(rank=rank, size=world_size, group=dist.group.WORLD,
-                  backend=backend)
+    world = Group(tuple(range(world_size)), rank, dist.group.WORLD)
+    _state.update(rank=rank, size=world_size, world=world, backend=backend,
+                  timeout_s=float(timeout_s), meshes={})
     log.info("joined a world of %d ranks as rank %d over %s", world_size,
              rank, backend)
 
@@ -90,7 +123,7 @@ def init(rank: int, world_size: int, init_method: str, backend: str,
 def destroy() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
-    _state.update(rank=0, size=1, group=None, backend="")
+    _state.update(rank=0, size=1, world=SOLO, backend="", meshes={})
 
 
 def rank() -> int:
@@ -102,36 +135,168 @@ def world_size() -> int:
 
 
 def group():
-    return _state["group"]
+    """The world's ``torch.distributed`` group (``None`` alone)."""
+    return world_group().pg
+
+
+def world_group() -> Group:
+    return _state["world"]
 
 
 def backend() -> str:
     return str(_state["backend"])
 
 
-def all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the world, in place; returns ``t``. A one-rank
-    world returns it untouched and counts nothing."""
-    if world_size() == 1:
+def mesh_groups(dp: int, tp: int) -> Tuple[Group, Group]:
+    """(tp row, dp column) of this rank on a ``(dp, tp)`` mesh over the
+    world, mesh-major: rank ``r`` sits at ``(r // tp, r % tp)``.
+
+    ``torch.distributed.new_group`` is collective: EVERY rank must create
+    EVERY group, in the same order, even those it is not in — so a 2-D
+    mesh makes all tp rows, then all dp columns, on every rank. A 1-D
+    mesh makes none (its long axis is the world, the other one rank).
+    The groups of a shape are made once per world and reused."""
+    n = world_size()
+    if dp * tp != n:
+        raise RuntimeError(f"mesh ({dp}, {tp}) needs a world of {dp * tp} "
+                           f"ranks; torch.distributed has {n}")
+    meshes = _state["meshes"]
+    if (dp, tp) not in meshes:
+        r = rank()
+        rows = [tuple(d * tp + j for j in range(tp)) for d in range(dp)]
+        cols = [tuple(d * tp + j for d in range(dp)) for j in range(tp)]
+        world = world_group()
+
+        def make(members_list):
+            mine = None
+            for members in members_list:
+                if len(members) == n:
+                    pg = world.pg
+                elif len(members) == 1:
+                    pg = None
+                else:
+                    pg = dist.new_group(list(members))   # every rank
+                if r in members:
+                    mine = Group(members, members.index(r), pg)
+            return mine
+
+        meshes[(dp, tp)] = (make(rows), make(cols))
+    return meshes[(dp, tp)]
+
+
+def _timeout() -> datetime.timedelta:
+    return datetime.timedelta(seconds=float(_state["timeout_s"]))
+
+
+def _count(op: str, t0: float, nbytes: int) -> None:
+    STATS[f"{op}_us"] += int((time.perf_counter() - t0) * 1e6)
+    STATS[f"{op}_calls"] += 1
+    STATS[f"{op}_bytes"] += nbytes
+
+
+def all_reduce(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Sum ``t`` over ``group``, in place; returns ``t``. A one-rank group
+    returns it untouched and counts nothing."""
+    if group.size == 1:
         return t
     t0 = time.perf_counter()
-    dist.all_reduce(t, group=group())
-    STATS["all_reduce_us"] += int((time.perf_counter() - t0) * 1e6)
-    STATS["all_reduce_calls"] += 1
-    STATS["all_reduce_bytes"] += t.numel() * t.element_size()
+    dist.all_reduce(t, group=group.pg)
+    _count("all_reduce", t0, t.numel() * t.element_size())
     return t
 
 
-def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""
-    if world_size() == 1:
+def broadcast(t: torch.Tensor, group: Group, src: int = 0
+              ) -> torch.Tensor:
+    """The ``t`` of the group's member ``src`` (an index into the group)
+    on every member, in place; returns ``t``."""
+    if group.size == 1:
         return t
-    dist.broadcast(t, src=src, group=group())
-    STATS["broadcast_calls"] += 1
-    STATS["broadcast_bytes"] += t.numel() * t.element_size()
+    t0 = time.perf_counter()
+    dist.broadcast(t, src=group.ranks[src], group=group.pg)
+    _count("broadcast", t0, t.numel() * t.element_size())
     return t
+
+
+def ppermute(t: torch.Tensor, group: Group, shift: int = 1
+             ) -> torch.Tensor:
+    """Send ``t`` to the member ``shift`` places after this rank in the
+    group and return what the member ``shift`` places before sent (the
+    JAX ``ppermute`` with ``perm = [(j, (j + shift) % n)]``).
+
+    Ring deadlock: two gloo ranks that both block in ``send`` wait for
+    each other forever. The send and the receive are posted together
+    (``batch_isend_irecv``) before either is waited on, and the wait has
+    the process group's timeout, so a hop whose peer died raises.
+
+    Host staging: gloo's send/recv takes no CUDA tensor (its transport
+    reads the pointer on the host; probed on an H100 by ``chip_smoke.py``
+    phase 18), so under gloo a CUDA ``t`` goes out from a host copy and
+    the received one comes back to the device, both counted as
+    ``staged_bytes``. Under nccl, and for CPU tensors, nothing stages."""
+    n = group.size
+    if n == 1:
+        return t
+    t0 = time.perf_counter()
+    dst = group.ranks[(group.index + shift) % n]
+    src = group.ranks[(group.index - shift) % n]
+    staged = t.is_cuda and backend() == "gloo"
+    send = t.contiguous()
+    if staged:
+        STATS["staged_bytes"] += send.numel() * send.element_size()
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, dst, group.pg),
+        dist.P2POp(dist.irecv, recv, src, group.pg),
+    ])
+    for w in works:
+        w.wait(_timeout())
+    if staged:
+        STATS["staged_bytes"] += recv.numel() * recv.element_size()
+        recv = recv.to(t.device)
+    _count("ppermute", t0, send.numel() * send.element_size())
+    return recv
+
+
+def all_gather(t: torch.Tensor, group: Group, dim: int = 0
+               ) -> torch.Tensor:
+    """The members' ``t`` concatenated along ``dim`` in group order.
+    Exact: each element is copied, never summed (a gather built as a
+    zero-padded ``all_reduce`` would turn ``-0.0`` into ``+0.0``)."""
+    n = group.size
+    if n == 1:
+        return t
+    t0 = time.perf_counter()
+    src = t.contiguous()
+    parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group.pg)
+    out = torch.cat(parts, dim=dim)
+    _count("all_gather", t0, src.numel() * src.element_size())
+    return out
+
+
+def all_to_all(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Split ``t`` along dim 0 into ``n`` equal parts, send part ``j`` to
+    member ``j``, and return the parts received, in member order, along
+    dim 0 (``all_to_all_single``)."""
+    n = group.size
+    if n == 1:
+        return t
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does not "
+                         f"split over {n} ranks")
+    t0 = time.perf_counter()
+    src = t.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group.pg)
+    _count("all_to_all", t0, src.numel() * src.element_size())
+    return out
 
 
 def stats_line() -> str:
-    """The counters as ``key=value`` pairs."""
-    return " ".join(f"{k}={v}" for k, v in STATS.items())
+    """The counters as ``key=value`` pairs (zero counters of collectives
+    that never ran are left out, ``all_reduce`` and ``broadcast`` always
+    shown)."""
+    keep = [k for k, v in STATS.items()
+            if v or k.startswith(("all_reduce", "broadcast"))]
+    return " ".join(f"{k}={STATS[k]}" for k in keep)

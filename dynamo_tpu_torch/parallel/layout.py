@@ -11,16 +11,22 @@ each row-sharded one; ``engine/model.py``). A spec is a tuple with one entry
 per dim: ``None`` (replicated along that dim) or an axis name, the same
 entries as the JAX ``PartitionSpec`` of the same leaf.
 
-The serving mesh is ``(dp, tp)``. This slice serves ``dp == 1`` (data
-parallelism only matters with sequence-parallel prefill) and no ``fsdp``
-axis; :meth:`SpecLayout.for_mesh` and :func:`check_divisible` refuse the
-rest by name. ``ep`` falls back to ``tp`` as in the JAX layout.
+The serving mesh is ``(dp, tp)``, mesh-major: rank ``r`` sits at
+``(r // tp, r % tp)``, the row-major order the JAX composite sequence axis
+(:meth:`SpecLayout.seq_axes`) enumerates devices in. Parameters and the
+cache are replicated over ``dp``; the dp replicas run the dense step
+redundantly, as GSPMD runs the JAX package's replicated activations, and
+differ only in a sequence-parallel prefill, where dp row ``d`` takes the
+``d``-th contiguous slice of the prompt (``engine/model.py``). No
+``fsdp`` axis is served; :func:`check_mesh_shape` and
+:func:`check_divisible` refuse the rest by name. ``ep`` falls back to
+``tp`` as in the JAX layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 AXIS_DP = "dp"
 AXIS_TP = "tp"
@@ -47,15 +53,21 @@ def spec(*entries: Optional[str]) -> Spec:
     return tuple(entries)
 
 
+SpecEntry = Union[None, str, Tuple[str, ...]]
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's place on the serving mesh: the axis sizes, its
-    coordinate on each axis, and the process group its collectives run
-    over (``None`` for a one-rank mesh)."""
+    coordinate on each axis, the world's process group (``None`` for a
+    one-rank mesh), and its tp row and dp column (``comm.Group``; a
+    one-rank group where the axis has size 1)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     group: Any = None
+    tp_group: Any = None
+    dp_group: Any = None
 
 
 def check_mesh_shape(shape: Sequence[int]) -> Tuple[int, int]:
@@ -65,36 +77,37 @@ def check_mesh_shape(shape: Sequence[int]) -> Tuple[int, int]:
     if len(shape) == 3:
         raise NotImplementedError(
             f"a 3-D (dp, fsdp, tp) mesh {shape} needs {ITEM6}, later part: "
-            "dynamo_tpu_torch serves (1, tp)")
+            "dynamo_tpu_torch serves (dp, tp)")
     if len(shape) != 2:
         raise ValueError(f"mesh shape must be (dp, tp), got {shape}")
     dp, tp = shape
     if dp < 1 or tp < 1:
         raise ValueError(f"mesh axes must be >= 1, got {shape}")
-    if dp > 1:
-        raise NotImplementedError(
-            f"dp={dp} (mesh {shape}) needs sequence-parallel prefill, "
-            f"{ITEM6}, later part: dynamo_tpu_torch serves (1, tp)")
     return dp, tp
 
 
 def make_mesh(shape: Sequence[int]) -> Mesh:
-    """The rank's coordinates on the ``(dp, tp)`` serving mesh and its
-    process group (``parallel/comm.py``). A ``(1, 1)`` mesh needs no
-    process group; a larger one needs ``comm`` initialised with
-    ``world_size == dp * tp``."""
+    """The rank's coordinates on the ``(dp, tp)`` serving mesh,
+    mesh-major (``dp = rank // tp``, ``tp = rank % tp``), and its three
+    groups: its tp row, its dp column and the world
+    (``parallel/comm.py``; made once per world, by every rank alike). A
+    ``(1, 1)`` mesh needs no process group; a larger one needs ``comm``
+    initialised with ``world_size == dp * tp``."""
     from . import comm
 
     dp, tp = check_mesh_shape(shape)
-    if tp == 1:
-        return Mesh({AXIS_DP: 1, AXIS_TP: 1}, {AXIS_DP: 0, AXIS_TP: 0})
+    if dp * tp == 1:
+        return Mesh({AXIS_DP: 1, AXIS_TP: 1}, {AXIS_DP: 0, AXIS_TP: 0},
+                    None, comm.SOLO, comm.SOLO)
     if comm.world_size() != dp * tp:
         raise RuntimeError(
             f"mesh {tuple(shape)} needs a world of {dp * tp} ranks; "
             f"torch.distributed has {comm.world_size()} (call "
             "parallel.multihost.initialize_distributed first)")
+    tpg, dpg = comm.mesh_groups(dp, tp)
+    r = comm.rank()
     return Mesh({AXIS_DP: dp, AXIS_TP: tp},
-                {AXIS_DP: 0, AXIS_TP: comm.rank()}, comm.group())
+                {AXIS_DP: r // tp, AXIS_TP: r % tp}, comm.group(), tpg, dpg)
 
 
 def check_divisible(cfg, tp: int) -> None:
@@ -154,9 +167,25 @@ class SpecLayout:
         dropped; ``ep`` rides ``tp``."""
         if mesh_shape is None:
             return SpecLayout()
-        _, tp = check_mesh_shape(mesh_shape)
+        dp, tp = check_mesh_shape(mesh_shape)
         have_tp = AXIS_TP if tp > 1 else None
-        return SpecLayout(tp=have_tp, ep=have_tp)
+        return SpecLayout(dp=AXIS_DP if dp > 1 else None, tp=have_tp,
+                          ep=have_tp)
+
+    # ------------------------- sequence axis ---------------------------
+
+    def seq_axes(self) -> SpecEntry:
+        """The composite axis a sequence-parallel prefill splits the
+        chunk's T over: every data-carrying serving axis, mesh-major —
+        ``("dp", "tp")`` on a 2-D mesh, one name on a 1-D one, ``None``
+        alone. Row-major over the composite axis is the rank order, so
+        the JAX chunk ``c`` of ``dp * tp`` sits on rank ``c``; the port's
+        forward gives dp row ``d`` the union of chunks ``d*tp ..
+        d*tp+tp-1`` (one contiguous slice), which agrees with it."""
+        axes = tuple(a for a in (self.dp, self.fsdp, self.tp) if a)
+        if not axes:
+            return None
+        return axes if len(axes) > 1 else axes[0]
 
     # ----------------------- parameter specs ---------------------------
 
@@ -257,6 +286,16 @@ class SpecLayout:
     def hidden(self) -> Spec:
         """Activations [B, T, D]: replicated (Megatron)."""
         return spec(None, None, None)
+
+    def hidden_seq(self) -> Tuple[SpecEntry, ...]:
+        """Sequence-parallel prefill activations [B, T, D]: T over the
+        composite sequence axis."""
+        return (None, self.seq_axes(), None)
+
+    def heads_seq(self) -> Tuple[SpecEntry, ...]:
+        """Sequence-parallel prefill q/k/v [B, T, Hx, hd]: T over the
+        composite sequence axis."""
+        return (None, self.seq_axes(), None, None)
 
     def logits(self) -> Spec:
         """[B, V]: vocab over tp, matching the vocab-sharded head."""

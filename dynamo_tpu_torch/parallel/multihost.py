@@ -1,4 +1,4 @@
-"""Tensor-parallel serving as multi-controller SPMD: torch.distributed +
+"""Multi-rank serving as multi-controller SPMD: torch.distributed +
 step-plan replication.
 
 Port of ``dynamo_tpu.parallel.multihost``. The JAX package runs one
@@ -6,11 +6,13 @@ controller per host and one ``Mesh`` over the slice; every host must issue
 the same jitted calls in the same order. In PyTorch each GPU is a rank in
 its own process, so here every *rank* is what a JAX host is:
 
-- every rank joins one ``torch.distributed`` world (:func:`initialize_
-  distributed`, a TCP store at the coordinator address, in place of
-  ``jax.distributed.initialize``) and holds its shard of the model
-  (``engine/model.py``: column/row-sharded projections, experts over
-  ``ep``, each row-sharded product followed by one ``all_reduce``);
+- every rank joins one ``torch.distributed`` world of ``dp * tp`` ranks
+  (:func:`initialize_distributed`, a TCP store at the coordinator
+  address, in place of ``jax.distributed.initialize``) and holds its shard
+  of the model on the ``(dp, tp)`` mesh (``engine/model.py``: column/row-
+  sharded projections, experts over ``ep``, each row-sharded product
+  followed by one ``all_reduce`` over the tp row; replicated over dp, the
+  dp rows splitting only a sequence-parallel prefill's prompt);
 - scheduling happens once, on rank 0 (the leader); followers replay the
   leader's step plans, so every rank launches the same steps in the same
   order and meets the others in the same collectives.
@@ -34,10 +36,10 @@ there because its collectives are asynchronous on the device; a gloo
 ``all_reduce`` blocks the host, so a leader that launched first would wait
 inside the collective for a follower that waits for the plan.
 
-Scope (as the JAX multi-host worker's, ``multihost.py:31-34``): a tensor-
-parallel worker serves the aggregated path; KV movement, the KVBM tiers,
-preemption evacuation, embeddings and multimodal prefill are refused under
-``tp > 1`` (ROADMAP.md queue A, item 6, later part).
+Scope (as the JAX multi-host worker's, ``multihost.py:31-34``): a
+multi-rank worker serves the aggregated path; KV movement, the KVBM tiers,
+preemption evacuation, embeddings and multimodal prefill are refused on a
+mesh of more than one rank (ROADMAP.md queue A, item 6, later part).
 """
 
 from __future__ import annotations
@@ -67,14 +69,15 @@ log = get_logger("multihost")
 
 @dataclass
 class MultihostConfig:
-    """One rank's place in a tensor-parallel world of ``world_size``
-    ranks over ``num_hosts`` hosts (``world_size / num_hosts`` ranks per
-    host). Rank ``host_index * per_host + local_rank``; rank 0 leads."""
+    """One rank's place in a world of ``world_size`` ranks (``dp * tp``
+    of the mesh) over ``num_hosts`` hosts (``world_size / num_hosts``
+    ranks per host). Rank ``host_index * per_host + local_rank``; rank 0
+    leads."""
 
     coordinator: Optional[str] = None   # "host0:port" of the TCP store
     num_hosts: int = 1
     host_index: int = 0
-    world_size: int = 1                 # tp of the (1, tp) mesh
+    world_size: int = 1                 # dp * tp of the (dp, tp) mesh
     local_rank: int = 0                 # this process's rank on its host
     barrier_timeout_s: float = 300.0
     # failure detection on the step stream, as in JAX: the leader beats
@@ -107,7 +110,7 @@ class MultihostConfig:
     def check(self) -> None:
         if self.world_size % self.num_hosts:
             raise ValueError(
-                f"tp={self.world_size} ranks do not split over "
+                f"{self.world_size} ranks do not split over "
                 f"{self.num_hosts} hosts")
         if not 0 <= self.host_index < self.num_hosts:
             raise ValueError(f"--host-index {self.host_index} outside "
@@ -314,12 +317,14 @@ def replay_plan(engine, kind: str, arrays: Dict[str, np.ndarray]) -> None:
     it. Runs on the engine's device-step thread; draws step keys exactly
     as the leader did.
 
-    Kinds: ``pp`` packed prefill, ``ctl`` control-state delta, ``cols``
-    seat map, ``w``/``sw`` decode/spec window, ``sph`` spec history fill,
-    and ``p``/``d`` the unified step (a prefill chunk / a decode batch with
-    host arrays, which the JAX engine's synchronous path emits; the port's
-    engine always takes the packed and autopilot paths). ``rsp``/``mrp``
-    wait for sequence-parallel prefill."""
+    Kinds: ``pp`` packed prefill, ``rsp`` the sequence-parallel prefill
+    (the packed contract on ``engine._sp_prefill_fn``), ``ctl``
+    control-state delta, ``cols`` seat map, ``w``/``sw`` decode/spec
+    window, ``sph`` spec history fill, and ``p``/``d`` the unified step (a
+    prefill chunk / a decode batch with host arrays, which the JAX
+    engine's synchronous path emits; the port's engine always takes the
+    packed and autopilot paths). ``mrp`` (multimodal prefill on a
+    multi-rank engine) is refused by name."""
     from ..engine import model as model_lib
 
     engine.num_replayed[kind] = engine.num_replayed.get(kind, 0) + 1
@@ -337,9 +342,16 @@ def replay_plan(engine, kind: str, arrays: Dict[str, np.ndarray]) -> None:
     elif kind == "cols":
         engine._ap_cols = [int(x) for x in arrays["rows"]]
         engine._ap_rows_dev = engine._ap_window_fn.load_rows(engine._ap_cols)
-    elif kind == "pp":
+    elif kind in ("pp", "rsp"):
         T, W = (int(x) for x in arrays["tw"])
-        fn = engine._prefill_fn(T, W, False)
+        if kind == "pp":
+            fn = engine._prefill_fn(T, W, False)
+        elif engine._sp_prefill_fn is None:
+            raise RuntimeError("an rsp plan reached an engine without "
+                               "sp_prefill_threshold")
+        else:
+            fn = engine._sp_prefill_fn(T, W)
+            engine.num_sp_prefills += 1
         engine.cache, _, _ = fn(
             engine.params, engine.cache, engine._ctl["last_tok"],
             up(arrays["pint"]), engine._next_key(), bool(arrays["st"][0]))
@@ -353,10 +365,12 @@ def replay_plan(engine, kind: str, arrays: Dict[str, np.ndarray]) -> None:
             a["tables"], a["last_idx"], engine._next_key(), a["temp"],
             a["top_k"], a["top_p"], a["seeds"],
             bool((arrays["temp"] > 0).any()))
-    else:
+    elif kind == "mrp":
         raise NotImplementedError(
-            f"plan kind {kind!r} needs sequence-parallel prefill "
-            "(ROADMAP.md queue A, item 6, later part)")
+            "plan kind 'mrp' (multimodal prefill on a multi-rank engine) "
+            "needs ROADMAP.md queue A, item 6 (later part)")
+    else:
+        raise ValueError(f"unknown plan kind {kind!r}")
 
 
 async def follower_loop(runtime, engine, cfg: MultihostConfig, name: str,

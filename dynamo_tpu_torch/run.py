@@ -221,6 +221,8 @@ def parse_args(argv=None):
         description="dynamo-tpu-torch single-command launcher",
         usage="python -m dynamo_tpu_torch.run in=<http|text|batch:FILE> "
               "out=<engine|echo> [options]",
+        epilog="The JAX launcher's --mesh is refused here: a multi-rank "
+               "world runs through python -m dynamo_tpu_torch.worker --mesh",
     )
     p.add_argument("io", nargs=2, metavar="in=/out=",
                    help="in=http|text|batch:FILE and out=engine|echo")
@@ -250,7 +252,15 @@ def parse_args(argv=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000,
                    help="HTTP port (0 picks a free one)")
-    args = p.parse_args(argv)
+    args, unknown = p.parse_known_args(argv)
+    if any(u.split("=")[0] == "--mesh" for u in unknown):
+        # the JAX launcher's flag: a mesh here is refused by name
+        raise NotImplementedError(
+            "--mesh in the one-process launcher needs multi-device serving "
+            "(ROADMAP.md queue A, item 6, later part); the worker serves "
+            "--mesh D,N")
+    if unknown:
+        p.error(f"unrecognized arguments: {' '.join(unknown)}")
     spec = {}
     for part in args.io:
         k, _, v = part.partition("=")

@@ -26,14 +26,18 @@ pull queue), the KVBM tiers (``--kvbm-host-blocks/-bytes``,
 ``DYNTPU_PREFIX_ENABLED=0``), the ``embed`` endpoint behind
 ``/v1/embeddings``, multimodal encode-prefill-decode (``--mm-encoder`` for a
 colocated vision encoder, ``--mm-encode-component`` for a separate
-``python -m dynamo_tpu_torch.multimodal`` worker), tensor- and
-expert-parallel serving (``--mesh 1,N``: rank 0 is the leader that
-schedules, registers and answers, ranks 1..N-1 replay its step plans,
-``parallel/multihost.py``; alone on one host the worker starts ranks
-1..N-1 itself as child processes on ``cuda:i mod device_count`` with a
+``python -m dynamo_tpu_torch.multimodal`` worker), tensor-, expert- and
+data-parallel serving (``--mesh D,N``: a world of D*N ranks, N-way tensor
+parallel and D replicated rows; rank 0 is the leader that schedules,
+registers and answers, the other ranks replay its step plans,
+``parallel/multihost.py``; alone on one host the worker starts the other
+ranks itself as child processes on ``cuda:i mod device_count`` with a
 coordinator on localhost, and with ``--coordinator HOST:PORT --num-hosts H
---host-index h`` the world spans H hosts of N/H ranks each; ``--model
-70b``) and the engine sizing flags; the control plane
+--host-index h`` the world spans H hosts of D*N/H ranks each; ``--model
+70b``; as in the JAX worker no sequence-parallel threshold is set, so a
+``D > 1`` worker serves replicated dp rows — the sp prefill is reached
+through the engine's ``sp_prefill_threshold``) and the engine sizing
+flags; the control plane
 (system server, health probes, degradation watcher, the preemption
 coordinator behind ``SIGUSR1`` and ``POST /preempt``) comes from the
 runtime settings, as in the JAX package.
@@ -101,7 +105,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-batched-tokens", type=int, default=512)
     p.add_argument("--max-model-len", type=int, default=8192)
     p.add_argument("--mesh", default="1,1", help="dp,tp mesh axis sizes "
-                   "(1,N is served: N tensor-parallel ranks)")
+                   "(a world of dp*tp ranks: tp-way tensor parallel, dp "
+                   "replicated rows)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel stages (only 1 is served)")
     p.add_argument("--pp-microbatches", type=int, default=4)
@@ -168,7 +173,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mm-encode-component", default=None,
                    help="multimodal EPD against a separate encode worker "
                         "serving <component>/encode")
-    # the world of a tensor-parallel worker; the defaults are the JAX
+    # the world of a multi-rank worker; the defaults are the JAX
     # package's
     p.add_argument("--coordinator",
                    default=os.environ.get("JAX_COORDINATOR_ADDRESS"),
@@ -179,7 +184,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=int(os.environ.get("JAX_PROCESS_INDEX", "0")))
     p.add_argument("--local-rank", type=int, default=0,
                    help="this process's rank on its host (set on the ranks "
-                        "a --mesh 1,N worker starts itself)")
+                        "a --mesh D,N worker starts itself)")
     args = p.parse_args(argv)
     # the command line the ranks this worker starts itself run with
     args.argv = list(sys.argv[1:] if argv is None else argv)
@@ -195,20 +200,21 @@ def check_supported(args: argparse.Namespace) -> None:
     from .parallel.layout import check_mesh_shape
 
     a6 = "multi-device serving (ROADMAP.md queue A, item 6, later part)"
-    _, tp = check_mesh_shape(mesh_shape(args))
+    dp, tp = check_mesh_shape(mesh_shape(args))
     unsupported = [
         (args.pp > 1, f"--pp {args.pp}", a6),
     ]
-    if tp > 1:
+    if dp * tp > 1:
         # the scope of the JAX multi-host worker: the aggregated path
+        where = f"on a multi-rank worker (--mesh {dp},{tp})"
         unsupported += [
             (args.disagg_mode != "agg", f"--disagg-mode {args.disagg_mode}"
-             " on a tensor-parallel worker", a6),
+             f" {where}", a6),
             (args.kvbm_host_blocks > 0 or args.kvbm_distributed
              or args.kvbm_group is not None,
-             "the KVBM tiers on a tensor-parallel worker", a6),
+             f"the KVBM tiers {where}", a6),
             (args.mm_encoder or args.mm_encode_component is not None,
-             "multimodal EPD on a tensor-parallel worker", a6),
+             f"multimodal EPD {where}", a6),
         ]
     for bad, what, needs in unsupported:
         if bad:
@@ -230,14 +236,16 @@ def engine_counts(engine) -> str:
 
 
 def tp_counts(engine, broadcaster=None) -> str:
-    """A tensor-parallel rank's collectives and its plans (emitted by the
-    leader, replayed by a follower), logged at exit beside the launches."""
+    """A rank's collectives, its plans (emitted by the leader, replayed by
+    a follower) and its sequence-parallel prefills, logged at exit beside
+    the launches."""
     from .parallel import comm
 
     plans = (broadcaster.kinds if broadcaster is not None
              else engine.num_replayed)
     return (f"rank={comm.rank()} world={comm.world_size()} "
-            f"backend={comm.backend()} {comm.stats_line()} plans="
+            f"backend={comm.backend()} {comm.stats_line()} "
+            f"sp_prefills={engine.num_sp_prefills} plans="
             + ",".join(f"{k}:{n}" for k, n in sorted(plans.items()))
             + " launches=" + ",".join(f"{k}:{n}"
                                       for k, n in pa.LAUNCHES.items()))
@@ -261,14 +269,14 @@ async def _run_worker(args: argparse.Namespace, children: list) -> None:
         spawn_local_ranks,
     )
 
-    _, tp = mesh_shape(args)
+    dp, tp = mesh_shape(args)
     mh = MultihostConfig(
         coordinator=args.coordinator, num_hosts=args.num_hosts,
-        host_index=args.host_index, world_size=tp,
+        host_index=args.host_index, world_size=dp * tp,
         local_rank=args.local_rank)
     if mh.enabled:
         if mh.coordinator is None and mh.num_hosts == 1:
-            # --mesh 1,N alone: one host, a coordinator on localhost
+            # --mesh D,N alone: one host, a coordinator on localhost
             mh.coordinator = f"127.0.0.1:{free_port()}"
         mh.check()
         device = rank_device(args.device, mh.local_rank)

@@ -232,17 +232,43 @@ def test_importing_the_port_loads_nothing_forbidden():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(2, 1)), dict(mesh_shape=(1, 2, 2)), dict(pp_stages=2),
-    dict(sp_prefill_threshold=1024),
-], ids=["mesh_shape", "mesh_shape_3d", "pp_stages", "sp_prefill_threshold"])
+    dict(mesh_shape=(1, 2, 2)), dict(pp_stages=2),
+    dict(mesh_shape=(3, 1), sp_prefill_threshold=64),
+], ids=["mesh_shape_3d", "pp_stages", "sp_on_dp3"])
 def test_unserved_paths_are_refused(knob):
-    """A data-parallel (dp > 1) or 3-D mesh, pipeline and sequence
-    parallelism are refused; a (1, tp) mesh is served (below)."""
+    """A 3-D mesh, pipeline parallelism and an sp prefill over a dp that
+    is not a power of two are refused; (dp, tp) meshes and
+    sequence-parallel prefill are served (below)."""
     eng = EngineConfig(num_blocks=16, **knob)
     with pytest.raises(NotImplementedError):
         check_supported(eng)
     with pytest.raises(NotImplementedError):
         InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(mesh_shape=(2, 1)), dict(mesh_shape=(2, 2)),
+    dict(mesh_shape=(2, 1), sp_prefill_threshold=1024),
+], ids=["mesh_shape_dp", "mesh_shape_dp_tp", "sp_prefill_threshold"])
+def test_data_and_sequence_parallel_paths_are_served(knob):
+    """A data-parallel mesh and ``sp_prefill_threshold`` pass the check;
+    the engine needs a world of dp * tp ranks
+    (tests/test_torch_sequence_parallel.py builds them), and without one
+    construction says so."""
+    eng = EngineConfig(num_blocks=16, **knob)
+    check_supported(eng)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
+
+
+def test_sp_threshold_on_one_rank_keeps_the_chunked_path():
+    """On a one-rank mesh the threshold turns nothing on (the JAX engine
+    builds its sp prefill only for a mesh of more than one device)."""
+    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
+        num_blocks=16, max_model_len=64, sp_prefill_threshold=8),
+        device="cpu")
+    assert engine._sp_prefill_fn is None
+    assert not engine.scheduler.sp_enabled
 
 
 def test_tensor_parallel_mesh_is_served():
@@ -256,19 +282,10 @@ def test_tensor_parallel_mesh_is_served():
     assert ModelConfig.llama3_70b().num_layers == 80
 
 
-@pytest.mark.parametrize("what", [
-    "extract", "inject", "kvbm", "evacuation", "embed", "mm",
-])
-def test_tensor_parallel_engine_refuses_the_single_rank_paths(what):
-    """Under tp > 1 the engine refuses KV movement, the KVBM tiers,
-    preemption evacuation, embeddings and multimodal prefill by name, as
-    the JAX multi-host worker's scope does."""
+def _single_rank_calls(engine):
     from dynamo_tpu_torch.engine.engine import EngineCore, Request
 
-    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
-        num_blocks=16, max_model_len=64), device="cpu")
-    engine.tp = 2          # what a rank of a (1, 2) world's engine holds
-    calls = {
+    return {
         "extract": lambda: asyncio.run(engine.extract_kv_blocks([1])),
         "inject": lambda: asyncio.run(engine.inject_kv_blocks([1], {})),
         "kvbm": lambda: engine.attach_kvbm(),
@@ -278,8 +295,58 @@ def test_tensor_parallel_engine_refuses_the_single_rank_paths(what):
             request_id="m", token_ids=[1, 2], mm_positions=[0],
         )).__anext__()),
     }
+
+
+@pytest.mark.parametrize("what", [
+    "extract", "inject", "kvbm", "evacuation", "embed", "mm",
+])
+def test_tensor_parallel_engine_refuses_the_single_rank_paths(what):
+    """Under tp > 1 the engine refuses KV movement, the KVBM tiers,
+    preemption evacuation, embeddings and multimodal prefill by name, as
+    the JAX multi-host worker's scope does."""
+    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
+        num_blocks=16, max_model_len=64), device="cpu")
+    engine.tp = engine.world = 2   # what a rank of a (1, 2) world holds
     with pytest.raises(NotImplementedError, match="item 6"):
-        calls[what]()
+        _single_rank_calls(engine)[what]()
+
+
+@pytest.mark.parametrize("what", [
+    "extract", "inject", "kvbm", "evacuation", "embed", "mm",
+])
+def test_data_parallel_engine_refuses_the_single_rank_paths(what):
+    """A rank of a (2, 1) world has ``tp == 1``: the refusals key on the
+    mesh's ranks, so it refuses the same paths by name."""
+    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
+        num_blocks=16, max_model_len=64), device="cpu")
+    engine.world = 2               # what a rank of a (2, 1) world holds
+    assert engine.tp == 1
+    with pytest.raises(NotImplementedError, match="2 ranks, tp=1"):
+        _single_rank_calls(engine)[what]()
+
+
+def test_multimodal_prefill_plan_is_refused_by_name():
+    """``mrp`` (multimodal prefill on a multi-rank engine) stays refused
+    by name; an unknown kind is an error."""
+    from dynamo_tpu_torch.parallel.multihost import replay_plan
+
+    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
+        num_blocks=16, max_model_len=64), device="cpu")
+    with pytest.raises(NotImplementedError, match="'mrp'.*item 6"):
+        replay_plan(engine, "mrp", {})
+    with pytest.raises(ValueError, match="unknown plan kind"):
+        replay_plan(engine, "zz", {})
+    with pytest.raises(RuntimeError, match="sp_prefill_threshold"):
+        replay_plan(engine, "rsp", {"tw": [8, 2]})
+
+
+@pytest.mark.parametrize("mesh", ["2,1", "1,2"])
+def test_run_refuses_mesh_by_name(mesh, tmp_path):
+    batch = tmp_path / "b.jsonl"
+    batch.write_text('{"token_ids": [1, 2], "max_tokens": 2}\n')
+    with pytest.raises(NotImplementedError, match="item 6"):
+        trun.main([f"in=batch:{batch}", "out=engine", "--model", "tiny",
+                   "--device", "cpu", "--mesh", mesh])
 
 
 def test_spec_mode_is_served():
@@ -322,17 +389,20 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2,1"], ["--mesh", "1,2,2"], ["--pp", "2"],
+    ["--mesh", "2,1", "--disagg-mode", "prefill"], ["--mesh", "1,2,2"],
+    ["--pp", "2"],
     ["--mesh", "1,2", "--disagg-mode", "prefill"],
     ["--mesh", "1,2", "--kvbm-host-blocks", "64"],
     ["--mesh", "1,2", "--mm-encoder"],
+    ["--mesh", "2,1", "--kvbm-host-blocks", "64"],
+    ["--mesh", "2,1", "--mm-encoder"],
 ], ids=lambda f: "+".join(
     a.lstrip("-") if i % 2 == 0 else f"={a}" for i, a in enumerate(f)
 ).replace("+=", "="))
 def test_worker_refuses_unserved_flags(flags):
-    """Still refused: a data-parallel or 3-D mesh, pipeline stages, and
-    on a tensor-parallel worker the disaggregated, KVBM and multimodal
-    paths."""
+    """Still refused: a 3-D mesh, pipeline stages, and on a multi-rank
+    worker (tensor- or data-parallel) the disaggregated, KVBM and
+    multimodal paths."""
     from dynamo_tpu_torch import worker
 
     args = worker.parse_args(["--device", "cpu", *flags])
@@ -360,8 +430,28 @@ def test_worker_serves_tensor_parallel_flags(flags):
     assert mh.per_host == tp // args.num_hosts
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "1,2"], ["--model", "70b"]],
-                         ids=lambda f: f[0].lstrip("-"))
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "2,1"], ["--mesh", "2,2"],
+    ["--num-hosts", "2", "--mesh", "2,2"],
+], ids=lambda f: "+".join(a.lstrip("-") for a in f))
+def test_worker_serves_data_parallel_meshes(flags):
+    """``--mesh D,N`` with D > 1 is served: a world of D*N ranks, split
+    over the hosts (tests/test_torch_multihost.py runs a (2, 1) one)."""
+    from dynamo_tpu_torch import worker
+    from dynamo_tpu_torch.parallel.multihost import MultihostConfig
+
+    args = worker.parse_args(["--device", "cpu", *flags])
+    worker.check_supported(args)
+    dp, tp = worker.mesh_shape(args)
+    mh = MultihostConfig(coordinator="127.0.0.1:1",
+                         num_hosts=args.num_hosts, world_size=dp * tp)
+    mh.check()
+    assert mh.per_host * args.num_hosts == dp * tp
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "1,2"], ["--model", "70b"],
+                                   ["--mesh", "2,1"]],
+                         ids=["mesh", "model", "mesh_dp"])
 def test_profiler_still_refuses_tensor_parallel(flags):
     """The profiler profiles one card: a tensor-parallel world's profile
     is item 6's later part."""

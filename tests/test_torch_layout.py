@@ -150,13 +150,58 @@ def test_llama3_70b_bytes_per_rank_at_tp8():
 
 
 @pytest.mark.parametrize("shape,match", [
-    ((2, 4), "dp=2"), ((1, 2, 2), "3-D"),
+    ((2, 1, 4), "3-D"), ((1, 2, 2), "3-D"),
 ])
 def test_unserved_meshes_are_refused_by_name(shape, match):
     with pytest.raises(NotImplementedError, match=match):
         SpecLayout.for_mesh(shape)
     with pytest.raises(NotImplementedError, match="item 6"):
         layout.check_mesh_shape(shape)
+
+
+DP_TP = [(1, 1), (2, 1), (1, 2), (2, 2), (2, 4), (8, 1), (4, 2)]
+
+
+@pytest.mark.parametrize("shape", DP_TP, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sequence_axes_equal_jax(cpu_devices, shape):
+    """``seq_axes``, ``hidden_seq`` and ``heads_seq`` (the composite
+    sequence axis of an sp prefill, mesh-major) and the dp/tp/ep fields
+    are the JAX layout's on every served (dp, tp) mesh; the parameter
+    and cache specs ignore dp (replicated), as JAX's do."""
+    jlay = JaxSpecLayout.for_mesh(jax_make_mesh(shape, cpu_devices))
+    lay = SpecLayout.for_mesh(shape)
+    assert (lay.dp, lay.fsdp, lay.tp, lay.ep) == (
+        jlay.dp, jlay.fsdp, jlay.tp, jlay.ep)
+    assert lay.seq_axes() == jlay.seq_axes()
+    assert lay.hidden_seq() == tuple(jlay.hidden_seq())
+    assert lay.heads_seq() == tuple(jlay.heads_seq())
+    tc, jc = tcfg.ModelConfig.tiny(), jcfg.ModelConfig.tiny()
+    assert _flat(lay.param_specs(tc)) == _flat(jax.tree.map(
+        tuple, jlay.param_specs(jc), is_leaf=_is_spec))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+def test_make_mesh_coordinates_and_groups(shape):
+    """``make_mesh`` in a world of 4: rank r sits at (r // tp, r % tp),
+    the device JAX's ``make_mesh`` puts at that coordinate; its tp row,
+    dp column and world are the groups the collectives default to."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_tp_world as tw
+
+    dp, tp = shape
+    jmesh = jax_make_mesh(shape, jax.devices("cpu"))
+    with tw.World(4) as world:
+        got = world.run(tw.collectives, dp, tp)
+    for r, g in enumerate(got):
+        d, t = g["coords"]["dp"], g["coords"]["tp"]
+        assert jmesh.devices[d, t].id == jax.devices("cpu")[r].id
+        assert g["tp_ranks"] == [d * tp + j for j in range(tp)]
+        assert g["dp_ranks"] == [e * tp + t for e in range(dp)]
+        assert g["sum_tp"] == sum(g["tp_ranks"])
+        assert g["sum_dp"] == sum(g["dp_ranks"])
 
 
 def test_indivisible_counts_are_refused_by_name():

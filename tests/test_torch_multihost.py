@@ -229,3 +229,78 @@ def test_mesh_alone_starts_its_ranks_and_matches_one_rank(tmp_path, tok):
         assert "worker exiting: tp rank=1" in log
     finally:
         _stop_all(procs)
+
+
+def test_data_parallel_worker_serves_through_the_frontend(tmp_path, tok):
+    """``--mesh 2,1`` alone: the worker starts rank 1 itself and serves
+    replicated dp rows (no sp threshold, as the JAX worker); greedy
+    completions through the frontend equal a one-rank worker's on the
+    same store, and both ranks log their exit lines with a world of 2."""
+    addr, store = _store(tmp_path)
+    procs = {"store": store}
+    common = [*COMMON[:-2], "--tokenizer", str(tok), "--store-addr", addr]
+    procs["one"] = Proc(tmp_path, "one", "dynamo_tpu_torch.worker", *common,
+                        "--component", "one", "--model-name", "tiny-1",
+                        env=_env())
+    procs["dp"] = Proc(tmp_path, "dp", "dynamo_tpu_torch.worker", *common,
+                       "--mesh", "2,1", "--component", "dp",
+                       "--model-name", "tiny-dp", env=_env())
+    procs["frontend"] = Proc(tmp_path, "frontend",
+                             "dynamo_tpu_torch.frontend", "--host",
+                             "127.0.0.1", "--port", "0", "--store-addr",
+                             addr, env=_env())
+    try:
+        port = int(procs["frontend"].wait_for(
+            r"frontend ready on 127\.0\.0\.1:(\d+)", timeout=READY_S
+        ).group(1))
+        procs["one"].wait_for(r"registered model tiny-1", timeout=READY_S)
+        procs["dp"].wait_for(r"registered model tiny-dp", timeout=READY_S)
+        assert "started local ranks [1]" in procs["dp"].log.read_text()
+
+        async def texts(model):
+            out = []
+            async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
+                for _ in range(400):
+                    async with s.get(f"http://127.0.0.1:{port}/v1/models"
+                                     ) as r:
+                        listed = [m["id"] for m in (await r.json())["data"]]
+                    if model in listed:
+                        break
+                    await asyncio.sleep(0.05)
+                for prompt in ("hello world", "abcdefghijklmnop"):
+                    status, _, body = await fetch(
+                        s, port, "POST", "/v1/completions", {
+                            "model": model, "prompt": prompt,
+                            "max_tokens": 8, "temperature": 0,
+                            "ignore_eos": True, "stream": False})
+                    assert status == 200, body
+                    assert body["usage"]["completion_tokens"] == 8
+                    out.append(body["choices"][0]["text"])
+            return out
+
+        want = asyncio.run(asyncio.wait_for(texts("tiny-1"), READY_S))
+        got = asyncio.run(asyncio.wait_for(texts("tiny-dp"), READY_S))
+        assert got == want
+        assert procs["dp"].stop(timeout=EXIT_S) == 0
+        log = procs["dp"].log.read_text()
+        for r in (0, 1):
+            assert f"worker exiting: tp rank={r} world=2" in log
+        assert "sp_prefills=0" in log
+    finally:
+        _stop_all(procs)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--disagg-mode", "prefill"], ["--kvbm-host-blocks", "64"],
+    ["--mm-encoder"], ["--mm-encode-component", "encoder"],
+], ids=lambda f: f[0].lstrip("-"))
+def test_data_parallel_worker_refuses_single_rank_paths(flags):
+    """A ``--mesh 2,1`` worker has tp 1 but two ranks: the disaggregated,
+    KVBM and multimodal paths are refused by name, before any rank
+    starts."""
+    from dynamo_tpu_torch import worker
+
+    args = worker.parse_args(["--device", "cpu", "--mesh", "2,1", *flags])
+    with pytest.raises(NotImplementedError,
+                       match=r"multi-rank worker \(--mesh 2,1\).*item 6"):
+        asyncio.run(worker.run_worker(args))

@@ -123,35 +123,48 @@ def _cfg(name: str, **kw):
 
 
 def forward_logits(rank, plans, cfg_name, tree, eng_kw, steps,
-                   weight_dtype="bf16"):
+                   weight_dtype="bf16", other_mesh=None):
     """This rank's ``forward`` + ``logits_fn`` over its shard of the JAX
     tree ``tree`` (numpy leaves), one call per ``(tokens, positions,
-    tables)`` step on one cache: [(hidden, logits)] as numpy, and the
-    shard shapes of ``wq`` and a cache layer."""
+    tables[, sp])`` step on one cache: [(hidden, logits)] as numpy, and the
+    shard shapes of ``wq`` and a cache layer. A step with ``sp`` true runs
+    the sequence-parallel forward; its hidden states are gathered over the
+    dp column, so every rank returns the whole chunk's. ``forward`` takes
+    its groups from ``eng.mesh_shape`` (its default); with ``other_mesh``
+    a mesh of that shape is made after the engine's, just before the
+    steps, as a second engine in the process would make it."""
     import torch
 
     from dynamo_tpu_torch.engine import model as tm
     from dynamo_tpu_torch.engine import quant
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.weights import params_from_numpy
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.layout import make_mesh
 
     cfg = _cfg(cfg_name)
     eng = EngineConfig(weight_dtype=weight_dtype, **eng_kw)
+    mesh = make_mesh(eng.mesh_shape)
     params = tm.shard_params(
         quant.quantize_params(
             params_from_numpy(tree, cfg, "cpu", weight_dtype=weight_dtype),
             weight_dtype),
         cfg, eng)
+    if other_mesh is not None:
+        make_mesh(other_mesh)
     cache = tm.init_cache(cfg, eng, torch.device("cpu"))
     outs = []
     with torch.inference_mode():
-        for tokens, positions, tables in steps:
+        for tokens, positions, tables, *sp in steps:
+            sp = bool(sp and sp[0])
             cache, h = tm.forward(cfg, eng, params, cache,
                                   torch.from_numpy(tokens),
                                   torch.from_numpy(positions),
-                                  torch.from_numpy(tables))
+                                  torch.from_numpy(tables), sp=sp)
+            if sp:
+                h = comm.all_gather(h, mesh.dp_group, dim=1)
             outs.append((h.float().numpy(),
-                         tm.logits_fn(cfg, params, h).numpy()))
+                         tm.logits_fn(cfg, params, h, mesh).numpy()))
     wq = params["layers"]["wq"]
     wq = wq["q"] if isinstance(wq, dict) else wq
     return outs, {"wq": tuple(wq.shape), "cache_k": tuple(cache["k"][0].shape)}
@@ -186,12 +199,14 @@ def follow(engine, plans, rank: int) -> None:
 
 
 def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
-          ckpt=None):
-    """Serve ``requests`` (dicts of ``Request`` fields) on a tensor-
-    parallel engine built from the full tree ``tree`` or, with ``ckpt``,
-    from this rank's shard of that HF checkpoint: rank 0 leads and returns
-    the token streams, the plan kinds it emitted, its launches and
-    collectives; the others replay and return the kinds they replayed."""
+          ckpt=None, sequential=False):
+    """Serve ``requests`` (dicts of ``Request`` fields; with
+    ``sequential``, one after another) on a multi-rank engine built from
+    the full tree ``tree`` or, with ``ckpt``, from this rank's shard of
+    that HF checkpoint: rank 0 leads and returns the token streams, the
+    plan kinds it emitted, its launches and collectives; the others replay
+    and return the kinds they replayed. Both return their sequence-
+    parallel prefills and ring hops."""
     import asyncio
 
     from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine, Request
@@ -215,7 +230,9 @@ def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
     if rank != 0:
         follow(engine, plans, rank)
         return {"replayed": dict(engine.num_replayed),
-                "all_reduce_calls": comm.STATS["all_reduce_calls"]}
+                "all_reduce_calls": comm.STATS["all_reduce_calls"],
+                "sp_prefills": engine.num_sp_prefills,
+                "ppermute_calls": comm.STATS["ppermute_calls"]}
     emitted = lead(engine, plans, n)
 
     async def go():
@@ -223,6 +240,8 @@ def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
             req = Request(request_id=f"r{i}", **r)
             return [o.token_id async for o in engine.submit(req)]
         try:
+            if sequential:
+                return [await one(i, r) for i, r in enumerate(requests)]
             return await asyncio.gather(
                 *(one(i, r) for i, r in enumerate(requests)))
         finally:
@@ -237,7 +256,9 @@ def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
             "windows": engine.num_windows,
             "spec_drafted": (engine.spec_stats.drafted
                              if engine.spec_stats is not None else 0),
-            "all_reduce_calls": comm.STATS["all_reduce_calls"]}
+            "all_reduce_calls": comm.STATS["all_reduce_calls"],
+            "sp_prefills": engine.num_sp_prefills,
+            "ppermute_calls": comm.STATS["ppermute_calls"]}
 
 
 def step_plans(rank, plans, cfg_name, tree, eng_kw, step_arrays):
@@ -257,3 +278,101 @@ def step_plans(rank, plans, cfg_name, tree, eng_kw, step_arrays):
     for kind, arrays in step_arrays:
         replay_plan(engine, *decode_plan(encode_plan(kind, arrays)))
     return engine.cache["k"][0].numpy(), dict(engine.num_replayed)
+
+
+def attention_case(rank, plans, which, q, k, v, causal=True, dp=None):
+    """The port's ``make_ring_attention`` (``which="ring"``) or
+    ``make_ulysses_attention`` over the dp column of a ``(dp, 1)`` mesh on
+    the whole ``[B, T, ., hd]`` numpy tensors: (out, the collectives'
+    counters of the call), or (None, the message) of a refusal."""
+    import torch
+
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.layout import make_mesh
+    from dynamo_tpu_torch.parallel.ring_attention import make_ring_attention
+    from dynamo_tpu_torch.parallel.ulysses import make_ulysses_attention
+
+    dpg = make_mesh((dp or comm.world_size(), 1)).dp_group
+    make = make_ring_attention if which == "ring" else make_ulysses_attention
+    comm.reset_stats()
+    try:
+        with torch.inference_mode():
+            out = make(dpg, causal=causal)(*(torch.from_numpy(x)
+                                             for x in (q, k, v)))
+    except ValueError as e:    # a refusal, returned (a raise ends the world)
+        return None, str(e)
+    return out.numpy(), dict(comm.STATS)
+
+
+def ring_body(rank, plans, q, k, v):
+    """The per-rank ``ring_attention`` on this rank's chunk of T, with the
+    counters of that one ring."""
+    import torch
+
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.layout import make_mesh
+    from dynamo_tpu_torch.parallel.ring_attention import ring_attention
+
+    n = comm.world_size()
+    dpg = make_mesh((n, 1)).dp_group
+    C = q.shape[1] // n
+    sl = slice(rank * C, (rank + 1) * C)
+    comm.reset_stats()
+    with torch.inference_mode():
+        out = ring_attention(*(torch.from_numpy(x[:, sl].copy())
+                               for x in (q, k, v)), dpg)
+    return out.numpy(), dict(comm.STATS)
+
+
+def collectives(rank, plans, dp, tp):
+    """Each collective of ``parallel/comm.py`` once on a ``(dp, tp)``
+    mesh: this rank's coordinates, its groups' ranks, and what each
+    collective returned (an all_gather of ``-0.0`` and rank-coded values,
+    a ppermute, an all_to_all, sums over the tp row and the dp column)."""
+    import torch
+
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.layout import make_mesh
+
+    mesh = make_mesh((dp, tp))
+    tpg, dpg = mesh.tp_group, mesh.dp_group
+    mine = torch.tensor([-0.0, float(rank), 0.5 + rank])
+    return {
+        "coords": dict(mesh.coords), "tp_ranks": list(tpg.ranks),
+        "dp_ranks": list(dpg.ranks), "tp_rank": tpg.index,
+        "gather_dp": comm.all_gather(mine, dpg).numpy(),
+        "gather_world": comm.all_gather(mine, comm.world_group()).numpy(),
+        "ppermute_dp": comm.ppermute(mine, dpg).numpy(),
+        "a2a_world": comm.all_to_all(
+            torch.arange(comm.world_size(), dtype=torch.float32)
+            + 10 * rank, comm.world_group()).numpy(),
+        "sum_tp": comm.all_reduce(torch.tensor([float(rank)]), tpg).item(),
+        "sum_dp": comm.all_reduce(torch.tensor([float(rank)]),
+                                  dpg).item(),
+        "bcast_world": comm.broadcast(torch.tensor([float(rank)]),
+                                      comm.world_group()).item(),
+    }
+
+
+def sp_step_sample(rank, plans, cfg_name, tree, eng_kw, tokens, positions,
+                   tables, last_idx):
+    """``make_sp_prefill_fn``'s greedy sample of one chunk on this rank's
+    shard (every rank must return the same)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import model as tm
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+
+    cfg = _cfg(cfg_name)
+    eng = EngineConfig(**eng_kw)
+    params = tm.shard_params(params_from_numpy(tree, cfg, "cpu"), cfg, eng)
+    cache = tm.init_cache(cfg, eng, torch.device("cpu"))
+    B = tokens.shape[0]
+    _, sampled = tm.make_sp_prefill_fn(cfg, eng)(
+        params, cache, torch.from_numpy(tokens), torch.from_numpy(positions),
+        torch.from_numpy(tables), torch.from_numpy(last_idx),
+        torch.tensor(7, dtype=torch.int64), torch.zeros(B),
+        torch.zeros(B, dtype=torch.int32), torch.ones(B),
+        torch.full((B,), -1, dtype=torch.int32), False)
+    return sampled.tolist()
