@@ -295,6 +295,22 @@ Phases (any failure exits non-zero and prints no result line):
    its one-rank run.
    Child logs in ``build/dist/sp_*.log``.
 
+19. pipeline-parallel serving (``[pp]`` lines), two stages on the one
+   card over gloo, after phase 17: a ``--pp 2`` worker (rank 0 starts
+   rank 1 itself) serves phase 9's Llama-3.2-1B checkpoint at full width
+   and depth, 8 layers a stage (each rank reads only its layers), behind
+   the store and the frontend. 8 concurrent greedy requests of ISL 512,
+   OSL 32 over HTTP (TTFT, ITL, tok/s of a correctness run, not a
+   pipeline speed) and through the ``generate`` endpoint (streams held to
+   the parity rule against phase 3's one-rank engine, cut to 32 tokens);
+   from the stages' exit lines: both faces launched on each stage, the
+   follower's ``p``/``d`` plans equal to the leader's, ``ppermute`` hops
+   (one per microbatch: one per prefill chunk, 4 per decode step; stage 0
+   sends, stage 1 receives), bytes and host-staged bytes per step, and
+   each stage's parameter and cache bytes against the
+   one-rank engine's (about 0.61 and exactly 0.5). Child logs in
+   ``build/dist/pp_*.log``.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
@@ -310,7 +326,9 @@ both faces at phase 17's shard shapes, with ``launches_per_rank`` of the
 2-rank Llama-3.2-1B and Mixtral runs; every kernel build's row carries
 ``launches_sp`` and ``launches_sp_2x2``, phase 18's (a) and (b) summed
 over their ranks — the ring is plain PyTorch, not a kernel, and has no
-row);
+row — and ``launches_pp``, phase 19's summed over its two stages; the
+row ``paged_attention_decode@pp2_stage`` is the decode face at a pp
+stage's microbatch shape, with phase 19's ``launches_per_rank``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -395,6 +413,10 @@ TP_CASES = {
                      "W=512",
     ("ragged", 128): "tp2 shard prefill 16/4 heads hd=128 R=1 T=512 W=32",
 }
+# phase 19's decode shape: one microbatch of a --pp 2 stage (a decode
+# bucket of 8 over pp_microbatches 4) at ISL 512 + OSL 32, a table
+# bucketed to 64 blocks; its prefill chunk is PREFILL_CASE's shape
+PP_DECODE_CASE = "pp2 stage decode B=2 ctx 513..544 W=64"
 
 
 # ------------------------------ phase 1 ----------------------------------
@@ -600,6 +622,16 @@ def device_ms(fn, reps: int = 20) -> float:
         dst.copy_(src)
         fn()
     events = profile_calls(body, reps, cpu=False)
+    if events is None:  # CUDA events around each call, after its copy
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for start, end in marks:
+            dst.copy_(src)
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in marks) / reps
     return sum(_device_us(e) for e in events
                if e.device_type == DeviceType.CUDA
                and not e.key.startswith(("Memcpy", "Memset"))) / reps / 1e3
@@ -608,7 +640,9 @@ def device_ms(fn, reps: int = 20) -> float:
 def profile_calls(body, reps: int, cpu: bool = True):
     """``key_averages()`` of ``torch.profiler`` around ``reps`` calls of
     ``body``. A profile now and then comes back without device events:
-    the first of three that has them is taken."""
+    the first of three that has them is taken. If none has, None: the
+    caller then times by CUDA events or reports the figure as not
+    measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -623,7 +657,9 @@ def profile_calls(body, reps: int, cpu: bool = True):
         if any(_device_us(e) > 0 for e in events
                if e.device_type == DeviceType.CUDA):
             return events
-    fail("torch.profiler recorded no device time")
+    print("[profiler] torch.profiler recorded no device time in three "
+          "profiles", flush=True)
+    return None
 
 
 def main_cases(kv_dtype=None):
@@ -677,6 +713,11 @@ def kernel_cases():
           make_case(name, [(512, 512, 512)], W=32, face="ragged", KV=4,
                     hd=hd)
           for (face, hd), name in TP_CASES.items()),
+        make_case(PP_DECODE_CASE, [(1, 513, 1), (1, 544, 1)], W=64,
+                  face="decode"),
+        # a microbatch with a pad row (position -1: a dead row)
+        make_case(f"{PP_DECODE_CASE}, 1 dead row", [(1, 530, 1), (0, 0, 1)],
+                  W=64, face="decode"),
         # the kernels' other builds: head dim 128 (Llama-3-8B heads) and f32
         make_case("ragged mixed hd=128 R=3",
                   [(1, 300, 1), (40, 240, 48), (0, 0, 8)], W=20,
@@ -1592,17 +1633,23 @@ def _device_us(evt) -> float:
 
 def _profiled(fn, reps: int = 5):
     """(kernel launches, device busy ms) of one call of ``fn``, from
-    ``torch.profiler``."""
+    ``torch.profiler``; (None, None) if it recorded no device time."""
     from torch.autograd import DeviceType
 
     fn()
     events = profile_calls(fn, reps)
+    if events is None:
+        return None, None
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cuLaunchKernelEx")) / reps
     busy = sum(_device_us(e) for e in events
                if e.device_type == DeviceType.CUDA) / reps / 1e3
     return launches, busy
+
+
+def _or_not_measured(x, spec: str, unit: str = "") -> str:
+    return "not measured" if x is None else f"{x:{spec}}{unit}"
 
 
 def phase_quant_costs(engine, card: str) -> None:
@@ -1631,8 +1678,8 @@ def phase_quant_costs(engine, card: str) -> None:
         print(f"[quant] {card}: weight {eng.weight_dtype}: bf16 copies of "
               f"one step's {len(leaves)} stacked weights ({n / 1e9:.3f} G "
               f"elements, {3 * n / 1e9:.2f} GB read + written): {ms:.3f} "
-              f"ms, {3 * n / ms / 1e9:.2f} TB/s; {_profiled(casts)[0]:.0f} "
-              f"launches", flush=True)
+              f"ms, {3 * n / ms / 1e9:.2f} TB/s; launches "
+              f"{_or_not_measured(_profiled(casts)[0], '.0f')}", flush=True)
     if quant.is_quantized(eng.kv_dtype):
         B, KV, hd = 16, cfg.num_kv_heads, cfg.head_dim_
         x = torch.randn(B, KV, hd, device=engine.device,
@@ -1648,12 +1695,16 @@ def phase_quant_costs(engine, card: str) -> None:
         wall = cuda_ms(quantize_one, iters=50)
         n, busy = _profiled(quantize_one)
         L = cfg.num_layers
+        step_n, step_busy = ((None, None) if n is None else
+                             (2 * L * n, 2 * L * busy))
         print(f"[quant] {card}: kv {eng.kv_dtype}: kv_quantize + scale "
-              f"scatter of K or V, B={B}: {n:.0f} launches, device busy "
-              f"{busy:.4f} ms, back-to-back wall {wall:.4f} ms; per decode "
-              f"step (x2 x {L} layers): {2 * L * n:.0f} launches, "
-              f"{2 * L * busy:.3f} ms device busy, {2 * L * wall:.3f} ms "
-              f"wall", flush=True)
+              f"scatter of K or V, B={B}: launches "
+              f"{_or_not_measured(n, '.0f')}, device busy "
+              f"{_or_not_measured(busy, '.4f', ' ms')}, back-to-back wall "
+              f"{wall:.4f} ms; per decode step (x2 x {L} layers): launches "
+              f"{_or_not_measured(step_n, '.0f')}, device busy "
+              f"{_or_not_measured(step_busy, '.3f', ' ms')}, "
+              f"{2 * L * wall:.3f} ms wall", flush=True)
 
 
 def phase_profile(engine, card: str) -> None:
@@ -1665,12 +1716,13 @@ def phase_profile(engine, card: str) -> None:
     the device and the attention kernel's share. The decode window runs
     eagerly and as the engine's replayed graph, on the same seats. Returns
     each step's device busy ms ("decode_eager", "decode_graph",
-    "prefill")."""
+    "prefill"), None where the profiler recorded no device time."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
 
     from dynamo_tpu_torch.engine import model as model_lib
+    from dynamo_tpu_torch.ops import paged_attention as pa
 
     cfg, eng = engine.model_config, engine.config
     dev = engine.device
@@ -1727,6 +1779,18 @@ def phase_profile(engine, card: str) -> None:
         wall_ms = (time.perf_counter() - t0) / n * 1e3
         reps = 3
         events = profile_calls(fn, reps)
+        if events is None:
+            before = sum(pa.LAUNCHES.values())
+            fn()
+            if sum(pa.LAUNCHES.values()) == before:
+                fail(f"{name}: the attention kernel was not launched")
+            busy_of[step] = None
+            print(f"[profile] {card}: {name}, weights {eng.weight_dtype} KV "
+                  f"{eng.kv_dtype}: wall {wall_ms:.2f} ms (host enqueue "
+                  f"{host_ms:.3f} ms), device busy, launches and kernels "
+                  f"not measured (the profiler recorded no device time); "
+                  f"the attention kernel launched", flush=True)
+            continue
         kernels = [e for e in events if e.device_type == DeviceType.CUDA
                    and not e.key.startswith(("Memcpy", "Memset"))]
         busy = sum(_device_us(e) for e in kernels) / reps / 1e3
@@ -4097,13 +4161,15 @@ def check_moe_ffn(engine, card: str, busy: dict) -> dict:
         err = (got.float() - want).abs()
         excess = (err - rtol * want.abs()).max().item()
         ms = device_ms(lambda: moe_ffn(x, *w, top_k=k, capacity_factor=cf))
-        share = cfg.num_layers * ms / busy[step]
+        share = (None if busy[step] is None else
+                 cfg.num_layers * ms / busy[step])
         print(f"[moe] {card}: moe_ffn N={N} (C={C}, {dropped} of {N * k} "
               f"picks past capacity) vs the plain f32 reference: max "
               f"|diff| {err.max().item():.3e} (atol {atol} + rtol {rtol}); "
               f"device {ms:.4f} ms per layer, x {cfg.num_layers} layers = "
               f"{cfg.num_layers * ms:.3f} ms of the {step} step's "
-              f"{busy[step]:.3f} ms device busy ({share:.0%})", flush=True)
+              f"{_or_not_measured(busy[step], '.3f', ' ms')} device busy "
+              f"({_or_not_measured(share, '.0%')})", flush=True)
         if excess > atol:
             fail(f"[moe] moe_ffn N={N} disagrees with the reference: "
                  f"{err.max().item()}")
@@ -5061,9 +5127,13 @@ def phase_embed(card: str, engine, direct: dict) -> dict:
     torch.cuda.empty_cache()
     wall = sorted(walls)[len(walls) // 2]
     events = profile_calls(lambda: embed(inputs), 1, cpu=False)
-    cuda = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    cuda = sorted((e for e in events or ()
+                   if e.device_type == DeviceType.CUDA),
                   key=_device_us, reverse=True)
-    busy_ms = sum(_device_us(e) for e in cuda) / 1e3
+    busy_ms = None if events is None else sum(map(_device_us, cuda)) / 1e3
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.1f} ms of the call "
+            f"({busy_ms / (wall * 1e3):.3f} busy share, profiled call)")
     top = "; ".join(f"{e.key[:60]} {_device_us(e) / 1e3:.1f} ms"
                     for e in cuda[:5])
     lens = sorted(map(len, inputs))
@@ -5071,9 +5141,8 @@ def phase_embed(card: str, engine, direct: dict) -> dict:
           f"{lens[0]}..{lens[-1]} tokens ({n_tok} in all): {wall * 1e3:.1f} "
           f"ms per call (median of {EMBED_REPS}: "
           f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
-          f"{n_tok / wall:.0f} prompt tokens/s, device busy {busy_ms:.1f} "
-          f"ms of the call ({busy_ms / (wall * 1e3):.3f} busy share, "
-          f"profiled call); norms within {np.abs(norms - 1).max():.2e} of "
+          f"{n_tok / wall:.0f} prompt tokens/s, device busy {busy}; "
+          f"norms within {np.abs(norms - 1).max():.2e} of "
           f"1; two calls bitwise equal", flush=True)
     print(f"[embed] device time by kernel, top 5 of {len(cuda)}: {top}",
           flush=True)
@@ -5830,7 +5899,7 @@ def phase_tp(card: str, served: dict, ref) -> dict:
             await worker.wait_for(r"registered model", 300)
             text = worker.text()
             loads = re.findall(r"loaded (\d+) tensors \(([\d.]+) GB\) .*"
-                               r"shard (\d)/2\) .* in ([\d.]+) s", text)
+                               r"shard (\d)/2, .* in ([\d.]+) s", text)
             print(f"[tp] {card}: store, a --mesh 1,2 worker (rank 1 started "
                   f"by rank 0, both on cuda:0 over gloo) and the frontend "
                   f"up in {time.perf_counter() - t0:.1f} s; sharded loads "
@@ -6729,6 +6798,261 @@ def phase_sp(card: str) -> dict:
             "launches_sp_per_rank": faces_a}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: pipeline-parallel serving, two stages on one card
+
+PP = 2
+PP_MODEL = "llama-3.2-1b-pp2"
+PP_REQUESTS = 8            # concurrent greedy requests, ISL 512
+PP_OSL = 32
+PP_LINE = re.compile(
+    r"worker exiting: pp rank=(\d+) world=(\d+) backend=(\w+) stage "
+    r"layers=(\d+)\.\.(\d+) plans=(\S*) ppermute_calls=(\d+) bytes=(\d+) "
+    r"staged=(\d+) us=(\d+) broadcast_calls=(\d+) params_bytes=(\d+) "
+    r"cache_bytes=(\d+) launches=(\S*)")
+# a stage holds half the layers and the replicated 128,256-row embedding:
+# (0.525 + 8 x 0.1216) / 2.47 GB ~ 0.61 of one rank's parameters; its
+# cache is exactly half of one rank's
+PP_PARAMS_SHARE = (0.55, 0.67)
+
+
+def pp_rank_lines(text: str) -> dict:
+    """rank -> the fields of a pipeline worker's exit line."""
+    out = {}
+    for m in PP_LINE.finditer(text):
+        (rank, world, backend, lo, hi, plans, calls, nbytes, staged, us,
+         bcast, params, cache, launches) = m.groups()
+        out[int(rank)] = dict(
+            world=int(world), backend=backend, layers=(int(lo), int(hi)),
+            plans={k: int(v) for k, v in (
+                kv.split(":") for kv in plans.split(",") if kv)},
+            calls=int(calls), bytes=int(nbytes), staged=int(staged),
+            us=int(us), broadcasts=int(bcast), params=int(params),
+            cache=int(cache), launches={k: int(v) for k, v in (
+                kv.split(":") for kv in launches.split(",") if kv)})
+    return out
+
+
+def pp_stages(num_layers: int) -> list:
+    """Each stage's (first, last) layer."""
+    per = num_layers // PP
+    return [(s * per, (s + 1) * per - 1) for s in range(PP)]
+
+
+def pp_check_ranks(text: str, card: str, one_rank: tuple,
+                   num_layers: int) -> dict:
+    """The phase's checks on the ``--pp 2`` worker's exit lines: both
+    stages logged over gloo, holding layers 0..7 and 8..15 of 16; the follower
+    replayed exactly the plans the leader emitted (``p`` and ``d`` only)
+    and made as many hops; one hop per microbatch, so one per prefill chunk
+    (M = 1) and 4 per decode step of 8 rows (M = 4), stage 0 sending what
+    stage 1 receives (each copy staged through the host once, as gloo's
+    send/recv takes no CUDA tensor); both faces launched on each stage; each
+    stage's parameter bytes within ``PP_PARAMS_SHARE`` of the one-rank
+    engine's and its cache bytes half of it. Prints the hops, bytes and
+    staged bytes per step. Returns face -> [launches per rank]."""
+    ranks = pp_rank_lines(text)
+    if sorted(ranks) != list(range(PP)):
+        fail(f"[pp] exit lines of ranks {sorted(ranks)}, want "
+             f"{list(range(PP))}")
+    lead, fol = ranks[0], ranks[1]
+    if {r["backend"] for r in ranks.values()} != {"gloo"}:
+        fail(f"[pp] ranks ran over {[r['backend'] for r in ranks.values()]}")
+    if [ranks[r]["layers"] for r in range(PP)] != pp_stages(num_layers):
+        fail(f"[pp] stage layers {[ranks[r]['layers'] for r in range(PP)]}")
+    if fol["plans"] != lead["plans"] or set(lead["plans"]) != {"p", "d"}:
+        fail(f"[pp] the follower replayed {fol['plans']}, the leader "
+             f"emitted {lead['plans']}")
+    n_p, n_d = lead["plans"]["p"], lead["plans"]["d"]
+    for r in ranks.values():
+        if r["calls"] != n_p + 4 * n_d:
+            fail(f"[pp] {r['calls']} hops on a rank, want {n_p} + "
+                 f"4 x {n_d}")
+    if not lead["bytes"] > 0 == fol["bytes"] or \
+            lead["staged"] != lead["bytes"] or fol["staged"] != lead["bytes"]:
+        fail(f"[pp] bytes sent {lead['bytes']} / {fol['bytes']} and staged "
+             f"{lead['staged']} / {fol['staged']} by rank 0 / 1: stage 0 "
+             f"sends, stage 1 receives, each copy staged once")
+    faces = {}
+    for face in ("decode", "ragged"):
+        name = f"paged_attention_{face}"
+        per_rank = [ranks[r]["launches"].get(name, 0) for r in range(PP)]
+        if min(per_rank) == 0:
+            fail(f"[pp] {name} launches per rank {per_rank}: a face did "
+                 f"not launch on a stage")
+        faces[name] = per_rank
+    one_params, one_cache = one_rank
+    shares = [(ranks[r]["params"] / one_params, ranks[r]["cache"] / one_cache)
+              for r in range(PP)]
+    for p_share, c_share in shares:
+        if not PP_PARAMS_SHARE[0] <= p_share <= PP_PARAMS_SHARE[1]:
+            fail(f"[pp] a stage holds {p_share:.3f} of one rank's "
+                 f"parameter bytes, outside {PP_PARAMS_SHARE}")
+        if c_share != 0.5:
+            fail(f"[pp] a stage holds {c_share:.4f} of one rank's cache")
+    steps = n_p + n_d
+    print(f"[pp] {card}: plans per kind {lead['plans']} (leader emitted = "
+          f"follower replayed); ppermute per rank {lead['calls']} hops; "
+          f"stage 0 sent {lead['bytes'] / 1e6:.3f} MB, each stage staged "
+          f"{lead['staged'] / 1e6:.3f} MB through the host: "
+          f"{lead['calls'] / steps:.2f} hops and "
+          f"{lead['bytes'] / steps / 1e6:.4f} MB sent per step; host "
+          f"time blocked in hops per step rank 0 "
+          f"{lead['us'] / 1e3 / steps:.2f} ms, rank 1 "
+          f"{fol['us'] / 1e3 / steps:.2f} ms; sampled-token broadcasts "
+          f"{lead['broadcasts']} (one per step, and the leader's attention "
+          f"choice); launches per rank {faces}", flush=True)
+    print(f"[pp] {card}: per-rank device bytes vs the one-rank engine: "
+          + "; ".join(
+              f"rank {r} parameters {ranks[r]['params'] / 1e9:.3f} GB "
+              f"({shares[r][0]:.3f}), cache {ranks[r]['cache'] / 1e9:.3f} GB"
+              f" ({shares[r][1]:.3f})" for r in range(PP))
+          + f"; one rank {one_params / 1e9:.3f} GB / "
+          f"{one_cache / 1e9:.3f} GB", flush=True)
+    return faces
+
+
+def phase_pp(card: str, served: dict, ref, one_rank: tuple) -> dict:
+    """[pp] Llama-3.2-1B at full width and depth (16 layers, 8 per stage),
+    bf16, from phase 9's checkpoint, served by a ``--pp 2`` worker (rank 0
+    leads and starts rank 1 itself on the same card; both over gloo, as
+    NCCL takes one device per rank; each reads only its stage's layers)
+    behind the store and the frontend. 8 concurrent greedy requests at ISL
+    512, OSL 32 through the frontend over HTTP give TTFT, ITL and tok/s —
+    a correctness run of two stages on one card over host-staged gloo, not
+    a pipeline speed; the same prompts through the worker's ``generate``
+    endpoint give streams held to the parity rule against phase 3's
+    one-rank engine (``ref``: phase 9's eager rerun, cut to its first
+    PP_OSL tokens). The stages' exit lines give their launches of both
+    faces, plans, hops and bytes (``pp_check_ranks``); ``one_rank`` is the
+    one-rank engine's (parameter, cache) bytes. Returns face -> launches
+    per rank."""
+    import asyncio
+    import multiprocessing
+    import signal
+    from concurrent.futures import ProcessPoolExecutor
+
+    from dynamo_tpu_torch.engine.weights import model_config_from_hf
+
+    num_layers = model_config_from_hf(LOAD_DIR).num_layers
+    want, rec, prompts = ref
+    prompts = prompts[:PP_REQUESTS]
+    want = [w[:PP_OSL] for w in want[:PP_REQUESTS]]
+    env = dict(tp_env(), **TP_ENV)
+    addr = f"127.0.0.1:{_free_port()}"
+    children = []
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        procs = ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            t0 = time.perf_counter()
+            store = Child("pp_store", "dynamo_tpu_torch.runtime.store",
+                          ["--host", "127.0.0.1",
+                           "--port", addr.rsplit(":", 1)[1]], env)
+            children.append(store)
+            await store.wait_for(r"store listening", 60)
+            worker = Child("pp_worker", "dynamo_tpu_torch.worker", [
+                "--pp", str(PP), "--store-addr", addr,
+                "--weights", os.path.abspath(LOAD_DIR),
+                "--model-name", PP_MODEL,
+                "--tokenizer", os.path.abspath(served["tokenizer"])], env)
+            children.append(worker)
+            front = Child("pp_frontend", "dynamo_tpu_torch.frontend",
+                          ["--host", "127.0.0.1", "--port", "0",
+                           "--store-addr", addr], env)
+            children.append(front)
+            port = int((await front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+            await worker.wait_for(r"registered model", 300)
+            loads = re.findall(r"loaded (\d+) tensors \(([\d.]+) GB\) .*"
+                               r"layers (\d+)\.\.(\d+)\) .* in ([\d.]+) s",
+                               worker.text())
+            print(f"[pp] {card}: store, a --pp 2 worker (rank 1 started by "
+                  f"rank 0, both on cuda:0 over gloo) and the frontend up in "
+                  f"{time.perf_counter() - t0:.1f} s; stage loads "
+                  + "; ".join(f"layers {lo}..{hi}: {n} tensors, {gb} GB in "
+                              f"{sec} s" for n, gb, lo, hi, sec in loads),
+                  flush=True)
+            if sorted((int(lo), int(hi)) for _, _, lo, hi, _ in loads) != \
+                    pp_stages(num_layers):
+                fail(f"[pp] stage loads {loads}, want layers "
+                     f"{pp_stages(num_layers)}")
+
+            def job(ids, n=PP_OSL):
+                return dict(method="POST", path="/v1/completions", body={
+                    "model": PP_MODEL, "prompt": list(ids),
+                    "max_tokens": n, "temperature": 0,
+                    "ignore_eos": True, "stream": True})
+            while True:
+                (status, _, _, _, body), = await loop.run_in_executor(
+                    procs, http_client, port,
+                    [dict(method="GET", path="/v1/models")])
+                if status == 200 and any(m["id"] == PP_MODEL
+                                         for m in body["data"]):
+                    break
+                if time.perf_counter() - t0 > 300:
+                    fail(f"[pp] /v1/models never listed {PP_MODEL}")
+                await asyncio.sleep(0.2)
+            # the stages' first traffic (each process's first GEMMs,
+            # kernel calls and hops), timed apart from the run; a prompt
+            # that shares no block with the run's
+            t_warm = time.perf_counter()
+            (status, _, _, done, _), = await loop.run_in_executor(
+                procs, http_client, port, [job(prompts[0][::-1], 2)])
+            if status != 200 or not done:
+                fail(f"[pp] the warm-up request answered {status}")
+            print(f"[pp] {card}: warm-up request (ISL {ISL}, 2 tokens, the "
+                  f"stages' first traffic): "
+                  f"{(time.perf_counter() - t_warm) * 1e3:.1f} ms",
+                  flush=True)
+            t_start = time.perf_counter()
+            results = await loop.run_in_executor(
+                procs, http_client, port, [job(p) for p in prompts])
+            wall = time.perf_counter() - t_start
+            runs = []
+            for status, t_sent, frames, done, body in results:
+                content = [t for t, f in frames if f["choices"][0]["text"]]
+                n = (frames[-1][1]["usage"]["completion_tokens"]
+                     if frames else 0)
+                if (status != 200 or not done or n != PP_OSL
+                        or len(content) < 2):
+                    fail(f"[pp] HTTP stream: {status}, [DONE] {done}, {n} of "
+                         f"{PP_OSL} tokens: {body or frames[-2:]}")
+                runs.append((t_sent, content[0], content[-1], n))
+            print(f"[pp] {card}: {PP_REQUESTS} streams ISL {ISL} OSL "
+                  f"{PP_OSL} through store + the 2-stage worker + frontend: "
+                  f"{stats_line(traffic_stats(runs, wall))} — a correctness "
+                  f"run of two stages on one card over host-staged gloo, "
+                  f"not a pipeline speed", flush=True)
+            got = await tp_generate(addr, "backend", prompts, PP_OSL,
+                                    concurrent=True)
+            if [len(g) for g in got] != [PP_OSL] * len(prompts):
+                fail("[pp] short streams from the generate endpoint")
+            partings = check_parity(want, rec, got,
+                                    "phase 3's one-rank bf16 engine",
+                                    tag="[pp]")
+            print(f"[pp] {card}: streams of the 2-stage worker vs phase 3's "
+                  f"one-rank engine on the same weights: "
+                  f"{len(prompts) - len(partings)} of {len(prompts)} "
+                  f"identical, {len(partings)} part at near-ties",
+                  flush=True)
+            worker.proc.send_signal(signal.SIGTERM)
+            rc = await loop.run_in_executor(None, worker.proc.wait, 90)
+            if rc != 0:
+                fail(f"[pp] the worker exited {rc}:\n{worker.tail()}")
+            return pp_check_ranks(worker.text(), card, one_rank, num_layers)
+        finally:
+            procs.shutdown(wait=True)
+
+    try:
+        return asyncio.run(run())
+    finally:
+        for c in reversed(children):
+            c.kill()
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -6758,7 +7082,7 @@ def launch_configs(results, case: str):
 
 
 def kernels_line(results, launches, dist_launches, spec_launches,
-                 moe_launches, slice_launches, tp_launches,
+                 moe_launches, slice_launches, tp_launches, pp_launches,
                  tuned_rows=()) -> str:
     """The ``kernels`` JSON line: one row per kernel build (with
     ``launch_configs``, the non-default launch parameters phase 2 held on
@@ -6774,7 +7098,10 @@ def kernels_line(results, launches, dist_launches, spec_launches,
     from the defaults; their launches are those of the run served on
     them). Phase 17 adds both faces at one rank's shard shapes of tp 2,
     head dim 64 (Llama-3.2-1B) and 128 (Mixtral-8x7B): ``tp_launches[hd]``
-    maps each face to its launches per rank in the served runs."""
+    maps each face to its launches per rank in the served runs. Phase 19
+    adds the decode face at a pp stage's microbatch shape
+    (``PP_DECODE_CASE``; its prefill chunk is ``PREFILL_CASE``'s):
+    ``pp_launches`` maps each face to its launches per stage."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -6827,6 +7154,19 @@ def kernels_line(results, launches, dist_launches, spec_launches,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    per_rank = pp_launches["paged_attention_decode"]
+    r = results[PP_DECODE_CASE]
+    rows.append({
+        "name": "paged_attention_decode@pp2_stage", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": KERNELS["paged_attention_decode"][3],
+        "launches": sum(per_rank), "launches_per_rank": per_rank,
+        "max_abs_err": max(r["max_abs_err"],
+                           results[f"{PP_DECODE_CASE}, 1 dead row"]
+                           ["max_abs_err"]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    })
     rows.extend(tuned_rows)
     return json.dumps({"kernels": rows})
 
@@ -6917,12 +7257,16 @@ def main() -> None:
     timer("7 kv movement in one process")
     tp_ref = phase_load(card, engine, "bf16")
     timer("9 loader bf16")
+    from dynamo_tpu_torch.worker import tree_bytes
+    one_rank = (tree_bytes(engine.params), tree_bytes(engine.cache))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     tp_launches = {64: phase_tp(card, served, tp_ref)}
-    del tp_ref
     timer("17 tensor parallel, Llama-3.2-1B")
+    pp_launches = phase_pp(card, served, tp_ref, one_rank)
+    del tp_ref
+    timer("19 pipeline parallel")
     sp = phase_sp(card)
     timer("18 sequence parallel")
     dist_launches = phase_dist(card, served, direct)
@@ -6967,8 +7311,11 @@ def main() -> None:
                                       "launches_mm": mm["launches"],
                                       "launches_sp": sp["launches_sp"],
                                       "launches_sp_2x2":
-                                      sp["launches_sp_2x2"]},
-                       tp_launches, tuned_rows))
+                                      sp["launches_sp_2x2"],
+                                      "launches_pp": {
+                                          k: sum(v) for k, v in
+                                          pp_launches.items()}},
+                       tp_launches, pp_launches, tuned_rows))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,11 +20,12 @@ kernel's ``(q_tile, kv_tile)``:
   default fills the card once, ``ops/paged_attention.py`` ``_decode_grid``).
 
 The engine config keeps the knobs this package serves, plus the ones that
-select a path it does not serve yet (a data-parallel or 3-D mesh, pipeline
-and sequence parallelism): those stay so that :func:`check_supported`
-refuses them loudly at engine construction instead of ignoring them. A
-``(1, tp)`` mesh is served: one engine per rank of a ``torch.distributed``
-world (``parallel/multihost.py``).
+select a path it does not serve yet (a 3-D mesh): those stay so that
+:func:`check_supported` refuses them loudly at engine construction instead
+of ignoring them. A ``(dp, tp)`` mesh and ``pp_stages`` pipeline stages are
+served: one engine per rank of a ``torch.distributed`` world
+(``parallel/multihost.py``; a pp engine's stages are its ranks,
+``parallel/pp_serving.py``).
 """
 
 from __future__ import annotations
@@ -231,12 +232,22 @@ class EngineConfig:
     # engine/model.py), so a long prompt need not fit one rank's prefill
     # budget. 0 = disabled (chunked prefill)
     sp_prefill_threshold: int = 0
-    # -- paths not served by this package yet (check_supported refuses) --
+    # pipeline parallelism: >1 runs the unified step GPipe-style over that
+    # many stages, one rank each (layers split over the stages, decode
+    # batches microbatched; parallel/pp_serving.py). Exclusive with a
+    # (dp, tp) mesh larger than (1, 1), spec decode and quantized serving;
+    # decode_steps > 1 runs single-step decode
     pp_stages: int = 1
+    pp_microbatches: int = 4
 
     def __post_init__(self):
         if len(self.mesh_shape) not in (2, 3):
             raise ValueError("mesh_shape must be (dp, tp) or (dp, fsdp, tp)")
+        mesh_devices = 1
+        for n in self.mesh_shape:
+            mesh_devices *= n
+        if self.pp_stages > 1 and mesh_devices > 1:
+            raise ValueError("pp_stages and a (dp, tp) mesh are exclusive")
         if self.max_num_seqs > max(self.decode_buckets):
             raise ValueError("max_num_seqs exceeds largest decode bucket")
         if self.spec_mode not in ("off", "ngram"):
@@ -314,13 +325,12 @@ class EngineConfig:
 def check_supported(eng: EngineConfig) -> None:
     """Refuse, at engine construction, every path this package does not
     serve yet (each is still served by the JAX package): a mesh other than
-    ``(dp, tp)`` and pipeline parallelism (ROADMAP.md queue A, item 6,
-    later part)."""
+    ``(dp, tp)``, and an sp prefill over a dp that is not a power of two
+    (ROADMAP.md queue A, item 6, later part)."""
     from ..parallel.layout import check_mesh_shape
 
     dp, _ = check_mesh_shape(eng.mesh_shape)
     unsupported = [
-        (eng.pp_stages > 1, f"pp_stages={eng.pp_stages}"),
         # an sp chunk is bucketed to a power of two, which dp must divide
         (eng.sp_prefill_threshold > 0 and dp & (dp - 1),
          f"sp_prefill_threshold on dp={dp} (not a power of two)"),

@@ -54,6 +54,16 @@ the KVBM tiers, preemption evacuation, ``embed`` and multimodal requests
 are refused by name, as in the JAX multi-host worker. With
 ``sp_prefill_threshold`` a fresh prompt at least that long is prefilled as
 one sequence-parallel chunk (``rsp`` plans; ``engine/model.py``).
+
+Pipeline parallelism (``pp_stages=S``, one engine per stage, each a rank
+of a world of S, ``parallel/pp_serving.py``) is the JAX engine's pp
+branch: the engine holds its stage's layers and their cache planes only,
+runs the synchronous loop, and takes every prefill chunk and decode batch
+through the GPipe-microbatched unified step (``unified_step``; the leader
+emits ``p``/``d`` plans before each, the other stages replay them). It
+builds no autopilot windows, control state, CUDA graphs, KV block ops or
+ladders; KV transfer, the KVBM tiers and multimodal prefill are refused
+with the JAX engine's messages, embed and evacuation by item number.
 """
 
 from __future__ import annotations
@@ -291,9 +301,10 @@ class EngineCore(AsyncEngine):
         self._kv_reservations: Dict[str, int] = {}
         self.kvbm = None  # multi-tier block manager (attach_kvbm)
         self.prefix = None  # radix prefix cache (attach_prefix_cache)
-        # tensor-parallel degree and the mesh's ranks, dp * tp
-        # (InferenceEngine sets them from mesh_shape)
+        # tensor-parallel degree, pipeline stages and the world's ranks,
+        # dp * tp * pp (InferenceEngine sets them from its config)
         self.tp = 1
+        self.pp = 1
         self.world = 1
         # run-ahead depth: how many scheduled windows may be in flight
         # before the loop waits for a landing. 1 = classic synchronous
@@ -417,6 +428,11 @@ class EngineCore(AsyncEngine):
             # the step would abort every co-scheduled request (and, under
             # tensor parallelism, after parts of the batch reached the
             # followers)
+            if self.pp > 1:
+                raise ValueError(
+                    "multimodal prefill unsupported on a pipeline-parallel "
+                    "engine"
+                )
             self.refuse_multi_rank("multimodal prefill")
             model_cfg = getattr(self, "model_config", None)
             if (model_cfg is not None and request.mm_embeddings is not None
@@ -1173,12 +1189,13 @@ class EngineCore(AsyncEngine):
     def refuse_multi_rank(self, what: str) -> None:
         """Raise, by name, for a path an engine on a mesh of more than one
         rank does not serve (the scope of the JAX multi-host worker). It
-        keys on the ranks, not on tp: a ``(2, 1)`` rank has ``tp == 1``."""
+        keys on the ranks, not on tp: a ``(2, 1)`` rank has ``tp == 1``,
+        a pipeline stage too."""
         if self.world > 1:
             raise NotImplementedError(
                 f"{what} on a multi-rank engine ({self.world} ranks, "
-                f"tp={self.tp}) needs multi-device serving, ROADMAP.md "
-                "queue A, item 6 (later part)")
+                f"tp={self.tp}, pp={self.pp}) needs the single-rank paths "
+                "on a multi-rank engine, ROADMAP.md queue A, item 6.2")
 
     def evacuable_seats(self) -> List[SchedSeq]:
         """Decoding seats whose KV is worth moving (prefill complete).
@@ -1338,6 +1355,10 @@ class InferenceEngine(EngineCore):
     engine's) or this rank's shard (``weights.load_hf_params_sharded``).
     ``sp_prefill_threshold > 0`` on such a mesh turns on the
     sequence-parallel prefill (``_sp_prefill_fn``).
+
+    With ``pp_stages=S`` the engine is stage ``rank`` of a world of S:
+    ``params`` may be the full tree (each stage keeps its layers) or the
+    stage's (``weights.load_hf_params(..., layers=)``).
     """
 
     def __init__(
@@ -1354,6 +1375,17 @@ class InferenceEngine(EngineCore):
         check_divisible(model_config, tp)
         # this rank's coordinates and process group (one rank: no group)
         self.mesh = make_mesh(engine_config.mesh_shape)
+        # pipeline parallelism: this rank is stage pp_group.index of the
+        # world (parallel/pp_serving.py)
+        pp = engine_config.pp_stages
+        self.pp_group = None
+        self.stage_layers = (0, model_config.num_layers)
+        if pp > 1:
+            from ..parallel import pp_serving
+
+            self.pp_group = pp_serving.make_pp_mesh(pp)
+            self.stage_layers = pp_serving.stage_layers(
+                model_config, pp, self.pp_group.index)
         # attention autotune, BEFORE any step function is built or graph
         # captured: the impl probe (attention_impl="auto" times the kernel
         # against einsum per shape class on the card) plus each class's
@@ -1369,19 +1401,31 @@ class InferenceEngine(EngineCore):
                 engine_config, self.device), self.device)
         super().__init__(engine_config)
         self.tp = tp
+        self.pp = pp
         self.world = model_lib.mesh_ranks(engine_config)
         self.model_config = model_config
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = model_lib.init_params(gen, model_config)
-        # quantize at init (a tree quantized beforehand passes unchanged),
-        # then keep this rank's slice (a sharded tree passes unchanged)
-        self.params = model_lib.shard_params(
-            quant.quantize_params(params, engine_config.weight_dtype),
-            model_config, engine_config)
-        del params          # on a rank of a world: the full tree
-        self.cache = model_lib.init_cache(model_config, engine_config,
-                                          self.device)
+        if pp > 1:
+            # this stage's layers, embed / final_norm / lm_head replicated
+            # (a tree loaded for the stage passes unchanged); pp serving is
+            # unquantized, as in JAX
+            self.params = pp_serving.pp_param_shardings(
+                params, model_config, self.pp_group.index, pp)
+            del params
+            self.cache = pp_serving.init_pp_cache(model_config,
+                                                  engine_config, self.device)
+        else:
+            # quantize at init (a tree quantized beforehand passes
+            # unchanged), then keep this rank's slice (a sharded tree
+            # passes unchanged)
+            self.params = model_lib.shard_params(
+                quant.quantize_params(params, engine_config.weight_dtype),
+                model_config, engine_config)
+            del params          # on a rank of a world: the full tree
+            self.cache = model_lib.init_cache(model_config, engine_config,
+                                              self.device)
         # packed prefill + autopilot decode windows running on
         # device-resident control state
         self._window_K = max(1, engine_config.decode_steps)
@@ -1402,23 +1446,36 @@ class InferenceEngine(EngineCore):
             if engine_config.pipeline_depth > 1:
                 log.info("spec_mode=ngram forces pipeline_depth=1")
             self.scheduler.spec_plan_window = self._spec_k + 1
-        self._ap_window_fn, self._ap_delta_fn = model_lib.make_autopilot_fns(
-            model_config, engine_config, self._window_K, self._ap_Wcap,
-            self.device, spec_k=self._spec_k)
-        self._ctl = model_lib.init_ctl(
-            engine_config, engine_config.max_num_seqs, self._ap_Wcap,
-            self.device, seed=seed + 2, hist_cap=self._spec_hist_cap,
-        )
         self._packed_prefill_fns: Dict[Tuple[int, int, bool], Any] = {}
-        # the unified step, built by the first "p"/"d" plan a follower
-        # replays (parallel/multihost.py)
-        self._step_fn = None
         # the encode-only step of embed()
         self._encode_fn = model_lib.make_encode_fn(model_config)
-        # KV block gather/scatter (disagg, KVBM, prefix onboarding,
-        # evacuation); the scatter writes self.cache in place
-        self._kv_extract, self._kv_inject = model_lib.make_kv_ops(
-            engine_config)
+        if pp > 1:
+            # the GPipe-microbatched unified step on the synchronous loop
+            # (the JAX engine's legacy path): no autopilot windows, control
+            # state, decode graphs or KV block ops
+            self._ap_window_fn = self._ap_delta_fn = None
+            self._ctl = None
+            self._kv_extract = self._kv_inject = None
+            self._step_fn = pp_serving.make_pp_step_fn(
+                model_config, engine_config, self.pp_group,
+                engine_config.pp_microbatches)
+            if engine_config.decode_steps > 1:
+                log.warning("decode_steps > 1 is unsupported with "
+                            "pp_stages — running single-step decode")
+        else:
+            self._ap_window_fn, self._ap_delta_fn = (
+                model_lib.make_autopilot_fns(
+                    model_config, engine_config, self._window_K,
+                    self._ap_Wcap, self.device, spec_k=self._spec_k))
+            self._ctl = model_lib.init_ctl(
+                engine_config, engine_config.max_num_seqs, self._ap_Wcap,
+                self.device, seed=seed + 2, hist_cap=self._spec_hist_cap,
+            )
+            self._step_fn = None        # the unified step is pp's alone
+            # KV block gather/scatter (disagg, KVBM, prefix onboarding,
+            # evacuation); the scatter writes self.cache in place
+            self._kv_extract, self._kv_inject = model_lib.make_kv_ops(
+                engine_config)
         # tensor parallelism: the leader's plan sink (parallel/multihost.py
         # StepBroadcaster.sink), called on the device-step thread BEFORE
         # each launch — a gloo all_reduce blocks the host, so a leader
@@ -1432,11 +1489,18 @@ class InferenceEngine(EngineCore):
         # mesh has more than one device and the threshold is above 0)
         self._sp_prefill_fn = None
         self.num_sp_prefills = 0
-        if self.world > 1 and engine_config.sp_prefill_threshold > 0:
+        if (self.world > 1 and pp == 1
+                and engine_config.sp_prefill_threshold > 0):
             self._sp_prefill_fn = model_lib.make_sp_ring_prefill_fn(
                 model_config, engine_config)
             self.scheduler.sp_enabled = True
-        if self.world > 1:
+        if pp > 1:
+            log.info("pp stage %d of %d: layers %d..%d, %d microbatches, "
+                     "the synchronous loop; KV movement, KVBM, evacuation, "
+                     "embed and mm are refused", self.pp_group.index, pp,
+                     self.stage_layers[0], self.stage_layers[1] - 1,
+                     engine_config.pp_microbatches)
+        elif self.world > 1:
             log.info("mesh %s rank %s: decode windows run eager (no CUDA "
                      "graphs on a multi-rank mesh); sp prefill %s; KV "
                      "movement, KVBM, evacuation, embed and mm are refused",
@@ -1454,7 +1518,7 @@ class InferenceEngine(EngineCore):
         self._ap_rows_dev: Optional[torch.Tensor] = None
         self._ap_dead: set = set()          # slots to kill next dispatch
         self.pipeline_depth = max(1, engine_config.pipeline_depth)
-        if engine_config.spec_mode == "ngram":
+        if engine_config.spec_mode == "ngram" or pp > 1:
             self.pipeline_depth = 1
         # step keys for prefills come from this generator, on the device
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -1483,9 +1547,11 @@ class InferenceEngine(EngineCore):
         # waste-driven adaptive bucket ladders: consume the recorder's
         # per-bucket occupancy, split hot rungs / retire cold ones under an
         # explicit compile budget (a new decode rung is a graph captured at
-        # its first call). Needs the recorder (the occupancy source).
-        if self.obs is not None and (engine_config.adaptive_buckets or env_flag(
-                "DYNTPU_LADDER_ENABLED", False)):
+        # its first call). Needs the recorder (the occupancy source) and the
+        # single-engine path (a pp engine keeps static buckets, as in JAX).
+        if self.obs is not None and pp == 1 and (
+                engine_config.adaptive_buckets
+                or env_flag("DYNTPU_LADDER_ENABLED", False)):
             from .ladder import BucketLadder
             budget = engine_config.ladder_compile_budget
             self._ladders = {
@@ -1516,7 +1582,7 @@ class InferenceEngine(EngineCore):
         self._fetcher = _BatchingFetcher(
             self._unpack_results, on_sync=self._count_fetch_sync
         )
-        if self._ap_window_fn.graphed:
+        if self._ap_window_fn is not None and self._ap_window_fn.graphed:
             # every decode (and spec) graph, before the loop starts
             self._ap_window_fn.capture_all(
                 self.params, self.cache, self._ctl, engine_config.decode_buckets)
@@ -1530,7 +1596,8 @@ class InferenceEngine(EngineCore):
             self.obs.close()
 
     def _ap_mark_dead(self, slot: int) -> None:
-        if slot >= 0 and (slot in self._ap or slot in self._ap_cols):
+        if self.pp == 1 and slot >= 0 and (
+                slot in self._ap or slot in self._ap_cols):
             self._ap_dead.add(slot)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -1605,6 +1672,9 @@ class InferenceEngine(EngineCore):
         is padded to a power of two (pads gather the trash block) and the
         pad is sliced off. On a card the copy lands in pinned memory and
         this waits on its CUDA event off the device-step thread."""
+        if self._kv_extract is None:
+            raise RuntimeError("KV block transfer unsupported on a "
+                               "pipeline-parallel engine")
         self.refuse_multi_rank("KV block extract")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
@@ -1637,6 +1707,9 @@ class InferenceEngine(EngineCore):
         With ``seq_id``/``epoch`` the reservation is re-validated *inside*
         the device-step callable — immediately before the write — so a
         reservation recycled mid-flight is rejected, never scattered."""
+        if self._kv_inject is None:
+            raise RuntimeError("KV block transfer unsupported on a "
+                               "pipeline-parallel engine")
         self.refuse_multi_rank("KV block inject")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
@@ -1671,6 +1744,11 @@ class InferenceEngine(EngineCore):
     def attach_kvbm(self, config=None, remote=None):
         """Enable the multi-tier block manager on this engine (optionally
         with a G4 remote tier)."""
+        if self.pp > 1:
+            # the JAX engine's words (its pp cache is stacked; a stage's
+            # here has no transfer ops either)
+            raise RuntimeError("KVBM unsupported on a pipeline-parallel "
+                               "engine (stacked cache has no transfer ops)")
         self.refuse_multi_rank("the KVBM tiers")
         from ..kvbm.manager import KvbmConfig, KvbmManager
 
@@ -1755,7 +1833,18 @@ class InferenceEngine(EngineCore):
 
     def _execute_batch(self, batch):
         """Synchronous execution (pipeline_depth=1): dispatch, then wait
-        for the batch's tokens, in one executor turn."""
+        for the batch's tokens, in one executor turn. A pp engine runs
+        the unified step per prefill chunk and once for the decode rows
+        (the JAX engine's legacy path)."""
+        if self.pp > 1:
+            obs_out = batch.obs_records if self.obs is not None else None
+            prefill_samples = [self._run_prefill(c, obs_out)
+                               for c in batch.prefills]
+            decode_samples = (self._run_decode(batch.decode_rows, obs_out)
+                              if batch.decode_rows else [])
+            if self.obs is not None:
+                self._obs_on_land(batch, decode_samples)
+            return prefill_samples, decode_samples
         landing = self._dispatch_batch(batch)
         if landing.event is not None:
             # designed sync point of the synchronous loop: one wait per
@@ -1982,6 +2071,8 @@ class InferenceEngine(EngineCore):
         return self._bucket_for(kind, n)
 
     def _last_graph_key(self) -> str:
+        if self._ap_window_fn is None:
+            return "pp_step"
         return self._ap_window_fn.last_key
 
     def _quarantine_shape(self, cls) -> None:
@@ -1990,7 +2081,8 @@ class InferenceEngine(EngineCore):
         (another graph for the same shape class, captured at its first
         call), once."""
         kind, bucket = cls
-        if kind == "decode" and not self._stall_einsum_fallback:
+        if (self.pp == 1 and kind == "decode"
+                and not self._stall_einsum_fallback):
             cfg = self.config
             if bucket >= max(self._grid("decode")):
                 fb_cfg = dataclasses.replace(
@@ -2055,17 +2147,7 @@ class InferenceEngine(EngineCore):
         )
         tokens, tables = self._prefill_arrays(chunk, use_sp)
         T, W = tokens.shape[0], tables.shape[0]
-        if obs_out is not None:
-            # host-known ints only — prompt tokens are goodput at dispatch;
-            # context_sum = Σ attended context over the chunk's positions
-            L, S = chunk.length, chunk.start
-            obs_out.append(StepRecord(
-                kind=PREFILL, t_dispatch=time.monotonic(),
-                bucket=T, rows=1, live_rows=1,
-                padded_tokens=T, real_tokens=L,
-                goodput_tokens=L,
-                context_sum=L * S + L * (L + 1) // 2,
-            ))
+        self._obs_prefill(chunk, T, obs_out)
         mm_rows = self._mm_chunk_rows(chunk)
         mm = bool(mm_rows)
         fn = self._sp_prefill_fn(T, W) if use_sp else self._prefill_fn(
@@ -2108,6 +2190,38 @@ class InferenceEngine(EngineCore):
             self._upload(pint), self._next_key(), stochastic, *extra,
         )
         return sampled
+
+    @staticmethod
+    def _obs_prefill(chunk: PrefillChunk, T: int, obs_out) -> None:
+        """The recorder's record of a prefill chunk padded to T, stamped at
+        dispatch from host-known ints only — prompt tokens are goodput at
+        dispatch; context_sum = Σ attended context over its positions."""
+        if obs_out is None:
+            return
+        L, S = chunk.length, chunk.start
+        obs_out.append(StepRecord(
+            kind=PREFILL, t_dispatch=time.monotonic(),
+            bucket=T, rows=1, live_rows=1,
+            padded_tokens=T, real_tokens=L,
+            goodput_tokens=L,
+            context_sum=L * S + L * (L + 1) // 2,
+        ))
+
+    @staticmethod
+    def _obs_decode(rows, B: int, K: int, spec: bool, obs_out) -> None:
+        """The recorder's record of a decode (or spec verify) window of K
+        steps over B padded rows; realized goodput (emitted tokens) is
+        stamped at landing — only padded/real shapes are known here."""
+        if obs_out is None:
+            return
+        ctx = sum(K * r.base + K * (K + 1) // 2 for r in rows)
+        obs_out.append(StepRecord(
+            kind=SPEC_VERIFY if spec else DECODE,
+            t_dispatch=time.monotonic(), bucket=B,
+            rows=B, live_rows=len(rows),
+            padded_tokens=B * K, real_tokens=len(rows) * K,
+            context_sum=ctx,
+        ))
 
     def _prefill_fn(self, T: int, W: int, mm: bool):
         """The packed prefill of a (T, W[, mm]) chunk shape, built once."""
@@ -2230,17 +2344,7 @@ class InferenceEngine(EngineCore):
             self._ap_cols = cols
             self._ap_rows_dev = self._ap_window_fn.load_rows(cols)
         self.num_windows += 1
-        if obs_out is not None:
-            # realized goodput (emitted tokens) is stamped at landing —
-            # only padded/real shapes are known here
-            ctx = sum(K * r.base + K * (K + 1) // 2 for r in rows)
-            obs_out.append(StepRecord(
-                kind=SPEC_VERIFY if spec else DECODE,
-                t_dispatch=time.monotonic(), bucket=B,
-                rows=B, live_rows=len(rows),
-                padded_tokens=B * K, real_tokens=len(rows) * K,
-                context_sum=ctx,
-            ))
+        self._obs_decode(rows, B, K, spec, obs_out)
         stochastic = any(r.seq.temperature > 0.0 for r in rows)
         if self.step_sink is not None:
             self.step_sink("sw" if spec else "w",
@@ -2274,3 +2378,84 @@ class InferenceEngine(EngineCore):
             self.step_sink("sph", {"slots": slots, "hist": hrows})
         self._ctl = self._spec_hist_fill_fn(
             self._ctl, self._upload(slots), self._upload(hrows))
+
+    # ---- the unified step: pipeline-parallel engines, "p"/"d" plans ----
+
+    def unified_step(self, arrays: Dict[str, np.ndarray]) -> torch.Tensor:
+        """Launch this stage's part of the GPipe step
+        (``parallel/pp_serving.py``) on a ``p`` (prefill chunk) or ``d``
+        (decode batch) plan's host arrays, drawing one step key; returns
+        the sampled tokens ``[B]`` on the device. The leader runs it after
+        emitting the plan, a follower from ``replay_plan``. Only a
+        pipeline-parallel engine has the unified step: every other engine
+        takes the packed and autopilot paths, and emits no such plan."""
+        if self._step_fn is None:
+            raise RuntimeError("a 'p'/'d' plan reached an engine without "
+                               "pp_stages")
+        a = {k: self._upload(v) for k, v in arrays.items()}
+        self.cache, sampled = self._step_fn(
+            self.params, self.cache, a["tokens"], a["positions"],
+            a["tables"], a["last_idx"], self._next_key(), a["temp"],
+            a["top_k"], a["top_p"], a["seeds"],
+            bool((arrays["temp"] > 0).any()))
+        return sampled
+
+    def _run_prefill(self, chunk: PrefillChunk, obs_out=None) -> int:
+        """One prefill chunk through the unified step (B = 1), its plan
+        emitted first; returns its sample (garbage unless ``chunk.final``).
+        Waits for the token: the synchronous loop's one sync per step."""
+        seq = chunk.seq
+        self.num_prefill_dispatches += 1
+        tokens, tables = self._prefill_arrays(chunk)
+        T = tokens.shape[0]
+        self._obs_prefill(chunk, T, obs_out)
+        positions = np.full((1, T), -1, np.int32)
+        positions[0, :chunk.length] = np.arange(
+            chunk.start, chunk.start + chunk.length)
+        a = {"tokens": tokens[None], "positions": positions,
+             "tables": tables[None],
+             "last_idx": np.array([chunk.length - 1], np.int32),
+             "temp": np.array([seq.temperature], np.float32),
+             "top_k": np.array([seq.top_k], np.int32),
+             "top_p": np.array([seq.top_p], np.float32),
+             "seeds": np.array([seq.seed], np.int32)}
+        if self.step_sink is not None:
+            self.step_sink("p", a)
+        sampled = self.unified_step(a).cpu()
+        self._count_fetch_sync()
+        return int(sampled[0])
+
+    def _run_decode(self, rows, obs_out=None) -> List[List[int]]:
+        """One decode step of every row through the unified step (T = 1,
+        B bucketed; pad rows at position -1 scatter to the trash block),
+        its plan emitted first; returns one token per row."""
+        cfg = self.config
+        B = self._bucket_for("decode", len(rows))
+        W = _pow2_bucket(max(len(r.seq.block_table) for r in rows),
+                         cfg.max_blocks_per_seq)
+        tokens = np.zeros((B, 1), np.int32)
+        positions = np.full((B, 1), -1, np.int32)
+        tables = np.zeros((B, W), np.int32)
+        temp = np.zeros((B,), np.float32)
+        top_k = np.zeros((B,), np.int32)
+        top_p = np.ones((B,), np.float32)
+        seeds = np.full((B,), -1, np.int32)
+        for i, r in enumerate(rows):
+            s = r.seq
+            tokens[i, 0] = r.tok_host
+            positions[i, 0] = r.base
+            tables[i, :len(s.block_table)] = s.block_table
+            temp[i] = s.temperature
+            top_k[i] = s.top_k
+            top_p[i] = s.top_p
+            seeds[i] = s.seed
+        self.num_windows += 1
+        self._obs_decode(rows, B, 1, False, obs_out)
+        a = {"tokens": tokens, "positions": positions, "tables": tables,
+             "last_idx": np.zeros((B,), np.int32), "temp": temp,
+             "top_k": top_k, "top_p": top_p, "seeds": seeds}
+        if self.step_sink is not None:
+            self.step_sink("d", a)
+        out = self.unified_step(a).cpu()
+        self._count_fetch_sync()
+        return [[int(out[i])] for i in range(len(rows))]

@@ -134,8 +134,11 @@ def tp_size(eng: EngineConfig) -> int:
 
 
 def mesh_ranks(eng: EngineConfig) -> int:
-    """The ranks of the engine's ``(dp, tp)`` mesh, ``dp * tp``."""
-    return int(eng.mesh_shape[0]) * int(eng.mesh_shape[-1])
+    """The ranks of the engine's world: ``dp * tp`` of its ``(dp, tp)``
+    mesh times its pipeline stages (the two are exclusive, so one of the
+    factors is 1)."""
+    return (int(eng.mesh_shape[0]) * int(eng.mesh_shape[-1])
+            * int(eng.pp_stages))
 
 
 # ------------------------------ init ------------------------------------
@@ -200,7 +203,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def init_cache(cfg: ModelConfig, eng: EngineConfig,
-               device: torch.device) -> Cache:
+               device: torch.device, num_layers: Optional[int] = None
+               ) -> Cache:
     """Paged KV cache, block-major and head-contiguous: per-layer tensors of
     ``[num_blocks, KV, block_size, hd]`` (lists under ``"k"``/``"v"``).
     One (block, head) tile is a contiguous ``bs*hd`` run. Per-layer tensors,
@@ -219,7 +223,8 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig,
                       vs=(shape[:-1], torch.float32))
     return {
         key: [torch.zeros(shp, dtype=t, device=device)
-              for _ in range(cfg.num_layers)]
+              for _ in range(cfg.num_layers if num_layers is None
+                             else num_layers)]
         for key, (shp, t) in planes.items()
     }
 
@@ -448,6 +453,205 @@ def class_tile(eng: EngineConfig, attn_class: str, T: int,
     return q_tile, second
 
 
+@dataclasses.dataclass
+class ChunkPlan:
+    """What every layer of one step over a ``[B, T]`` chunk shares: the
+    shapes (``H``/``KV`` are this rank's heads, ``Tl`` its rows of an sp
+    chunk, ``mine`` their slice), the cache scatter indices (pad
+    positions go to the trash block 0), the rope tables of the rank's
+    rows, the attention route and the kernel's ragged metadata, and the
+    rank's tp row and dp column. Built once per step by
+    :func:`chunk_plan`; :func:`layer_forward` reads it."""
+
+    B: int
+    T: int
+    Tl: int
+    W: int
+    H: int
+    KV: int
+    tp: int
+    mine: slice
+    positions: torch.Tensor       # [B, T] int64, -1 = pad
+    block_tables: torch.Tensor    # [B, W] int32
+    scatter_idx: Tuple[torch.Tensor, ...]
+    cos: torch.Tensor
+    sin: torch.Tensor
+    sp: bool
+    use_kernel: bool
+    tpg: Any
+    dpg: Any
+    q_tile: int = 0
+    kv_arg: int = 0
+    seq_lens: Optional[torch.Tensor] = None
+    q_len: Optional[torch.Tensor] = None
+    ctx_len: Optional[torch.Tensor] = None
+    q_start: Optional[torch.Tensor] = None
+
+
+def chunk_plan(cfg: ModelConfig, eng: EngineConfig, positions: torch.Tensor,
+               block_tables: torch.Tensor, sp: bool, mesh: Mesh) -> ChunkPlan:
+    """The :class:`ChunkPlan` of a chunk (``positions`` int64, the tables
+    int32 and contiguous, as ``forward`` hands them)."""
+    B, T = positions.shape
+    W = block_tables.shape[1]
+    bs = eng.block_size
+    tp = tp_size(eng)
+    KV = cfg.num_kv_heads // tp                  # this rank's KV heads
+    dev = positions.device
+    tpg = mesh.tp_group
+    dpg = mesh.dp_group if sp else comm.SOLO
+    if T % dpg.size:
+        raise ValueError(f"an sp chunk of T={T} does not split over "
+                         f"dp={dpg.size}")
+    Tl = T // dpg.size                      # this rank's rows of the chunk
+    mine = slice(dpg.index * Tl, (dpg.index + 1) * Tl)
+
+    # physical (block, offset) per (b, t); pads go to the trash block 0
+    pos_safe = torch.clamp(positions, min=0)
+    logical_block = pos_safe // bs                         # [B, T]
+    phys_block = torch.gather(
+        block_tables.long(), 1, torch.clamp(logical_block, max=W - 1)
+    )                                                      # [B, T]
+    live = positions >= 0
+    scatter_block = torch.where(live, phys_block, 0).reshape(-1)
+    scatter_off = torch.where(live, pos_safe % bs, 0).reshape(-1)
+    scatter_idx = (scatter_block[:, None],
+                   torch.arange(KV, device=dev)[None, :],
+                   scatter_off[:, None])                   # -> [B*T, KV]
+
+    cos, sin = _rope_tables(positions[:, mine], cfg.rope_theta,
+                            cfg.head_dim_)
+    attn_class = attention_class(eng, T)
+    use_kernel = not sp and resolve_attention_impl(eng, attn_class) == "kernel"
+    c = ChunkPlan(B=B, T=T, Tl=Tl, W=W, H=cfg.num_heads // tp, KV=KV, tp=tp,
+                  mine=mine, positions=positions, block_tables=block_tables,
+                  scatter_idx=scatter_idx, cos=cos, sin=sin, sp=sp,
+                  use_kernel=use_kernel, tpg=tpg, dpg=dpg)
+    if use_kernel:
+        c.q_tile, c.kv_arg = class_tile(eng, attn_class, T, W)
+        if T == 1:
+            c.seq_lens = torch.clamp(positions[:, 0] + 1, min=0).to(
+                torch.int32)
+        else:
+            c.q_len = live.sum(dim=1).to(torch.int32)
+            c.ctx_len = torch.clamp(positions.max(dim=1).values + 1,
+                                    min=0).to(torch.int32)
+            c.q_start = torch.arange(B + 1, dtype=torch.int32,
+                                     device=dev) * T
+    return c
+
+
+def layer_forward(cfg: ModelConfig, eng: EngineConfig, p: Dict[str, Any],
+                  cache: Cache, li: int, h: torch.Tensor,
+                  c: ChunkPlan) -> torch.Tensor:
+    """One transformer layer over the chunk's hidden states ``h [B, Tl,
+    D]``: its K/V scattered into ``cache`` layer ``li`` in place, attention
+    by the route of ``c`` (the kernel's decode or ragged face, the ring
+    for an sp chunk, or the gathered-context einsum), then the dense or
+    MoE FFN. ``p`` is the layer's slice of the stacked tree. ``forward``
+    runs every layer through here, and so does a pipeline stage its own
+    (``parallel/pp_serving.py``)."""
+    B, T, Tl, W, H, KV, tp = c.B, c.T, c.Tl, c.W, c.H, c.KV, c.tp
+    bs = eng.block_size
+    hd = cfg.head_dim_
+    tpg, dpg = c.tpg, c.dpg
+    kv_quant = quant.is_quantized(eng.kv_dtype)
+    scatter_idx = c.scatter_idx
+    block_tables, positions = c.block_tables, c.positions
+    lk, lv = cache["k"][li], cache["v"][li]               # [NB, KV, bs, hd]
+    # [NB, KV, bs] f32 per-(slot, head) scales of quantized pages
+    lks = cache["ks"][li] if kv_quant else None
+    lvs = cache["vs"][li] if kv_quant else None
+
+    x = _rms_norm(h, p["attn_norm"], cfg.rms_norm_eps)
+    q = _mm(x, p["wq"]).reshape(B, Tl, H, hd)
+    k = _mm(x, p["wk"]).reshape(B, Tl, KV, hd)
+    v = _mm(x, p["wv"]).reshape(B, Tl, KV, hd)
+    q = _apply_rope(q, c.cos, c.sin)
+    k = _apply_rope(k, c.cos, c.sin)
+
+    # scatter this chunk's K/V into the paged cache, in place (the JAX
+    # step donates the cache and scatter-updates it); an sp rank first
+    # gathers the other dp rows' slices of its heads (exact copies)
+    k_upd = comm.all_gather(k, dpg, dim=1).reshape(B * T, KV, hd)
+    v_upd = comm.all_gather(v, dpg, dim=1).reshape(B * T, KV, hd)
+    if kv_quant:
+        # per-(token, head) scales: a token's bytes depend only on its
+        # own K/V, never on the block it lands in
+        k_upd, k_sc = quant.kv_quantize(k_upd, eng.kv_dtype)
+        v_upd, v_sc = quant.kv_quantize(v_upd, eng.kv_dtype)
+        lks.index_put_(scatter_idx, k_sc)
+        lvs.index_put_(scatter_idx, v_sc)
+    _bits(lk).index_put_(scatter_idx, _bits(k_upd))
+    _bits(lv).index_put_(scatter_idx, _bits(v_upd))
+
+    if c.sp:
+        attn = ring_attention(q, k, v, dpg)
+    elif c.use_kernel and T == 1:
+        attn = paged_attention_decode(
+            q[:, 0].contiguous(), lk, lv, block_tables, c.seq_lens,
+            block_size=bs, k_scale=lks, v_scale=lvs, n_split=c.kv_arg,
+        )[:, None]
+    elif c.use_kernel:
+        attn = paged_attention_ragged(
+            q.reshape(B * T, H, hd).contiguous(), lk, lv, block_tables,
+            c.q_start, c.q_len, c.ctx_len, block_size=bs, max_q_len=T,
+            k_scale=lks, v_scale=lvs, q_tile=c.q_tile, kv_chunk=c.kv_arg,
+        ).reshape(B, T, H, hd)
+    else:
+        # gather the full context: [B, W*bs, KV, hd] with gathered
+        # position = w*bs + offset = absolute position
+        tbl = block_tables.long().reshape(-1)
+        k_all = _bits(lk)[tbl].view(lk.dtype).reshape(
+            B, W, KV, bs, hd).permute(0, 1, 3, 2, 4).reshape(
+            B, W * bs, KV, hd)
+        v_all = _bits(lv)[tbl].view(lv.dtype).reshape(
+            B, W, KV, bs, hd).permute(0, 1, 3, 2, 4).reshape(
+            B, W * bs, KV, hd)
+        if kv_quant:
+            ks_all = lks[tbl].reshape(B, W, KV, bs).permute(
+                0, 1, 3, 2).reshape(B, W * bs, KV)
+            vs_all = lvs[tbl].reshape(B, W, KV, bs).permute(
+                0, 1, 3, 2).reshape(B, W * bs, KV)
+            k_all = quant.kv_dequantize(k_all, ks_all, q.dtype)
+            v_all = quant.kv_dequantize(v_all, vs_all, q.dtype)
+        attn = _attention(q, k_all, v_all, positions)
+    attn = attn.reshape(B, Tl, H * hd)
+    h = h + (_mm(attn, p["wo"]) if tp == 1
+             else _row_mm(attn, p["wo"], tpg))
+
+    x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.is_moe:
+        # every row of the chunk is routed, padding included, in the
+        # reference's order: capacity slots go to rows in [B*T] order.
+        # Under tp each rank runs its experts (ep rides tp) and one
+        # all_reduce sums their f32 partial outputs. An sp rank routes
+        # the whole chunk (gathered over the dp column), then keeps its
+        # rows: capacity slots depend on every row before its own
+        D = x.shape[-1]
+        out = moe_ffn(
+            comm.all_gather(x, dpg, dim=1).reshape(B * T, D),
+            p["w_router"],
+            _dequant_leaf(p["w_gate"], x.dtype),
+            _dequant_leaf(p["w_up"], x.dtype),
+            _dequant_leaf(p["w_down"], x.dtype),
+            top_k=cfg.num_experts_per_token,
+            capacity_factor=cfg.moe_capacity_factor,
+            expert_offset=None if tp == 1 else tpg.index * (
+                cfg.num_experts // tp),
+        )
+        if tp > 1:
+            out = comm.all_reduce(out, tpg).to(x.dtype)
+        h = h + out.reshape(B, T, D)[:, c.mine]
+    else:
+        gate = F.silu(_mm(x, p["w_gate"]).float())
+        up = _mm(x, p["w_up"]).float()
+        act = (gate * up).to(h.dtype)
+        h = h + (_mm(act, p["w_down"]) if tp == 1
+                 else _row_mm(act, p["w_down"], tpg))
+    return h
+
+
 def forward(
     cfg: ModelConfig,
     eng: EngineConfig,
@@ -483,158 +687,21 @@ def forward(
     token embeddings before the first layer.
     Returns (cache, hidden states [B, T, D]).
     """
-    B, T = tokens.shape
-    W = block_tables.shape[1]
-    bs = eng.block_size
-    hd = cfg.head_dim_
-    tp = tp_size(eng)
-    H, KV = cfg.num_heads // tp, cfg.num_kv_heads // tp   # this rank's heads
-    dev = tokens.device
     positions = positions.long()
     block_tables = block_tables.to(torch.int32).contiguous()
     mesh = make_mesh(eng.mesh_shape) if mesh is None else mesh
-    tpg = mesh.tp_group
-    dpg = mesh.dp_group if sp else comm.SOLO
-    if T % dpg.size:
-        raise ValueError(f"an sp chunk of T={T} does not split over "
-                         f"dp={dpg.size}")
-    Tl = T // dpg.size                      # this rank's rows of the chunk
-    mine = slice(dpg.index * Tl, (dpg.index + 1) * Tl)
-    pos_local = positions[:, mine]
-
-    h = _embed_lookup(params["embed"], tokens[:, mine],
-                      cfg.vocab_size, tpg)               # [B, Tl, D]
+    c = chunk_plan(cfg, eng, positions, block_tables, sp, mesh)
+    h = _embed_lookup(params["embed"], tokens[:, c.mine],
+                      cfg.vocab_size, c.tpg)               # [B, Tl, D]
     if mm_embeds is not None:
         # multimodal EPD: placeholder positions take the encode worker's
         # precomputed embeddings instead of token embeddings (ref: the
         # TRT-LLM EPD flow, request_handlers/handler_base.py:64-234)
         h = torch.where(mm_mask.bool()[..., None], mm_embeds.to(h.dtype), h)
-
-    # physical (block, offset) per (b, t); pads go to the trash block 0
-    pos_safe = torch.clamp(positions, min=0)
-    logical_block = pos_safe // bs                         # [B, T]
-    phys_block = torch.gather(
-        block_tables.long(), 1, torch.clamp(logical_block, max=W - 1)
-    )                                                      # [B, T]
-    live = positions >= 0
-    scatter_block = torch.where(live, phys_block, 0).reshape(-1)
-    scatter_off = torch.where(live, pos_safe % bs, 0).reshape(-1)
-    scatter_idx = (scatter_block[:, None],
-                   torch.arange(KV, device=dev)[None, :],
-                   scatter_off[:, None])                   # -> [B*T, KV]
-
-    cos, sin = _rope_tables(pos_local, cfg.rope_theta, hd)
-    kv_quant = quant.is_quantized(eng.kv_dtype)
-
-    attn_class = attention_class(eng, T)
-    use_kernel = not sp and resolve_attention_impl(eng, attn_class) == "kernel"
-    if use_kernel:
-        q_tile, kv_arg = class_tile(eng, attn_class, T, W)
-        if T == 1:
-            seq_lens = torch.clamp(positions[:, 0] + 1, min=0).to(
-                torch.int32)
-        else:
-            q_len = live.sum(dim=1).to(torch.int32)
-            ctx_len = torch.clamp(positions.max(dim=1).values + 1,
-                                  min=0).to(torch.int32)
-            q_start = torch.arange(B + 1, dtype=torch.int32,
-                                   device=dev) * T
-
     stacked = params["layers"]
     for li in range(cfg.num_layers):
-        p = _layer_slice(stacked, li)
-        lk, lv = cache["k"][li], cache["v"][li]           # [NB, KV, bs, hd]
-        # [NB, KV, bs] f32 per-(slot, head) scales of quantized pages
-        lks = cache["ks"][li] if kv_quant else None
-        lvs = cache["vs"][li] if kv_quant else None
-
-        x = _rms_norm(h, p["attn_norm"], cfg.rms_norm_eps)
-        q = _mm(x, p["wq"]).reshape(B, Tl, H, hd)
-        k = _mm(x, p["wk"]).reshape(B, Tl, KV, hd)
-        v = _mm(x, p["wv"]).reshape(B, Tl, KV, hd)
-        q = _apply_rope(q, cos, sin)
-        k = _apply_rope(k, cos, sin)
-
-        # scatter this chunk's K/V into the paged cache, in place (the JAX
-        # step donates the cache and scatter-updates it); an sp rank first
-        # gathers the other dp rows' slices of its heads (exact copies)
-        k_upd = comm.all_gather(k, dpg, dim=1).reshape(B * T, KV, hd)
-        v_upd = comm.all_gather(v, dpg, dim=1).reshape(B * T, KV, hd)
-        if kv_quant:
-            # per-(token, head) scales: a token's bytes depend only on its
-            # own K/V, never on the block it lands in
-            k_upd, k_sc = quant.kv_quantize(k_upd, eng.kv_dtype)
-            v_upd, v_sc = quant.kv_quantize(v_upd, eng.kv_dtype)
-            lks.index_put_(scatter_idx, k_sc)
-            lvs.index_put_(scatter_idx, v_sc)
-        _bits(lk).index_put_(scatter_idx, _bits(k_upd))
-        _bits(lv).index_put_(scatter_idx, _bits(v_upd))
-
-        if sp:
-            attn = ring_attention(q, k, v, dpg)
-        elif use_kernel and T == 1:
-            attn = paged_attention_decode(
-                q[:, 0].contiguous(), lk, lv, block_tables, seq_lens,
-                block_size=bs, k_scale=lks, v_scale=lvs, n_split=kv_arg,
-            )[:, None]
-        elif use_kernel:
-            attn = paged_attention_ragged(
-                q.reshape(B * T, H, hd).contiguous(), lk, lv, block_tables,
-                q_start, q_len, ctx_len, block_size=bs, max_q_len=T,
-                k_scale=lks, v_scale=lvs, q_tile=q_tile, kv_chunk=kv_arg,
-            ).reshape(B, T, H, hd)
-        else:
-            # gather the full context: [B, W*bs, KV, hd] with gathered
-            # position = w*bs + offset = absolute position
-            tbl = block_tables.long().reshape(-1)
-            k_all = _bits(lk)[tbl].view(lk.dtype).reshape(
-                B, W, KV, bs, hd).permute(0, 1, 3, 2, 4).reshape(
-                B, W * bs, KV, hd)
-            v_all = _bits(lv)[tbl].view(lv.dtype).reshape(
-                B, W, KV, bs, hd).permute(0, 1, 3, 2, 4).reshape(
-                B, W * bs, KV, hd)
-            if kv_quant:
-                ks_all = lks[tbl].reshape(B, W, KV, bs).permute(
-                    0, 1, 3, 2).reshape(B, W * bs, KV)
-                vs_all = lvs[tbl].reshape(B, W, KV, bs).permute(
-                    0, 1, 3, 2).reshape(B, W * bs, KV)
-                k_all = quant.kv_dequantize(k_all, ks_all, q.dtype)
-                v_all = quant.kv_dequantize(v_all, vs_all, q.dtype)
-            attn = _attention(q, k_all, v_all, positions)
-        attn = attn.reshape(B, Tl, H * hd)
-        h = h + (_mm(attn, p["wo"]) if tp == 1
-                 else _row_mm(attn, p["wo"], tpg))
-
-        x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
-        if cfg.is_moe:
-            # every row of the chunk is routed, padding included, in the
-            # reference's order: capacity slots go to rows in [B*T] order.
-            # Under tp each rank runs its experts (ep rides tp) and one
-            # all_reduce sums their f32 partial outputs. An sp rank routes
-            # the whole chunk (gathered over the dp column), then keeps its
-            # rows: capacity slots depend on every row before its own
-            D = x.shape[-1]
-            out = moe_ffn(
-                comm.all_gather(x, dpg, dim=1).reshape(B * T, D),
-                p["w_router"],
-                _dequant_leaf(p["w_gate"], x.dtype),
-                _dequant_leaf(p["w_up"], x.dtype),
-                _dequant_leaf(p["w_down"], x.dtype),
-                top_k=cfg.num_experts_per_token,
-                capacity_factor=cfg.moe_capacity_factor,
-                expert_offset=None if tp == 1 else tpg.index * (
-                    cfg.num_experts // tp),
-            )
-            if tp > 1:
-                out = comm.all_reduce(out, tpg).to(x.dtype)
-            h = h + out.reshape(B, T, D)[:, mine]
-        else:
-            gate = F.silu(_mm(x, p["w_gate"]).float())
-            up = _mm(x, p["w_up"]).float()
-            act = (gate * up).to(h.dtype)
-            h = h + (_mm(act, p["w_down"]) if tp == 1
-                     else _row_mm(act, p["w_down"], tpg))
-
+        h = layer_forward(cfg, eng, _layer_slice(stacked, li), cache, li, h,
+                          c)
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return cache, h
 

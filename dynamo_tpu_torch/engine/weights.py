@@ -16,7 +16,9 @@ and written into its slot; its file pages are then dropped. Host memory
 holds about one tensor at a time, never a stacked leaf.
 :func:`load_hf_params_sharded` does the same for one rank of a tensor-
 parallel mesh: it reads only the rank's slice of each tensor (its experts
-only, for MoE stacks) into leaves of the shard's shape. The orbax
+only, for MoE stacks) into leaves of the shard's shape. With ``layers=(lo,
+hi)`` :func:`load_hf_params` reads only those layers' tensors (plus the
+embedding, final norm and head), for a pipeline stage. The orbax
 checkpoints wait for ROADMAP.md queue A, item 7d.
 
 :func:`params_from_numpy` turns the JAX package's parameter tree
@@ -65,11 +67,14 @@ def _scale_shape(shape: tuple) -> tuple:
     return shape[:-2] + (1,) + shape[-1:]
 
 
-def _stacked_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+def _stacked_shapes(cfg: ModelConfig,
+                    L: Optional[int] = None) -> Dict[str, tuple]:
+    """Each stacked layer leaf's shape at ``L`` layers (default all)."""
+    L = cfg.num_layers if L is None else L
     hd = cfg.head_dim_
-    D, H, KV, F, L, E = (
+    D, H, KV, F, E = (
         cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
-        cfg.intermediate_size, cfg.num_layers, cfg.num_experts,
+        cfg.intermediate_size, cfg.num_experts,
     )
     layers = {
         "attn_norm": (L, D),
@@ -154,14 +159,20 @@ def _rss_bytes() -> Optional[int]:
 
 
 def load_hf_params(path, cfg: ModelConfig, weight_dtype: str = "bf16",
-                   device=None) -> Params:
+                   device=None, layers: Optional[Tuple[int, int]] = None
+                   ) -> Params:
     """Load an HF-format checkpoint directory (``*.safetensors``) into the
     stacked param tree on ``device`` (``cuda`` unless asked for the CPU),
     cast to ``cfg.dtype``. With a quantized ``weight_dtype`` each matmul
     tensor is quantized as it arrives, so the leaves hold the 1-byte
     payload plus float32 scales and no full-precision copy of a quantized
-    leaf ever exists."""
-    return _load(path, cfg, weight_dtype, device, None)
+    leaf ever exists.
+
+    ``layers=(lo, hi)`` loads a pipeline stage: the layer stack holds
+    layers ``lo..hi-1`` only (its leading axis ``hi - lo``; the other
+    layers' tensors are never read), the embedding, final norm and head
+    whole — bitwise the ``[lo:hi]`` slice of the full load."""
+    return _load(path, cfg, weight_dtype, device, None, layers)
 
 
 def load_hf_params_sharded(path, cfg: ModelConfig, mesh: Mesh,
@@ -184,7 +195,8 @@ def load_hf_params_sharded(path, cfg: ModelConfig, mesh: Mesh,
 
 
 def _load(path, cfg: ModelConfig, weight_dtype: str, device,
-          mesh: Optional[Mesh]) -> Params:
+          mesh: Optional[Mesh],
+          layers: Optional[Tuple[int, int]] = None) -> Params:
     t0 = time.perf_counter()
     path = Path(path)
     files = sorted(path.glob("*.safetensors"))
@@ -207,7 +219,9 @@ def _load(path, cfg: ModelConfig, weight_dtype: str, device,
                                      dtype=torch.float32)}
         return torch.zeros(shape, device=device, dtype=dt)
 
-    layers = {k: _buf(k, shape) for k, shape in _stacked_shapes(cfg).items()}
+    first, end = (0, cfg.num_layers) if layers is None else layers
+    layers = {k: _buf(k, shape)
+              for k, shape in _stacked_shapes(cfg, end - first).items()}
     top: Dict[str, Any] = {}
     seen = set()
     nbytes = 0
@@ -221,6 +235,10 @@ def _load(path, cfg: ModelConfig, weight_dtype: str, device,
                 if dest is None:
                     continue
                 leaf, i, e, transpose = dest
+                if i is not None:
+                    if not first <= i < end:
+                        continue        # another pipeline stage's layer
+                    i -= first
                 # the spec of this one tensor in our [in, out] layout (the
                 # stacked leaf's without its L / (L, E) dims)
                 sp = specs[leaf] if i is None else specs["layers"][leaf]
@@ -280,12 +298,13 @@ def _load(path, cfg: ModelConfig, weight_dtype: str, device,
         n_tensors=len(seen), n_files=len(files), bytes=nbytes, seconds=secs,
         gb_s=nbytes / max(secs, 1e-9) / 1e9, rss_before_bytes=rss[0],
         peak_rss_bytes=peak, peak_staging_bytes=staged,
-        shard=(mesh.coords["tp"], mesh.shape["tp"]))
+        shard=(mesh.coords["tp"], mesh.shape["tp"]), layers=(first, end))
     log.info("loaded %d tensors (%.3f GB) from %s (%d files, "
-             "weight_dtype=%s, shard %d/%d) onto %s in %.2f s: %.2f GB/s, "
-             "peak host RSS %s", len(seen), nbytes / 1e9, path, len(files),
-             weight_dtype, mesh.coords["tp"], mesh.shape["tp"],
-             device, secs, last_load_stats["gb_s"],
+             "weight_dtype=%s, shard %d/%d, layers %d..%d) onto %s in "
+             "%.2f s: %.2f GB/s, peak host RSS %s", len(seen), nbytes / 1e9,
+             path, len(files), weight_dtype, mesh.coords["tp"],
+             mesh.shape["tp"], first, end - 1, device, secs,
+             last_load_stats["gb_s"],
              "not measured" if peak is None else
              f"{peak / 2**30:.2f} GiB ({rss[0] / 2**30:.2f} GiB before)")
     return params

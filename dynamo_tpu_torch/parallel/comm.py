@@ -6,8 +6,8 @@ explicitly: a group of the serving mesh (``parallel/layout.py``
 ``make_mesh`` hands them out on its ``Mesh``: the rank's tp row, its dp
 column) or the world. ``all_reduce`` (sum) and ``broadcast`` carry the
 Megatron sums of ``engine/model.py`` over the tp row, ``ppermute`` the
-ring attention's hop, ``all_gather`` the sp prefill's K/V for the cache
-and ``all_to_all`` Ulysses. Every call is counted with its bytes and the
+ring attention's hop and a pipeline's stage-to-stage one, ``all_gather``
+the sp prefill's K/V for the cache and ``all_to_all`` Ulysses. Every call is counted with its bytes and the
 host microseconds it blocked (:data:`STATS`), so a run can report the
 collectives per step.
 
@@ -217,11 +217,18 @@ def broadcast(t: torch.Tensor, group: Group, src: int = 0
     return t
 
 
-def ppermute(t: torch.Tensor, group: Group, shift: int = 1
-             ) -> torch.Tensor:
+def ppermute(t: torch.Tensor, group: Group, shift: int = 1, *,
+             send: bool = True, recv: bool = True) -> torch.Tensor:
     """Send ``t`` to the member ``shift`` places after this rank in the
     group and return what the member ``shift`` places before sent (the
     JAX ``ppermute`` with ``perm = [(j, (j + shift) % n)]``).
+
+    One-way hops: ``send=False`` posts no send (``t`` then gives only the
+    received tensor's shape and dtype), ``recv=False`` no receive (the
+    call returns ``t``). A schedule that knows on the host which hops
+    carry data (``parallel/pipeline.py``) posts only those; each send it
+    posts meets the receive its peer posts at the same point of its own
+    schedule. ``ppermute_bytes`` counts the bytes sent.
 
     Ring deadlock: two gloo ranks that both block in ``send`` wait for
     each other forever. The send and the receive are posted together
@@ -234,28 +241,35 @@ def ppermute(t: torch.Tensor, group: Group, shift: int = 1
     the received one comes back to the device, both counted as
     ``staged_bytes``. Under nccl, and for CPU tensors, nothing stages."""
     n = group.size
-    if n == 1:
+    if n == 1 or not (send or recv):
         return t
     t0 = time.perf_counter()
-    dst = group.ranks[(group.index + shift) % n]
-    src = group.ranks[(group.index - shift) % n]
     staged = t.is_cuda and backend() == "gloo"
-    send = t.contiguous()
-    if staged:
-        STATS["staged_bytes"] += send.numel() * send.element_size()
-        send = send.cpu()
-    recv = torch.empty_like(send)
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, dst, group.pg),
-        dist.P2POp(dist.irecv, recv, src, group.pg),
-    ])
-    for w in works:
+    nbytes = t.numel() * t.element_size()
+    ops = []
+    if send:
+        out = t.contiguous()
+        if staged:
+            STATS["staged_bytes"] += nbytes
+            out = out.cpu()
+        ops.append(dist.P2POp(dist.isend, out,
+                              group.ranks[(group.index + shift) % n],
+                              group.pg))
+    if recv:
+        got = torch.empty(t.shape, dtype=t.dtype,
+                          device="cpu" if staged else t.device)
+        ops.append(dist.P2POp(dist.irecv, got,
+                              group.ranks[(group.index - shift) % n],
+                              group.pg))
+    for w in dist.batch_isend_irecv(ops):
         w.wait(_timeout())
+    _count("ppermute", t0, nbytes if send else 0)
+    if not recv:
+        return t
     if staged:
-        STATS["staged_bytes"] += recv.numel() * recv.element_size()
-        recv = recv.to(t.device)
-    _count("ppermute", t0, send.numel() * send.element_size())
-    return recv
+        STATS["staged_bytes"] += nbytes
+        got = got.to(t.device)
+    return got
 
 
 def all_gather(t: torch.Tensor, group: Group, dim: int = 0

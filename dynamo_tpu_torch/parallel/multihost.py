@@ -6,13 +6,16 @@ controller per host and one ``Mesh`` over the slice; every host must issue
 the same jitted calls in the same order. In PyTorch each GPU is a rank in
 its own process, so here every *rank* is what a JAX host is:
 
-- every rank joins one ``torch.distributed`` world of ``dp * tp`` ranks
-  (:func:`initialize_distributed`, a TCP store at the coordinator
-  address, in place of ``jax.distributed.initialize``) and holds its shard
-  of the model on the ``(dp, tp)`` mesh (``engine/model.py``: column/row-
-  sharded projections, experts over ``ep``, each row-sharded product
-  followed by one ``all_reduce`` over the tp row; replicated over dp, the
-  dp rows splitting only a sequence-parallel prefill's prompt);
+- every rank joins one ``torch.distributed`` world of ``dp * tp`` ranks,
+  or of ``pp`` ranks for a pipeline (:func:`initialize_distributed`, a TCP
+  store at the coordinator address, in place of
+  ``jax.distributed.initialize``) and holds its shard of the model on the
+  ``(dp, tp)`` mesh (``engine/model.py``: column/row-sharded projections,
+  experts over ``ep``, each row-sharded product followed by one
+  ``all_reduce`` over the tp row; replicated over dp, the dp rows
+  splitting only a sequence-parallel prefill's prompt), or its pipeline
+  stage's layers (``parallel/pp_serving.py``: activations hop stage to
+  stage by ``ppermute``);
 - scheduling happens once, on rank 0 (the leader); followers replay the
   leader's step plans, so every rank launches the same steps in the same
   order and meets the others in the same collectives.
@@ -39,7 +42,7 @@ inside the collective for a follower that waits for the plan.
 Scope (as the JAX multi-host worker's, ``multihost.py:31-34``): a
 multi-rank worker serves the aggregated path; KV movement, the KVBM tiers,
 preemption evacuation, embeddings and multimodal prefill are refused on a
-mesh of more than one rank (ROADMAP.md queue A, item 6, later part).
+world of more than one rank (ROADMAP.md queue A, item 6.2).
 """
 
 from __future__ import annotations
@@ -70,14 +73,15 @@ log = get_logger("multihost")
 @dataclass
 class MultihostConfig:
     """One rank's place in a world of ``world_size`` ranks (``dp * tp``
-    of the mesh) over ``num_hosts`` hosts (``world_size / num_hosts``
+    of the mesh, or the ``pp`` stages of a pipeline) over ``num_hosts``
+    hosts (``world_size / num_hosts``
     ranks per host). Rank ``host_index * per_host + local_rank``; rank 0
     leads."""
 
     coordinator: Optional[str] = None   # "host0:port" of the TCP store
     num_hosts: int = 1
     host_index: int = 0
-    world_size: int = 1                 # dp * tp of the (dp, tp) mesh
+    world_size: int = 1                 # dp * tp of the mesh, or pp stages
     local_rank: int = 0                 # this process's rank on its host
     barrier_timeout_s: float = 300.0
     # failure detection on the step stream, as in JAX: the leader beats
@@ -321,12 +325,11 @@ def replay_plan(engine, kind: str, arrays: Dict[str, np.ndarray]) -> None:
     (the packed contract on ``engine._sp_prefill_fn``), ``ctl``
     control-state delta, ``cols`` seat map, ``w``/``sw`` decode/spec
     window, ``sph`` spec history fill, and ``p``/``d`` the unified step (a
-    prefill chunk / a decode batch with host arrays, which the JAX
-    engine's synchronous path emits; the port's engine always takes the
-    packed and autopilot paths). ``mrp`` (multimodal prefill on a
-    multi-rank engine) is refused by name."""
-    from ..engine import model as model_lib
-
+    prefill chunk / a decode batch with host arrays: a pipeline-parallel
+    leader emits them, as the JAX engine's synchronous path does, and a
+    follower runs its stage's part of the GPipe step,
+    ``engine.unified_step``). ``mrp`` (multimodal prefill on a multi-rank
+    engine) is refused by name."""
     engine.num_replayed[kind] = engine.num_replayed.get(kind, 0) + 1
     up = engine._upload
     if kind in ("w", "sw"):
@@ -356,19 +359,13 @@ def replay_plan(engine, kind: str, arrays: Dict[str, np.ndarray]) -> None:
             engine.params, engine.cache, engine._ctl["last_tok"],
             up(arrays["pint"]), engine._next_key(), bool(arrays["st"][0]))
     elif kind in ("p", "d"):
-        if engine._step_fn is None:
-            engine._step_fn = model_lib.raw_step_fn(engine.model_config,
-                                                    engine.config)
-        a = {k: up(v) for k, v in arrays.items()}
-        engine.cache, _ = engine._step_fn(
-            engine.params, engine.cache, a["tokens"], a["positions"],
-            a["tables"], a["last_idx"], engine._next_key(), a["temp"],
-            a["top_k"], a["top_p"], a["seeds"],
-            bool((arrays["temp"] > 0).any()))
+        # this stage's part of the GPipe step (its hops meet the
+        # leader's); an engine without pp_stages refuses the plan
+        engine.unified_step(arrays)
     elif kind == "mrp":
         raise NotImplementedError(
             "plan kind 'mrp' (multimodal prefill on a multi-rank engine) "
-            "needs ROADMAP.md queue A, item 6 (later part)")
+            "needs ROADMAP.md queue A, item 6.2")
     else:
         raise ValueError(f"unknown plan kind {kind!r}")
 

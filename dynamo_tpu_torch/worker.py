@@ -36,8 +36,12 @@ coordinator on localhost, and with ``--coordinator HOST:PORT --num-hosts H
 --host-index h`` the world spans H hosts of D*N/H ranks each; ``--model
 70b``; as in the JAX worker no sequence-parallel threshold is set, so a
 ``D > 1`` worker serves replicated dp rows — the sp prefill is reached
-through the engine's ``sp_prefill_threshold``) and the engine sizing
-flags; the control plane
+through the engine's ``sp_prefill_threshold``), pipeline-parallel serving
+(``--pp S [--pp-microbatches M]``: a world of S ranks, rank s holding
+stage s's layers and their KV cache, the unified step GPipe-microbatched
+over the stages, ``parallel/pp_serving.py``; ranks start and join as for
+``--mesh``, and with ``--weights`` each rank reads only its stage's
+layers) and the engine sizing flags; the control plane
 (system server, health probes, degradation watcher, the preemption
 coordinator behind ``SIGUSR1`` and ``POST /preempt``) comes from the
 runtime settings, as in the JAX package.
@@ -108,8 +112,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "(a world of dp*tp ranks: tp-way tensor parallel, dp "
                    "replicated rows)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel stages (only 1 is served)")
-    p.add_argument("--pp-microbatches", type=int, default=4)
+                   help="pipeline-parallel stages (a world of that many "
+                        "ranks, one stage each; exclusive with --mesh)")
+    p.add_argument("--pp-microbatches", type=int, default=4,
+                   help="microbatches a decode batch splits into over the "
+                        "pipeline stages")
     p.add_argument("--migration-limit", type=int, default=3)
     p.add_argument("--pipeline-depth", type=int, default=None,
                    help="windows in flight before the loop waits for a "
@@ -199,14 +206,17 @@ def check_supported(args: argparse.Namespace) -> None:
     """Refuse every flag whose path this package does not serve yet."""
     from .parallel.layout import check_mesh_shape
 
-    a6 = "multi-device serving (ROADMAP.md queue A, item 6, later part)"
+    a6 = ("the single-rank paths on a multi-rank worker (ROADMAP.md "
+          "queue A, item 6.2)")
     dp, tp = check_mesh_shape(mesh_shape(args))
-    unsupported = [
-        (args.pp > 1, f"--pp {args.pp}", a6),
-    ]
-    if dp * tp > 1:
+    if args.pp > 1 and dp * tp > 1:
+        raise ValueError("pp_stages and a (dp, tp) mesh are exclusive")
+    unsupported = []
+    if dp * tp * args.pp > 1:
         # the scope of the JAX multi-host worker: the aggregated path
-        where = f"on a multi-rank worker (--mesh {dp},{tp})"
+        where = (f"on a pipeline-parallel worker (--pp {args.pp})"
+                 if args.pp > 1 else
+                 f"on a multi-rank worker (--mesh {dp},{tp})")
         unsupported += [
             (args.disagg_mode != "agg", f"--disagg-mode {args.disagg_mode}"
              f" {where}", a6),
@@ -235,20 +245,43 @@ def engine_counts(engine) -> str:
             f"prefix_hit_blocks={engine.stats.prefix_cache_hits}")
 
 
-def tp_counts(engine, broadcaster=None) -> str:
-    """A rank's collectives, its plans (emitted by the leader, replayed by
-    a follower) and its sequence-parallel prefills, logged at exit beside
-    the launches."""
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def rank_counts(engine, broadcaster=None) -> str:
+    """A rank's exit line, beside its launches: its place in the world and
+    its plans (emitted by the leader, replayed by a follower), then on a
+    pipeline stage (``pp ...``) its layers, its hops (``ppermute`` calls,
+    bytes, the bytes staged through the host under gloo, host µs), the
+    sampled-token broadcasts and its parameter and cache bytes, elsewhere
+    (``tp ...``) its collectives and sequence-parallel prefills."""
     from .parallel import comm
 
-    plans = (broadcaster.kinds if broadcaster is not None
-             else engine.num_replayed)
-    return (f"rank={comm.rank()} world={comm.world_size()} "
-            f"backend={comm.backend()} {comm.stats_line()} "
-            f"sp_prefills={engine.num_sp_prefills} plans="
-            + ",".join(f"{k}:{n}" for k, n in sorted(plans.items()))
-            + " launches=" + ",".join(f"{k}:{n}"
-                                      for k, n in pa.LAUNCHES.items()))
+    plans = ",".join(f"{k}:{n}" for k, n in sorted(
+        (broadcaster.kinds if broadcaster is not None
+         else engine.num_replayed).items()))
+    launches = ",".join(f"{k}:{n}" for k, n in pa.LAUNCHES.items())
+    where = (f"rank={comm.rank()} world={comm.world_size()} "
+             f"backend={comm.backend()}")
+    if engine.pp > 1:
+        lo, hi = engine.stage_layers
+        st = comm.STATS
+        return (f"pp {where} stage layers={lo}..{hi - 1} plans={plans} "
+                f"ppermute_calls={st['ppermute_calls']} "
+                f"bytes={st['ppermute_bytes']} staged={st['staged_bytes']} "
+                f"us={st['ppermute_us']} "
+                f"broadcast_calls={st['broadcast_calls']} "
+                f"params_bytes={tree_bytes(engine.params)} "
+                f"cache_bytes={tree_bytes(engine.cache)} launches={launches}")
+    return (f"tp {where} {comm.stats_line()} "
+            f"sp_prefills={engine.num_sp_prefills} plans={plans} "
+            f"launches={launches}")
 
 
 async def run_worker(args: argparse.Namespace) -> None:
@@ -272,11 +305,12 @@ async def _run_worker(args: argparse.Namespace, children: list) -> None:
     dp, tp = mesh_shape(args)
     mh = MultihostConfig(
         coordinator=args.coordinator, num_hosts=args.num_hosts,
-        host_index=args.host_index, world_size=dp * tp,
+        host_index=args.host_index, world_size=dp * tp * args.pp,
         local_rank=args.local_rank)
     if mh.enabled:
         if mh.coordinator is None and mh.num_hosts == 1:
-            # --mesh D,N alone: one host, a coordinator on localhost
+            # --mesh D,N or --pp S alone: one host, a coordinator on
+            # localhost
             mh.coordinator = f"127.0.0.1:{free_port()}"
         mh.check()
         device = rank_device(args.device, mh.local_rank)
@@ -308,7 +342,14 @@ async def _run_worker(args: argparse.Namespace, children: list) -> None:
 
         if os.path.exists(os.path.join(args.weights, "config.json")):
             model_cfg = model_config_from_hf(args.weights)
-        if mh.enabled:
+        if args.pp > 1:
+            # this rank's stage: its layers only, never the others'
+            from .parallel.pp_serving import stage_layers
+
+            params = load_hf_params(
+                args.weights, model_cfg, weight_dtype, device=args.device,
+                layers=stage_layers(model_cfg, args.pp, mh.rank))
+        elif mh.enabled:
             # this rank's slices only (peak host staging: one tensor)
             from .parallel.layout import check_divisible, make_mesh
 
@@ -328,6 +369,8 @@ async def _run_worker(args: argparse.Namespace, children: list) -> None:
         max_num_batched_tokens=args.max_batched_tokens,
         max_model_len=min(args.max_model_len, model_cfg.max_position),
         mesh_shape=mesh_shape(args),
+        pp_stages=args.pp,
+        pp_microbatches=args.pp_microbatches,
         **({} if args.pipeline_depth is None
            else {"pipeline_depth": args.pipeline_depth}),
         attention_impl=ATTENTION_IMPLS[args.attention_impl],
@@ -559,7 +602,7 @@ async def _run_worker(args: argparse.Namespace, children: list) -> None:
         log.info("worker exiting: kernel launches %s", launch_counts())
         log.info("worker exiting: engine counts %s", engine_counts(engine))
         if broadcaster is not None:
-            log.info("worker exiting: tp %s", tp_counts(engine, broadcaster))
+            log.info("worker exiting: %s", rank_counts(engine, broadcaster))
 
 
 async def _follow(runtime, engine, mh, name: str, component: str) -> None:
@@ -586,7 +629,7 @@ async def _follow(runtime, engine, mh, name: str, component: str) -> None:
         log.exception("follower loop ended abnormally")
     finally:
         log.info("worker exiting: kernel launches %s", launch_counts())
-        log.info("worker exiting: tp %s", tp_counts(engine))
+        log.info("worker exiting: %s", rank_counts(engine))
         try:
             await asyncio.wait_for(runtime.shutdown(), timeout=10)
         except BaseException:  # noqa: BLE001

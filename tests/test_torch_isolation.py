@@ -232,13 +232,13 @@ def test_importing_the_port_loads_nothing_forbidden():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(1, 2, 2)), dict(pp_stages=2),
+    dict(mesh_shape=(1, 2, 2)),
     dict(mesh_shape=(3, 1), sp_prefill_threshold=64),
-], ids=["mesh_shape_3d", "pp_stages", "sp_on_dp3"])
+], ids=["mesh_shape_3d", "sp_on_dp3"])
 def test_unserved_paths_are_refused(knob):
-    """A 3-D mesh, pipeline parallelism and an sp prefill over a dp that
-    is not a power of two are refused; (dp, tp) meshes and
-    sequence-parallel prefill are served (below)."""
+    """A 3-D mesh and an sp prefill over a dp that is not a power of two
+    are refused; (dp, tp) meshes, sequence-parallel prefill and pipeline
+    stages are served (below)."""
     eng = EngineConfig(num_blocks=16, **knob)
     with pytest.raises(NotImplementedError):
         check_supported(eng)
@@ -249,11 +249,14 @@ def test_unserved_paths_are_refused(knob):
 @pytest.mark.parametrize("knob", [
     dict(mesh_shape=(2, 1)), dict(mesh_shape=(2, 2)),
     dict(mesh_shape=(2, 1), sp_prefill_threshold=1024),
-], ids=["mesh_shape_dp", "mesh_shape_dp_tp", "sp_prefill_threshold"])
+    dict(pp_stages=2),
+], ids=["mesh_shape_dp", "mesh_shape_dp_tp", "sp_prefill_threshold",
+        "pp_stages"])
 def test_data_and_sequence_parallel_paths_are_served(knob):
-    """A data-parallel mesh and ``sp_prefill_threshold`` pass the check;
-    the engine needs a world of dp * tp ranks
-    (tests/test_torch_sequence_parallel.py builds them), and without one
+    """A data-parallel mesh, ``sp_prefill_threshold`` and pipeline stages
+    pass the check; the engine needs a world of dp * tp (or pp) ranks
+    (tests/test_torch_sequence_parallel.py and
+    tests/test_torch_pp_serving.py build them), and without one
     construction says so."""
     eng = EngineConfig(num_blocks=16, **knob)
     check_supported(eng)
@@ -390,19 +393,21 @@ def test_worker_without_device_raises_on_a_cpu_machine():
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,1", "--disagg-mode", "prefill"], ["--mesh", "1,2,2"],
-    ["--pp", "2"],
     ["--mesh", "1,2", "--disagg-mode", "prefill"],
     ["--mesh", "1,2", "--kvbm-host-blocks", "64"],
     ["--mesh", "1,2", "--mm-encoder"],
     ["--mesh", "2,1", "--kvbm-host-blocks", "64"],
     ["--mesh", "2,1", "--mm-encoder"],
+    ["--pp", "2", "--disagg-mode", "prefill"],
+    ["--pp", "2", "--kvbm-host-blocks", "64"],
+    ["--pp", "2", "--mm-encoder"],
 ], ids=lambda f: "+".join(
     a.lstrip("-") if i % 2 == 0 else f"={a}" for i, a in enumerate(f)
 ).replace("+=", "="))
 def test_worker_refuses_unserved_flags(flags):
-    """Still refused: a 3-D mesh, pipeline stages, and on a multi-rank
-    worker (tensor- or data-parallel) the disaggregated, KVBM and
-    multimodal paths."""
+    """Still refused: a 3-D mesh, and on a multi-rank worker (tensor-,
+    data- or pipeline-parallel) the disaggregated, KVBM and multimodal
+    paths."""
     from dynamo_tpu_torch import worker
 
     args = worker.parse_args(["--device", "cpu", *flags])
@@ -413,21 +418,24 @@ def test_worker_refuses_unserved_flags(flags):
 @pytest.mark.parametrize("flags", [
     ["--mesh", "1,2"], ["--coordinator", "h0:1234", "--mesh", "1,2"],
     ["--num-hosts", "2", "--mesh", "1,2"], ["--model", "70b"],
+    ["--pp", "2"],
 ], ids=lambda f: f[0].lstrip("-") + f"={f[1]}")
 def test_worker_serves_tensor_parallel_flags(flags):
-    """``--mesh 1,N``, ``--coordinator``, ``--num-hosts`` and ``--model
-    70b`` are served (tests/test_torch_multihost.py runs the worlds)."""
+    """``--mesh 1,N``, ``--coordinator``, ``--num-hosts``, ``--model
+    70b`` and the pipeline's ``--pp S`` are served
+    (tests/test_torch_multihost.py and tests/test_torch_pp_serving.py run
+    the worlds): a world of tp (or pp) ranks."""
     from dynamo_tpu_torch import worker
     from dynamo_tpu_torch.parallel.multihost import MultihostConfig
 
     args = worker.parse_args(["--device", "cpu", *flags])
     worker.check_supported(args)
     assert worker.MODEL_PRESETS[args.model]() is not None
-    tp = worker.mesh_shape(args)[1]
+    ranks = worker.mesh_shape(args)[1] * args.pp
     mh = MultihostConfig(coordinator=args.coordinator or "127.0.0.1:1",
-                         num_hosts=args.num_hosts, world_size=tp)
+                         num_hosts=args.num_hosts, world_size=ranks)
     mh.check()
-    assert mh.per_host == tp // args.num_hosts
+    assert mh.per_host == ranks // args.num_hosts
 
 
 @pytest.mark.parametrize("flags", [

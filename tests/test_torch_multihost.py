@@ -42,7 +42,10 @@ PLANS = re.compile(r"worker exiting: tp rank=(\d) world=2 backend=gloo "
 
 
 def _env():
-    return dict(os.environ, DYNTPU_LEASE_TTL_S="1.0", PYTHONPATH=str(ROOT))
+    # one torch thread per rank process (as tests/torch_tp_world.py caps
+    # its ranks); the ranks a worker starts itself inherit it
+    return dict(os.environ, DYNTPU_LEASE_TTL_S="1.0", PYTHONPATH=str(ROOT),
+                OMP_NUM_THREADS="1")
 
 
 def _store(tmp_path):

@@ -252,9 +252,10 @@ def test_moe_experts_over_tp_streams_match_jax(world2):
 
 def test_unified_step_plans_replay_on_every_rank(world2, jparams):
     """The ``p`` and ``d`` plans (a prefill chunk and a decode batch of the
-    unified step, as the JAX engine's synchronous path emits them) replay
-    on every rank's shard: each rank's K pages are its heads of the
-    one-rank forward's, within 1e-5."""
+    unified step, as a pipeline-parallel leader emits them) replay on
+    every stage of a pp-2 engine: each rank's K pages are its one layer
+    of the one-rank forward's, within 1e-5. An engine without
+    ``pp_stages`` has no unified step and refuses them."""
     import torch
 
     from dynamo_tpu_torch.engine import model as tm
@@ -272,7 +273,7 @@ def test_unified_step_plans_replay_on_every_rank(world2, jparams):
             "top_p": np.ones((B,), np.float32),
             "seeds": np.full((B,), -1, np.int32)}))
     got = world2.run(tw.step_plans, "tiny", numpy_tree(jparams),
-                     dict(mesh_shape=(1, 2), **FWD_KW), plans)
+                     dict(pp_stages=2, **FWD_KW), plans)
     cfg = tcfg.ModelConfig.tiny()
     eng = tcfg.EngineConfig(**FWD_KW)
     params = params_from_numpy(numpy_tree(jparams), cfg, "cpu")
@@ -281,12 +282,17 @@ def test_unified_step_plans_replay_on_every_rank(world2, jparams):
         cache, _ = tm.forward(cfg, eng, params, cache,
                               torch.from_numpy(toks), torch.from_numpy(pos),
                               torch.from_numpy(tables))
-    full = cache["k"][0].numpy()
-    kv = cfg.num_kv_heads // 2
+    assert cfg.num_layers == 2                  # one layer per stage
     for rank, (k, replayed) in enumerate(got):
         assert replayed == {"p": 1, "d": 1}
-        np.testing.assert_allclose(k[1:], full[1:, rank * kv:(rank + 1) * kv],
+        np.testing.assert_allclose(k[1:], cache["k"][rank].numpy()[1:],
                                    rtol=0, atol=ATOL)
+    from dynamo_tpu_torch.engine import InferenceEngine
+    from dynamo_tpu_torch.parallel.multihost import replay_plan
+
+    one = InferenceEngine(cfg, eng, params=params, device="cpu")
+    with pytest.raises(RuntimeError, match="without pp_stages"):
+        replay_plan(one, *plans[0])
 
 
 # ------------------------------ sharded loader -----------------------------

@@ -117,9 +117,16 @@ class World:
 
 
 def _cfg(name: str, **kw):
+    """A preset by name; ``"tiny:4"`` is the preset at 4 layers."""
+    import dataclasses
+
     from dynamo_tpu_torch.engine.config import ModelConfig
 
-    return getattr(ModelConfig, name)(**kw)
+    name, _, layers = name.partition(":")
+    cfg = getattr(ModelConfig, name)(**kw)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=int(layers))
+    return cfg
 
 
 def forward_logits(rank, plans, cfg_name, tree, eng_kw, steps,
@@ -232,7 +239,8 @@ def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
         return {"replayed": dict(engine.num_replayed),
                 "all_reduce_calls": comm.STATS["all_reduce_calls"],
                 "sp_prefills": engine.num_sp_prefills,
-                "ppermute_calls": comm.STATS["ppermute_calls"]}
+                "ppermute_calls": comm.STATS["ppermute_calls"],
+                "ppermute_bytes": comm.STATS["ppermute_bytes"]}
     emitted = lead(engine, plans, n)
 
     async def go():
@@ -258,13 +266,14 @@ def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
                              if engine.spec_stats is not None else 0),
             "all_reduce_calls": comm.STATS["all_reduce_calls"],
             "sp_prefills": engine.num_sp_prefills,
-            "ppermute_calls": comm.STATS["ppermute_calls"]}
+            "ppermute_calls": comm.STATS["ppermute_calls"],
+            "ppermute_bytes": comm.STATS["ppermute_bytes"]}
 
 
 def step_plans(rank, plans, cfg_name, tree, eng_kw, step_arrays):
     """Every rank replays the same ``p`` / ``d`` plans (the unified step a
-    JAX leader's synchronous path emits) on an engine over its shard; each
-    returns its K pages of layer 0 as numpy."""
+    pipeline-parallel leader emits) on an engine over its stage; each
+    returns the K pages of its first layer as numpy."""
     from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
     from dynamo_tpu_torch.engine.weights import params_from_numpy
     from dynamo_tpu_torch.parallel.multihost import (
@@ -376,3 +385,131 @@ def sp_step_sample(rank, plans, cfg_name, tree, eng_kw, tokens, positions,
         torch.zeros(B, dtype=torch.int32), torch.ones(B),
         torch.full((B,), -1, dtype=torch.int32), False)
     return sampled.tolist()
+
+
+# ---------------------------- pipeline parallel ----------------------------
+
+
+def _residual_mlp(p, x):
+    """``tests/test_pipeline.py``'s stage: a residual MLP block."""
+    import torch
+
+    return x + torch.tanh(x @ p["w1"]) @ p["w2"]
+
+
+def pipeline_case(rank, plans, params, x):
+    """The port's ``make_pipeline`` over the world on the residual MLP
+    stage: ``params`` numpy leaves stacked ``[S, ...]`` (this rank keeps
+    its ``stage_slice``), ``x [M, mb, D]``. Returns the output, this
+    rank's hop count and the bytes it sent."""
+    import torch
+
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.pipeline import make_pipeline, stage_slice
+
+    g = comm.world_group()
+    tree = {k: torch.from_numpy(v) for k, v in params.items()}
+    comm.reset_stats()
+    out = make_pipeline(g, _residual_mlp)(
+        stage_slice(tree, g.index, g.size), torch.from_numpy(x))
+    return (out.numpy(), comm.STATS["ppermute_calls"],
+            comm.STATS["ppermute_bytes"])
+
+
+def pp_step_case(rank, plans, cfg_name, tree, eng_kw, steps, M=4):
+    """``raw_pp_step_fn`` of this rank's stage over the JAX tree ``tree``:
+    one call per ``(tokens, positions, tables, last_idx)`` step on one
+    stage cache, greedy. Returns the sampled tokens of each step, the
+    stage's cache planes (``k``/``v``, [Lp, NB, KV, bs, hd]) and layers,
+    and the hops."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+    from dynamo_tpu_torch.parallel import comm, pp_serving
+
+    cfg = _cfg(cfg_name)
+    eng = EngineConfig(**eng_kw)
+    g = pp_serving.make_pp_mesh(eng.pp_stages)
+    params = pp_serving.pp_param_shardings(
+        params_from_numpy(tree, cfg, "cpu"), cfg, g.index, g.size)
+    cache = pp_serving.init_pp_cache(cfg, eng, torch.device("cpu"))
+    step = pp_serving.make_pp_step_fn(cfg, eng, g, M)
+    comm.reset_stats()
+    sampled = []
+    for tokens, positions, tables, last_idx in steps:
+        B = tokens.shape[0]
+        cache, s = step(
+            params, cache, torch.from_numpy(tokens),
+            torch.from_numpy(positions), torch.from_numpy(tables),
+            torch.from_numpy(last_idx), torch.tensor(7, dtype=torch.int64),
+            torch.zeros(B), torch.zeros(B, dtype=torch.int32),
+            torch.ones(B), torch.full((B,), -1, dtype=torch.int32), False)
+        sampled.append(s.tolist())
+    return {"sampled": sampled,
+            "k": np.stack([t.numpy() for t in cache["k"]]),
+            "v": np.stack([t.numpy() for t in cache["v"]]),
+            "layers": pp_serving.stage_layers(cfg, g.size, g.index),
+            "ppermute_calls": comm.STATS["ppermute_calls"],
+            "ppermute_bytes": comm.STATS["ppermute_bytes"],
+            "broadcast_calls": comm.STATS["broadcast_calls"]}
+
+
+def pp_engine_probe(rank, plans, cfg_name, eng_kw):
+    """Build a pp engine on this rank and report what it holds and what
+    it refuses (messages, never raised: a raise ends the world): the
+    stage's layers, cache planes, parameter leaf shapes, loop depth,
+    the recorder's chips, the warnings it logged, and each guarded
+    call's exception type and message."""
+    import asyncio
+    import logging
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine.engine import EngineCore, Request
+
+    logs = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            logs.append((record.levelname, record.getMessage()))
+
+    handler = Grab()
+    port_log = logging.getLogger("dynamo_tpu_torch")   # propagates nowhere
+    port_log.addHandler(handler)
+    try:
+        engine = InferenceEngine(_cfg(cfg_name), EngineConfig(**eng_kw),
+                                 device="cpu")
+    finally:
+        port_log.removeHandler(handler)
+    calls = {
+        "extract": lambda: asyncio.run(engine.extract_kv_blocks([1])),
+        "inject": lambda: asyncio.run(engine.inject_kv_blocks([1], {})),
+        "kvbm": lambda: engine.attach_kvbm(),
+        "evacuation": engine.evacuable_seats,
+        "embed": lambda: asyncio.run(engine.embed([[1, 2]])),
+        "mm": lambda: asyncio.run(EngineCore.submit(engine, Request(
+            request_id="m", token_ids=[1, 2], mm_positions=[0],
+        )).__anext__()),
+    }
+    refused = {}
+    for what, call in calls.items():
+        try:
+            call()
+            refused[what] = None
+        except Exception as e:  # noqa: BLE001 — reported to the test
+            refused[what] = (type(e).__name__, str(e))
+    return {
+        "stage_layers": engine.stage_layers,
+        "cache_layers": len(engine.cache["k"]),
+        "wq": tuple(engine.params["layers"]["wq"].shape),
+        "embed": tuple(engine.params["embed"].shape),
+        "pipeline_depth": engine.pipeline_depth,
+        "graphs": engine._ap_window_fn is not None,
+        "ctl": engine._ctl is not None,
+        "ladders": sorted(engine._ladders),
+        "obs_chips": engine.obs.n_chips if engine.obs is not None else None,
+        "world": engine.world,
+        "warnings": [m for lvl, m in logs if lvl == "WARNING"],
+        "refused": refused,
+    }
