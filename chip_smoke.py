@@ -311,6 +311,27 @@ Phases (any failure exits non-zero and prints no result line):
    one-rank engine's (about 0.61 and exactly 0.5). Child logs in
    ``build/dist/pp_*.log``.
 
+20. the single-rank paths on multi-rank workers (``[mesh]`` lines), after
+   phase 19, on phase 9's checkpoint, two ranks on the one card over gloo:
+   (a) a ``--mesh 1,2 --disagg-mode prefill`` worker hands its KV (every
+   head, joined on the leader by ``kv_gather``) over the host relay to a
+   one-rank ``--disagg-mode decode`` worker: 8 concurrent greedy requests
+   of ISL 512, OSL 32 over HTTP (TTFT, ITL, tok/s), the same through the
+   ``generate`` endpoint under the parity rule against phase 3's one-rank
+   engine, handoffs, MB per handoff, the head gather's calls, bytes and ms
+   on each rank; (b) 16 ``/v1/embeddings`` inputs through a ``--mesh 1,2
+   --mm-encoder --kvbm-host-blocks`` worker against phase 3's engine's
+   vectors (1 - cos), ms per call, ``emb`` plans; (c) two image prompts
+   through its ``generate`` endpoint under the parity rule against phase
+   3's engine (``mesh_reference``, taken before phase 17) and two image
+   chats over HTTP through its colocated encoder: ``mrp`` plans on each
+   rank, MB of embeddings delivered per plan, TTFT; (d) its KVBM host
+   tier: 4 prompts, G1 cleared, again: second-pass onboarded blocks,
+   prefix hits, TTFT; (e) a ``--pp 2`` worker's embeddings of the same
+   inputs. Each rank's exit line: the follower's plans equal to the
+   leader's, the same collectives, both faces launched on each rank of
+   the mesh workers. Child logs in ``build/dist/mesh_*.log``.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
@@ -328,7 +349,11 @@ both faces at phase 17's shard shapes, with ``launches_per_rank`` of the
 over their ranks — the ring is plain PyTorch, not a kernel, and has no
 row — and ``launches_pp``, phase 19's summed over its two stages; the
 row ``paged_attention_decode@pp2_stage`` is the decode face at a pp
-stage's microbatch shape, with phase 19's ``launches_per_rank``);
+stage's microbatch shape, with phase 19's ``launches_per_rank``; every
+kernel build's row carries ``launches_mesh``, phase 20's two mesh workers
+summed over their ranks, and the rows ``...@mesh_tp2_b8`` (decode) and
+``...@mesh_tp2_chunks`` (ragged) hold both faces at the tp-2 shapes
+phase 20 adds to phase 17's, with its ``launches_per_rank``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -417,6 +442,22 @@ TP_CASES = {
 # bucket of 8 over pp_microbatches 4) at ISL 512 + OSL 32, a table
 # bucketed to 64 blocks; its prefill chunk is PREFILL_CASE's shape
 PP_DECODE_CASE = "pp2 stage decode B=2 ctx 513..544 W=64"
+# phase 20's shapes on a tp-2 rank (16 query / 4 KV heads, hd 64) that
+# phase 17's do not give: the aggregated --mesh 1,2 worker decodes at most
+# 4 live rows (the KVBM passes), in the smallest decode bucket, 8; its
+# first image prompt (300 text tokens, 256 image placeholders, 20 more)
+# continues with a 64-token chunk after 512 keys, its second (200 + 256 +
+# 20) is one chunk of 476 in a bucket of 512, and the KVBM second pass
+# prefills the 16 tokens after 496 onboarded keys
+MESH_DECODE_CASE = "tp2 shard decode 16/4 heads hd=64 B=8 ctx 513..604 W=512"
+MESH_RAGGED_CASES = (
+    ("tp2 shard prefill 16/4 heads hd=64 q_len=64 after 512 keys W=64",
+     [(64, 576, 64)], 64),
+    ("tp2 shard prefill 16/4 heads hd=64 q_len=476 of T=512 W=32",
+     [(476, 476, 512)], 32),
+    ("tp2 shard prefill 16/4 heads hd=64 q_len=16 after 496 keys W=32",
+     [(16, 512, 16)], 32),
+)
 
 
 # ------------------------------ phase 1 ----------------------------------
@@ -713,6 +754,14 @@ def kernel_cases():
           make_case(name, [(512, 512, 512)], W=32, face="ragged", KV=4,
                     hd=hd)
           for (face, hd), name in TP_CASES.items()),
+        make_case(MESH_DECODE_CASE, [(1, 513 + 13 * i, 1) for i in range(8)],
+                  W=512, face="decode", KV=4),
+        # the KVBM passes' batch: 4 live rows, 4 dead
+        make_case(f"{MESH_DECODE_CASE}, 4 dead rows",
+                  [(1, 513 + 29 * i, 1) for i in range(4)] + [(0, 0, 1)] * 4,
+                  W=512, face="decode", KV=4),
+        *(make_case(name, rows, W=W, face="ragged", KV=4)
+          for name, rows, W in MESH_RAGGED_CASES),
         make_case(PP_DECODE_CASE, [(1, 513, 1), (1, 544, 1)], W=64,
                   face="decode"),
         # a microbatch with a pad row (position -1: a dead row)
@@ -6135,7 +6184,8 @@ SP_ATTN_RTOL = 2.0 ** -6
 SP_ATTN_ATOL = 1e-5
 # the gloo collectives that parallel/comm.py hands CUDA tensors directly;
 # its ring hop (send/recv) stages through the host instead
-GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all")
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather", "gather",
+                 "all_to_all")
 SP_RANK_TIMEOUT_S = 300.0  # every collective of a rank, and every job
 
 
@@ -6524,6 +6574,15 @@ def sp_probe_job(rank, plans, dev, ops):
         dist.all_gather(parts, mine(), group=g.pg)
         return torch.cat(parts)
     attempt("all_gather", gather, torch.cat([plain(j=j) for j in range(n)]))
+
+    def gather_first():
+        t = mine()
+        parts = ([torch.empty(4, device=device) for _ in range(n)]
+                 if i == 0 else None)
+        dist.gather(t, parts, dst=g.ranks[0], group=g.pg)
+        return torch.cat(parts) if i == 0 else t
+    attempt("gather", gather_first,
+            torch.cat([plain(j=j) for j in range(n)]) if i == 0 else plain())
 
     def a2a():
         src = mine(2 * n)
@@ -7053,6 +7112,531 @@ def phase_pp(card: str, served: dict, ref, one_rank: tuple) -> dict:
             c.kill()
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the single-rank paths on a multi-rank worker, on one card
+
+MESH = "1,2"
+MESH_PREFILL_MODEL = "llama-3.2-1b-mesh-disagg"
+MESH_MODEL = "llama-3.2-1b-mesh"
+MESH_PP_MODEL = "llama-3.2-1b-pp2-embed"
+MESH_REQUESTS = 8          # concurrent greedy requests, ISL 512
+MESH_OSL = 32
+MESH_EMBED_TOKENS = 512    # phase 15's 16 inputs, each cut to this
+MESH_EMBED_REPS = 3
+MESH_KVBM_PROMPTS = 4      # ISL 512 each, served twice around a G1 clear
+MESH_KVBM_BLOCKS = 4096
+MESH_MM_TEXT = (300, 200)  # text before each generate-endpoint image
+MESH_QUESTIONS = ("Describe this picture in a few words: ",
+                  "What do you see here? ")
+
+
+def mesh_mm_bodies(cfg, encoder, images):
+    """Two image prompts (phase 16's layout, other text per image: 300
+    and 200 text tokens, the image's 256 placeholders, 20 more), as the
+    wire bodies a worker's ``generate`` endpoint takes."""
+    import asyncio
+
+    import torch
+
+    from dynamo_tpu_torch.multimodal.processor import (
+        MM_MARKER, MultimodalProcessor,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    proc = MultimodalProcessor(IdsTokenizer(), (MM_IMAGE // MM_PATCH) ** 2,
+                               local_encoder=encoder)
+    bodies = []
+    for n_text, img in zip(MESH_MM_TEXT, images):
+        text = torch.randint(1, cfg.vocab_size, (n_text,), generator=gen)
+        tail = torch.randint(1, cfg.vocab_size, (MM_TAIL,), generator=gen)
+        rendered = (" ".join(map(str, text.tolist())) + MM_MARKER
+                    + " ".join(map(str, tail.tolist())))
+        ids, mm = asyncio.run(proc.process(rendered, [img]))
+        bodies.append({"token_ids": ids, "mm": mm, "ignore_eos": True})
+    return bodies
+
+
+def mesh_reference(engine, mm: dict) -> dict:
+    """What phase 20 holds the multi-rank workers against, from phase 3's
+    one-rank bf16 engine (the weights of phase 9's checkpoint): the
+    vectors of the embedding inputs, and the greedy streams of two image
+    prompts with their top logits (``tapped_run``, for the parity
+    rule)."""
+    import asyncio
+
+    cfg = engine.model_config
+    inputs = [x[:MESH_EMBED_TOKENS] for x in embed_inputs(cfg.vocab_size)]
+    vecs = asyncio.run(engine.embed(inputs))
+    bodies = mesh_mm_bodies(cfg, mm["encoder"], mm["images"])
+    engine.clear_kv_blocks()
+    want, rec = tapped_run(engine, bodies, MESH_OSL)
+    engine.clear_kv_blocks()
+    return {"embed_inputs": inputs, "embed": vecs, "mm_bodies": bodies,
+            "mm_want": want, "mm_rec": rec}
+
+
+def mesh_check_ranks(text: str, tag: str) -> dict:
+    """A ``--mesh 1,2`` worker's exit lines: both ranks over gloo, the
+    follower replayed exactly the plans the leader emitted, and both made
+    the same collectives. Returns rank -> its line's fields."""
+    ranks = tp_rank_lines(text)
+    if sorted(ranks) != list(range(TP)):
+        fail(f"{tag} exit lines of ranks {sorted(ranks)}, want "
+             f"{list(range(TP))}")
+    lead, fol = ranks[0], ranks[1]
+    if {r["backend"] for r in ranks.values()} != {"gloo"}:
+        fail(f"{tag} ranks ran over {[r['backend'] for r in ranks.values()]}")
+    if fol["plans"] != lead["plans"]:
+        fail(f"{tag} the follower replayed {fol['plans']}, the leader "
+             f"emitted {lead['plans']}")
+    for key in ("all_reduce_calls", "kv_gather_calls", "kv_deliver_calls",
+                "mm_deliver_calls", "mm_deliver_bytes"):
+        if fol["stats"].get(key, 0) != lead["stats"].get(key, 0):
+            fail(f"{tag} {key}: leader {lead['stats'].get(key, 0)}, "
+                 f"follower {fol['stats'].get(key, 0)}")
+    return ranks
+
+
+def mesh_collective(ranks, op: str) -> str:
+    """Calls, MB and host ms of a collective on each rank."""
+    return "; ".join(
+        f"rank {r} {ranks[r]['stats'].get(op + '_calls', 0)} calls, "
+        f"{ranks[r]['stats'].get(op + '_bytes', 0) / 1e6:.3f} MB, "
+        f"{ranks[r]['stats'].get(op + '_us', 0) / 1e3:.1f} ms"
+        for r in sorted(ranks))
+
+
+async def mesh_embed_http(port: int, model: str, inputs):
+    """``/v1/embeddings`` of token arrays: (vectors, ms per call), the
+    call repeated MESH_EMBED_REPS times after one untimed call."""
+    times, got = [], None
+    for i in range(MESH_EMBED_REPS + 1):
+        t0 = time.perf_counter()
+        status, _, _, _, body = await _http_request(
+            port, "POST", "/v1/embeddings", {"model": model,
+                                             "input": inputs})
+        if status != 200 or len(body.get("data", ())) != len(inputs):
+            fail(f"[mesh] /v1/embeddings on {model}: HTTP {status}, "
+                 f"{body!r}"[:400])
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = [d["embedding"] for d in body["data"]]
+    return got, sorted(times)[len(times) // 2]
+
+
+def phase_mesh(card: str, served: dict, ref, mref: dict) -> dict:
+    """[mesh] the single-rank paths on multi-rank workers: Llama-3.2-1B at
+    full width and depth, bf16, from phase 9's checkpoint, two ranks on
+    cuda:0 over gloo (as phases 17 and 19), behind one store and one
+    frontend.
+
+    (a) A ``--mesh 1,2 --disagg-mode prefill`` worker hands each prompt's
+    KV over the host relay to a one-rank ``--disagg-mode decode`` worker
+    (which registers the model): one warm-up request, then
+    MESH_REQUESTS concurrent greedy requests at ISL 512, OSL MESH_OSL over
+    HTTP (TTFT, ITL, tok/s), then the same prompts through the decode
+    worker's ``generate`` endpoint, held to the parity rule against phase
+    3's one-rank engine (``ref``). The prefill worker's exit lines give
+    the handoffs (``kx`` plans), the payload per handoff and each rank's
+    head gather (``kv_gather``).
+
+    (b)-(d) on a ``--mesh 1,2 --mm-encoder --kvbm-host-blocks`` worker:
+    (b) 16 ``/v1/embeddings`` inputs (phase 15's, cut to
+    MESH_EMBED_TOKENS) against phase 3's engine's vectors
+    (EMBED_BATCH_COS), ms per call, ``emb`` plans; (c) two image prompts
+    through its ``generate`` endpoint, held to the parity rule against
+    the one-rank engine (``mref``), and two image chats over HTTP with
+    ``.npy`` data URLs through its colocated encoder (TTFT); ``mrp`` plans
+    on each rank, the image embeddings delivered per plan; (d) the KVBM
+    host tier: MESH_KVBM_PROMPTS prompts, G1 cleared, the same again: the
+    second pass onboards from the host tier (``ki`` plans) and hits the
+    prefix; TTFT of both passes.
+
+    (e) a ``--pp 2`` worker answers the same embeddings (the stages encode
+    together), against the same vectors.
+
+    Every rank's exit line: the follower replayed the leader's plans and
+    made the same collectives. Returns face -> launches per rank of the
+    two mesh workers together (each > 0)."""
+    import asyncio
+    import multiprocessing
+    import signal
+    from concurrent.futures import ProcessPoolExecutor
+
+    from dynamo_tpu_torch.engine.engine import _pow2_bucket
+    from dynamo_tpu_torch.runtime import codec
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.utils.config import RuntimeConfig
+
+    want, rec, prompts = ref
+    prompts = prompts[:MESH_REQUESTS]
+    want = [w[:MESH_OSL] for w in want[:MESH_REQUESTS]]
+    env = dict(tp_env(), **TP_ENV)
+    addr = f"127.0.0.1:{_free_port()}"
+    tok = os.path.abspath(served["tokenizer"])
+    weights = ["--weights", os.path.abspath(LOAD_DIR), "--tokenizer", tok,
+               "--store-addr", addr]
+    children = []
+
+    def start(name, args, module="dynamo_tpu_torch.worker"):
+        child = Child(name, module, args, env)
+        children.append(child)
+        return child
+
+    def completion(model, ids, n):
+        return dict(method="POST", path="/v1/completions", body={
+            "model": model, "prompt": list(ids), "max_tokens": n,
+            "temperature": 0, "ignore_eos": True, "stream": True})
+
+    def streamed(results, n, what):
+        runs = []
+        for status, t_sent, frames, done, body in results:
+            content = [t for t, f in frames if f.get("choices")
+                       and (f["choices"][0].get("text")
+                            or f["choices"][0].get("delta", {}).get(
+                                "content"))]
+            got = (frames[-1][1]["usage"]["completion_tokens"]
+                   if frames else 0)
+            if status != 200 or not done or got != n or len(content) < 2:
+                fail(f"[mesh] {what}: HTTP {status}, [DONE] {done}, {got} "
+                     f"of {n} tokens: {body or frames[-2:]}")
+            runs.append((t_sent, content[0], content[-1], got))
+        return runs
+
+    def warmed(result, what):
+        status, _, _, done, body = result
+        if status != 200 or not done:
+            fail(f"[mesh] {what} answered {status}: {body}")
+
+    async def stop(child, tag):
+        child.proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.get_running_loop().run_in_executor(
+            None, child.proc.wait, 90)
+        if rc != 0:
+            fail(f"{tag} {child.name} exited {rc}:\n{child.tail()}")
+
+    async def listed(loop, procs, port, model, t0):
+        while True:
+            (status, _, _, _, body), = await loop.run_in_executor(
+                procs, http_client, port,
+                [dict(method="GET", path="/v1/models")])
+            if status == 200 and any(m["id"] == model for m in body["data"]):
+                return
+            if time.perf_counter() - t0 > 300:
+                fail(f"[mesh] /v1/models never listed {model}")
+            await asyncio.sleep(0.2)
+
+    async def generate(component, bodies, n):
+        rt = await DistributedRuntime.from_settings(RuntimeConfig(
+            store_addr=addr))
+        try:
+            client = await (rt.namespace().component(component)
+                            .endpoint("generate").client())
+            await client.wait_for_instances(1, 60)
+
+            async def one(body):
+                out = []
+                async for o in client.round_robin(
+                        dict(body, max_tokens=n, temperature=0.0,
+                             ignore_eos=True), Context()):
+                    out.extend(o["token_ids"])
+                return out
+            return await asyncio.gather(*(one(b) for b in bodies))
+        finally:
+            await rt.shutdown()
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        procs = ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        faces = {}
+        try:
+            t0 = time.perf_counter()
+            store = start("mesh_store", ["--host", "127.0.0.1", "--port",
+                                         addr.rsplit(":", 1)[1]],
+                          "dynamo_tpu_torch.runtime.store")
+            await store.wait_for(r"store listening", 60)
+            front = start("mesh_frontend", ["--host", "127.0.0.1", "--port",
+                                            "0", "--store-addr", addr],
+                          "dynamo_tpu_torch.frontend")
+            port = int((await front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+
+            # (a) disaggregated: a 2-rank prefill worker, a one-rank decode
+            pre = start("mesh_prefill", [
+                "--mesh", MESH, *weights, "--model-name",
+                MESH_PREFILL_MODEL, "--disagg-mode", "prefill"])
+            dec = start("mesh_decode", [
+                *weights, "--model-name", MESH_PREFILL_MODEL,
+                "--disagg-mode", "decode"])
+            await pre.wait_for(r"worker ready: model=\S+ mode=prefill", 300)
+            await dec.wait_for(r"registered model", 300)
+            await listed(loop, procs, port, MESH_PREFILL_MODEL, t0)
+            print(f"[mesh] {card}: (a) store, frontend, a --mesh {MESH} "
+                  f"--disagg-mode prefill worker (rank 1 started by rank 0, "
+                  f"both on cuda:0 over gloo) and a one-rank --disagg-mode "
+                  f"decode worker up in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t_warm = time.perf_counter()
+            (warm,) = await loop.run_in_executor(
+                procs, http_client, port,
+                [completion(MESH_PREFILL_MODEL, prompts[0][::-1], 2)])
+            warmed(warm, "the disagg warm-up")
+            warm_ms = (time.perf_counter() - t_warm) * 1e3
+            t_start = time.perf_counter()
+            results = await loop.run_in_executor(
+                procs, http_client, port,
+                [completion(MESH_PREFILL_MODEL, p, MESH_OSL)
+                 for p in prompts])
+            wall = time.perf_counter() - t_start
+            stats_a = traffic_stats(
+                streamed(results, MESH_OSL, "disagg stream"), wall)
+            got = await generate("backend", [{"token_ids": p}
+                                             for p in prompts], MESH_OSL)
+            partings = check_parity(want, rec, got,
+                                    "phase 3's one-rank bf16 engine",
+                                    tag="[mesh]")
+            await stop(pre, "[mesh]")
+            await stop(dec, "[mesh]")
+            ranks_a = mesh_check_ranks(pre.text(), "[mesh] (a)")
+            lead = ranks_a[0]
+            handoffs = lead["plans"].get("kx", 0)
+            # both passes' prefills handed off (the warm-up too, unless the
+            # decode worker had not yet seen the prefill worker)
+            if handoffs not in (2 * MESH_REQUESTS, 2 * MESH_REQUESTS + 1) \
+                    or lead["plans"].get("ki", 0):
+                fail(f"[mesh] (a) the prefill worker's plans "
+                     f"{lead['plans']}: want a kx per prefill of both "
+                     f"passes ({2 * MESH_REQUESTS}, and the warm-up's) and "
+                     f"no ki")
+            # each rank sends its half of the heads per K and per V
+            payload = (sum(r["stats"]["kv_gather_bytes"]
+                           for r in ranks_a.values()) / handoffs)
+            print(f"[mesh] {card}: (a) {MESH_REQUESTS} streams ISL {ISL} "
+                  f"OSL {MESH_OSL} through the frontend, the one-rank decode "
+                  f"worker and the 2-rank prefill worker over the host "
+                  f"relay: {stats_line(stats_a)} (warm-up request "
+                  f"{warm_ms:.1f} ms) — a correctness run of two ranks on "
+                  f"one card over host-staged gloo; {handoffs} handoffs "
+                  f"(kx plans: the warm-up and both passes), "
+                  f"{payload / 1e6:.3f} MB of K and V per handoff (every "
+                  f"head, padded to a power of two of blocks); head gather "
+                  f"{mesh_collective(ranks_a, 'kv_gather')}; streams vs "
+                  f"phase 3's one-rank engine: "
+                  f"{len(prompts) - len(partings)} of {len(prompts)} "
+                  f"identical, {len(partings)} part at near-ties; plans "
+                  f"{lead['plans']}", flush=True)
+
+            # (b)-(d) an aggregated 2-rank worker; (e) a 2-stage one
+            t1 = time.perf_counter()
+            agg = start("mesh_agg", [
+                "--mesh", MESH, *weights, "--model-name", MESH_MODEL,
+                "--mm-encoder", "--mm-image-size", str(MM_IMAGE),
+                "--mm-patch-size", str(MM_PATCH),
+                "--kvbm-host-blocks", str(MESH_KVBM_BLOCKS)])
+            # a component of its own: two multi-rank workers on one
+            # component would share its step_stream endpoint, and a
+            # follower could join the other worker's leader
+            ppw = start("mesh_pp", ["--pp", str(PP), *weights,
+                                    "--model-name", MESH_PP_MODEL,
+                                    "--component", "backend_pp"])
+            await agg.wait_for(r"registered model", 300)
+            await ppw.wait_for(r"registered model", 300)
+            await listed(loop, procs, port, MESH_MODEL, t1)
+            await listed(loop, procs, port, MESH_PP_MODEL, t1)
+            print(f"[mesh] {card}: (b)-(e) a --mesh {MESH} --mm-encoder "
+                  f"--kvbm-host-blocks {MESH_KVBM_BLOCKS} worker and a --pp "
+                  f"{PP} worker up in {time.perf_counter() - t1:.1f} s",
+                  flush=True)
+            (warm,) = await loop.run_in_executor(
+                procs, http_client, port,
+                [completion(MESH_MODEL, prompts[0][:32], 2)])
+            warmed(warm, "the mesh warm-up")
+
+            # (b) embeddings through the 2-rank worker
+            vecs, emb_ms = await mesh_embed_http(port, MESH_MODEL,
+                                                 mref["embed_inputs"])
+            d_b = one_minus_cos(vecs, mref["embed"])
+
+            # (c) image prompts: parity through generate, chats over HTTP
+            got_mm = await generate("backend", mref["mm_bodies"], MESH_OSL)
+            part_mm = check_parity(mref["mm_want"], mref["mm_rec"], got_mm,
+                                   "phase 3's one-rank bf16 engine",
+                                   tag="[mesh]")
+            chats = []
+            for q, img in zip(MESH_QUESTIONS, mm_images()):
+                chats.append(dict(method="POST", path="/v1/chat/completions",
+                                  body={"model": MESH_MODEL,
+                                        "max_tokens": MESH_OSL,
+                                        "temperature": 0,
+                                        "ignore_eos": True, "stream": True,
+                                        "messages": [{"role": "user",
+                                                      "content": [
+                    {"type": "text", "text": q},
+                    {"type": "image_url",
+                     "image_url": {"url": npy_data_url(img)}}]}]}))
+            mm_ttft = []
+            for job in chats:
+                (res,) = await loop.run_in_executor(procs, http_client, port,
+                                                    [job])
+                (t_sent, first, _, _), = streamed([res], MESH_OSL,
+                                                  "image chat")
+                mm_ttft.append((first - t_sent) * 1e3)
+
+            # (d) the KVBM host tier: two passes around a G1 clear
+            rt = await DistributedRuntime.from_settings(RuntimeConfig(
+                store_addr=addr))
+            backend = rt.namespace().component("backend")
+            clear = await backend.endpoint("clear_kv_blocks").client()
+            await clear.wait_for_instances(1, 60)
+            snaps = []
+            sub = await rt.store.subscribe(
+                backend.event_subject("load_metrics"))
+
+            async def collect():
+                async for ev in sub:
+                    if ev.get("event") == "msg":
+                        snap = codec.unpackb(ev["value"])
+                        if "kvbm" in snap:
+                            snaps.append((time.perf_counter(), snap))
+            collector = asyncio.create_task(collect())
+
+            async def drained():
+                last = None
+                for _ in range(300):
+                    t = time.perf_counter()
+                    while not snaps or snaps[-1][0] <= t:
+                        if time.perf_counter() - t > 30:
+                            fail("[mesh] the mesh worker published no "
+                                 "load metrics")
+                        await asyncio.sleep(0.05)
+                    n = snaps[-1][1]["kvbm"]["offloaded_total"]
+                    if n == last and n > 0:
+                        return snaps[-1][1]["kvbm"]
+                    last = n
+                fail("[mesh] the offload backlog never drained")
+            kv_prompts = [p[::-1][:ISL] for p in
+                          prompts[:MESH_KVBM_PROMPTS]]
+            passes = []
+            for i in range(2):
+                if i:
+                    async for _ in clear.direct(clear.instance_ids()[0], {},
+                                                Context()):
+                        pass
+                before = await drained()
+                t_start = time.perf_counter()
+                results = await loop.run_in_executor(
+                    procs, http_client, port,
+                    [completion(MESH_MODEL, p, MESH_OSL)
+                     for p in kv_prompts])
+                wall = time.perf_counter() - t_start
+                st = traffic_stats(streamed(results, MESH_OSL, "kvbm pass"),
+                                   wall)
+                passes.append((st, before, await drained()))
+            collector.cancel()
+            await rt.shutdown()
+            (s1, _, a1), (s2, b2, a2) = passes
+            onboarded = a2["onboarded_total"] - b2["onboarded_total"]
+            hits = (a2["prefix_hit_tokens_total"]
+                    - b2["prefix_hit_tokens_total"])
+            if onboarded <= 0 or hits <= 0:
+                fail(f"[mesh] (d) second pass onboarded {onboarded} blocks, "
+                     f"hit {hits} prefix tokens")
+
+            # (e) embeddings through the 2-stage worker
+            vecs_pp, emb_pp_ms = await mesh_embed_http(
+                port, MESH_PP_MODEL, mref["embed_inputs"])
+            d_e = one_minus_cos(vecs_pp, mref["embed"])
+
+            await stop(agg, "[mesh]")
+            await stop(ppw, "[mesh]")
+            ranks = mesh_check_ranks(agg.text(), "[mesh] (b)-(d)")
+            lead = ranks[0]
+            pp_ranks = pp_rank_lines(ppw.text())
+            n_groups = len({_pow2_bucket(len(x))
+                            for x in mref["embed_inputs"]})
+            emb_plans = [lead["plans"].get("emb", 0)] + [
+                pp_ranks.get(r, {}).get("plans", {}).get("emb", 0)
+                for r in range(PP)]
+            if lead["plans"].get("emb", 0) != (MESH_EMBED_REPS + 1) * \
+                    n_groups or min(emb_plans) == 0:
+                fail(f"[mesh] (b)/(e) emb plans {emb_plans}, want "
+                     f"{(MESH_EMBED_REPS + 1) * n_groups} on the mesh "
+                     f"worker ({n_groups} (B, T) groups per call)")
+            if (pp_ranks.get(1, {}).get("plans")
+                    != pp_ranks.get(0, {}).get("plans")):
+                fail(f"[mesh] (e) the pp follower replayed "
+                     f"{pp_ranks.get(1)}, the leader emitted "
+                     f"{pp_ranks.get(0)}")
+            mrp = lead["plans"].get("mrp", 0)
+            m = re.search(r"worker exiting: engine counts mm_prefills=(\d+)",
+                          agg.text())
+            mm_prefills = int(m.group(1)) if m else -1
+            if mrp == 0 or mrp != mm_prefills:
+                fail(f"[mesh] (c) {mrp} mrp plans, {mm_prefills} mm prefill "
+                     f"chunks on the leader")
+            mm_mb = lead["stats"].get("mm_deliver_bytes", 0) / mrp / 1e6
+            if lead["plans"].get("ki", 0) == 0 or \
+                    lead["plans"].get("kx", 0) == 0:
+                fail(f"[mesh] (d) plans {lead['plans']}: the KVBM tier "
+                     f"neither offloaded (kx) nor onboarded (ki)")
+            print(f"[mesh] {card}: (b) /v1/embeddings of "
+                  f"{len(vecs)} inputs (phase 15's, <= {MESH_EMBED_TOKENS} "
+                  f"tokens) through the 2-rank worker: max 1 - cos vs phase "
+                  f"3's one-rank engine {max(d_b):.2e} (limit "
+                  f"{EMBED_BATCH_COS}), {emb_ms:.1f} ms per call (median of "
+                  f"{MESH_EMBED_REPS}, HTTP included); emb plans "
+                  f"{lead['plans'].get('emb', 0)} on each rank", flush=True)
+            print(f"[mesh] {card}: (c) image prompts on the 2-rank worker: "
+                  f"{len(got_mm) - len(part_mm)} of {len(got_mm)} generate "
+                  f"streams identical to the one-rank engine, "
+                  f"{len(part_mm)} part at near-ties; image chats over "
+                  f"HTTP through the colocated encoder: TTFT "
+                  f"{', '.join(f'{t:.1f}' for t in mm_ttft)} ms; {mrp} mrp "
+                  f"plans on each rank (= the leader's mm prefill chunks), "
+                  f"{mm_mb:.3f} MB of embeddings delivered per plan; "
+                  f"mm_deliver {mesh_collective(ranks, 'mm_deliver')}",
+                  flush=True)
+            print(f"[mesh] {card}: (d) KVBM host tier on the 2-rank worker: "
+                  f"{MESH_KVBM_PROMPTS} prompts ISL {ISL} OSL {MESH_OSL}; "
+                  f"pass 1 {stats_line(s1)}; G1 cleared; pass 2 "
+                  f"{stats_line(s2)}; pass 2 onboarded {onboarded} blocks, "
+                  f"{hits} prefix-hit tokens; offloaded "
+                  f"{a2['offloaded_total']} blocks in all; kx (offload "
+                  f"extracts) {lead['plans'].get('kx', 0)}, ki (onboard "
+                  f"injects) {lead['plans'].get('ki', 0)}; head gather "
+                  f"{mesh_collective(ranks, 'kv_gather')}; delivery "
+                  f"{mesh_collective(ranks, 'kv_deliver')}", flush=True)
+            print(f"[mesh] {card}: (e) /v1/embeddings of the same inputs "
+                  f"through the --pp {PP} worker: max 1 - cos vs the "
+                  f"one-rank engine {max(d_e):.2e} (limit "
+                  f"{EMBED_BATCH_COS}), {emb_pp_ms:.1f} ms per call; emb "
+                  f"plans per stage {emb_plans[1:]}", flush=True)
+            if max(d_b) > EMBED_BATCH_COS or max(d_e) > EMBED_BATCH_COS:
+                fail("[mesh] the multi-rank workers' vectors differ from "
+                     "the one-rank engine's")
+            for face in ("decode", "ragged"):
+                name = f"paged_attention_{face}"
+                per_rank = [ranks_a[r]["launches"].get(name, 0)
+                            + ranks[r]["launches"].get(name, 0)
+                            for r in range(TP)]
+                if min(per_rank) == 0:
+                    fail(f"[mesh] {name} launches per rank {per_rank}")
+                faces[name] = per_rank
+            print(f"[mesh] {card}: launches per rank of both mesh workers "
+                  f"{faces}", flush=True)
+            return faces
+        finally:
+            procs.shutdown(wait=True)
+
+    try:
+        return asyncio.run(run())
+    finally:
+        for c in reversed(children):
+            c.kill()
+
+
 KERNELS = {
     # name: (face, kv dtype, main-path case, replaced TPU function)
     "paged_attention_decode": (
@@ -7083,7 +7667,7 @@ def launch_configs(results, case: str):
 
 def kernels_line(results, launches, dist_launches, spec_launches,
                  moe_launches, slice_launches, tp_launches, pp_launches,
-                 tuned_rows=()) -> str:
+                 mesh_launches, tuned_rows=()) -> str:
     """The ``kernels`` JSON line: one row per kernel build (with
     ``launch_configs``, the non-default launch parameters phase 2 held on
     that build's main-path case), plus the
@@ -7101,7 +7685,17 @@ def kernels_line(results, launches, dist_launches, spec_launches,
     maps each face to its launches per rank in the served runs. Phase 19
     adds the decode face at a pp stage's microbatch shape
     (``PP_DECODE_CASE``; its prefill chunk is ``PREFILL_CASE``'s):
-    ``pp_launches`` maps each face to its launches per stage."""
+    ``pp_launches`` maps each face to its launches per stage. Phase 20's
+    two ``--mesh 1,2`` workers run both faces on tp-2 ranks:
+    ``mesh_launches`` maps each face to its launches per rank, carried by
+    the rows ``paged_attention_decode@mesh_tp2_b8`` (every decode of
+    phase 20 is in the bucket of 8: ``MESH_DECODE_CASE``, and the same
+    with 4 dead rows) and ``paged_attention_ragged@mesh_tp2_chunks``
+    (``MESH_RAGGED_CASES``; the face's phase-20 launches also include the
+    512-token chunks of the ``@tp2_shard_hd64`` ragged row's shape);
+    ``held_cases`` names the phase-2 cases behind ``max_abs_err`` (the
+    largest of them) and the times (the first's). Their sum is
+    ``launches_mesh`` in ``slice_launches``."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -7167,6 +7761,23 @@ def kernels_line(results, launches, dist_launches, spec_launches,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     })
+    for name, tag, cases in (
+            ("paged_attention_decode", "mesh_tp2_b8",
+             (MESH_DECODE_CASE, f"{MESH_DECODE_CASE}, 4 dead rows")),
+            ("paged_attention_ragged", "mesh_tp2_chunks",
+             tuple(case for case, _, _ in MESH_RAGGED_CASES))):
+        per_rank = mesh_launches[name]
+        r = results[cases[0]]
+        rows.append({
+            "name": f"{name}@{tag}", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": KERNELS[name][3], "launches": sum(per_rank),
+            "launches_per_rank": per_rank,
+            "max_abs_err": max(results[c]["max_abs_err"] for c in cases),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "held_cases": list(cases),
+        })
     rows.extend(tuned_rows)
     return json.dumps({"kernels": rows})
 
@@ -7257,6 +7868,8 @@ def main() -> None:
     timer("7 kv movement in one process")
     tp_ref = phase_load(card, engine, "bf16")
     timer("9 loader bf16")
+    mesh_ref = mesh_reference(engine, mm)
+    timer("20 one-rank reference")
     from dynamo_tpu_torch.worker import tree_bytes
     one_rank = (tree_bytes(engine.params), tree_bytes(engine.cache))
     del engine
@@ -7265,8 +7878,10 @@ def main() -> None:
     tp_launches = {64: phase_tp(card, served, tp_ref)}
     timer("17 tensor parallel, Llama-3.2-1B")
     pp_launches = phase_pp(card, served, tp_ref, one_rank)
-    del tp_ref
     timer("19 pipeline parallel")
+    mesh_launches = phase_mesh(card, served, tp_ref, mesh_ref)
+    del tp_ref, mesh_ref
+    timer("20 single-rank paths on multi-rank workers")
     sp = phase_sp(card)
     timer("18 sequence parallel")
     dist_launches = phase_dist(card, served, direct)
@@ -7314,8 +7929,11 @@ def main() -> None:
                                       sp["launches_sp_2x2"],
                                       "launches_pp": {
                                           k: sum(v) for k, v in
-                                          pp_launches.items()}},
-                       tp_launches, pp_launches, tuned_rows))
+                                          pp_launches.items()},
+                                      "launches_mesh": {
+                                          k: sum(v) for k, v in
+                                          mesh_launches.items()}},
+                       tp_launches, pp_launches, mesh_launches, tuned_rows))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,7 +62,7 @@ from ..runtime.context import Context
 from ..runtime.engine import AsyncEngine
 from ..tracing import get_tracer, trace_span
 from ..utils.logging import TraceContext, get_logger
-from .ici import DevicePlane, StaleEpochError, default_plane
+from .ici import DevicePlane, StaleEpochError, default_plane, multi_rank
 from .protocol import KvIntegrityError, kv_from_wire, kv_to_wire
 
 log = get_logger("disagg")
@@ -287,7 +287,10 @@ class PrefillHandler(AsyncEngine):
             hold_budget = self.config.handoff_timeout_s
         self._held[rid] = (seq, time.monotonic() + hold_budget)
         try:
-            dst_engine = self.plane.get(xfer.get("plane_id"))
+            # a multi-rank prefill engine never gathers on the device
+            # plane: its extract brings every rank in (the relay path)
+            dst_engine = (None if multi_rank(self.engine)
+                          else self.plane.get(xfer.get("plane_id")))
             dst_ids = list(xfer.get("block_ids") or [])
             use_device = dst_engine is not None and bool(dst_ids)
             if (use_device and include_token
@@ -676,7 +679,9 @@ class DecodeHandler(AsyncEngine):
         # prefill worker transfers KV device-to-device instead of relaying
         self.plane = plane if plane is not None else default_plane
         self.plane_id: Optional[str] = None
-        if hasattr(engine, "cache"):  # device engines only
+        # device engines of one rank only: a multi-rank engine's inject
+        # must bring every rank in, so its KV arrives by the relay
+        if hasattr(engine, "cache") and not multi_rank(engine):
             self.plane_id = uuid.uuid4().hex
             self.plane.register(self.plane_id, engine)
 

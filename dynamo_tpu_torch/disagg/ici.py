@@ -16,9 +16,17 @@ A copy of ``dynamo_tpu.disagg.ici`` on one card:
   name the trash block 0.
 
 There is no host copy and no device-wide sync. Both engines serve one
-layout (one card, no tensor parallelism), so there is nothing to reshard,
-as the JAX package's ``device_put`` onto the destination mesh does.
+layout (one rank each), so there is nothing to reshard, as the JAX
+package's ``device_put`` onto the destination mesh does.
 Cross-process transfers ride the host relay (``disagg.protocol``).
+
+A multi-rank engine (a rank of a tp, dp or pp world) is never on the
+plane: its KV moves only through its extract/inject, whose plans bring
+every rank into the collective that joins or delivers the heads, and
+the direct gather here would copy the leader's heads alone behind the
+followers' backs. :meth:`DevicePlane.register` and
+:meth:`DevicePlane.transfer` refuse such an engine by name, and the
+disagg handlers take the host relay for it (``disagg/handlers.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +47,18 @@ class StaleEpochError(RuntimeError):
     transfer landed — writing now would corrupt another request's KV."""
 
 
+def multi_rank(engine) -> bool:
+    """True for an engine that is one rank of a world of several."""
+    return getattr(engine, "world", 1) > 1
+
+
+def _refuse_multi_rank(engine, what: str) -> None:
+    if multi_rank(engine):
+        raise ValueError(
+            f"{what}: a multi-rank engine ({engine.world} ranks) moves KV "
+            "through its extract/inject plans, never the device plane")
+
+
 class DevicePlane:
     """Process-local registry of engines addressable for device transfer.
 
@@ -54,6 +74,7 @@ class DevicePlane:
         self._engines: Dict[str, object] = {}
 
     def register(self, plane_id: str, engine) -> None:
+        _refuse_multi_rank(engine, "device plane register")
         self._engines[plane_id] = engine
 
     def unregister(self, plane_id: str) -> None:
@@ -81,6 +102,8 @@ class DevicePlane:
         write — and a stale epoch raises :class:`StaleEpochError` without
         touching the cache.
         """
+        _refuse_multi_rank(src_engine, "device plane transfer source")
+        _refuse_multi_rank(dst_engine, "device plane transfer destination")
         n = len(src_block_ids)
         if len(dst_block_ids) != n:
             raise ValueError(

@@ -48,12 +48,29 @@ the params and cache (replicated over dp); the leader's engine schedules
 and hands every device call's host arrays to ``step_sink`` *before*
 launching it (the JAX emission sites), and the followers' engines replay
 them (``replay_plan``). Attention choices and launch parameters come from
-the leader (autotune runs on rank 0 and is broadcast), decode windows run
-eager (no CUDA graphs on a mesh of more than one rank), and KV movement,
-the KVBM tiers, preemption evacuation, ``embed`` and multimodal requests
-are refused by name, as in the JAX multi-host worker. With
+the leader (autotune runs on rank 0 and is broadcast), and decode windows
+run eager (no CUDA graphs on a mesh of more than one rank). With
 ``sp_prefill_threshold`` a fresh prompt at least that long is prefilled as
 one sequence-parallel chunk (``rsp`` plans; ``engine/model.py``).
+
+The single-rank paths run on such a mesh through the same plans, each
+emitted on the device-step thread before the collective it leads to:
+a KV extract (``kx``) gathers every rank's heads and joins them on the
+leader over its tp row (a ``gather``, ``kv_gather``), so the payload
+that leaves the engine is the JAX one, every KV head in head order; an
+inject (``ki``)
+broadcasts the leader's full payload to every rank (``kv_deliver``),
+which writes its head slice, every dp row alike (the cache is replicated
+over dp). The leader checks a reservation's epoch and the payload's
+shapes and dtypes before it emits the ``ki`` plan, so a stale or
+ill-fitting inject raises there and no follower enters a collective the
+leader skips. KV bytes never ride the plan stream. Disagg,
+the KVBM tiers, prefix demotion and preemption evacuation reach the cache
+only through these two. ``embed`` emits one ``emb`` plan per (B, T)
+group and every rank runs the group-aware encode step; a multimodal
+prefill chunk emits ``mrp`` and the leader then broadcasts the chunk's
+``[T, D]`` embeddings to every rank (``mm_deliver``), which splices them
+as the leader does.
 
 Pipeline parallelism (``pp_stages=S``, one engine per stage, each a rank
 of a world of S, ``parallel/pp_serving.py``) is the JAX engine's pp
@@ -62,8 +79,10 @@ runs the synchronous loop, and takes every prefill chunk and decode batch
 through the GPipe-microbatched unified step (``unified_step``; the leader
 emits ``p``/``d`` plans before each, the other stages replay them). It
 builds no autopilot windows, control state, CUDA graphs, KV block ops or
-ladders; KV transfer, the KVBM tiers and multimodal prefill are refused
-with the JAX engine's messages, embed and evacuation by item number.
+ladders; KV transfer, preemption evacuation, the KVBM tiers and
+multimodal prefill are refused with the JAX engine's messages. ``embed``
+runs on the stages together (``emb`` plans; ``pp_serving``'s encode
+step).
 """
 
 from __future__ import annotations
@@ -90,6 +109,7 @@ from ..observability import compilewatch
 from ..observability import flops as obs_flops
 from ..observability import profiling
 from ..observability.flops import FlopsModel
+from ..parallel import comm
 from ..observability.stepstats import (
     DECODE, PREFILL, SPEC_VERIFY, StepRecord, StepStats,
 )
@@ -433,7 +453,6 @@ class EngineCore(AsyncEngine):
                     "multimodal prefill unsupported on a pipeline-parallel "
                     "engine"
                 )
-            self.refuse_multi_rank("multimodal prefill")
             model_cfg = getattr(self, "model_config", None)
             if (model_cfg is not None and request.mm_embeddings is not None
                     and np.asarray(request.mm_embeddings).shape[-1]
@@ -1186,22 +1205,13 @@ class EngineCore(AsyncEngine):
     # (runtime.preemption drives these: park a decoding seat, wait for its
     #  inflight windows to land, stream its KV to a peer, finish it here)
 
-    def refuse_multi_rank(self, what: str) -> None:
-        """Raise, by name, for a path an engine on a mesh of more than one
-        rank does not serve (the scope of the JAX multi-host worker). It
-        keys on the ranks, not on tp: a ``(2, 1)`` rank has ``tp == 1``,
-        a pipeline stage too."""
-        if self.world > 1:
-            raise NotImplementedError(
-                f"{what} on a multi-rank engine ({self.world} ranks, "
-                f"tp={self.tp}, pp={self.pp}) needs the single-rank paths "
-                "on a multi-rank engine, ROADMAP.md queue A, item 6.2")
-
     def evacuable_seats(self) -> List[SchedSeq]:
         """Decoding seats whose KV is worth moving (prefill complete).
         PREFILL/WAITING seats are cheaper to re-prefill at the destination
-        than to stream mid-build."""
-        self.refuse_multi_rank("preemption evacuation")
+        than to stream mid-build. A pipeline-parallel engine lists them
+        too, as the JAX engine does: the coordinator journals them, and
+        the transfer it then tries refuses (``extract_kv_blocks``), so
+        each seat ends as a fallback."""
         return [s for s in self.scheduler.running
                 if s.status is SeqStatus.RUNNING and s.prefill_done]
 
@@ -1447,8 +1457,18 @@ class InferenceEngine(EngineCore):
                 log.info("spec_mode=ngram forces pipeline_depth=1")
             self.scheduler.spec_plan_window = self._spec_k + 1
         self._packed_prefill_fns: Dict[Tuple[int, int, bool], Any] = {}
-        # the encode-only step of embed()
-        self._encode_fn = model_lib.make_encode_fn(model_config)
+        # the encode-only step of embed(): on a tp rank the group-aware
+        # one, on a pipeline stage the stages' encode together
+        if pp > 1:
+            self._encode_fn = pp_serving.make_pp_encode_fn(model_config,
+                                                           self.pp_group)
+        else:
+            self._encode_fn = model_lib.make_encode_fn(model_config,
+                                                       self.mesh)
+        # the world a single-rank path's payload is delivered over (the
+        # leader is its member 0); one rank alone needs none
+        self._world_group = (comm.world_group() if self.world > 1
+                             else comm.SOLO)
         if pp > 1:
             # the GPipe-microbatched unified step on the synchronous loop
             # (the JAX engine's legacy path): no autopilot windows, control
@@ -1473,9 +1493,10 @@ class InferenceEngine(EngineCore):
             )
             self._step_fn = None        # the unified step is pp's alone
             # KV block gather/scatter (disagg, KVBM, prefix onboarding,
-            # evacuation); the scatter writes self.cache in place
+            # evacuation); the scatter writes self.cache in place; on a
+            # tp rank they read and write the rank's heads
             self._kv_extract, self._kv_inject = model_lib.make_kv_ops(
-                engine_config)
+                engine_config, self.mesh)
         # tensor parallelism: the leader's plan sink (parallel/multihost.py
         # StepBroadcaster.sink), called on the device-step thread BEFORE
         # each launch — a gloo all_reduce blocks the host, so a leader
@@ -1496,14 +1517,13 @@ class InferenceEngine(EngineCore):
             self.scheduler.sp_enabled = True
         if pp > 1:
             log.info("pp stage %d of %d: layers %d..%d, %d microbatches, "
-                     "the synchronous loop; KV movement, KVBM, evacuation, "
-                     "embed and mm are refused", self.pp_group.index, pp,
+                     "the synchronous loop; KV movement, KVBM, evacuation "
+                     "and mm are refused", self.pp_group.index, pp,
                      self.stage_layers[0], self.stage_layers[1] - 1,
                      engine_config.pp_microbatches)
         elif self.world > 1:
             log.info("mesh %s rank %s: decode windows run eager (no CUDA "
-                     "graphs on a multi-rank mesh); sp prefill %s; KV "
-                     "movement, KVBM, evacuation, embed and mm are refused",
+                     "graphs on a multi-rank mesh); sp prefill %s",
                      tuple(engine_config.mesh_shape), self.mesh.coords,
                      f"from {engine_config.sp_prefill_threshold} tokens"
                      if self._sp_prefill_fn is not None else "off")
@@ -1633,8 +1653,25 @@ class InferenceEngine(EngineCore):
 
     def _gather_blocks(self, padded: np.ndarray):
         """Device-step thread: enqueue the gather of ``padded``; returns
-        (device payload, CUDA event after it or None on the CPU)."""
+        (device payload, CUDA event after it or None on the CPU).
+
+        On a multi-rank engine the leader emits a ``kx`` plan first, every
+        rank gathers its heads and the leader's tp row joins them on the
+        leader (a ``gather`` along the head axis), so the leader's payload
+        holds every KV head in head order. A follower's payload is None
+        (the leader's tp row) or its own heads (another dp row), which
+        nobody reads."""
+        if self.step_sink is not None:
+            self.step_sink("kx", {"ids": padded})
         data = self._kv_extract(self.cache, self._upload(padded))
+        if self.world > 1 and self.mesh.coords.get("dp", 0) == 0:
+            # as bytes: gloo has no float8, and a copy is exact for all
+            joined = {key: comm.gather(
+                a.contiguous().view(torch.uint8), self.mesh.tp_group,
+                dim=2, op="kv_gather") for key, a in data.items()}
+            data = (None if self.mesh.tp_group.index else
+                    {key: joined[key].view(a.dtype)
+                     for key, a in data.items()})
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -1645,19 +1682,39 @@ class InferenceEngine(EngineCore):
                         seq_id: Optional[str] = None,
                         epoch: Optional[int] = None) -> None:
         """Device-step thread: re-check the reservation epoch, then enqueue
-        the in-place scatter of ``data`` (host or device tensors) into
-        ``padded``, after ``event`` (a gather on another engine's stream)."""
+        the in-place scatter of ``data`` (host or device tensors, every KV
+        head) into ``padded``, after ``event`` (a gather on another
+        engine's stream).
+
+        On a multi-rank engine the leader decides the epoch and checks the
+        payload's keys, shapes and dtypes first, then emits a ``ki`` plan
+        and broadcasts its payload's bytes to every rank (``kv_deliver``);
+        each writes its head slice. A stale epoch or a payload that does
+        not fit raises before the plan, so no follower waits in a
+        collective the leader skips. A follower replays with ``data`` the
+        buffers :meth:`_kv_payload_like` makes, which the broadcast fills."""
         if epoch is not None and not self.reservation_valid(seq_id, epoch):
             from ..disagg.ici import StaleEpochError
 
             raise StaleEpochError(
                 f"reservation {seq_id!r} epoch {epoch} is stale"
             )
+        want = self._kv_payload_shapes(padded.shape[0])
+        got = {key: (tuple(a.shape), a.dtype) for key, a in data.items()}
+        if got != want:
+            raise ValueError(f"KV payload {got} does not fit this engine's "
+                             f"{padded.shape[0]}-block payload {want}")
+        if self.step_sink is not None:
+            self.step_sink("ki", {"ids": padded})
         if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
             if event is not None:
                 stream.wait_event(event)
         dev = {key: self._upload_tensor(a) for key, a in data.items()}
+        if self.world > 1:
+            dev = {key: comm.broadcast(
+                a.contiguous().view(torch.uint8), self._world_group,
+                op="kv_deliver").view(a.dtype) for key, a in dev.items()}
         if self.device.type == "cuda":
             for a in dev.values():
                 if a.device == self.device:
@@ -1665,6 +1722,23 @@ class InferenceEngine(EngineCore):
                     # until this stream has read it
                     a.record_stream(stream)
         self._kv_inject(self.cache, self._upload(padded), dev)
+
+    def _kv_payload_shapes(self, m: int) -> Dict[str, Tuple[Tuple[int, ...],
+                                                             torch.dtype]]:
+        """Key -> (shape, dtype) of a full ``m``-block payload (every KV
+        head, the cache's dtypes): what an inject takes."""
+        cfg = self.model_config
+        shape = (cfg.num_layers, m, cfg.num_kv_heads, self.config.block_size)
+        return {key: (shape + (() if key in ("ks", "vs")
+                               else (cfg.head_dim_,)),
+                      self.cache[key][0].dtype)
+                for key in model_lib.cache_payload_keys(self.config)}
+
+    def _kv_payload_like(self, m: int) -> Dict[str, torch.Tensor]:
+        """Empty device buffers of a full ``m``-block payload: what a
+        follower's ``ki`` replay receives the leader's payload into."""
+        return {key: torch.empty(shape, dtype=dt, device=self.device)
+                for key, (shape, dt) in self._kv_payload_shapes(m).items()}
 
     async def extract_kv_blocks(self, block_ids) -> Dict[str, torch.Tensor]:
         """Gather arbitrary physical blocks to host memory ([L, N, KV, bs,
@@ -1675,7 +1749,6 @@ class InferenceEngine(EngineCore):
         if self._kv_extract is None:
             raise RuntimeError("KV block transfer unsupported on a "
                                "pipeline-parallel engine")
-        self.refuse_multi_rank("KV block extract")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
 
@@ -1710,7 +1783,6 @@ class InferenceEngine(EngineCore):
         if self._kv_inject is None:
             raise RuntimeError("KV block transfer unsupported on a "
                                "pipeline-parallel engine")
-        self.refuse_multi_rank("KV block inject")
         loop = asyncio.get_running_loop()
         padded, n = self._padded_ids(block_ids)
         m = padded.shape[0]
@@ -1749,7 +1821,6 @@ class InferenceEngine(EngineCore):
             # here has no transfer ops either)
             raise RuntimeError("KVBM unsupported on a pipeline-parallel "
                                "engine (stacked cache has no transfer ops)")
-        self.refuse_multi_rank("the KVBM tiers")
         from ..kvbm.manager import KvbmConfig, KvbmManager
 
         self.kvbm = KvbmManager(self, config or KvbmConfig(), remote=remote)
@@ -1764,8 +1835,9 @@ class InferenceEngine(EngineCore):
         serialised with the windows and prefills the engine enqueues there,
         on the same stream. Inputs are grouped by power-of-two (B, T)
         buckets, as the JAX engine groups them for its programs: one
-        batched forward and one device→host copy per group."""
-        self.refuse_multi_rank("embed (/v1/embeddings)")
+        batched forward and one device→host copy per group. On a
+        multi-rank engine every group runs on every rank
+        (:meth:`_encode_group`)."""
         loop = asyncio.get_running_loop()
 
         for ids in token_ids_batch:
@@ -1790,14 +1862,26 @@ class InferenceEngine(EngineCore):
                     ids = token_ids_batch[i]
                     tokens[row, :len(ids)] = ids
                     positions[row, :len(ids)] = np.arange(len(ids))
-                vecs = self._encode_fn(
-                    self.params, self._upload(tokens),
-                    self._upload(positions)).cpu().numpy()
+                vecs = self._encode_group(tokens, positions)
                 for row, i in enumerate(idxs):
                     out[i] = vecs[row].tolist()
             return out  # type: ignore[return-value]
 
         return await loop.run_in_executor(self._step_executor(), _run)
+
+    def _encode_group(self, tokens: np.ndarray, positions: np.ndarray,
+                      fetch: bool = True) -> Optional[np.ndarray]:
+        """Device-step thread: one ``(B, T)`` group's pooled vectors as
+        numpy. A multi-rank leader emits an ``emb`` plan with the group's
+        tokens and positions first; a follower replays it here with
+        ``fetch`` False (nobody reads its vectors: None), so every rank
+        runs the group's collectives (the tp row's sums, a pipeline's
+        hops) in the same order."""
+        if self.step_sink is not None:
+            self.step_sink("emb", {"tokens": tokens, "positions": positions})
+        vecs = self._encode_fn(self.params, self._upload(tokens),
+                               self._upload(positions))
+        return vecs.cpu().numpy() if fetch else None
 
     async def embed_endpoint(self, request: Any, context: Context):
         """Wire adapter for the worker's ``embed`` endpoint."""
@@ -2177,9 +2261,13 @@ class InferenceEngine(EngineCore):
             extra = (self._upload(mm_embeds),)
         stochastic = seq.temperature > 0.0
         if self.step_sink is not None:
-            self.step_sink("rsp" if use_sp else "pp", {
+            self.step_sink("rsp" if use_sp else "mrp" if mm else "pp", {
                 "pint": pint, "tw": np.array([T, W], np.int32),
                 "st": np.array([stochastic], np.int32)})
+        if mm and self.world > 1:
+            # after the mrp plan: the chunk's embeddings ride a broadcast
+            # over the world, never the plan stream
+            comm.broadcast(extra[0], self._world_group, op="mm_deliver")
         if use_sp:
             self.num_sp_prefills += 1
         # the prefill posts its sample into ctl["last_tok"] in place; the

@@ -58,9 +58,11 @@ buffers:
   rank does not hold are zeros there, so those two sums are exact). Every
   rank then holds the same hidden states and full logits and samples the
   same tokens. Both kernel faces run unchanged at ``H/tp`` query heads and
-  ``KV/tp`` KV heads. ``encode_forward``, the multimodal splice and the KV
-  block ops are single-rank (the engine refuses them on any multi-rank
-  mesh). Every ``all_reduce`` runs over the rank's **tp row**: on a
+  ``KV/tp`` KV heads. ``encode_forward`` runs the same split
+  (:func:`encode_layer`), the multimodal splice runs unchanged on every
+  rank (the leader broadcasts the embeddings), and the KV block ops gather
+  the rank's heads and write its slice of a full payload
+  (:func:`make_kv_ops`). Every ``all_reduce`` runs over the rank's **tp row**: on a
   ``(dp, tp)`` mesh the ``dp`` replicas hold the same parameters and
   cache and run the same dense step redundantly, as GSPMD runs the JAX
   package's replicated activations. The groups come from the engine's
@@ -541,6 +543,38 @@ def chunk_plan(cfg: ModelConfig, eng: EngineConfig, positions: torch.Tensor,
     return c
 
 
+def _ffn(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+         tpg: comm.Group) -> torch.Tensor:
+    """A layer's dense or MoE FFN over the normed ``x [B, T, D]``, in
+    ``x``'s dtype. Under tp (``tpg`` of more than one member) the dense
+    ``w_down`` is row-parallel (one ``all_reduce``), and each rank runs
+    its experts (ep rides tp) and one ``all_reduce`` sums their f32
+    partial outputs. :func:`layer_forward` and :func:`encode_layer` both
+    run it."""
+    tp = tpg.size
+    if cfg.is_moe:
+        B, T, D = x.shape
+        out = moe_ffn(
+            x.reshape(B * T, D),
+            p["w_router"],
+            _dequant_leaf(p["w_gate"], x.dtype),
+            _dequant_leaf(p["w_up"], x.dtype),
+            _dequant_leaf(p["w_down"], x.dtype),
+            top_k=cfg.num_experts_per_token,
+            capacity_factor=cfg.moe_capacity_factor,
+            expert_offset=None if tp == 1 else tpg.index * (
+                cfg.num_experts // tp),
+        )
+        if tp > 1:
+            out = comm.all_reduce(out, tpg).to(x.dtype)
+        return out.reshape(B, T, D)
+    gate = F.silu(_mm(x, p["w_gate"]).float())
+    up = _mm(x, p["w_up"]).float()
+    act = (gate * up).to(x.dtype)
+    return (_mm(act, p["w_down"]) if tp == 1
+            else _row_mm(act, p["w_down"], tpg))
+
+
 def layer_forward(cfg: ModelConfig, eng: EngineConfig, p: Dict[str, Any],
                   cache: Cache, li: int, h: torch.Tensor,
                   c: ChunkPlan) -> torch.Tensor:
@@ -623,32 +657,13 @@ def layer_forward(cfg: ModelConfig, eng: EngineConfig, p: Dict[str, Any],
     x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
     if cfg.is_moe:
         # every row of the chunk is routed, padding included, in the
-        # reference's order: capacity slots go to rows in [B*T] order.
-        # Under tp each rank runs its experts (ep rides tp) and one
-        # all_reduce sums their f32 partial outputs. An sp rank routes
-        # the whole chunk (gathered over the dp column), then keeps its
-        # rows: capacity slots depend on every row before its own
-        D = x.shape[-1]
-        out = moe_ffn(
-            comm.all_gather(x, dpg, dim=1).reshape(B * T, D),
-            p["w_router"],
-            _dequant_leaf(p["w_gate"], x.dtype),
-            _dequant_leaf(p["w_up"], x.dtype),
-            _dequant_leaf(p["w_down"], x.dtype),
-            top_k=cfg.num_experts_per_token,
-            capacity_factor=cfg.moe_capacity_factor,
-            expert_offset=None if tp == 1 else tpg.index * (
-                cfg.num_experts // tp),
-        )
-        if tp > 1:
-            out = comm.all_reduce(out, tpg).to(x.dtype)
-        h = h + out.reshape(B, T, D)[:, c.mine]
+        # reference's order: capacity slots go to rows in [B*T] order. An
+        # sp rank routes the whole chunk (gathered over the dp column),
+        # then keeps its rows: capacity slots depend on every row before
+        # its own
+        h = h + _ffn(cfg, p, comm.all_gather(x, dpg, dim=1), tpg)[:, c.mine]
     else:
-        gate = F.silu(_mm(x, p["w_gate"]).float())
-        up = _mm(x, p["w_up"]).float()
-        act = (gate * up).to(h.dtype)
-        h = h + (_mm(act, p["w_down"]) if tp == 1
-                 else _row_mm(act, p["w_down"], tpg))
+        h = h + _ffn(cfg, p, x, tpg)
     return h
 
 
@@ -752,57 +767,39 @@ def _head_mm(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 # --------------------------- encode (embeddings) --------------------------
 
 
-def encode_forward(
-    cfg: ModelConfig,
-    params: Params,
-    tokens: torch.Tensor,      # [B, T] int (0 = pad)
-    positions: torch.Tensor,   # [B, T] int, -1 = pad
-) -> torch.Tensor:
-    """Encode-only forward: dense causal attention over the chunk through
-    the plain :func:`_attention`, no paged cache — the engine step for
-    ``/v1/embeddings`` (ref: the embeddings route in
-    lib/llm/src/http/service/openai.rs:714; the decoder itself encodes).
-
-    Returns L2-normalised mean-pooled final hidden states ``[B, D]`` in f32
-    (the mean over positions >= 0, divided by ``max(count, 1)``; the norm
-    floored at 1e-12). Pad rows attend to nothing valid: their softmax is
-    uniform over masked scores, finite, and pooled out.
-    """
-    B, T = tokens.shape
+def encode_layer(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
+                 positions: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, tpg: comm.Group) -> torch.Tensor:
+    """One layer of the encode-only forward over ``h [B, T, D]``: dense
+    causal attention over the chunk through the plain :func:`_attention`
+    (no paged cache), then the dense or MoE FFN. On a tp rank (``tpg`` of
+    more than one member) it runs the rank's ``H/tp`` and ``KV/tp`` heads,
+    ``wo`` row-parallel (one ``all_reduce``) and the group-aware
+    :func:`_ffn`, as :func:`layer_forward` does, so every rank holds the
+    same ``h``.
+    :func:`encode_forward` runs every layer through here, and so does a
+    pipeline stage its own (``parallel/pp_serving.py``)."""
+    B, T, _ = h.shape
     hd = cfg.head_dim_
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-    positions = positions.long()
+    tp = tpg.size
+    H, KV = cfg.num_heads // tp, cfg.num_kv_heads // tp
+    x = _rms_norm(h, p["attn_norm"], cfg.rms_norm_eps)
+    q = _apply_rope(_mm(x, p["wq"]).reshape(B, T, H, hd), cos, sin)
+    k = _apply_rope(_mm(x, p["wk"]).reshape(B, T, KV, hd), cos, sin)
+    v = _mm(x, p["wv"]).reshape(B, T, KV, hd)
+    attn = _attention(q, k, v, positions).reshape(B, T, H * hd)
+    h = h + (_mm(attn, p["wo"]) if tp == 1
+             else _row_mm(attn, p["wo"], tpg))
+    x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
+    return h + _ffn(cfg, p, x, tpg)
 
-    h = params["embed"][tokens.long()]                    # [B, T, D]
-    cos, sin = _rope_tables(positions, cfg.rope_theta, hd)
-    stacked = params["layers"]
-    for li in range(cfg.num_layers):
-        p = _layer_slice(stacked, li)
-        x = _rms_norm(h, p["attn_norm"], cfg.rms_norm_eps)
-        q = _apply_rope(_mm(x, p["wq"]).reshape(B, T, H, hd), cos, sin)
-        k = _apply_rope(_mm(x, p["wk"]).reshape(B, T, KV, hd), cos, sin)
-        v = _mm(x, p["wv"]).reshape(B, T, KV, hd)
-        attn = _attention(q, k, v, positions)
-        h = h + _mm(attn.reshape(B, T, H * hd), p["wo"])
-        x = _rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
-        if cfg.is_moe:
-            D = x.shape[-1]
-            out = moe_ffn(
-                x.reshape(B * T, D),
-                p["w_router"],
-                _dequant_leaf(p["w_gate"], x.dtype),
-                _dequant_leaf(p["w_up"], x.dtype),
-                _dequant_leaf(p["w_down"], x.dtype),
-                top_k=cfg.num_experts_per_token,
-                capacity_factor=cfg.moe_capacity_factor,
-            )
-            h = h + out.reshape(B, T, D)
-        else:
-            gate = F.silu(_mm(x, p["w_gate"]).float())
-            up = _mm(x, p["w_up"]).float()
-            h = h + _mm((gate * up).to(h.dtype), p["w_down"])
+
+def encode_pool(cfg: ModelConfig, params: Params, h: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """The encode step's head: the final norm, then L2-normalised mean-
+    pooled hidden states ``[B, D]`` in f32 (the mean over positions >= 0,
+    divided by ``max(count, 1)``; the norm floored at 1e-12)."""
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-
     valid = (positions >= 0).float()[:, :, None]          # [B, T, 1]
     pooled = (h.float() * valid).sum(dim=1) / torch.clamp(
         valid.sum(dim=1), min=1.0)                         # [B, D]
@@ -810,14 +807,48 @@ def encode_forward(
     return pooled / torch.clamp(norm, min=1e-12)
 
 
-def make_encode_fn(cfg: ModelConfig):
+def encode_forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,      # [B, T] int (0 = pad)
+    positions: torch.Tensor,   # [B, T] int, -1 = pad
+    mesh: Optional[Mesh] = None,
+) -> torch.Tensor:
+    """Encode-only forward: dense causal attention over the chunk through
+    the plain :func:`_attention`, no paged cache — the engine step for
+    ``/v1/embeddings`` (ref: the embeddings route in
+    lib/llm/src/http/service/openai.rs:714; the decoder itself encodes).
+
+    Returns L2-normalised mean-pooled final hidden states ``[B, D]`` in f32
+    (:func:`encode_pool`). Pad rows attend to nothing valid: their softmax
+    is uniform over masked scores, finite, and pooled out.
+
+    On a tp rank (``mesh`` with a tp row of more than one rank, params
+    this rank's shard) the lookup is the vocab-sharded one and each layer
+    the group-aware :func:`encode_layer`; the pooled result is the same on
+    every rank, as the JAX ``make_encode_fn``'s on a mesh is replicated.
+    """
+    tpg = comm.SOLO if mesh is None else mesh.tp_group
+    positions = positions.long()
+    h = _embed_lookup(params["embed"], tokens, cfg.vocab_size,
+                      tpg)                                 # [B, T, D]
+    cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim_)
+    stacked = params["layers"]
+    for li in range(cfg.num_layers):
+        h = encode_layer(cfg, _layer_slice(stacked, li), h, positions, cos,
+                         sin, tpg)
+    return encode_pool(cfg, params, h, positions)
+
+
+def make_encode_fn(cfg: ModelConfig, mesh: Optional[Mesh] = None):
     """The encode step: ``(params, tokens[B,T], positions[B,T]) -> [B, D]``,
     run eagerly without autograd (the JAX package jits one program per
-    (B, T) bucket; eager PyTorch makes no program to count)."""
+    (B, T) bucket; eager PyTorch makes no program to count). ``mesh``
+    binds a tp rank's group, as ``forward`` binds it."""
 
     def encode(params, tokens, positions):
         with torch.inference_mode():
-            return encode_forward(cfg, params, tokens, positions)
+            return encode_forward(cfg, params, tokens, positions, mesh)
 
     return encode
 
@@ -1588,7 +1619,7 @@ def cache_payload_keys(eng: EngineConfig) -> Tuple[str, ...]:
 
 
 
-def make_kv_ops(eng: EngineConfig):
+def make_kv_ops(eng: EngineConfig, mesh: Optional[Mesh] = None):
     """(extract, inject) block gather/scatter over the paged cache.
 
     extract(cache, block_ids[N]) -> {"k","v"}: [L, N, KV, bs, hd]
@@ -1597,8 +1628,16 @@ def make_kv_ops(eng: EngineConfig):
     inject(cache, block_ids[N], data) -> cache, the same object, each layer
     written in place with ``index_copy_`` (``data`` on the cache's device).
     Pad ids name the trash block 0: pads gather it and scatter into it.
-    """
+
+    On a tp rank (``mesh``, the engine's, with a tp axis above 1) the
+    cache holds the rank's ``KV/tp`` heads: extract gathers those (``[L,
+    N, KV/tp, ...]``; the engine joins the ranks' slices), and inject
+    always takes the full payload of the JAX layout — every KV head, in
+    head order (``SpecLayout.kv_payload_specs``) — and writes the rank's
+    head slice of it."""
     keys = cache_payload_keys(eng)
+    mesh = make_mesh(eng.mesh_shape) if mesh is None else mesh
+    specs = SpecLayout.for_mesh(eng.mesh_shape).kv_payload_specs(keys)
 
     def extract(cache: Cache, block_ids: torch.Tensor) -> Dict[str, Any]:
         ids = block_ids.long()
@@ -1611,6 +1650,8 @@ def make_kv_ops(eng: EngineConfig):
         ids = block_ids.long()
         for key in keys:
             src = data[key]
+            if mesh.shape["tp"] > 1:
+                src = shard_tensor(src, specs[key], mesh)
             for li, layer in enumerate(cache[key]):
                 if layer.dtype == torch.float8_e4m3fn:
                     # no index_copy_ for fp8: copy the same bytes as uint8

@@ -7,9 +7,15 @@ explicitly: a group of the serving mesh (``parallel/layout.py``
 column) or the world. ``all_reduce`` (sum) and ``broadcast`` carry the
 Megatron sums of ``engine/model.py`` over the tp row, ``ppermute`` the
 ring attention's hop and a pipeline's stage-to-stage one, ``all_gather``
-the sp prefill's K/V for the cache and ``all_to_all`` Ulysses. Every call is counted with its bytes and the
-host microseconds it blocked (:data:`STATS`), so a run can report the
-collectives per step.
+the sp prefill's K/V for the cache and ``all_to_all`` Ulysses. The
+single-rank paths on a mesh move their payloads counted apart (``op``):
+a ``gather`` over the tp row joins each rank's KV heads of an extracted
+block payload on the row's first member (``kv_gather``), and a
+``broadcast`` over the world hands every rank a payload the leader holds
+(an injected KV payload, ``kv_deliver``, or a multimodal chunk's
+embeddings, ``mm_deliver``). Every call is counted with its bytes and
+the host microseconds it blocked (:data:`STATS`), so a run can report
+the collectives per step.
 
 The backend follows the device: ``nccl`` for ``cuda``, ``gloo`` for the
 CPU. ``DYNTPU_DIST_BACKEND`` overrides it (``gloo`` puts two ranks on one
@@ -17,9 +23,9 @@ card). NCCL refuses two ranks on one device, so :func:`check_backend`
 refuses that at init with a message, never switching backend behind the
 caller's back. Under ``nccl`` every collective here runs natively, and so
 does every one under gloo but the ring hop: gloo's ``all_reduce``,
-``broadcast``, ``all_gather`` and ``all_to_all`` take CUDA tensors (they
-copy through the host themselves), its send/recv does not (an H100 run of
-``chip_smoke.py`` phase 18 probes all five). :func:`ppermute` therefore
+``broadcast``, ``all_gather``, ``gather`` and ``all_to_all`` take CUDA
+tensors (they copy through the host themselves), its send/recv does not
+(an H100 run of ``chip_smoke.py`` phase 18 probes all six). :func:`ppermute` therefore
 copies a CUDA tensor to the host on purpose under gloo, and counts those
 bytes as ``staged_bytes`` — a named path, never a silent switch.
 """
@@ -45,7 +51,8 @@ BACKEND_ENV = "DYNTPU_DIST_BACKEND"
 # (host ints; the time is the blocking call's, launch to return), plus the
 # bytes the ring hop copied through the host (gloo's send/recv takes no
 # CUDA tensor)
-_OPS = ("all_reduce", "broadcast", "ppermute", "all_gather", "all_to_all")
+_OPS = ("all_reduce", "broadcast", "ppermute", "all_gather", "all_to_all",
+        "kv_gather", "kv_deliver", "mm_deliver")
 STATS: Dict[str, int] = {f"{op}_{what}": 0 for op in _OPS
                          for what in ("calls", "bytes", "us")}
 STATS["staged_bytes"] = 0
@@ -205,15 +212,15 @@ def all_reduce(t: torch.Tensor, group: Group) -> torch.Tensor:
     return t
 
 
-def broadcast(t: torch.Tensor, group: Group, src: int = 0
-              ) -> torch.Tensor:
+def broadcast(t: torch.Tensor, group: Group, src: int = 0,
+              op: str = "broadcast") -> torch.Tensor:
     """The ``t`` of the group's member ``src`` (an index into the group)
-    on every member, in place; returns ``t``."""
+    on every member, in place; returns ``t``. Counted under ``op``."""
     if group.size == 1:
         return t
     t0 = time.perf_counter()
     dist.broadcast(t, src=group.ranks[src], group=group.pg)
-    _count("broadcast", t0, t.numel() * t.element_size())
+    _count(op, t0, t.numel() * t.element_size())
     return t
 
 
@@ -272,11 +279,12 @@ def ppermute(t: torch.Tensor, group: Group, shift: int = 1, *,
     return got
 
 
-def all_gather(t: torch.Tensor, group: Group, dim: int = 0
-               ) -> torch.Tensor:
-    """The members' ``t`` concatenated along ``dim`` in group order.
-    Exact: each element is copied, never summed (a gather built as a
-    zero-padded ``all_reduce`` would turn ``-0.0`` into ``+0.0``)."""
+def all_gather(t: torch.Tensor, group: Group, dim: int = 0,
+               op: str = "all_gather") -> torch.Tensor:
+    """The members' ``t`` concatenated along ``dim`` in group order,
+    counted under ``op``. Exact: each element is copied, never summed (a
+    gather built as a zero-padded ``all_reduce`` would turn ``-0.0`` into
+    ``+0.0``)."""
     n = group.size
     if n == 1:
         return t
@@ -285,7 +293,25 @@ def all_gather(t: torch.Tensor, group: Group, dim: int = 0
     parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group.pg)
     out = torch.cat(parts, dim=dim)
-    _count("all_gather", t0, src.numel() * src.element_size())
+    _count(op, t0, src.numel() * src.element_size())
+    return out
+
+
+def gather(t: torch.Tensor, group: Group, dim: int, op: str):
+    """The members' ``t`` concatenated along ``dim`` in group order on the
+    group's first member, None on the others; counted under ``op`` with
+    the bytes of this member's ``t``. Exact, as :func:`all_gather` is;
+    only the first member receives."""
+    n = group.size
+    if n == 1:
+        return t
+    t0 = time.perf_counter()
+    src = t.contiguous()
+    parts = ([torch.empty_like(src) for _ in range(n)]
+             if group.index == 0 else None)
+    dist.gather(src, parts, dst=group.ranks[0], group=group.pg)
+    out = None if parts is None else torch.cat(parts, dim=dim)
+    _count(op, t0, src.numel() * src.element_size())
     return out
 
 

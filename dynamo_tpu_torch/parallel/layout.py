@@ -271,6 +271,23 @@ class SpecLayout:
         """Per-layer KV-scale cache [NB, KV, bs] of a quantized cache."""
         return spec(None, self.tp, None)
 
+    def kv_blocks(self) -> Spec:
+        """An extracted or injected KV block payload [L, N, KV, bs, hd]:
+        KV heads over tp, as in the cache, so a rank's slice of a payload
+        is its cache's heads."""
+        return spec(None, None, self.tp, None, None)
+
+    def kv_scale_blocks(self) -> Spec:
+        """The scale payload [L, N, KV, bs] of a quantized cache."""
+        return spec(None, None, self.tp, None)
+
+    def kv_payload_specs(self, keys) -> Dict[str, Spec]:
+        """Per-key specs of a KV block payload dict (the JAX
+        ``kv_payload_shardings``): pages ``kv_blocks``, scale planes
+        ``kv_scale_blocks``."""
+        return {k: (self.kv_scale_blocks() if k in ("ks", "vs")
+                    else self.kv_blocks()) for k in keys}
+
     def cache_specs(self, cfg, kv_dtype: str = "bf16") -> Dict[str, Any]:
         from ..engine import quant
 

@@ -39,10 +39,15 @@ there because its collectives are asynchronous on the device; a gloo
 ``all_reduce`` blocks the host, so a leader that launched first would wait
 inside the collective for a follower that waits for the plan.
 
-Scope (as the JAX multi-host worker's, ``multihost.py:31-34``): a
-multi-rank worker serves the aggregated path; KV movement, the KVBM tiers,
-preemption evacuation, embeddings and multimodal prefill are refused on a
-world of more than one rank (ROADMAP.md queue A, item 6.2).
+The single-rank paths ride the same stream: a KV extract (``kx``) and
+inject (``ki``) carry only the padded block ids, an ``emb`` plan one
+embedding group's tokens and positions, an ``mrp`` plan a multimodal
+prefill chunk's packed ints. Payloads never ride it: the KV blocks and a
+chunk's image embeddings move by a collective the plan leads into
+(``comm.gather`` / ``comm.broadcast``, counted as ``kv_gather``,
+``kv_deliver`` and ``mm_deliver``). As in the JAX multi-host worker,
+a worker that spans hosts serves neither disaggregation nor the KVBM
+tiers (``worker.check_supported``).
 """
 
 from __future__ import annotations
@@ -328,8 +333,12 @@ def replay_plan(engine, kind: str, arrays: Dict[str, np.ndarray]) -> None:
     prefill chunk / a decode batch with host arrays: a pipeline-parallel
     leader emits them, as the JAX engine's synchronous path does, and a
     follower runs its stage's part of the GPipe step,
-    ``engine.unified_step``). ``mrp`` (multimodal prefill on a multi-rank
-    engine) is refused by name."""
+    ``engine.unified_step``), and the single-rank paths on a mesh:
+    ``kx``/``ki`` a KV block extract / inject of the padded ids (the
+    leader joins the heads / broadcasts the payload by a collective the
+    follower meets here), ``emb`` one embedding group, ``mrp`` a
+    multimodal prefill chunk (the ``pp`` contract with the image mask;
+    its ``[T, D]`` embeddings arrive by broadcast from the leader)."""
     engine.num_replayed[kind] = engine.num_replayed.get(kind, 0) + 1
     up = engine._upload
     if kind in ("w", "sw"):
@@ -358,14 +367,28 @@ def replay_plan(engine, kind: str, arrays: Dict[str, np.ndarray]) -> None:
         engine.cache, _, _ = fn(
             engine.params, engine.cache, engine._ctl["last_tok"],
             up(arrays["pint"]), engine._next_key(), bool(arrays["st"][0]))
+    elif kind == "mrp":
+        T, W = (int(x) for x in arrays["tw"])
+        emb = torch.zeros((T, engine.model_config.hidden_size),
+                          dtype=torch.float32, device=engine.device)
+        comm.broadcast(emb, engine._world_group, op="mm_deliver")
+        engine.num_mm_prefills += 1
+        engine.cache, _, _ = engine._prefill_fn(T, W, True)(
+            engine.params, engine.cache, engine._ctl["last_tok"],
+            up(arrays["pint"]), engine._next_key(), bool(arrays["st"][0]),
+            emb)
+    elif kind == "kx":
+        engine._gather_blocks(arrays["ids"])
+    elif kind == "ki":
+        engine._scatter_blocks(
+            arrays["ids"], engine._kv_payload_like(len(arrays["ids"])))
+    elif kind == "emb":
+        engine._encode_group(arrays["tokens"], arrays["positions"],
+                             fetch=False)
     elif kind in ("p", "d"):
         # this stage's part of the GPipe step (its hops meet the
         # leader's); an engine without pp_stages refuses the plan
         engine.unified_step(arrays)
-    elif kind == "mrp":
-        raise NotImplementedError(
-            "plan kind 'mrp' (multimodal prefill on a multi-rank engine) "
-            "needs ROADMAP.md queue A, item 6.2")
     else:
         raise ValueError(f"unknown plan kind {kind!r}")
 

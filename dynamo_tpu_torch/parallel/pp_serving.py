@@ -36,6 +36,14 @@ because each stage processes microbatches in order.
 
 Same signature as ``model.raw_step_fn``, so the engine and
 ``multihost.replay_plan`` call it unchanged.
+
+Embeddings (:func:`make_pp_encode_fn`): the JAX pp engine encodes with a
+mesh-less encode fn over its whole tree; a stage here holds only its
+layers, so the stages run the encode together, the same schedule at
+M = 1: stage 0 looks up the tokens, each stage runs its layers through
+the encode body (``model.encode_layer``) on ``[B, T, D]``, the hidden
+state hops by ``ppermute``, and the last stage norms and pools, then one
+``broadcast`` hands the ``[B, D]`` vectors to every stage.
 """
 
 from __future__ import annotations
@@ -172,6 +180,43 @@ def raw_pp_step_fn(cfg: ModelConfig, eng: EngineConfig, group: comm.Group,
         return cache, sampled
 
     return step
+
+
+def make_pp_encode_fn(cfg: ModelConfig, group: comm.Group):
+    """The encode step of this rank's stage, with ``model.make_encode_fn``'s
+    signature: ``encode(params, tokens[B,T], positions[B,T]) -> [B, D]``
+    f32, the same on every rank, run without autograd."""
+    S = group.size
+    Lp = stage_layers(cfg, S, 0)[1]
+
+    def run_layers(params, h, positions, cos, sin):
+        for li in range(Lp):
+            h = model_lib.encode_layer(
+                cfg, model_lib._layer_slice(params["layers"], li), h,
+                positions, cos, sin, comm.SOLO)
+        return h
+
+    @torch.inference_mode()
+    def encode(params, tokens, positions):
+        B, T = tokens.shape
+        positions = positions.long()
+        cos, sin = model_lib._rope_tables(positions, cfg.rope_theta,
+                                          cfg.head_dim_)
+        embed = params["embed"]
+        blank = torch.zeros((B, T, cfg.hidden_size), dtype=embed.dtype,
+                            device=tokens.device)
+        banked = gpipe(group, 1, lambda m: embed[tokens.long()],
+                       lambda m, h: run_layers(params, h, positions, cos,
+                                               sin), blank)
+        pooled = None
+        if banked is not None:          # the last stage pools
+            pooled = model_lib.encode_pool(cfg, params, banked[0], positions)
+        return broadcast_last(
+            pooled, group,
+            torch.empty((B, cfg.hidden_size), dtype=torch.float32,
+                        device=tokens.device))
+
+    return encode
 
 
 def make_pp_step_fn(cfg: ModelConfig, eng: EngineConfig, group: comm.Group,

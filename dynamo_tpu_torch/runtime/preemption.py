@@ -361,17 +361,29 @@ class PreemptionCoordinator:
                         seq.seq_id)
             return None
         try:
-            plane = self.plane
-            if plane is None:
-                from ..disagg.ici import DevicePlane
+            from ..disagg.ici import DevicePlane, multi_rank
 
-                plane = self.plane = DevicePlane()
             nb = len(dst_seq.block_table)
-            moved = await plane.transfer(
-                self.engine, list(seq.block_table[:nb]),
-                self.peer, list(dst_seq.block_table),
-                dst_seq_id=dst_seq.seq_id, dst_epoch=dst_seq.kv_epoch,
-            )
+            if multi_rank(self.engine) or multi_rank(self.peer):
+                # a rank of a world moves KV only through its extract /
+                # inject, whose plans bring every rank in: host-staged,
+                # never the device plane
+                data = await self.engine.extract_kv_blocks(
+                    list(seq.block_table[:nb]))
+                await self.peer.inject_kv_blocks(
+                    list(dst_seq.block_table), data,
+                    seq_id=dst_seq.seq_id, epoch=dst_seq.kv_epoch)
+                moved = sum(a.numel() * a.element_size()
+                            for a in data.values())
+            else:
+                plane = self.plane
+                if plane is None:
+                    plane = self.plane = DevicePlane()
+                moved = await plane.transfer(
+                    self.engine, list(seq.block_table[:nb]),
+                    self.peer, list(dst_seq.block_table),
+                    dst_seq_id=dst_seq.seq_id, dst_epoch=dst_seq.kv_epoch,
+                )
         except asyncio.CancelledError:
             # deadline cancelled us mid-transfer: the reservation must not
             # outlive the attempt or it leaks on the receiver

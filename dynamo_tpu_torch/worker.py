@@ -202,36 +202,39 @@ def mesh_shape(args: argparse.Namespace):
     return tuple(int(x) for x in args.mesh.replace(" ", "").split(","))
 
 
+MULTI_HOST_AGG_ONLY = ("multi-host workers serve the aggregated path only "
+                       "(disagg/KVBM are single-host features)")
+
+
 def check_supported(args: argparse.Namespace) -> None:
-    """Refuse every flag whose path this package does not serve yet."""
+    """Refuse every flag whose path this package does not serve: a worker
+    that spans hosts serves neither disaggregation nor the KVBM tiers
+    (the JAX worker's refusal, in its words), and a pipeline-parallel
+    worker none of the disaggregated, KVBM and multimodal paths (the JAX
+    pp engine refuses each; serving them is beyond the reference). A
+    single-host ``--mesh D,N`` worker serves them all, its follower ranks
+    joining by plans."""
     from .parallel.layout import check_mesh_shape
 
-    a6 = ("the single-rank paths on a multi-rank worker (ROADMAP.md "
-          "queue A, item 6.2)")
     dp, tp = check_mesh_shape(mesh_shape(args))
     if args.pp > 1 and dp * tp > 1:
         raise ValueError("pp_stages and a (dp, tp) mesh are exclusive")
-    unsupported = []
-    if dp * tp * args.pp > 1:
-        # the scope of the JAX multi-host worker: the aggregated path
-        where = (f"on a pipeline-parallel worker (--pp {args.pp})"
-                 if args.pp > 1 else
-                 f"on a multi-rank worker (--mesh {dp},{tp})")
-        unsupported += [
-            (args.disagg_mode != "agg", f"--disagg-mode {args.disagg_mode}"
-             f" {where}", a6),
-            (args.kvbm_host_blocks > 0 or args.kvbm_distributed
-             or args.kvbm_group is not None,
-             f"the KVBM tiers {where}", a6),
-            (args.mm_encoder or args.mm_encode_component is not None,
-             f"multimodal EPD {where}", a6),
-        ]
-    for bad, what, needs in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} needs {needs}, which dynamo_tpu_torch does not "
-                "serve yet"
-            )
+    kvbm = (args.kvbm_host_blocks > 0 or args.kvbm_distributed
+            or args.kvbm_group is not None)
+    if args.num_hosts > 1 and (args.disagg_mode != "agg" or kvbm):
+        raise SystemExit(MULTI_HOST_AGG_ONLY)
+    if args.pp > 1:
+        where = f"on a pipeline-parallel worker (--pp {args.pp})"
+        beyond = ("the JAX pipeline-parallel engine refuses it; ROADMAP.md, "
+                  "the refusals that remain")
+        for bad, what in (
+                (args.disagg_mode != "agg",
+                 f"--disagg-mode {args.disagg_mode}"),
+                (kvbm, "the KVBM tiers"),
+                (args.mm_encoder or args.mm_encode_component is not None,
+                 "multimodal EPD")):
+            if bad:
+                raise NotImplementedError(f"{what} {where}: {beyond}")
 
 
 def launch_counts() -> str:

@@ -286,57 +286,153 @@ def test_tensor_parallel_mesh_is_served():
 
 
 def _single_rank_calls(engine):
+    """Each single-rank path on ``engine``, served: what it returns."""
+    import numpy as np
+
     from dynamo_tpu_torch.engine.engine import EngineCore, Request
+
+    cfg, eng = engine.model_config, engine.config
+    payload = {key: torch.zeros((cfg.num_layers, 1, cfg.num_kv_heads,
+                                 eng.block_size, cfg.head_dim_))
+               for key in ("k", "v")}
+
+    async def mm():
+        try:
+            return [o.token_id async for o in EngineCore.submit(
+                engine, Request(
+                    request_id="m", token_ids=[1, 2, 3], max_tokens=2,
+                    mm_positions=[0],
+                    mm_embeddings=np.ones((1, cfg.hidden_size), np.float32),
+                    mm_hash_token_ids=[0x80000001, 2, 3]))]
+        finally:
+            await engine.stop()
 
     return {
         "extract": lambda: asyncio.run(engine.extract_kv_blocks([1])),
-        "inject": lambda: asyncio.run(engine.inject_kv_blocks([1], {})),
+        "inject": lambda: asyncio.run(engine.inject_kv_blocks([1], payload)),
         "kvbm": lambda: engine.attach_kvbm(),
         "evacuation": engine.evacuable_seats,
         "embed": lambda: asyncio.run(engine.embed([[1, 2]])),
-        "mm": lambda: asyncio.run(EngineCore.submit(engine, Request(
-            request_id="m", token_ids=[1, 2], mm_positions=[0],
-        )).__anext__()),
+        "mm": lambda: asyncio.run(mm()),
     }
 
 
-@pytest.mark.parametrize("what", [
-    "extract", "inject", "kvbm", "evacuation", "embed", "mm",
-])
-def test_tensor_parallel_engine_refuses_the_single_rank_paths(what):
-    """Under tp > 1 the engine refuses KV movement, the KVBM tiers,
-    preemption evacuation, embeddings and multimodal prefill by name, as
-    the JAX multi-host worker's scope does."""
+# the plan each path emits, then the collectives it leads into (a KV
+# extract joins K and V on the leader over the tp row, an inject
+# broadcasts both, an mm
+# chunk its embeddings; embed's sums ride the tp row's all_reduce)
+_PATH_EVENTS = {
+    "extract": [("plan", "kx"), ("gather", "kv_gather"),
+                ("gather", "kv_gather")],
+    "inject": [("plan", "ki"), ("broadcast", "kv_deliver"),
+               ("broadcast", "kv_deliver")],
+    "kvbm": [], "evacuation": [],
+    "embed": [("plan", "emb")],
+    # (of an mm request's plans, its chunk's: the decode plans follow)
+    "mm": [("plan", "mrp"), ("broadcast", "mm_deliver")],
+}
+
+
+def _served_on_a_faked_rank(monkeypatch, what, tp):
+    """A one-rank engine marked as a rank of a world of two (``tp`` of
+    them on its tp row), with a recording plan sink: the path is served,
+    each plan is emitted before the collective it leads into, and no
+    collective reaches a peer (the engine's groups hold one rank)."""
+    from dynamo_tpu_torch.parallel import comm
+
     engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
-        num_blocks=16, max_model_len=64), device="cpu")
-    engine.tp = engine.world = 2   # what a rank of a (1, 2) world holds
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _single_rank_calls(engine)[what]()
+        num_blocks=16, max_model_len=64, decode_buckets=(4,),
+        max_num_seqs=4), device="cpu")
+    engine.world = 2               # what a rank of a (1, 2) / (2, 1) world
+    engine.tp = tp                 # holds
+    events = []
+    engine.step_sink = lambda kind, arrays: events.append(("plan", kind))
+    for name in ("gather", "broadcast"):
+        orig = getattr(comm, name)
+
+        def tap(*a, _orig=orig, _name=name, **kw):
+            events.append((_name, kw.get("op")))
+            return _orig(*a, **kw)
+        monkeypatch.setattr(comm, name, tap)
+    comm.reset_stats()
+    out = _single_rank_calls(engine)[what]()
+    stats = dict(comm.STATS)
+    if what == "mm":
+        events = [e for e in events if e[1] in ("mrp", "mm_deliver")]
+    assert events == _PATH_EVENTS[what]
+    assert not any(v for k, v in stats.items() if k.endswith("_calls"))
+    return engine, out
+
+
+def _check_served(engine, what, out):
+    cfg = engine.model_config
+    if what == "extract":
+        assert out["k"].shape == (cfg.num_layers, 1, cfg.num_kv_heads, 16,
+                                  cfg.head_dim_)
+    elif what == "inject":
+        assert out is None and not engine.cache["k"][0][1].any()
+    elif what == "kvbm":
+        assert out is engine.kvbm is not None
+    elif what == "evacuation":
+        assert out == []
+    elif what == "embed":
+        assert len(out) == 1 and len(out[0]) == cfg.hidden_size
+    else:
+        assert len(out) == 2 and engine.num_mm_prefills == 1
 
 
 @pytest.mark.parametrize("what", [
     "extract", "inject", "kvbm", "evacuation", "embed", "mm",
 ])
-def test_data_parallel_engine_refuses_the_single_rank_paths(what):
-    """A rank of a (2, 1) world has ``tp == 1``: the refusals key on the
-    mesh's ranks, so it refuses the same paths by name."""
-    engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
-        num_blocks=16, max_model_len=64), device="cpu")
-    engine.world = 2               # what a rank of a (2, 1) world holds
+def test_tensor_parallel_engine_refuses_the_single_rank_paths(
+        what, monkeypatch):
+    """Under tp > 1 the engine serves KV movement, the KVBM tiers,
+    preemption evacuation, embeddings and multimodal prefill (nothing of
+    them is refused any more, as in the JAX engine on a one-host mesh):
+    each path emits its plan (``kx``, ``ki``, ``emb``, ``mrp``) before
+    the collective it leads into. tests/test_torch_mesh_paths.py runs
+    them on a world of ranks against the JAX engine."""
+    engine, out = _served_on_a_faked_rank(monkeypatch, what, tp=2)
+    _check_served(engine, what, out)
+
+
+@pytest.mark.parametrize("what", [
+    "extract", "inject", "kvbm", "evacuation", "embed", "mm",
+])
+def test_data_parallel_engine_refuses_the_single_rank_paths(
+        what, monkeypatch):
+    """A rank of a (2, 1) world has ``tp == 1``: the paths key on the
+    mesh's ranks, so it serves them by the same plans, every dp row taking
+    the same inject."""
+    engine, out = _served_on_a_faked_rank(monkeypatch, what, tp=1)
     assert engine.tp == 1
-    with pytest.raises(NotImplementedError, match="2 ranks, tp=1"):
-        _single_rank_calls(engine)[what]()
+    _check_served(engine, what, out)
 
 
 def test_multimodal_prefill_plan_is_refused_by_name():
-    """``mrp`` (multimodal prefill on a multi-rank engine) stays refused
-    by name; an unknown kind is an error."""
+    """``mrp`` (multimodal prefill on a multi-rank engine) is served: a
+    follower replays it as an mm packed prefill whose embeddings arrive
+    by delivery (a one-rank world delivers nothing); an unknown kind is
+    an error, and an ``rsp`` plan needs the sp prefill."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine import model as model_lib
     from dynamo_tpu_torch.parallel.multihost import replay_plan
 
     engine = InferenceEngine(ModelConfig.tiny(), EngineConfig(
         num_blocks=16, max_model_len=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="'mrp'.*item 6"):
-        replay_plan(engine, "mrp", {})
+    T, W = 16, 2
+    M = T + W + model_lib.PP_SCALARS
+    pint = np.zeros((1, M + T), np.int32)
+    pint[0, :4] = [5, 6, 7, 8]
+    pint[0, T:T + 1] = 1
+    pint[0, T + W:T + W + 4] = (4, 0, engine.config.max_num_seqs, 0)
+    pint[0, M] = 1
+    replay_plan(engine, "mrp", {"pint": pint, "tw": np.array([T, W]),
+                                "st": np.array([0])})
+    assert engine.num_replayed == {"mrp": 1}
+    assert engine.num_mm_prefills == 1
+    assert engine.cache["k"][0][1].any()
     with pytest.raises(ValueError, match="unknown plan kind"):
         replay_plan(engine, "zz", {})
     with pytest.raises(RuntimeError, match="sp_prefill_threshold"):
@@ -405,14 +501,27 @@ def test_worker_without_device_raises_on_a_cpu_machine():
     a.lstrip("-") if i % 2 == 0 else f"={a}" for i, a in enumerate(f)
 ).replace("+=", "="))
 def test_worker_refuses_unserved_flags(flags):
-    """Still refused: a 3-D mesh, and on a multi-rank worker (tensor-,
-    data- or pipeline-parallel) the disaggregated, KVBM and multimodal
-    paths."""
+    """Still refused: a 3-D mesh, and on a pipeline-parallel worker the
+    disaggregated, KVBM and multimodal paths (the JAX pp engine refuses
+    each). On a single-host ``--mesh`` worker they are served (its
+    followers join by plans); spread over two hosts, disaggregation and
+    the KVBM tiers are refused in the JAX worker's words, and multimodal
+    EPD is served."""
     from dynamo_tpu_torch import worker
 
     args = worker.parse_args(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        asyncio.run(worker.run_worker(args))
+    if args.pp > 1 or "1,2,2" in flags:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            asyncio.run(worker.run_worker(args))
+        return
+    worker.check_supported(args)
+    spread = worker.parse_args(["--device", "cpu", *flags, "--num-hosts",
+                                "2", "--coordinator", "h0:1234"])
+    if spread.mm_encoder:
+        worker.check_supported(spread)
+    else:
+        with pytest.raises(SystemExit, match="aggregated path only"):
+            worker.check_supported(spread)
 
 
 @pytest.mark.parametrize("flags", [

@@ -298,12 +298,21 @@ def test_data_parallel_worker_serves_through_the_frontend(tmp_path, tok):
     ["--mm-encoder"], ["--mm-encode-component", "encoder"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_data_parallel_worker_refuses_single_rank_paths(flags):
-    """A ``--mesh 2,1`` worker has tp 1 but two ranks: the disaggregated,
-    KVBM and multimodal paths are refused by name, before any rank
-    starts."""
+    """A ``--mesh 2,1`` worker has tp 1 but two ranks: on one host the
+    disaggregated, KVBM and multimodal paths pass ``check_supported``
+    (its follower joins them by plans); over two hosts disaggregation and
+    the KVBM tiers are refused in the JAX worker's words, before any rank
+    starts, and multimodal EPD is served."""
     from dynamo_tpu_torch import worker
 
-    args = worker.parse_args(["--device", "cpu", "--mesh", "2,1", *flags])
-    with pytest.raises(NotImplementedError,
-                       match=r"multi-rank worker \(--mesh 2,1\).*item 6"):
+    worker.check_supported(
+        worker.parse_args(["--device", "cpu", "--mesh", "2,1", *flags]))
+    args = worker.parse_args(["--device", "cpu", "--mesh", "2,1",
+                              "--num-hosts", "2", *flags])
+    if flags[0].startswith("--mm"):
+        worker.check_supported(args)
+        return
+    with pytest.raises(SystemExit) as e:
         asyncio.run(worker.run_worker(args))
+    assert str(e.value) == ("multi-host workers serve the aggregated path "
+                            "only (disagg/KVBM are single-host features)")

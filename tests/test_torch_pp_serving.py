@@ -15,7 +15,9 @@ the ``--pp 2`` worker's in ``test_torch_pp_worker.py``.
   synchronous loop with no decode graphs, control state or ladders,
   counts its stages as chips, warns about ``decode_steps > 1`` with JAX's
   words, refuses KV transfer, KVBM and multimodal prefill with JAX's
-  messages and embed and evacuation by item number;
+  messages, evacuates as the JAX engine does (the seats are journaled and
+  end as fallbacks, since the transfer refuses), and embeds equal to the
+  JAX pp engine (the stages encode together);
 - ``pp_stages`` with a ``(dp, tp)`` mesh raises JAX's ``ValueError``;
 - ``load_hf_params(..., layers=)`` reads a stage's layers only, bitwise
   the slice of the full load.
@@ -41,6 +43,7 @@ from dynamo_tpu_torch.engine import EngineConfig
 from dynamo_tpu_torch.engine import weights as tweights
 
 sys.path.insert(0, str(Path(__file__).parent))
+import test_torch_preemption as tpre_test  # noqa: E402
 import torch_tp_world as tw  # noqa: E402
 
 ATOL = 1e-5
@@ -152,11 +155,23 @@ def test_raw_pp_step_fn_matches_jax(world2, cfg_name, cpu_devices):
 
 
 @pytest.fixture(scope="module")
-def probe(world2):
-    """Every rank's report from a pp engine (decode_steps 4 and adaptive
-    buckets asked for, to see both declined)."""
+def jax_pp_embed():
+    """The JAX pp engine's tree and its ``embed`` of PROBE_EMBED."""
+    engine = JaxEngine(_jcfg("tiny:4"), JaxEngineConfig(**PP_KW), seed=0,
+                       devices=jax.devices("cpu")[:S])
+    vecs = np.asarray(asyncio.run(engine.embed(tw.PROBE_EMBED)), np.float32)
+    asyncio.run(engine.stop())
+    return numpy_tree(engine.params), vecs
+
+
+@pytest.fixture(scope="module")
+def probe(world2, jax_pp_embed):
+    """Every rank's report from a pp engine over the JAX pp engine's tree
+    (decode_steps 4 and adaptive buckets asked for, to see both
+    declined)."""
     return world2.run(tw.pp_engine_probe, "tiny:4",
-                      dict(PP_KW, decode_steps=4, adaptive_buckets=True))
+                      dict(PP_KW, decode_steps=4, adaptive_buckets=True),
+                      jax_pp_embed[0])
 
 
 @pytest.fixture(scope="module")
@@ -194,11 +209,39 @@ def test_pp_guards_keep_jax_messages(probe, jax_refusals, what):
 
 
 @pytest.mark.parametrize("what", ["embed", "evacuation"])
-def test_pp_refuses_embed_and_evacuation_by_item(probe, what):
+def test_pp_refuses_embed_and_evacuation_by_item(world2, probe, jax_refusals,
+                                                 jax_pp_embed, what):
+    """``embed`` is served: every stage returns the JAX pp engine's
+    vectors (within 1e-5). Evacuation behaves as the JAX engine's: the
+    engine lists its decoding seats, a maintenance notice journals them,
+    the KV transfer it then tries (to a peer) refuses with the JAX
+    engine's message, and the seat ends as a fallback that a one-rank
+    engine resumes from its journal record to the one-rank stream."""
     for rank in probe:
-        kind, msg = rank["refused"][what]
-        assert kind == "NotImplementedError"
-        assert "(2 ranks, tp=1, pp=2)" in msg and "item 6.2" in msg
+        if what == "embed":
+            assert rank["refused"]["embed"] is None
+            np.testing.assert_allclose(rank["embedded"], jax_pp_embed[1],
+                                       rtol=0, atol=ATOL)
+        else:
+            assert rank["refused"]["evacuation"] is None
+            assert rank["refused"]["extract"] == jax_refusals["extract"] == (
+                "RuntimeError", "KV block transfer unsupported on a "
+                "pipeline-parallel engine")
+    if what == "evacuation":
+        jengine = JaxEngine(JaxModelConfig.tiny(**tpre_test.MC_KW),
+                            JaxEngineConfig(**tpre_test.ENG_KW), seed=0)
+        tree = numpy_tree(jengine.params)
+        asyncio.run(jengine.stop())
+        got = world2.run(tw.mesh_script, tpre_test.MC_KW, tree,
+                         dict(pp_stages=S, **tpre_test.ENG_KW), "evac",
+                         "peer", tpre_test.PROMPT, 8)
+        r = got[0]["result"]
+        assert r["journaled"] and r["results"] == 1
+        assert r["mode"] == "fallback" and not r["moved"]
+        assert r["reason"] == "evacuated"
+        assert r["stream"] == r["want"]
+        assert r["src_running"] == 0
+        assert got[1]["replayed"] == got[0]["emitted"]
 
 
 def test_pp_engine_holds_its_stage_on_the_synchronous_loop(probe):

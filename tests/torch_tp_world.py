@@ -456,12 +456,17 @@ def pp_step_case(rank, plans, cfg_name, tree, eng_kw, steps, M=4):
             "broadcast_calls": comm.STATS["broadcast_calls"]}
 
 
-def pp_engine_probe(rank, plans, cfg_name, eng_kw):
-    """Build a pp engine on this rank and report what it holds and what
-    it refuses (messages, never raised: a raise ends the world): the
-    stage's layers, cache planes, parameter leaf shapes, loop depth,
-    the recorder's chips, the warnings it logged, and each guarded
-    call's exception type and message."""
+PROBE_EMBED = [[1, 2], [7, 8, 9, 10, 11]]
+
+
+def pp_engine_probe(rank, plans, cfg_name, eng_kw, tree=None):
+    """Build a pp engine on this rank (over the full numpy ``tree`` when
+    given) and report what it holds and what it refuses (messages, never
+    raised: a raise ends the world): the stage's layers, cache planes,
+    parameter leaf shapes, loop depth, the recorder's chips, the warnings
+    it logged, each guarded call's exception type and message (None when
+    served), and the vectors of ``embed(PROBE_EMBED)``, which every stage
+    calls together."""
     import asyncio
     import logging
 
@@ -477,8 +482,14 @@ def pp_engine_probe(rank, plans, cfg_name, eng_kw):
     handler = Grab()
     port_log = logging.getLogger("dynamo_tpu_torch")   # propagates nowhere
     port_log.addHandler(handler)
+    cfg = _cfg(cfg_name)
+    params = None
+    if tree is not None:
+        from dynamo_tpu_torch.engine.weights import params_from_numpy
+
+        params = params_from_numpy(tree, cfg, "cpu")
     try:
-        engine = InferenceEngine(_cfg(cfg_name), EngineConfig(**eng_kw),
+        engine = InferenceEngine(cfg, EngineConfig(**eng_kw), params=params,
                                  device="cpu")
     finally:
         port_log.removeHandler(handler)
@@ -487,15 +498,15 @@ def pp_engine_probe(rank, plans, cfg_name, eng_kw):
         "inject": lambda: asyncio.run(engine.inject_kv_blocks([1], {})),
         "kvbm": lambda: engine.attach_kvbm(),
         "evacuation": engine.evacuable_seats,
-        "embed": lambda: asyncio.run(engine.embed([[1, 2]])),
+        "embed": lambda: asyncio.run(engine.embed(PROBE_EMBED)),
         "mm": lambda: asyncio.run(EngineCore.submit(engine, Request(
             request_id="m", token_ids=[1, 2], mm_positions=[0],
         )).__anext__()),
     }
-    refused = {}
+    refused, served = {}, {}
     for what, call in calls.items():
         try:
-            call()
+            served[what] = call()
             refused[what] = None
         except Exception as e:  # noqa: BLE001 — reported to the test
             refused[what] = (type(e).__name__, str(e))
@@ -512,4 +523,352 @@ def pp_engine_probe(rank, plans, cfg_name, eng_kw):
         "world": engine.world,
         "warnings": [m for lvl, m in logs if lvl == "WARNING"],
         "refused": refused,
+        "embedded": served.get("embed"),
     }
+
+
+# ------------------------ single-rank paths on a mesh ------------------------
+
+
+def _numpy_payload(data):
+    """A KV payload dict as numpy (fp8 as its uint8 bits)."""
+    import torch
+
+    return {k: (v.view(torch.uint8) if v.dtype == torch.float8_e4m3fn
+                else v).numpy() for k, v in data.items()}
+
+
+def _solo_engine(cfg, tree, eng_kw):
+    """A one-rank engine over the same tree (in a rank's process, beside
+    the multi-rank one: it runs no collective)."""
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+
+    kw = {k: v for k, v in eng_kw.items()
+          if k not in ("mesh_shape", "pp_stages", "pp_microbatches")}
+    return InferenceEngine(cfg, EngineConfig(**kw),
+                           params=params_from_numpy(tree, cfg, "cpu"),
+                           device="cpu")
+
+
+async def _tokens(stream):
+    return [o.token_id async for o in stream]
+
+
+async def kv_script(engine, cfg, tree, eng_kw, prompt, max_tokens):
+    """Prefill ``prompt`` held, extract its blocks (the payload), inject
+    the payload into a fresh reservation (first with a stale epoch, then
+    payloads that do not fit — a head short, a block short, another
+    dtype, a key missing — each of which must raise before any plan),
+    extract those blocks again, and decode the reservation from the
+    injected KV."""
+    import torch
+
+    from dynamo_tpu_torch.disagg.ici import StaleEpochError
+    from dynamo_tpu_torch.engine import Request
+
+    try:
+        seq, first = await engine.prefill_held(Request(
+            request_id="held", token_ids=list(prompt), max_tokens=1))
+        payload = await engine.extract_kv_blocks(seq.block_table)
+        dst = engine.reserve_sequence(Request(
+            request_id="dst", token_ids=list(prompt),
+            max_tokens=max_tokens, ignore_eos=True))
+        try:
+            await engine.inject_kv(dst, payload, epoch=dst.kv_epoch + 1)
+            stale = None
+        except StaleEpochError as e:
+            stale = str(e)
+        misfits = {}
+        for name, bad in (
+                ("head", {k: v[:, :, :-1] for k, v in payload.items()}),
+                ("block", {k: v[:, :-1] for k, v in payload.items()}),
+                ("dtype", {k: v.to(torch.float64)
+                           for k, v in payload.items()}),
+                ("key", {"k": payload["k"]})):
+            try:
+                await engine.inject_kv(dst, bad, epoch=dst.kv_epoch)
+                misfits[name] = None
+            except ValueError as e:
+                misfits[name] = str(e)
+        await engine.inject_kv(dst, payload, epoch=dst.kv_epoch)
+        back = await engine.extract_kv_blocks(dst.block_table)
+        engine.release_held(seq)
+        stream = await _tokens(engine.resume_prefilled(dst, first))
+        return {"payload": _numpy_payload(payload),
+                "back": _numpy_payload(back), "stale": stale,
+                "misfits": misfits,
+                "first": first, "stream": stream}
+    finally:
+        await engine.stop()
+
+
+class _LocalPrefillClient:
+    """An in-process prefill handler behind the component client's
+    ``round_robin`` (the relay hop still rides the real transport)."""
+
+    def __init__(self, handler):
+        self.handler = handler
+
+    def instance_ids(self):
+        return [1]
+
+    def round_robin(self, request, context):
+        from dynamo_tpu_torch.runtime.context import Context
+
+        return self.handler.generate(request, Context())
+
+
+async def disagg_script(engine, cfg, tree, eng_kw, role, prompts, request):
+    """Disaggregated serving between this multi-rank engine (``role``:
+    the prefill or the decode side) and a one-rank engine over the same
+    tree, both handlers on one device plane: the streams, the handlers'
+    counters, whether the decode engine is registered on the plane, and
+    the plane's answer when asked to register the multi-rank engine."""
+    from dynamo_tpu_torch.disagg import handlers as th
+    from dynamo_tpu_torch.disagg.ici import DevicePlane
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.transport import IngressServer
+
+    solo = _solo_engine(cfg, tree, eng_kw)
+    pre, dec = (engine, solo) if role == "prefill" else (solo, engine)
+    plane = DevicePlane()
+    ph = th.PrefillHandler(pre, plane=plane)
+    dh = th.DecodeHandler(dec, prefill_client=_LocalPrefillClient(ph),
+                          plane=plane,
+                          config=th.DisaggConfig(min_remote_prefill_tokens=8))
+    server = IngressServer(dh.inject_handler(), host="127.0.0.1", port=0)
+    await server.start()
+    dh.kv_inject_addr = f"127.0.0.1:{server.port}"
+    try:
+        streams = []
+        for p in prompts:
+            toks = []
+            async for out in dh.generate(dict(request, token_ids=p),
+                                         Context()):
+                toks.extend(out["token_ids"])
+            streams.append(toks)
+        try:
+            plane.register("mesh", engine)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        return {"streams": streams,
+                "counts": (dh.num_remote_prefills, dh.num_local_prefills,
+                           ph.num_device_transfers, ph.num_relay_transfers),
+                "decode_registered": dh.plane_id is not None,
+                "refused": refused}
+    finally:
+        dh.close()
+        if hasattr(ph, "_transport"):
+            await ph._transport.close()
+        await server.stop()
+        await solo.stop()
+        await engine.stop()
+
+
+async def _settle(engine):
+    import asyncio
+
+    for _ in range(400):
+        kvbm = engine.kvbm
+        if (not engine.scheduler.running
+                and (kvbm is None or not kvbm._pending)):
+            return
+        await asyncio.sleep(0.01)
+    raise AssertionError("engine never went idle")
+
+
+def shared_prompts(seed, n=3, shared=16, tail=6):
+    """``tests/test_torch_prefix_cache.py``'s prompts sharing a prefix."""
+    import random
+
+    rng = random.Random(seed)
+    base = [rng.randrange(1, 200) for _ in range(shared)]
+    return [base + [rng.randrange(1, 200) for _ in range(tail)]
+            for _ in range(n)]
+
+
+def index_dump(index):
+    """Every node of a prefix index with all of its state, in key order."""
+    return {h: (n.block_hash, n.parent, n.depth, sorted(n.children),
+                {t: sorted(ws) for t, ws in n.holders.items()}, n.last_use)
+            for h, n in sorted(index._nodes.items())}
+
+
+async def kvbm_prefix_script(engine, cfg, tree, eng_kw):
+    """``tests/test_torch_prefix_cache.py``'s prefix scenario with the
+    KVBM host tier on this engine: offloads, prefix demotion
+    (``evict_to_host``), ``clear_kv_blocks`` and onboarding back."""
+    from dynamo_tpu_torch.engine import Request
+    from dynamo_tpu_torch.kvbm.manager import KvbmConfig
+
+    async def run(p, rid):
+        return await _tokens(engine.submit(Request(
+            request_id=rid, token_ids=list(p), max_tokens=4,
+            ignore_eos=True)))
+
+    engine.attach_kvbm(KvbmConfig(host_blocks=64))
+    engine.attach_prefix_cache(worker_id=7)
+    prompts = shared_prompts(11) + shared_prompts(12, n=2, shared=24)
+    streams, snaps, dumps, demoted = [], [], [], []
+    try:
+        for i, p in enumerate(prompts + prompts[:2]):
+            streams.append(await run(p, f"r{i}"))
+            await _settle(engine)
+            if i in (2, 5):
+                demoted.append(await engine.prefix.evict_to_host(6))
+            snaps.append(engine.prefix.snapshot())
+            dumps.append(index_dump(engine.prefix.index))
+        engine.clear_kv_blocks()
+        snaps.append(engine.prefix.snapshot())
+        dumps.append(index_dump(engine.prefix.index))
+        streams.append(await run(prompts[0], "last"))
+        await _settle(engine)
+        snaps.append(engine.prefix.snapshot())
+        dumps.append(index_dump(engine.prefix.index))
+        return streams, snaps, dumps, demoted, engine.kvbm.snapshot()
+    finally:
+        await engine.stop()
+
+
+async def evac_script(engine, cfg, tree, eng_kw, mode, prompt, max_tokens):
+    """``tests/test_torch_preemption.py``'s scenario with this multi-rank
+    engine as the source: drive one seat two tokens in, send a notice,
+    then resume where the report says (one-rank engines over the same
+    tree: the peer for PEER, a fresh engine on the spilled host pool for
+    SPILL; a fresh one-rank engine on the journal record for FALLBACK).
+    Returns the stream, the reason, the mode, the seats the notice
+    journaled and the one-rank engine's stream of the same request."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine import Request
+    from dynamo_tpu_torch.kvbm.host_pool import HostBlockPool
+    from dynamo_tpu_torch.kvbm.manager import KvbmConfig
+    from dynamo_tpu_torch.runtime import preemption as tpre
+
+    def req():
+        return Request(request_id="r0", token_ids=list(prompt),
+                       max_tokens=max_tokens, ignore_eos=True)
+
+    async def collect(stream):
+        toks, reason = {}, None
+        async for out in stream:
+            if out.token_id >= 0:
+                toks[out.index] = out.token_id
+            if out.finished:
+                reason = out.finish_reason
+        return [toks[i] for i in sorted(toks)], reason
+
+    ref = _solo_engine(cfg, tree, eng_kw)
+    peer = _solo_engine(cfg, tree, eng_kw) if mode == "peer" else None
+    resume = _solo_engine(cfg, tree, eng_kw)
+    pool = None
+    if mode == "spill":
+        pool = HostBlockPool(128)
+        resume.attach_kvbm(KvbmConfig(host_blocks=128))
+        resume.kvbm.host_pool = pool
+    coord = tpre.PreemptionCoordinator(engine, peer=peer, host_pool=pool,
+                                       notice_grace_s=0.0)
+    try:
+        want, _ = await collect(ref.submit(req()))
+        progress = {"n": 0}
+
+        async def drive():
+            toks, reason = {}, None
+            async for out in engine.submit(req()):
+                if out.token_id >= 0:
+                    toks[out.index] = out.token_id
+                progress["n"] = len(toks)
+                if out.finished:
+                    reason = out.finish_reason
+            return [toks[i] for i in sorted(toks)], reason
+
+        task = asyncio.create_task(drive())
+        while progress["n"] < 2 and not task.done():
+            await asyncio.sleep(0.002)
+        report = await coord.notice("test")
+        got, reason = await task
+        res = report.results[0]
+        if res.mode == tpre.PEER:
+            tail, _ = await collect(peer.resume_prefilled(
+                res.dst_seq, res.record.first_token()))
+            stream = got + tail[1:]
+        else:
+            tail, _ = await collect(resume.submit(
+                res.record.resume_request()))
+            stream = got + tail
+        return {"reason": reason, "stream": stream, "want": want,
+                "mode": res.mode, "moved": res.bytes_moved > 0,
+                "results": len(report.results),
+                "journaled": coord.journal.get("r0") is not None,
+                "src_running": len(engine.scheduler.running)}
+    finally:
+        for e in (engine, ref, peer, resume):
+            if e is not None:
+                await e.stop()
+
+
+async def embed_script(engine, cfg, tree, eng_kw, batch):
+    """``engine.embed(batch)`` as numpy rows."""
+    import numpy as np
+
+    try:
+        return np.asarray(await engine.embed(batch), np.float32)
+    finally:
+        await engine.stop()
+
+
+async def mm_script(engine, cfg, tree, eng_kw, requests):
+    """Greedy streams of multimodal requests (``Request`` field dicts),
+    one after another, and the engine's mm prefill chunks."""
+    from dynamo_tpu_torch.engine import Request
+
+    try:
+        out = []
+        for i, r in enumerate(requests):
+            out.append(await _tokens(engine.submit(
+                Request(request_id=f"m{i}", **r))))
+        return {"streams": out, "mm_prefills": engine.num_mm_prefills}
+    finally:
+        await engine.stop()
+
+
+SCRIPTS = {"kv": kv_script, "disagg": disagg_script,
+           "kvbm_prefix": kvbm_prefix_script, "evac": evac_script,
+           "embed": embed_script, "mm": mm_script}
+
+
+def mesh_script(rank, plans, cfg_kw, tree, eng_kw, script, *args):
+    """A multi-rank engine (``eng_kw``: a ``mesh_shape`` or ``pp_stages``
+    over the world) of ``ModelConfig.tiny(**cfg_kw)`` over the full tree:
+    rank 0 leads and runs ``SCRIPTS[script](engine, cfg, tree, eng_kw,
+    *args)``, returning its result, the plans it emitted and its
+    collectives' counters; the others replay and return the plans they
+    replayed, their counters and their mm prefill chunks. Every script
+    stops its engines."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+    from dynamo_tpu_torch.parallel import comm
+
+    cfg = _cfg("tiny", **cfg_kw)
+    engine = InferenceEngine(cfg, EngineConfig(**eng_kw),
+                             params=params_from_numpy(tree, cfg, "cpu"),
+                             device="cpu")
+    comm.reset_stats()
+    n = comm.world_size()
+    if rank != 0:
+        follow(engine, plans, rank)
+        return {"replayed": dict(engine.num_replayed),
+                "stats": dict(comm.STATS),
+                "mm_prefills": engine.num_mm_prefills}
+    emitted = lead(engine, plans, n)
+    try:
+        result = asyncio.run(SCRIPTS[script](engine, cfg, tree, eng_kw,
+                                             *args))
+    finally:
+        for r in range(1, n):
+            plans[r].put(None)
+    return {"result": result, "emitted": emitted, "stats": dict(comm.STATS)}
