@@ -292,7 +292,10 @@ Phases (any failure exits non-zero and prints no result line):
    (``GLOO_CUDA_OPS``) refuses them, and reports send/recv, which
    ``comm.ppermute`` stages through the host. (b) mesh (2, 2): four ranks
    at full width cut to 4 of 16 layers, one prompt of ISL 8,128 against
-   its one-rank run.
+   its one-rank run. (d) beside (b): mesh (1, 2) at full depth, one prompt
+   of ISL 8,128 (OSL 16) as one sp chunk on both tp ranks: each rank's
+   peak rise in the sp prefill beside the one-rank chunk's, and the
+   stream under the parity rule.
    Child logs in ``build/dist/sp_*.log``.
 
 19. pipeline-parallel serving (``[pp]`` lines), two stages on the one
@@ -332,6 +335,26 @@ Phases (any failure exits non-zero and prints no result line):
    leader's, the same collectives, both faces launched on each rank of
    the mesh workers. Child logs in ``build/dist/mesh_*.log``.
 
+21. the 3-D ``(dp, fsdp, tp)`` mesh and ``--mesh`` on the launchers
+   (``[fsdp]`` lines), after phase 18, ranks on the one card over gloo,
+   random weights from seed 0: (a) mesh (1, 2, 1), Llama-3.2-1B at full
+   width and depth, bf16: 4 of phase 3's prompts concurrently (OSL 8),
+   then one of ISL 4,096 (OSL 8) as one sp chunk over the fsdp pair;
+   parameter bytes stored per rank against one rank's (0.500–0.505), the
+   streams under the parity rule against a one-rank engine, the bytes each
+   rank sends through gloo per step (``fsdp_gather``) and the host ms
+   blocked in it, ITL p50, the peak rise over the run, both faces launched
+   on both ranks. (b) mesh (1, 2, 2), four ranks at 2 of 16 layers,
+   against mesh (1, 2) at that depth, both on the synchronous loop: every
+   stream identical (the gathered weights are (1, 2)'s slices). (c) beside
+   (b): ``python -m dynamo_tpu_torch.run in=batch out=engine --model 1b
+   --mesh 1,2`` on (a)'s prompts against ``--mesh 1,1`` and the parity
+   rule, each rank's exit line. (d) beside (b) and (c): ``python -m
+   dynamo_tpu_torch.planner.profiler --model 1b --mesh 1,2`` (ISL 512,
+   batch 8 at ctx 512): the profile's keys, ``meta.mesh`` [1, 2], tok/s
+   per chip over 2. Child logs in ``build/dist/fsdp_*.log`` and
+   ``build/dist/sp_{fsdp,1x2,1x2x2}_rank*.log``.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
@@ -353,7 +376,15 @@ stage's microbatch shape, with phase 19's ``launches_per_rank``; every
 kernel build's row carries ``launches_mesh``, phase 20's two mesh workers
 summed over their ranks, and the rows ``...@mesh_tp2_b8`` (decode) and
 ``...@mesh_tp2_chunks`` (ragged) hold both faces at the tp-2 shapes
-phase 20 adds to phase 17's, with its ``launches_per_rank``);
+phase 20 adds to phase 17's, with its ``launches_per_rank``; every
+kernel build's row carries ``launches_sp_1x2``, phase 18 (d)'s, and
+``launches_fsdp``, phase 21's (a) and (b) summed over their ranks, and
+the rows ``...@fsdp_b8`` and ``...@fsdp_chunks`` (phase 21 (a), one
+rank's heads), ``...@fsdp_tp2_b8`` and ``...@fsdp_tp2_chunks`` ((b), a
+tp-2 rank's) and ``paged_attention_decode@sp_1x2_b8`` (phase 18 (d)) hold
+the faces at the shapes those parts give them, each with its
+``launches_per_rank`` and ``held_cases``, the phase-2 cases of those
+shapes);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -458,6 +489,50 @@ MESH_RAGGED_CASES = (
     ("tp2 shard prefill 16/4 heads hd=64 q_len=16 after 496 keys W=32",
      [(16, 512, 16)], 32),
 )
+# phase 21's shapes, and phase 18 (d)'s, that no case above gives. (a) (one
+# rank's 32 / 8 heads) and (b) (a tp-2 rank's 16 / 4) serve 4 prompts of
+# ISL 512 at once, so each decode window holds 1 to 4 live rows of the
+# bucket of 8 at ctx 513..519 (2 apart), and each prefill chunk is a
+# prompt's first 509..512 tokens (the chunk's budget less the live decode
+# rows, one row of a 512-token chunk) or its last 1..3 (one row of a
+# 16-token chunk after 509..511 keys); (a)'s 4,096-token prompt then
+# decodes alone at ctx 4,097..4,103, and phase 18 (d)'s 8,128-token prompt
+# on a tp-2 rank at ctx 8,129..8,143 (their sp prefills are the ring, no
+# kernel). Each decode case holds the widest context of its range.
+# prefix -> KV heads of (a)'s and (b)'s ranks
+FSDP_HEADS = {"fsdp": 8, "fsdp tp2 shard 16/4 heads": 4}
+FSDP_DECODE = ("decode B=8 ctx 513..519, 4 dead rows W=512",
+               [(1, 519 - 2 * i, 1) for i in range(4)] + [(0, 0, 1)] * 4)
+FSDP_RAGGED = (("prefill R=1 q_len=509 of T=512 W=32", [(509, 509, 512)]),
+               ("prefill R=1 q_len=3 after 509 keys T=16 W=32",
+                [(3, 512, 16)]))
+FSDP_LONG_DECODE_CASE = "fsdp decode B=8 ctx 4103, 7 dead rows W=512"
+SP_1X2_DECODE_CASE = ("tp2 shard decode 16/4 heads hd=64 B=8 ctx 8143, 7 "
+                      "dead rows W=512")
+# the kernels line's rows at the shapes one part of a multi-rank phase
+# gives a kernel: tag -> (kernel, the phase-2 cases of those shapes); each
+# row carries that part's launches per rank
+HELD_ROWS = {
+    # phase 20: every decode in the bucket of 8, and the image prompts'
+    # and the KVBM pass's chunks (the face's phase-20 launches also
+    # include the 512-token chunks of the @tp2_shard_hd64 ragged row)
+    "mesh_tp2_b8": ("paged_attention_decode",
+                    (MESH_DECODE_CASE, f"{MESH_DECODE_CASE}, 4 dead rows")),
+    "mesh_tp2_chunks": ("paged_attention_ragged",
+                        tuple(case for case, _, _ in MESH_RAGGED_CASES)),
+    # phase 21 (a), (b) and phase 18 (d)
+    "fsdp_b8": ("paged_attention_decode",
+                (f"fsdp {FSDP_DECODE[0]}", FSDP_LONG_DECODE_CASE)),
+    "fsdp_chunks": ("paged_attention_ragged",
+                    (PREFILL_CASE, *(f"fsdp {n}" for n, _ in FSDP_RAGGED))),
+    "fsdp_tp2_b8": ("paged_attention_decode",
+                    (f"fsdp tp2 shard 16/4 heads {FSDP_DECODE[0]}",)),
+    "fsdp_tp2_chunks": ("paged_attention_ragged",
+                        (TP_CASES[("ragged", 64)],
+                         *(f"fsdp tp2 shard 16/4 heads {n}"
+                           for n, _ in FSDP_RAGGED))),
+    "sp_1x2_b8": ("paged_attention_decode", (SP_1X2_DECODE_CASE,)),
+}
 
 
 # ------------------------------ phase 1 ----------------------------------
@@ -762,6 +837,16 @@ def kernel_cases():
                   W=512, face="decode", KV=4),
         *(make_case(name, rows, W=W, face="ragged", KV=4)
           for name, rows, W in MESH_RAGGED_CASES),
+        *(make_case(f"{prefix} {FSDP_DECODE[0]}", FSDP_DECODE[1], W=512,
+                    face="decode", KV=KV)
+          for prefix, KV in FSDP_HEADS.items()),
+        *(make_case(f"{prefix} {name}", rows, W=32, face="ragged", KV=KV)
+          for prefix, KV in FSDP_HEADS.items()
+          for name, rows in FSDP_RAGGED),
+        make_case(FSDP_LONG_DECODE_CASE, [(1, 4103, 1)] + [(0, 0, 1)] * 7,
+                  W=512, face="decode"),
+        make_case(SP_1X2_DECODE_CASE, [(1, 8143, 1)] + [(0, 0, 1)] * 7,
+                  W=512, face="decode", KV=4),
         make_case(PP_DECODE_CASE, [(1, 513, 1), (1, 544, 1)], W=64,
                   face="decode"),
         # a microbatch with a pad row (position -1: a dead row)
@@ -1350,8 +1435,8 @@ def tapped_run(engine, prompts, osl: int = OSL, router_gaps=None):
     unpack = engine._unpack_results
     cur = {}
 
-    def tap(cfg, params, h, mesh=None):
-        out = logits_fn(cfg, params, h, mesh)
+    def tap(cfg, params, h, mesh=None, specs=None):
+        out = logits_fn(cfg, params, h, mesh, specs)
         taps.append(torch.topk(out, PARITY_TOPK))
         gaps.append(cur.pop("gap", None))
         return out
@@ -6172,6 +6257,11 @@ SP_MESH = (2, 1)
 # full depth
 SP_MESH_B = (2, 2)
 SP_LAYERS_B = 4
+# (d): mesh (1, 2) at full depth, one long prompt: the sp chunk is the whole
+# prompt on both tp ranks (a seq column of one rank), its per-rank peak
+# memory the figure ROADMAP item 6.3 weighs the composite sequence axis by
+SP_MESH_D = (1, 2)
+SP_OSL_D = 16
 # (c): ring and Ulysses at one Llama-3.2-1B layer's attention shape
 SP_ATTN = dict(T=8192, H=32, KV=8, hd=64)
 SP_ATTN_REPS = 3
@@ -6255,9 +6345,10 @@ class SpWorld:
             daemon=True) for r in range(n)]
         for p in self.procs:
             p.start()
-        self._collect(120.0)
+        self.collect(120.0)
 
-    def _collect(self, timeout_s: float, must: bool = True):
+    def collect(self, timeout_s: float = SP_RANK_TIMEOUT_S,
+                must: bool = True):
         """Every rank's answer; with ``must`` a rank's error or silence
         fails the script, without it (a probe that may end a rank) each
         rank's answer is ``(status, value)``, a silent rank's
@@ -6301,9 +6392,15 @@ class SpWorld:
 
     def run(self, fn, *args, timeout_s: float = SP_RANK_TIMEOUT_S,
             must: bool = True):
+        self.start(fn, *args)
+        return self.collect(timeout_s, must)
+
+    def start(self, fn, *args) -> None:
+        """Send every rank ``fn(rank, plans, *args)`` without waiting (two
+        worlds then run side by side on the card); :meth:`collect` takes
+        the answers."""
         for q in self._cmd:
             q.put((fn, args))
-        return self._collect(timeout_s, must)
 
     def close(self) -> None:
         for q in self._cmd:
@@ -6335,19 +6432,34 @@ def sp_lead(engine, plans, n: int) -> dict:
     return emitted
 
 
-def sp_follow(engine, plans, rank: int) -> None:
-    from dynamo_tpu_torch.parallel.multihost import decode_plan, replay_plan
+def sp_follow(engine, plans, rank: int) -> dict:
+    """A follower of a phase-18 or phase-21 leader: replays its plans; at
+    ``reset`` (the leader's counts start here) zeroes its counts and peak
+    device memory and keeps the allocation then (``base``), at ``mark``
+    keeps its collectives and the peak since (``stats``, ``peak``).
+    Returns what it kept."""
+    import torch
 
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.multihost import decode_plan, replay_plan
 
+    kept = {}
     while True:
         plan = plans[rank].get(timeout=SP_RANK_TIMEOUT_S)
         if plan is None:
-            return
-        if plan == "reset":      # the leader's counts start here
+            return kept
+        if plan == "reset":
             pa.reset_launches()
             comm.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kept["base"] = torch.cuda.memory_allocated()
+            continue
+        if plan == "mark":
+            torch.cuda.synchronize()
+            kept.update(peak=torch.cuda.max_memory_allocated(),
+                        stats=dict(comm.STATS))
             continue
         replay_plan(engine, *decode_plan(plan))
 
@@ -6380,7 +6492,7 @@ def sp_watch_peaks(engine) -> list:
 
 
 def sp_serve_job(rank, plans, dev, cfg, mesh, threshold, long_prompts,
-                 short_prompts):
+                 short_prompts, long_osl=SP_OSL):
     """One rank of an sp engine on ``mesh`` with sp threshold
     ``threshold`` (``cfg``: Llama-3.2-1B, bf16, random weights from SEED
     on every rank, on ``dev``): rank 0 leads and
@@ -6430,7 +6542,7 @@ def sp_serve_job(rank, plans, dev, cfg, mesh, threshold, long_prompts,
             comm.reset_stats()
             for r in range(1, n):       # the followers reset here too
                 plans[r].put("reset")
-            longs = [await one(p, SP_OSL) for p in long_prompts]
+            longs = [await one(p, long_osl) for p in long_prompts]
             t_short = time.perf_counter()
             shorts = await asyncio.gather(*(one(p, OSL)
                                             for p in short_prompts))
@@ -6675,8 +6787,11 @@ def phase_sp(card: str) -> dict:
     (c) ring and Ulysses at one 1B layer's attention shape against the
     plain ``_full_attention``, then the gloo probe. (b) mesh (2, 2), four
     ranks at full width cut to 4 of 16 layers, one long prompt against its
-    one-rank run. Returns the launch counts of (a) and (b), summed over
-    ranks, for the kernels line."""
+    one-rank run. (d) mesh (1, 2) at full depth, one long prompt (OSL
+    SP_OSL_D), side by side with (b): each rank's peak rise in its sp
+    prefill beside the one-rank chunk's, and the stream under the parity
+    rule. Returns the launch counts of (a),
+    (b) and (d), summed over ranks, for the kernels line."""
     import numpy as np
     import torch
 
@@ -6833,28 +6948,456 @@ def phase_sp(card: str) -> dict:
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    # (b) and (d) side by side on the card (their figures are per process:
+    # streams, plans, hops, each rank's own peak memory)
     t0 = time.perf_counter()
     world = SpWorld(SP_MESH_B[0] * SP_MESH_B[1], "dp2tp2")
+    world_d = SpWorld(SP_MESH_D[0] * SP_MESH_D[1], "tp2")
     try:
-        got_b = world.run(sp_serve_job, DEV, cfg_b, SP_MESH_B, SP_THRESHOLD,
-                          longs[:1], [])
+        world.start(sp_serve_job, DEV, cfg_b, SP_MESH_B, SP_THRESHOLD,
+                    longs[:1], [])
+        world_d.start(sp_serve_job, DEV, cfg, SP_MESH_D, SP_THRESHOLD,
+                      longs[:1], [], SP_OSL_D)
+        got_b = world.collect()
+        got_d = world_d.collect()
     finally:
         world.close()
+        world_d.close()
     partings = check_parity(want_b, rec_b, got_b[0]["long_streams"],
                             "its one-rank chunked run", tag="[sp]")
     print(f"[sp] {card}: mesh {SP_MESH_B}, four ranks on cuda:0 at "
           f"{SP_LAYERS_B} of 16 layers, one prompt of ISL {SP_ISL}: "
           f"{1 - len(partings)} of 1 streams identical to its one-rank "
-          f"run; TTFT {got_b[0]['long_ttft'][0] * 1e3:.1f} ms; "
-          f"{time.perf_counter() - t0:.1f} s with the world", flush=True)
+          f"run; TTFT {got_b[0]['long_ttft'][0] * 1e3:.1f} ms (beside (d)); "
+          f"{time.perf_counter() - t0:.1f} s with the worlds of (b) and (d)",
+          flush=True)
     faces_b = sp_check_ranks(got_b, "[sp] (2, 2)", 1, SP_LAYERS_B,
                              SP_MESH_B[0])
     if min(got_b[0]["stats"]["all_reduce_calls"],
            got_b[1]["stats"]["all_reduce_calls"]) == 0:
         fail("[sp] (2, 2) made no tp all_reduce")
+
+    partings = check_parity(want_long[:1], {
+        k: v for k, v in rec_long.items() if k[0] == 0},
+        got_d[0]["long_streams"], "the one-rank chunked engine", tag="[sp]")
+    faces_d = sp_check_ranks(got_d, "[sp] (1, 2)", 1, cfg.num_layers, 1)
+    if any(faces_d["paged_attention_ragged"]):
+        fail(f"[sp] (1, 2) launched the ragged face "
+             f"{faces_d['paged_attention_ragged']}: its one prompt is the "
+             "sp chunk, and no phase-2 case holds a ragged shape of (d)")
+    for r, g in enumerate(got_d):
+        rise = max(p - b for b, p in g["peaks"])
+        print(f"[sp] {card}: mesh {SP_MESH_D} rank {r}, one prompt of ISL "
+              f"{SP_ISL} as one 8,192-token sp chunk (the whole prompt on "
+              f"each tp rank, H/2 heads, the ring's f32 einsum): "
+              f"{g['resident'] / 2**30:.3f} GiB resident, peak rise "
+              f"+{rise / 2**30:.3f} GiB in the sp prefill; the one-rank "
+              f"engine's one 8,192-token chunk +"
+              f"{(one_peak - one_base) / 2**30:.3f} GiB", flush=True)
+    print(f"[sp] {card}: mesh {SP_MESH_D} at full depth, OSL {SP_OSL_D}: "
+          f"{1 - len(partings)} of 1 streams identical to the one-rank "
+          f"chunked run (the rest at near-ties); TTFT "
+          f"{got_d[0]['long_ttft'][0] * 1e3:.1f} ms (beside (b))",
+          flush=True)
     return {"launches_sp": {k: sum(v) for k, v in faces_a.items()},
             "launches_sp_2x2": {k: sum(v) for k, v in faces_b.items()},
-            "launches_sp_per_rank": faces_a}
+            "launches_sp_1x2": {k: sum(v) for k, v in faces_d.items()},
+            "launches_sp_per_rank": faces_a,
+            "held": {"sp_1x2_b8": faces_d["paged_attention_decode"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the 3-D (dp, fsdp, tp) serving mesh, parameters stored over
+# fsdp, and --mesh on run.py and the SLA profiler; ranks sharing one card
+
+FSDP_MESH = (1, 2, 1)
+FSDP_REQUESTS = 4          # of phase 3's prompts, concurrent, greedy
+# each step of (a) gathers ~1.24 GB per rank through gloo on the host
+# (2.3 s of host on an H100 machine), so (a) serves OSL 8, not 16, to keep
+# the phase near 150 s
+FSDP_OSL = 8
+FSDP_THRESHOLD = 2048      # the sp threshold of (a)'s engine
+FSDP_LONG_ISL = 4096       # (a)'s long prompt: one sp chunk over the fsdp pair
+FSDP_LONG_OSL = 8
+# (b): four ranks at full width, cut to 2 of Llama-3.2-1B's 16 layers (4
+# took 48 s with both worlds one after the other)
+FSDP_MESH_B = (1, 2, 2)
+FSDP_LAYERS_B = 2
+# (a): a rank stores half of every column and row leaf and of the tied
+# embedding, the norms whole: just over half of one rank's bytes
+FSDP_PARAMS_SHARE = (0.500, 0.505)
+FSDP_BATCH = os.path.join("build", "fsdp_batch.jsonl")
+FSDP_PROFILE = os.path.join("build", "profile_llama_3_2_1b_mesh_1x2.json")
+FSDP_PROFILE_ARGS = ["--model", "1b", "--isls", "512", "--batches", "8",
+                     "--contexts", "512"]
+FSDP_RUN_LINE = re.compile(r"run exiting: tp rank=(\d) world=(\d) "
+                           r"backend=(\w+) .* plans=(\S+) launches=(\S+)")
+FSDP_CHILD_TIMEOUT_S = 240
+
+
+def fsdp_prompts(vocab: int):
+    """(a)'s traffic: FSDP_REQUESTS of phase 3's prompts, and one long
+    prompt of FSDP_LONG_ISL tokens."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    return (main_prompts(vocab)[:FSDP_REQUESTS],
+            torch.randint(1, vocab, (FSDP_LONG_ISL,), generator=gen).tolist())
+
+
+def fsdp_serve_job(rank, plans, dev, cfg, mesh, prompts, osl, long_prompt,
+                   long_osl, threshold, depth=None):
+    """One rank of a phase-21 engine on ``mesh`` (``cfg`` at bf16, random
+    weights from SEED on every rank, sp threshold ``threshold``): rank 0
+    leads and serves ``prompts`` concurrently (greedy, ``osl`` tokens),
+    then ``long_prompt`` (if any) alone (``long_osl`` tokens); the others
+    replay its plans.
+    Every rank returns its stored parameter bytes and wq shape, its
+    collectives and peak device memory over the concurrent run, its kernel
+    launches and sp prefills."""
+    import asyncio
+
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.worker import tree_bytes
+
+    t0 = time.perf_counter()
+    kw = {} if depth is None else {"pipeline_depth": depth}
+    engine = InferenceEngine(cfg, EngineConfig(
+        mesh_shape=mesh, sp_prefill_threshold=threshold, **kw),
+        seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wq = engine.params["layers"]["wq"]
+    out = {"build_s": time.perf_counter() - t0,
+           "params_bytes": tree_bytes(engine.params),
+           "wq": tuple(wq.shape), "graphed": engine._ap_window_fn.graphed}
+    n = comm.world_size()
+
+    async def one(ids, max_tokens):
+        t_sub = time.perf_counter()
+        toks, times = [], []
+        async for o in engine.generate({"token_ids": ids,
+                                        "max_tokens": max_tokens,
+                                        "temperature": 0.0}, Context()):
+            toks.extend(o["token_ids"])
+            times.append(time.perf_counter())
+        return toks, (t_sub, times)
+
+    async def lead():
+        await engine.start()
+        try:
+            await one(prompts[0][:32], 1)      # warm-up, not measured
+            engine.clear_kv_blocks()
+            for r in range(1, n):
+                plans[r].put("reset")
+            pa.reset_launches()
+            comm.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            w0, p0 = engine.num_windows, engine.num_prefill_dispatches
+            t_run = time.perf_counter()
+            runs = await asyncio.gather(*(one(p, osl) for p in prompts))
+            wall = time.perf_counter() - t_run
+            torch.cuda.synchronize()
+            for r in range(1, n):
+                plans[r].put("mark")
+            kept = {"base": base, "peak": torch.cuda.max_memory_allocated(),
+                    "stats": dict(comm.STATS),
+                    "windows": engine.num_windows - w0,
+                    "prefills": engine.num_prefill_dispatches - p0}
+            kept["steps"] = kept["windows"] + kept["prefills"]
+            longs = None
+            if long_prompt is not None:
+                longs = await one(long_prompt, long_osl)
+            return runs, wall, kept, longs
+        finally:
+            await engine.stop()
+
+    if rank != 0:
+        out.update(sp_follow(engine, plans, rank))
+    else:
+        emitted = sp_lead(engine, plans, n)
+        try:
+            runs, wall, kept, longs = asyncio.run(lead())
+        finally:
+            for r in range(1, n):
+                plans[r].put(None)
+        out.update(kept, streams=[t for t, _ in runs],
+                   runs=[s for _, s in runs], wall=wall,
+                   long_stream=None if longs is None else longs[0],
+                   emitted=dict(emitted))
+    out.update(replayed=dict(engine.num_replayed),
+               sp_prefills=engine.num_sp_prefills,
+               launches=dict(pa.LAUNCHES),
+               gathered_total=comm.STATS["fsdp_gather_bytes"])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_check_ranks(got, tag: str, faces_run=("decode", "ragged")) -> dict:
+    """Phase 21's checks on one world: the followers replayed exactly the
+    leader's plans, no rank captured decode graphs, both faces launched on
+    every rank. Returns face -> launches per rank."""
+    lead = got[0]
+    for r, g in enumerate(got[1:], 1):
+        if g["replayed"] != lead["emitted"]:
+            fail(f"{tag} rank {r} replayed {g['replayed']}, the leader "
+                 f"emitted {lead['emitted']}")
+    faces = {}
+    for face in ("decode", "ragged"):
+        name = f"paged_attention_{face}"
+        faces[name] = [g["launches"].get(name, 0) for g in got]
+        if face in faces_run and min(faces[name]) == 0:
+            fail(f"{tag} the {face} face did not launch on every rank: "
+                 f"{faces[name]}")
+    if any(g["graphed"] for g in got):
+        fail(f"{tag} a rank captured decode graphs on a multi-rank mesh")
+    return faces
+
+
+def itl_p50(runs) -> float:
+    gaps = sorted(b - a for _, times in runs
+                  for a, b in zip(times, times[1:]))
+    return gaps[len(gaps) // 2] if gaps else float("nan")
+
+
+def fsdp_start(cmds, env=None):
+    """``python -m`` each of ``cmds`` (the port's launchers, with their
+    arguments) as child processes, side by side; :func:`fsdp_wait` takes
+    their output."""
+    return [subprocess.Popen([sys.executable, "-m", *args],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env=dict(os.environ, **(env or {})))
+            for args in cmds]
+
+
+def fsdp_wait(cmds, procs, timeout_s=FSDP_CHILD_TIMEOUT_S):
+    """The (stdout, stderr) of :func:`fsdp_start`'s children, each also in
+    ``build/dist/fsdp_<module>_<mesh>.log``; fails the script if one does
+    not exit 0 in ``timeout_s``, and leaves none running."""
+    os.makedirs(DIST_LOGS, exist_ok=True)
+    outs = []
+    try:
+        for args, proc in zip(cmds, procs):
+            try:
+                out, err = proc.communicate(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            name = args[0].rsplit(".", 1)[-1] + "_" + "_".join(
+                a.replace(",", "x") for a in args
+                if "," in a and "=" not in a)
+            with open(os.path.join(DIST_LOGS, f"fsdp_{name}.log"), "w") as f:
+                f.write(out + "\n--- stderr ---\n" + err)
+            if proc.returncode != 0:
+                fail(f"[fsdp] python -m {' '.join(args)} exited "
+                     f"{proc.returncode}: {err[-2000:]}")
+            outs.append((out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def phase_fsdp(card: str) -> dict:
+    """[fsdp] The 3-D serving mesh, ranks sharing cuda:0 over gloo, random
+    weights from SEED. (a) mesh (1, 2, 1), Llama-3.2-1B at full width and
+    depth, bf16: FSDP_REQUESTS of phase 3's prompts concurrently (OSL
+    FSDP_OSL), then one FSDP_LONG_ISL-token prompt over the sp threshold
+    (the sp column is the two fsdp ranks): parameter bytes per rank
+    against one rank's, the streams under the parity rule against a
+    one-rank engine, the bytes each rank sends through gloo per step
+    (``fsdp_gather``), ITL p50 and the peak rise over the run. (b) mesh
+    (1, 2, 2), four ranks cut to FSDP_LAYERS_B layers: streams against
+    mesh (1, 2) at that depth, which the fsdp mesh must repeat exactly
+    (both on the synchronous loop, side by side). (c) ``run.py --mesh
+    1,2`` on (a)'s prompts against ``--mesh 1,1`` and the parity rule.
+    (d) the SLA profiler with ``--mesh 1,2`` (ISL 512, batch 8 at ctx
+    512): per-chip figures over two chips. (c) and (d) run beside (b)'s
+    worlds. Returns (a) and (b)'s launches summed over ranks, and each
+    one's per rank under its ``HELD_ROWS`` tag, for the kernels line."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine import ModelConfig
+    from dynamo_tpu_torch.worker import tree_bytes
+
+    cfg = ModelConfig.llama3_1b()
+    prompts, long_prompt = fsdp_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    ref = InferenceEngine(cfg, EngineConfig(), seed=SEED, device=DEV)
+    one_bytes = tree_bytes(ref.params)
+    want, rec = tapped_run(ref, prompts, osl=FSDP_OSL)
+    want_long, rec_long = tapped_run(ref, [long_prompt], osl=FSDP_LONG_OSL)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    world = SpWorld(FSDP_MESH[0] * FSDP_MESH[1] * FSDP_MESH[2], "fsdp")
+    try:
+        got = world.run(fsdp_serve_job, DEV, cfg, FSDP_MESH, prompts,
+                        FSDP_OSL, long_prompt, FSDP_LONG_OSL, FSDP_THRESHOLD)
+    finally:
+        world.close()
+    lead = got[0]
+    faces_a = fsdp_check_ranks(got, "[fsdp] (a)")
+    shares = [g["params_bytes"] / one_bytes for g in got]
+    if not all(FSDP_PARAMS_SHARE[0] <= s <= FSDP_PARAMS_SHARE[1]
+               for s in shares):
+        fail(f"[fsdp] (a) a rank stores {shares} of one rank's parameter "
+             f"bytes, outside {FSDP_PARAMS_SHARE}")
+    if any(g["wq"][1] != cfg.hidden_size // 2 for g in got):
+        fail(f"[fsdp] (a) wq after the run is {[g['wq'] for g in got]}: "
+             "a rank kept a gathered layer")
+    if [g["sp_prefills"] for g in got] != [1, 1]:
+        fail(f"[fsdp] (a) sp prefills per rank "
+             f"{[g['sp_prefills'] for g in got]}, want [1, 1]")
+    partings = check_parity(want, rec, lead["streams"],
+                            "the one-rank engine", tag="[fsdp]")
+    long_part = check_parity(want_long, rec_long, [lead["long_stream"]],
+                             "the one-rank chunked engine", tag="[fsdp]")
+    per_step = [g["stats"]["fsdp_gather_bytes"] / lead["steps"]
+                for g in got]
+    us_step = [g["stats"]["fsdp_gather_us"] / lead["steps"] for g in got]
+    rise = [(g["peak"] - g["base"]) / 2**30 for g in got]
+    print(f"[fsdp] {card}: one-rank reference ({FSDP_REQUESTS} prompts of "
+          f"ISL {ISL} OSL {FSDP_OSL}, one of ISL {FSDP_LONG_ISL} OSL "
+          f"{FSDP_LONG_OSL}) in {ref_s:.1f} s; mesh {FSDP_MESH}, two ranks "
+          f"on cuda:0 over gloo, engines built in "
+          f"{[round(g['build_s'], 1) for g in got]} s", flush=True)
+    print(f"[fsdp] {card}: (a) parameters stored per rank "
+          f"{[g['params_bytes'] for g in got]} B = "
+          f"{[round(s, 4) for s in shares]} of one rank's {one_bytes} B "
+          f"(limits {FSDP_PARAMS_SHARE}); wq stored {got[0]['wq']} after "
+          f"the run", flush=True)
+    print(f"[fsdp] {card}: (a) {FSDP_REQUESTS - len(partings)} of "
+          f"{FSDP_REQUESTS} streams identical to the one-rank engine's (the "
+          f"rest at near-ties); the {FSDP_LONG_ISL}-token prompt as one sp "
+          f"chunk over the fsdp pair: {1 - len(long_part)} of 1 identical "
+          f"to its one-rank chunked stream; sp prefills per rank "
+          f"{[g['sp_prefills'] for g in got]}", flush=True)
+    print(f"[fsdp] {card}: (a) {lead['steps']} steps ({lead['windows']} "
+          f"decode windows of one step, {lead['prefills']} prefill chunks): "
+          f"fsdp_gather per step and rank "
+          f"{[round(b / 1e9, 4) for b in per_step]} GB sent, {[round(u / 1e3, 1) for u in us_step]} ms of host "
+          f"blocked in it; ITL p50 {itl_p50(lead['runs']) * 1e3:.1f} ms; "
+          f"wall {lead['wall']:.2f} s; peak rise over the run "
+          f"{[round(x, 3) for x in rise]} GiB over "
+          f"{[round(g['base'] / 2**30, 3) for g in got]} GiB allocated "
+          f"before it; launches per rank {faces_a}; "
+          f"{time.perf_counter() - t0:.1f} s with the world", flush=True)
+
+    # (c)'s two launchers and (d)'s profiler start first and run beside
+    # (b)'s two worlds ((b) and (c) report no time but their whole; (d)'s
+    # figures are a shared card's)
+    t0 = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    with open(FSDP_BATCH, "w") as f:
+        for p in prompts:
+            f.write(json.dumps({"token_ids": p, "max_tokens": FSDP_OSL})
+                    + "\n")
+    meshes = ("1,1", "1,2")
+    cmds = [["dynamo_tpu_torch.run", f"in=batch:{FSDP_BATCH}", "out=engine",
+             "--model", "1b", "--mesh", mesh] for mesh in meshes] + [
+        ["dynamo_tpu_torch.planner.profiler", *FSDP_PROFILE_ARGS, "--mesh",
+         "1,2", "--out", FSDP_PROFILE]]
+    procs = fsdp_start(cmds, env=TP_ENV)
+    try:
+        cfg_b = dataclasses.replace(cfg, num_layers=FSDP_LAYERS_B)
+        # both worlds side by side on the card (streams and counts are per
+        # rank), each on the synchronous loop
+        worlds = {mesh: SpWorld(int(np.prod(mesh)), "x".join(map(str, mesh)))
+                  for mesh in ((1, 2), FSDP_MESH_B)}
+        try:
+            for mesh, world in worlds.items():
+                world.start(fsdp_serve_job, DEV, cfg_b, mesh, prompts,
+                            FSDP_OSL, None, 0, FSDP_THRESHOLD, 1)
+            got_bs = {mesh: world.collect()
+                      for mesh, world in worlds.items()}
+        finally:
+            for world in worlds.values():
+                world.close()
+    finally:
+        outs = fsdp_wait(cmds, procs)
+    streams_b = {mesh: g[0]["streams"] for mesh, g in got_bs.items()}
+    got_b = got_bs[FSDP_MESH_B]
+    faces_b = fsdp_check_ranks(got_b, "[fsdp] (b)")
+    same = sum(a == b for a, b in zip(streams_b[(1, 2)],
+                                      streams_b[FSDP_MESH_B]))
+    steps_b = got_b[0]["steps"]
+    print(f"[fsdp] {card}: (b) mesh {FSDP_MESH_B}, four ranks at "
+          f"{FSDP_LAYERS_B} of 16 layers: {same} of {FSDP_REQUESTS} streams "
+          f"identical to mesh (1, 2)'s at that depth; fsdp_gather per step "
+          f"and rank "
+          f"{[round(g['stats']['fsdp_gather_bytes'] / steps_b / 1e6, 2) for g in got_b]}"
+          f" MB, wq stored {[g['wq'] for g in got_b]}; launches per rank "
+          f"{faces_b}", flush=True)
+    if same != FSDP_REQUESTS:
+        fail(f"[fsdp] (b) mesh {FSDP_MESH_B} parts from mesh (1, 2): the "
+             "gathered weights are (1, 2)'s slices, so its arithmetic must "
+             "be the same")
+    runs = {}
+    for mesh, (stdout, stderr) in zip(meshes, outs[:len(meshes)]):
+        rows = [json.loads(x) for x in stdout.splitlines() if x.strip()]
+        runs[mesh] = ([r["token_ids"] for r in rows],
+                      FSDP_RUN_LINE.findall(stderr))
+    ranks = runs["1,2"][1]
+    if sorted(int(r[0]) for r in ranks) != [0, 1] or ranks[0][3] != ranks[1][3]:
+        fail(f"[fsdp] (c) run.py --mesh 1,2 rank lines {ranks}: want ranks "
+             "0 and 1 with equal plans")
+    part_c = check_parity(want, rec, runs["1,2"][0], "the one-rank engine",
+                          tag="[fsdp]")
+    check_parity(want, rec, runs["1,1"][0], "the one-rank engine",
+                 tag="[fsdp]")
+    same_c = sum(a == b for a, b in zip(runs["1,1"][0], runs["1,2"][0]))
+    print(f"[fsdp] {card}: (c) python -m dynamo_tpu_torch.run "
+          f"in=batch out=engine --model 1b --mesh 1,2 (rank 1 started by "
+          f"rank 0, both on cuda:0 over gloo): {same_c} of "
+          f"{FSDP_REQUESTS} streams identical to --mesh 1,1's, "
+          f"{FSDP_REQUESTS - len(part_c)} to the one-rank engine's (the rest "
+          f"at near-ties of tp-2 bf16 sums); ranks (rank, backend, plans) "
+          f"{[(r[0], r[2], r[3]) for r in ranks]}, launches "
+          f"{[r[4].split(',')[:2] for r in ranks]}; "
+          f"{time.perf_counter() - t0:.1f} s for (b), (c) and (d), side by "
+          f"side", flush=True)
+
+    with open(FSDP_PROFILE) as f:
+        prof = json.load(f)
+    if prof["meta"]["mesh"] != [1, 2] or set(prof) != set(PROFILE_KEYS) | {
+            "meta"}:
+        fail(f"[fsdp] (d) the profile's keys {sorted(prof)} / meta "
+             f"{prof['meta']}")
+    isl, ttft = prof["prefill_isl"][0], prof["prefill_ttft_s"][0]
+    if abs(prof["prefill_thpt_per_chip"][0] - isl / ttft / 2) > 1e-6 * (
+            isl / ttft):
+        fail(f"[fsdp] (d) prefill tok/s per chip "
+             f"{prof['prefill_thpt_per_chip'][0]} is not ISL / TTFT / 2")
+    print(f"[fsdp] {card}: (d) python -m dynamo_tpu_torch.planner.profiler "
+          f"{' '.join(FSDP_PROFILE_ARGS)} --mesh 1,2: TTFT "
+          f"{ttft * 1e3:.1f} ms, prefill {prof['prefill_thpt_per_chip'][0]:.1f}"
+          f" tok/s per chip (of 2), ITL p50 "
+          f"{prof['decode_itl_s'][0] * 1e3:.1f} ms, decode "
+          f"{prof['decode_thpt_per_chip'][0]:.2f} tok/s per chip, KV usage "
+          f"{prof['decode_kv_usage'][0]}; meta {prof['meta']} (beside (b) "
+          f"and (c) on the card)", flush=True)
+    return {"launches": {k: sum(faces_a[k]) + sum(faces_b[k])
+                         for k in faces_a},
+            "held": {"fsdp_b8": faces_a["paged_attention_decode"],
+                     "fsdp_chunks": faces_a["paged_attention_ragged"],
+                     "fsdp_tp2_b8": faces_b["paged_attention_decode"],
+                     "fsdp_tp2_chunks": faces_b["paged_attention_ragged"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -7667,7 +8210,7 @@ def launch_configs(results, case: str):
 
 def kernels_line(results, launches, dist_launches, spec_launches,
                  moe_launches, slice_launches, tp_launches, pp_launches,
-                 mesh_launches, tuned_rows=()) -> str:
+                 held_launches, tuned_rows=()) -> str:
     """The ``kernels`` JSON line: one row per kernel build (with
     ``launch_configs``, the non-default launch parameters phase 2 held on
     that build's main-path case), plus the
@@ -7680,22 +8223,22 @@ def kernels_line(results, launches, dist_launches, spec_launches,
     (phase 12) are the autotune's winning launches, each with its
     ``launch`` parameters (the bf16 decode and prefill winners that differ
     from the defaults; their launches are those of the run served on
-    them). Phase 17 adds both faces at one rank's shard shapes of tp 2,
+    them). Phase 21 adds ``launches_fsdp`` (both faces on its (1, 2, 1)
+    ranks, at the one-rank shapes, and its (1, 2, 2) ranks, at the tp-2
+    shard shapes) and phase 18 ``launches_sp_1x2`` (its (1, 2) case) to
+    ``slice_launches``. Phase 17 adds both faces at one rank's shard shapes of tp 2,
     head dim 64 (Llama-3.2-1B) and 128 (Mixtral-8x7B): ``tp_launches[hd]``
     maps each face to its launches per rank in the served runs. Phase 19
     adds the decode face at a pp stage's microbatch shape
     (``PP_DECODE_CASE``; its prefill chunk is ``PREFILL_CASE``'s):
-    ``pp_launches`` maps each face to its launches per stage. Phase 20's
-    two ``--mesh 1,2`` workers run both faces on tp-2 ranks:
-    ``mesh_launches`` maps each face to its launches per rank, carried by
-    the rows ``paged_attention_decode@mesh_tp2_b8`` (every decode of
-    phase 20 is in the bucket of 8: ``MESH_DECODE_CASE``, and the same
-    with 4 dead rows) and ``paged_attention_ragged@mesh_tp2_chunks``
-    (``MESH_RAGGED_CASES``; the face's phase-20 launches also include the
-    512-token chunks of the ``@tp2_shard_hd64`` ragged row's shape);
-    ``held_cases`` names the phase-2 cases behind ``max_abs_err`` (the
-    largest of them) and the times (the first's). Their sum is
-    ``launches_mesh`` in ``slice_launches``."""
+    ``pp_launches`` maps each face to its launches per stage. Phases 20,
+    21 and 18 (d) run the kernels at shapes of their own:
+    ``held_launches`` maps a tag of ``HELD_ROWS`` to that part's launches
+    per rank, carried by the row ``<kernel>@<tag>``, whose ``held_cases``
+    names the phase-2 cases of those shapes, behind ``max_abs_err`` (the
+    largest of them) and the times (the first's). Their sums are
+    ``launches_mesh``, ``launches_fsdp`` and ``launches_sp_1x2`` in
+    ``slice_launches``."""
     rows = []
     for name, (face, kv, case, replaces) in KERNELS.items():
         r = results[case]
@@ -7761,12 +8304,8 @@ def kernels_line(results, launches, dist_launches, spec_launches,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     })
-    for name, tag, cases in (
-            ("paged_attention_decode", "mesh_tp2_b8",
-             (MESH_DECODE_CASE, f"{MESH_DECODE_CASE}, 4 dead rows")),
-            ("paged_attention_ragged", "mesh_tp2_chunks",
-             tuple(case for case, _, _ in MESH_RAGGED_CASES))):
-        per_rank = mesh_launches[name]
+    for tag, per_rank in held_launches.items():
+        name, cases = HELD_ROWS[tag]
         r = results[cases[0]]
         rows.append({
             "name": f"{name}@{tag}", "route": "cuda",
@@ -7884,6 +8423,8 @@ def main() -> None:
     timer("20 single-rank paths on multi-rank workers")
     sp = phase_sp(card)
     timer("18 sequence parallel")
+    fsdp = phase_fsdp(card)
+    timer("21 fsdp mesh, run.py and profiler --mesh")
     dist_launches = phase_dist(card, served, direct)
     timer("6 distributed")
     phase_kvmove_procs(card, served)
@@ -7927,13 +8468,21 @@ def main() -> None:
                                       "launches_sp": sp["launches_sp"],
                                       "launches_sp_2x2":
                                       sp["launches_sp_2x2"],
+                                      "launches_sp_1x2":
+                                      sp["launches_sp_1x2"],
+                                      "launches_fsdp": fsdp["launches"],
                                       "launches_pp": {
                                           k: sum(v) for k, v in
                                           pp_launches.items()},
                                       "launches_mesh": {
                                           k: sum(v) for k, v in
                                           mesh_launches.items()}},
-                       tp_launches, pp_launches, mesh_launches, tuned_rows))
+                       tp_launches, pp_launches, {
+                           "mesh_tp2_b8":
+                           mesh_launches["paged_attention_decode"],
+                           "mesh_tp2_chunks":
+                           mesh_launches["paged_attention_ragged"],
+                           **fsdp["held"], **sp["held"]}, tuned_rows))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

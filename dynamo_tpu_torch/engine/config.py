@@ -20,10 +20,11 @@ kernel's ``(q_tile, kv_tile)``:
   default fills the card once, ``ops/paged_attention.py`` ``_decode_grid``).
 
 The engine config keeps the knobs this package serves, plus the ones that
-select a path it does not serve yet (a 3-D mesh): those stay so that
-:func:`check_supported` refuses them loudly at engine construction instead
-of ignoring them. A ``(dp, tp)`` mesh and ``pp_stages`` pipeline stages are
-served: one engine per rank of a ``torch.distributed`` world
+select a path it does not serve yet (an sp prefill over a seq column that
+is not a power of two): those stay so that :func:`check_supported`
+refuses them loudly at engine construction instead of ignoring them. A
+``(dp, tp)`` or ``(dp, fsdp, tp)`` mesh and ``pp_stages`` pipeline stages
+are served: one engine per rank of a ``torch.distributed`` world
 (``parallel/multihost.py``; a pp engine's stages are its ranks,
 ``parallel/pp_serving.py``).
 """
@@ -235,7 +236,7 @@ class EngineConfig:
     # pipeline parallelism: >1 runs the unified step GPipe-style over that
     # many stages, one rank each (layers split over the stages, decode
     # batches microbatched; parallel/pp_serving.py). Exclusive with a
-    # (dp, tp) mesh larger than (1, 1), spec decode and quantized serving;
+    # mesh larger than one device, spec decode and quantized serving;
     # decode_steps > 1 runs single-step decode
     pp_stages: int = 1
     pp_microbatches: int = 4
@@ -324,20 +325,23 @@ class EngineConfig:
 
 def check_supported(eng: EngineConfig) -> None:
     """Refuse, at engine construction, every path this package does not
-    serve yet (each is still served by the JAX package): a mesh other than
-    ``(dp, tp)``, and an sp prefill over a dp that is not a power of two
-    (ROADMAP.md queue A, item 6, later part)."""
+    serve yet (each is still served by the JAX package): an sp prefill
+    whose seq column (``dp * fsdp`` ranks) is not a power of two (ROADMAP.md
+    queue A, item 6.8). Every ``(dp, tp)`` and ``(dp, fsdp, tp)`` mesh is
+    served."""
     from ..parallel.layout import check_mesh_shape
 
-    dp, _ = check_mesh_shape(eng.mesh_shape)
+    dp, fsdp, _ = check_mesh_shape(eng.mesh_shape)
+    seq = dp * fsdp
     unsupported = [
-        # an sp chunk is bucketed to a power of two, which dp must divide
-        (eng.sp_prefill_threshold > 0 and dp & (dp - 1),
-         f"sp_prefill_threshold on dp={dp} (not a power of two)"),
+        # an sp chunk is bucketed to a power of two, which the seq column
+        # must divide
+        (eng.sp_prefill_threshold > 0 and seq & (seq - 1),
+         f"sp_prefill_threshold on dp*fsdp={seq} (not a power of two)"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(
                 f"{what} is not served by dynamo_tpu_torch yet: it needs "
-                "ROADMAP.md queue A, item 6 (later part)"
+                "ROADMAP.md queue A, item 6.8 (uneven shards)"
             )

@@ -43,8 +43,10 @@ two chunks), with KV block hashes chained over the content-addressed
 ``mm_hash_token_ids``.
 
 Tensor, expert and data parallelism (``mesh_shape=(dp, tp)``, one engine
-per rank, ``parallel/multihost.py``): each rank's engine holds its shard of
-the params and cache (replicated over dp); the leader's engine schedules
+per rank, ``parallel/multihost.py``), and parameter storage over fsdp
+(``mesh_shape=(dp, fsdp, tp)``): each rank's engine holds its shard of
+the params (its fsdp slices, gathered layer by layer as the steps run)
+and of the cache (replicated over dp and fsdp); the leader's engine schedules
 and hands every device call's host arrays to ``step_sink`` *before*
 launching it (the JAX emission sites), and the followers' engines replay
 them (``replay_plan``). Attention choices and launch parameters come from
@@ -56,12 +58,13 @@ one sequence-parallel chunk (``rsp`` plans; ``engine/model.py``).
 The single-rank paths run on such a mesh through the same plans, each
 emitted on the device-step thread before the collective it leads to:
 a KV extract (``kx``) gathers every rank's heads and joins them on the
-leader over its tp row (a ``gather``, ``kv_gather``), so the payload
+leader over its tp row (a ``gather``, ``kv_gather``; the other tp rows,
+replicas over dp and fsdp, join nothing), so the payload
 that leaves the engine is the JAX one, every KV head in head order; an
 inject (``ki``)
 broadcasts the leader's full payload to every rank (``kv_deliver``),
-which writes its head slice, every dp row alike (the cache is replicated
-over dp). The leader checks a reservation's epoch and the payload's
+which writes its head slice, every dp and fsdp replica alike (the cache
+is replicated over both). The leader checks a reservation's epoch and the payload's
 shapes and dtypes before it emits the ``ki`` plan, so a stale or
 ill-fitting inject raises there and no follower enters a collective the
 leader skips. KV bytes never ride the plan stream. Disagg,
@@ -104,7 +107,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..parallel.layout import check_divisible, make_mesh
+from ..parallel.layout import check_divisible, check_mesh_shape, make_mesh
 from ..observability import compilewatch
 from ..observability import flops as obs_flops
 from ..observability import profiling
@@ -1358,11 +1361,12 @@ class InferenceEngine(EngineCore):
     ``device`` defaults to ``cuda``; with no GPU present and no device
     given, construction raises (pass ``device="cpu"`` to run on the CPU).
 
-    With ``mesh_shape=(dp, tp)`` the engine is one rank of a world of
-    ``dp * tp`` (``parallel/comm.py`` initialised first): ``params`` may be
-    the full tree (each rank keeps its slice; ``None`` builds the full tree
-    from ``seed`` on every rank, so the weights equal the one-rank
-    engine's) or this rank's shard (``weights.load_hf_params_sharded``).
+    With ``mesh_shape=(dp, tp)`` or ``(dp, fsdp, tp)`` the engine is one
+    rank of a world of every rank of the mesh (``parallel/comm.py``
+    initialised first): ``params`` may be the full tree (each rank keeps
+    its slice; ``None`` builds the full tree from ``seed`` on every rank,
+    so the weights equal the one-rank engine's) or this rank's shard
+    (``weights.load_hf_params_sharded``).
     ``sp_prefill_threshold > 0`` on such a mesh turns on the
     sequence-parallel prefill (``_sp_prefill_fn``).
 
@@ -1382,8 +1386,9 @@ class InferenceEngine(EngineCore):
         check_supported(engine_config)
         self.device = resolve_device(device)
         tp = model_lib.tp_size(engine_config)
-        check_divisible(model_config, tp)
-        # this rank's coordinates and process group (one rank: no group)
+        check_divisible(model_config, tp,
+                        check_mesh_shape(engine_config.mesh_shape)[1])
+        # this rank's coordinates and process groups (one rank: no group)
         self.mesh = make_mesh(engine_config.mesh_shape)
         # pipeline parallelism: this rank is stage pp_group.index of the
         # world (parallel/pp_serving.py)
@@ -1463,8 +1468,9 @@ class InferenceEngine(EngineCore):
             self._encode_fn = pp_serving.make_pp_encode_fn(model_config,
                                                            self.pp_group)
         else:
-            self._encode_fn = model_lib.make_encode_fn(model_config,
-                                                       self.mesh)
+            self._encode_fn = model_lib.make_encode_fn(
+                model_config, self.mesh,
+                model_lib.param_specs(model_config, engine_config))
         # the world a single-rank path's payload is delivered over (the
         # leader is its member 0); one rank alone needs none
         self._world_group = (comm.world_group() if self.world > 1
@@ -1659,12 +1665,12 @@ class InferenceEngine(EngineCore):
         rank gathers its heads and the leader's tp row joins them on the
         leader (a ``gather`` along the head axis), so the leader's payload
         holds every KV head in head order. A follower's payload is None
-        (the leader's tp row) or its own heads (another dp row), which
-        nobody reads."""
+        (the leader's tp row) or its own heads (another tp row, a replica
+        over dp or fsdp), which nobody reads."""
         if self.step_sink is not None:
             self.step_sink("kx", {"ids": padded})
         data = self._kv_extract(self.cache, self._upload(padded))
-        if self.world > 1 and self.mesh.coords.get("dp", 0) == 0:
+        if self.world > 1 and self.mesh.seq_group.index == 0:
             # as bytes: gloo has no float8, and a copy is exact for all
             joined = {key: comm.gather(
                 a.contiguous().view(torch.uint8), self.mesh.tp_group,
@@ -2198,9 +2204,10 @@ class InferenceEngine(EngineCore):
             T = self._bucket_for("prefill", chunk.length)
         else:
             # sp full-prompt chunks (and any oversized chunk) bucket to the
-            # next power of two, which a power-of-two dp always divides
+            # next power of two, which a power-of-two seq column (dp *
+            # fsdp ranks) always divides
             T = max(_pow2_bucket(chunk.length),
-                    self.config.mesh_shape[0] if use_sp else 1)
+                    self.mesh.seq_group.size if use_sp else 1)
         # only the blocks this chunk can touch: W is a function of the
         # chunk shape alone
         bs = cfg.block_size

@@ -62,34 +62,52 @@ buffers:
   (:func:`encode_layer`), the multimodal splice runs unchanged on every
   rank (the leader broadcasts the embeddings), and the KV block ops gather
   the rank's heads and write its slice of a full payload
-  (:func:`make_kv_ops`). Every ``all_reduce`` runs over the rank's **tp row**: on a
-  ``(dp, tp)`` mesh the ``dp`` replicas hold the same parameters and
-  cache and run the same dense step redundantly, as GSPMD runs the JAX
-  package's replicated activations. The groups come from the engine's
-  mesh (``make_mesh(eng.mesh_shape)``, its ``tp_group`` and
-  ``dp_group``), bound when a step function is built and handed to
-  ``forward`` and ``logits_fn``: no collective reads a group from process
-  state, so two engines on two meshes in one process keep their own.
+  (:func:`make_kv_ops`). Every ``all_reduce`` runs over the rank's **tp
+  row**: on a ``(dp, tp)`` mesh the ``dp`` replicas hold the same
+  parameters and cache and run the same dense step redundantly, as GSPMD
+  runs the JAX package's replicated activations. The groups come from the
+  engine's mesh (``make_mesh(eng.mesh_shape)``, its ``tp_group``,
+  ``dp_group``, ``fsdp_group`` and ``seq_group``), bound when a step
+  function is built and handed to ``forward`` and ``logits_fn``: no
+  collective reads a group from process state, so two engines on two
+  meshes in one process keep their own.
+- **Parameter storage over fsdp** (``eng.mesh_shape == (dp, fsdp, tp)``):
+  each rank *stores* the JAX table's fsdp slices — ``D / fsdp`` of every
+  column leaf's contraction dim, of every row leaf's output dim, of the
+  embedding's and of an untied head's model dim — and gathers them whole
+  over its **fsdp group** just before use, as ZeRO-3 does: one layer's
+  weights before the layer runs (:func:`gather_fsdp`, freed when it
+  returns, never cached), the looked-up embedding rows before the tp sum,
+  the head before the logits. The gathered weights are the ``(1, tp)``
+  mesh's slices, copied exactly, so the Megatron body above runs
+  unchanged and an fsdp mesh computes the ``(1, tp)`` mesh's arithmetic
+  bit for bit. (The activation form — partial products over D slices
+  summed over fsdp — would split every D contraction into f32 partials
+  and lose that.) The cost is the gathered bytes, about ``1 - 1/fsdp`` of
+  the parameters per step through the fsdp group. MoE expert stacks and
+  the router have no fsdp entry. The cache and the hidden states stay
+  replicated over dp and fsdp.
 - **Sequence-parallel prefill** (``forward(..., sp=True)``, the engine's
   ``sp_prefill_threshold``): a fresh prompt's one chunk of ``T`` tokens is
-  split along T over the dp rows, Megatron's context parallel times
-  tensor parallel. dp row ``d`` takes the contiguous slice ``[d*T/dp,
-  (d+1)*T/dp)`` — the union of the JAX mesh-major chunks ``d*tp ..
-  d*tp+tp-1`` of ``SpecLayout.seq_axes`` — and inside the row the tp
-  ranks run the column/row split above on that slice (their
-  ``all_reduce`` stays on the tp row). Attention is
-  ``parallel/ring_attention.py`` over the **dp column** (the ranks of
-  equal tp index) on the rank's ``H/tp`` heads, from the unquantized K/V
-  as in JAX; the cache then takes the whole prompt's K/V of the rank's
-  ``KV/tp`` heads by one exact ``all_gather`` over the dp column per K and
-  V (quantized there for 1-byte pages) — the port's form of the JAX
-  gather-then-slice re-landing. An MoE layer gathers its input rows over
-  the dp column too: capacity routing is a function of every row of the
-  chunk in order. The function is the JAX package's; the placement
-  differs in one respect: activations per rank are O(T/dp), where the JAX
-  composite axis gives O(T/(dp*tp)). At ``dp = 1`` the ring has one
-  member and the sp chunk is the tp forward over the whole prompt, with
-  ring attention's f32 einsum in place of the kernel.
+  split along T over the rank's **seq column** (the ``dp * fsdp`` ranks of
+  its tp index, in rank order), Megatron's context parallel times tensor
+  parallel. The rank at seq index ``s = d * fsdp + f`` takes the
+  contiguous slice ``[s*T/n, (s+1)*T/n)``, ``n = dp * fsdp`` — the union
+  of the JAX mesh-major chunks ``s*tp .. s*tp+tp-1`` of
+  ``SpecLayout.seq_axes`` — and inside its tp row the tp ranks run the
+  column/row split above on that slice (their ``all_reduce`` stays on the
+  tp row). Attention is ``parallel/ring_attention.py`` over the seq column
+  on the rank's ``H/tp`` heads, from the unquantized K/V as in JAX; the
+  cache then takes the whole prompt's K/V of the rank's ``KV/tp`` heads
+  by one exact ``all_gather`` over the seq column per K and V (quantized
+  there for 1-byte pages) — the port's form of the JAX gather-then-slice
+  re-landing. An MoE layer gathers its input rows over the seq column
+  too: capacity routing is a function of every row of the chunk in
+  order. The function is the JAX package's; the placement differs in one
+  respect: activations per rank are O(T/(dp*fsdp)), where the JAX
+  composite axis gives O(T/(dp*fsdp*tp)) (ROADMAP.md, item 6.3). With a
+  seq column of one rank the sp chunk is the tp forward over the whole
+  prompt, with ring attention's f32 einsum in place of the kernel.
 
 Nothing here synchronises with the host except where a docstring says so.
 """
@@ -113,7 +131,7 @@ from ..ops.paged_attention import (
 )
 from ..parallel import comm
 from ..parallel.layout import (
-    Mesh, SpecLayout, make_mesh, map_specs, shard_tensor,
+    AXIS_FSDP, Mesh, SpecLayout, make_mesh, map_specs, shard_tensor,
 )
 from ..parallel.moe import moe_ffn
 from ..parallel.ring_attention import ring_attention
@@ -131,16 +149,15 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def tp_size(eng: EngineConfig) -> int:
-    """The tensor-parallel degree of the engine's ``(dp, tp)`` mesh."""
+    """The tensor-parallel degree of the engine's mesh (its last axis)."""
     return int(eng.mesh_shape[-1])
 
 
 def mesh_ranks(eng: EngineConfig) -> int:
-    """The ranks of the engine's world: ``dp * tp`` of its ``(dp, tp)``
-    mesh times its pipeline stages (the two are exclusive, so one of the
-    factors is 1)."""
-    return (int(eng.mesh_shape[0]) * int(eng.mesh_shape[-1])
-            * int(eng.pp_stages))
+    """The ranks of the engine's world: every rank of its ``(dp, tp)`` or
+    ``(dp, fsdp, tp)`` mesh times its pipeline stages (the two are
+    exclusive, so one of the factors is 1)."""
+    return math.prod(int(n) for n in eng.mesh_shape) * int(eng.pp_stages)
 
 
 # ------------------------------ init ------------------------------------
@@ -254,13 +271,19 @@ def shard_params(params: Params, cfg: ModelConfig,
                  eng: EngineConfig) -> Params:
     """This rank's slice of every leaf of a full tree (the counterpart of
     the JAX ``shard_params``' ``device_put``); the full leaves can be freed
-    as soon as the caller drops the tree. A tree already sharded (its
-    embedding holds ``V / tp`` rows, as ``weights.load_hf_params_sharded``
-    gives it) is kept, and so is any tree of a one-rank mesh. On a mesh
-    of more than one rank it makes the mesh first (``make_mesh``, which
-    creates its groups on every rank alike)."""
+    as soon as the caller drops the tree. On an fsdp mesh the slices are
+    what the rank *stores*: ``D / fsdp`` of every column and row leaf's
+    model dim and of the embedding's (:func:`gather_fsdp` rebuilds a
+    layer's ``(1, tp)`` slices just before it runs). A tree already
+    sharded (its embedding smaller than ``[V, D]``, as
+    ``weights.load_hf_params_sharded`` gives it) is kept, and so is any
+    tree of a mesh that shards no parameter (``tp`` and ``fsdp`` 1). On
+    a mesh of more than one rank it makes the mesh first (``make_mesh``,
+    which creates its groups on every rank alike)."""
     mesh = make_mesh(eng.mesh_shape)
-    if tp_size(eng) == 1 or params["embed"].shape[0] != cfg.vocab_size:
+    if (mesh.shape["tp"] * mesh.shape.get("fsdp", 1) == 1
+            or tuple(params["embed"].shape)
+            != (cfg.vocab_size, cfg.hidden_size)):
         return params
     return map_specs(lambda t, sp: shard_tensor(t, sp, mesh), params,
                      param_specs(cfg, eng))
@@ -333,19 +356,59 @@ def _row_mm(x: torch.Tensor, w: Any, tpg: comm.Group) -> torch.Tensor:
 
 
 def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
-                  vocab_size: int, tpg: comm.Group) -> torch.Tensor:
+                  vocab_size: int, tpg: comm.Group,
+                  fsg: comm.Group = comm.SOLO) -> torch.Tensor:
     """Token embeddings from a (possibly vocab-sharded) table: a rank
     holding rows ``[lo, lo + rows)`` of the vocabulary looks up the tokens
     in its range, writes zeros for the rest, and one ``all_reduce`` over
     the tp row ``tpg`` sums the ranks' rows — exact, as each element has
-    one nonzero term."""
+    one nonzero term. A table stored over fsdp (``D / fsdp`` columns)
+    looks up its columns of the rows, and one exact ``all_gather`` over
+    the fsdp group ``fsg`` joins them before the tp sum."""
     rows = embed.shape[0]
     if rows == vocab_size:
-        return embed[tokens.long()]
+        return _gather(embed[tokens.long()], fsg, -1)
     local = tokens.long() - tpg.index * rows
     inside = (local >= 0) & (local < rows)
-    h = embed[torch.where(inside, local, 0)]
+    h = _gather(embed[torch.where(inside, local, 0)], fsg, -1)
     return comm.all_reduce(torch.where(inside[..., None], h, 0.0), tpg)
+
+
+def _gather(t: torch.Tensor, fsg: comm.Group, dim: int) -> torch.Tensor:
+    """The fsdp group's slices of ``t`` joined along ``dim`` (an exact
+    copy, counted as ``fsdp_gather``; 1-byte weights travel as bytes:
+    gloo has no float8)."""
+    if fsg.size == 1:
+        return t
+    if t.element_size() == 1:
+        return comm.all_gather(t.view(torch.uint8), fsg, dim,
+                               op="fsdp_gather").view(t.dtype)
+    return comm.all_gather(t, fsg, dim, op="fsdp_gather")
+
+
+def gather_fsdp(tree: Any, specs: Any, fsg: comm.Group) -> Any:
+    """``tree`` (parameters as the rank stores them: a layer's slice, the
+    embedding, the head) with every leaf whose spec carries ``fsdp`` joined
+    over the fsdp group ``fsg`` on that dim, the ZeRO-3 gather. ``specs``
+    is the matching part of :func:`param_specs` (a stacked layer spec fits
+    the layer's slice too: the dim is counted from the end), so the one
+    table that shards the parameters also says what to gather: column
+    leaves on -2, row leaves and their scales on -1, the embedding on -1,
+    an untied head on -2; norms, MoE expert stacks, the router and a column
+    leaf's scale have no fsdp entry and pass unchanged, as does everything
+    on a group of one. The result is the ``(1, tp)`` mesh's slices, exact
+    copies, so the Megatron body runs the ``(1, tp)`` mesh's arithmetic
+    bit for bit; it lives only while its caller runs (never cached: that
+    would undo fsdp)."""
+    if fsg.size == 1:
+        return tree
+
+    def one(t: torch.Tensor, sp) -> torch.Tensor:
+        if AXIS_FSDP not in sp:
+            return t
+        return _gather(t, fsg, sp.index(AXIS_FSDP) - len(sp))
+
+    return map_specs(one, tree, specs)
 
 
 def _layer_slice(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
@@ -462,7 +525,10 @@ class ChunkPlan:
     chunk, ``mine`` their slice), the cache scatter indices (pad
     positions go to the trash block 0), the rope tables of the rank's
     rows, the attention route and the kernel's ragged metadata, and the
-    rank's tp row and dp column. Built once per step by
+    rank's tp row, its seq column (the ranks that split an sp chunk: dp
+    times fsdp of them; one rank off the sp path) and its fsdp group with
+    the layer specs that say what it gathers.
+    Built once per step by
     :func:`chunk_plan`; :func:`layer_forward` reads it."""
 
     B: int
@@ -481,7 +547,9 @@ class ChunkPlan:
     sp: bool
     use_kernel: bool
     tpg: Any
-    dpg: Any
+    seqg: Any
+    fsg: Any
+    specs: Any = None             # the layer specs, on an fsdp mesh
     q_tile: int = 0
     kv_arg: int = 0
     seq_lens: Optional[torch.Tensor] = None
@@ -501,12 +569,12 @@ def chunk_plan(cfg: ModelConfig, eng: EngineConfig, positions: torch.Tensor,
     KV = cfg.num_kv_heads // tp                  # this rank's KV heads
     dev = positions.device
     tpg = mesh.tp_group
-    dpg = mesh.dp_group if sp else comm.SOLO
-    if T % dpg.size:
+    seqg = mesh.seq_group if sp else comm.SOLO
+    if T % seqg.size:
         raise ValueError(f"an sp chunk of T={T} does not split over "
-                         f"dp={dpg.size}")
-    Tl = T // dpg.size                      # this rank's rows of the chunk
-    mine = slice(dpg.index * Tl, (dpg.index + 1) * Tl)
+                         f"dp*fsdp={seqg.size}")
+    Tl = T // seqg.size                     # this rank's rows of the chunk
+    mine = slice(seqg.index * Tl, (seqg.index + 1) * Tl)
 
     # physical (block, offset) per (b, t); pads go to the trash block 0
     pos_safe = torch.clamp(positions, min=0)
@@ -528,7 +596,10 @@ def chunk_plan(cfg: ModelConfig, eng: EngineConfig, positions: torch.Tensor,
     c = ChunkPlan(B=B, T=T, Tl=Tl, W=W, H=cfg.num_heads // tp, KV=KV, tp=tp,
                   mine=mine, positions=positions, block_tables=block_tables,
                   scatter_idx=scatter_idx, cos=cos, sin=sin, sp=sp,
-                  use_kernel=use_kernel, tpg=tpg, dpg=dpg)
+                  use_kernel=use_kernel, tpg=tpg, seqg=seqg,
+                  fsg=mesh.fsdp_group)
+    if c.fsg.size > 1:
+        c.specs = param_specs(cfg, eng)["layers"]
     if use_kernel:
         c.q_tile, c.kv_arg = class_tile(eng, attn_class, T, W)
         if T == 1:
@@ -582,13 +653,16 @@ def layer_forward(cfg: ModelConfig, eng: EngineConfig, p: Dict[str, Any],
     D]``: its K/V scattered into ``cache`` layer ``li`` in place, attention
     by the route of ``c`` (the kernel's decode or ragged face, the ring
     for an sp chunk, or the gathered-context einsum), then the dense or
-    MoE FFN. ``p`` is the layer's slice of the stacked tree. ``forward``
+    MoE FFN. ``p`` is the layer's slice of the stacked tree as the rank
+    stores it; on an fsdp mesh its slices are gathered first
+    (:func:`gather_fsdp`) and freed when the layer returns. ``forward``
     runs every layer through here, and so does a pipeline stage its own
     (``parallel/pp_serving.py``)."""
     B, T, Tl, W, H, KV, tp = c.B, c.T, c.Tl, c.W, c.H, c.KV, c.tp
     bs = eng.block_size
     hd = cfg.head_dim_
-    tpg, dpg = c.tpg, c.dpg
+    tpg, seqg = c.tpg, c.seqg
+    p = gather_fsdp(p, c.specs, c.fsg)
     kv_quant = quant.is_quantized(eng.kv_dtype)
     scatter_idx = c.scatter_idx
     block_tables, positions = c.block_tables, c.positions
@@ -606,9 +680,9 @@ def layer_forward(cfg: ModelConfig, eng: EngineConfig, p: Dict[str, Any],
 
     # scatter this chunk's K/V into the paged cache, in place (the JAX
     # step donates the cache and scatter-updates it); an sp rank first
-    # gathers the other dp rows' slices of its heads (exact copies)
-    k_upd = comm.all_gather(k, dpg, dim=1).reshape(B * T, KV, hd)
-    v_upd = comm.all_gather(v, dpg, dim=1).reshape(B * T, KV, hd)
+    # gathers its seq column's slices of its heads (exact copies)
+    k_upd = comm.all_gather(k, seqg, dim=1).reshape(B * T, KV, hd)
+    v_upd = comm.all_gather(v, seqg, dim=1).reshape(B * T, KV, hd)
     if kv_quant:
         # per-(token, head) scales: a token's bytes depend only on its
         # own K/V, never on the block it lands in
@@ -620,7 +694,7 @@ def layer_forward(cfg: ModelConfig, eng: EngineConfig, p: Dict[str, Any],
     _bits(lv).index_put_(scatter_idx, _bits(v_upd))
 
     if c.sp:
-        attn = ring_attention(q, k, v, dpg)
+        attn = ring_attention(q, k, v, seqg)
     elif c.use_kernel and T == 1:
         attn = paged_attention_decode(
             q[:, 0].contiguous(), lk, lv, block_tables, c.seq_lens,
@@ -658,10 +732,11 @@ def layer_forward(cfg: ModelConfig, eng: EngineConfig, p: Dict[str, Any],
     if cfg.is_moe:
         # every row of the chunk is routed, padding included, in the
         # reference's order: capacity slots go to rows in [B*T] order. An
-        # sp rank routes the whole chunk (gathered over the dp column),
+        # sp rank routes the whole chunk (gathered over its seq column),
         # then keeps its rows: capacity slots depend on every row before
         # its own
-        h = h + _ffn(cfg, p, comm.all_gather(x, dpg, dim=1), tpg)[:, c.mine]
+        h = h + _ffn(cfg, p, comm.all_gather(x, seqg, dim=1),
+                     tpg)[:, c.mine]
     else:
         h = h + _ffn(cfg, p, x, tpg)
     return h
@@ -682,17 +757,17 @@ def forward(
 ) -> Tuple[Cache, torch.Tensor]:
     """Run the transformer over a token chunk, updating the paged cache IN
     PLACE (the returned cache is the same dict and tensors). ``mesh``
-    carries the rank's tp row and dp column (default
-    ``make_mesh(eng.mesh_shape)``; the step builders bind it once).
+    carries the rank's groups (default ``make_mesh(eng.mesh_shape)``; the
+    step builders bind it once).
 
     With ``sp`` the chunk MUST be a full fresh prompt (start 0) whose T the
-    dp column divides: this rank runs its dp row's slice of T (module
-    docstring), attention is the exact ring over the dp column, and every
-    rank's cache takes the whole prompt's K/V of its heads. The returned
-    hidden states are then this rank's slice ``[B, T/dp, D]``. Pad tails
-    are safe: the ring masks by absolute chunk index, so pad keys (index
-    above every real query) never reach a real row, and pad rows scatter
-    to the trash block.
+    seq column (``dp * fsdp`` ranks) divides: this rank runs its slice of
+    T (module docstring), attention is the exact ring over the seq column,
+    and every rank's cache takes the whole prompt's K/V of its heads. The
+    returned hidden states are then this rank's slice ``[B, T/(dp*fsdp),
+    D]``. Pad tails are safe: the ring masks by absolute chunk index, so
+    pad keys (index above every real query) never reach a real row, and
+    pad rows scatter to the trash block.
 
     Valid tokens of each row are a prefix of it (the prefill/decode feed
     contract), so the kernel's ragged metadata is a count and a max.
@@ -706,8 +781,14 @@ def forward(
     block_tables = block_tables.to(torch.int32).contiguous()
     mesh = make_mesh(eng.mesh_shape) if mesh is None else mesh
     c = chunk_plan(cfg, eng, positions, block_tables, sp, mesh)
-    h = _embed_lookup(params["embed"], tokens[:, c.mine],
-                      cfg.vocab_size, c.tpg)               # [B, Tl, D]
+    # an fsdp group joins its members' columns of the SAME rows, and on an
+    # sp chunk its members may hold different rows (the seq column spans
+    # fsdp): there every rank looks up the whole chunk, then keeps its own
+    whole = c.fsg.size > 1 and c.seqg.size > 1
+    h = _embed_lookup(params["embed"], tokens if whole else tokens[:, c.mine],
+                      cfg.vocab_size, c.tpg, c.fsg)
+    if whole:
+        h = h[:, c.mine]                                   # [B, Tl, D]
     if mm_embeds is not None:
         # multimodal EPD: placeholder positions take the encode worker's
         # precomputed embeddings instead of token embeddings (ref: the
@@ -722,7 +803,8 @@ def forward(
 
 
 def logits_fn(cfg: ModelConfig, params: Params, h: torch.Tensor,
-              mesh: Optional[Mesh] = None) -> torch.Tensor:
+              mesh: Optional[Mesh] = None,
+              specs: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Float32 logits ``[..., V]``. A bf16 head on the card multiplies in
     bf16 with an f32 result (casting the [D, V] head to f32 would write
     ~1 GB per step for a 1B model). A quantized untied head multiplies by
@@ -732,10 +814,16 @@ def logits_fn(cfg: ModelConfig, params: Params, h: torch.Tensor,
     A vocab-sharded head (tensor parallelism: fewer columns than the
     vocabulary) writes this rank's columns into zeroed full logits and one
     ``all_reduce`` over ``mesh``'s tp row fills in the others' — exact, so
-    every rank samples the same tokens from the same logits. Such a head
-    needs ``mesh``."""
-    head = (params["embed"].T if cfg.tie_word_embeddings
-            else params["lm_head"])
+    every rank samples the same tokens from the same logits. A head
+    stored over fsdp (``D / fsdp`` of its model dim) is gathered over
+    ``mesh``'s fsdp group first, as ``specs`` (:func:`param_specs`) says,
+    and freed after the product. Both need ``mesh``."""
+    fsg = comm.SOLO if mesh is None else mesh.fsdp_group
+    name = "embed" if cfg.tie_word_embeddings else "lm_head"
+    head = gather_fsdp(params[name], None if specs is None else specs[name],
+                       fsg)
+    if cfg.tie_word_embeddings:
+        head = head.T
     if isinstance(head, dict):
         y = _head_mm(h, head["q"].to(h.dtype)) * head["s"][0]
     else:
@@ -776,7 +864,8 @@ def encode_layer(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
     more than one member) it runs the rank's ``H/tp`` and ``KV/tp`` heads,
     ``wo`` row-parallel (one ``all_reduce``) and the group-aware
     :func:`_ffn`, as :func:`layer_forward` does, so every rank holds the
-    same ``h``.
+    same ``h``. ``p`` is the layer's ``(1, tp)`` slice (on an fsdp mesh
+    :func:`encode_forward` gathers it first).
     :func:`encode_forward` runs every layer through here, and so does a
     pipeline stage its own (``parallel/pp_serving.py``)."""
     B, T, _ = h.shape
@@ -813,6 +902,7 @@ def encode_forward(
     tokens: torch.Tensor,      # [B, T] int (0 = pad)
     positions: torch.Tensor,   # [B, T] int, -1 = pad
     mesh: Optional[Mesh] = None,
+    specs: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """Encode-only forward: dense causal attention over the chunk through
     the plain :func:`_attention`, no paged cache — the engine step for
@@ -823,32 +913,40 @@ def encode_forward(
     (:func:`encode_pool`). Pad rows attend to nothing valid: their softmax
     is uniform over masked scores, finite, and pooled out.
 
-    On a tp rank (``mesh`` with a tp row of more than one rank, params
-    this rank's shard) the lookup is the vocab-sharded one and each layer
-    the group-aware :func:`encode_layer`; the pooled result is the same on
-    every rank, as the JAX ``make_encode_fn``'s on a mesh is replicated.
+    On a tp or fsdp rank (``mesh`` with a tp row or fsdp group of more
+    than one rank, params this rank's shard) the lookup is the sharded
+    one and each layer the group-aware :func:`encode_layer`, its slices
+    gathered over fsdp first as ``specs`` (:func:`param_specs`) says; the
+    pooled result is the same on every rank, as the JAX
+    ``make_encode_fn``'s on a mesh is replicated.
     """
     tpg = comm.SOLO if mesh is None else mesh.tp_group
+    fsg = comm.SOLO if mesh is None else mesh.fsdp_group
     positions = positions.long()
     h = _embed_lookup(params["embed"], tokens, cfg.vocab_size,
-                      tpg)                                 # [B, T, D]
+                      tpg, fsg)                            # [B, T, D]
     cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim_)
     stacked = params["layers"]
+    lspecs = None if specs is None else specs["layers"]
     for li in range(cfg.num_layers):
-        h = encode_layer(cfg, _layer_slice(stacked, li), h, positions, cos,
-                         sin, tpg)
+        p = gather_fsdp(_layer_slice(stacked, li), lspecs, fsg)
+        h = encode_layer(cfg, p, h, positions, cos, sin, tpg)
+        del p
     return encode_pool(cfg, params, h, positions)
 
 
-def make_encode_fn(cfg: ModelConfig, mesh: Optional[Mesh] = None):
+def make_encode_fn(cfg: ModelConfig, mesh: Optional[Mesh] = None,
+                   specs: Optional[Dict[str, Any]] = None):
     """The encode step: ``(params, tokens[B,T], positions[B,T]) -> [B, D]``,
     run eagerly without autograd (the JAX package jits one program per
     (B, T) bucket; eager PyTorch makes no program to count). ``mesh``
-    binds a tp rank's group, as ``forward`` binds it."""
+    binds a tp rank's groups, as ``forward`` binds them, and ``specs``
+    (:func:`param_specs`) what an fsdp rank gathers."""
 
     def encode(params, tokens, positions):
         with torch.inference_mode():
-            return encode_forward(cfg, params, tokens, positions, mesh)
+            return encode_forward(cfg, params, tokens, positions, mesh,
+                                  specs)
 
     return encode
 
@@ -965,11 +1063,11 @@ def step_key(key: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
 def _sp_last_rows(h: torch.Tensor, last_idx: torch.Tensor,
                   g: comm.Group) -> torch.Tensor:
     """``[B, D]``: row ``last_idx[b]`` of the chunk's hidden states, which
-    an sp rank holds only if its dp row owns that position. Every dp row
-    offers the row it would own, one exact ``all_gather`` over the dp
-    column ``g`` collects them, and the owner's is selected on the device
-    — a broadcast from the owner, without reading ``last_idx`` on the
-    host."""
+    an sp rank holds only if its slice owns that position. Every member
+    of the seq column ``g`` offers the row it would own, one exact
+    ``all_gather`` over ``g`` collects them, and the owner's is selected
+    on the device — a broadcast from the owner, without reading
+    ``last_idx`` on the host."""
     B, C, _ = h.shape
     rows = torch.arange(B, device=h.device)
     local = torch.clamp(last_idx - g.index * C, 0, C - 1)
@@ -992,6 +1090,7 @@ def raw_step_fn(cfg: ModelConfig, eng: EngineConfig, sp: bool = False):
     valid token of the chunk). The engine's mesh is bound here, once.
     """
     mesh = make_mesh(eng.mesh_shape)
+    specs = param_specs(cfg, eng)
 
     def step(params, cache, tokens, positions, block_tables, last_idx, key,
              temperature, top_k, top_p, seeds, stochastic, mm_embeds=None,
@@ -1002,9 +1101,9 @@ def raw_step_fn(cfg: ModelConfig, eng: EngineConfig, sp: bool = False):
         B = tokens.shape[0]
         rows = torch.arange(B, device=tokens.device)
         last_idx = last_idx.long()
-        h_last = (_sp_last_rows(h, last_idx, mesh.dp_group) if sp
+        h_last = (_sp_last_rows(h, last_idx, mesh.seq_group) if sp
                   else h[rows, last_idx])
-        logits = logits_fn(cfg, params, h_last, mesh)         # [B, V]
+        logits = logits_fn(cfg, params, h_last, mesh, specs)  # [B, V]
         pos_last = positions[rows, last_idx]
         sampled = sample(logits, key, temperature, top_k, top_p, seeds,
                          pos_last, stochastic)
@@ -1088,7 +1187,7 @@ def raw_packed_prefill_fn(cfg: ModelConfig, eng: EngineConfig, T: int,
     ``mm_embeds [T, D]`` f32, a second upload, spliced over the masked rows.
 
     With ``sp`` it is the sequence-parallel prefill of a fresh prompt's
-    one chunk (``forward(..., sp=True)``; T divisible by the dp column).
+    one chunk (``forward(..., sp=True)``; T divisible by the seq column).
 
     Signature: prefill(params, cache, last_tok[S+1], pint, key, stochastic
     [, mm_embeds]) -> (cache, last_tok, sampled[1])
@@ -1206,6 +1305,7 @@ def raw_autopilot_window_fn(cfg: ModelConfig, eng: EngineConfig, K: int):
     fresh host tensors.
     """
     mesh = make_mesh(eng.mesh_shape)
+    specs = param_specs(cfg, eng)
 
     def window(params, cache, ctl, slot_rows, stochastic):
         rows = slot_rows.long()
@@ -1224,7 +1324,7 @@ def raw_autopilot_window_fn(cfg: ModelConfig, eng: EngineConfig, K: int):
             pos_eff = torch.where(pos < vu[:, None], pos, -1)
             cache, h = forward(cfg, eng, params, cache, tok, pos_eff, tables,
                                mesh=mesh)
-            logits = logits_fn(cfg, params, h[:, 0], mesh)
+            logits = logits_fn(cfg, params, h[:, 0], mesh, specs)
             s = sample(logits, key_k, temp, tk, tp, sd, pos[:, 0],
                        stochastic)
             outs.append(s)
@@ -1289,6 +1389,7 @@ def raw_spec_window_fn(cfg: ModelConfig, eng: EngineConfig, k: int,
     from ..spec.ngram import propose_drafts
 
     mesh = make_mesh(eng.mesh_shape)
+    specs = param_specs(cfg, eng)
 
     def window(params, cache, ctl, slot_rows, stochastic):
         rows = slot_rows.long()                            # [B]
@@ -1325,7 +1426,7 @@ def raw_spec_window_fn(cfg: ModelConfig, eng: EngineConfig, k: int,
         pos_eff = torch.where(feed, pos, -1)
         cache, h = forward(cfg, eng, params, cache, toks, pos_eff, tables,
                            mesh=mesh)
-        logits = logits_fn(cfg, params, h, mesh)           # [B, k+1, V]
+        logits = logits_fn(cfg, params, h, mesh, specs)    # [B, k+1, V]
         g = torch.argmax(logits, dim=-1).to(torch.int32)   # [B, k+1]
         key_w = step_key(ctl["key"], ctl["ctr"])
         s0 = sample(logits[:, 0], key_w, temp, tk, tp, sd, pos0, stochastic)

@@ -178,19 +178,21 @@ def load_hf_params(path, cfg: ModelConfig, weight_dtype: str = "bf16",
 def load_hf_params_sharded(path, cfg: ModelConfig, mesh: Mesh,
                            weight_dtype: str = "bf16", device=None) -> Params:
     """This rank's shard of an HF checkpoint: every leaf at its shard shape
-    on the ``(1, tp)`` ``mesh`` (``parallel/layout.py``), bitwise equal to
-    slicing what :func:`load_hf_params` loads.
+    on the ``(dp, tp)`` or ``(dp, fsdp, tp)`` ``mesh``
+    (``parallel/layout.py``), bitwise equal to slicing what
+    :func:`load_hf_params` loads.
 
-    Only the rank's part of each tensor is read from the mapping: a
-    contiguous row range of a column-sharded HF ``[out, in]`` tensor (and
-    of the vocab-sharded embedding and head), a strided column range of a
-    row-sharded one, the rank's experts of an MoE stack (the others are
-    never read), the whole of a replicated one. A quantized row-sharded
-    leaf (``wo``, dense ``w_down``) is the exception: its per-output-
-    channel scale is an amax over the contraction axis, which the ranks
-    split, so the whole tensor is staged, quantized, then sliced — as the
-    JAX loader quantizes after staging. Peak host staging stays one
-    tensor (``last_load_stats["peak_staging_bytes"]``)."""
+    Only the rank's part of each tensor is read from the mapping: its
+    tp range and its fsdp range of each dim the layout shards (a row
+    range and a strided column range of an HF ``[out, in]`` tensor; the
+    embedding and head likewise), the rank's experts of an MoE stack (the
+    others are never read), the whole of a replicated one. A quantized
+    leaf whose contraction axis is split (a row-sharded ``wo`` or dense
+    ``w_down`` over tp, a column leaf or the head over fsdp) is the
+    exception: its per-output-channel scale is an amax over that axis,
+    which the ranks split, so the whole tensor is staged, quantized, then
+    sliced — as the JAX loader quantizes after staging. Peak host staging
+    stays one tensor (``last_load_stats["peak_staging_bytes"]``)."""
     return _load(path, cfg, weight_dtype, device, mesh)
 
 
@@ -206,8 +208,10 @@ def _load(path, cfg: ModelConfig, weight_dtype: str, device,
     dt = torch_dtype(cfg)
     quantized = quant.is_quantized(weight_dtype)
     if mesh is None:
-        mesh = Mesh({"dp": 1, "tp": 1}, {"dp": 0, "tp": 0})
-    lay = SpecLayout.for_mesh((mesh.shape["dp"], mesh.shape["tp"]))
+        mesh = Mesh({"dp": 1, "fsdp": 1, "tp": 1},
+                    {"dp": 0, "fsdp": 0, "tp": 0})
+    lay = SpecLayout.for_mesh((mesh.shape["dp"], mesh.shape.get("fsdp", 1),
+                               mesh.shape["tp"]))
     specs = lay.param_specs(cfg)        # weight specs (quantized or not)
 
     def _buf(name: str, shape: tuple):
@@ -298,12 +302,15 @@ def _load(path, cfg: ModelConfig, weight_dtype: str, device,
         n_tensors=len(seen), n_files=len(files), bytes=nbytes, seconds=secs,
         gb_s=nbytes / max(secs, 1e-9) / 1e9, rss_before_bytes=rss[0],
         peak_rss_bytes=peak, peak_staging_bytes=staged,
-        shard=(mesh.coords["tp"], mesh.shape["tp"]), layers=(first, end))
+        shard=(mesh.coords["tp"], mesh.shape["tp"]),
+        fsdp_shard=(mesh.coords.get("fsdp", 0), mesh.shape.get("fsdp", 1)),
+        layers=(first, end))
     log.info("loaded %d tensors (%.3f GB) from %s (%d files, "
-             "weight_dtype=%s, shard %d/%d, layers %d..%d) onto %s in "
-             "%.2f s: %.2f GB/s, peak host RSS %s", len(seen), nbytes / 1e9,
-             path, len(files), weight_dtype, mesh.coords["tp"],
-             mesh.shape["tp"], first, end - 1, device, secs,
+             "weight_dtype=%s, shard %d/%d, fsdp %d/%d, layers %d..%d) onto "
+             "%s in %.2f s: %.2f GB/s, peak host RSS %s", len(seen),
+             nbytes / 1e9, path, len(files), weight_dtype, mesh.coords["tp"],
+             mesh.shape["tp"], mesh.coords.get("fsdp", 0),
+             mesh.shape.get("fsdp", 1), first, end - 1, device, secs,
              last_load_stats["gb_s"],
              "not measured" if peak is None else
              f"{peak / 2**30:.2f} GiB ({rss[0] / 2**30:.2f} GiB before)")

@@ -13,7 +13,10 @@ a ``gather`` over the tp row joins each rank's KV heads of an extracted
 block payload on the row's first member (``kv_gather``), and a
 ``broadcast`` over the world hands every rank a payload the leader holds
 (an injected KV payload, ``kv_deliver``, or a multimodal chunk's
-embeddings, ``mm_deliver``). Every call is counted with its bytes and
+embeddings, ``mm_deliver``). On an fsdp mesh the ``all_gather`` of each
+stored parameter shard over the rank's fsdp group, just before the
+layer (or the embedding, or the head) that uses it, is counted apart
+too (``fsdp_gather``). Every call is counted with its bytes and
 the host microseconds it blocked (:data:`STATS`), so a run can report
 the collectives per step.
 
@@ -52,7 +55,7 @@ BACKEND_ENV = "DYNTPU_DIST_BACKEND"
 # bytes the ring hop copied through the host (gloo's send/recv takes no
 # CUDA tensor)
 _OPS = ("all_reduce", "broadcast", "ppermute", "all_gather", "all_to_all",
-        "kv_gather", "kv_deliver", "mm_deliver")
+        "kv_gather", "kv_deliver", "mm_deliver", "fsdp_gather")
 STATS: Dict[str, int] = {f"{op}_{what}": 0 for op in _OPS
                          for what in ("calls", "bytes", "us")}
 STATS["staged_bytes"] = 0
@@ -154,41 +157,61 @@ def backend() -> str:
     return str(_state["backend"])
 
 
-def mesh_groups(dp: int, tp: int) -> Tuple[Group, Group]:
-    """(tp row, dp column) of this rank on a ``(dp, tp)`` mesh over the
-    world, mesh-major: rank ``r`` sits at ``(r // tp, r % tp)``.
+def mesh_groups(dp: int, fsdp: int, tp: int
+                ) -> Tuple[Group, Group, Group, Group]:
+    """(tp row, dp column, fsdp group, seq column) of this rank on a
+    ``(dp, fsdp, tp)`` mesh over the world, mesh-major: rank ``r = (d *
+    fsdp + f) * tp + t``. The tp row varies ``t``, the dp column ``d``,
+    the fsdp group ``f``; the seq column holds the ranks of equal ``t``
+    (``dp * fsdp`` of them, in rank order) that split a
+    sequence-parallel prefill's prompt. A ``(dp, tp)`` mesh is ``fsdp``
+    1, its seq column its dp column.
 
     ``torch.distributed.new_group`` is collective: EVERY rank must create
-    EVERY group, in the same order, even those it is not in — so a 2-D
-    mesh makes all tp rows, then all dp columns, on every rank. A 1-D
-    mesh makes none (its long axis is the world, the other one rank).
-    The groups of a shape are made once per world and reused."""
+    EVERY group, in the same order, even those it is not in — so every
+    rank makes all tp rows, then all dp columns, all fsdp groups and all
+    seq columns, each distinct member set once (a set of one rank needs
+    none, the whole world is the world's group). The groups of a shape
+    are made once per world and reused."""
     n = world_size()
-    if dp * tp != n:
-        raise RuntimeError(f"mesh ({dp}, {tp}) needs a world of {dp * tp} "
-                           f"ranks; torch.distributed has {n}")
+    if dp * fsdp * tp != n:
+        raise RuntimeError(f"mesh ({dp}, {fsdp}, {tp}) needs a world of "
+                           f"{dp * fsdp * tp} ranks; torch.distributed "
+                           f"has {n}")
     meshes = _state["meshes"]
-    if (dp, tp) not in meshes:
+    if (dp, fsdp, tp) not in meshes:
         r = rank()
-        rows = [tuple(d * tp + j for j in range(tp)) for d in range(dp)]
-        cols = [tuple(d * tp + j for d in range(dp)) for j in range(tp)]
         world = world_group()
+        pgs: Dict[Tuple[int, ...], object] = {}
+
+        def at(d: int, f: int, t: int) -> int:
+            return (d * fsdp + f) * tp + t
 
         def make(members_list):
             mine = None
             for members in members_list:
-                if len(members) == n:
-                    pg = world.pg
-                elif len(members) == 1:
-                    pg = None
-                else:
-                    pg = dist.new_group(list(members))   # every rank
+                if members not in pgs:
+                    if len(members) == n:
+                        pgs[members] = world.pg
+                    elif len(members) == 1:
+                        pgs[members] = None
+                    else:
+                        pgs[members] = dist.new_group(list(members))
                 if r in members:
-                    mine = Group(members, members.index(r), pg)
+                    mine = Group(members, members.index(r), pgs[members])
             return mine
 
-        meshes[(dp, tp)] = (make(rows), make(cols))
-    return meshes[(dp, tp)]
+        rows = [tuple(at(d, f, t) for t in range(tp))
+                for d in range(dp) for f in range(fsdp)]
+        cols = [tuple(at(d, f, t) for d in range(dp))
+                for f in range(fsdp) for t in range(tp)]
+        fsdps = [tuple(at(d, f, t) for f in range(fsdp))
+                 for d in range(dp) for t in range(tp)]
+        seqs = [tuple(at(d, f, t) for d in range(dp) for f in range(fsdp))
+                for t in range(tp)]
+        meshes[(dp, fsdp, tp)] = (make(rows), make(cols), make(fsdps),
+                                  make(seqs))
+    return meshes[(dp, fsdp, tp)]
 
 
 def _timeout() -> datetime.timedelta:

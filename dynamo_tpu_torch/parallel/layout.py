@@ -11,16 +11,21 @@ each row-sharded one; ``engine/model.py``). A spec is a tuple with one entry
 per dim: ``None`` (replicated along that dim) or an axis name, the same
 entries as the JAX ``PartitionSpec`` of the same leaf.
 
-The serving mesh is ``(dp, tp)``, mesh-major: rank ``r`` sits at
-``(r // tp, r % tp)``, the row-major order the JAX composite sequence axis
-(:meth:`SpecLayout.seq_axes`) enumerates devices in. Parameters and the
-cache are replicated over ``dp``; the dp replicas run the dense step
-redundantly, as GSPMD runs the JAX package's replicated activations, and
-differ only in a sequence-parallel prefill, where dp row ``d`` takes the
-``d``-th contiguous slice of the prompt (``engine/model.py``). No
-``fsdp`` axis is served; :func:`check_mesh_shape` and
-:func:`check_divisible` refuse the rest by name. ``ep`` falls back to
-``tp`` as in the JAX layout.
+The serving mesh is ``(dp, tp)`` or ``(dp, fsdp, tp)``, mesh-major: rank
+``r = (d * fsdp + f) * tp + t`` sits at ``(d, f, t)``, the row-major order
+JAX's ``make_mesh`` enumerates devices in (and its composite sequence axis,
+:meth:`SpecLayout.seq_axes`, too). Parameters are *stored* sharded over
+``fsdp`` as the JAX table says (a rank holds ``D / fsdp`` of every
+column and row leaf's model dim) and gathered whole over the rank's fsdp
+group just before use, as ZeRO-3 does (``engine/model.py``); the cache
+and the hidden states are replicated over ``dp`` and ``fsdp``. The dp and
+fsdp replicas run the dense step redundantly, as GSPMD runs the JAX
+package's replicated activations, and differ only in a
+sequence-parallel prefill, where the ranks of one tp index (the rank's
+*seq column*, ``dp * fsdp`` ranks) each take a contiguous slice of the
+prompt. :func:`check_divisible` and :func:`shard_range` refuse shards
+that do not split evenly by name. ``ep`` falls back to ``tp`` as in the
+JAX layout.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ ALL_AXES: Tuple[str, ...] = (
 
 Spec = Tuple[Optional[str], ...]
 
-ITEM6 = "multi-device serving (ROADMAP.md queue A, item 6)"
+UNEVEN = "uneven shards (ROADMAP.md queue A, item 6.8)"
 
 
 def spec(*entries: Optional[str]) -> Spec:
@@ -59,73 +64,85 @@ SpecEntry = Union[None, str, Tuple[str, ...]]
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's place on the serving mesh: the axis sizes, its
-    coordinate on each axis, the world's process group (``None`` for a
-    one-rank mesh), and its tp row and dp column (``comm.Group``; a
-    one-rank group where the axis has size 1)."""
+    coordinate on each axis (``dp`` and ``tp``, and ``fsdp`` on a 3-D
+    mesh, as the JAX mesh of the shape names them; an absent axis has
+    size 1), the world's process group (``None`` for a one-rank mesh),
+    and its groups (``comm.Group``; a one-rank group where the axis has
+    size 1): its tp row, its dp column, its fsdp group (the ranks of
+    equal dp and tp index) and its seq column (the ranks of equal tp
+    index, over dp and fsdp, in rank order)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     group: Any = None
     tp_group: Any = None
     dp_group: Any = None
+    fsdp_group: Any = None
+    seq_group: Any = None
 
 
-def check_mesh_shape(shape: Sequence[int]) -> Tuple[int, int]:
-    """``(dp, tp)`` of a served mesh shape; every other shape is refused
-    by name."""
+def check_mesh_shape(shape: Sequence[int]) -> Tuple[int, int, int]:
+    """``(dp, fsdp, tp)`` of a served mesh shape: ``(dp, tp)`` (``fsdp``
+    1) or ``(dp, fsdp, tp)``, every axis at least 1."""
     shape = tuple(int(s) for s in shape)
-    if len(shape) == 3:
-        raise NotImplementedError(
-            f"a 3-D (dp, fsdp, tp) mesh {shape} needs {ITEM6}, later part: "
-            "dynamo_tpu_torch serves (dp, tp)")
-    if len(shape) != 2:
-        raise ValueError(f"mesh shape must be (dp, tp), got {shape}")
-    dp, tp = shape
-    if dp < 1 or tp < 1:
+    if len(shape) == 2:
+        dp, tp = shape
+        fsdp = 1
+    elif len(shape) == 3:
+        dp, fsdp, tp = shape
+    else:
+        raise ValueError(
+            f"mesh shape must be (dp, tp) or (dp, fsdp, tp), got {shape}")
+    if min(dp, fsdp, tp) < 1:
         raise ValueError(f"mesh axes must be >= 1, got {shape}")
-    return dp, tp
+    return dp, fsdp, tp
 
 
 def make_mesh(shape: Sequence[int]) -> Mesh:
-    """The rank's coordinates on the ``(dp, tp)`` serving mesh,
-    mesh-major (``dp = rank // tp``, ``tp = rank % tp``), and its three
-    groups: its tp row, its dp column and the world
-    (``parallel/comm.py``; made once per world, by every rank alike). A
-    ``(1, 1)`` mesh needs no process group; a larger one needs ``comm``
-    initialised with ``world_size == dp * tp``."""
+    """The rank's coordinates on the serving mesh, mesh-major (``r = (d *
+    fsdp + f) * tp + t``), and its groups: its tp row, dp column, fsdp
+    group, seq column and the world (``parallel/comm.py``; made once per
+    world and shape, by every rank alike). A one-rank mesh needs no
+    process group; a larger one needs ``comm`` initialised with
+    ``world_size == dp * fsdp * tp``."""
     from . import comm
 
-    dp, tp = check_mesh_shape(shape)
-    if dp * tp == 1:
-        return Mesh({AXIS_DP: 1, AXIS_TP: 1}, {AXIS_DP: 0, AXIS_TP: 0},
-                    None, comm.SOLO, comm.SOLO)
-    if comm.world_size() != dp * tp:
-        raise RuntimeError(
-            f"mesh {tuple(shape)} needs a world of {dp * tp} ranks; "
-            f"torch.distributed has {comm.world_size()} (call "
-            "parallel.multihost.initialize_distributed first)")
-    tpg, dpg = comm.mesh_groups(dp, tp)
-    r = comm.rank()
-    return Mesh({AXIS_DP: dp, AXIS_TP: tp},
-                {AXIS_DP: r // tp, AXIS_TP: r % tp}, comm.group(), tpg, dpg)
+    dp, fsdp, tp = check_mesh_shape(shape)
+    # the axes of the JAX mesh of this shape: a 2-D mesh has no fsdp axis
+    axes = (AXIS_DP, AXIS_TP) if len(tuple(shape)) == 2 else (
+        AXIS_DP, AXIS_FSDP, AXIS_TP)
+    n = dp * fsdp * tp
+    r = 0
+    groups = (comm.SOLO,) * 4
+    if n > 1:
+        if comm.world_size() != n:
+            raise RuntimeError(
+                f"mesh {tuple(shape)} needs a world of {n} ranks; "
+                f"torch.distributed has {comm.world_size()} (call "
+                "parallel.multihost.initialize_distributed first)")
+        groups = comm.mesh_groups(dp, fsdp, tp)
+        r = comm.rank()
+    sizes = {AXIS_DP: dp, AXIS_FSDP: fsdp, AXIS_TP: tp}
+    coords = {AXIS_DP: r // (fsdp * tp), AXIS_FSDP: (r // tp) % fsdp,
+              AXIS_TP: r % tp}
+    return Mesh({a: sizes[a] for a in axes}, {a: coords[a] for a in axes},
+                comm.group() if n > 1 else None, *groups)
 
 
-def check_divisible(cfg, tp: int) -> None:
+def check_divisible(cfg, tp: int, fsdp: int = 1) -> None:
     """Refuse a model whose head, KV-head, expert, FFN or vocab count the
-    tp axis does not divide: each rank holds whole heads and experts."""
-    if tp == 1:
-        return
-    counts = [("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
-              ("vocab_size", cfg.vocab_size)]
-    if cfg.is_moe:
-        counts.append(("num_experts", cfg.num_experts))
-    else:
-        counts.append(("intermediate_size", cfg.intermediate_size))
-    for what, n in counts:
-        if n % tp:
+    tp axis does not divide (each rank holds whole heads and experts), or
+    whose model dim the fsdp axis does not divide."""
+    counts = [("num_heads", cfg.num_heads, AXIS_TP, tp),
+              ("num_kv_heads", cfg.num_kv_heads, AXIS_TP, tp),
+              ("vocab_size", cfg.vocab_size, AXIS_TP, tp),
+              ("num_experts", cfg.num_experts, AXIS_TP, tp) if cfg.is_moe
+              else ("intermediate_size", cfg.intermediate_size, AXIS_TP, tp),
+              ("hidden_size", cfg.hidden_size, AXIS_FSDP, fsdp)]
+    for what, n, axis, size in counts:
+        if n % size:
             raise NotImplementedError(
-                f"{what}={n} is not divisible by tp={tp}: uneven shards "
-                f"need {ITEM6}, later part")
+                f"{what}={n} is not divisible by {axis}={size}: {UNEVEN}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,13 +180,14 @@ class SpecLayout:
 
     @staticmethod
     def for_mesh(mesh_shape: Optional[Sequence[int]]) -> "SpecLayout":
-        """The layout of a ``(dp, tp)`` mesh shape, singleton axes
-        dropped; ``ep`` rides ``tp``."""
+        """The layout of a ``(dp, tp)`` or ``(dp, fsdp, tp)`` mesh shape,
+        singleton axes dropped; ``ep`` rides ``tp``."""
         if mesh_shape is None:
             return SpecLayout()
-        dp, tp = check_mesh_shape(mesh_shape)
+        dp, fsdp, tp = check_mesh_shape(mesh_shape)
         have_tp = AXIS_TP if tp > 1 else None
-        return SpecLayout(dp=AXIS_DP if dp > 1 else None, tp=have_tp,
+        return SpecLayout(dp=AXIS_DP if dp > 1 else None,
+                          fsdp=AXIS_FSDP if fsdp > 1 else None, tp=have_tp,
                           ep=have_tp)
 
     # ------------------------- sequence axis ---------------------------
@@ -177,11 +195,12 @@ class SpecLayout:
     def seq_axes(self) -> SpecEntry:
         """The composite axis a sequence-parallel prefill splits the
         chunk's T over: every data-carrying serving axis, mesh-major —
-        ``("dp", "tp")`` on a 2-D mesh, one name on a 1-D one, ``None``
-        alone. Row-major over the composite axis is the rank order, so
-        the JAX chunk ``c`` of ``dp * tp`` sits on rank ``c``; the port's
-        forward gives dp row ``d`` the union of chunks ``d*tp ..
-        d*tp+tp-1`` (one contiguous slice), which agrees with it."""
+        ``("dp", "fsdp", "tp")`` on a 3-D mesh, one name where one axis is
+        above 1, ``None`` alone. Row-major over the composite axis is the
+        rank order, so the JAX chunk ``c`` of ``dp * fsdp * tp`` sits on
+        rank ``c``; the port's forward gives the rank at seq index ``s =
+        d * fsdp + f`` the union of chunks ``s*tp .. s*tp+tp-1`` (one
+        contiguous slice), which agrees with it."""
         axes = tuple(a for a in (self.dp, self.fsdp, self.tp) if a)
         if not axes:
             return None
@@ -332,7 +351,7 @@ def shard_range(n: int, axis: Optional[str], mesh: Mesh) -> Tuple[int, int]:
     if n % size:
         raise NotImplementedError(
             f"a dim of {n} does not split evenly over {axis}={size}: "
-            f"uneven shards need {ITEM6}, later part")
+            f"{UNEVEN}")
     step = n // size
     return idx * step, (idx + 1) * step
 

@@ -6,26 +6,31 @@ controller per host and one ``Mesh`` over the slice; every host must issue
 the same jitted calls in the same order. In PyTorch each GPU is a rank in
 its own process, so here every *rank* is what a JAX host is:
 
-- every rank joins one ``torch.distributed`` world of ``dp * tp`` ranks,
-  or of ``pp`` ranks for a pipeline (:func:`initialize_distributed`, a TCP
-  store at the coordinator address, in place of
+- every rank joins one ``torch.distributed`` world of every rank of the
+  mesh, or of ``pp`` ranks for a pipeline (:func:`initialize_distributed`,
+  a TCP store at the coordinator address, in place of
   ``jax.distributed.initialize``) and holds its shard of the model on the
-  ``(dp, tp)`` mesh (``engine/model.py``: column/row-sharded projections,
-  experts over ``ep``, each row-sharded product followed by one
-  ``all_reduce`` over the tp row; replicated over dp, the dp rows
-  splitting only a sequence-parallel prefill's prompt), or its pipeline
+  ``(dp, tp)`` or ``(dp, fsdp, tp)`` mesh (``engine/model.py``:
+  column/row-sharded projections, experts over ``ep``, each row-sharded
+  product followed by one ``all_reduce`` over the tp row; parameters
+  stored over fsdp and gathered layer by layer; replicated over dp and
+  fsdp otherwise, those replicas splitting only a sequence-parallel
+  prefill's prompt), or its pipeline
   stage's layers (``parallel/pp_serving.py``: activations hop stage to
   stage by ``ppermute``);
 - scheduling happens once, on rank 0 (the leader); followers replay the
   leader's step plans, so every rank launches the same steps in the same
   order and meets the others in the same collectives.
 
-Plan replication rides the runtime's TCP response-stream transport: each
-follower opens one long-lived request to the leader's ``step_stream``
-endpoint and the leader streams one plan per step. Bring-up is gated by
-the store barrier (``runtime/barrier.py``): the leader serves
-``step_stream``, waits for every follower to connect, and only then
-registers the model.
+In the worker, plan replication rides the runtime's TCP response-stream
+transport: each follower opens one long-lived request to the leader's
+``step_stream`` endpoint and the leader streams one plan per step.
+Bring-up is gated by the store barrier (``runtime/barrier.py``): the
+leader serves ``step_stream``, waits for every follower to connect, and
+only then registers the model. The launchers that run no runtime
+(``run.py --mesh``, the profiler's ``--mesh``) start their followers with
+:func:`spawn_local_ranks` and hand them the plans through a
+``TCPStore`` queue of their own (:class:`StorePlanChannel`).
 
 A plan carries the small host-side arrays of one device call (the packed
 prefill ints, control-state deltas, a seat map, a few KB); model state
@@ -59,7 +64,7 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass
-from typing import Any, AsyncIterator, Dict, List, Optional
+from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,14 +173,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_local_ranks(argv: List[str], cfg: MultihostConfig
+def spawn_local_ranks(argv: List[str], cfg: MultihostConfig,
+                      module: str = "dynamo_tpu_torch.worker"
                       ) -> List[subprocess.Popen]:
     """Start this host's other ranks (local ranks 1..per_host-1) as child
-    processes running the worker with ``argv`` plus their local rank and
+    processes running ``python -m module`` (the worker, the one-process
+    launcher or the profiler) with ``argv`` plus their local rank and
     the coordinator; they write to this process's stdout and stderr."""
     procs = []
     for lr in range(1, cfg.per_host):
-        args = [sys.executable, "-m", "dynamo_tpu_torch.worker", *argv,
+        args = [sys.executable, "-m", module, *argv,
                 "--coordinator", cfg.coordinator,
                 "--num-hosts", str(cfg.num_hosts),
                 "--host-index", str(cfg.host_index),
@@ -185,6 +192,99 @@ def spawn_local_ranks(argv: List[str], cfg: MultihostConfig
              list(range(cfg.rank + 1, cfg.rank + cfg.per_host)),
              [p.pid for p in procs])
     return procs
+
+
+def add_local_world_args(p) -> None:
+    """The flags a launcher's spawned follower ranks are started with
+    (:class:`LocalWorld`), hidden from ``--help``."""
+    import argparse
+
+    for flag, kw in (("--coordinator", {}),
+                     ("--num-hosts", {"type": int, "default": 1}),
+                     ("--host-index", {"type": int, "default": 0}),
+                     ("--local-rank", {"type": int, "default": 0}),
+                     ("--plan-store", {})):
+        p.add_argument(flag, help=argparse.SUPPRESS, **kw)
+
+
+def parse_mesh_flag(text: str) -> Tuple[int, int]:
+    """``(dp, tp)`` of a launcher's ``--mesh dp,tp`` (the worker, ``run.py``,
+    the profiler), unpacked as the JAX launchers unpack it: three numbers
+    raise their ``ValueError`` (a 3-D ``(dp, fsdp, tp)`` mesh is served
+    through ``EngineConfig(mesh_shape=)``, as in JAX)."""
+    dp, tp = (int(x) for x in text.replace(" ", "").split(","))
+    return dp, tp
+
+
+class LocalWorld:
+    """A one-host world of ``dp * tp`` ranks for a launcher with no
+    runtime (``run.py``, the profiler), as a context: on entry a mesh of
+    more than one rank joins the world. The leader (``--local-rank`` 0,
+    the process the user started) hosts the plan channel, spawns the
+    followers as ``python -m module`` with its own ``args.argv`` plus their
+    rank, the coordinator and the channel's address, then joins them; a
+    follower joins the channel and the world. ``args.device`` becomes the
+    rank's device (:func:`rank_device`). Enter it before any weight is
+    loaded: the rendezvous waits for every rank. :meth:`serve` then runs
+    the rank's part; on exit the leader closes the channel, its followers
+    are stopped and the world destroyed, however the run ended."""
+
+    def __init__(self, args, module: str, mesh: Tuple[int, int]):
+        self.args, self.module = args, module
+        self.size = mesh[0] * mesh[1]
+        self.children: List[subprocess.Popen] = []
+        self.channel: Optional[StorePlanChannel] = None
+
+    @property
+    def leader(self) -> bool:
+        return self.channel is None or self.args.local_rank == 0
+
+    def __enter__(self) -> "LocalWorld":
+        if self.size == 1:
+            return self
+        args = self.args
+        mh = MultihostConfig(coordinator=args.coordinator,
+                             world_size=self.size,
+                             local_rank=args.local_rank)
+        if mh.local_rank == 0:
+            mh.coordinator = f"127.0.0.1:{free_port()}"
+            self.channel = StorePlanChannel.host(self.size - 1)
+            # into self.children as each starts: __exit__ stops them even
+            # when the rendezvous fails
+            self.children.extend(spawn_local_ranks(
+                list(args.argv) + ["--plan-store", self.channel.addr], mh,
+                self.module))
+        else:
+            self.channel = StorePlanChannel.join(args.plan_store,
+                                                 self.size - 1)
+        mh.check()
+        args.device = rank_device(args.device, mh.local_rank)
+        initialize_distributed(mh, torch.device(args.device))
+        return self
+
+    def serve(self, engine, lead):
+        """The rank's part on ``engine``: a follower replays the leader's
+        plans until the leader closes the channel and returns None; the
+        leader sends its step plans to the followers and returns
+        ``lead(engine)``."""
+        if not self.leader:
+            n = self.channel.follow(engine)
+            log.info("%s rank %d exiting after %d plans", self.module,
+                     self.args.local_rank, n)
+            return None
+        if self.channel is not None:
+            engine.step_sink = self.channel.sink
+        return lead(engine)
+
+    def __exit__(self, *exc) -> None:
+        try:
+            if self.channel is not None and self.leader:
+                self.channel.close()
+        finally:
+            if self.children:
+                stop_local_ranks(self.children)
+            if self.channel is not None:
+                comm.destroy()
 
 
 def stop_local_ranks(procs: List[subprocess.Popen],
@@ -216,6 +316,111 @@ def encode_plan(kind: str, arrays: Dict[str, np.ndarray]) -> dict:
 
 def decode_plan(plan: dict):
     return plan["k"], {n: array_from_wire(v) for n, v in plan["a"].items()}
+
+
+# ------------------------- store plan channel ----------------------------
+
+
+class StorePlanChannel:
+    """Step plans from the leader to the followers of one host through a
+    ``torch.distributed.TCPStore`` of their own, for the launchers that
+    run no runtime (``run.py``, the SLA profiler; the worker keeps its
+    ``step_stream`` endpoint).
+
+    The store is a queue: plan ``i`` is the key ``plans/i`` (the codec's
+    bytes of :func:`encode_plan`); each follower waits for the next key,
+    reads it and counts itself on ``plans/i/n``, and the last reader
+    deletes both. A follower waits in the store, never in a collective: a
+    gloo collective on the step group would time out after the world's
+    collective timeout while the leader is idle, and would interleave
+    with the step's own collectives. Its wait polls every ``poll_s``; the
+    store lives in the leader's process, so a leader that died fails the
+    poll and frees the follower."""
+
+    def __init__(self, store, followers: int, poll_s: float = 1.0):
+        self.store = store
+        self.followers = followers
+        self.poll_s = poll_s
+        self.seq = 0
+        self.kinds: Dict[str, int] = {}   # the leader's plans per kind
+
+    @classmethod
+    def host(cls, followers: int) -> "StorePlanChannel":
+        """The leader's end: a store on a free localhost port
+        (:attr:`addr`)."""
+        import datetime
+
+        import torch.distributed as dist
+
+        store = dist.TCPStore("127.0.0.1", free_port(), None, True,
+                              datetime.timedelta(seconds=300),
+                              wait_for_workers=False)
+        return cls(store, followers)
+
+    @classmethod
+    def join(cls, addr: str, followers: int) -> "StorePlanChannel":
+        """A follower's end, on the leader's store at ``host:port``."""
+        import datetime
+
+        import torch.distributed as dist
+
+        host, port = addr.rsplit(":", 1)
+        return cls(dist.TCPStore(host, int(port), None, False,
+                                 datetime.timedelta(seconds=300)),
+                   followers)
+
+    @property
+    def addr(self) -> str:
+        return f"{self.store.host}:{self.store.port}"
+
+    def _put(self, msg: dict) -> None:
+        from ..runtime import codec
+
+        self.seq += 1
+        self.store.set(f"plans/{self.seq}", codec.packb(msg))
+
+    def sink(self, kind: str, arrays: Dict[str, np.ndarray]) -> None:
+        """The leader engine's ``step_sink``: one plan, before the launch
+        (device-step thread)."""
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
+        self._put(encode_plan(kind, arrays))
+
+    def close(self) -> None:
+        """The leader's last message: the followers' loops end."""
+        self._put({"closed": True})
+
+    def next_plan(self):
+        """The next ``(kind, arrays)``, or None once the leader closed."""
+        import datetime
+
+        from ..runtime import codec
+
+        self.seq += 1
+        key = f"plans/{self.seq}"
+        poll = datetime.timedelta(seconds=self.poll_s)
+        while True:
+            try:
+                self.store.wait([key], poll)
+                break
+            except Exception:   # noqa: BLE001 — a timeout, or a dead store
+                if self.store.check([key]):   # raises if the store is gone
+                    break
+        msg = codec.unpackb(self.store.get(key))
+        if self.store.add(f"{key}/n", 1) == self.followers:
+            self.store.delete_key(key)
+            self.store.delete_key(f"{key}/n")
+        return None if msg.get("closed") else decode_plan(msg)
+
+    def follow(self, engine) -> int:
+        """Replay the leader's plans on ``engine`` until it closes the
+        channel; returns the plans replayed."""
+        n = 0
+        while True:
+            plan = self.next_plan()
+            if plan is None:
+                return n
+            replay_plan(engine, *plan)
+            n += 1
 
 
 # ------------------------------ leader -----------------------------------

@@ -13,9 +13,13 @@ Output keys match ``PrefillInterpolator.from_profile`` /
 A copy of ``dynamo_tpu.planner.profiler`` driving the port's
 ``InferenceEngine`` on the card (``--device cpu`` for the CPU): the prefill
 sweep runs the ragged face of the paged-attention kernel, the decode sweep
-its decode face. One card is profiled: ``--model 70b`` and a ``--mesh``
-other than ``1,1`` are refused (a tensor-parallel worker is served, its
-profile waits for ROADMAP.md queue A, item 6, later part).
+its decode face. ``--mesh D,N`` profiles a multi-rank engine as the JAX
+profiler does: this process leads and sweeps, ``D*N - 1`` follower ranks
+it starts replay its plans (``parallel/multihost.py``
+``LocalWorld``), and the per-chip figures are divided by ``D*N``
+(``meta.mesh`` is ``[D, N]``). ``--model 70b`` is refused: its 141 GB of
+bf16 weights fit no 80 GB card, whatever the mesh of one host's ranks
+sharing it.
 """
 
 from __future__ import annotations
@@ -23,11 +27,15 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import sys
 import time
 from typing import Dict, List
 
 from ..engine.config import EngineConfig, ModelConfig
 from ..engine.engine import InferenceEngine, Request
+from ..parallel.multihost import (
+    LocalWorld, add_local_world_args, parse_mesh_flag,
+)
 from ..utils.logging import get_logger
 
 log = get_logger("profiler")
@@ -117,23 +125,23 @@ async def profile_decode(
 
 
 def check_supported(args: argparse.Namespace) -> None:
-    """Refuse what this package does not serve yet, by name."""
-    # the worker serves --mesh 1,N and --model 70b; profiling a
-    # tensor-parallel world is the later part of item 6
-    a6 = "multi-device profiling (ROADMAP.md queue A, item 6, later part)"
-    for bad, what in ((args.model == "70b", "--model 70b"),
-                      (args.mesh.replace(" ", "") != "1,1",
-                       f"--mesh {args.mesh}")):
-        if bad:
-            raise NotImplementedError(
-                f"{what} needs {a6}, which dynamo_tpu_torch does not serve "
-                "yet")
+    """Refuse what no mesh of this profiler serves, by name: ``--model
+    70b`` (the JAX profiler has no such preset; the worker serves it over
+    several cards, one rank per card)."""
+    if args.model == "70b":
+        raise NotImplementedError(
+            "--model 70b is not profiled: its 141 GB of bf16 weights do "
+            "not fit one 80 GB card, and the profiler's ranks share one "
+            "host's cards (the worker serves 70b on a --mesh of one rank "
+            "per card)")
 
 
 def build_engine(args: argparse.Namespace) -> InferenceEngine:
     """The engine the sweep drives, configured as the JAX profiler's; on
-    the card its kernels are built first."""
+    the card its kernels are built first. On a ``--mesh`` of more than one
+    rank the world must be joined first (:func:`main`)."""
     check_supported(args)
+    dp, tp = parse_mesh_flag(args.mesh)
     model_cfg = MODEL_PRESETS[args.model]()
     isls = [int(x) for x in args.isls.split(",")]
     max_isl = max(isls)
@@ -143,7 +151,7 @@ def build_engine(args: argparse.Namespace) -> InferenceEngine:
         max_num_batched_tokens=max(512, max_isl),
         prefill_buckets=tuple(sorted({256, max(512, max_isl)})),
         decode_buckets=(8, 16, 32, 64),
-        mesh_shape=(1, 1),
+        mesh_shape=(dp, tp),
     )
     engine = InferenceEngine(model_cfg, eng_cfg, device=args.device)
     if engine.device.type == "cuda":
@@ -159,7 +167,8 @@ async def run_profile(args, engine: InferenceEngine = None) -> dict:
     own = engine is None
     if own:
         engine = build_engine(args)
-    num_chips = 1
+    dp, tp = parse_mesh_flag(args.mesh)
+    num_chips = dp * tp
     isls = [int(x) for x in args.isls.split(",")]
     await engine.start()
     try:
@@ -171,7 +180,7 @@ async def run_profile(args, engine: InferenceEngine = None) -> dict:
                 points.append((batch, ctx))
         profile.update(await profile_decode(engine, points, num_chips))
         profile["meta"] = {
-            "model": args.model, "mesh": [1, 1],
+            "model": args.model, "mesh": [dp, tp],
             "num_blocks": args.num_blocks,
         }
         return profile
@@ -195,12 +204,29 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run "
                         "on the CPU)")
-    return p.parse_args(argv)
+    add_local_world_args(p)
+    args = p.parse_args(argv)
+    # the command line the follower ranks of a --mesh run are started with
+    args.argv = list(sys.argv[1:] if argv is None else argv)
+    return args
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    profile = asyncio.run(run_profile(args))
+    check_supported(args)
+
+    async def sweep(engine):
+        try:
+            return await run_profile(args, engine)
+        finally:
+            await engine.stop()
+
+    with LocalWorld(args, "dynamo_tpu_torch.planner.profiler",
+                    parse_mesh_flag(args.mesh)) as world:
+        profile = world.serve(build_engine(args),
+                              lambda engine: asyncio.run(sweep(engine)))
+    if profile is None:        # a follower rank
+        return
     with open(args.out, "w") as f:
         json.dump(profile, f, indent=2)
     log.info("wrote %s", args.out)

@@ -24,6 +24,18 @@ the port's own reader): its ``config.json``, when present, overrides
 when it holds none). ``--weight-dtype int8|fp8`` quantizes the weights as
 they load, ``--kv-dtype`` the KV pages (the worker's flags of the same
 names).
+
+``--mesh D,N`` (the JAX launcher's flag: ``dp,tp``) serves ``out=engine``
+on a one-host world of ``D*N`` ranks: this process leads (it reads the
+input and schedules), and it starts ``D*N - 1`` follower ranks of its own
+command line (``parallel/multihost.py`` ``LocalWorld``, each rank
+on ``rank_device``) that replay its step plans, which reach them through
+a ``TCPStore`` queue (``StorePlanChannel``). With ``--weights`` each rank
+loads only its shard (``load_hf_params_sharded``). Two ranks share one
+card only over gloo (``DYNTPU_DIST_BACKEND=gloo``).
+
+    DYNTPU_DIST_BACKEND=gloo python -m dynamo_tpu_torch.run \
+        in=batch:prompts.jsonl out=engine --model 1b --mesh 1,2
 """
 
 from __future__ import annotations
@@ -37,6 +49,9 @@ import time
 from typing import Optional
 
 from .engine.config import EngineConfig, ModelConfig
+from .parallel.multihost import (
+    LocalWorld, add_local_world_args, parse_mesh_flag,
+)
 from .runtime.context import Context
 from .serving import load_tokenizer
 from .utils.logging import get_logger
@@ -70,25 +85,39 @@ class EchoEngine:
         pass
 
 
-def build_output(args):
-    """Engine for the ``out=`` side."""
+def build_output(args, mesh=(1, 1)):
+    """Engine for the ``out=`` side on ``mesh``, ``(dp, tp)`` of ``--mesh``
+    (a world of more than one rank joined first: :func:`main`)."""
     if args.out == "echo":
         return EchoEngine()
     from .engine.engine import InferenceEngine
 
     model_cfg = MODEL_PRESETS[args.model]()
+    dp, tp = mesh
     params = None
     if args.weights:
-        from .engine.weights import load_hf_params, model_config_from_hf
+        from .engine.weights import (
+            load_hf_params, load_hf_params_sharded, model_config_from_hf,
+        )
 
         if os.path.exists(os.path.join(args.weights, "config.json")):
             model_cfg = model_config_from_hf(args.weights)
-        params = load_hf_params(args.weights, model_cfg, args.weight_dtype,
-                                device=args.device)
+        if dp * tp > 1:
+            # this rank's slices only (peak host staging: one tensor)
+            from .parallel.layout import check_divisible, make_mesh
+
+            check_divisible(model_cfg, tp)
+            params = load_hf_params_sharded(
+                args.weights, model_cfg, make_mesh((dp, tp)),
+                args.weight_dtype, device=args.device)
+        else:
+            params = load_hf_params(args.weights, model_cfg,
+                                    args.weight_dtype, device=args.device)
     eng_cfg = EngineConfig(
         num_blocks=args.num_blocks, block_size=args.block_size,
         max_model_len=min(args.max_model_len, model_cfg.max_position),
         weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype,
+        mesh_shape=(dp, tp),
     )
     return InferenceEngine(model_cfg, eng_cfg, params=params,
                            device=args.device)
@@ -221,8 +250,6 @@ def parse_args(argv=None):
         description="dynamo-tpu-torch single-command launcher",
         usage="python -m dynamo_tpu_torch.run in=<http|text|batch:FILE> "
               "out=<engine|echo> [options]",
-        epilog="The JAX launcher's --mesh is refused here: a multi-rank "
-               "world runs through python -m dynamo_tpu_torch.worker --mesh",
     )
     p.add_argument("io", nargs=2, metavar="in=/out=",
                    help="in=http|text|batch:FILE and out=engine|echo")
@@ -252,15 +279,13 @@ def parse_args(argv=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000,
                    help="HTTP port (0 picks a free one)")
-    args, unknown = p.parse_known_args(argv)
-    if any(u.split("=")[0] == "--mesh" for u in unknown):
-        # the JAX launcher's flag: a mesh here is refused by name
-        raise NotImplementedError(
-            "--mesh in the one-process launcher needs multi-device serving "
-            "(ROADMAP.md queue A, item 6, later part); the worker serves "
-            "--mesh D,N")
-    if unknown:
-        p.error(f"unrecognized arguments: {' '.join(unknown)}")
+    p.add_argument("--mesh", default="1,1",
+                   help="dp,tp: serve out=engine on dp*tp ranks of this "
+                        "host, this process leading")
+    add_local_world_args(p)
+    args = p.parse_args(argv)
+    # the command line the follower ranks this launcher starts run with
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     spec = {}
     for part in args.io:
         k, _, v = part.partition("=")
@@ -278,25 +303,44 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     t0 = time.perf_counter()
     args = parse_args(argv)
-    engine = build_output(args)
+    # out=echo serves no mesh, as in the JAX launcher; three numbers raise
+    # the JAX launcher's ValueError
+    mesh = (1, 1) if args.out == "echo" else parse_mesh_flag(args.mesh)
+    with LocalWorld(args, "dynamo_tpu_torch.run", mesh) as world:
+        engine = build_output(args, mesh)
+        try:
+            world.serve(engine, lambda engine: _serve(engine, args, t0))
+        finally:
+            if args.out == "engine":
+                _log_exit(engine, world)
+
+
+def _serve(engine, args, t0: float) -> None:
     tokenizer = build_tokenizer(args)
     if args.out == "engine":
         log.info("engine ready %.2f s after the launcher started",
                  time.perf_counter() - t0)
-    try:
-        if args.inp == "text":
-            asyncio.run(run_text(engine, tokenizer, args))
-        elif args.inp == "http":
-            asyncio.run(run_http(engine, tokenizer, args))
-        else:
-            asyncio.run(run_batch(engine, tokenizer, args,
-                                  args.inp.split(":", 1)[1]))
-    finally:
-        if args.out == "engine":
-            from .ops import paged_attention as pa
+    if args.inp == "text":
+        asyncio.run(run_text(engine, tokenizer, args))
+    elif args.inp == "http":
+        asyncio.run(run_http(engine, tokenizer, args))
+    else:
+        asyncio.run(run_batch(engine, tokenizer, args,
+                              args.inp.split(":", 1)[1]))
 
-            log.info("run exiting: kernel launches %s", " ".join(
-                f"{name}={n}" for name, n in pa.LAUNCHES.items()))
+
+def _log_exit(engine, world: LocalWorld) -> None:
+    """The exit lines: the kernel launches, and on a rank of a world its
+    place, collectives and plans (``worker.rank_counts``)."""
+    from .ops import paged_attention as pa
+
+    log.info("run exiting: kernel launches %s", " ".join(
+        f"{name}={n}" for name, n in pa.LAUNCHES.items()))
+    if world.channel is not None:
+        from .worker import rank_counts
+
+        log.info("run exiting: %s", rank_counts(
+            engine, world.channel if world.leader else None))
 
 
 if __name__ == "__main__":

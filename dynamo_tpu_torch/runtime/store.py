@@ -166,10 +166,12 @@ class StoreServer:
         self._persist_task: Optional[asyncio.Task] = None
         self._dirty = False
         self._conn_writers: set = set()
+        self._closing = False
 
     # -- lifecycle --
 
     async def start(self) -> None:
+        self._closing = False
         if self.persist_path:
             self._restore()
         self._server = await asyncio.start_server(
@@ -182,6 +184,11 @@ class StoreServer:
         log.info("store listening on %s:%d", self.host, self.port)
 
     async def stop(self) -> None:
+        # a connection accepted before this call whose handler has not run
+        # yet is not in _conn_writers: its handler closes it on arrival,
+        # else wait_closed (which waits for every connection on Python
+        # 3.12) would wait for a client that never sends
+        self._closing = True
         if self._expiry_task:
             self._expiry_task.cancel()
         if self._persist_task:
@@ -434,6 +441,9 @@ class StoreServer:
     ) -> None:
         conn_watches: List[int] = []
         conn_leases: List[int] = []
+        if self._closing:
+            writer.close()
+            return
         self._conn_writers.add(writer)
         try:
             while True:

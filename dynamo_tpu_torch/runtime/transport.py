@@ -85,12 +85,18 @@ class IngressServer:
         self._max_inflight = max_inflight
         self._active = 0
         self.draining = False
+        self._closing = False
 
     async def start(self) -> None:
+        self._closing = False
         self._server = await asyncio.start_server(self._handle, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]
 
     async def stop(self) -> None:
+        # a connection accepted before this call whose handler has not run
+        # yet is not in _conn_writers: its handler closes it on arrival
+        # (wait_closed waits for every connection on Python 3.12)
+        self._closing = True
         for task in list(self._inflight.values()):
             task.cancel()
         for writer in list(self._conn_writers):
@@ -141,6 +147,9 @@ class IngressServer:
     ) -> None:
         write_lock = asyncio.Lock()
         conn_rids: set = set()
+        if self._closing:
+            writer.close()
+            return
         self._conn_writers.add(writer)
         try:
             while True:

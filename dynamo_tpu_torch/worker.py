@@ -60,6 +60,7 @@ from .engine.config import EngineConfig, ModelConfig
 from .engine import model as model_lib
 from .engine.engine import InferenceEngine
 from .ops import paged_attention as pa
+from .parallel.multihost import parse_mesh_flag
 from .runtime.component import DistributedRuntime
 from .serving import ServeOptions, load_tokenizer, run_until_shutdown, serve_engine
 from .utils.config import RuntimeConfig
@@ -199,7 +200,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def mesh_shape(args: argparse.Namespace):
-    return tuple(int(x) for x in args.mesh.replace(" ", "").split(","))
+    """``(dp, tp)`` of ``--mesh`` (``multihost.parse_mesh_flag``)."""
+    return parse_mesh_flag(args.mesh)
 
 
 MULTI_HOST_AGG_ONLY = ("multi-host workers serve the aggregated path only "
@@ -213,10 +215,11 @@ def check_supported(args: argparse.Namespace) -> None:
     worker none of the disaggregated, KVBM and multimodal paths (the JAX
     pp engine refuses each; serving them is beyond the reference). A
     single-host ``--mesh D,N`` worker serves them all, its follower ranks
-    joining by plans."""
+    joining by plans. A 3-number ``--mesh`` raises the JAX worker's
+    ``ValueError`` (``multihost.parse_mesh_flag``)."""
     from .parallel.layout import check_mesh_shape
 
-    dp, tp = check_mesh_shape(mesh_shape(args))
+    dp, _, tp = check_mesh_shape(mesh_shape(args))
     if args.pp > 1 and dp * tp > 1:
         raise ValueError("pp_stages and a (dp, tp) mesh are exclusive")
     kvbm = (args.kvbm_host_blocks > 0 or args.kvbm_distributed
@@ -358,8 +361,8 @@ async def _run_worker(args: argparse.Namespace, children: list) -> None:
 
             check_divisible(model_cfg, tp)
             params = load_hf_params_sharded(
-                args.weights, model_cfg, make_mesh(mesh_shape(args)),
-                weight_dtype, device=args.device)
+                args.weights, model_cfg, make_mesh((dp, tp)), weight_dtype,
+                device=args.device)
         else:
             params = load_hf_params(args.weights, model_cfg, weight_dtype,
                                     device=args.device)

@@ -232,15 +232,16 @@ def test_importing_the_port_loads_nothing_forbidden():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(1, 2, 2)),
+    dict(mesh_shape=(1, 3, 2), sp_prefill_threshold=64),
     dict(mesh_shape=(3, 1), sp_prefill_threshold=64),
 ], ids=["mesh_shape_3d", "sp_on_dp3"])
 def test_unserved_paths_are_refused(knob):
-    """A 3-D mesh and an sp prefill over a dp that is not a power of two
-    are refused; (dp, tp) meshes, sequence-parallel prefill and pipeline
-    stages are served (below)."""
+    """An sp prefill over a seq column (dp * fsdp ranks) that is not a
+    power of two is refused, on a 3-D mesh as on a 2-D one (item 6.8);
+    (dp, tp) and (dp, fsdp, tp) meshes, sequence-parallel prefill and
+    pipeline stages are served (below)."""
     eng = EngineConfig(num_blocks=16, **knob)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 6.8"):
         check_supported(eng)
     with pytest.raises(NotImplementedError):
         InferenceEngine(ModelConfig.tiny(), eng, device="cpu")
@@ -249,15 +250,16 @@ def test_unserved_paths_are_refused(knob):
 @pytest.mark.parametrize("knob", [
     dict(mesh_shape=(2, 1)), dict(mesh_shape=(2, 2)),
     dict(mesh_shape=(2, 1), sp_prefill_threshold=1024),
-    dict(pp_stages=2),
+    dict(pp_stages=2), dict(mesh_shape=(1, 2, 2)),
+    dict(mesh_shape=(2, 2, 1), sp_prefill_threshold=64),
 ], ids=["mesh_shape_dp", "mesh_shape_dp_tp", "sp_prefill_threshold",
-        "pp_stages"])
+        "pp_stages", "mesh_shape_fsdp", "sp_on_dp_fsdp"])
 def test_data_and_sequence_parallel_paths_are_served(knob):
-    """A data-parallel mesh, ``sp_prefill_threshold`` and pipeline stages
-    pass the check; the engine needs a world of dp * tp (or pp) ranks
-    (tests/test_torch_sequence_parallel.py and
-    tests/test_torch_pp_serving.py build them), and without one
-    construction says so."""
+    """A data-parallel mesh, a 3-D (dp, fsdp, tp) mesh,
+    ``sp_prefill_threshold`` and pipeline stages pass the check; the
+    engine needs a world of every rank of the mesh (or pp ranks)
+    (tests/test_torch_{sequence_parallel,fsdp,pp_serving}.py build them),
+    and without one construction says so."""
     eng = EngineConfig(num_blocks=16, **knob)
     check_supported(eng)
     with pytest.raises(RuntimeError, match="initialize_distributed"):
@@ -439,11 +441,14 @@ def test_multimodal_prefill_plan_is_refused_by_name():
         replay_plan(engine, "rsp", {"tw": [8, 2]})
 
 
-@pytest.mark.parametrize("mesh", ["2,1", "1,2"])
+@pytest.mark.parametrize("mesh", ["1,2,2", "2,2,1"])
 def test_run_refuses_mesh_by_name(mesh, tmp_path):
+    """``--mesh D,N`` is served (tests/test_torch_mesh_launch.py runs
+    it); three numbers raise the JAX launcher's ``ValueError``, as its
+    ``dp, tp = ...split(",")`` does."""
     batch = tmp_path / "b.jsonl"
     batch.write_text('{"token_ids": [1, 2], "max_tokens": 2}\n')
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="too many values to unpack"):
         trun.main([f"in=batch:{batch}", "out=engine", "--model", "tiny",
                    "--device", "cpu", "--mesh", mesh])
 
@@ -501,7 +506,8 @@ def test_worker_without_device_raises_on_a_cpu_machine():
     a.lstrip("-") if i % 2 == 0 else f"={a}" for i, a in enumerate(f)
 ).replace("+=", "="))
 def test_worker_refuses_unserved_flags(flags):
-    """Still refused: a 3-D mesh, and on a pipeline-parallel worker the
+    """Still refused: a 3-number ``--mesh`` (the JAX worker's
+    ``ValueError``), and on a pipeline-parallel worker the
     disaggregated, KVBM and multimodal paths (the JAX pp engine refuses
     each). On a single-host ``--mesh`` worker they are served (its
     followers join by plans); spread over two hosts, disaggregation and
@@ -510,7 +516,13 @@ def test_worker_refuses_unserved_flags(flags):
     from dynamo_tpu_torch import worker
 
     args = worker.parse_args(["--device", "cpu", *flags])
-    if args.pp > 1 or "1,2,2" in flags:
+    if "1,2,2" in flags:
+        # the JAX worker's dp, tp = ...split(",") (a 3-D mesh is served
+        # through EngineConfig, as in JAX)
+        with pytest.raises(ValueError, match="too many values to unpack"):
+            asyncio.run(worker.run_worker(args))
+        return
+    if args.pp > 1:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             asyncio.run(worker.run_worker(args))
         return
@@ -570,12 +582,18 @@ def test_worker_serves_data_parallel_meshes(flags):
                                    ["--mesh", "2,1"]],
                          ids=["mesh", "model", "mesh_dp"])
 def test_profiler_still_refuses_tensor_parallel(flags):
-    """The profiler profiles one card: a tensor-parallel world's profile
-    is item 6's later part."""
+    """The profiler serves ``--mesh D,N`` (tests/test_torch_mesh_launch.py
+    profiles one): the check passes it. ``--model 70b`` stays refused:
+    141 GB of bf16 weights fit no 80 GB card, whatever the mesh."""
     from dynamo_tpu_torch.planner import profiler
 
     args = profiler.parse_args(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="item 6, later part"):
+    if args.model != "70b":
+        profiler.check_supported(args)
+        assert profiler.parse_mesh_flag(args.mesh) == tuple(
+            int(x) for x in flags[1].split(","))
+        return
+    with pytest.raises(NotImplementedError, match="141 GB"):
         profiler.check_supported(args)
 
 

@@ -150,24 +150,32 @@ def test_llama3_70b_bytes_per_rank_at_tp8():
 
 
 @pytest.mark.parametrize("shape,match", [
-    ((2, 1, 4), "3-D"), ((1, 2, 2), "3-D"),
+    ((2, 1, 4, 1), "dp, fsdp, tp"), ((4,), "dp, fsdp, tp"),
 ])
 def test_unserved_meshes_are_refused_by_name(shape, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A mesh of other than 2 or 3 axes is refused with the JAX
+    ``make_mesh``'s message (the 3-D ``(dp, fsdp, tp)`` mesh is served:
+    ``test_sequence_axes_equal_jax`` and ``tests/test_torch_fsdp.py``);
+    a dim an axis does not split evenly is refused by name."""
+    with pytest.raises(ValueError, match=match):
         SpecLayout.for_mesh(shape)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match=match):
         layout.check_mesh_shape(shape)
+    mesh = Mesh({"dp": 1, "fsdp": 3, "tp": 1}, {"dp": 0, "fsdp": 1, "tp": 0})
+    with pytest.raises(NotImplementedError, match="item 6.8"):
+        layout.shard_range(64, "fsdp", mesh)
 
 
-DP_TP = [(1, 1), (2, 1), (1, 2), (2, 2), (2, 4), (8, 1), (4, 2)]
+DP_TP = [(1, 1), (2, 1), (1, 2), (2, 2), (2, 4), (8, 1), (4, 2),
+         (1, 2, 1), (1, 2, 2), (2, 2, 1), (2, 2, 2), (1, 4, 2)]
 
 
-@pytest.mark.parametrize("shape", DP_TP, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", DP_TP, ids=lambda s: "x".join(map(str, s)))
 def test_sequence_axes_equal_jax(cpu_devices, shape):
     """``seq_axes``, ``hidden_seq`` and ``heads_seq`` (the composite
-    sequence axis of an sp prefill, mesh-major) and the dp/tp/ep fields
-    are the JAX layout's on every served (dp, tp) mesh; the parameter
-    and cache specs ignore dp (replicated), as JAX's do."""
+    sequence axis of an sp prefill, mesh-major) and the dp/fsdp/tp/ep
+    fields are the JAX layout's on every served (dp, tp) and (dp, fsdp,
+    tp) mesh; the parameter specs ignore dp (replicated), as JAX's do."""
     jlay = JaxSpecLayout.for_mesh(jax_make_mesh(shape, cpu_devices))
     lay = SpecLayout.for_mesh(shape)
     assert (lay.dp, lay.fsdp, lay.tp, lay.ep) == (
@@ -180,28 +188,35 @@ def test_sequence_axes_equal_jax(cpu_devices, shape):
         tuple, jlay.param_specs(jc), is_leaf=_is_spec))
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 2, 2), (2, 2, 1)],
+                         ids=["2x2", "4x1", "1x2x2", "2x2x1"])
 def test_make_mesh_coordinates_and_groups(shape):
-    """``make_mesh`` in a world of 4: rank r sits at (r // tp, r % tp),
-    the device JAX's ``make_mesh`` puts at that coordinate; its tp row,
-    dp column and world are the groups the collectives default to."""
+    """``make_mesh`` in a world of 4: rank r sits at (d, f, t) with r = (d
+    * fsdp + f) * tp + t, the device JAX's ``make_mesh`` puts at that
+    coordinate; its tp row, dp column, fsdp group, seq column (equal tp
+    index, in rank order) and world are the groups the collectives
+    take."""
     import sys
     from pathlib import Path
 
     sys.path.insert(0, str(Path(__file__).parent))
     import torch_tp_world as tw
 
-    dp, tp = shape
+    dp, fs, tp = layout.check_mesh_shape(shape)
     jmesh = jax_make_mesh(shape, jax.devices("cpu"))
     with tw.World(4) as world:
-        got = world.run(tw.collectives, dp, tp)
+        got = world.run(tw.collectives, dp, tp,
+                        fs if len(shape) == 3 else None)
     for r, g in enumerate(got):
-        d, t = g["coords"]["dp"], g["coords"]["tp"]
-        assert jmesh.devices[d, t].id == jax.devices("cpu")[r].id
-        assert g["tp_ranks"] == [d * tp + j for j in range(tp)]
-        assert g["dp_ranks"] == [e * tp + t for e in range(dp)]
-        assert g["sum_tp"] == sum(g["tp_ranks"])
-        assert g["sum_dp"] == sum(g["dp_ranks"])
+        d, f, t = (g["coords"].get(a, 0) for a in ("dp", "fsdp", "tp"))
+        at = (d, f, t) if len(shape) == 3 else (d, t)
+        assert jmesh.devices[at].id == jax.devices("cpu")[r].id
+        assert g["tp_ranks"] == [(d * fs + f) * tp + j for j in range(tp)]
+        assert g["dp_ranks"] == [(e * fs + f) * tp + t for e in range(dp)]
+        assert g["fsdp_ranks"] == [(d * fs + e) * tp + t for e in range(fs)]
+        assert g["seq_ranks"] == [q for q in range(4) if q % tp == t]
+        for group in ("tp", "dp", "fsdp", "seq"):
+            assert g[f"sum_{group}"] == sum(g[f"{group}_ranks"])
 
 
 def test_indivisible_counts_are_refused_by_name():
@@ -214,3 +229,8 @@ def test_indivisible_counts_are_refused_by_name():
             tcfg.ModelConfig(num_experts=8, num_experts_per_token=2,
                              num_heads=32, num_kv_heads=16,
                              vocab_size=32000), 16)
+    # the fsdp axis splits the model dim (item 6.8 names the refusal)
+    layout.check_divisible(cfg, 8, 4)
+    with pytest.raises(NotImplementedError,
+                       match="hidden_size=64 is not divisible by fsdp=3"):
+        layout.check_divisible(cfg, 1, 3)

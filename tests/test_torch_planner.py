@@ -337,11 +337,15 @@ def test_profiler_tiny_cpu_writes_the_reference_keys(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--model", "70b"], "--model 70b"),
-    (["--mesh", "2,1"], "--mesh 2,1"),
+    (["--mesh", "2,1,1"], "too many values to unpack"),
 ])
 def test_profiler_refuses_what_one_card_does_not_serve(flags, match):
+    """``--model 70b`` does not fit one card; a 3-number ``--mesh`` raises
+    the JAX profiler's ``ValueError`` (``--mesh D,N`` is served:
+    tests/test_torch_mesh_launch.py)."""
     args = tprof.parse_args(flags + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=match):
+    err = NotImplementedError if "70b" in flags else ValueError
+    with pytest.raises(err, match=match):
         tprof.build_engine(args)
 
 

@@ -8,8 +8,9 @@ gloo world on the CPU (``torch_tp_world.py``).
 - The sp forward's hidden states and logits (a 50-token prompt in a
   64-token chunk, then a decode step over the cache it wrote) are within
   1e-5 of the JAX ``forward`` with ``ring_mesh`` on meshes (2, 1), (4, 1),
-  (2, 2) and (1, 2), also when a mesh of another shape was made after the
-  engine's in the same ranks.
+  (2, 2), (1, 2), (1, 2, 2) and (2, 2, 1), also when a mesh of another
+  shape was made after the engine's in the same ranks; each rank runs
+  T/(dp*fsdp) rows of the sp chunk (its seq column's share).
 - Greedy streams of a 96-token prompt (threshold 64, budget 32) equal the
   JAX engine's on that mesh and the one-device chunked run, with one sp
   prefill on every rank and every follower replaying the one ``rsp``
@@ -45,8 +46,8 @@ sys.path.insert(0, str(Path(__file__).parent))
 import torch_tp_world as tw  # noqa: E402
 
 ATOL = 1e-5
-MESHES = [(2, 1), (4, 1), (2, 2), (1, 2)]
-MESH_IDS = ["2x1", "4x1", "2x2", "1x2"]
+MESHES = [(2, 1), (4, 1), (2, 2), (1, 2), (1, 2, 2), (2, 2, 1)]
+MESH_IDS = ["2x1", "4x1", "2x2", "1x2", "1x2x2", "2x2x1"]
 FWD_KW = dict(block_size=4, num_blocks=64, max_num_seqs=8,
               max_num_batched_tokens=64, max_model_len=128,
               decode_buckets=(8,), prefill_buckets=(16, 64))
@@ -80,7 +81,12 @@ def world4():
 
 
 def _world(shape, world2, world4):
-    return {2: world2, 4: world4}[shape[0] * shape[1]]
+    return {2: world2, 4: world4}[int(np.prod(shape))]
+
+
+def _seq(shape):
+    """The ranks an sp chunk splits over: dp * fsdp (the seq column)."""
+    return int(np.prod(shape[:-1]))
 
 
 def numpy_tree(tree):
@@ -189,6 +195,8 @@ def test_sp_forward_matches_jax_mesh(shape, other, world2, world4, jparams):
     got = _world(shape, world2, world4).run(
         tw.forward_logits, "tiny", numpy_tree(jparams),
         dict(mesh_shape=shape, **FWD_KW), steps, "bf16", other)
+    for _, shapes in got:   # the sp chunk's rows per rank, then decode's 1
+        assert shapes["tl"] == [64 // _seq(shape), 1]
     for outs, _ in got:
         for (h, logits), (jh, jl), (_, pos, _, _) in zip(outs, want, steps):
             valid = pos >= 0
@@ -275,8 +283,8 @@ def test_sp_streams_match_jax_mesh_and_one_device(shape, world2, world4,
     _check_ranks(got, 1)
     assert got[0]["streams"] == want == [ref["sp"]]
     layers = JaxModelConfig.tiny().num_layers
-    for r in got:                     # K and V hop dp - 1 times per layer
-        assert r["ppermute_calls"] == 2 * (shape[0] - 1) * layers
+    for r in got:   # K and V hop dp*fsdp - 1 times per layer
+        assert r["ppermute_calls"] == 2 * (_seq(shape) - 1) * layers
 
 
 def test_short_prompts_stay_on_the_chunked_path(world2, one_device):

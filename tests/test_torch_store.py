@@ -249,3 +249,43 @@ def test_clients_and_servers_interoperate(client, server):
     got = asyncio.run(client_script(PKGS[client], PKGS[server]))
     assert got == want
     assert ("delete", "w/b") in want
+
+
+async def stop_with_a_pending_connection(make, loop_turns: int) -> bool:
+    """Start a server, connect to it from a blocking socket, let the loop
+    turn ``loop_turns`` times (the connection accepted, its handler maybe
+    not yet run), then stop it: True when ``stop()`` returns in time."""
+    import socket
+
+    server = make()
+    await server.start()
+    sock = socket.create_connection(("127.0.0.1", server.port))
+    try:
+        for _ in range(loop_turns):
+            await asyncio.sleep(0)
+        await asyncio.wait_for(server.stop(), 5)
+        return True
+    except asyncio.TimeoutError:
+        return False
+    finally:
+        sock.close()
+
+
+@pytest.mark.parametrize("which", ["store", "ingress"])
+def test_stop_closes_a_connection_accepted_before_its_handler_ran(which):
+    """On Python 3.12 ``Server.wait_closed`` waits for every accepted
+    connection, so a connection accepted just before ``stop()`` whose
+    handler had not run yet (a client reconnecting as the runtime shuts
+    down) used to hang ``stop()``: the handler registered it after stop
+    closed the others and read from it forever. Each loop turn from the
+    connect to the handler is tried."""
+    from dynamo_tpu_torch.runtime.transport import IngressServer
+
+    async def echo(request, context):
+        yield request
+
+    make = {"store": lambda: tstore.StoreServer(host="127.0.0.1", port=0),
+            "ingress": lambda: IngressServer(echo, host="127.0.0.1",
+                                             port=0)}[which]
+    for turns in range(8):
+        assert asyncio.run(stop_with_a_pending_connection(make, turns)), turns

@@ -134,9 +134,10 @@ def forward_logits(rank, plans, cfg_name, tree, eng_kw, steps,
     """This rank's ``forward`` + ``logits_fn`` over its shard of the JAX
     tree ``tree`` (numpy leaves), one call per ``(tokens, positions,
     tables[, sp])`` step on one cache: [(hidden, logits)] as numpy, and the
-    shard shapes of ``wq`` and a cache layer. A step with ``sp`` true runs
+    shard shapes of ``wq`` and a cache layer and each step's rows on this
+    rank (``tl``). A step with ``sp`` true runs
     the sequence-parallel forward; its hidden states are gathered over the
-    dp column, so every rank returns the whole chunk's. ``forward`` takes
+    seq column, so every rank returns the whole chunk's. ``forward`` takes
     its groups from ``eng.mesh_shape`` (its default); with ``other_mesh``
     a mesh of that shape is made after the engine's, just before the
     steps, as a second engine in the process would make it."""
@@ -160,7 +161,7 @@ def forward_logits(rank, plans, cfg_name, tree, eng_kw, steps,
     if other_mesh is not None:
         make_mesh(other_mesh)
     cache = tm.init_cache(cfg, eng, torch.device("cpu"))
-    outs = []
+    outs, tl = [], []
     with torch.inference_mode():
         for tokens, positions, tables, *sp in steps:
             sp = bool(sp and sp[0])
@@ -168,13 +169,16 @@ def forward_logits(rank, plans, cfg_name, tree, eng_kw, steps,
                                   torch.from_numpy(tokens),
                                   torch.from_numpy(positions),
                                   torch.from_numpy(tables), sp=sp)
+            tl.append(h.shape[1])
             if sp:
-                h = comm.all_gather(h, mesh.dp_group, dim=1)
+                h = comm.all_gather(h, mesh.seq_group, dim=1)
             outs.append((h.float().numpy(),
-                         tm.logits_fn(cfg, params, h, mesh).numpy()))
+                         tm.logits_fn(cfg, params, h, mesh,
+                                      tm.param_specs(cfg, eng)).numpy()))
     wq = params["layers"]["wq"]
     wq = wq["q"] if isinstance(wq, dict) else wq
-    return outs, {"wq": tuple(wq.shape), "cache_k": tuple(cache["k"][0].shape)}
+    return outs, {"wq": tuple(wq.shape),
+                  "cache_k": tuple(cache["k"][0].shape), "tl": tl}
 
 
 def lead(engine, plans, n: int) -> None:
@@ -234,13 +238,20 @@ def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
     engine = InferenceEngine(cfg, eng, params=params, device="cpu")
     comm.reset_stats()
     n = comm.world_size()
+
+    def stored():
+        wq = engine.params["layers"]["wq"]
+        wq = wq["q"] if isinstance(wq, dict) else wq
+        return {"wq": tuple(wq.shape),
+                "fsdp_gather_calls": comm.STATS["fsdp_gather_calls"]}
+
     if rank != 0:
         follow(engine, plans, rank)
         return {"replayed": dict(engine.num_replayed),
                 "all_reduce_calls": comm.STATS["all_reduce_calls"],
                 "sp_prefills": engine.num_sp_prefills,
                 "ppermute_calls": comm.STATS["ppermute_calls"],
-                "ppermute_bytes": comm.STATS["ppermute_bytes"]}
+                "ppermute_bytes": comm.STATS["ppermute_bytes"], **stored()}
     emitted = lead(engine, plans, n)
 
     async def go():
@@ -267,7 +278,7 @@ def serve(rank, plans, cfg_name, tree, eng_kw, requests, weight_dtype="bf16",
             "all_reduce_calls": comm.STATS["all_reduce_calls"],
             "sp_prefills": engine.num_sp_prefills,
             "ppermute_calls": comm.STATS["ppermute_calls"],
-            "ppermute_bytes": comm.STATS["ppermute_bytes"]}
+            "ppermute_bytes": comm.STATS["ppermute_bytes"], **stored()}
 
 
 def step_plans(rank, plans, cfg_name, tree, eng_kw, step_arrays):
@@ -333,22 +344,29 @@ def ring_body(rank, plans, q, k, v):
     return out.numpy(), dict(comm.STATS)
 
 
-def collectives(rank, plans, dp, tp):
+def collectives(rank, plans, dp, tp, fsdp=None):
     """Each collective of ``parallel/comm.py`` once on a ``(dp, tp)``
-    mesh: this rank's coordinates, its groups' ranks, and what each
-    collective returned (an all_gather of ``-0.0`` and rank-coded values,
-    a ppermute, an all_to_all, sums over the tp row and the dp column)."""
+    mesh (``(dp, fsdp, tp)`` with ``fsdp``): this rank's coordinates, its
+    groups' ranks, and what each collective returned (an all_gather of
+    ``-0.0`` and rank-coded values, a ppermute, an all_to_all, sums over
+    the tp row, the dp column, the fsdp group and the seq column)."""
     import torch
 
     from dynamo_tpu_torch.parallel import comm
     from dynamo_tpu_torch.parallel.layout import make_mesh
 
-    mesh = make_mesh((dp, tp))
+    mesh = make_mesh((dp, tp) if fsdp is None else (dp, fsdp, tp))
     tpg, dpg = mesh.tp_group, mesh.dp_group
     mine = torch.tensor([-0.0, float(rank), 0.5 + rank])
     return {
         "coords": dict(mesh.coords), "tp_ranks": list(tpg.ranks),
         "dp_ranks": list(dpg.ranks), "tp_rank": tpg.index,
+        "fsdp_ranks": list(mesh.fsdp_group.ranks),
+        "seq_ranks": list(mesh.seq_group.ranks),
+        "sum_fsdp": comm.all_reduce(torch.tensor([float(rank)]),
+                                    mesh.fsdp_group).item(),
+        "sum_seq": comm.all_reduce(torch.tensor([float(rank)]),
+                                   mesh.seq_group).item(),
         "gather_dp": comm.all_gather(mine, dpg).numpy(),
         "gather_world": comm.all_gather(mine, comm.world_group()).numpy(),
         "ppermute_dp": comm.ppermute(mine, dpg).numpy(),
