@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the CUDA kernels from ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and print the card's name and power limit;
+1. build the CUDA kernels and the host hot loops from
+   ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per ``.cu`` source and the host
+   compiler for ``dynamo_native.cpp``, all started together; ``[build]``
+   gives each one's seconds) and print the card's name and power limit;
 2. hold the paged-attention kernel against its plain PyTorch version on the
    card, in bf16 at Llama-3.2-1B attention shapes with block 0 poisoned with
    NaN, on both faces, and its quantized-KV branch (int8 and fp8 pages with
@@ -65,11 +67,19 @@ Phases (any failure exits non-zero and prints no result line):
 6. serve the same weights through the distributed path, each entry point a
    process of its own: ``python -m dynamo_tpu_torch.runtime.store``, worker
    A (``python -m dynamo_tpu_torch.worker --model 1b``, seed 0) and
-   ``python -m dynamo_tpu_torch.frontend --port 0``. Completions served one
-   at a time must give phase 5's texts; only the worker may hold the GPU;
-   phase 3's traffic goes through the three processes (``[dist]`` lines:
-   TTFT, ITL and throughput beside phases 3 and 5, CPU time per token of
-   each process, the codec's µs per streamed token); then worker B joins,
+   ``python -m dynamo_tpu_torch.frontend --port 0 --grpc-port 0``.
+   Completions served one at a time must give phase 5's texts, and the
+   same prompts as text must give over KServe gRPC (``ModelInfer`` and
+   ``ModelStreamInfer``, the port's own HTTP/2 client) the text
+   ``/v1/completions`` gives; only the worker may hold the GPU; phase 3's
+   traffic goes through the three processes (``[dist]`` lines: TTFT, ITL
+   and throughput beside phases 3 and 5, CPU time per token of each
+   process, the codec's µs per streamed token), then as text through 16
+   gRPC streams beside 16 SSE streams (``[grpc]``: TTFT, ITL, tok/s);
+   ``[hash]`` lines time a prompt's block hashes, ``content_token`` of
+   phase 16's image and, after the KV part below, a router match over the
+   index the KV frontend holds, each in C++ (``csrc/dynamo_native.cpp``)
+   and in Python (any difference fails); then worker B joins,
    both publish load metrics and serve under round robin. Worker B runs
    ``--spec-mode ngram`` with the control plane on (system server, a canary
    every second, the degradation watcher) and the frontends with their
@@ -2465,6 +2475,7 @@ def phase_http(engine, card: str, direct: dict) -> None:
           f"loop, no socket, no device): {us:.1f} us; x {N_REQUESTS} streams "
           f"= {us * N_REQUESTS / 1e3:.2f} ms per decode step", flush=True)
     return dict(tokenizer=path, prompts=prompts, wants=wants,
+                texts=[tok.decode(p) for p in prompts],
                 http=rows["http", None])
 
 # ------------------------------ phase 6 ----------------------------------
@@ -2539,17 +2550,23 @@ def log_records(text: str):
 def hash_us_per_prompt(n: int = 200):
     """Host µs to hash one ISL-token prompt into its chained block hashes
     at block size 16 (``compute_block_hashes_for_seq``, what the KV router
-    runs per request): the port's xxh3 beside the blake2b chain it
-    replaced. Checks the reference's hashes of tokens 0..31 first."""
+    runs per request): the C++ library's chain, the same chain in pure
+    Python (``plain_block_hashes_for_seq``) and the blake2b chain the
+    port's xxh3 replaced. Checks the reference's hashes of tokens 0..31
+    first, and that the C++ and Python chains agree."""
     import hashlib
     import random
     import struct
 
-    from dynamo_tpu_torch.tokens import compute_block_hashes_for_seq
+    from dynamo_tpu_torch.tokens import (
+        compute_block_hashes_for_seq, plain_block_hashes_for_seq,
+    )
 
     want = [15310707395893867146, 7844343420941177057]
-    if compute_block_hashes_for_seq(list(range(32)), 16) != want:
-        fail("block hashes of tokens 0..31 differ from the JAX package's")
+    for fn in (compute_block_hashes_for_seq, plain_block_hashes_for_seq):
+        if fn(list(range(32)), 16) != want:
+            fail(f"{fn.__name__}: block hashes of tokens 0..31 differ from "
+                 "the JAX package's")
     key = struct.pack("<Q", 1337)
 
     def blake2b_chain(tokens, bs):
@@ -2564,14 +2581,135 @@ def hash_us_per_prompt(n: int = 200):
         return out
     rng = random.Random(SEED)
     tokens = [rng.randrange(N_REGULAR) for _ in range(ISL)]
+    if compute_block_hashes_for_seq(tokens, 16) \
+            != plain_block_hashes_for_seq(tokens, 16):
+        fail("the C++ and Python block-hash chains differ")
     out = []
-    for fn in (compute_block_hashes_for_seq, blake2b_chain):
+    for fn in (compute_block_hashes_for_seq, plain_block_hashes_for_seq,
+               blake2b_chain):
         fn(tokens, 16)
         t0 = time.perf_counter()
         for _ in range(n):
             fn(tokens, 16)
         out.append((time.perf_counter() - t0) / n * 1e6)
     return out
+
+
+def content_token_us():
+    """Host µs of ``content_token`` over phase 16's two images: the C++
+    XXH3 the processor runs, and the same hash in pure Python
+    (``utils/xxh3.py``); checks they agree."""
+    import numpy as np
+
+    from dynamo_tpu_torch.multimodal.processor import content_token
+    from dynamo_tpu_torch.utils.xxh3 import xxh3_64
+
+    def plain(image, index):
+        h = xxh3_64(np.ascontiguousarray(image, np.float32).tobytes(),
+                    seed=index)
+        return int(h & 0x7FFFFFFF) | 0x80000000
+    images = mm_images()
+    for i, img in enumerate(images):
+        if content_token(img, i) != plain(img, i):
+            fail(f"content_token of image {i}: C++ and Python differ")
+    out = []
+    for fn, reps in ((content_token, 50), (plain, 2)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for i, img in enumerate(images):
+                fn(img, i)
+        out.append((time.perf_counter() - t0) / (reps * len(images)) * 1e6)
+    return out, images[0].nbytes
+
+
+def match_us(stored: dict, prompts, n: int = 200):
+    """Host µs of one ``KvIndexer.find_matches`` over the index phase 6's
+    KV router holds (the sequence hashes each worker's ``kv_events``
+    stored), C++ beside the Python maps, for each of ``prompts``; checks
+    both give the same scores."""
+    from dynamo_tpu_torch.router.indexer import KvIndexer, RouterEvent
+    from dynamo_tpu_torch.tokens import compute_block_hashes_for_seq
+
+    ixs = (KvIndexer(16), KvIndexer(16, use_native=False))
+    for ix in ixs:
+        for w, hashes in stored.items():
+            ix.apply_event(RouterEvent(w, "stored", tuple(sorted(hashes))))
+    queries = [compute_block_hashes_for_seq(p, 16) for p in prompts]
+    for q in queries:
+        if ixs[0].find_matches(q).scores != ixs[1].find_matches(q).scores:
+            fail("find_matches: the C++ and Python indexers differ")
+    out = []
+    for ix in ixs:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            for q in queries:
+                ix.find_matches(q)
+        out.append((time.perf_counter() - t0) / (n * len(queries)) * 1e6)
+    return out, ixs[1].num_blocks(), len(queries[0])
+
+
+def grpc_client(port: int, jobs):
+    """Run KServe jobs (dicts: ``method`` "infer" or "stream", ``text``,
+    ``max_tokens``) concurrently over one channel of the port's own gRPC
+    client. Returns, per job, (text, t_sent, arrival times of the
+    responses that carried text, finish reason, error or None). Phase 6
+    runs this in a client process of its own, as ``http_client``."""
+    import asyncio
+
+    from dynamo_tpu_torch.kserve import grpc as kgrpc
+    from dynamo_tpu_torch.kserve import make_stub
+    from dynamo_tpu_torch.kserve import messages as pb
+
+    def request(job, i):
+        return pb.ModelInferRequest(
+            model_name=HTTP_MODEL, id=f"grpc-{i}",
+            parameters={
+                "max_tokens": pb.InferParameter(
+                    int64_param=job["max_tokens"]),
+                "temperature": pb.InferParameter(double_param=0.0),
+                "ignore_eos": pb.InferParameter(bool_param=True)},
+            inputs=[pb.ModelInferRequest.InferInputTensor(
+                name="text_input", datatype="BYTES", shape=[1],
+                contents=pb.InferTensorContents(
+                    bytes_contents=[job["text"].encode()]))])
+
+    async def one(stub, job, i):
+        t_sent = time.perf_counter()
+        try:
+            if job["method"] == "infer":
+                resp = await stub.ModelInfer(request(job, i), timeout=600)
+                return (resp.outputs[0].contents.bytes_contents[0].decode(),
+                        t_sent, [], resp.parameters["finish_reason"]
+                        .string_param, None)
+            call = stub.ModelStreamInfer(timeout=600)
+            await call.write(request(job, i))
+            await call.done_writing()
+            parts, stamps, reason = [], [], None
+            async for r in call:
+                if r.error_message:
+                    return ("".join(parts), t_sent, stamps, reason,
+                            r.error_message)
+                text = r.infer_response.outputs[0].contents \
+                    .bytes_contents[0].decode()
+                if text:
+                    parts.append(text)
+                    stamps.append(time.perf_counter())
+                fr = r.infer_response.parameters.get("finish_reason")
+                if fr is not None:
+                    reason = fr.string_param
+            return "".join(parts), t_sent, stamps, reason, None
+        except kgrpc.RpcError as e:
+            return "", t_sent, [], None, f"{e.code().name}: {e.details()}"
+
+    async def run():
+        chan = kgrpc.insecure_channel(f"127.0.0.1:{port}")
+        try:
+            stub = make_stub(chan)
+            return await asyncio.gather(*(one(stub, j, i)
+                                          for i, j in enumerate(jobs)))
+        finally:
+            await chan.close()
+    return asyncio.run(run())
 
 
 class Child:
@@ -2776,11 +2914,13 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
             f_sys = _free_port()
             front = start("frontend", "dynamo_tpu_torch.frontend",
                           ["--host", "127.0.0.1", "--port", "0",
-                           "--store-addr", addr],
+                           "--store-addr", addr, "--grpc-port", "0"],
                           DYNTPU_SYSTEM_ENABLED="1",
                           DYNTPU_SYSTEM_PORT=str(f_sys))
             port = int((await front.wait_for(
                 r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+            grpc_port = int((await front.wait_for(
+                r"kserve grpc on [\d.]+:(\d+)", 10)).group(1))
             await worker_a.wait_for(r"registered model", 300)
 
             async def client(*jobs):
@@ -2855,6 +2995,40 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                   f"a time (2 streamed): text equals decode of phase 3's "
                   f"engine ids", flush=True)
 
+            # 1b. the same prompts as text, one at a time: the KServe gRPC
+            # entry point (unary and streamed) gives /v1/completions' text
+            for i, text in enumerate(served["texts"][:len(served["wants"])]):
+                await clear_all()
+                (status, _, _, _, body), = await client(dict(
+                    method="POST", path="/v1/completions", body={
+                        "model": HTTP_MODEL, "prompt": text,
+                        "max_tokens": OSL, "temperature": 0,
+                        "ignore_eos": True}))
+                if status != 200:
+                    fail(f"text completion {i}: HTTP {status}: {body}")
+                want = body["choices"][0]["text"]
+                for method in ("infer", "stream"):
+                    await clear_all()
+                    (got, _, _, reason, err), = \
+                        await loop.run_in_executor(procs, grpc_client,
+                                                   grpc_port, [dict(
+                                                       method=method,
+                                                       text=text,
+                                                       max_tokens=OSL)])
+                    if err or got != want or reason != "length":
+                        at = next((j for j, (a, b) in enumerate(
+                            zip(got, want)) if a != b),
+                            min(len(got), len(want)))
+                        fail(f"gRPC {method} of prompt {i}: error {err}, "
+                             f"finish {reason}; text differs from HTTP's at "
+                             f"char {at}: {got[at:at + 40]!r} vs "
+                             f"{want[at:at + 40]!r}")
+            print(f"[grpc] {len(served['wants'])} text prompts one at a time "
+                  f"through the frontend's KServe gRPC port (the port's "
+                  f"HTTP/2 client): ModelInfer and ModelStreamInfer text "
+                  f"equals /v1/completions' on the same frontend and worker "
+                  f"(greedy, {OSL} tokens, Llama-3.2-1B width)", flush=True)
+
             # 2. phase 3's traffic through the three processes
             prompts = served["prompts"]
             await clear_all()
@@ -2879,15 +3053,54 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                   f"{cpu['worker_a'] / n_tok * 1e3:.3f} ms, frontend "
                   f"{cpu['frontend'] / n_tok * 1e3:.3f} ms, store "
                   f"{cpu['store'] / n_tok * 1e3:.4f} ms", flush=True)
-            xxh3_us, blake2b_us = hash_us_per_prompt()
+
+            # the same traffic as text prompts, over HTTP SSE and then
+            # over gRPC streams: TTFT / ITL side by side
+            texts = served["texts"]
+            await clear_all()
+            t_start = time.perf_counter()
+            results = await client(*(dict(
+                method="POST", path="/v1/completions", body={
+                    "model": HTTP_MODEL, "prompt": t, "max_tokens": OSL,
+                    "temperature": 0, "ignore_eos": True, "stream": True})
+                for t in texts))
+            sse = traffic_stats(check_streams(results, OSL, "text stream"),
+                                time.perf_counter() - t_start)
+            await clear_all()
+            t_start = time.perf_counter()
+            results = await loop.run_in_executor(
+                procs, grpc_client, grpc_port,
+                [dict(method="stream", text=t, max_tokens=OSL)
+                 for t in texts])
+            wall = time.perf_counter() - t_start
+            runs = []
+            for text, t_sent, stamps, reason, err in results:
+                if err or reason != "length" or len(stamps) < 2:
+                    fail(f"gRPC stream: error {err}, finish {reason}, "
+                         f"{len(stamps)} text responses")
+                runs.append((t_sent, stamps[0], stamps[-1], OSL))
+            over_grpc = traffic_stats(runs, wall)
+            print(f"[grpc] {card}: {N_REQUESTS} streams of phase 5's "
+                  f"prompts as text, OSL {OSL}, through store + worker A + "
+                  f"frontend (client in its own process): gRPC "
+                  f"ModelStreamInfer {stats_line(over_grpc)}; HTTP SSE "
+                  f"/v1/completions, same traffic: {stats_line(sse)}",
+                  flush=True)
+
+            cpp_us, py_us, blake2b_us = hash_us_per_prompt()
             has_xxhash = importlib.util.find_spec("xxhash") is not None
             print(f"[hash] {card}: block hashes of one {ISL}-token prompt "
                   f"at block size 16 ({ISL // 16} blocks) on this host: "
-                  f"xxh3 (port, pure Python) {xxh3_us:.1f} us, blake2b "
-                  f"chain it replaced {blake2b_us:.1f} us; xxhash is "
+                  f"C++ (csrc/dynamo_native.cpp) {cpp_us:.1f} us, the same "
+                  f"chain in pure Python {py_us:.1f} us, the blake2b chain "
+                  f"the port's xxh3 replaced {blake2b_us:.1f} us; xxhash is "
                   + ("installed here, not timed (this script imports none "
                      "of it)" if has_xxhash else "not installed here"),
                   flush=True)
+            (ct_cpp, ct_py), nbytes = content_token_us()
+            print(f"[hash] {card}: content_token of phase 16's image "
+                  f"({nbytes} bytes of float32) on this host: C++ "
+                  f"{ct_cpp:.1f} us, pure Python {ct_py:.1f} us", flush=True)
             pack_us, unpack_us = codec_us_per_token()
             print(f"[dist] {card}: codec per streamed token on this host: "
                   f"worker packs payload + frame {pack_us:.2f} us, frontend "
@@ -3136,6 +3349,13 @@ def phase_dist(card: str, served: dict, direct: dict) -> dict:
                   f"{select_ms[len(select_ms) // 2]:.3f} ms max "
                   f"{select_ms[-1]:.3f} ms (hash of the prompt, index "
                   f"match, cost function)", flush=True)
+            (m_cpp, m_py), n_blocks, depth = match_us(
+                stored, [p for g in groups for p in g[:2]])
+            print(f"[hash] {card}: KvIndexer.find_matches of a {depth}-block "
+                  f"prompt over phase 6's index ({n_blocks} blocks on "
+                  f"{len(stored)} workers, from their kv_events) on this "
+                  f"host: C++ {m_cpp:.2f} us, Python maps {m_py:.2f} us",
+                  flush=True)
 
             # 5. a degradation order in the store (what the planner writes):
             # the KV frontend, which has an admission controller, sheds tier

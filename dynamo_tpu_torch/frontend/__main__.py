@@ -17,9 +17,12 @@ there is no admission controller, as in the JAX frontend). A model whose
 card advertises ``embeddings`` gets ``/v1/embeddings`` over its workers'
 ``embed`` endpoint; one whose card advertises ``multimodal`` gets the
 encode-prefill-decode preprocessor over the advertised ``encode`` endpoint.
-``--grpc-port`` (KServe) is refused. The frontend never touches the GPU.
-With ``--port 0`` the log line ``frontend ready on HOST:PORT`` names the
-port bound.
+``--grpc-port N`` also serves the KServe v2 gRPC protocol on ``--host``
+(``kserve/``, on the port's own HTTP/2), over the same models; unlike the
+JAX frontend, where 0 disables it, ``--grpc-port 0`` picks a free port, and
+the log line ``kserve grpc on HOST:PORT`` names it (leave the flag out to
+serve no gRPC). The frontend never touches the GPU. With ``--port 0`` the
+log line ``frontend ready on HOST:PORT`` names the port bound.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 
+from .. import native
 from ..llm.discovery import ModelDeploymentCard, ModelWatcher
 from ..llm.entrypoint import (
     EmbeddingsPipeline, build_routed_pipeline, make_kv_sink,
@@ -54,8 +58,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         choices=["round_robin", "random", "kv"],
     )
     p.add_argument(
-        "--grpc-port", type=int, default=0,
-        help="KServe v2 gRPC port (not served yet; 0 disables)",
+        "--grpc-port", type=int, default=None,
+        help="also serve the KServe v2 gRPC protocol on this port (0 picks "
+             "a free one; absent serves none; ref: grpc/service/kserve.rs)",
     )
     p.add_argument(
         "--busy-threshold", type=float, default=0.0,
@@ -87,16 +92,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_supported(args: argparse.Namespace) -> None:
-    """Refuse every flag whose path this package does not serve yet."""
-    if args.grpc_port:
-        raise NotImplementedError(
-            "--grpc-port needs the KServe gRPC service (ROADMAP.md queue "
-            "A, item 7d), which dynamo_tpu_torch does not serve yet"
-        )
+    """Refuse every flag whose path this package does not serve yet: since
+    the KServe gRPC service, none."""
 
 
 async def run_frontend(args: argparse.Namespace) -> None:
     check_supported(args)
+    # the C++ hot loops (the KV router's block hashes and prefix index, the
+    # image content hash) are built at first use: build them before the
+    # store lease, so a compile cannot stall its keepalive
+    native.get_lib()
     config = RuntimeConfig.from_settings()
     if args.store_addr:
         config.store_addr = args.store_addr
@@ -207,6 +212,15 @@ async def run_frontend(args: argparse.Namespace) -> None:
     await watcher.start()
     await service.start()
 
+    grpc_service = None
+    if args.grpc_port is not None:
+        from ..kserve import KserveGrpcService
+
+        grpc_service = KserveGrpcService(
+            manager, host=args.host, port=args.grpc_port
+        )
+        await grpc_service.start()
+
     stats_task = None
     if args.stats_publish_interval > 0:
         subject = f"{runtime.namespace().name}/frontend_stats"
@@ -248,6 +262,8 @@ async def run_frontend(args: argparse.Namespace) -> None:
             stats_task.cancel()
         await degradation_watcher.stop()
         await watcher.stop()
+        if grpc_service is not None:
+            await grpc_service.stop()
         await service.stop()
         await runtime.shutdown()
 

@@ -5,9 +5,10 @@ the encode-first orchestration
 encode step, and splices prompt embeddings; same contract here).
 
 A copy of ``dynamo_tpu.multimodal.processor``: the content hash is the
-port's own XXH3-64 (``utils/xxh3.py``) in place of ``xxhash``, and the
-module imports numpy and the standard library only, so the frontend that
-runs it never loads torch. The local encoder is any object with the
+port's own XXH3-64 in the C++ library (``native.xxh3_64``, built from
+``csrc/dynamo_native.cpp``) in place of ``xxhash``, and the module imports
+numpy and the standard library only, so the frontend that runs it never
+loads torch. The local encoder is any object with the
 :class:`~.encoder.VisionEncoder` ``encode`` method.
 
 Flow (EPD):
@@ -40,9 +41,9 @@ from typing import Any, List, Tuple
 
 import numpy as np
 
+from .. import native
 from ..runtime.engine import Operator
 from ..utils.logging import get_logger
-from ..utils.xxh3 import xxh3_64
 from .wire import array_from_wire, array_to_wire
 
 log = get_logger("mm.processor")
@@ -80,8 +81,8 @@ def decode_image_part(part: dict) -> np.ndarray:
 def content_token(image: np.ndarray, index: int) -> int:
     """Content-addressed stand-in id for HASHING (never a model input):
     folds the image bytes into the KV block hash chain."""
-    h = xxh3_64(np.ascontiguousarray(image, np.float32).tobytes(),
-                seed=index)
+    h = native.xxh3_64(np.ascontiguousarray(image, np.float32).tobytes(),
+                       seed=index)
     # token ids hash as u32; the top bit keeps content ids clear of any
     # real vocab (vocabs are < 2^31), with 31 bits of content entropy
     return int(h & 0x7FFFFFFF) | 0x80000000

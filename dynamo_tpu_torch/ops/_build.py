@@ -1,12 +1,17 @@
-"""Build the package's CUDA sources with ``nvcc`` at first use and load them
-with ``ctypes``.
+"""Build the package's C sources at first use and load them with ``ctypes``.
 
 Each source under ``csrc/`` becomes one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), compiled for
-``sm_90a`` into ``build/torch_kernels/`` at the root of the checkout. The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing is built when
-the module is imported: the CPU never needs a library.
+interface (no PyTorch headers, so a build takes seconds) in
+``build/torch_kernels/`` at the root of the checkout: a ``.cu`` source (the
+CUDA kernels) is compiled by ``nvcc`` for ``sm_90a``, a ``.cpp`` source (the
+host hot loops, ``dynamo_native.cpp``) by the host compiler, ``$CXX`` or
+else ``g++`` (the one ``nvcc`` itself drives). The library's file name
+carries a hash of its source and flags, so an edited source is rebuilt and a
+stale library is never loaded; it is written under a name of its own and
+moved into place with one ``os.replace``, so processes that build at once
+never load half a file. A failed build raises with the compiler's output.
+Nothing is built when the module is imported, and the module imports no
+``torch``: the frontend loads the host library through it.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ from typing import Dict, Iterable, Tuple
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("paged_attention",)
+CUDA_SOURCES = ("paged_attention",)
+HOST_SOURCES = ("dynamo_native",)
+SOURCES = CUDA_SOURCES + HOST_SOURCES
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,7 +40,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas register/shared-memory report of the last build of each source
+# the compiler's report of the last build of each source (ptxas registers
+# and shared memory for the CUDA ones)
 build_logs: Dict[str, str] = {}
 
 
@@ -50,28 +59,50 @@ def _nvcc() -> str:
     )
 
 
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if found:
+        return found
+    raise RuntimeError(
+        f"host C++ compiler {cxx!r} not found (set CXX or put g++ on "
+        "PATH): csrc/*.cpp are built at first use"
+    )
+
+
+def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """The source file of ``name`` and its compiler flags."""
+    if name in HOST_SOURCES:
+        return SRC_DIR / f"{name}.cpp", CXX_FLAGS
+    return SRC_DIR / f"{name}.cu", NVCC_FLAGS
+
+
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, flags = _source(name)
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
 def _compile(name: str) -> Tuple[Path, float]:
-    """nvcc one source into its shared library (skipped when the hashed
+    """Compile one source into its shared library (skipped when the hashed
     library exists). Returns (library path, seconds spent compiling)."""
     out = _lib_path(name)
     if out.exists():
         return out, 0.0
+    src, flags = _source(name)
+    compiler = _cxx() if name in HOST_SOURCES else _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     took = time.perf_counter() - t0
     if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed for csrc/{name}.cu ({proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
+            f"{Path(compiler).name} failed for csrc/{src.name} "
+            f"({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
         )
     build_logs[name] = (proc.stdout + proc.stderr).strip()
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
@@ -79,7 +110,8 @@ def _compile(name: str) -> Tuple[Path, float]:
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every named source, one ``nvcc`` each, all started together.
+    """Compile every named source, one compiler process each, all started
+    together.
     Returns the compile seconds of each (0.0 when already built)."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
@@ -88,7 +120,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built on first
+    use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

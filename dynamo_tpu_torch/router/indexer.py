@@ -12,10 +12,14 @@ tree bookkeeping, and immune to cross-component hash-scheme drift.
 records the router's *own* routing decisions with a TTL, approximating which
 worker holds which prefix when engines don't publish events.
 
-A copy of ``dynamo_tpu.router.indexer`` on the Python path only: the JAX
-package's C++ matcher (its ``native/``) and the ``use_native`` switch that
-selects it are left out. ``RouterEvent`` lives here, as in the JAX package;
-``router/publisher.py`` imports it.
+A copy of ``dynamo_tpu.router.indexer``. ``KvIndexer`` matches through the
+C++ prefix index (``native.NativePrefixIndex``, built from
+``csrc/dynamo_native.cpp``) and keeps its Python maps as the authority for
+``dump_events`` and introspection, as the JAX indexer does; only an explicit
+``use_native=False`` matches in Python (the plain version the tests hold the
+C++ one against). Where the JAX indexer drops quietly to Python when its
+library is missing, this one raises. ``RouterEvent`` lives here, as in the
+JAX package; ``router/publisher.py`` imports it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set
 
+from ..native import NativePrefixIndex
 from ..tokens import SequenceHash, compute_block_hashes_for_seq
 
 WorkerId = int
@@ -73,11 +78,14 @@ class KvIndexer:
     (indexer.rs:224,738); flat because our hashes chain (module docstring).
     """
 
-    def __init__(self, block_size: int):
+    def __init__(self, block_size: int, use_native: bool = True):
         self.block_size = block_size
         self._workers_of: Dict[SequenceHash, Set[WorkerId]] = {}
         self._hashes_of: Dict[WorkerId, Set[SequenceHash]] = {}
         self.events_applied = 0
+        # the C++ matcher for the per-decision hot loop; the Python maps
+        # stay authoritative for dump_events and introspection
+        self._native = NativePrefixIndex() if use_native else None
 
     # -- event application (ref: indexer.rs:320 apply_event) --
 
@@ -86,12 +94,18 @@ class KvIndexer:
         w = event.worker_id
         if event.kind == "stored":
             held = self._hashes_of.setdefault(w, set())
+            fresh = []
             for b in event.blocks:
                 h = int(b["seq_hash"]) if isinstance(b, dict) else int(b)
+                if h not in held:
+                    fresh.append(h)
                 self._workers_of.setdefault(h, set()).add(w)
                 held.add(h)
+            if self._native is not None and fresh:
+                self._native.stored(w, fresh)
         elif event.kind == "removed":
             held = self._hashes_of.get(w)
+            gone = []
             for h in event.blocks:
                 h = int(h["seq_hash"]) if isinstance(h, dict) else int(h)
                 ws = self._workers_of.get(h)
@@ -99,8 +113,11 @@ class KvIndexer:
                     ws.discard(w)
                     if not ws:
                         del self._workers_of[h]
-                if held is not None:
+                if held is not None and h in held:
                     held.discard(h)
+                    gone.append(h)
+            if self._native is not None and gone:
+                self._native.removed(w, gone)
         elif event.kind == "cleared":
             self.clear_worker(w)
 
@@ -116,6 +133,8 @@ class KvIndexer:
                 ws.discard(worker)
                 if not ws:
                     del self._workers_of[h]
+        if self._native is not None:
+            self._native.clear_worker(worker)
 
     # -- matching (ref: indexer.rs:276 find_matches) --
 
@@ -126,6 +145,9 @@ class KvIndexer:
         blocks before it — with chained hashes that is exactly the radix-walk
         the reference does.
         """
+        if self._native is not None:
+            return OverlapScores(
+                scores=self._native.find_matches(list(seq_hashes)))
         scores: Dict[WorkerId, int] = {}
         for i, h in enumerate(seq_hashes):
             ws = self._workers_of.get(h)

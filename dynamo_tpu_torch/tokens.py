@@ -3,12 +3,17 @@
 A copy of ``dynamo_tpu.tokens`` (the prefix-cache key math behind the
 scheduler's block reuse, the engine's KV events and the KV router's index;
 ref: lib/tokens/src/lib.rs:14-27 and lib/llm/src/tokens.rs:44,388,479) on
-this package's own xxh3-64 (``utils/xxh3.py``) in place of ``xxhash``, with
-no native path. The chain is ``xxh3_64(parent_seq_hash_le_u64 ||
-token_bytes_u32_le, seed=1337)`` (root blocks hash their token bytes alone),
-so the hashes equal the JAX package's bit for bit: JAX and port processes
-share one store, and a router of either package indexes the KV events that
-workers of either package publish.
+this package's own xxh3-64 in place of ``xxhash``. A prompt's chain of
+block hashes (``compute_block_hashes_for_seq``, what the KV router runs
+per routing decision) runs in the C++ library (``native/``, built from
+``csrc/dynamo_native.cpp``), with no fallback; the chain in Python
+(``plain_block_hashes_for_seq``, on ``utils/xxh3.py``) stays beside it as
+its plain version. The engine's ``TokenBlockSequence`` seals its blocks one
+at a time in Python, as the JAX one does. The chain is ``xxh3_64(
+parent_seq_hash_le_u64 || token_bytes_u32_le, seed=1337)`` (root blocks
+hash their token bytes alone), so the hashes equal the JAX package's bit
+for bit: JAX and port processes share one store, and a router of either
+package indexes the KV events that workers of either package publish.
 
 Two hash kinds per block:
 - ``block_hash``: the hash of the block's own token bytes (u32 LE).
@@ -23,6 +28,7 @@ import struct
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence
 
+from . import native
 from .utils.xxh3 import xxh3_64
 
 HASH_SEED = 1337
@@ -62,8 +68,18 @@ def compute_block_hashes_for_seq(
     The router-side hot path (same role as the reference's
     ``compute_block_hash_for_seq``, indexer.rs:125, but chained — see module
     docstring): only full blocks participate in prefix matching; the ragged
-    tail is ignored.
+    tail is ignored. Runs in the C++ library; equal to
+    :func:`plain_block_hashes_for_seq`.
     """
+    if len(tokens) < block_size:
+        return []
+    return native.sequence_hashes(tokens, block_size, HASH_SEED)
+
+
+def plain_block_hashes_for_seq(
+    tokens: Sequence[int], block_size: int
+) -> list[SequenceHash]:
+    """:func:`compute_block_hashes_for_seq` in Python, block by block."""
     out: list[SequenceHash] = []
     parent: Optional[SequenceHash] = None
     for start in range(0, len(tokens) - block_size + 1, block_size):

@@ -62,6 +62,7 @@ from dynamo_tpu_torch.utils import config as tconfig
 from test_torch_frontend_http import (
     E2E_REQUESTS, ENG_KW, TIMEOUT, fetch, tiny_tokenizer,
 )
+from torch_ready import wait_for_model
 
 ROOT = Path(__file__).resolve().parent.parent
 SIDES = {
@@ -286,13 +287,7 @@ def start_cluster(tmp_path, tok_file, n_workers, *worker_flags,
 
 
 async def wait_model(port):
-    async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
-        for _ in range(200):
-            _, _, body = await fetch(s, port, "GET", "/v1/models")
-            if body["data"]:
-                return
-            await asyncio.sleep(0.05)
-    raise AssertionError("model never listed")
+    await wait_for_model(port, "tiny")
 
 
 def test_three_entry_points_serve_a_streamed_chat(tmp_path, tok_file):

@@ -35,6 +35,7 @@ from dynamo_tpu_torch.llm import discovery as tdisc
 from dynamo_tpu_torch.llm import entrypoint as tentry
 from test_torch_distributed import Proc, free_port
 from test_torch_frontend_http import TIMEOUT, fetch, tiny_tokenizer
+from torch_ready import wait_for_model
 
 ENG_KW = dict(block_size=4, num_blocks=64, max_num_seqs=8,
               max_num_batched_tokens=64, max_model_len=128,
@@ -309,12 +310,8 @@ def test_v1_embeddings_through_store_worker_and_frontend(tmp_path):
         arrays = [[5, 6, 7, 8], list(range(20, 61))]
 
         async def ask():
+            await wait_for_model(port, "tiny")
             async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
-                for _ in range(200):
-                    _, _, body = await fetch(s, port, "GET", "/v1/models")
-                    if body["data"]:
-                        break
-                    await asyncio.sleep(0.05)
                 out = []
                 for inputs in (text, arrays, [[1, "x"]]):
                     out.append(await fetch(s, port, "POST",

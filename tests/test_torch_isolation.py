@@ -13,6 +13,7 @@ pieces included) never load ``torch``."""
 
 import ast
 import asyncio
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -37,7 +38,7 @@ FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
 # machine does not install (or no record says it does)
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "xxhash", "msgpack",
              "ml_dtypes", "tokenizers", "aiohttp", "prometheus_client",
-             "safetensors", "grpc", "benchmarks"}
+             "safetensors", "grpc", "google", "pyarrow", "benchmarks"}
 # the modules of the KV-movement slice (each scanned like every other)
 KV_MOVEMENT = ["disagg/__init__.py", "disagg/protocol.py", "disagg/ici.py",
                "disagg/handlers.py", "kvbm/__init__.py", "kvbm/host_pool.py",
@@ -68,8 +69,23 @@ TUNING = ["engine/autotune.py", "engine/ladder.py",
 MULTIMODAL = ["multimodal/__init__.py", "multimodal/__main__.py",
               "multimodal/encoder.py", "multimodal/processor.py",
               "multimodal/wire.py"]
+# the KServe gRPC and host hot-loop slice's modules (the port's own HTTP/2,
+# HPACK, protobuf codec and gRPC, and the C++ library's loader)
+KSERVE_AND_NATIVE = ["kserve/__init__.py", "kserve/grpc.py",
+                     "kserve/messages.py", "kserve/service.py",
+                     "native/__init__.py", "utils/protowire.py",
+                     "utils/hpack.py", "utils/http2.py", "ops/_build.py"]
+# the C++ standard library headers a host source may include
+CXX_STD_HEADERS = {"cstdint", "cstring", "cstddef", "cstdlib",
+                   "unordered_map", "vector", "algorithm", "utility",
+                   "array", "string", "memory", "limits"}
 # imported only inside the function that launches a kernel
 NOT_AT_MODULE_LEVEL = {"triton"}
+# what must not be in ``sys.modules`` after importing the port: the bare
+# ``google`` namespace package may be there before any import (a site
+# ``.pth`` file of another google package loads it), so protobuf is named
+LOADED_FORBIDDEN = (FORBIDDEN - {"google"}) | {"google.protobuf"} \
+    | NOT_AT_MODULE_LEVEL
 
 
 def _imports(tree):
@@ -167,6 +183,38 @@ def test_scan_covers_the_multimodal_modules():
             assert "torch" not in {n for n, _ in found}, rel
 
 
+def test_scan_covers_the_kserve_and_native_modules():
+    """The KServe gRPC modules and the native loader are scanned like every
+    other: none imports ``grpc``, ``google`` (protobuf), ``pyarrow``,
+    ``xxhash`` nor JAX, and none imports torch (the frontend loads them)."""
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(KSERVE_AND_NATIVE) <= scanned
+    for rel in KSERVE_AND_NATIVE:
+        found = {n for n, _ in _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
+        assert not found & FORBIDDEN, (rel, found & FORBIDDEN)
+        assert "torch" not in found, rel
+
+
+def test_host_sources_include_only_the_standard_library():
+    """``csrc/*.cpp`` build with the host compiler alone: every
+    ``#include`` is a C++ standard header or a file of ``csrc/`` (no
+    pyarrow's vendored ``xxhash.h``, which the JAX library needs)."""
+    csrc = ROOT / "dynamo_tpu_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cpp"))
+    assert [p.name for p in sources] == ["dynamo_native.cpp"]
+    for path in sources:
+        for line in path.read_text().splitlines():
+            m = re.match(r'\s*#\s*include\s*([<"])([^>"]+)[>"]', line)
+            if not m:
+                continue
+            if m.group(1) == "<":
+                assert m.group(2) in CXX_STD_HEADERS, (path.name, line)
+            else:
+                assert (csrc / m.group(2)).exists(), (path.name, line)
+
+
 def test_scan_sees_nested_imports():
     tree = ast.parse("import os\n"
                      "def f():\n    import triton\n"
@@ -223,7 +271,7 @@ def test_importing_the_port_loads_nothing_forbidden():
         <= set(mods)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
-            + f"bad = {sorted(FORBIDDEN | NOT_AT_MODULE_LEVEL)!r}\n"
+            + f"bad = {sorted(LOADED_FORBIDDEN)!r}\n"
             "print(sorted(m for m in bad if m in sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -660,13 +708,19 @@ def test_worker_maps_the_jax_attention_names():
         assert worker.ATTENTION_IMPLS[args.attention_impl] == impl
 
 
-@pytest.mark.parametrize("flags", [["--grpc-port", "9000"]],
+@pytest.mark.parametrize("flags,port", [(["--grpc-port", "9000"], 9000)],
                          ids=["grpc-port"])
-def test_frontend_refuses_unserved_flags(flags):
+def test_frontend_serves_the_grpc_port(flags, port):
+    """``--grpc-port`` is served (queue A item 7d): the flag passes
+    ``check_supported``; ``--grpc-port 0`` picks a free port and leaving
+    the flag out serves no gRPC."""
     from dynamo_tpu_torch.frontend import __main__ as frontend
 
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        asyncio.run(frontend.run_frontend(frontend.parse_args(flags)))
+    args = frontend.parse_args(flags)
+    frontend.check_supported(args)
+    assert args.grpc_port == port
+    assert frontend.parse_args(["--grpc-port", "0"]).grpc_port == 0
+    assert frontend.parse_args([]).grpc_port is None
 
 
 @pytest.mark.parametrize("mode", ["round_robin", "random", "kv"])

@@ -65,6 +65,7 @@ from dynamo_tpu_torch.utils import config as tconfig
 from test_torch_distributed import start_cluster, tok_file  # noqa: F401
 from test_torch_engine import ENG_KW, MAX_TOKENS, PROMPTS
 from test_torch_frontend_http import TIMEOUT, fetch
+from torch_ready import wait_for_model
 
 BS = 4  # block size of the unit scenarios, as in the JAX tests
 SEED = 7
@@ -748,12 +749,8 @@ def test_frontend_router_mode_kv_routes_prefix_to_holder(tmp_path,
                 if s["name"] == "router.select"]
 
     async def complete(tail):
+        await wait_for_model(port, "tiny")
         async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
-            for _ in range(200):
-                _, _, body = await fetch(s, port, "GET", "/v1/models")
-                if body["data"]:
-                    break
-                await asyncio.sleep(0.05)
             status, _, body = await fetch(s, port, "POST", "/v1/completions",
                                           {"model": "tiny",
                                            "prompt": prefix + tail,

@@ -55,6 +55,7 @@ from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.tokens import compute_block_hashes_for_seq
 from test_torch_distributed import Proc, free_port
 from test_torch_frontend_http import TIMEOUT, fetch, tiny_tokenizer
+from torch_ready import wait_for_model
 
 ATOL = 1e-5
 
@@ -673,12 +674,8 @@ def test_epd_over_processes(tmp_path):
         procs["worker"].wait_for(r"registered model tiny-mm")
 
         async def ask():
+            await wait_for_model(port, "tiny-mm")
             async with aiohttp.ClientSession(timeout=TIMEOUT) as s:
-                for _ in range(200):
-                    _, _, body = await fetch(s, port, "GET", "/v1/models")
-                    if body["data"]:
-                        break
-                    await asyncio.sleep(0.05)
                 out = []
                 for img in (image(0), image(1), None):
                     content = "plain" if img is None else [
