@@ -4686,7 +4686,173 @@ def phase_load(card: str, engine, dtype: str) -> None:
           f"vs phase 3's {dtype} engine (eager rerun): "
           f"{len(prompts) - len(partings)} of {len(prompts)} identical, "
           f"{len(partings)} part at near-ties", flush=True)
+    phase_ckpt(card, engine, dtype, want, rec, prompts)
     return want, rec, prompts
+
+
+# ------------- phase 9 (cont.): the port's own checkpoint format -------------
+
+CKPT_DIR = os.path.join("build", "ckpt_native_llama_3_2_1b_{}")
+CKPT_REQUESTS = 4          # of phase 3's prompts, served from the restore
+
+
+def phase_ckpt(card: str, engine, dtype: str, want, rec, prompts) -> None:
+    """[ckpt]: phase 3's ``dtype`` engine tree at full Llama-3.2-1B width
+    written with ``weights.save_checkpoint`` (the port's own format: the
+    native tree, quantized leaves as ``q`` and ``s``) under ``build/``,
+    restored onto the card with ``load_checkpoint(cfg=)`` and held to the
+    engine's leaves bit for bit; save and restore rates and the peak host
+    RSS over the restore are printed. An engine built on the restored tree
+    serves CKPT_REQUESTS of phase 3's prompts, held to the parity rule
+    against phase 3's streams (``want``, logits ``rec``). The bf16
+    checkpoint stays for phase 17's sharded restore; the int8 one is
+    removed."""
+    import shutil
+
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, InferenceEngine
+    from dynamo_tpu_torch.engine import weights
+
+    cfg = engine.model_config
+    path = CKPT_DIR.format(dtype)
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    weights.save_checkpoint(path, engine.params, cfg)
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    restored = weights.load_checkpoint(path, cfg=cfg, device=DEV)
+    st = dict(weights.last_restore_stats)
+    same = same_tree(restored, engine.params)
+    peak = st["peak_rss_bytes"]
+    print(f"[ckpt] {card}: {dtype} tree of {st['n_leaves']} leaves, "
+          f"{size / 1e9:.3f} GB in {st['n_files']} file(s): saved in "
+          f"{save_s:.2f} s ({size / save_s / 1e9:.2f} GB/s), restored onto "
+          f"{DEV} in {st['seconds']:.2f} s ({st['gb_s']:.2f} GB/s, a warm "
+          "read: the files were just written), peak host RSS over the "
+          "restore "
+          + ("not measured" if peak is None else
+             f"{peak / 2**30:.2f} GiB ({st['rss_before_bytes'] / 2**30:.2f}"
+             " GiB before)")
+          + f"; leaves equal the engine's bit for bit: {same}", flush=True)
+    if not same:
+        fail(f"[ckpt] the restored {dtype} tree differs from the engine's")
+    quant = dict(weight_dtype=dtype, kv_dtype=dtype)
+    served = InferenceEngine(cfg, EngineConfig(**quant), params=restored,
+                             device=DEV)
+    del restored
+    got, _, _, _ = serve_batch(served, prompts[:CKPT_REQUESTS], OSL)
+    if [len(g) for g in got] != [OSL] * CKPT_REQUESTS:
+        fail(f"[ckpt] short streams from the restored {dtype} engine")
+    partings = check_parity(want[:CKPT_REQUESTS], rec, got,
+                            f"phase 3's {dtype} engine", tag="[ckpt]")
+    print(f"[ckpt] {card}: {CKPT_REQUESTS} of phase 3's prompts served by "
+          f"an engine on the restored {dtype} tree vs phase 3's engine: "
+          f"{CKPT_REQUESTS - len(partings)} identical, {len(partings)} "
+          f"part at near-ties", flush=True)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dtype != "bf16":
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def ckpt_mesh_job(rank, plans, dev, path, shape):
+    """A rank of phase 17's checkpoint world: its sharded restore of
+    ``path`` onto ``dev`` with ``load_checkpoint(cfg=, mesh=)``, held bit
+    for bit against ``shard_params`` of the full restore on the host.
+    Returns (equal, bytes read, GB/s, seconds, peak RSS, full bytes)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine import model as model_lib
+    from dynamo_tpu_torch.engine import weights
+    from dynamo_tpu_torch.parallel.layout import make_mesh
+
+    cfg = ModelConfig(**weights.read_manifest(path)["config"])
+    got = weights.load_checkpoint(path, cfg=cfg, mesh=make_mesh(shape),
+                                  device=dev)
+    st = dict(weights.last_restore_stats)
+    full = weights.load_checkpoint(path, device="cpu")
+    n_full = sum(t.numel() * t.element_size()
+                 for _, t in weights._flatten(full))
+    ref = model_lib.shard_params(full, cfg, EngineConfig(mesh_shape=shape))
+    del full
+    same = same_tree({k: v for k, v in weights._flatten(got)},
+                     {k: v.to(dev) for k, v in weights._flatten(ref)})
+    return (same, st["bytes"], st["gb_s"], st["seconds"],
+            st["peak_rss_bytes"], n_full)
+
+
+def phase_ckpt_mesh(card: str) -> None:
+    """[ckpt] (phase 17): phase 9's bf16 checkpoint in the port's format
+    restored onto the two ranks of a ``(1, 2)`` mesh (spawned by the script
+    on the one card, joined over gloo), each reading only its slices; each
+    rank's leaves must equal ``shard_params``' slices of the full tree bit
+    for bit, and each rank's bytes read are printed. The checkpoint is
+    removed after."""
+    import shutil
+
+    path = os.path.abspath(CKPT_DIR.format("bf16"))
+    world = SpWorld(2, "ckpt")
+    try:
+        got = world.run(ckpt_mesh_job, DEV, path, (1, 2))
+    finally:
+        world.close()
+    for rank, (same, nbytes, gb_s, secs, peak, n_full) in enumerate(got):
+        print(f"[ckpt] {card}: rank {rank} of mesh (1, 2): restored its "
+              f"slices, {nbytes / 1e9:.3f} GB read of the tree's "
+              f"{n_full / 1e9:.3f} GB, in {secs:.2f} s ({gb_s:.2f} GB/s), "
+              "peak host RSS "
+              + ("not measured" if peak is None else
+                 f"{peak / 2**30:.2f} GiB")
+              + f"; leaves equal shard_params' bit for bit: {same}",
+              flush=True)
+        if not same:
+            fail(f"[ckpt] rank {rank}'s sharded restore differs from "
+                 "shard_params")
+        if nbytes >= n_full:
+            fail(f"[ckpt] rank {rank} read {nbytes} bytes of a "
+                 f"{n_full}-byte tree: not a sharded read")
+    shutil.rmtree(path, ignore_errors=True)
+
+
+# ------------------------------ [lint] ------------------------------------
+
+
+def start_lint():
+    """``python -m dynamo_tpu_torch.analysis --check --format json`` in a
+    subprocess, started beside the build (it needs no card)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.analysis", "--check",
+         "--format", "json"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish_lint(proc) -> None:
+    """[lint]: the port's dynalint on its own package: exit 0, no new
+    finding; prints the counts."""
+    out, err = proc.communicate(timeout=300)
+    try:
+        res = json.loads(out)
+    except ValueError:
+        fail(f"[lint] dynalint printed no JSON (exit {proc.returncode}): "
+             f"{err[-2000:]}")
+    by_code = {}
+    for f in res["new"]:
+        by_code[f["code"]] = by_code.get(f["code"], 0) + 1
+    print(f"[lint] python -m dynamo_tpu_torch.analysis --check on python "
+          f"{sys.version.split()[0]}: exit {proc.returncode}, "
+          f"{len(res['new'])} new finding(s) {by_code}, "
+          f"{res['baselined']} baselined, "
+          f"{res['stale_baseline_entries']} stale baseline entries",
+          flush=True)
+    for f in res["new"]:
+        print(f"[lint] {f['path']}:{f['line']}: {f['code']} {f['message']}")
+    if proc.returncode != 0 or res["new"]:
+        fail("[lint] new dynalint findings in the port")
 
 
 # ---------------------------------------------------------------------------
@@ -8592,6 +8758,7 @@ def main() -> None:
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     timer = PhaseTimer()
+    lint = start_lint()
     phase_build()
     timer("1 build")
     cases = kernel_cases()
@@ -8599,6 +8766,8 @@ def main() -> None:
     results = phase_kernels(cases)
     del cases
     timer("2 kernels")
+    finish_lint(lint)
+    timer("lint")
     launches, engine, ref_logits, direct = phase_engine(card)
     phase_graph(engine, card)
     timer("3 engine bf16 + graph check")
@@ -8636,6 +8805,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     tp_launches = {64: phase_tp(card, served, tp_ref)}
     timer("17 tensor parallel, Llama-3.2-1B")
+    phase_ckpt_mesh(card)
+    timer("17 sharded checkpoint restore")
     pp_launches = phase_pp(card, served, tp_ref, one_rank)
     timer("19 pipeline parallel")
     mesh_launches = phase_mesh(card, served, tp_ref, mesh_ref)

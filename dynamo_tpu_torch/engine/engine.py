@@ -219,7 +219,7 @@ class _BatchingFetcher:
             if landing.event is not None:
                 # THE designed host sync: one wait per window, on this
                 # thread, off the dispatch path
-                landing.event.synchronize()
+                landing.event.synchronize()  # dynalint: disable=DT102
             if landing.host is not None and self._on_sync is not None:
                 self._on_sync()
             return self._unpack(batch, landing), None
@@ -1887,7 +1887,9 @@ class InferenceEngine(EngineCore):
             self.step_sink("emb", {"tokens": tokens, "positions": positions})
         vecs = self._encode_fn(self.params, self._upload(tokens),
                                self._upload(positions))
-        return vecs.cpu().numpy() if fetch else None
+        # the embeddings are the endpoint's answer: fetched once per group,
+        # off the decode loop
+        return vecs.cpu().numpy() if fetch else None  # dynalint: disable=DT102
 
     async def embed_endpoint(self, request: Any, context: Context):
         """Wire adapter for the worker's ``embed`` endpoint."""
@@ -1939,7 +1941,7 @@ class InferenceEngine(EngineCore):
         if landing.event is not None:
             # designed sync point of the synchronous loop: one wait per
             # executed batch, counted in num_fetch_syncs
-            landing.event.synchronize()
+            landing.event.synchronize()  # dynalint: disable=DT102
         if landing.host is not None:
             self._count_fetch_sync()
         return self._unpack_results(batch, landing)
@@ -1982,7 +1984,8 @@ class InferenceEngine(EngineCore):
         dev = (flat[0].reshape(-1) if len(flat) == 1
                else torch.cat([t.reshape(-1) for t in flat]))
         if self.device.type != "cuda":
-            landing.host = dev.to("cpu")
+            # the batched fetch off the card: no stream to wait for
+            landing.host = dev.to("cpu")  # dynalint: disable=DT102
             return landing
         landing.host = torch.empty(dev.shape, dtype=dev.dtype,
                                    pin_memory=True)
@@ -2016,7 +2019,9 @@ class InferenceEngine(EngineCore):
         Decode sample columns follow the device seat map captured at
         dispatch, which may order (and pad) differently than the batch's
         row list."""
-        got = landing.host.numpy() if landing.host is not None else None
+        # landing.host is the landed host copy: a view, no transfer
+        got = (landing.host.numpy()  # dynalint: disable=DT102
+               if landing.host is not None else None)
         n = landing.n_prefill
         prefill_samples = [int(got[i]) for i in range(n)]
         decode_samples: List[List[int]] = []
@@ -2516,7 +2521,8 @@ class InferenceEngine(EngineCore):
              "seeds": np.array([seq.seed], np.int32)}
         if self.step_sink is not None:
             self.step_sink("p", a)
-        sampled = self.unified_step(a).cpu()
+        # the synchronous path's one fetch per step, counted
+        sampled = self.unified_step(a).cpu()  # dynalint: disable=DT102
         self._count_fetch_sync()
         return int(sampled[0])
 
@@ -2551,6 +2557,7 @@ class InferenceEngine(EngineCore):
              "top_k": top_k, "top_p": top_p, "seeds": seeds}
         if self.step_sink is not None:
             self.step_sink("d", a)
-        out = self.unified_step(a).cpu()
+        # the synchronous path's one fetch per step, counted
+        out = self.unified_step(a).cpu()  # dynalint: disable=DT102
         self._count_fetch_sync()
         return [[int(out[i])] for i in range(len(rows))]

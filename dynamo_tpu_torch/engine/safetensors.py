@@ -13,6 +13,8 @@ library does.
 time as a CPU tensor that views the mapping (no copy); :meth:`release`
 drops a tensor's pages once it has been copied elsewhere, so reading a
 checkpoint never holds more than one tensor's pages resident.
+:meth:`SafeFile.read_into` reads a byte range of a tensor into a buffer of
+the caller's with ``pread`` instead, mapping nothing.
 """
 
 from __future__ import annotations
@@ -139,6 +141,24 @@ class SafeFile:
         raw = torch.frombuffer(self._mm, dtype=torch.uint8,
                                count=end - begin, offset=self._base + begin)
         return raw.view(dt).reshape(shape)
+
+    def read_into(self, name: str, out, offset: int = 0) -> None:
+        """Read ``len(out)`` bytes of ``name``'s data, from byte ``offset``
+        of it on, into the writable buffer ``out`` with ``pread``: nothing
+        is mapped, so no page of the file lands in this process."""
+        self._torch_dtype(name)
+        begin, end = self._info[name][2]
+        out = memoryview(out).cast("B")
+        if offset < 0 or offset + len(out) > end - begin:
+            raise ValueError(f"{self.path}: {name}: bytes {offset}.."
+                             f"{offset + len(out)} outside its "
+                             f"{end - begin}")
+        pos, done = self._base + begin + offset, 0
+        while done < len(out):
+            n = os.preadv(self._f.fileno(), [out[done:]], pos + done)
+            if n <= 0:
+                raise ValueError(f"{self.path}: {name}: file ends early")
+            done += n
 
     def release(self, name: str) -> None:
         """Drop the resident pages of ``name`` (after it was copied out);

@@ -18,8 +18,15 @@ holds about one tensor at a time, never a stacked leaf.
 parallel mesh: it reads only the rank's slice of each tensor (its experts
 only, for MoE stacks) into leaves of the shard's shape. With ``layers=(lo,
 hi)`` :func:`load_hf_params` reads only those layers' tensors (plus the
-embedding, final norm and head), for a pipeline stage. The orbax
-checkpoints wait for ROADMAP.md queue A, item 7d.
+embedding, final norm and head), for a pipeline stage.
+
+:func:`save_checkpoint` / :func:`load_checkpoint` are the counterparts of
+the JAX package's orbax checkpoints, in the port's own format: a directory
+of safetensors files holding the parameter tree as the model keeps it (the
+stacked ``[in, out]`` leaves; a quantized leaf as its ``q`` and ``s``), with
+a manifest in each file's ``__metadata__``. Restored with a ``cfg`` and a
+``mesh``, each rank reads only its own slice of each leaf from the files
+(:func:`abstract_params` gives each leaf's shape, dtype and spec).
 
 :func:`params_from_numpy` turns the JAX package's parameter tree
 (``dynamo_tpu.engine.model.init_params``), converted leaf by leaf to numpy,
@@ -34,24 +41,28 @@ package's quantized leaves, bit for bit.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..parallel.layout import (
-    Mesh, SpecLayout, shard_range, shard_shape, shard_tensor,
+    Mesh, Spec, SpecLayout, make_mesh, shard_index, shard_range,
+    shard_shape, shard_tensor,
 )
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 from . import quant
 from .config import ModelConfig
 from .model import Params, torch_dtype
-from .safetensors import SafeFile, save_file
+from .safetensors import DTYPES, SafeFile, save_file
 
 log = get_logger("engine.weights")
 
@@ -208,11 +219,8 @@ def _load(path, cfg: ModelConfig, weight_dtype: str, device,
     dt = torch_dtype(cfg)
     quantized = quant.is_quantized(weight_dtype)
     if mesh is None:
-        mesh = Mesh({"dp": 1, "fsdp": 1, "tp": 1},
-                    {"dp": 0, "fsdp": 0, "tp": 0})
-    lay = SpecLayout.for_mesh((mesh.shape["dp"], mesh.shape.get("fsdp", 1),
-                               mesh.shape["tp"]))
-    specs = lay.param_specs(cfg)        # weight specs (quantized or not)
+        mesh = make_mesh((1, 1, 1))
+    specs = SpecLayout.of(mesh).param_specs(cfg)   # weight specs
 
     def _buf(name: str, shape: tuple):
         shape = shard_shape(shape, specs["layers"][name], mesh)
@@ -257,8 +265,7 @@ def _load(path, cfg: ModelConfig, weight_dtype: str, device,
                 t = sf.get_tensor(name)
                 if not whole:
                     hf_sp = sp[::-1] if transpose else sp
-                    t = t[tuple(slice(*shard_range(n, ax, mesh))
-                                for n, ax in zip(t.shape, hf_sp))]
+                    t = t[shard_index(t.shape, hf_sp, mesh)]
                 n = t.numel() * t.element_size()
                 staged = max(staged, n)
                 t = t.to(device, copy=True)
@@ -413,6 +420,374 @@ def save_hf_params(path, params: Params, cfg: ModelConfig,
         save_file({n: tensors[n] for n in shard},
                   path / f"model-{k + 1:05d}-of-{n_shards:05d}.safetensors",
                   metadata={"format": "pt"})
+
+
+# ----------------------- checkpoints (the port's own) ----------------------
+
+CHECKPOINT_FORMAT = "dynamo_tpu_torch.checkpoint"
+CHECKPOINT_VERSION = 1
+# leaves are packed into files of about this many bytes (never split)
+CHECKPOINT_FILE_BYTES = 4 << 30
+_CKPT_GLOB = "checkpoint-*.safetensors"
+_DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
+
+# stats of the most recent load_checkpoint call: leaves, files, bytes read
+# (the rank's slices only), seconds, read rate, the resident set before the
+# restore and its peak over it (sampled after each leaf)
+last_restore_stats: Dict[str, Any] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractLeaf:
+    """A parameter leaf without its data: full shape, dtype and, on a mesh
+    of more than one rank, its spec (the counterpart of a
+    ``jax.ShapeDtypeStruct`` carrying a ``NamedSharding``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Optional[Spec] = None
+
+
+def _param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Full param-tree shapes matching ``model.init_params(cfg)``."""
+    D, V = cfg.hidden_size, cfg.vocab_size
+    shapes: Dict[str, Any] = {
+        "embed": (V, D),
+        "layers": _stacked_shapes(cfg),
+        "final_norm": (D,),
+    }
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head"] = (D, V)
+    return shapes
+
+
+def _mesh_specs(cfg: ModelConfig, mesh: Optional[Mesh],
+                weight_dtype: str) -> Optional[Dict[str, Any]]:
+    """The spec tree of ``mesh`` (``None`` off a mesh or on one rank)."""
+    if mesh is None or all(n == 1 for n in mesh.shape.values()):
+        return None
+    return SpecLayout.of(mesh).param_specs(cfg, weight_dtype)
+
+
+def abstract_params(cfg: ModelConfig, mesh: Optional[Mesh] = None,
+                    weight_dtype: str = "bf16") -> Params:
+    """The param tree's structure with an :class:`AbstractLeaf` per leaf
+    (full shape, dtype, and on a ``mesh`` of more than one rank its
+    ``SpecLayout`` spec); allocates nothing. With a quantized
+    ``weight_dtype`` the matmul leaves are ``{"q", "s"}`` sub-trees
+    (storage payload + float32 scales)."""
+    dt = torch_dtype(cfg)
+    quantized = quant.is_quantized(weight_dtype)
+    specs = _mesh_specs(cfg, mesh, weight_dtype)
+
+    def leaf(name: str, shape: tuple, sp):
+        if quantized and quant.is_weight_leaf(name):
+            return {"q": AbstractLeaf(
+                        tuple(shape), quant.storage_dtype(weight_dtype),
+                        None if sp is None else sp["q"]),
+                    "s": AbstractLeaf(
+                        _scale_shape(tuple(shape)), torch.float32,
+                        None if sp is None else sp["s"])}
+        return AbstractLeaf(tuple(shape), dt, sp)
+
+    tree: Params = {}
+    for name, sub in _param_shapes(cfg).items():
+        sp = None if specs is None else specs[name]
+        if name == "layers":
+            tree[name] = {k: leaf(k, shape, None if sp is None else sp[k])
+                          for k, shape in sub.items()}
+        else:
+            tree[name] = leaf(name, sub, sp)
+    return tree
+
+
+def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``[(path, leaf)]`` of a nested dict, paths ``"layers/wq/q"``,
+    sorted by path."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out: List[Tuple[str, Any]] = []
+    for k in sorted(tree):
+        out.extend(_flatten(tree[k], f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def _unflatten(items) -> Params:
+    tree: Params = {}
+    for path, leaf in items:
+        *heads, last = path.split("/")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = leaf
+    return tree
+
+
+def save_checkpoint(path, params: Params,
+                    cfg: Optional[ModelConfig] = None) -> None:
+    """Write ``params`` (any device; one leaf is staged on the host at a
+    time) as a checkpoint directory: ``checkpoint-XXXXX-of-XXXXX.safetensors``
+    files of about ``CHECKPOINT_FILE_BYTES`` each, the leaves under their
+    tree paths (``layers/wq/q``), fp8 as ``F8_E4M3``, MoE stacks whole.
+    Each file's ``__metadata__`` holds the manifest: the format's name and
+    version, the path, dtype, shape and file of every leaf, and ``cfg``'s
+    fields (null without it). The same tree always gives the same bytes.
+    Files of an earlier checkpoint in ``path`` are replaced."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    leaves = _flatten(params)
+    files: List[List[Tuple[str, torch.Tensor]]] = [[]]
+    acc = 0
+    for name, t in leaves:
+        if t.dtype not in _DTYPE_NAMES:
+            raise ValueError(f"checkpoint leaf {name}: dtype {t.dtype} is "
+                             "not writable")
+        n = t.numel() * t.element_size()
+        if files[-1] and acc + n > CHECKPOINT_FILE_BYTES:
+            files.append([])
+            acc = 0
+        files[-1].append((name, t))
+        acc += n
+    names = [f"checkpoint-{k + 1:05d}-of-{len(files):05d}.safetensors"
+             for k in range(len(files))]
+    manifest = {
+        "format": CHECKPOINT_FORMAT,
+        "version": CHECKPOINT_VERSION,
+        "config": None if cfg is None else dataclasses.asdict(cfg),
+        "leaves": [{"path": name, "dtype": _DTYPE_NAMES[t.dtype],
+                    "shape": list(t.shape), "file": names[k]}
+                   for k, group in enumerate(files) for name, t in group],
+    }
+    meta = {"format": CHECKPOINT_FORMAT,
+            "version": str(CHECKPOINT_VERSION),
+            "manifest": json.dumps(manifest, sort_keys=True,
+                                   separators=(",", ":"))}
+    for old in path.glob(_CKPT_GLOB):
+        old.unlink()
+    for fname, group in zip(names, files):
+        save_file(dict(group), path / fname, metadata=meta)
+
+
+def read_manifest(path) -> Dict[str, Any]:
+    """The manifest of the checkpoint directory ``path``."""
+    files = sorted(Path(path).glob(_CKPT_GLOB))
+    if not files:
+        raise FileNotFoundError(f"no {_CKPT_GLOB} under {path}")
+    with SafeFile(files[0]) as sf:
+        return _check_manifest(files[0], sf.metadata())
+
+
+def _check_manifest(fname, meta) -> Dict[str, Any]:
+    if not meta or meta.get("format") != CHECKPOINT_FORMAT:
+        raise ValueError(f"{fname}: not a {CHECKPOINT_FORMAT} file")
+    if meta.get("version") != str(CHECKPOINT_VERSION):
+        raise ValueError(f"{fname}: format version {meta.get('version')}, "
+                         f"this reader takes {CHECKPOINT_VERSION}")
+    return json.loads(meta["manifest"])
+
+
+def _saved_weight_dtype(leaves) -> str:
+    """The ``weight_dtype`` a saved tree was quantized to ("bf16" for
+    none), from the dtype of its ``q`` leaves."""
+    for e in leaves:
+        if e["path"].endswith("/q"):
+            return "fp8" if e["dtype"] == "F8_E4M3" else "int8"
+    return "bf16"
+
+
+def load_checkpoint(path, target: Optional[Params] = None,
+                    cfg: Optional[ModelConfig] = None,
+                    mesh: Optional[Mesh] = None, device=None) -> Params:
+    """Restore a checkpoint written by :func:`save_checkpoint` onto
+    ``device`` (``cuda`` unless asked for the CPU), one leaf at a time,
+    read with ``pread`` (nothing is mapped); onto the card through one
+    pinned host buffer the size of the largest leaf (or slice).
+
+    With no other argument the tree comes back as saved. With ``target``
+    (a tree of :class:`AbstractLeaf` or tensors of the full shapes) the
+    tree's structure, every leaf's shape and its dtype are checked
+    against it first, and a mismatch raises naming the leaf. With ``cfg``
+    the saved config must equal it and the target is
+    :func:`abstract_params` of ``cfg`` (and ``mesh``) when none is given.
+    With a ``mesh`` (``parallel/layout.Mesh``, ``(dp, tp)`` or ``(dp,
+    fsdp, tp)``) each leaf comes back as this rank's slice, by the specs
+    of ``target`` or, without them, of ``SpecLayout`` (the slicing of
+    ``model.shard_params`` and the sharded HF loader): only that slice's
+    bytes are read, one ``pread`` per contiguous run, so no rank ever
+    holds the full tree."""
+    t0 = time.perf_counter()
+    files = sorted(Path(path).glob(_CKPT_GLOB))
+    if not files:
+        raise FileNotFoundError(f"no {_CKPT_GLOB} under {path}")
+    device = resolve_device(device)
+    rss = [_rss_bytes()]
+    nbytes = 0
+    with contextlib.ExitStack() as stack:
+        sfs = {f.name: stack.enter_context(SafeFile(f)) for f in files}
+        manifest = _check_manifest(files[0], sfs[files[0].name].metadata())
+        saved = manifest["leaves"]
+        wd = _saved_weight_dtype(saved)
+        if cfg is not None and manifest["config"] is not None:
+            fields = dataclasses.asdict(cfg)
+            diff = sorted(k for k in set(fields) | set(manifest["config"])
+                          if fields.get(k) != manifest["config"].get(k))
+            if diff:
+                raise ValueError(
+                    f"{path}: saved config differs from cfg in {diff}")
+        if target is None and cfg is not None:
+            target = abstract_params(cfg, mesh, wd)
+        want = None if target is None else dict(_flatten(target))
+        if want is not None:
+            _check_target(path, saved, want)
+        spec_of: Dict[str, Any] = {}
+        if want is not None and any(getattr(a, "spec", None) is not None
+                                    for a in want.values()):
+            spec_of = {p: a.spec for p, a in want.items()}
+        elif mesh is not None:
+            # the target carries no specs: the layout's, by leaf path
+            if cfg is None:
+                if manifest["config"] is None:
+                    raise ValueError(
+                        f"{path}: a sharded restore needs cfg (the "
+                        "checkpoint was saved without one)")
+                cfg = ModelConfig(**manifest["config"])
+            spec_of = dict(_flatten(_mesh_specs(cfg, mesh, wd) or {}))
+        blocks = []
+        for e in saved:
+            shape, dt = tuple(e["shape"]), DTYPES.get(e["dtype"])
+            if dt is None:
+                raise ValueError(f"{path}: checkpoint leaf {e['path']}: "
+                                 f"dtype {e['dtype']} not readable")
+            sp = spec_of.get(e["path"]) if mesh is not None else None
+            idx = (shard_index(shape, sp, mesh) if sp is not None
+                   else tuple(slice(0, n) for n in shape))
+            blocks.append((e, dt, idx))
+        # onto the card through one pinned host buffer of the largest slice
+        stage = None
+        if device.type == "cuda":
+            stage = torch.empty(max((_numel(idx) * dt.itemsize
+                                     for _, dt, idx in blocks), default=0),
+                                dtype=torch.uint8, pin_memory=True)
+        out = []
+        for e, dt, idx in blocks:
+            shape = tuple(s.stop - s.start for s in idx)
+            n = _numel(idx) * dt.itemsize
+            nbytes += n
+            leaf = torch.empty(shape, dtype=dt, device=device)
+            host = leaf if stage is None else stage[:n].view(dt).view(shape)
+            if n:
+                _read_block(sfs[e["file"]], e["path"], e["shape"], idx,
+                            dt.itemsize, host.reshape(-1).view(torch.uint8)
+                            .numpy())
+            if stage is not None and n:
+                leaf.copy_(host, non_blocking=True)
+                torch.cuda.current_stream(device).synchronize()
+            out.append((e["path"], leaf))
+            rss.append(_rss_bytes())
+        stage = None
+    secs = time.perf_counter() - t0
+    peak = None if None in rss else max(rss)
+    last_restore_stats.clear()
+    last_restore_stats.update(
+        n_leaves=len(out), n_files=len(files), bytes=nbytes, seconds=secs,
+        gb_s=nbytes / max(secs, 1e-9) / 1e9, rss_before_bytes=rss[0],
+        peak_rss_bytes=peak,
+        mesh=None if mesh is None else (dict(mesh.shape),
+                                        dict(mesh.coords)))
+    log.info("restored %d leaves (%.3f GB read) from %s (%d files%s) onto "
+             "%s in %.2f s: %.2f GB/s, peak host RSS %s", len(out),
+             nbytes / 1e9, path, len(files),
+             "" if mesh is None else f", rank at {dict(mesh.coords)} of "
+             f"{dict(mesh.shape)}", device, secs,
+             last_restore_stats["gb_s"],
+             "not measured" if peak is None else
+             f"{peak / 2**30:.2f} GiB ({rss[0] / 2**30:.2f} GiB before)")
+    return _unflatten(out)
+
+
+def _numel(idx) -> int:
+    n = 1
+    for s in idx:
+        n *= s.stop - s.start
+    return n
+
+
+# a block of large runs is read in pieces of at most _READ_PIECE bytes by
+# _READ_THREADS threads at once (pread releases the GIL); runs under
+# _THREADED_RUN bytes on average (a tp slice of a column leaf: one run of
+# a few KB per row) are read on one thread, which was faster on the card's
+# host (2.7 s against 8.6 s for a 1B rank's slices)
+_READ_THREADS = 8
+_READ_PIECE = 16 << 20
+_THREADED_RUN = 1 << 20
+
+
+def _block_runs(shape, idx, itemsize: int) -> List[Tuple[int, int]]:
+    """``(byte offset in the tensor, length)`` of each contiguous run of
+    the block ``idx`` (a slice per dim) of a C-ordered tensor of
+    ``shape``, in the block's C order."""
+    if not shape:
+        return [(0, itemsize)]
+    strides = [itemsize] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * shape[d + 1]
+    # the innermost dim from which on the block is one run: the dims after
+    # it are taken whole
+    d0 = len(shape) - 1
+    while d0 > 0 and idx[d0].start == 0 and idx[d0].stop == shape[d0]:
+        d0 -= 1
+    run = (idx[d0].stop - idx[d0].start) * strides[d0]
+    offsets = [idx[d0].start * strides[d0]]
+    for d in range(d0 - 1, -1, -1):
+        offsets = [i * strides[d] + o
+                   for i in range(idx[d].start, idx[d].stop)
+                   for o in offsets]
+    return [(o, run) for o in offsets]
+
+
+def _read_block(sf: SafeFile, name: str, shape, idx, itemsize: int,
+                out) -> None:
+    """Read the block ``idx`` of the tensor ``name`` of ``shape`` into
+    ``out`` (its bytes, C order): one ``pread`` per contiguous run, so
+    exactly the block's bytes are read and nothing of the file is mapped;
+    large runs are read by several threads."""
+    runs = [(o + k, min(_READ_PIECE, n - k))
+            for o, n in _block_runs(shape, idx, itemsize)
+            for k in range(0, n, _READ_PIECE)]
+    pos = [0]
+    for _, n in runs:
+        pos.append(pos[-1] + n)
+
+    def read(lo: int, hi: int) -> None:
+        for k in range(lo, hi):
+            sf.read_into(name, out[pos[k]:pos[k + 1]], runs[k][0])
+
+    if len(runs) < 2 or pos[-1] < len(runs) * _THREADED_RUN:
+        read(0, len(runs))
+        return
+    step = -(-len(runs) // _READ_THREADS)
+    with ThreadPoolExecutor(_READ_THREADS) as pool:
+        list(pool.map(lambda lo: read(lo, min(lo + step, len(runs))),
+                      range(0, len(runs), step)))
+
+
+def _check_target(path, saved, want: Dict[str, Any]) -> None:
+    """Raise, naming the leaf, where the saved tree and ``want`` (path ->
+    leaf of the full shape) differ in structure, shape or dtype."""
+    have = {e["path"]: e for e in saved}
+    for name in sorted(set(have) | set(want)):
+        if name not in want:
+            raise ValueError(f"{path}: checkpoint leaf {name} is not in "
+                             "the target")
+        if name not in have:
+            raise ValueError(f"{path}: target leaf {name} is not in the "
+                             "checkpoint")
+        e, a = have[name], want[name]
+        shape, dtype = tuple(e["shape"]), DTYPES.get(e["dtype"])
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise ValueError(
+                f"{path}: checkpoint leaf {name} is {e['dtype']} {list(shape)}"
+                f", the target's is {a.dtype} {list(a.shape)}")
 
 
 # ------------------------- parameters from numpy --------------------------

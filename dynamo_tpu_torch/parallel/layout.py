@@ -190,6 +190,13 @@ class SpecLayout:
                           fsdp=AXIS_FSDP if fsdp > 1 else None, tp=have_tp,
                           ep=have_tp)
 
+    @staticmethod
+    def of(mesh: Mesh) -> "SpecLayout":
+        """The layout of a rank's :class:`Mesh` (its axis sizes)."""
+        return SpecLayout.for_mesh((mesh.shape[AXIS_DP],
+                                    mesh.shape.get(AXIS_FSDP, 1),
+                                    mesh.shape[AXIS_TP]))
+
     # ------------------------- sequence axis ---------------------------
 
     def seq_axes(self) -> SpecEntry:
@@ -356,23 +363,24 @@ def shard_range(n: int, axis: Optional[str], mesh: Mesh) -> Tuple[int, int]:
     return idx * step, (idx + 1) * step
 
 
+def shard_index(shape: Sequence[int], sp: Spec,
+                mesh: Mesh) -> Tuple[slice, ...]:
+    """This rank's slice of each dim of a leaf of ``shape`` under ``sp``:
+    the one slicing rule that :func:`shard_tensor`, the sharded HF loader
+    and the sharded checkpoint restore (``engine/weights.py``) share."""
+    return tuple(slice(*shard_range(n, axis, mesh))
+                 for n, axis in zip(shape, sp))
+
+
 def shard_shape(shape: Sequence[int], sp: Spec, mesh: Mesh) -> Tuple[int, ...]:
     """The shape of this rank's slice of a leaf of ``shape``."""
-    out = []
-    for n, axis in zip(shape, sp):
-        lo, hi = shard_range(n, axis, mesh)
-        out.append(hi - lo)
-    return tuple(out)
+    return tuple(s.stop - s.start for s in shard_index(shape, sp, mesh))
 
 
 def shard_tensor(t, sp: Spec, mesh: Mesh):
     """This rank's slice of a full tensor, contiguous (a new tensor, so
     the full one can be freed)."""
-    idx = []
-    for n, axis in zip(t.shape, sp):
-        lo, hi = shard_range(n, axis, mesh)
-        idx.append(slice(lo, hi))
-    return t[tuple(idx)].contiguous()
+    return t[shard_index(t.shape, sp, mesh)].contiguous()
 
 
 def map_specs(fn, tree: Any, specs: Any) -> Any:

@@ -422,7 +422,9 @@ class Connection:
     async def _run_handler(self, stream: Stream) -> None:
         try:
             await self.handler(stream)
-        except (StreamReset, asyncio.CancelledError):
+        # a reset or cancelled handler ends here: the finally below closes
+        # its stream, and nothing awaits the task's result
+        except (StreamReset, asyncio.CancelledError):  # dynalint: disable=DT303
             pass
         except Exception:
             log.exception("http2 stream handler failed")

@@ -630,7 +630,7 @@ async def _follow(runtime, engine, mh, name: str, component: str) -> None:
         log.warning("follower exiting (leader lost)")
     except asyncio.CancelledError:
         log.info("follower stopped (SIGTERM)")
-    except BaseException:  # noqa: BLE001 — os._exit below
+    except BaseException:  # noqa: BLE001  # dynalint: disable=DT303 — os._exit below
         # the traceback reaches the log before the hard exit discards it
         log.exception("follower loop ended abnormally")
     finally:
@@ -638,7 +638,8 @@ async def _follow(runtime, engine, mh, name: str, component: str) -> None:
         log.info("worker exiting: %s", rank_counts(engine))
         try:
             await asyncio.wait_for(runtime.shutdown(), timeout=10)
-        except BaseException:  # noqa: BLE001
+        except BaseException:  # noqa: BLE001  # dynalint: disable=DT303
+            # incl. CancelledError: nothing may skip the os._exit below
             log.exception("follower cleanup failed")
         os._exit(1)
 

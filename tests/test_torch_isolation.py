@@ -38,7 +38,8 @@ FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
 # machine does not install (or no record says it does)
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "xxhash", "msgpack",
              "ml_dtypes", "tokenizers", "aiohttp", "prometheus_client",
-             "safetensors", "grpc", "google", "pyarrow", "benchmarks"}
+             "safetensors", "grpc", "google", "pyarrow", "benchmarks",
+             "orbax"}
 # the modules of the KV-movement slice (each scanned like every other)
 KV_MOVEMENT = ["disagg/__init__.py", "disagg/protocol.py", "disagg/ici.py",
                "disagg/handlers.py", "kvbm/__init__.py", "kvbm/host_pool.py",
@@ -75,6 +76,16 @@ KSERVE_AND_NATIVE = ["kserve/__init__.py", "kserve/grpc.py",
                      "kserve/messages.py", "kserve/service.py",
                      "native/__init__.py", "utils/protowire.py",
                      "utils/hpack.py", "utils/http2.py", "ops/_build.py"]
+# the task tracker, checkpoint and dynalint slice's modules
+TASKS_CHECKPOINT_LINT = ["runtime/tasks.py", "engine/weights.py",
+                         "analysis/__init__.py", "analysis/__main__.py",
+                         "analysis/core.py", "analysis/rules.py",
+                         "analysis/rules_hostsync.py",
+                         "analysis/rules_recompile.py",
+                         "analysis/rules_async.py",
+                         "analysis/rules_kernels.py",
+                         "analysis/rules_sharding.py",
+                         "analysis/baseline.py"]
 # the C++ standard library headers a host source may include
 CXX_STD_HEADERS = {"cstdint", "cstring", "cstddef", "cstdlib",
                    "unordered_map", "vector", "algorithm", "utility",
@@ -195,6 +206,22 @@ def test_scan_covers_the_kserve_and_native_modules():
             (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
         assert not found & FORBIDDEN, (rel, found & FORBIDDEN)
         assert "torch" not in found, rel
+
+
+def test_scan_covers_the_tasks_checkpoint_and_analysis_modules():
+    """The task tracker, the checkpoint twin and the port's dynalint are
+    scanned like every other module: none imports ``orbax``,
+    ``safetensors`` nor JAX; the tracker (the frontend loads ``runtime``)
+    and the linter (plain ``ast``) import no torch at all."""
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(TASKS_CHECKPOINT_LINT) <= scanned
+    for rel in TASKS_CHECKPOINT_LINT:
+        found = {n for n, _ in _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
+        assert not found & FORBIDDEN, (rel, found & FORBIDDEN)
+        if rel != "engine/weights.py":
+            assert "torch" not in found, rel
 
 
 def test_host_sources_include_only_the_standard_library():

@@ -890,3 +890,41 @@ def mesh_script(rank, plans, cfg_kw, tree, eng_kw, script, *args):
         for r in range(1, n):
             plans[r].put(None)
     return {"result": result, "emitted": emitted, "stats": dict(comm.STATS)}
+
+
+def _np_bits(t):
+    """A CPU tensor as a numpy array of its bits: bf16 as uint16, fp8 as
+    uint8, the rest as they are."""
+    import numpy as np
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
+
+
+def ckpt_restore(rank, plans, path, cfg_name, shape, weight_dtype="bf16"):
+    """This rank's sharded restore of the checkpoint ``path`` on mesh
+    ``shape`` (``load_checkpoint(cfg=, mesh=)``), held bitwise against
+    ``shard_params`` of the full restore. Returns (equal, bytes read by the
+    sharded restore, {leaf path: its bits as numpy})."""
+    from dynamo_tpu_torch.engine import EngineConfig
+    from dynamo_tpu_torch.engine import model as tm
+    from dynamo_tpu_torch.engine import weights as tweights
+    from dynamo_tpu_torch.parallel.layout import make_mesh
+
+    cfg = _cfg(cfg_name)
+    got = tweights.load_checkpoint(path, cfg=cfg, mesh=make_mesh(shape),
+                                   device="cpu")
+    read = tweights.last_restore_stats["bytes"]
+    ref = tm.shard_params(tweights.load_checkpoint(path, device="cpu"), cfg,
+                          EngineConfig(mesh_shape=tuple(shape),
+                                       weight_dtype=weight_dtype))
+    got = {k: _np_bits(a) for k, a in tweights._flatten(got)}
+    ref = {k: _np_bits(a) for k, a in tweights._flatten(ref)}
+    same = set(got) == set(ref) and all(
+        a.dtype == ref[k].dtype and a.shape == ref[k].shape
+        and a.tobytes() == ref[k].tobytes() for k, a in got.items())
+    return same, read, got
