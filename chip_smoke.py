@@ -365,15 +365,43 @@ Phases (any failure exits non-zero and prints no result line):
    per chip over 2. Child logs in ``build/dist/fsdp_*.log`` and
    ``build/dist/sp_{fsdp,1x2,1x2x2}_rank*.log``.
 
+22. the deployment layer (``[scale]`` lines), after phase 11, on phase
+   9's Llama-3.2-1B checkpoint (bf16, its ``tokenizer.json`` copied in
+   from phase 5): (a) the planner's scaling loop over real workers: the
+   port's store, frontend (``--stats-publish-interval 1``) and ``python -m
+   dynamo_tpu_torch.deploy.scale_watcher`` over ``python -m
+   dynamo_tpu_torch.worker --weights`` (on ``cuda``, each worker's log in
+   ``build/dist/scale/worker_<pid>.log``), the target seeded at 1, then
+   ``python -m dynamo_tpu_torch.planner`` on phase 10's profile
+   (``--adjustment-interval 1 --max-chip-budget 3``). A burst, then a
+   trickle, through ``utils/httpclient.py``, at rates taken from the
+   profile by the planner's own arithmetic (``scale_rates``, printed with
+   the loads they predict); as the target falls to 1, four longer streams
+   start, so the worker drained holds some when its SIGTERM lands (the
+   planner stops at the ``scale down`` line). The target must go 1 -> 2
+   -> 1, a second
+   worker must start, be routed to and serve, both workers must launch
+   both faces, the scaled-down worker must drain on SIGTERM and exit 0,
+   every stream must end with a finish reason and its full token count,
+   and no process of the phase may outlive it (the card gets its memory
+   back; no kernel is rebuilt). Times: target change to the watcher's
+   ``scale up`` line, spawn to ready, spawn to the new worker's first
+   token, SIGTERM to exit. (b) ``bash
+   dynamo_tpu_torch/deploy/recipes/kv-routed-replicas.sh`` with
+   ``REPLICAS=2 MESH=1,1`` in a session of its own (ports 8000 and 4222
+   must be free): 8 streams, both replicas serve and launch both faces,
+   then the session's process group is ended.
+
 ``[time]`` lines give each phase's time. The line before the last is the
 card's ``nvidia-smi`` name and power limit, the line before that the
 ``kernels`` JSON object (launches include those that graph replays made;
 after the kernel builds come the ragged face at the spec-verify shape,
 launched by the spec run's verify windows, and both faces at Mixtral's
 head dim 128, launched by phase 8's run; each kernel build's row also
-carries ``launches_profile``, ``launches_replay``, ``launches_embed`` and
-``launches_mm``, the counts of phases 10, 11, 15 (the traffic with embed
-calls interleaved) and 16 (the image prompts A, A again, B and text-only);
+carries ``launches_profile``, ``launches_replay``, ``launches_embed``,
+``launches_mm`` and ``launches_scale``, the counts of phases 10, 11, 15
+(the traffic with embed calls interleaved), 16 (the image prompts A, A
+again, B and text-only) and 22 (its four workers, summed);
 rows named ``...@tuned_<class>`` are phase 12's winning launch parameters,
 each with its ``launch``; rows named ``...@tp2_shard_hd<64|128>`` are
 both faces at phase 17's shard shapes, with ``launches_per_rank`` of the
@@ -5117,6 +5145,799 @@ def phase_planner(card: str, profile: dict, rep: dict, run) -> None:
           f"{json.dumps(order, sort_keys=True)}", flush=True)
 
 
+# ------------------- phase 22: the deployment layer ------------------------
+
+SCALE_MODEL = "llama-3.2-1b-scale"
+SCALE_LOGS = os.path.join(DIST_LOGS, "scale")
+# decode-heavy chat traffic: short prompts, long answers. The planner then
+# needs decode replicas while its prefill arithmetic keeps one (the
+# profile's prefill rate at ISL 64 is its rate at 128, where it starts)
+SCALE_ISL = 64
+SCALE_OSL = 256              # the burst's answers
+SCALE_TRICKLE_OSL = 32
+SCALE_TRICKLE_RATE = 1.0     # requests per second in the trickle
+SCALE_STATS_S = 1            # frontend --stats-publish-interval
+# the planner divides a window's request count by its adjustment interval:
+# one stats window per adjustment makes that count a rate per second
+SCALE_ADJUST_S = 1
+# --max-chip-budget: the planner counts one prefill replica (its
+# min_endpoint) into the budget even for an aggregated fleet, so 2 decode
+# replicas need a budget of 3
+SCALE_BUDGET = 3
+SCALE_POLL_S = 0.5           # the watcher's --poll
+SCALE_PCORR_CAP = 4.0        # Planner.compute_replicas' cap on the prefill
+                             # correction
+SCALE_SERVED_S = 4.0         # the burst goes on this long after the new
+                             # worker's first prefill
+SCALE_BURST_MAX_S = 60.0
+SCALE_TRICKLE_AFTER_S = 1.0  # the trickle goes on this long after the
+                             # drained worker's exit
+SCALE_TRICKLE_MAX_S = 60.0
+# streams started as the target drops to 1, within the watcher's poll of
+# its SIGTERM: round robin puts half of them on the worker it drains
+SCALE_DRAIN_PROBES = 4
+SCALE_DRAIN_OSL = 128
+SCALE_RECIPE = os.path.join("dynamo_tpu_torch", "deploy", "recipes",
+                            "kv-routed-replicas.sh")
+SCALE_RECIPE_PORTS = {8000: "the recipe's frontend", 4222: "the recipe's store"}
+SCALE_RECIPE_REQUESTS = 8
+SCALE_RECIPE_OSL = 32
+LAUNCH_COUNTS = re.compile(r"worker exiting: kernel launches (.*)")
+
+
+def scale_rates(profile: dict) -> dict:
+    """The burst and trickle rates from phase 10's profile, by the planner's
+    own arithmetic at one window per second (``Planner.compute_replicas``):
+    decode replicas = ceil(rate x OSL / best), where the best decode point
+    lies between the profile's least and greatest tok/s per chip, and
+    prefill replicas = ceil(rate x ISL x correction / prefill tok/s per
+    chip), the correction capped at 4. The burst's rate is the geometric
+    mean of the least rate that needs 2 decode replicas at any best point
+    and the greatest that needs 1 prefill replica at the largest
+    correction; the trickle needs 1 decode replica at the least point."""
+    import math
+
+    from dynamo_tpu_torch.planner.interpolation import PrefillInterpolator
+
+    thpt = profile["decode_thpt_per_chip"]
+    max_d, min_d = max(thpt), min(thpt)
+    p_thpt = PrefillInterpolator.from_profile(
+        profile).interpolate_thpt_per_chip(SCALE_ISL)
+    lower = max_d / SCALE_OSL
+    upper = p_thpt / (SCALE_PCORR_CAP * SCALE_ISL)
+    if upper < 1.5 * lower:
+        fail(f"[scale] the profile leaves no burst rate with margin: 2 "
+             f"decode replicas from {lower:.2f} req/s, 1 prefill replica up "
+             f"to {upper:.2f} req/s")
+    trickle_load = SCALE_TRICKLE_RATE * SCALE_TRICKLE_OSL
+    if trickle_load >= min_d:
+        fail(f"[scale] the trickle's {trickle_load:.0f} tok/s would need 2 "
+             f"decode replicas at the profile's least {min_d:.1f} tok/s")
+    burst = math.sqrt(lower * upper)
+    return dict(burst=burst, trickle=SCALE_TRICKLE_RATE, lower=lower,
+                upper=upper, max_d=max_d, min_d=min_d, p_thpt=p_thpt,
+                burst_decode=burst * SCALE_OSL,
+                burst_prefill=burst * SCALE_ISL * SCALE_PCORR_CAP,
+                trickle_decode=trickle_load)
+
+
+def proc_state(pid: int):
+    """(parent pid, process group, state letter) of ``pid``, or None once
+    it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None
+    return int(fields[1]), int(fields[2]), fields[0]
+
+
+def alive(pid: int) -> bool:
+    st = proc_state(pid)
+    return st is not None and st[2] != "Z"
+
+
+def group_members(pgid: int) -> list:
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            st = proc_state(int(entry))
+            if st is not None and st[1] == pgid and st[2] != "Z":
+                out.append(int(entry))
+    return out
+
+
+def descendants(root_pid: int) -> set:
+    """Live processes below ``root_pid``."""
+    kids = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            st = proc_state(int(entry))
+            if st is not None and st[2] != "Z":
+                kids.setdefault(st[0], []).append(int(entry))
+    out, todo = set(), [root_pid]
+    while todo:
+        for k in kids.get(todo.pop(), []):
+            if k not in out:
+                out.add(k)
+                todo.append(k)
+    return out
+
+
+def reap(pids, pgids) -> None:
+    """SIGKILL every process of ``pgids`` and every pid in ``pids``."""
+    import signal
+
+    for g in pgids:
+        try:
+            os.killpg(g, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+    for p in pids:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+
+def cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def launch_counts(text: str) -> list:
+    """The ``worker exiting: kernel launches`` lines of a log, parsed."""
+    return [{k: int(v) for k, v in (kv.split("=") for kv in m.split())}
+            for m in LAUNCH_COUNTS.findall(text)]
+
+
+def whole_blocks(osl: int) -> int:
+    """The KV blocks of 16 one whole request seals: its prompt and every
+    token but the last (whose KV is never written)."""
+    return (SCALE_ISL + osl - 1) // 16
+
+
+def port_free(port: int) -> bool:
+    import socket
+
+    with socket.socket() as sock:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind(("0.0.0.0", port))
+        except OSError:
+            return False
+    return True
+
+
+class Streams:
+    """Streamed ``/v1/completions`` requests through the port's
+    ``utils/httpclient.py``, each on a connection of its own, with their
+    outcome: status, ``[DONE]``, finish reason, completion tokens, first
+    and last token times."""
+
+    def __init__(self, port: int, model: str, seed: int):
+        import random
+
+        self.url = f"http://127.0.0.1:{port}"
+        self.model = model
+        self.rng = random.Random(seed)
+        self.runs = []
+        self.tasks = []
+
+    def prompt(self):
+        return [self.rng.randrange(1, 128_000) for _ in range(SCALE_ISL)]
+
+    def launch(self, osl: int, tag: str):
+        import asyncio
+
+        run = dict(tag=tag, osl=osl, t_sent=time.time(), status=None,
+                   done=False, reason=None, tokens=None, first=None,
+                   last=None, error=None)
+        self.runs.append(run)
+        self.tasks.append(asyncio.ensure_future(self._one(run)))
+        return run
+
+    async def _one(self, run):
+        from dynamo_tpu_torch.utils.httpclient import HttpClient
+
+        body = json.dumps({
+            "model": self.model, "prompt": self.prompt(),
+            "max_tokens": run["osl"], "temperature": 0, "ignore_eos": True,
+            "stream": True}).encode()
+        status = []
+        try:
+            async for line in HttpClient(self.url).stream_lines(
+                    "POST", "/v1/completions", body=body,
+                    headers={"Content-Type": "application/json"},
+                    status_out=status):
+                line = line.strip()
+                if not line.startswith(b"data: "):
+                    continue
+                if line == b"data: [DONE]":
+                    run["done"] = True
+                    continue
+                frame = json.loads(line[6:])
+                now = time.time()
+                choice = (frame.get("choices") or [{}])[0]
+                if choice.get("text") and run["first"] is None:
+                    run["first"] = now
+                run["last"] = now
+                if choice.get("finish_reason"):
+                    run["reason"] = choice["finish_reason"]
+                if frame.get("usage"):
+                    run["tokens"] = frame["usage"]["completion_tokens"]
+        except Exception as e:  # noqa: BLE001  # reported by check()
+            run["error"] = repr(e)
+        run["status"] = status[0] if status else None
+
+    async def finish(self, timeout_s: float):
+        import asyncio
+
+        if self.tasks:
+            await asyncio.wait_for(asyncio.gather(*self.tasks), timeout_s)
+
+    def check(self, what: str) -> None:
+        bad = [r for r in self.runs
+               if r["status"] != 200 or not r["done"] or not r["reason"]
+               or r["tokens"] != r["osl"] or r["error"]]
+        if bad:
+            fail(f"[scale] {what}: {len(bad)} of {len(self.runs)} streams "
+                 f"did not end whole, e.g. {bad[:3]}")
+
+
+async def scale_models(port: int):
+    """The model ids the frontend on ``port`` lists (empty until it
+    answers)."""
+    from dynamo_tpu_torch.utils.httpclient import HttpClient
+
+    client = HttpClient(f"http://127.0.0.1:{port}", timeout_s=5.0)
+    try:
+        resp = await client.request("GET", "/v1/models")
+        return [m["id"] for m in (resp.json() or {}).get("data", [])]
+    except (OSError, ValueError, TimeoutError):
+        return []
+    finally:
+        await client.close()
+
+
+async def scale_instances(store) -> set:
+    return {int(k.rsplit("/", 1)[1])
+            for k, _ in await store.get_prefix("v1/instances/")
+            if "/generate/" in k}
+
+
+def phase_scale(card: str, served: dict, profile: dict) -> dict:
+    """Phase 22: the planner's scaling loop over real port workers on the
+    card, and a launch recipe. (a) The port's store and frontend
+    (``--stats-publish-interval 1``), ``python -m
+    dynamo_tpu_torch.deploy.scale_watcher`` over ``python -m
+    dynamo_tpu_torch.worker --weights`` phase 9's Llama-3.2-1B checkpoint
+    (bf16, on ``cuda``, its default), the target seeded at 1, and ``python
+    -m dynamo_tpu_torch.planner`` on phase 10's profile. A burst, then a
+    trickle, at the rates ``scale_rates`` takes from the profile, and
+    drain probes as the target falls to 1. The
+    target must go 1 -> 2 -> 1; the watcher starts a second worker, the
+    frontend routes to it, both workers serve and launch both faces; the
+    scaled-down worker drains on SIGTERM and exits 0; every stream ends
+    whole; no process of the phase outlives it. (b) ``bash
+    dynamo_tpu_torch/deploy/recipes/kv-routed-replicas.sh`` with
+    ``REPLICAS=2 MESH=1,1`` on the same checkpoint, in a session of its
+    own: 8 requests, both replicas serve, then the session's process group
+    is ended. Returns the kernel launches of every worker, summed."""
+    import asyncio
+    import shlex
+    import shutil
+    import signal
+
+    import torch
+
+    from dynamo_tpu_torch.replay.datagen import percentile
+    from dynamo_tpu_torch.runtime import codec
+    from dynamo_tpu_torch.runtime.store import StoreClient
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(SCALE_LOGS, ignore_errors=True)
+    os.makedirs(SCALE_LOGS)
+    model_dir = os.path.abspath(LOAD_DIR)
+    # an HF checkpoint directory carries its tokenizer: the recipe's
+    # workers read it from --weights
+    shutil.copyfile(served["tokenizer"],
+                    os.path.join(model_dir, "tokenizer.json"))
+    kernels_dir = os.path.join(root, "build", "torch_kernels")
+    built = os.listdir(kernels_dir) if os.path.isdir(kernels_dir) else []
+    free0 = torch.cuda.mem_get_info()[0]
+    rates = scale_rates(profile)
+    print(f"[scale] {card}: rates from phase 10's profile (ISL "
+          f"{SCALE_ISL}, one {SCALE_STATS_S} s window per adjustment): "
+          f"burst {rates['burst']:.2f} req/s at OSL {SCALE_OSL}, decode "
+          f"load {rates['burst_decode']:.0f} tok/s against a best decode "
+          f"point of at most {rates['max_d']:.1f} tok/s per chip -> >= 2 "
+          f"decode replicas (budget {SCALE_BUDGET}: 1 prefill + 2 decode); "
+          f"prefill load at the capped correction "
+          f"{rates['burst_prefill']:.0f} tok/s against "
+          f"{rates['p_thpt']:.0f} -> 1 prefill replica; bounds "
+          f"{rates['lower']:.2f}..{rates['upper']:.2f} req/s. Trickle "
+          f"{rates['trickle']:.2f} req/s at OSL {SCALE_TRICKLE_OSL}, decode "
+          f"load {rates['trickle_decode']:.0f} tok/s against at least "
+          f"{rates['min_d']:.1f} -> 1 decode replica", flush=True)
+
+    env = dict(os.environ, DYNTPU_LEASE_TTL_S=str(DIST_LEASE_TTL_S),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    env.pop("DYNTPU_STORE_ADDR", None)
+    addr = f"127.0.0.1:{_free_port()}"
+    worker_cmd = "exec " + " ".join(shlex.quote(a) for a in (
+        sys.executable, "-m", "dynamo_tpu_torch.worker", "--weights",
+        model_dir, "--model-name", SCALE_MODEL, "--store-addr", addr)) \
+        + f" > {shlex.quote(os.path.abspath(SCALE_LOGS))}/worker_$$.log 2>&1"
+    children = []
+    pids, pgids = set(), set()
+
+    def start(name, module, args):
+        child = Child(os.path.join("scale", name), module, args, env)
+        children.append(child)
+        pids.add(child.pid)
+        return child
+
+    def worker_log(pid: int) -> str:
+        path = os.path.join(SCALE_LOGS, f"worker_{pid}.log")
+        if not os.path.exists(path):
+            return ""
+        with open(path, errors="replace") as f:
+            return f.read()
+
+    async def run_a():
+        key = "planner/dynamo/target/backend"
+        events = {"target": [], "lines": [], "instances": {}, "ready": {},
+                  "dead": {}, "stored": {}, "exit": {}, "sealed": []}
+        store_client = sub = None
+        watcher = None
+        tasks = []
+        try:
+            t0 = time.time()
+            store = start("store", "dynamo_tpu_torch.runtime.store",
+                          ["--host", "127.0.0.1",
+                           "--port", addr.rsplit(":", 1)[1]])
+            await store.wait_for(r"store listening", 60)
+            store_client = await StoreClient.connect(addr)
+            await store_client.put(key, json.dumps(
+                {"replicas": 1, "ts": time.time(), "decision": 0}).encode())
+            sub = await store_client.subscribe(
+                "v1/events/dynamo/backend/kv_events/")
+            watcher = start("watcher", "dynamo_tpu_torch.deploy.scale_watcher",
+                            ["--store", addr, "--component", "backend",
+                             "--poll", str(SCALE_POLL_S), "--", "sh", "-c",
+                             worker_cmd])
+            front = start("frontend", "dynamo_tpu_torch.frontend",
+                          ["--host", "127.0.0.1", "--port", "0",
+                           "--store-addr", addr, "--stats-publish-interval",
+                           str(SCALE_STATS_S)])
+            port = int((await front.wait_for(
+                r"frontend ready on [\d.]+:(\d+)", 60)).group(1))
+
+            async def kv_events():
+                async for ev in sub:
+                    if ev.get("event") != "msg":
+                        continue
+                    msg = codec.unpackb(ev["value"])
+                    if msg["event"]["kind"] != "stored":
+                        continue
+                    wid = int(msg["worker_id"])
+                    events["stored"].setdefault(wid, time.time())
+                    events["sealed"].append((time.time(), wid, len(
+                        msg["event"]["blocks"])))
+
+            def sealed(wid, after: float = 0.0) -> int:
+                """KV blocks worker ``wid`` sealed after ``after``."""
+                return sum(n for t, w, n in events["sealed"]
+                           if w == wid and t > after)
+
+            async def monitor():
+                seen_lines = 0
+                last = None
+                while True:
+                    now = time.time()
+                    lines = watcher.text().splitlines()
+                    for ln in lines[seen_lines:]:
+                        events["lines"].append((now, ln))
+                        m = re.match(r"spawned pid (\d+)", ln)
+                        if m:
+                            pids.add(int(m.group(1)))
+                            pgids.add(int(m.group(1)))
+                        m = re.match(r"pid (\d+) exited with code (-?\d+)",
+                                     ln)
+                        if m:
+                            events["exit"][int(m.group(1))] = int(m.group(2))
+                    seen_lines = len(lines)
+                    raw = await store_client.get(key)
+                    if raw:
+                        t = json.loads(raw)
+                        if t["replicas"] != last:
+                            events["target"].append((now, t["replicas"],
+                                                     t["ts"]))
+                            last = t["replicas"]
+                    for i in await scale_instances(store_client):
+                        events["instances"].setdefault(i, now)
+                    for pid in spawned():
+                        if pid not in events["ready"] and re.search(
+                                r"worker ready", worker_log(pid)):
+                            events["ready"][pid] = now
+                        if not alive(pid):
+                            events["dead"].setdefault(pid, now)
+                    pids.update(descendants(watcher.pid))
+                    await asyncio.sleep(0.05)
+
+            def spawned():
+                return [int(m.group(1)) for _, ln in events["lines"]
+                        for m in [re.match(r"spawned pid (\d+)", ln)] if m]
+
+            def instance_of(pid: int):
+                m = re.search(r"as instance (\d+)", worker_log(pid))
+                return int(m.group(1)) if m else None
+
+            def line_time(pattern: str):
+                return next((t for t, ln in events["lines"]
+                             if re.fullmatch(pattern, ln)), None)
+
+            tasks = [asyncio.ensure_future(kv_events()),
+                     asyncio.ensure_future(monitor())]
+            deadline = time.monotonic() + 300
+            while SCALE_MODEL not in await scale_models(port):
+                if time.monotonic() > deadline:
+                    fail(f"[scale] the first worker never registered:\n"
+                         f"{watcher.tail()}")
+                await asyncio.sleep(0.2)
+            first_pid = spawned()[0]
+            print(f"[scale] store, frontend, watcher and worker 1 (pid "
+                  f"{first_pid}) up in {time.time() - t0:.1f} s", flush=True)
+            streams = Streams(port, SCALE_MODEL, SEED + 22)
+            warm = streams.launch(8, "warm-up")
+            await streams.finish(120)
+            # the planner starts after the warm-up: its windows are the
+            # burst's and the trickle's only
+            planner = start("planner", "dynamo_tpu_torch.planner", [
+                "--store-addr", addr, "--profile",
+                os.path.abspath(PROFILE_PATH), "--ttft",
+                str(PLANNER_TTFT_SLA_S), "--itl", str(PLANNER_ITL_SLA_S),
+                "--adjustment-interval", str(SCALE_ADJUST_S),
+                "--max-chip-budget", str(SCALE_BUDGET), "--no-degradation"])
+            await planner.wait_for(r"planner running", 60)
+            if warm["tokens"] != 8:
+                fail(f"[scale] warm-up stream: {warm}")
+
+            # the burst, until the second worker has served a while
+            t_burst = time.time()
+            loop = asyncio.get_running_loop()
+            k, tb = 0, loop.time()
+            second = free_two = None
+            while True:
+                if second is None and len(spawned()) > 1:
+                    second = spawned()[1]
+                wid = instance_of(second) if second else None
+                t_first = events["stored"].get(wid) if wid else None
+                if t_first is not None and free_two is None:
+                    free_two = torch.cuda.mem_get_info()[0]
+                if t_first is not None and \
+                        time.time() - t_first >= SCALE_SERVED_S:
+                    break
+                if time.time() - t_burst > SCALE_BURST_MAX_S:
+                    fail(f"[scale] no second worker served within "
+                         f"{SCALE_BURST_MAX_S:.0f} s of burst: targets "
+                         f"{events['target']}, watcher:\n{watcher.tail()}")
+                due = tb + k / rates["burst"]
+                if loop.time() >= due:
+                    streams.launch(SCALE_OSL, "burst")
+                    k += 1
+                else:
+                    await asyncio.sleep(min(due - loop.time(), 0.02))
+            n_burst = k
+            # the trickle, until the drained worker has exited a while
+            t_trickle = time.time()
+            k, tb = 0, loop.time()
+            in_flight_at_down = probes = None
+            while True:
+                if probes is None and len(events["target"]) > 2:
+                    probes = [streams.launch(SCALE_DRAIN_OSL, "drain probe")
+                              for _ in range(SCALE_DRAIN_PROBES)]
+                t_down = line_time(r"scale down -> \d+/\d+")
+                if t_down is not None and in_flight_at_down is None:
+                    in_flight_at_down = [r for r in streams.runs
+                                         if r["status"] is None]
+                    # the loop is closed: the planner stops here, so the
+                    # targets below are final (it holds nothing to drain
+                    # and keeps Python's default SIGTERM disposition, as
+                    # the JAX planner does)
+                    planner.proc.send_signal(signal.SIGTERM)
+                t_gone = events["dead"].get(second)
+                if t_gone is not None and \
+                        time.time() - t_gone >= SCALE_TRICKLE_AFTER_S:
+                    break
+                if time.time() - t_trickle > SCALE_TRICKLE_MAX_S:
+                    fail(f"[scale] the fleet did not scale down within "
+                         f"{SCALE_TRICKLE_MAX_S:.0f} s of trickle: targets "
+                         f"{events['target']}, watcher:\n{watcher.tail()}")
+                due = tb + k / rates["trickle"]
+                if loop.time() >= due:
+                    streams.launch(SCALE_TRICKLE_OSL, "trickle")
+                    k += 1
+                else:
+                    await asyncio.sleep(min(due - loop.time(), 0.02))
+            n_trickle = k
+            await loop.run_in_executor(None, planner.proc.wait, 60)
+            await streams.finish(120)
+            streams.check("burst, trickle and drain probes")
+            await asyncio.sleep(0.2)   # one more monitor pass
+
+            # the target went 1 -> 2 -> 1
+            seq = [n for _, n, _ in events["target"]]
+            print(f"[scale] target {' -> '.join(map(str, seq))} ("
+                  + ", ".join(f"{n} at {t - t0:.1f} s" for t, n, _ in
+                              events["target"]) + "); watcher lines: "
+                  + "; ".join(ln for _, ln in events["lines"]
+                              if ln.startswith(("scale", "pid"))),
+                  flush=True)
+            if seq != [1, 2, 1]:
+                fail(f"[scale] the target went {seq}, not 1 -> 2 -> 1")
+            if len(spawned()) != 2:
+                fail(f"[scale] the watcher spawned {spawned()}, not two "
+                     f"workers")
+            if events["exit"].get(second) != 0:
+                fail(f"[scale] the scaled-down worker {second} exited "
+                     f"{events['exit'].get(second)}:\n"
+                     f"{worker_log(second)[-3000:]}")
+            wids = [instance_of(p) for p in (first_pid, second)]
+            for n, (pid, wid) in enumerate(zip((first_pid, second), wids),
+                                           1):
+                blocks = sealed(wid)
+                if wid is None or blocks < whole_blocks(SCALE_OSL):
+                    fail(f"[scale] worker {n} (pid {pid}, instance {wid}) "
+                         f"sealed {blocks} KV blocks: it served no whole "
+                         f"request")
+            # times
+            t_up = events["target"][1][2]
+            t_line = line_time(r"scale up -> 2/2")
+            t_spawn = line_time(rf"spawned pid {second} .*")
+            t_ready = events["ready"].get(second)
+            t_inst = events["instances"].get(wids[1])
+            t_tok = events["stored"].get(wids[1])
+            t_down = line_time(r"scale down -> 1/1")
+            t_dead = events["dead"].get(second)
+            after_term = sealed(wids[1], t_down)
+            ttft_p50 = percentile([(r["first"] or r["last"]) - r["t_sent"]
+                                   for r in streams.runs
+                                   if r["tag"] == "burst"], 50)
+            print(f"[scale] {card}: target 1 -> 2 written "
+                  f"{t_up - t_burst:.2f} s into the burst; target change to "
+                  f"the watcher's 'scale up -> 2/2' line "
+                  f"{(t_line - t_up) * 1e3:.0f} ms; worker 2 spawn to "
+                  f"'worker ready' {t_ready - t_spawn:.2f} s, to its instance "
+                  f"in the store {t_inst - t_spawn:.2f} s, to its first "
+                  f"prefill (first stored KV blocks, its first token) "
+                  f"{t_tok - t_spawn:.2f} s; SIGTERM ('scale down -> 1/1') "
+                  f"to exit {(t_dead - t_down) * 1e3:.0f} ms, exit code 0",
+                  flush=True)
+            print(f"[scale] {card}: {n_burst} burst streams (OSL "
+                  f"{SCALE_OSL}) in {t_trickle - t_burst:.1f} s, {n_trickle} "
+                  f"trickle streams (OSL {SCALE_TRICKLE_OSL}) in "
+                  f"{time.time() - t_trickle:.1f} s, {len(probes)} drain "
+                  f"probes (OSL {SCALE_DRAIN_OSL}) as the target fell to 1; "
+                  f"all {len(streams.runs)} ended whole, "
+                  f"{len(in_flight_at_down)} of them in flight at the "
+                  f"scale-down; worker 2 sealed {after_term} KV blocks "
+                  f"after its SIGTERM (streams it drained); burst TTFT p50 "
+                  f"{ttft_p50 * 1e3:.0f} ms; KV blocks sealed: worker 1 "
+                  f"{sealed(wids[0])}, worker 2 {sealed(wids[1])}",
+                  flush=True)
+            # the watcher ends worker 1 (SIGTERM, drain) and itself
+            watcher.proc.send_signal(signal.SIGTERM)
+            rc = await loop.run_in_executor(None, watcher.proc.wait, 60)
+            if rc != 0:
+                fail(f"[scale] the watcher exited {rc}:\n{watcher.tail()}")
+            await asyncio.sleep(0.1)
+            if events["exit"].get(first_pid) != 0 and \
+                    f"pid {first_pid} exited with code 0" not in \
+                    watcher.text():
+                fail(f"[scale] worker 1 did not exit 0:\n"
+                     f"{watcher.tail()}")
+            front.proc.send_signal(signal.SIGTERM)
+            rc = await loop.run_in_executor(None, front.proc.wait, 60)
+            if rc != 0:
+                fail(f"[scale] the frontend on SIGTERM: exit {rc}\n"
+                     f"{front.tail()}")
+            launches = []
+            for n, pid in enumerate((first_pid, second), 1):
+                got = launch_counts(worker_log(pid))
+                if len(got) != 1:
+                    fail(f"[scale] worker {n}: no exit line with its "
+                         f"launches:\n{worker_log(pid)[-3000:]}")
+                launches.append(got[0])
+                print(f"[scale] worker {n} (pid {pid}) kernel launches: "
+                      + ", ".join(f"{f} {got[0][f]}" for f in
+                                  ("paged_attention_decode",
+                                   "paged_attention_ragged")), flush=True)
+                for f in ("paged_attention_decode",
+                          "paged_attention_ragged"):
+                    if got[0][f] <= 0:
+                        fail(f"[scale] {f} never launched in worker {n}")
+            return launches, free_two
+        finally:
+            for t in tasks:
+                t.cancel()
+            if sub is not None:
+                await sub.cancel()
+            if store_client is not None:
+                await store_client.close()
+            if watcher is not None and watcher.proc.poll() is None:
+                watcher.proc.send_signal(signal.SIGTERM)
+                try:
+                    watcher.proc.wait(30)
+                except subprocess.TimeoutExpired:
+                    pass
+
+    async def run_b(bin_dir):
+        for p, what in SCALE_RECIPE_PORTS.items():
+            if not port_free(p):
+                fail(f"[scale] port {p} ({what}) is in use: "
+                     f"{SCALE_RECIPE} needs it free")
+        log_path = os.path.join(SCALE_LOGS, "recipe.log")
+        renv = dict(env, MODEL_DIR=model_dir, REPLICAS="2", MESH="1,1",
+                    PATH=os.pathsep.join((bin_dir, env["PATH"])))
+        t0 = time.time()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                ["bash", os.path.join(root, SCALE_RECIPE)], cwd=root,
+                env=renv, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        pgids.add(proc.pid)
+        pids.add(proc.pid)
+
+        def text():
+            with open(log_path, errors="replace") as f:
+                return f.read()
+
+        store_client = sub = None
+        tasks = []
+        stored = {}
+        try:
+            store_client = await StoreClient.connect("127.0.0.1:4222",
+                                                     retries=240)
+            sub = await store_client.subscribe(
+                "v1/events/dynamo/backend/kv_events/")
+
+            async def kv_events():
+                async for ev in sub:
+                    if ev.get("event") == "msg":
+                        msg = codec.unpackb(ev["value"])
+                        if msg["event"]["kind"] == "stored":
+                            wid = int(msg["worker_id"])
+                            stored[wid] = stored.get(wid, 0) + len(
+                                msg["event"]["blocks"])
+            tasks.append(asyncio.ensure_future(kv_events()))
+            deadline = time.monotonic() + 240
+            while True:
+                pids.update(group_members(proc.pid))
+                models = await scale_models(8000)
+                ids = await scale_instances(store_client)
+                if models and len(ids) == 2:
+                    break
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail(f"[scale] {SCALE_RECIPE}: {len(ids)} instances, "
+                         f"models {models}, exit {proc.poll()}:\n"
+                         f"{text()[-3000:]}")
+                await asyncio.sleep(0.2)
+            up = time.time() - t0
+            streams = Streams(8000, models[0], SEED + 23)
+            t1 = time.time()
+            for _ in range(SCALE_RECIPE_REQUESTS):
+                streams.launch(SCALE_RECIPE_OSL, "recipe")
+            await streams.finish(120)
+            streams.check(SCALE_RECIPE)
+            await asyncio.sleep(0.5)   # the last KV events
+            wall = time.time() - t1
+            served_by = {w: stored.get(w, 0) for w in ids}
+            print(f"[scale] {card}: {SCALE_RECIPE} REPLICAS=2 MESH=1,1 "
+                  f"MODEL_DIR={LOAD_DIR}: store, 2 workers and the KV-routed "
+                  f"frontend on :8000 up in {up:.1f} s; "
+                  f"{SCALE_RECIPE_REQUESTS} streams (ISL {SCALE_ISL}, OSL "
+                  f"{SCALE_RECIPE_OSL}) ended whole in {wall:.2f} s; KV "
+                  f"blocks sealed per replica {sorted(served_by.values())}",
+                  flush=True)
+            if min(served_by.values()) < whole_blocks(SCALE_RECIPE_OSL):
+                fail(f"[scale] {SCALE_RECIPE}: a replica served no whole "
+                     f"request: {served_by}")
+            # end the workers first, so they drain with the store up, then
+            # the session's whole process group
+            workers = [p for p in group_members(proc.pid)
+                       if "dynamo_tpu_torch.worker" in cmdline(p)]
+            for p in workers:
+                os.kill(p, signal.SIGTERM)
+            deadline = time.monotonic() + 60
+            while any(alive(p) for p in workers):
+                if time.monotonic() > deadline:
+                    fail(f"[scale] the recipe's workers did not drain in "
+                         f"60 s:\n{text()[-3000:]}")
+                await asyncio.sleep(0.1)
+            os.killpg(proc.pid, signal.SIGTERM)
+            deadline = time.monotonic() + 30
+            while group_members(proc.pid):
+                if time.monotonic() > deadline:
+                    break
+                await asyncio.sleep(0.1)
+            got = launch_counts(text())
+            if len(got) != 2:
+                fail(f"[scale] {SCALE_RECIPE}: {len(got)} worker exit lines "
+                     f"with launches, not 2:\n{text()[-3000:]}")
+            for n, counts in enumerate(got, 1):
+                print(f"[scale] recipe worker {n} kernel launches: "
+                      + ", ".join(f"{f} {counts[f]}" for f in
+                                  ("paged_attention_decode",
+                                   "paged_attention_ragged")), flush=True)
+                for f in ("paged_attention_decode",
+                          "paged_attention_ragged"):
+                    if counts[f] <= 0:
+                        fail(f"[scale] {f} never launched in recipe worker "
+                             f"{n}")
+            return got
+        finally:
+            for t in tasks:
+                t.cancel()
+            if sub is not None:
+                await sub.cancel()
+            if store_client is not None:
+                await store_client.close()
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait(30)
+
+    t0 = time.perf_counter()
+    try:
+        launches_a, free_two = asyncio.run(run_a())
+        t_a = time.perf_counter() - t0
+        bin_dir = os.path.abspath(os.path.join(SCALE_LOGS, "bin"))
+        os.makedirs(bin_dir, exist_ok=True)
+        # the recipe runs ``python``: the interpreter of this script, by
+        # its own path (a link elsewhere would lose its environment)
+        stub = os.path.join(bin_dir, "python")
+        with open(stub, "w") as f:
+            f.write(f"#!/bin/sh\nexec {shlex.quote(sys.executable)} "
+                    f"\"$@\"\n")
+        os.chmod(stub, 0o755)
+        launches_b = asyncio.run(run_b(bin_dir))
+    finally:
+        for c in reversed(children):
+            c.kill()
+        reap(pids, pgids)
+    # nothing of the phase is left, and the card has its memory back
+    time.sleep(0.5)
+    left = sorted(p for p in pids if alive(p))
+    free_end = torch.cuda.mem_get_info()[0]
+    rebuilt = sorted(set(os.listdir(kernels_dir)) - set(built))
+    print(f"[scale] {card}: phase (a) {t_a:.1f} s, (b) "
+          f"{time.perf_counter() - t0 - t_a:.1f} s; {len(pids)} processes "
+          f"started, alive after the phase: {left}; card memory free "
+          f"{free0 / 2**30:.2f} GiB before, {free_two / 2**30:.2f} GiB "
+          f"with both workers of (a) serving, {free_end / 2**30:.2f} GiB "
+          f"after; kernel libraries built during the phase: {rebuilt}",
+          flush=True)
+    if left:
+        fail(f"[scale] processes outlived the phase: {left}")
+    if free_end < free0 - 2**28:
+        fail(f"[scale] the card has {(free0 - free_end) / 2**20:.0f} MiB "
+             f"less free memory after the phase")
+    if rebuilt:
+        fail(f"[scale] a worker rebuilt kernels: {rebuilt}")
+    total = {}
+    for counts in launches_a + launches_b:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 # ------------------------- phase 12: autotune -----------------------------
 
 
@@ -8604,7 +9425,8 @@ def kernels_line(results, launches, dist_launches, spec_launches,
     windows of phase 3's spec run) and both faces at Mixtral's head dim 128
     (their launches: the [moe] phase's served run). ``slice_launches``
     maps a key (``launches_profile``, ``launches_replay``,
-    ``launches_embed``, ``launches_mm``) to the counts of the path it
+    ``launches_embed``, ``launches_mm``, ``launches_scale``) to the counts
+    of the path it
     names, added to every kernel build's row. ``tuned_rows``
     (phase 12) are the autotune's winning launches, each with its
     ``launch`` parameters (the bf16 decode and prefill winners that differ
@@ -8845,6 +9667,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     timer("11 planner")
+    scale_launches = phase_scale(card, served, profile)
+    timer("22 scaling loop and recipe")
     moe_launches = phase_moe(card)
     timer("8 moe")
     tp_launches[128] = phase_tp_moe(card, served)
@@ -8854,6 +9678,7 @@ def main() -> None:
     print(kernels_line(results, launches, dist_launches, spec["launches"],
                        moe_launches, {"launches_profile": profile_launches,
                                       "launches_replay": replay_launches,
+                                      "launches_scale": scale_launches,
                                       "launches_embed": embed_launches,
                                       "launches_mm": mm["launches"],
                                       "launches_sp": sp["launches_sp"],

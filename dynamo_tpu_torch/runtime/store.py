@@ -1428,7 +1428,7 @@ class ResilientWatchStream:
             pass
 
 
-def main() -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="dynamo-tpu-torch discovery store")
     parser.add_argument("--host", default="0.0.0.0")
@@ -1438,7 +1438,11 @@ def main() -> None:
         help="snapshot unleased KV + work queues to PATH (msgpack, atomic "
              "rename) and restore from it on start",
     )
-    args = parser.parse_args()
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     server = StoreServer(args.host, args.port, persist_path=args.persist)
     asyncio.run(server.serve_forever())
 

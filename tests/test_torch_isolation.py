@@ -9,7 +9,8 @@ serve. The distributed entry points refuse every flag whose path is not
 ported yet and accept every router mode, the KV-movement and multimodal
 flags and the settings of the prefix cache, the disaggregated handoff and
 preemption, and the store and the frontend (its multimodal and embeddings
-pieces included) never load ``torch``."""
+pieces included), the scale watcher and the graph controller never load
+``torch``."""
 
 import ast
 import asyncio
@@ -86,6 +87,10 @@ TASKS_CHECKPOINT_LINT = ["runtime/tasks.py", "engine/weights.py",
                          "analysis/rules_kernels.py",
                          "analysis/rules_sharding.py",
                          "analysis/baseline.py"]
+# the deployment layer's modules (the scale watcher and the graph
+# controller run beside the workers, as the store and the frontend do)
+DEPLOY = ["deploy/__init__.py", "deploy/scale_watcher.py",
+          "deploy/controller.py"]
 # the C++ standard library headers a host source may include
 CXX_STD_HEADERS = {"cstdint", "cstring", "cstddef", "cstdlib",
                    "unordered_map", "vector", "algorithm", "utility",
@@ -222,6 +227,40 @@ def test_scan_covers_the_tasks_checkpoint_and_analysis_modules():
         assert not found & FORBIDDEN, (rel, found & FORBIDDEN)
         if rel != "engine/weights.py":
             assert "torch" not in found, rel
+
+
+def test_scan_covers_the_deploy_modules():
+    """The scale watcher and the graph controller are scanned like every
+    other module: none imports ``msgpack``, ``aiohttp``, JAX or the JAX
+    package, and none imports torch."""
+    scanned = {p.relative_to(ROOT / "dynamo_tpu_torch").as_posix()
+               for p in FILES if "dynamo_tpu_torch" in p.parts}
+    assert set(DEPLOY) <= scanned
+    for rel in DEPLOY:
+        found = {n for n, _ in _imports(ast.parse(
+            (ROOT / "dynamo_tpu_torch" / rel).read_text()))}
+        assert not found & FORBIDDEN, (rel, found & FORBIDDEN)
+        assert "torch" not in found, rel
+
+
+def test_watcher_and_controller_load_nothing_of_jax_or_torch():
+    """Imported and run to their parsers in a fresh interpreter, the scale
+    watcher and the graph controller leave neither ``torch`` nor anything
+    of ``dynamo_tpu``, ``msgpack`` or ``aiohttp`` in ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "from dynamo_tpu_torch.deploy import controller, scale_watcher\n"
+        "scale_watcher.parse_args(['--', 'sleep', '1'])\n"
+        "controller.GraphController(controller.KubernetesAPI(\n"
+        "    controller.KubeConfig(base_url='http://127.0.0.1:1',\n"
+        "                          namespace='ns')), image='i')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'dynamo_tpu', 'msgpack', 'aiohttp', 'jax'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_host_sources_include_only_the_standard_library():

@@ -306,3 +306,73 @@ def test_smoke_replay_digest_equals_jax(tmp_path, seed, jax_tiny_engines):
     assert trep["preempt"]["notices"] == 1
     assert trep["prefix_hit_rate"] is not None
     json.dumps(trep)
+
+
+class _DropAfter:
+    """A routing sink that serves 6 tokens, numbering each attempt's frames
+    from ``index`` 0 as the engine does, and drops the first attempt after
+    3 (``unavailable``): ``Migration`` re-issues the rest with the 3
+    carried tokens appended to the prompt."""
+
+    def __init__(self, transport, drop_after=3):
+        self.transport = transport
+        self.drop_after = drop_after
+        self.requests = []
+
+    async def generate(self, request, context):
+        self.requests.append(dict(request))
+        first = len(self.requests) == 1
+        n = self.drop_after if first else int(request["max_tokens"])
+        base = 100 + len(request["token_ids"])
+        for i in range(n):
+            last = not first and i == n - 1
+            yield {"token_ids": [base + i], "index": i, "finished": last,
+                   "finish_reason": "length" if last else None}
+        if first:
+            raise self.transport.EngineError("dropped",
+                                             self.transport.ERR_UNAVAILABLE)
+
+
+def test_driver_drops_a_migrated_streams_carried_tokens_in_both():
+    """ROADMAP queue C finding (g), pinned in both packages: ``Migration``
+    re-issues with the carried tokens appended and ``max_tokens`` cut, the
+    re-issue's frames are numbered from ``index`` 0 again, and
+    ``_drive_one`` keys one attempt's tokens by ``index``: the re-issue's 3
+    tokens overwrite the 3 carried ones, so the outcome holds 3 of the 6
+    tokens the stream delivered, with ``finish_reason`` ``length``."""
+    from dynamo_tpu.llm import migration as jmig
+    from dynamo_tpu.runtime import transport as jtransport
+    from dynamo_tpu_torch.llm import migration as tmig
+    from dynamo_tpu_torch.runtime import transport as ttransport
+
+    async def drive(drv, tr, mig_mod, transport):
+        sink = _DropAfter(transport)
+        mig = mig_mod.Migration(sink, migration_limit=3, backoff_base_s=0.0)
+        req = tr.TraceRequest(request_id="r0", arrival_s=0.0, tenant="t0",
+                              pool=0, token_ids=[1, 2, 3, 4], osl=6, tier=0)
+        outcome = drv.RequestOutcome(
+            request_id=req.request_id, tenant=req.tenant, pool=req.pool,
+            tier=req.tier, isl=req.isl, osl=req.osl,
+            arrival_s=req.arrival_s)
+        await drv._drive_one(req, mig, outcome, drv.ReplaySettings(),
+                             asyncio.get_running_loop())
+        return sink.requests, outcome
+
+    got = {}
+    for side, drv, tr, mig_mod, transport in (
+            ("jax", jdrv, jtr, jmig, jtransport),
+            ("port", tdrv, ttr, tmig, ttransport)):
+        got[side] = asyncio.run(drive(drv, tr, mig_mod, transport))
+    for side, (requests, outcome) in got.items():
+        # the stream itself was whole: 3 tokens, then the re-issue's 3
+        assert requests == [
+            {"token_ids": [1, 2, 3, 4], "max_tokens": 6, "ignore_eos": True},
+            {"token_ids": [1, 2, 3, 4, 104, 105, 106], "max_tokens": 3,
+             "ignore_eos": True}], side
+        assert outcome.error is None, (side, outcome.error)
+        # the finding: the carried tokens are lost
+        assert outcome.tokens == [107, 108, 109], side
+        assert outcome.finish_reason == "length", side
+        assert outcome.submissions == [(4, 3)], side
+        assert outcome.resumes == outcome.reconnects == 0, side
+    assert got["jax"][1].tokens == got["port"][1].tokens
