@@ -1,0 +1,8 @@
+"""Useful model FLOPs over window seconds times the bf16 peak, decode-
+heavy traffic."""
+
+from portbench import readers
+
+
+def read(r):
+    return readers.mfu_pct(r)
