@@ -98,7 +98,7 @@ import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import (
     Any, AsyncIterator, Callable, Deque, Dict, List, Optional, Tuple,
 )
@@ -124,7 +124,7 @@ from ..tokens import TokenBlockSequence
 from ..utils.config import env_flag, env_float, env_str
 from ..utils.device import resolve_device
 from ..utils.hotpath import hot_path
-from ..utils.logging import get_logger
+from ..utils.logging import TraceContext, get_logger
 from . import model as model_lib
 from . import quant
 from .config import EngineConfig, ModelConfig, check_supported
@@ -170,6 +170,53 @@ class _Landing:
     host: Optional[torch.Tensor]
     event: Any = None
     spec: bool = False                        # a packed spec-window output
+    stamps: Any = None                        # the batch's _LoopStamps
+
+
+@dataclass
+class _LoopStamps:
+    """One scheduled batch's loop phases on the host's monotonic clock,
+    stamped only while the tracer has a sink; ``_record_loop_spans`` makes
+    them spans once the batch is post-processed. On a card the device gap
+    before the batch comes from two timing CUDA events: the previous
+    batch's landing event and one recorded before this batch's first
+    enqueue."""
+
+    t_schedule: float
+    t_scheduled: float
+    after_idle: bool          # the loop waited on _wake for work before it
+    # (start, end, tokens, bucket) of each prefill chunk's enqueue
+    prefills: List[Tuple[float, float, int, int]] = field(
+        default_factory=list)
+    decode: Optional[Tuple[float, float]] = None
+    t_enqueue: float = 0.0    # the batch's first enqueue
+    gap_prev: Any = None      # the previous batch's landing event
+    gap_start: Any = None     # recorded before this batch's first enqueue
+    queued: bool = False      # gap_prev had not completed by then
+    prev_prefill_tokens: int = 0
+    t_ready: float = 0.0      # the wait on the landing returned
+
+    def device_gap_ms(self) -> Optional[float]:
+        """The device's idle time before this batch (0 when it was queued
+        behind the previous one); None after an idle wait for work, for
+        the first batch, or off a card. Read after the batch landed, when
+        both events are complete: no host sync."""
+        if self.after_idle or self.gap_prev is None or self.gap_start is None:
+            return None
+        if self.queued:
+            return 0.0
+        try:
+            return max(0.0, self.gap_prev.elapsed_time(self.gap_start))
+        except RuntimeError:   # an event of a window the watchdog dropped
+            return None
+
+
+@dataclass
+class _StepParent:
+    """What ``SpanCollector.record`` parents a child span under: the
+    ``engine.step`` span's trace context."""
+
+    trace: TraceContext
 
 
 class _BatchingFetcher:
@@ -220,6 +267,8 @@ class _BatchingFetcher:
                 # THE designed host sync: one wait per window, on this
                 # thread, off the dispatch path
                 landing.event.synchronize()  # dynalint: disable=DT102
+            if landing.stamps is not None:
+                landing.stamps.t_ready = time.monotonic()
             if landing.host is not None and self._on_sync is not None:
                 self._on_sync()
             return self._unpack(batch, landing), None
@@ -368,6 +417,9 @@ class EngineCore(AsyncEngine):
         self.num_pressure_spills = 0
         self.num_pressure_shed = 0
         self.pressure_peak = 0       # highest rung reached this lifetime
+        # loop spans: whether the loop waited on _wake for work since the
+        # last batch it scheduled (the next one gets no device-gap span)
+        self._loop_idle = True
 
     # ------------------------- lifecycle -------------------------------
 
@@ -377,6 +429,7 @@ class EngineCore(AsyncEngine):
         if self._loop_task is None:
             self._stopped = False
             self._wake = asyncio.Event()
+            self._loop_idle = True
             self._loop_task = asyncio.create_task(self._run_loop())
 
     async def stop(self) -> None:
@@ -749,15 +802,41 @@ class EngineCore(AsyncEngine):
             if self.spec_stats is not None:
                 attrs["spec_drafted"] = seq.spec_drafted
                 attrs["spec_accepted"] = seq.spec_accepted
-            if self.obs is not None:
-                osnap = self.obs.snapshot()
-                attrs["mfu"] = round(osnap["mfu"], 6)
-                attrs["goodput_tok_s"] = round(osnap["goodput_tok_s"], 3)
-                attrs["padding_waste_ratio"] = round(
-                    osnap["padding_waste_ratio"], 6
-                )
             tracer.record("engine.decode", context, start_mono=t_first,
                           end_mono=end, attrs=attrs)
+
+    def _record_loop_spans(self, batch, t_taken: float) -> None:
+        """One batch's loop spans, from the stamps it carries: a trace of
+        its own under ``engine.step``, kept out of the collector's ring.
+        ``t_taken``: the loop took the landing up (postprocess starts)."""
+        st = batch.loop_stamps
+        tracer = tracing.get_tracer()
+        end = time.monotonic()
+        step = TraceContext.new()
+        parent = _StepParent(step)
+
+        def child(name, t0, t1, attrs=None):
+            tracer.record(name, parent, start_mono=t0, end_mono=t1,
+                          attrs=attrs, buffered=False)
+
+        child("engine.schedule", st.t_schedule, st.t_scheduled)
+        gap = st.device_gap_ms()
+        if gap is not None:
+            child("engine.device_gap", st.t_enqueue - gap / 1e3, st.t_enqueue,
+                  {"prev_prefill_tokens": st.prev_prefill_tokens})
+        for t0, t1, tokens, bucket in st.prefills:
+            child("engine.enqueue_prefill", t0, t1,
+                  {"tokens": tokens, "bucket": bucket})
+        if st.decode is not None:
+            child("engine.enqueue_decode", *st.decode)
+        if st.t_ready:
+            child("engine.land", st.t_ready, t_taken)
+        child("engine.postprocess", t_taken, end)
+        tracer.record("engine.step", trace=step, start_mono=st.t_schedule,
+                      end_mono=end, buffered=False, attrs={
+                          "live_rows": len(batch.decode_rows),
+                          "prefill_tokens": sum(c.length
+                                                for c in batch.prefills)})
 
     # --------------------- flight recorder surface ---------------------
 
@@ -841,18 +920,12 @@ class EngineCore(AsyncEngine):
                 self._abort_batch(batch0)
                 return
             self._stall_streak = 0
-            try:
-                self._postprocess(batch0, results)
-            except Exception:
-                log.exception("postprocess failed")
-            self._flush_kv_events()
+            self._apply_landing(batch0, results)
 
         while not self._stopped:
             while inflight and inflight[0][1].done():
                 await land_next()
-            self._pressure_tick()
-            batch = self.scheduler.schedule()
-            self._mark_preempted_seats(batch)
+            batch = self._schedule()
             if batch.is_empty:
                 if inflight:
                     await land_next()
@@ -868,6 +941,7 @@ class EngineCore(AsyncEngine):
                 await self._kvbm_idle_drain()
                 if self._stopped:
                     break
+                self._loop_idle = True
                 await self._wake.wait()
                 continue
             self._arm_stall_fault(batch)
@@ -887,9 +961,7 @@ class EngineCore(AsyncEngine):
     async def _run_loop_sync(self) -> None:
         """The synchronous loop: schedule → execute → postprocess."""
         while not self._stopped:
-            self._pressure_tick()
-            batch = self.scheduler.schedule()
-            self._mark_preempted_seats(batch)
+            batch = self._schedule()
             if batch.is_empty:
                 # a waiting request that can never fit (pool smaller than its
                 # prompt) would hang forever — fail it rather than deadlock
@@ -906,6 +978,7 @@ class EngineCore(AsyncEngine):
                 await self._kvbm_idle_drain()
                 if self._stopped:
                     return
+                self._loop_idle = True
                 await self._wake.wait()
                 continue
             self._arm_stall_fault(batch)
@@ -923,14 +996,39 @@ class EngineCore(AsyncEngine):
                 self._abort_batch(batch)
                 continue
             self._stall_streak = 0
-            try:
-                self._postprocess(batch, results)
-            except Exception:
-                # bookkeeping must never kill the step loop — every queued
-                # request would hang forever
-                log.exception("postprocess failed")
-            self._flush_kv_events()
+            self._apply_landing(batch, results)
             await self._kvbm_tick()
+
+    def _schedule(self):
+        """One schedule pass: the pressure ladder's tick, the scheduler,
+        the preempted seats' kills. While the tracer has a sink (read on
+        every pass: a sink may come or go at any time) a batch carries the
+        stamps of its loop phases."""
+        traced = tracing.get_tracer().active
+        t0 = time.monotonic() if traced else 0.0
+        self._pressure_tick()
+        batch = self.scheduler.schedule()
+        self._mark_preempted_seats(batch)
+        if not batch.is_empty:
+            if traced:
+                batch.loop_stamps = _LoopStamps(t0, time.monotonic(),
+                                                self._loop_idle)
+            self._loop_idle = False
+        return batch
+
+    def _apply_landing(self, batch, results) -> None:
+        """Post-process a landed batch and flush its KV events, then record
+        its loop spans if it carries stamps."""
+        t_taken = time.monotonic() if batch.loop_stamps is not None else 0.0
+        try:
+            self._postprocess(batch, results)
+        except Exception:
+            # bookkeeping must never kill the step loop — every queued
+            # request would hang forever
+            log.exception("postprocess failed")
+        self._flush_kv_events()
+        if batch.loop_stamps is not None:
+            self._record_loop_spans(batch, t_taken)
 
     async def _kvbm_tick(self) -> None:
         """One batched offload of sealed blocks to the host tier, between
@@ -1543,6 +1641,10 @@ class InferenceEngine(EngineCore):
         self._ap_cols: List[int] = []       # device slot_rows content
         self._ap_rows_dev: Optional[torch.Tensor] = None
         self._ap_dead: set = set()          # slots to kill next dispatch
+        # the last batch's landing event while traced (the start of the
+        # next batch's device gap) and its prefill tokens; step thread only
+        self._gap_prev: Any = None
+        self._gap_prev_prefill = 0
         self.pipeline_depth = max(1, engine_config.pipeline_depth)
         if engine_config.spec_mode == "ngram" or pp > 1:
             self.pipeline_depth = 1
@@ -1942,6 +2044,8 @@ class InferenceEngine(EngineCore):
             # designed sync point of the synchronous loop: one wait per
             # executed batch, counted in num_fetch_syncs
             landing.event.synchronize()  # dynalint: disable=DT102
+        if landing.stamps is not None:
+            landing.stamps.t_ready = time.monotonic()
         if landing.host is not None:
             self._count_fetch_sync()
         return self._unpack_results(batch, landing)
@@ -1950,24 +2054,48 @@ class InferenceEngine(EngineCore):
         """Build inputs + enqueue every device call for this batch, then the
         copy of its sampled tokens to the host. NO host sync in here. Seat
         kills flush FIRST so the in-order stream applies them before any
-        work that could touch reused blocks."""
+        work that could touch reused blocks. A batch with loop stamps gets
+        its enqueue stamps and, on a card, the events of its device gap."""
+        st = batch.loop_stamps
+        if st is not None:
+            self._stamp_first_enqueue(st)
         self._ap_flush_kills()
         obs_out = batch.obs_records if self.obs is not None else None
-        prefill_handles = [self._dispatch_prefill(c, obs_out)
+        prefill_handles = [self._dispatch_prefill(c, obs_out, st)
                            for c in batch.prefills]
         decode_handle = (
-            self._dispatch_decode(batch.decode_rows, obs_out)
+            self._dispatch_decode(batch.decode_rows, obs_out, st)
             if batch.decode_rows else None
         )
-        return self._start_fetch(prefill_handles, decode_handle)
+        landing = self._start_fetch(prefill_handles, decode_handle, st)
+        # the next batch's gap starts at this landing's event (timed only)
+        self._gap_prev = landing.event if st is not None else None
+        if st is not None:
+            self._gap_prev_prefill = sum(c.length for c in batch.prefills)
+        return landing
+
+    def _stamp_first_enqueue(self, st: _LoopStamps) -> None:
+        """Before the batch's first enqueue: on a card, whether the last
+        batch's landing event is still pending (a query, no wait) and a
+        timing event on the stream; then the host stamp of the enqueue."""
+        prev = self._gap_prev
+        if self.device.type == "cuda":
+            st.gap_prev = prev
+            st.prev_prefill_tokens = self._gap_prev_prefill
+            st.queued = prev is not None and not prev.query()
+            st.gap_start = torch.cuda.Event(enable_timing=True)
+            st.gap_start.record()
+        st.t_enqueue = time.monotonic()
 
     @hot_path
-    def _start_fetch(self, prefill_handles, decode_handle) -> _Landing:
+    def _start_fetch(self, prefill_handles, decode_handle,
+                     stamps: Optional[_LoopStamps] = None) -> _Landing:
         """Enqueue the ONE device→host copy of every sampled token of the
         batch, into pinned memory on a card, right after the batch's last
         call: a decode graph's samples live in its pool and its next replay
         overwrites them, and no replay can come before this copy in stream
-        order. An event after the copy marks the landing."""
+        order. An event after the copy marks the landing (with ``stamps``:
+        one that times the device gap before the next batch)."""
         flat = list(prefill_handles)
         if decode_handle is not None:
             flat.append(decode_handle[0])
@@ -1978,6 +2106,7 @@ class InferenceEngine(EngineCore):
             cols=decode_handle[1] if decode_handle is not None else None,
             host=None,
             spec=decode_handle is not None and decode_handle[2],
+            stamps=stamps,
         )
         if not flat:
             return landing
@@ -1990,7 +2119,7 @@ class InferenceEngine(EngineCore):
         landing.host = torch.empty(dev.shape, dtype=dev.dtype,
                                    pin_memory=True)
         landing.host.copy_(dev, non_blocking=True)
-        landing.event = torch.cuda.Event()
+        landing.event = torch.cuda.Event(enable_timing=stamps is not None)
         landing.event.record()
         return landing
 
@@ -2228,10 +2357,13 @@ class InferenceEngine(EngineCore):
         return tokens, tables
 
     @hot_path
-    def _dispatch_prefill(self, chunk: PrefillChunk, obs_out=None):
+    def _dispatch_prefill(self, chunk: PrefillChunk, obs_out=None,
+                          stamps: Optional[_LoopStamps] = None):
         """Enqueue one prefill chunk; returns the sampled handle [1]
         (garbage unless ``chunk.final``). Every int input rides ONE
-        host→device copy. No host sync."""
+        host→device copy. No host sync. ``stamps`` gets the chunk's
+        enqueue, from its first host work to its last launch's return."""
+        t0 = time.monotonic() if stamps is not None else 0.0
         cfg = self.config
         seq = chunk.seq
         self.num_prefill_dispatches += 1
@@ -2289,6 +2421,8 @@ class InferenceEngine(EngineCore):
             self.params, self.cache, self._ctl["last_tok"],
             self._upload(pint), self._next_key(), stochastic, *extra,
         )
+        if stamps is not None:
+            stamps.prefills.append((t0, time.monotonic(), chunk.length, T))
         return sampled
 
     @staticmethod
@@ -2375,14 +2509,17 @@ class InferenceEngine(EngineCore):
                                       self._upload(df))
 
     @hot_path
-    def _dispatch_decode(self, rows, obs_out=None):
+    def _dispatch_decode(self, rows, obs_out=None,
+                         stamps: Optional[_LoopStamps] = None):
         """Enqueue one autopilot decode window (a graph replay on a card).
         Steady state (same seats, no growth) dispatches with ZERO fresh
         host tensors — all control state is device-resident; the host sends
         packed deltas only on joins, block growth, resumes, and seat-map
         changes. Returns (samples_handle [K, B], col_map, spec) where
         col_map[device column] is the slot computed there and ``spec``
-        marks a packed spec-window handle."""
+        marks a packed spec-window handle. ``stamps`` gets the enqueue:
+        deltas, seat map and the replay call."""
+        t0 = time.monotonic() if stamps is not None else 0.0
         cfg = self.config
         bs = cfg.block_size
         spec = self._spec_active()
@@ -2453,6 +2590,8 @@ class InferenceEngine(EngineCore):
             self.params, self.cache, self._ctl, self._ap_rows_dev,
             stochastic, spec=spec,
         )
+        if stamps is not None:
+            stamps.decode = (t0, time.monotonic())
         return samples, list(self._ap_cols), spec
 
     def _spec_active(self) -> bool:

@@ -25,7 +25,9 @@ import enum
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Callable, Deque, Dict, List, Optional, Sequence as Seq, Tuple
+from typing import (
+    Any, Callable, Deque, Dict, List, Optional, Sequence as Seq, Tuple,
+)
 
 from ..tokens import TokenBlockSequence
 from ..utils.hotpath import hot_path
@@ -308,6 +310,9 @@ class ScheduledBatch:
     # commits at landing — riding the batch keeps attribution correct
     # with several pipelined windows in flight
     obs_records: List = field(default_factory=list)
+    # the engine loop's stamps of this batch's phases (engine._LoopStamps),
+    # set only while the tracer has a sink
+    loop_stamps: Any = None
 
     @property
     def decodes(self) -> List[SchedSeq]:

@@ -9,6 +9,13 @@ CUDA activity (every kernel, from whichever thread or graph replay launched
 it) beside the CPU's; without one, the CPU's only. ``torch`` is imported at
 the first capture, never with this module.
 
+The engine loop's spans that end during the capture (``engine.step`` and
+its phases, ``tracing/``) are written into the same ``trace.json`` as
+async slices of a process of their own, on the trace's own time base: the
+collector's monotonic→Unix offset is taken anew at each start, and the
+profiler stamps its events on the Unix clock, so the loop's phases lie
+above the kernels they launched.
+
 Starting and stopping the profiler toggles CUPTI, and on an H100 (torch
 2.11, CUDA 12.8) a stop on the event loop's thread deadlocked against a
 CUDA graph launch on the engine's step thread, both blocked on the host
@@ -24,11 +31,13 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import contextlib
+import json
 import os
 import tempfile
 import threading
 import time
 
+from .. import tracing
 from ..utils.logging import get_logger
 
 log = get_logger("observability.profile")
@@ -36,6 +45,7 @@ log = get_logger("observability.profile")
 DEFAULT_MS = 1000
 MAX_MS = 30_000
 TRACE_FILE = "trace.json"
+SPANS_PID = "engine loop spans"
 
 _capture_lock = threading.Lock()  # one capture per process, ever
 
@@ -90,6 +100,27 @@ def default_base_dir() -> str:
     )
 
 
+def add_spans(trace_file: str, spans) -> None:
+    """Lay ``spans`` into a Chrome trace the profiler wrote, on its time
+    base (``baseTimeNanoseconds``, 0 when the trace has none), as async
+    slices: ``b``/``e`` pairs, which may overlap, as consecutive steps do
+    at run-ahead depth 2."""
+    with open(trace_file) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = trace.setdefault("traceEvents", [])
+    for sp in spans:
+        ts = (sp.start_unix * 1e9 - base) / 1e3       # microseconds
+        common = {"cat": "engine", "name": sp.name, "id": sp.span_id,
+                  "pid": SPANS_PID, "tid": SPANS_PID}
+        events.append({"ph": "b", "ts": ts, "args": dict(sp.attrs),
+                       **common})
+        events.append({"ph": "e", "ts": ts + (sp.duration_s or 0.0) * 1e6,
+                       **common})
+    with open(trace_file, "w") as f:
+        json.dump(trace, f)
+
+
 class ProfileBusyError(RuntimeError):
     """A capture is already running in this process."""
 
@@ -124,18 +155,24 @@ async def capture(ms: int, base_dir: str = "") -> dict:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             activities.append(ProfilerActivity.CUDA)
         prof = profile(activities=activities)
+        tracer = tracing.get_tracer()
+        tracer.calibrate_clock()
         t0 = time.monotonic()
-        await loop.run_in_executor(toggler, toggle, prof.start)
-        try:
-            # the wait yields the event loop: the engine keeps serving
-            # (that is the point: profile it under load)
-            await asyncio.sleep(ms / 1000.0)
-        finally:
-            await loop.run_in_executor(toggler, toggle, prof.stop)
+        # an open tap is a sink: the engine loop mints its spans meanwhile
+        with tracer.tap() as spans:
+            await loop.run_in_executor(toggler, toggle, prof.start)
+            try:
+                # the wait yields the event loop: the engine keeps serving
+                # (that is the point: profile it under load)
+                await asyncio.sleep(ms / 1000.0)
+            finally:
+                await loop.run_in_executor(toggler, toggle, prof.stop)
         wall_ms = (time.monotonic() - t0) * 1000.0
         trace_file = os.path.join(trace_dir, TRACE_FILE)
         # writing a loaded trace takes a while: off the event loop
         await asyncio.to_thread(prof.export_chrome_trace, trace_file)
+        if spans:
+            await asyncio.to_thread(add_spans, trace_file, spans)
     finally:
         toggler.shutdown(wait=False)
         _capture_lock.release()

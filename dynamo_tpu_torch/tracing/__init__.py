@@ -16,6 +16,20 @@ Stage names instrumented on the port's serving path::
     worker.queue          engine admission → first scheduled chunk
     engine.prefill        first scheduled chunk → first token
     engine.decode         first token → stream end
+
+The engine loop's spans, one set per scheduled batch, each set a trace of
+its own, recorded only while the collector has a sink and kept out of its
+ring buffer::
+
+    engine.step             schedule start → postprocess end (parent)
+    engine.schedule         pressure tick + ``scheduler.schedule()``
+    engine.enqueue_prefill  one prefill chunk's host work and launches
+    engine.enqueue_decode   control deltas, seat map and the graph replay
+    engine.land             the landing's wait returned → the loop takes
+                            the landing up
+    engine.postprocess      tokens into their streams + KV events
+    engine.device_gap       the device idle before the batch's first
+                            enqueue (CUDA events), ending at that enqueue
 """
 
 from .collector import (

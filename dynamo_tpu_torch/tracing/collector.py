@@ -16,7 +16,16 @@ buffer; everything else happens per span end, not per token:
 - slow-request auto-dump: when a *root* span (frontend request or worker
   ingress) ends over ``slow_threshold_s`` and its trace was not sampled,
   the whole trace is scraped out of the ring buffer and exported anyway —
-  the pathological tail is visible even at sample_ratio 0.
+  the pathological tail is visible even at sample_ratio 0;
+- the engine loop's spans (``buffered=False``) stay out of that ring, so
+  a busy loop never pushes a request's spans out of it; they reach the
+  sinks and every open :meth:`SpanCollector.tap` (a profile capture) and
+  are minted only while the collector has a sink (:attr:`active`).
+
+Every span's ``start_unix`` is its monotonic start plus one
+monotonic→Unix offset, taken when the collector is made or configured and
+again at each profile capture: the profiler stamps its events on the Unix
+clock, so spans and kernels share one time line.
 """
 
 from __future__ import annotations
@@ -31,6 +40,20 @@ from ..utils.xxh3 import xxh3_64
 from .span import STATUS_ERROR, Span
 
 DEFAULT_BUFFER_SIZE = 4096
+
+
+def measure_unix_offset(tries: int = 5) -> float:
+    """Unix time minus monotonic time, in seconds: of ``tries``
+    back-to-back (monotonic, Unix, monotonic) reads, the one whose two
+    monotonic reads lie closest, with the Unix read set at their middle."""
+    best = None
+    for _ in range(tries):
+        m0 = time.monotonic_ns()
+        unix = time.time_ns()
+        m1 = time.monotonic_ns()
+        if best is None or m1 - m0 < best[0]:
+            best = (m1 - m0, unix - (m0 + m1) // 2)
+    return best[1] / 1e9
 
 
 class SpanCollector:
@@ -53,6 +76,19 @@ class SpanCollector:
         # runtime registries coexisting in one process each get their own
         # stage_latency_seconds family
         self._metrics: Dict[int, Any] = {}
+        # lists that receive every unbuffered span, sampled or not
+        self._taps: List[List[Span]] = []
+        self.unix_offset_s = measure_unix_offset()
+
+    @property
+    def active(self) -> bool:
+        """Whether a span would reach any sink: the engine loop reads it
+        on every step and mints nothing while it is False."""
+        return bool(self._exporters or self._metrics or self._taps)
+
+    def calibrate_clock(self) -> None:
+        """Take the monotonic→Unix offset of ``start_unix`` anew."""
+        self.unix_offset_s = measure_unix_offset()
 
     # ------------------------- configuration ---------------------------
 
@@ -75,6 +111,7 @@ class SpanCollector:
             self.sample_salt = sample_salt
         if buffer_size is not None and buffer_size != self._ring.maxlen:
             self._ring = deque(self._ring, maxlen=max(1, buffer_size))
+        self.calibrate_clock()
         return self
 
     def add_exporter(self, exporter: Any) -> None:
@@ -155,13 +192,14 @@ class SpanCollector:
             trace_id = secrets.token_hex(16)
             span_id = secrets.token_hex(8)
             parent = parent_span_id
+        now = time.monotonic()
         return Span(
             name=name,
             trace_id=trace_id,
             span_id=span_id,
             parent_span_id=parent,
-            start_mono=time.monotonic(),
-            start_unix=time.time(),
+            start_mono=now,
+            start_unix=now + self.unix_offset_s,
             attrs=dict(attrs or {}),
             root=root,
             _collector=self,
@@ -180,18 +218,20 @@ class SpanCollector:
         status: str = "ok",
         status_detail: Optional[str] = None,
         root: bool = False,
+        buffered: bool = True,
     ) -> Span:
         """Record an already-elapsed window from explicit monotonic stamps —
         the engine hot path stamps floats per sequence and attributes the
         queue/prefill/decode windows once, after the stream ends, instead of
-        carrying live span objects per token."""
+        carrying live span objects per token. ``buffered=False`` keeps the
+        span out of the ring (the engine loop's spans)."""
         span = self.start_span(
             name, context, trace=trace, parent_span_id=parent_span_id,
             attrs=attrs, root=root,
         )
         span.start_mono = start_mono
-        # re-derive the wall anchor for the actual start moment
-        span.start_unix = time.time() - (time.monotonic() - start_mono)
+        span.start_unix = start_mono + self.unix_offset_s
+        span.buffered = buffered
         span.status = status
         span.status_detail = status_detail
         span.end(end_mono)
@@ -222,8 +262,24 @@ class SpanCollector:
 
     # ----------------------------- sinks -------------------------------
 
+    @contextmanager
+    def tap(self) -> Iterator[List[Span]]:
+        """A list that receives every unbuffered span that ends while the
+        block runs, sampled or not (a profile capture lays them over its
+        trace). An open tap is a sink: the engine loop mints its spans."""
+        got: List[Span] = []
+        self._taps.append(got)
+        try:
+            yield got
+        finally:
+            self._taps.remove(got)
+
     def on_end(self, span: Span) -> None:
-        self._ring.append(span)
+        if span.buffered:
+            self._ring.append(span)
+        else:
+            for tap in self._taps:
+                tap.append(span)
         for sink in self._metrics.values():
             sink.export(span)
         if not self._exporters:

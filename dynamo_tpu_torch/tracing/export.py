@@ -57,31 +57,14 @@ class JsonlSpanExporter:
 class MetricsSpanExporter:
     """Observes every span's duration into
     ``stage_latency_seconds{stage=<span name>}`` on a MetricsRegistry
-    (LATENCY_BUCKETS by default — same buckets as TTFT/ITL).
-
-    Flight-recorder attributes the engine stamps on decode spans (``mfu``,
-    ``goodput_tok_s``, ``padding_waste_ratio``) additionally surface as
-    ``stage_obs{stage,attr}`` gauges — the per-request view of the live
-    recorder, without a second instrumentation path."""
-
-    OBS_ATTRS = ("mfu", "goodput_tok_s", "padding_waste_ratio")
+    (LATENCY_BUCKETS by default — same buckets as TTFT/ITL)."""
 
     def __init__(self, registry, name: str = "stage_latency_seconds"):
         self._hist = registry.histogram(
             name, "per-stage latency attributed from trace spans", ["stage"]
-        )
-        self._g_obs = registry.gauge(
-            "stage_obs",
-            "flight-recorder attributes carried on stage spans "
-            "(last exported span wins)", ["stage", "attr"]
         )
 
     def export(self, span: Span) -> None:
         dur: Optional[float] = span.duration_s
         if dur is not None:
             self._hist.labels(stage=span.name).observe(max(dur, 0.0))
-        attrs = span.attrs or {}
-        for key in self.OBS_ATTRS:
-            val = attrs.get(key)
-            if isinstance(val, (int, float)):
-                self._g_obs.labels(stage=span.name, attr=key).set(val)

@@ -39,6 +39,9 @@ class Span:
     # process-local root (frontend request / worker ingress): the slow-dump
     # decision keys off roots, since only they see the full duration
     root: bool = False
+    # False for the engine loop's spans, which stay out of the collector's
+    # ring (the slow-request dump reads it) and reach profile taps instead
+    buffered: bool = field(default=True, repr=False, compare=False)
     # back-reference so span.end() reports to the collector that minted it;
     # excluded from equality/repr — it is plumbing, not data
     _collector: Any = field(default=None, repr=False, compare=False)
