@@ -36,7 +36,16 @@ Phases (any failure exits non-zero and prints no result line):
    quantized runs print their probe's divergence from the bf16 logits.
    ``[graph]`` lines hold each decode graph phase 3 replays (buckets 8 and
    16, greedy and stochastic) against the eager window on identical clones
-   of cache and ctl: samples and ctl must be bitwise equal. Then a bf16
+   of cache and ctl: samples and ctl must be bitwise equal. ``[pgraph]``
+   lines hold the packed prefill's graphs on a Mistral- and a
+   Mixtral-shaped two-layer engine (block tables of 8,192 positions,
+   buckets 16 to 2,048): every bucket's replay at the widest table against
+   the eager chunk at its own width, a first and a mid-prompt chunk, two
+   buckets sampling too (tokens and ring token equal; the KV's largest
+   difference printed), the engine's streams with and without the graphs
+   (equal, two chunks of one bucket in one batch, every chunk a replay, one
+   ragged launch per layer per chunk), each capture's time and the pool,
+   and a ``/debug/profile`` capture while prefill graphs replay. Then a bf16
    ``spec_mode="ngram"`` engine (k=4, n-gram 1..3, the same weights) serves
    16 greedy requests whose prompts repeat a seeded 64-token segment 8
    times (ISL 512, OSL 64), and the bf16 engine serves them at depths 1 and
@@ -1345,6 +1354,218 @@ def phase_graph(engine, card: str) -> None:
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
 
 
+# --------------------- phase 3: packed prefill graphs ---------------------
+
+# two-layer engines at the benchmark's attention and engine shapes
+# (portbench/configs/: Mistral-7B-v0.3's 32 / 8 heads of 128, vocabulary and
+# rope; Mixtral-8x7B's 8 experts, top 2, no drop), narrow elsewhere
+PGRAPH_MODEL = dict(vocab_size=32768, hidden_size=1024,
+                    intermediate_size=3584, num_layers=2, num_heads=32,
+                    num_kv_heads=8, head_dim=128, max_position=8192,
+                    rope_theta=1e6, rms_norm_eps=1e-5, dtype="bfloat16")
+PGRAPH_SHAPES = {
+    "mistral-shaped": {},
+    "mixtral-shaped": dict(num_experts=8, num_experts_per_token=2,
+                           moe_capacity_factor=4.0),
+}
+PGRAPH_ENGINE = dict(num_blocks=1024, max_num_seqs=8,
+                     max_num_batched_tokens=2048, max_model_len=8192,
+                     decode_buckets=(8,), prefill_buckets=(
+                         16, 32, 64, 128, 256, 512, 1024, 2048),
+                     enable_prefix_caching=False)
+PGRAPH_CONTEXT = 1000       # a mid-prompt chunk's context, ending mid-block
+PGRAPH_STOCHASTIC = (16, 2048)   # buckets also checked sampling
+PGRAPH_BATCH = (700, 900, 3000)  # two 1,024-token chunks in one batch
+PGRAPH_PROFILE = (1500,) * 8     # prompts served under /debug/profile
+
+
+def prefill_graph_cases(engine, card: str, tag: str) -> None:
+    """Every prefill bucket's graph against the eager chunk at its own
+    table width, on the engine's state and its clone: a first chunk
+    (greedy) and one after ``PGRAPH_CONTEXT`` tokens (greedy; sampling too
+    for ``PGRAPH_STOCHASTIC``, whose graphs are captured at this first
+    call). Tokens and the ring token must be equal; the KV is printed
+    as its largest difference and whether it is bitwise equal."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import model as model_lib
+
+    graphs = engine._prefill_graphs
+    cfg, eng, dev = engine.model_config, engine.config, engine.device
+    bs, W = eng.block_size, graphs.W
+    rng = np.random.default_rng(SEED)
+    table = rng.permutation(np.arange(1, eng.num_blocks))[:W].astype(
+        np.int32)
+    prompt = rng.integers(1, cfg.vocab_size, PGRAPH_CONTEXT + 2048).astype(
+        np.int32)
+    last_tok = engine._ctl["last_tok"]
+    slot = 3
+
+    def pint_of(T, width, start, n, temp):
+        pint = np.zeros((1, T + width + model_lib.PP_SCALARS), np.int32)
+        pint[0, :n] = prompt[start:start + n]
+        nb = -(-(start + n) // bs)
+        pint[0, T:T + nb] = table[:nb]
+        pint[0, T + width:] = (n, start, slot, 1, 40, 7,
+                               int(round(temp * model_lib.PP_QUANT)),
+                               int(0.9 * model_lib.PP_QUANT))
+        return torch.from_numpy(pint)
+
+    def bits(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    # the context of the mid-prompt chunks, into the engine's cache
+    Tc = 1024
+    ctx_fn = model_lib.raw_packed_prefill_fn(cfg, eng, Tc, -(-Tc // bs))
+    ctx_fn(engine.params, engine.cache, last_tok,
+           pint_of(Tc, -(-Tc // bs), 0, PGRAPH_CONTEXT, 0.0).to(dev),
+           torch.tensor(1, device=dev), False)
+    worst, all_bitwise = 0.0, True
+    for T in eng.prefill_buckets:
+        cases = [(0, T - 3, False), (PGRAPH_CONTEXT, T // 2 + 5, False)]
+        if T in PGRAPH_STOCHASTIC:
+            cases.append((PGRAPH_CONTEXT, T // 2 + 5, True))
+        for start, n, stochastic in cases:
+            narrow = min(W, 1 << (-(-(start + n) // bs) - 1).bit_length())
+            temp = 0.8 if stochastic else 0.0
+            key = torch.tensor(977 + T + start, dtype=torch.int64,
+                               device=dev)
+            cache_e = {k: [t.clone() for t in v]
+                       for k, v in engine.cache.items()}
+            lt_e = last_tok.clone()
+            _, _, want = model_lib.raw_packed_prefill_fn(
+                cfg, eng, T, narrow)(engine.params, cache_e, lt_e,
+                                     pint_of(T, narrow, start, n,
+                                             temp).to(dev), key, stochastic)
+            launched = graphs.replays
+            _, _, got = graphs(engine.params, engine.cache, last_tok,
+                               graphs.load(pint_of(T, W, start, n, temp)),
+                               key, stochastic)
+            torch.cuda.synchronize()
+            same = torch.equal(want, got) and torch.equal(lt_e, last_tok)
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for key_ in cache_e
+                       for a, b in zip(cache_e[key_], engine.cache[key_]))
+            bitwise = all(torch.equal(bits(a), bits(b)) for key_ in cache_e
+                          for a, b in zip(cache_e[key_],
+                                          engine.cache[key_]))
+            worst, all_bitwise = max(worst, diff), all_bitwise and bitwise
+            print(f"[pgraph] {tag}: T={T} W={narrow}->{W} start {start} "
+                  f"n {n} {'stochastic' if stochastic else 'greedy'}: "
+                  f"token {int(got[0])} vs eager {int(want[0])}, equal "
+                  f"{same}; KV max |diff| {diff:.3e} (bitwise {bitwise}); "
+                  f"replays {graphs.replays - launched}", flush=True)
+            if not same or graphs.replays != launched + 1:
+                fail(f"[pgraph] {tag}: the T={T} graph's chunk (start "
+                     f"{start}, stochastic {stochastic}) disagrees with "
+                     "the eager chunk")
+    caps = ", ".join(f"{T}{'s' if st else ''} {sec * 1e3:.1f}"
+                     for (T, st), sec in sorted(graphs.capture_s.items()))
+    print(f"[pgraph] {tag} {card}: every bucket's tokens equal the eager "
+          f"chunk's; KV max |diff| {worst:.3e} (all bitwise "
+          f"{all_bitwise}); captures (T, ms): {caps}; "
+          f"{len(graphs.capture_s)} prefill + "
+          f"{len(engine._ap_window_fn.capture_s)} decode graphs in one pool "
+          f"of {graphs.pool.bytes() / 2**20:.1f} MiB", flush=True)
+
+
+def prefill_graph_serving(engine, card: str, tag: str) -> None:
+    """``PGRAPH_BATCH`` served greedily with the prefill graphs and with
+    eager chunks (the engine's own, at their own widths): the streams must
+    be equal, one batch must carry two chunks of one bucket, every chunk of
+    the graphed run must be a replay and the ragged launches must count
+    one per layer per chunk."""
+    import torch
+
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    prompts = [torch.randint(1, engine.model_config.vocab_size, (n,),
+                             generator=gen).tolist() for n in PGRAPH_BATCH]
+    buckets = []
+    dispatch = engine._dispatch_batch
+
+    def watched(batch):
+        buckets.append([engine._prefill_bucket(c, False)
+                        for c in batch.prefills])
+        return dispatch(batch)
+
+    graphs, engine._prefill_graphs = engine._prefill_graphs, None
+    want = serve_batch(engine, prompts, 16, warm_up=False)[0]
+    engine._prefill_graphs = graphs
+    d0, r0 = engine.num_prefill_dispatches, engine.num_prefill_graph_replays
+    before = dict(pa.LAUNCHES)
+    engine._dispatch_batch = watched
+    try:
+        got, stamps, wall, _ = serve_batch(engine, prompts, 16,
+                                           warm_up=False)
+    finally:
+        del engine._dispatch_batch
+    chunks = engine.num_prefill_dispatches - d0
+    replays = engine.num_prefill_graph_replays - r0
+    ragged = pa.LAUNCHES["paged_attention_ragged"] - before[
+        "paged_attention_ragged"]
+    pair = any(len(b) != len(set(b)) for b in buckets)
+    ttft = [(t[0] - sub) * 1e3 for sub, t in stamps]
+    print(f"[pgraph] {tag} {card}: {len(prompts)} requests, {chunks} chunks "
+          f"in batches of buckets {[b for b in buckets if b]}: streams "
+          f"equal the eager chunks' {got == want}, two chunks of one "
+          f"bucket in a batch {pair}, replays {replays}, ragged launches "
+          f"{ragged} ({engine.model_config.num_layers} per chunk: "
+          f"{engine.model_config.num_layers * chunks}); TTFT "
+          f"{', '.join(f'{x:.1f}' for x in ttft)} ms, wall {wall:.2f} s",
+          flush=True)
+    if got != want or not pair or replays != chunks or \
+            ragged != engine.model_config.num_layers * chunks:
+        fail(f"[pgraph] {tag}: served chunks disagree with the eager ones "
+             "or were not all replays")
+
+
+def phase_prefill_graph(card: str) -> None:
+    """[pgraph]: the packed prefill's CUDA graphs (``engine/model.py``
+    ``PrefillGraphs``) on a Mistral- and a Mixtral-shaped engine
+    (``PGRAPH_*``): each bucket's replay against the eager chunk
+    (:func:`prefill_graph_cases`), the engine's streams with and without
+    them and their launch counts (:func:`prefill_graph_serving`), and a
+    ``/debug/profile`` capture while prefill graphs replay (the launch
+    gate; phase 14's check)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import (
+        EngineConfig, InferenceEngine, ModelConfig,
+    )
+
+    for tag, extra in PGRAPH_SHAPES.items():
+        t0 = time.perf_counter()
+        engine = InferenceEngine(ModelConfig(**PGRAPH_MODEL, **extra),
+                                 EngineConfig(**PGRAPH_ENGINE), seed=SEED,
+                                 device=DEV)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        graphs = engine._prefill_graphs
+        if graphs is None:
+            fail(f"[pgraph] {tag}: the engine built no prefill graphs")
+        print(f"[pgraph] {tag} {card}: engine built in {build_s:.2f} s, "
+              f"prefill captures {sum(graphs.capture_s.values()):.2f} s "
+              f"for buckets {sorted(T for T, _ in graphs.capture_s)}",
+              flush=True)
+        del graphs
+        prefill_graph_cases(engine, card, tag)
+        prefill_graph_serving(engine, card, tag)
+        gen = torch.Generator().manual_seed(SEED + 6)
+        replays = engine.num_prefill_graph_replays
+        phase_debug_profile(card, engine, prompts=[
+            torch.randint(1, engine.model_config.vocab_size, (n,),
+                          generator=gen).tolist() for n in PGRAPH_PROFILE],
+            osl=16, tag=f"[pgraph] {tag}")
+        print(f"[pgraph] {tag}: {engine.num_prefill_graph_replays - replays} "
+              "prefill replays during the profiled traffic", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ------------------------- phase 3: spec decode ---------------------------
 
 SPEC_K, SPEC_NGRAM = 4, (1, 3)
@@ -1453,9 +1674,10 @@ def serve_batch(engine, prompts, max_tokens, after_warmup=None,
 
 def tapped_run(engine, prompts, osl: int = OSL, router_gaps=None):
     """Serve ``prompts`` through the non-spec ``engine`` at depth 1 with its
-    decode windows run eagerly (bitwise their graphs, as ``[graph]``
-    checks), recording the top-PARITY_TOPK logits of each request's final
-    prefill chunk (output index 0) and of each decode window per seat.
+    decode windows and prefill chunks run eagerly (bitwise their graphs, as
+    ``[graph]`` and ``[pgraph]`` check), recording the top-PARITY_TOPK
+    logits of each request's final prefill chunk (output index 0) and of
+    each decode window per seat.
     Returns (streams, {(request, output index): (token ids, logits)}).
     With a dict ``router_gaps`` (an MoE engine) it also records, under the
     same keys, the smallest gap over the layers between the router logits
@@ -1515,6 +1737,7 @@ def tapped_run(engine, prompts, osl: int = OSL, router_gaps=None):
 
     engine.pipeline_depth = 1
     engine._ap_window_fn.graphed = False
+    prefill_graphs, engine._prefill_graphs = engine._prefill_graphs, None
     model_lib.logits_fn = tap
     if router_gaps is not None:
         model_lib.moe_ffn = moe_tap
@@ -1526,6 +1749,7 @@ def tapped_run(engine, prompts, osl: int = OSL, router_gaps=None):
         model_lib.moe_ffn = moe_ffn
         del engine._unpack_results
         engine._ap_window_fn.graphed = True
+        engine._prefill_graphs = prefill_graphs
         engine.pipeline_depth = DEPTHS[0]
     return outs, rec
 
@@ -6267,13 +6491,14 @@ FACE_KERNELS = ("ragged_paged_attention_mma_kernel",
                 "paged_attention_decode_split_kernel")
 
 
-def phase_debug_profile(card: str, engine) -> None:
+def phase_debug_profile(card: str, engine, prompts=None, osl: int = OSL,
+                        tag: str = "[profile]") -> None:
     """[profile]: a system server (``runtime/system_server.py``, what a
     worker runs with ``DYNTPU_SYSTEM_ENABLED``) beside phase 3's engine
-    while it serves phase 3's traffic: ``GET /debug/profile?ms=500``, sent
-    0.1 s before the traffic starts, must answer 200 with a Chrome trace
-    that names both faces' kernels, and a second request during the
-    capture 409."""
+    while it serves phase 3's traffic (or ``prompts``, ``osl`` tokens
+    each): ``GET /debug/profile?ms=500``, sent 0.1 s before the traffic
+    starts, must answer 200 with a Chrome trace that names both faces'
+    kernels, and a second request during the capture 409."""
     import asyncio
     import urllib.error
     import urllib.request
@@ -6281,7 +6506,8 @@ def phase_debug_profile(card: str, engine) -> None:
     from dynamo_tpu_torch.runtime.context import Context
     from dynamo_tpu_torch.runtime.system_server import SystemServer
 
-    prompts = main_prompts(engine.model_config.vocab_size)
+    if prompts is None:
+        prompts = main_prompts(engine.model_config.vocab_size)
     trace_dir = os.path.join("build", "profiles")
 
     def get(port, ms):
@@ -6295,7 +6521,7 @@ def phase_debug_profile(card: str, engine) -> None:
 
     async def one(p):
         out = []
-        async for o in engine.generate({"token_ids": p, "max_tokens": OSL,
+        async for o in engine.generate({"token_ids": p, "max_tokens": osl,
                                         "temperature": 0.0}, Context()):
             out.extend(o["token_ids"])
         return out
@@ -6324,22 +6550,23 @@ def phase_debug_profile(card: str, engine) -> None:
     with watchdog(PROFILE_WATCHDOG_S):
         (s1, body), (s2, busy), outs = asyncio.run(run())
     if s1 != 200 or s2 != 409:
-        fail(f"[profile] /debug/profile answered {s1} then {s2} "
+        fail(f"{tag} /debug/profile answered {s1} then {s2} "
              f"(want 200, then 409 during the capture): {body} {busy}")
     with open(body["trace_file"]) as f:
         text = f.read()
     found = {k: text.count(k) for k in FACE_KERNELS}
-    print(f"[profile] {card}: /debug/profile?ms={PROFILE_MS} during phase "
-          f"3's traffic: 200 in {time.perf_counter() - t0:.2f} s (captured "
+    print(f"{tag} {card}: /debug/profile?ms={PROFILE_MS} during "
+          f"{len(prompts)} requests' traffic: 200 in "
+          f"{time.perf_counter() - t0:.2f} s (captured "
           f"{body['captured_ms']} ms, activities {body['activities']}), "
           f"{os.path.getsize(body['trace_file']) / 2**20:.1f} MiB trace "
           f"{body['trace_file']}; a second request during it: {s2} "
           f"({busy['error']}); kernel names in the trace: {found}",
           flush=True)
     if not all(found.values()):
-        fail(f"[profile] the trace does not name both faces: {found}")
-    if any(len(o) != OSL for o in outs):
-        fail("[profile] a stream served during the capture came up short")
+        fail(f"{tag} the trace does not name both faces: {found}")
+    if any(len(o) != osl for o in outs):
+        fail(f"{tag} a stream served during the capture came up short")
 
 
 # --------------------------- phase 15: embeddings --------------------------
@@ -9593,6 +9820,8 @@ def main() -> None:
     launches, engine, ref_logits, direct = phase_engine(card)
     phase_graph(engine, card)
     timer("3 engine bf16 + graph check")
+    phase_prefill_graph(card)
+    timer("3 prefill graphs")
     spec_engine, spec = phase_spec(card, engine)
     phase_spec_graph(spec_engine, card)
     del spec_engine

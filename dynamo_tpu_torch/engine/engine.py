@@ -13,7 +13,10 @@ the run-ahead loop dispatches window N+1 while window N's tokens are still
 on their way to the host — decode input tokens ride the device token ring,
 so no dispatch waits on a fetch — and a fetch thread waits on each window's
 CUDA event; at 1 the synchronous loop. On a card each decode window is a
-CUDA graph replay (``model.AutopilotWindow``). Speculative decoding
+CUDA graph replay (``model.AutopilotWindow``), and so is each packed
+prefill chunk that ``model.prefill_graphed`` takes (``model.PrefillGraphs``:
+one graph per prefill bucket and sampling mode, at the widest block table;
+multimodal, sp and einsum-route chunks run eager). Speculative decoding
 (``spec_mode="ngram"``) is the JAX engine's: it forces the synchronous loop
 and replaces each decode window with a draft + verify window (a graph
 replay too), with acceptance accounting, auto-disable and the pressure
@@ -21,7 +24,7 @@ ladder's rung-2 pause. The stall watchdog, the HBM-pressure ladder, the
 flight recorder (``observability``) and the engine's stage spans are the
 JAX engine's too, and so are its tuning and instruments: attention
 autotune at construction (``engine/autotune.py``; ``attention_impl_choice``),
-adaptive bucket ladders (``engine/ladder.py``; a new decode rung is a graph
+adaptive bucket ladders (``engine/ladder.py``; a new rung is a graph
 captured at its first call) and the graph-capture watch
 (``observability/compilewatch.py``) in the obs snapshot.
 
@@ -185,8 +188,8 @@ class _LoopStamps:
     t_schedule: float
     t_scheduled: float
     after_idle: bool          # the loop waited on _wake for work before it
-    # (start, end, tokens, bucket) of each prefill chunk's enqueue
-    prefills: List[Tuple[float, float, int, int]] = field(
+    # (start, end, tokens, bucket, graphed) of each prefill chunk's enqueue
+    prefills: List[Tuple[float, float, int, int, bool]] = field(
         default_factory=list)
     decode: Optional[Tuple[float, float]] = None
     t_enqueue: float = 0.0    # the batch's first enqueue
@@ -824,9 +827,9 @@ class EngineCore(AsyncEngine):
         if gap is not None:
             child("engine.device_gap", st.t_enqueue - gap / 1e3, st.t_enqueue,
                   {"prev_prefill_tokens": st.prev_prefill_tokens})
-        for t0, t1, tokens, bucket in st.prefills:
+        for t0, t1, tokens, bucket, graphed in st.prefills:
             child("engine.enqueue_prefill", t0, t1,
-                  {"tokens": tokens, "bucket": bucket})
+                  {"tokens": tokens, "bucket": bucket, "graphed": graphed})
         if st.decode is not None:
             child("engine.enqueue_decode", *st.decode)
         if st.t_ready:
@@ -1634,6 +1637,7 @@ class InferenceEngine(EngineCore):
         # dispatch counters
         self.num_windows = 0
         self.num_prefill_dispatches = 0
+        self.num_prefill_graph_replays = 0  # of them, CUDA graph replays
         self.num_mm_prefills = 0
         self.num_einsum_rebuilds = 0
         # host mirror of per-slot device state + seat map
@@ -1710,10 +1714,19 @@ class InferenceEngine(EngineCore):
         self._fetcher = _BatchingFetcher(
             self._unpack_results, on_sync=self._count_fetch_sync
         )
+        # packed prefill chunks replay CUDA graphs where the decode windows
+        # do, in their pool (model_lib.prefill_graphed says which chunks)
+        self._prefill_graphs: Optional[model_lib.PrefillGraphs] = None
         if self._ap_window_fn is not None and self._ap_window_fn.graphed:
-            # every decode (and spec) graph, before the loop starts
+            # every decode (and spec) graph, then every prefill bucket's
+            # greedy graph, before the loop starts
             self._ap_window_fn.capture_all(
                 self.params, self.cache, self._ctl, engine_config.decode_buckets)
+            self._prefill_graphs = model_lib.PrefillGraphs(
+                model_config, engine_config, self._ap_window_fn.pool)
+            self._prefill_graphs.capture_all(
+                self.params, self.cache, self._ctl["last_tok"],
+                self._prefill_graph_buckets())
 
     def _shutdown_executor(self) -> None:
         if self._executor is not None:
@@ -2331,23 +2344,36 @@ class InferenceEngine(EngineCore):
                 return
         super()._quarantine_shape(cls)
 
-    def _prefill_arrays(self, chunk: PrefillChunk, use_sp: bool = False):
+    def _prefill_graph_buckets(self) -> List[int]:
+        """The prefill buckets whose greedy graphs are captured at
+        construction: those a chunk under the token budget can take, on
+        the graphs' route."""
+        cfg = self.config
+        top = _bucket(cfg.max_num_batched_tokens, cfg.prefill_buckets)
+        return [T for T in cfg.prefill_buckets if T <= top
+                and model_lib.prefill_graphed(cfg, self.device, T)]
+
+    def _prefill_bucket(self, chunk: PrefillChunk, use_sp: bool) -> int:
+        if chunk.length <= max(self.config.prefill_buckets) and not use_sp:
+            return self._bucket_for("prefill", chunk.length)
+        # sp full-prompt chunks (and any oversized chunk) bucket to the
+        # next power of two, which a power-of-two seq column (dp * fsdp
+        # ranks) always divides
+        return max(_pow2_bucket(chunk.length),
+                   self.mesh.seq_group.size if use_sp else 1)
+
+    def _prefill_arrays(self, chunk: PrefillChunk, T: int,
+                        wide: bool = False):
         cfg = self.config
         seq = chunk.seq
-        if chunk.length <= max(cfg.prefill_buckets) and not use_sp:
-            T = self._bucket_for("prefill", chunk.length)
-        else:
-            # sp full-prompt chunks (and any oversized chunk) bucket to the
-            # next power of two, which a power-of-two seq column (dp *
-            # fsdp ranks) always divides
-            T = max(_pow2_bucket(chunk.length),
-                    self.mesh.seq_group.size if use_sp else 1)
         # only the blocks this chunk can touch: W is a function of the
-        # chunk shape alone
+        # chunk shape alone; ``wide`` (a graphed chunk) pads the table to
+        # the widest, where the kernel reads no more than it would
         bs = cfg.block_size
         nb = min((chunk.start + chunk.length + bs - 1) // bs,
                  len(seq.block_table))
-        W = _pow2_bucket(nb, cfg.max_blocks_per_seq)
+        W = (cfg.max_blocks_per_seq if wide
+             else _pow2_bucket(nb, cfg.max_blocks_per_seq))
         tokens = np.zeros((T,), np.int32)
         tokens[:chunk.length] = seq.all_tokens()[
             chunk.start:chunk.start + chunk.length
@@ -2361,8 +2387,11 @@ class InferenceEngine(EngineCore):
                           stamps: Optional[_LoopStamps] = None):
         """Enqueue one prefill chunk; returns the sampled handle [1]
         (garbage unless ``chunk.final``). Every int input rides ONE
-        host→device copy. No host sync. ``stamps`` gets the chunk's
-        enqueue, from its first host work to its last launch's return."""
+        host→device copy. No host sync. On a card a chunk that
+        ``model_lib.prefill_graphed`` takes replays its T's graph at the
+        widest table (``num_prefill_graph_replays``); others run their
+        eager function. ``stamps`` gets the chunk's enqueue, from its first
+        host work to its last launch's return, and whether it replayed."""
         t0 = time.monotonic() if stamps is not None else 0.0
         cfg = self.config
         seq = chunk.seq
@@ -2373,13 +2402,17 @@ class InferenceEngine(EngineCore):
             and chunk.length >= cfg.sp_prefill_threshold
             and not seq.mm_positions  # the sp path has no mm splicing
         )
-        tokens, tables = self._prefill_arrays(chunk, use_sp)
-        T, W = tokens.shape[0], tables.shape[0]
-        self._obs_prefill(chunk, T, obs_out)
         mm_rows = self._mm_chunk_rows(chunk)
         mm = bool(mm_rows)
-        fn = self._sp_prefill_fn(T, W) if use_sp else self._prefill_fn(
-            T, W, mm)
+        T = self._prefill_bucket(chunk, use_sp)
+        graphed = self._prefill_graphs is not None and \
+            model_lib.prefill_graphed(cfg, self.device, T, mm, use_sp)
+        tokens, tables = self._prefill_arrays(chunk, T, wide=graphed)
+        W = tables.shape[0]
+        self._obs_prefill(chunk, T, obs_out)
+        fn = (self._prefill_graphs if graphed
+              else self._sp_prefill_fn(T, W) if use_sp
+              else self._prefill_fn(T, W, mm))
         slot = seq.slot if seq.slot >= 0 else cfg.max_num_seqs
         M = T + W + model_lib.PP_SCALARS
         pint = np.zeros((1, M + (T if mm else 0)), np.int32)
@@ -2419,10 +2452,13 @@ class InferenceEngine(EngineCore):
         # read them at their captured addresses)
         self.cache, _, sampled = fn(
             self.params, self.cache, self._ctl["last_tok"],
-            self._upload(pint), self._next_key(), stochastic, *extra,
+            (self._prefill_graphs.load(torch.from_numpy(pint)) if graphed
+             else self._upload(pint)), self._next_key(), stochastic, *extra,
         )
+        self.num_prefill_graph_replays += int(graphed)
         if stamps is not None:
-            stamps.prefills.append((t0, time.monotonic(), chunk.length, T))
+            stamps.prefills.append((t0, time.monotonic(), chunk.length, T,
+                                    graphed))
         return sampled
 
     @staticmethod
@@ -2645,8 +2681,8 @@ class InferenceEngine(EngineCore):
         Waits for the token: the synchronous loop's one sync per step."""
         seq = chunk.seq
         self.num_prefill_dispatches += 1
-        tokens, tables = self._prefill_arrays(chunk)
-        T = tokens.shape[0]
+        T = self._prefill_bucket(chunk, False)
+        tokens, tables = self._prefill_arrays(chunk, T)
         self._obs_prefill(chunk, T, obs_out)
         positions = np.full((1, T), -1, np.int32)
         positions[0, :chunk.length] = np.arange(

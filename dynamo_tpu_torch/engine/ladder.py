@@ -1,11 +1,13 @@
 """Waste-driven adaptive bucket ladders.
 
 A copy of ``dynamo_tpu.engine.ladder`` (pure host bookkeeping). In this
-package a new decode rung costs one CUDA graph capture per sampling mode
-(greedy, stochastic) and window kind that meets it, made at the rung's
-first call (``engine/model.py`` ``AutopilotWindow``) and counted by
-``observability/compilewatch.py``; a new prefill rung costs no capture
-(prefill chunks run eagerly). One change from the copy: a split or retire
+package a new rung costs, on a card, one CUDA graph capture per sampling
+mode (greedy, stochastic) and window kind that meets it, made at the
+rung's first call (``engine/model.py`` ``AutopilotWindow`` for a decode
+rung, ``PrefillGraphs`` for a prefill rung) and counted by
+``observability/compilewatch.py``; on the CPU a new decode rung's first
+call is counted, and a prefill rung costs nothing (its chunks run
+eagerly). One change from the copy: a split or retire
 binds a new rung list instead of editing the old one in place, because here
 the ladder adapts on the fetch thread while the device-step thread and the
 scheduler read the grid.

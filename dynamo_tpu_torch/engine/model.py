@@ -28,6 +28,10 @@ buffers:
   from :func:`make_autopilot_fns`): one graph per (decode bucket,
   stochastic), captured once over the eager window and replayed — the
   counterpart of the JAX package's one jitted executable per bucket.
+  **Packed prefill chunks** replay theirs too (:class:`PrefillGraphs`):
+  one graph per (prefill bucket, stochastic) at the widest table, in the
+  same pool (:class:`GraphPool`), for the chunks :func:`prefill_graphed`
+  sends there.
 - **Speculative decoding** (``spec_mode="ngram"``): the spec window drafts
   from a per-seat token history in ``ctl["hist"]`` (``spec/ngram.py``) and
   verifies ``[B, k+1]`` query rows in one forward through the kernel's
@@ -1496,6 +1500,62 @@ def _window_key(kind: str, B: int, stochastic: bool) -> str:
     return f"{kind}_window:B={B}:stochastic={int(stochastic)}"
 
 
+def graphs_apply(eng: EngineConfig, device: torch.device) -> bool:
+    """Whether the engine's decode windows and packed prefill chunks replay
+    CUDA graphs: on a card, on a mesh of one rank. On a mesh of more they
+    run eager: a gloo collective cannot be captured, capture with NCCL
+    inside waits for a machine with two cards to be tested on, and a (dp,
+    1) window (no collective) is kept eager too until a card shows its
+    replay on every rank."""
+    return device.type == "cuda" and mesh_ranks(eng) == 1
+
+
+class GraphPool:
+    """The memory pool and capture stream that a set of CUDA graphs share:
+    the engine's decode and spec windows and its prefill chunks. Their
+    replays run one at a time on one stream, so a graph captured later may
+    reuse what an earlier one freed during its capture; each graph's output
+    stays referenced by its owner, so no capture takes it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.handle = None
+        self.stream: Optional[torch.cuda.Stream] = None
+
+    def capture(self, warm_up, body):
+        """Run ``warm_up()`` once eagerly on the capture stream, so what a
+        first call allocates (the decode kernel's arrival counters and
+        occupancy query, cuBLAS's workspace) lives outside the pool; then
+        capture ``body()`` into the pool in the ``"thread_local"`` error
+        mode, which lets other threads make CUDA calls during it, with the
+        garbage collector paused (:func:`gc_paused`). Returns ``(graph,
+        what body returned, held)``, ``held`` being the paged-attention
+        launches the graph holds (``ops.paged_attention.take_recorded``)."""
+        if self.handle is None:
+            self.handle = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+        s = self.stream
+        s.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(s):
+            warm_up()
+        pa.take_recorded()
+        graph = torch.cuda.CUDAGraph()
+        with gc_paused(), torch.cuda.graph(
+                graph, pool=self.handle, stream=s,
+                capture_error_mode="thread_local"):
+            out = body()
+        torch.cuda.current_stream(self.device).wait_stream(s)
+        return graph, out, pa.take_recorded()
+
+    def bytes(self) -> int:
+        """Device bytes of the segments in the pool."""
+        if self.handle is None:
+            return 0
+        pool = tuple(self.handle)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 class AutopilotWindow:
     """The engine's decode window, and with ``spec_k`` > 0 its spec window
     too. On a CUDA device: one ``torch.cuda.CUDAGraph`` per ``(kind, decode
@@ -1524,22 +1584,19 @@ class AutopilotWindow:
       pool, and the next replay of the same graph overwrites it: the caller
       copies it out on the same stream before it dispatches another window.
     - *Warm-up.* Before its capture each graph's window runs once eagerly
-      on the capture stream, over the trash slot only (it writes the trash
-      slot, the trash block and the history's trash cell; the step counter
-      it advances is put back), so what a first call allocates — the decode
-      kernel's arrival counters and occupancy query, cuBLAS's workspace —
-      lives outside the pool. :meth:`capture_all` takes the largest bucket
-      first, so the counters never grow after a capture
+      on the capture stream (:meth:`GraphPool.capture`), over the trash
+      slot only (it writes the trash slot, the trash block and the
+      history's trash cell; the step counter it advances is put back).
+      :meth:`capture_all` takes the largest bucket first, so the decode
+      kernel's arrival counters never grow after a capture
       (``ops/paged_attention.py`` raises if they would grow during one).
-    - *One pool.* All graphs share one memory pool: replays run one at a
-      time on one stream, and every graph's output stays referenced here.
+    - *One pool.* All graphs share one :class:`GraphPool` (``pool``), which
+      the engine's :class:`PrefillGraphs` share too.
     - *Threads.* The engine captures every graph at construction, before
       its loop starts. A window built later (the stall watchdog's einsum
       rebuild) captures at its first call, on the device-step thread, while
-      the fetch thread may be waiting on a CUDA event: so every capture
-      runs in the ``"thread_local"`` error mode, which lets other threads
-      make CUDA calls during it, with the garbage collector paused
-      (:func:`gc_paused`).
+      the fetch thread may be waiting on a CUDA event: hence the capture's
+      ``"thread_local"`` error mode and paused garbage collector.
     - *Launch counts.* A replay never calls the kernel wrappers. A capture
       records the paged-attention launches it holds
       (``ops.paged_attention.take_recorded``) and each replay adds them to
@@ -1560,19 +1617,13 @@ class AutopilotWindow:
             raw_spec_window_fn(cfg, eng, spec_k, eng.spec_ngram_min,
                                eng.spec_ngram_max) if spec_k > 0 else None)
         self.device = device
-        # on a mesh of more than one rank the window runs eager: a gloo
-        # collective cannot be captured, capture with NCCL inside waits
-        # for a machine with two cards to be tested on, and a (dp, 1)
-        # window (no collective) is kept eager too until a card shows its
-        # replay on every rank
-        self.graphed = device.type == "cuda" and mesh_ranks(eng) == 1
+        self.graphed = graphs_apply(eng, device)
         self.trash = eng.max_num_seqs       # ctl's trash slot S
         self._graphs: Dict[Tuple[str, int, bool],
                            Tuple[Any, torch.Tensor, Dict[str, int]]] = {}
         self._rows: Dict[int, torch.Tensor] = {}
         self._bound: Optional[Tuple[Any, Any, Any, Dict[str, Any]]] = None
-        self._pool = None
-        self._stream: Optional[torch.cuda.Stream] = None
+        self.pool = GraphPool(device)
         self.replays = 0
         self.spec_replays = 0
         self.capture_s: Dict[Tuple[str, int, bool], float] = {}
@@ -1628,25 +1679,17 @@ class AutopilotWindow:
         self._check_bound(params, cache, ctl)
         fn = self._fn(spec)
         t0 = time.perf_counter()
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
-        s = self._stream
         rows = self._rows_buffer(B)
-        s.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(s):
+
+        def warm_up():
             trash_rows = torch.full_like(rows, self.trash)
             ctr = ctl["ctr"].clone()
             fn(params, cache, ctl, trash_rows, stochastic)
             ctl["ctr"].copy_(ctr)
-        pa.take_recorded()
-        graph = torch.cuda.CUDAGraph()
-        with gc_paused(), torch.cuda.graph(
-                graph, pool=self._pool, stream=s,
-                capture_error_mode="thread_local"):
-            _, _, out = fn(params, cache, ctl, rows, stochastic)
-        torch.cuda.current_stream(self.device).wait_stream(s)
-        entry = (graph, out, pa.take_recorded())
+
+        graph, (_, _, out), held = self.pool.capture(
+            warm_up, lambda: fn(params, cache, ctl, rows, stochastic))
+        entry = (graph, out, held)
         key = ("spec" if spec else "decode", B, stochastic)
         self._graphs[key] = entry
         self.capture_s[key] = time.perf_counter() - t0
@@ -1656,11 +1699,7 @@ class AutopilotWindow:
 
     def pool_bytes(self) -> int:
         """Device bytes of the segments in the graphs' shared pool."""
-        if self._pool is None:
-            return 0
-        pool = tuple(self._pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        return self.pool.bytes()
 
     def __call__(self, params, cache, ctl, slot_rows: torch.Tensor,
                  stochastic: bool, spec: bool = False):
@@ -1697,6 +1736,150 @@ def make_autopilot_fns(cfg: ModelConfig, eng: EngineConfig, K: int,
     varies, and joins and block growth are rare)."""
     return (AutopilotWindow(cfg, eng, K, device, spec_k=spec_k),
             raw_ctl_delta_fn(Wcap))
+
+
+# ------------------------ packed prefill graphs ----------------------------
+
+
+def prefill_graphed(eng: EngineConfig, device: torch.device, T: int,
+                    mm: bool = False, sp: bool = False) -> bool:
+    """Whether a packed prefill chunk of ``T`` tokens replays a graph of
+    :class:`PrefillGraphs` (else it runs its eager function): on a card
+    and a one-rank mesh (:func:`graphs_apply`), a text chunk off the sp
+    path whose attention class resolves to the kernel. The kernel reads a
+    row's table only below its context (``ctx_len``), so its work does not
+    grow with the table's width and one graph per T at the widest table
+    does a narrow chunk's work; the einsum route gathers the whole table,
+    so it keeps its eager function per ``(T, W)``. A multimodal chunk
+    carries a second upload and stays eager, as does an sp chunk (its
+    mesh has more than one rank)."""
+    return (graphs_apply(eng, device) and not mm and not sp
+            and resolve_attention_impl(eng, attention_class(eng, T))
+            == "kernel")
+
+
+class PrefillGraphs:
+    """The packed prefill (:func:`raw_packed_prefill_fn`) of the chunks
+    :func:`prefill_graphed` takes: one ``torch.cuda.CUDAGraph`` per ``(T,
+    stochastic)`` at the widest table, ``W = max_blocks_per_seq``, replayed
+    in place of the eager chunk. Signature as the eager function's:
+    ``prefill(params, cache, last_tok, pint, key, stochastic) -> (cache,
+    last_tok, sampled[1])``, ``pint`` ``[1, T + W + PP_SCALARS]`` from
+    :meth:`load`. It keeps :class:`AutopilotWindow`'s rules and shares its
+    :class:`GraphPool`:
+
+    - *Static inputs.* Each T has one ``pint`` buffer, which :meth:`load`
+      fills with one copy from pinned memory on the stream; one key buffer
+      takes a copy of each chunk's step key. params, cache and ``last_tok``
+      are bound by identity and checked on every call.
+    - *Output.* ``sampled`` lives in the pool and the graph's next replay
+      overwrites it, and one batch may carry two chunks of one T: each
+      replay's sample is copied out on the stream right after it.
+    - *Warm-up.* Before its capture each graph's chunk runs once eagerly
+      with ``n = 0``: every position is -1, so its K/V go to the trash
+      block and its sample to the trash slot. :meth:`capture_all` takes the
+      largest T first.
+    - *Threads.* The engine captures the greedy graph of every prefill
+      bucket at construction, after the decode graphs; a stochastic graph,
+      or a rung the adaptive ladder adds, is captured at its first call on
+      the device-step thread, which holds the profiler's launch gate. Each
+      capture is counted by ``observability/compilewatch.py`` under
+      ``prefill:<T>:greedy|stochastic``.
+    - *Launch counts* and *no fallback* as the decode window's.
+    """
+
+    def __init__(self, cfg: ModelConfig, eng: EngineConfig, pool: GraphPool):
+        self.cfg, self.eng = cfg, eng
+        self.pool = pool
+        self.device = pool.device
+        self.W = eng.max_blocks_per_seq
+        self._fns: Dict[int, Any] = {}
+        self._graphs: Dict[Tuple[int, bool],
+                           Tuple[Any, torch.Tensor, Dict[str, int]]] = {}
+        self._pint: Dict[int, torch.Tensor] = {}
+        self._key: Optional[torch.Tensor] = None
+        self._bound: Optional[Tuple[Any, Any, Any]] = None
+        self.replays = 0
+        self.capture_s: Dict[Tuple[int, bool], float] = {}
+
+    def load(self, host: torch.Tensor) -> torch.Tensor:
+        """The device ``pint`` of a chunk packed on the host: its T's
+        static buffer, refilled from pinned memory on the stream (after
+        every call already dispatched)."""
+        buf = self._pint_buffer(host.shape[1] - self.W - PP_SCALARS)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        buf.copy_(host, non_blocking=True)
+        return buf
+
+    def _pint_buffer(self, T: int) -> torch.Tensor:
+        buf = self._pint.get(T)
+        if buf is None:
+            buf = torch.zeros((1, T + self.W + PP_SCALARS),
+                              dtype=torch.int32, device=self.device)
+            self._pint[T] = buf
+        return buf
+
+    def _check_bound(self, params, cache, last_tok) -> None:
+        if self._bound is None:
+            self._bound = (params, cache, last_tok)
+        bp, bc, bl = self._bound
+        if params is not bp or cache is not bc or last_tok is not bl:
+            raise RuntimeError(
+                "prefill graphs are bound to the params, cache and last_tok "
+                "tensors they were captured over; update those in place")
+
+    def _fn(self, T: int):
+        fn = self._fns.get(T)
+        if fn is None:
+            fn = self._fns[T] = raw_packed_prefill_fn(self.cfg, self.eng, T,
+                                                      self.W)
+        return fn
+
+    def capture_all(self, params, cache, last_tok, buckets) -> None:
+        """Capture the greedy graph of every T in ``buckets``, largest
+        first."""
+        for T in sorted(set(buckets), reverse=True):
+            self._capture(params, cache, last_tok, T, False)
+
+    def _capture(self, params, cache, last_tok, T: int, stochastic: bool):
+        self._check_bound(params, cache, last_tok)
+        fn = self._fn(T)
+        t0 = time.perf_counter()
+        pint = self._pint_buffer(T)
+        if self._key is None:
+            self._key = torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
+        key = self._key
+        graph, (_, _, sampled), held = self.pool.capture(
+            # n = 0: the trash block and the trash slot
+            lambda: fn(params, cache, last_tok, torch.zeros_like(pint), key,
+                       stochastic),
+            lambda: fn(params, cache, last_tok, pint, key, stochastic))
+        entry = (graph, sampled, held)
+        self._graphs[(T, stochastic)] = entry
+        self.capture_s[(T, stochastic)] = time.perf_counter() - t0
+        compilewatch.note(
+            f"prefill:{T}:{'stochastic' if stochastic else 'greedy'}",
+            self.capture_s[(T, stochastic)])
+        return entry
+
+    def __call__(self, params, cache, last_tok, pint: torch.Tensor,
+                 key: torch.Tensor, stochastic: bool):
+        T = pint.shape[1] - self.W - PP_SCALARS
+        entry = self._graphs.get((T, stochastic))
+        if entry is None:
+            entry = self._capture(params, cache, last_tok, T, stochastic)
+        self._check_bound(params, cache, last_tok)
+        buf = self._pint[T]
+        if pint is not buf:
+            buf.copy_(pint)
+        self._key.copy_(key)
+        graph, sampled, held = entry
+        graph.replay()
+        pa.count_replay(held)
+        self.replays += 1
+        return cache, last_tok, sampled.clone()
 
 
 # ------------------------ KV block transfer ops ---------------------------

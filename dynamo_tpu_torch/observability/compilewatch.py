@@ -10,6 +10,10 @@ makes a new program in this package is:
   (``"decode_window:B=8:stochastic=0"``). On the CPU, where windows run
   eagerly, the first call of a key counts in a capture's place, so the CPU
   tests see the keys a card would capture;
+- a **prefill graph capture** on a card (``engine/model.py``
+  ``PrefillGraphs._capture``), keyed ``"prefill:<T>:greedy"`` or
+  ``"prefill:<T>:stochastic"``; on the CPU prefill chunks run eagerly and
+  count nothing;
 - an **einsum rebuild** of the decode window by the stall watchdog
   (``engine/engine.py`` ``_quarantine_shape``), keyed
   ``"decode_window:einsum_rebuild"``.
