@@ -6,15 +6,16 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from types import ModuleType
+from typing import Any, List, Optional, Sequence, Tuple
 
-from . import flops
 from .trace import TraceSummary
 
 
 @dataclass
 class Readings:
-    shapes: flops.Shapes
+    shapes: Any                      # the architecture's shapes(config)
+    arch: ModuleType                 # arch/<model_type>.py: its counts
     peaks: Optional[dict]            # flops.card_peaks of the card, or None
     t0: float                        # the measured window, host monotonic
     t1: float
@@ -65,21 +66,8 @@ def mfu_pct(r: Readings) -> Optional[float]:
     recs = _in_window(r)
     if r.peaks is None or not recs:
         return None
-    work = sum(flops.step_flops(r.shapes, x.real_tokens, x.context_sum)
-               for x in recs)
+    work = sum(r.arch.step_flops(r.shapes, x) for x in recs)
     return 100.0 * work / ((r.t1 - r.t0) * r.peaks["bf16_flops"])
-
-
-def _launch_bound_s(r: Readings, rec) -> float:
-    """The least time one layer's attention launch of this step could
-    take: decode rows read their contexts, a prefill chunk its own."""
-    s = r.shapes
-    if rec.kind == "prefill":
-        n = rec.real_tokens
-        start = (rec.context_sum - n * (n + 1) // 2) // n
-        return flops.attn_bound_s(s, r.peaks, n, start + n, rec.context_sum)
-    return flops.attn_bound_s(s, r.peaks, rec.live_rows, rec.context_sum,
-                              rec.context_sum)
 
 
 def roofline_pct(r: Readings, face: str) -> Optional[float]:
@@ -92,7 +80,8 @@ def roofline_pct(r: Readings, face: str) -> Optional[float]:
             and r.trace.t_start <= x.t_dispatch <= r.trace.t_stop]
     if not recs:
         return None
-    bound = sum(_launch_bound_s(r, x) for x in recs) / len(recs)
+    bound = sum(r.arch.attn_bound_s(r.shapes, r.peaks, x)
+                for x in recs) / len(recs)
     total, n = r.trace.kernel_time[face]
     return 100.0 * bound / (total / n)
 

@@ -12,6 +12,7 @@ as wide (an expert layer, whose top-k choice flips at near-ties)
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import List, Sequence
 
 import numpy as np
@@ -53,11 +54,14 @@ def numbers(stats) -> dict:
     return {"max_logit_gap": stats["max"], "mean_logit_gap": stats["mean"]}
 
 
-def compare(params, cfg, picked: Sequence, control: bool = False):
-    """Gap statistics of the served tokens; with ``control`` also those of
+def compare(block: ModuleType, params, cfg, picked: Sequence,
+            control: bool = False):
+    """Gap statistics of the served tokens under the architecture's plain
+    block (``reference/<model_type>.py``); with ``control`` also those of
     the reference computed with float8 weights, at the same positions."""
     seqs = [(r.req.token_ids, r.tokens) for r in picked]
     if not control:
-        return gap_stats(served_logit_gaps(params, cfg, seqs)), None
-    gaps, low = served_logit_gaps(params, cfg, seqs, lowp=fp8_weights)
+        return gap_stats(served_logit_gaps(block, params, cfg, seqs)), None
+    gaps, low = served_logit_gaps(block, params, cfg, seqs,
+                                  lowp=fp8_weights)
     return gap_stats(gaps), gap_stats(low)

@@ -100,25 +100,6 @@ def main(argv=None) -> int:
 # --------------------------------------------------------------------------
 
 
-def model_config(c: dict, ModelConfig):
-    heads = c["num_attention_heads"]
-    extra = ({"moe_capacity_factor": float(c["moe_capacity_factor"])}
-             if "moe_capacity_factor" in c else {})
-    return ModelConfig(**extra,
-        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
-        intermediate_size=c["intermediate_size"],
-        num_layers=c["num_hidden_layers"], num_heads=heads,
-        num_kv_heads=c.get("num_key_value_heads", heads),
-        head_dim=c.get("head_dim") or c["hidden_size"] // heads,
-        rope_theta=float(c["rope_theta"]), rms_norm_eps=c["rms_norm_eps"],
-        max_position=c["engine"]["max_model_len"],
-        tie_word_embeddings=bool(c.get("tie_word_embeddings", False)),
-        dtype=c.get("torch_dtype", "bfloat16"),
-        num_experts=c.get("num_local_experts", 0),
-        num_experts_per_token=c.get("num_experts_per_tok", 0),
-    )
-
-
 def engine_config(c: dict, EngineConfig):
     e = dict(c["engine"])
     for k in ("prefill_buckets", "decode_buckets"):
@@ -226,13 +207,15 @@ def run(args, cell, device: str) -> int:
     mix = dict(cell.mix)
     if args.rate is not None:
         mix["rate_rps"] = args.rate
-    shapes = flops.Shapes.from_config(cfg)
+    arch = spec.arch(cell.bench_dir, cfg)
+    shapes = arch.shapes(cfg)
     dtype = cfg.get("torch_dtype", "bfloat16")
-    mcfg = model_config(cfg, ModelConfig)
+    mcfg = arch.model_config(cfg, ModelConfig)
     ecfg = engine_config(cfg, EngineConfig)
 
     marks = [("torch and the program imported", time.monotonic())]
-    params = weights.make_params(shapes, args.seed, dtype, device)
+    params = weights.make_params(arch.leaf_shapes(shapes), args.seed, dtype,
+                                 device)
     if device == "cuda":
         torch.cuda.synchronize()
     marks.append(("weights made", time.monotonic()))
@@ -304,7 +287,8 @@ def run(args, cell, device: str) -> int:
     if args.trace:
         summary = dtrace.summary() if dtrace is not None else None
         r = readers.Readings(
-            shapes=shapes, peaks=flops.card_peaks(dev["kind"]), t0=t0, t1=t1,
+            shapes=shapes, arch=arch, peaks=flops.card_peaks(dev["kind"]),
+            t0=t0, t1=t1,
             results=results,
             spans=[(s.name, s.start_mono, s.end_mono) for s in spans.spans],
             records=records, trace=summary)
@@ -339,7 +323,8 @@ def run(args, cell, device: str) -> int:
     if device == "cuda":
         torch.cuda.empty_cache()
     t_check = time.monotonic()
-    stats, ctl = (check.compare(params, cfg, picked, args.control)
+    stats, ctl = (check.compare(spec.reference(cell.bench_dir, cfg), params,
+                                cfg, picked, args.control)
                   if picked else (None, None))
     t_check = time.monotonic() - t_check
     # under --control the float8 reference's tokens stand in the program's

@@ -1,6 +1,7 @@
-"""A tiny benchmark in a temporary checkout: its own ``BENCHMARK.json``, a
-tiny float32 configuration, tiny mixes and cells, and the real metric
-readers, run on the CPU with the kernels' plain versions."""
+"""A tiny benchmark in a temporary checkout: its own ``BENCHMARK.json``,
+tiny float32 configurations, tiny mixes and cells, and the real metric
+readers and architectures, run on the CPU with the kernels' plain
+versions."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ if str(ROOT) not in sys.path:
 
 TINY = {
     "source": "tiny test configuration", "reduced": [], "assumed": {},
+    "model_type": "mistral",
     "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
     "num_attention_heads": 8, "num_key_value_heads": 4, "head_dim": 16,
     "vocab_size": 512, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
@@ -26,7 +28,10 @@ TINY = {
                "max_num_seqs": 8, "decode_buckets": [8],
                "attention_impl": "kernel"},
 }
-TINY_MOE = dict(TINY, num_local_experts=4, num_experts_per_tok=2)
+TINY_MOE = dict(TINY, model_type="mixtral", num_local_experts=4,
+                num_experts_per_tok=2)
+# every configuration of the tiny benchmark, by name
+CONFIGS = {"tiny": TINY, "tiny-moe": TINY_MOE}
 MIXES = {
     "tiny-open": {"loop": "open", "arrivals": "poisson",
                   "isl": {"dist": "lognormal", "median": 40, "sigma": 0.5,
@@ -50,10 +55,8 @@ def bench_json(cells):
         "command": ["python3", "portbench/run.py"], "paths": ["portbench"],
         "run_seconds": 2,
         "configs": [
-            {"name": "tiny", "source": "test", "reduced": [], "why": "test",
-             "file": "portbench/configs/tiny.json"},
-            {"name": "tiny-moe", "source": "test", "reduced": [],
-             "why": "test", "file": "portbench/configs/tiny-moe.json"}],
+            {"name": name, "source": "test", "reduced": [], "why": "test",
+             "file": f"portbench/configs/{name}.json"} for name in CONFIGS],
         "workloads": [{"name": n, "config": c, "traffic": t, "chips": 1,
                        "why": "test"} for n, c, t in cells],
         "end_to_end": [
@@ -83,9 +86,11 @@ def make_checkout(tmp_path):
     pb = tmp_path / "portbench"
     for d in ("configs", "traffic", "cells"):
         (pb / d).mkdir(parents=True)
-    shutil.copytree(ROOT / "portbench" / "metrics", pb / "metrics")
-    (pb / "configs" / "tiny.json").write_text(json.dumps(TINY))
-    (pb / "configs" / "tiny-moe.json").write_text(json.dumps(TINY_MOE))
+    for d in ("metrics", "arch", "reference"):
+        shutil.copytree(ROOT / "portbench" / d, pb / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    for name, cfg in CONFIGS.items():
+        (pb / "configs" / f"{name}.json").write_text(json.dumps(cfg))
     for name, mix in MIXES.items():
         (pb / "traffic" / f"{name}.json").write_text(json.dumps(mix))
     cells = [("tiny.open", "tiny", "tiny-open"),

@@ -1,5 +1,7 @@
 """The frozen arithmetic against hand counts at published widths, and the
-readers that use it on made-up records and traces."""
+readers that use it on made-up records and traces; the Mistral block's
+leaves and counts pinned to what the harness read before they moved into
+``arch/mistral.py``."""
 
 from __future__ import annotations
 
@@ -8,7 +10,8 @@ from types import SimpleNamespace
 
 import pytest
 
-from portbench import flops, readers
+from portbench import flops, readers, spec
+from portbench.arch import mistral
 from portbench.tests.conftest import ROOT
 from portbench.trace import TraceSummary
 
@@ -16,7 +19,7 @@ H100 = flops.card_peaks("NVIDIA H100 80GB HBM3")
 
 
 def shapes(name):
-    return flops.Shapes.from_config(json.loads(
+    return mistral.shapes(json.loads(
         (ROOT / "portbench" / "configs" / f"{name}.json").read_text()))
 
 
@@ -26,9 +29,9 @@ def test_one_mistral_layer_by_hand():
     # 128); gate, up and down: 4096 x 14336 each
     attn = 2 * 4096 * 4096 + 2 * 4096 * 1024
     ffn = 3 * 4096 * 14336
-    assert flops.layer_active_params(s) == attn + ffn == 218_103_808
-    assert flops.active_params(s) == 32 * 218_103_808 + 4096 * 32768
-    assert flops.token_flops(s) == 2 * (32 * 218_103_808 + 4096 * 32768)
+    assert mistral.layer_active_params(s) == attn + ffn == 218_103_808
+    assert mistral.active_params(s) == 32 * 218_103_808 + 4096 * 32768
+    assert mistral.token_flops(s) == 2 * (32 * 218_103_808 + 4096 * 32768)
 
 
 def test_one_mixtral_layer_by_hand():
@@ -36,23 +39,82 @@ def test_one_mixtral_layer_by_hand():
     attn = 2 * 4096 * 4096 + 2 * 4096 * 1024
     router = 4096 * 8
     experts = 2 * 3 * 4096 * 14336       # top-2 of 8
-    assert flops.layer_active_params(s) == attn + router + experts \
+    assert mistral.layer_active_params(s) == attn + router + experts \
         == 394_297_344
-    assert flops.active_params(s) == 16 * 394_297_344 + 4096 * 32000
+    assert mistral.active_params(s) == 16 * 394_297_344 + 4096 * 32000
 
 
 def test_attention_arithmetic_by_hand():
     s = shapes("mistral7b")
     # one decode row over 1,000 cached keys: K and V of 8 heads of 128 in
     # bf16, its query and output of 32 heads
-    assert flops.attn_launch_bytes(s, 1, 1000) \
+    assert mistral.attn_launch_bytes(s, 1, 1000) \
         == 2 * 1000 * 8 * 128 * 2 + 2 * 32 * 128 * 2
     # a fresh 2,048-token chunk: causal context sum, QK^T and PV per layer
     ctx = flops.prefill_context_sum(0, 2048)
     assert ctx == 2048 * 2049 // 2
-    assert flops.attn_flops(s, ctx) == 4 * 32 * 32 * 128 * ctx
-    bound = flops.attn_bound_s(s, H100, 2048, 2048, ctx)
+    assert mistral.attn_flops(s, ctx) == 4 * 32 * 32 * 128 * ctx
+    bound = mistral.launch_bound_s(s, H100, 2048, 2048, ctx)
     assert bound == pytest.approx(4 * 32 * 128 * ctx / 989.4e12)
+
+
+# What the harness read before the Mistral block moved into arch/: the
+# leaves (name, shape, fan-in, in draw order) and, on PINNED_RECORDS,
+# step_flops and attn_bound_s, as the parent's flops.py and readers.py
+# computed them.
+PINNED_RECORDS = [("decode", 64, 64, 64 * 900), ("decode", 7, 7, 12345),
+                  ("prefill", 0, 2048, 2048 * 2049 // 2),
+                  ("prefill", 0, 1000, 1000 * 3096 + 1000 * 1001 // 2),
+                  ("prefill", 0, 16, 16 * 16 + 16 * 17 // 2)]
+PINNED_BOUNDS = [7.073975402985075e-05, 1.5128300895522387e-05,
+                 3.474481057610673e-05, 5.9556353345461896e-05,
+                 1.1737791044776119e-07]
+PINNED = {
+    "mistral7b.prefill-heavy": (
+        [("embed", (32768, 4096), 4096), ("layers/attn_norm", (32, 4096), 0),
+         ("layers/wq", (32, 4096, 4096), 4096),
+         ("layers/wk", (32, 4096, 1024), 4096),
+         ("layers/wv", (32, 4096, 1024), 4096),
+         ("layers/wo", (32, 4096, 4096), 4096),
+         ("layers/mlp_norm", (32, 4096), 0),
+         ("layers/w_gate", (32, 4096, 14336), 4096),
+         ("layers/w_up", (32, 4096, 14336), 4096),
+         ("layers/w_down", (32, 14336, 4096), 14336),
+         ("final_norm", (4096,), 0), ("lm_head", (4096, 32768), 4096)],
+        [940732055552.0, 106061889536.0, 30237106634752.0,
+         16112680960000.0, 227838787584.0]),
+    "mixtral8x7b-16L.decode-heavy": (
+        [("embed", (32000, 4096), 4096), ("layers/attn_norm", (16, 4096), 0),
+         ("layers/wq", (16, 4096, 4096), 4096),
+         ("layers/wk", (16, 4096, 1024), 4096),
+         ("layers/wv", (16, 4096, 1024), 4096),
+         ("layers/wo", (16, 4096, 4096), 4096),
+         ("layers/mlp_norm", (16, 4096), 0),
+         ("layers/w_router", (16, 4096, 8), 4096),
+         ("layers/w_gate", (16, 8, 4096, 14336), 4096),
+         ("layers/w_up", (16, 8, 4096, 14336), 4096),
+         ("layers/w_down", (16, 8, 14336, 4096), 14336),
+         ("final_norm", (4096,), 0), ("lm_head", (4096, 32000), 4096)],
+        [839397670912.0, 93393780736.0, 26927565897728.0,
+         13822459904000.0, 206177304576.0]),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PINNED))
+def test_the_moved_counts_read_as_before(cell):
+    """The architecture found by the configuration's ``model_type`` gives
+    the leaves, FLOPs and attention bounds the harness gave before they
+    moved, bit for bit."""
+    c = spec.load(ROOT, cell)
+    arch = spec.arch(c.bench_dir, c.config)
+    s = arch.shapes(c.config)
+    leaves, step = PINNED[cell]
+    assert list(arch.leaf_shapes(s)) == leaves
+    recs = [SimpleNamespace(kind=k, live_rows=rows, real_tokens=n,
+                            context_sum=ctx)
+            for k, rows, n, ctx in PINNED_RECORDS]
+    assert [arch.step_flops(s, x) for x in recs] == step
+    assert [arch.attn_bound_s(s, H100, x) for x in recs] == PINNED_BOUNDS
 
 
 def test_unknown_card_has_no_peak():
@@ -77,8 +139,8 @@ def test_readers_on_made_up_runs():
         idle_gaps=[], graph_windows_s=[0.012, 0.014],
         kernel_time={"decode": (64 * 0.0001, 64),
                      "ragged": (32 * 0.0002, 32)})
-    r = readers.Readings(shapes=s, peaks=H100, t0=0.0, t1=4.0, results=[],
-                         spans=[("worker.queue", 0.5, 0.6),
+    r = readers.Readings(shapes=s, arch=mistral, peaks=H100, t0=0.0, t1=4.0,
+                         results=[], spans=[("worker.queue", 0.5, 0.6),
                                 ("worker.queue", 1.0, 1.3),
                                 ("worker.queue", 5.0, 5.1)],
                          records=recs, trace=trace)
@@ -86,23 +148,22 @@ def test_readers_on_made_up_runs():
     assert readers.decode_batch_mean(r) == 48
     assert readers.decode_window_ms(r) == pytest.approx(13.0)
     assert readers.idle_pct(r) == pytest.approx(20.0)
-    work = sum(flops.step_flops(s, x.real_tokens, x.context_sum)
-               for x in recs)
+    work = sum(mistral.step_flops(s, x) for x in recs)
     assert readers.mfu_pct(r) == pytest.approx(
         100 * work / (4.0 * 989.4e12))
     # the decode face: the mean bound of the two windows' launches over
     # the mean launch time
-    bounds = [flops.attn_bound_s(s, H100, n, n * 900, n * 900)
+    bounds = [mistral.launch_bound_s(s, H100, n, n * 900, n * 900)
               for n in (64, 32)]
     assert readers.roofline_pct(r, "decode") == pytest.approx(
         100 * sum(bounds) / 2 / 0.0001)
-    ragged = flops.attn_bound_s(s, H100, 2048, 2560,
-                                flops.prefill_context_sum(512, 2048))
+    ragged = mistral.launch_bound_s(s, H100, 2048, 2560,
+                                    flops.prefill_context_sum(512, 2048))
     assert readers.roofline_pct(r, "ragged") == pytest.approx(
         100 * ragged / 0.0002)
     # nothing to read: no trace, no card peaks
-    bare = readers.Readings(shapes=s, peaks=None, t0=0.0, t1=4.0,
-                            results=[])
+    bare = readers.Readings(shapes=s, arch=mistral, peaks=None, t0=0.0,
+                            t1=4.0, results=[])
     for read in (readers.decode_window_ms, readers.idle_pct,
                  readers.mfu_pct, readers.decode_batch_mean):
         assert read(bare) is None

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import ast
 import json
+import re
 import subprocess
 import sys
 
@@ -85,6 +86,60 @@ def test_new_mix_and_metric_are_found_by_name(checkout, capsys):
     assert line["attempted"] == 12
 
 
+# a copy of the Mistral block under a new model_type; each copy says on
+# standard error that it was called
+_TRACED = {
+    "arch": "\n\n_shapes = shapes\n\n\ndef shapes(c):\n"
+            "    import sys\n    print('mistral2 arch', file=sys.stderr)\n"
+            "    return _shapes(c)\n",
+    "reference": "\n\n_head = head\n\n\ndef head(params, cfg):\n"
+                 "    import sys\n"
+                 "    print('mistral2 reference', file=sys.stderr)\n"
+                 "    return _head(params, cfg)\n",
+}
+
+
+def test_new_architecture_is_found_by_name(checkout, capsys):
+    """An architecture that later work adds is new files: its
+    ``arch/<model_type>.py``, its ``reference/<model_type>.py`` and a
+    configuration that names the ``model_type``, with a cell; no file the
+    harness has is edited. Here a renamed copy of the Mistral block."""
+    pb = checkout / "portbench"
+    for part, traced in _TRACED.items():
+        text = (ROOT / "portbench" / part / "mistral.py").read_text()
+        (pb / part / "mistral2.py").write_text(text + traced)
+    cfg = json.loads((pb / "configs" / "tiny.json").read_text())
+    cfg["model_type"] = "mistral2"
+    (pb / "configs" / "tiny2.json").write_text(json.dumps(cfg))
+    (pb / "cells" / "tiny2.open.json").write_text(json.dumps(
+        {"rate_rps": 8.0, "limits": {"max_logit_gap": 1e-3}}))
+    bench_json = json.loads((checkout / "BENCHMARK.json").read_text())
+    bench_json["configs"].append({
+        "name": "tiny2", "source": "test", "reduced": [], "why": "test",
+        "file": "portbench/configs/tiny2.json"})
+    bench_json["workloads"].append({"name": "tiny2.open", "config": "tiny2",
+                                    "traffic": "tiny-open", "chips": 1,
+                                    "why": "test"})
+    (checkout / "BENCHMARK.json").write_text(json.dumps(bench_json))
+    rc, line, err = run_cell(checkout, "tiny2.open", capsys, trace=1)
+    assert rc == 0 and line["correct"] is True and line["failed"] == 0
+    assert "mistral2 arch" in err and "mistral2 reference" in err
+    assert line["metrics"]["prefill_p50_ms"]["value"] > 0
+
+
+def test_an_unknown_architecture_is_refused(checkout):
+    """A configuration whose ``model_type`` has no files of its own is not
+    served as another architecture: the run stops before it starts."""
+    cfg = json.loads((checkout / "portbench" / "configs" / "tiny.json")
+                     .read_text())
+    for bad in (dict(cfg, model_type="llama"),
+                {k: v for k, v in cfg.items() if k != "model_type"}):
+        with pytest.raises(SystemExit):
+            spec.arch(checkout / "portbench", bad)
+        with pytest.raises(SystemExit):
+            spec.reference(checkout / "portbench", bad)
+
+
 def test_a_limit_exceeded_is_not_correct(checkout, capsys):
     cells = checkout / "portbench" / "cells"
     (cells / "tiny.closed.json").write_text(json.dumps(
@@ -138,6 +193,45 @@ def test_no_module_imports_jax_or_the_jax_package():
         assert not top_level_imports(f) & FORBIDDEN, f
     for f in (ROOT / "portbench" / "reference").glob("*.py"):
         assert "dynamo_tpu_torch" not in top_level_imports(f), f
+
+
+# harness keys and keys every architecture's config.json has: not the
+# Mistral block's own
+_GENERAL_KEYS = {"source", "deployment", "reduced", "assumed", "engine",
+                 "model_type", "torch_dtype", "architectures"}
+
+
+def _mistral_names():
+    """The Mistral / Mixtral configurations' keys and the block's leaf
+    names."""
+    from portbench.arch import mistral
+
+    names = set()
+    for f in (ROOT / "portbench" / "configs").glob("*.json"):
+        cfg = json.loads(f.read_text())
+        if cfg.get("model_type") in ("mistral", "mixtral"):
+            names |= set(cfg) - _GENERAL_KEYS
+            names |= {n.split("/")[-1] for n, _, _ in
+                      mistral.leaf_shapes(mistral.shapes(cfg))}
+    return names
+
+
+def test_the_shared_modules_name_no_architecture():
+    """The harness's shared code holds no key or leaf of the Mistral block:
+    those live in ``arch/`` and ``reference/<model_type>.py`` alone, so
+    that a new architecture is new files."""
+    names = _mistral_names()
+    assert {"num_local_experts", "num_experts_per_tok", "intermediate_size",
+            "w_router", "wq", "lm_head", "rms_norm_eps"} <= names
+    pb = ROOT / "portbench"
+    shared = [*pb.glob("*.py"), pb / "reference" / "check.py",
+              pb / "reference" / "model.py", *(pb / "metrics").glob("*.py")]
+    assert len(shared) > 10
+    pattern = re.compile(r"(?<![A-Za-z0-9_])(%s)(?![A-Za-z0-9_])"
+                         % "|".join(map(re.escape, sorted(names))))
+    for f in shared:
+        found = sorted(set(pattern.findall(f.read_text())))
+        assert not found, f"{f.relative_to(ROOT)} names {found}"
 
 
 def test_nothing_a_run_loads_is_jax(tmp_path):

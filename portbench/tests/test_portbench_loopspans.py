@@ -25,8 +25,8 @@ NEW = [*P50, "device_gap_ms"]
 
 
 def _read(metric, spans, t0=10.0, t1=20.0):
-    r = readers.Readings(shapes=None, peaks=None, t0=t0, t1=t1, results=[],
-                         spans=spans)
+    r = readers.Readings(shapes=None, arch=None, peaks=None, t0=t0, t1=t1,
+                         results=[], spans=spans)
     return spec.reader(ROOT / "portbench", metric)(r)
 
 
@@ -61,12 +61,12 @@ def test_every_new_metric_is_declared_for_the_cells_that_read_it():
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     per_layer = {m["name"]: m for m in bench["per_layer"]}
     decode = ["mixtral8x7b-16L.decode-heavy", "mistral7b.decode-heavy"]
+    prefill = ["mistral7b.prefill-heavy", "mixtral8x7b-16L.prefill-heavy"]
     for name in NEW:
         m = per_layer[name]
         assert (m["source"], m["unit"], m["better"]) == \
             ("program_span", "ms", "lower")
-        want = (["mistral7b.prefill-heavy"]
-                if name == "enqueue_prefill_p50_ms" else decode)
+        want = prefill if name == "enqueue_prefill_p50_ms" else decode
         assert m["workloads"] == want
         assert m["moves"] == ("ttft_p50_ms" if m["workloads"] != decode
                               else "output_tok_s")

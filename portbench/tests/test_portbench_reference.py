@@ -10,23 +10,29 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.engine import model as model_lib
-from portbench import flops, weights
+from portbench import spec, weights
 from portbench.reference import model as ref
-from portbench.tests.conftest import TINY, TINY_MOE
+from portbench.tests.conftest import CONFIGS, ROOT
 from portbench.tests.test_portbench_harness import run_cell
 
 
-@pytest.mark.parametrize("cfg", [TINY, TINY_MOE], ids=["dense", "moe"])
-def test_reference_logits_agree_with_the_port(cfg):
-    """The port's forward through its paged cache (the kernels' plain
-    versions) and the reference's whole-sequence forward, on the same
-    weights: float32 logits agree to 1e-4."""
-    from portbench.run import engine_config, model_config
+@pytest.mark.parametrize(
+    "name", sorted(CONFIGS),
+    ids=lambda n: {"tiny": "dense", "tiny-moe": "moe"}.get(n, n))
+def test_reference_logits_agree_with_the_port(name):
+    """For every configuration of the tiny benchmark, whatever its
+    architecture: the port's forward through its paged cache (the kernels'
+    plain versions) and the architecture's reference block over the whole
+    sequence, on the same weights: float32 logits agree to 1e-4."""
+    from portbench.run import engine_config
     from dynamo_tpu_torch.engine import EngineConfig, ModelConfig
 
-    shapes = flops.Shapes.from_config(cfg)
-    params = weights.make_params(shapes, 17, "float32", "cpu")
-    mcfg = model_config(cfg, ModelConfig)
+    cfg = CONFIGS[name]
+    arch = spec.arch(ROOT / "portbench", cfg)
+    shapes = arch.shapes(cfg)
+    params = weights.make_params(arch.leaf_shapes(shapes), 17, "float32",
+                                 "cpu")
+    mcfg = arch.model_config(cfg, ModelConfig)
     ecfg = engine_config(cfg, EngineConfig)
     T = 40
     ids = torch.randint(1, shapes.vocab, (T,),
@@ -36,7 +42,8 @@ def test_reference_logits_agree_with_the_port(cfg):
     _, h = model_lib.forward(mcfg, ecfg, params, cache, ids[None],
                              torch.arange(T)[None], tables)
     port = model_lib.logits_fn(mcfg, params, h)[0]
-    want = ref.logits(params, cfg, ids)
+    want = ref.logits(spec.reference(ROOT / "portbench", cfg), params, cfg,
+                      ids)
     assert port.shape == want.shape == (T, shapes.vocab)
     assert (port - want).abs().max().item() < 1e-4
 
